@@ -1,0 +1,23 @@
+"""gcnbmp_tpu_torch — the PyTorch/CUDA port of ``gcnbmp_tpu``.
+
+A second package beside the JAX one, which stays unchanged and is the
+reference every module here is tested against.  The port covers the
+serving path of the flagship model (packed GGNN encoder + HolE head):
+
+- ``data.wire``      the wire-compact COO batch encoding and the
+                     fixed-shape evaluation batch iterator (numpy).
+- ``ops``            plain torch ops (COO adjacency scatter, circular
+                     correlation) and the fused GGNN forward kernels
+                     (hand-written CUDA for Hopper, ``ops/csrc``).
+- ``models``         ``nn.Module`` twins of the JAX modules, with the
+                     same parameter names as the flax trees.
+- ``convert``        flax param tree <-> torch modules, ``.npz`` I/O,
+                     seeded initialization.
+- ``eval``, ``cli``  the packed pair evaluator and the predict CLI.
+
+Host layers without a framework (``gcnbmp_tpu.chem``,
+``gcnbmp_tpu.data.{parsers,dataset,packing,native_pack}``) are reused
+from the JAX package, not copied.  Nothing here imports jax.
+"""
+
+__version__ = "0.1.0"

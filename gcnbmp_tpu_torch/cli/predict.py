@@ -1,0 +1,127 @@
+#!/usr/bin/env python
+"""Score drug-pair CSVs with the port's packed GGNN pair predictor.
+
+Port of the JAX package's predict CLI (gcnbmp_tpu/cli/predict.py:74-136)
+for the packed GGNN + HolE family: reads a pair CSV (label column
+optional), writes it back with a ``prob`` column (``prob_class{c}`` for
+multi-label models).
+
+    python -m gcnbmp_tpu_torch.cli.predict --input pairs.csv \\
+        --config run/config.json --params params.npz --out preds.csv
+
+``--config`` is a JAX run's ``config.json``; only its model fields are
+read.  ``--params`` is a flat ``.npz`` of the flax param tree
+(``convert.save_params_npz``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import sys
+
+# Model fields of a run config and the values this port serves.
+# compute_path is not read: the packed and padded parameter trees are the
+# same, and the port always serves the packed fused form.  compute_dtype
+# is a training knob; serving runs in f32, as the JAX packed evaluator does.
+_REQUIRED = {
+    "method": "ggnn",
+    "sim_method": "hole",
+    "attn": None,
+    "layer_aggregator": None,
+    "siamese": True,
+    "symmetric": None,
+    "concat_hidden": False,
+    "fp_batch_normalization": False,
+    "fp_dropout_rate": 0.0,
+}
+# TrainConfig defaults for fields a config.json may omit (the served
+# values above are TrainConfig's defaults as well)
+_DEFAULTS = {
+    **_REQUIRED, "fp_hidden_dim": 16, "fp_out_dim": 16, "conv_layers": 4,
+    "weight_tying": True, "net_hidden_dims": (), "class_num": 1,
+}
+
+
+def model_kwargs_from_config(cfg: dict) -> dict:
+    """``make_packed_predictor`` kwargs from a run config dict; raises
+    ValueError on any model value outside what the port serves."""
+    get = lambda k: cfg.get(k, _DEFAULTS[k])
+    bad = [f"{k}={get(k)!r} (served: {v!r})" for k, v in _REQUIRED.items()
+           if get(k) != v]
+    if bad:
+        raise ValueError("config outside the ported serving path: "
+                         + ", ".join(bad))
+    return {
+        "fp_hidden_dim": int(get("fp_hidden_dim")),
+        "fp_out_dim": int(get("fp_out_dim")),
+        "conv_layers": int(get("conv_layers")),
+        "weight_tying": bool(get("weight_tying")),
+        "sim_method": "hole",
+        "class_num": int(get("class_num")),
+        "net_hidden_dims": tuple(get("net_hidden_dims") or ()),
+    }
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--input", required=True, help="pair CSV to score")
+    p.add_argument("--config", required=True, help="run config.json")
+    p.add_argument("--params", required=True, help="flax-layout params .npz")
+    p.add_argument("--out", default=None, help="output CSV (default stdout)")
+    p.add_argument("--batch-size", type=int, default=256)
+    p.add_argument("--smiles-cols", default="smiles_1,smiles_2",
+                   help="the two SMILES column names")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu (plain versions, for tests)")
+    args = p.parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from gcnbmp_tpu_torch.data import CSVPairParser
+    from gcnbmp_tpu_torch.convert import from_jax_params, load_params_npz
+    from gcnbmp_tpu_torch.eval.evaluate import PackedPairEvaluator
+    from gcnbmp_tpu_torch.models.packed import make_packed_predictor
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda requested but CUDA is not available")
+    with open(args.config) as f:
+        kwargs = model_kwargs_from_config(json.load(f))
+    predictor = from_jax_params(load_params_npz(args.params),
+                                make_packed_predictor(**kwargs))
+
+    df = pd.read_csv(args.input).copy()
+    # every row gets a valid label so the evaluator keeps all of them
+    # aligned with the output frame
+    df["label"] = 0
+    res = CSVPairParser(smiles_cols=tuple(args.smiles_cols.split(","))).parse(df)
+    logging.info("scoring %d pairs (%d unparseable)",
+                 len(res.dataset), res.fail_count)
+    result = PackedPairEvaluator(
+        predictor, batch_size=args.batch_size,
+        class_num=kwargs["class_num"], device=device,
+    ).evaluate(res.dataset)
+    probs = 1.0 / (1.0 + np.exp(-result.logits))
+
+    out = df[np.asarray(res.is_successful)].reset_index(drop=True).copy()
+    if probs.ndim == 1 or probs.shape[-1] == 1:
+        out["prob"] = np.ravel(probs)
+    else:
+        for c in range(probs.shape[1]):
+            out[f"prob_class{c}"] = probs[:, c]
+    if args.out:
+        out.to_csv(args.out, index=False)
+        logging.info("wrote %s", args.out)
+    else:
+        out.to_csv(sys.stdout, index=False)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

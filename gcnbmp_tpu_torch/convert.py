@@ -1,0 +1,105 @@
+"""Weights carried between the JAX package and the port.
+
+A *tree* here is the flax param tree of the JAX package's
+``PackedPairPredictorCOOCompact`` as nested dicts of numpy arrays
+(``encoder/embed/embedding``, ``encoder/update_{l}/message/dense/{kernel,
+bias}``, ``encoder/gru/{W_z,U_z,W_r,U_r,W,U}/{kernel,bias}``,
+``encoder/readout_0/{i,j}/dense/*``, ``head/mlp/out/*``).  The port's
+modules use the same names, so a flax path maps to a torch name by
+joining it with dots; flax ``kernel`` (in, out) becomes the transposed
+``nn.Linear.weight``.
+
+Checkpoints travel as a flat ``.npz`` keyed by ``/``-joined paths in the
+flax layout.  Reading the JAX package's orbax checkpoints waits for the
+checkpoint port (ROADMAP queue 1, item 6).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+# flax's lecun_normal: truncated normal on [-2, 2] with variance 1/fan_in;
+# this constant is the std of a unit normal truncated to [-2, 2]
+_TRUNC_STD = 0.87962566103423978
+
+
+def _flatten(tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def _unflatten(flat: Dict[Tuple[str, ...], np.ndarray]) -> dict:
+    tree: dict = {}
+    for path, v in flat.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return tree
+
+
+def _torch_name(path: Tuple[str, ...]) -> str:
+    leaf = "weight" if path[-1] == "kernel" else path[-1]
+    return ".".join(path[:-1] + (leaf,))
+
+
+def _flax_path(name: str) -> Tuple[str, ...]:
+    parts = tuple(name.split("."))
+    return parts[:-1] + ("kernel",) if parts[-1] == "weight" else parts
+
+
+def from_jax_params(tree: dict, model: nn.Module) -> nn.Module:
+    """Load a flax param tree into the port's ``model`` (strict: every
+    parameter must be present, with its shape); returns ``model``."""
+    state = {}
+    for path, arr in _flatten(tree):
+        if path[-1] == "kernel":
+            arr = arr.T
+        state[_torch_name(path)] = torch.from_numpy(
+            np.ascontiguousarray(arr, dtype=np.float32))
+    model.load_state_dict(state, strict=True)
+    return model
+
+
+def save_params_npz(path: str, tree: dict) -> None:
+    np.savez(path, **{"/".join(p): v for p, v in _flatten(tree)})
+
+
+def load_params_npz(path: str) -> dict:
+    with np.load(path) as z:
+        return _unflatten({tuple(k.split("/")): z[k] for k in z.files})
+
+
+def init_params(cfg: dict, seed: int) -> dict:
+    """Seeded numpy weights, in the flax layout, for the predictor that
+    ``models.packed.make_packed_predictor(**cfg)`` builds.  Drawn from the
+    flax initializers' distributions: lecun-normal kernels, zero biases,
+    Normal(1.0) atom embedding.  Load with ``from_jax_params``."""
+    from gcnbmp_tpu_torch.models.packed import make_packed_predictor
+
+    shapes = make_packed_predictor(**cfg, device="meta").state_dict()
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for name, t in shapes.items():
+        path = _flax_path(name)
+        if path[-1] == "kernel":
+            fan_in, fan_out = t.shape[1], t.shape[0]
+            z = rng.standard_normal((fan_in, fan_out))
+            while (bad := np.abs(z) > 2.0).any():
+                z[bad] = rng.standard_normal(int(bad.sum()))
+            arr = z * (np.sqrt(1.0 / fan_in) / _TRUNC_STD)
+        elif path[-1] == "embedding":
+            arr = rng.standard_normal(tuple(t.shape))
+        elif path[-1] == "bias":
+            arr = np.zeros(tuple(t.shape))
+        else:
+            raise ValueError(f"no initializer for parameter {name!r}")
+        flat[path] = arr.astype(np.float32)
+    return _unflatten(flat)

@@ -1,0 +1,91 @@
+"""Building-block layers with Chainer-matching semantics.
+
+Ports gcnbmp_tpu/models/layers.py:34-176.  Module and parameter names
+follow the flax trees (``dense``, ``embedding``, ``W_z``...) so that
+``convert.from_jax_params`` maps a flax path to a torch name by joining
+it with dots.  A flax ``Dense.kernel`` is (in, out); the ``nn.Linear``
+weight here is its transpose.  Initialization lives in
+``convert.init_params`` (numpy, seeded), not in these constructors.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+# chainer_chemistry.config.MAX_ATOMIC_NUM: EmbedAtomID vocabulary size
+MAX_ATOMIC_NUM = 117
+
+
+class GraphLinear(nn.Module):
+    """Linear over the last axis of (..., in) (chainer_chemistry's
+    GraphLinear); the child is named ``dense`` as in flax."""
+
+    def __init__(self, in_features: int, features: int, bias: bool = True,
+                 device=None):
+        super().__init__()
+        self.dense = nn.Linear(in_features, features, bias=bias, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.dense(x)
+
+
+class EmbedAtomID(nn.Module):
+    """Atom-ID embedding: a gather with ids clamped to the table, the
+    out-of-range semantics of the JAX module (layers.py:85)."""
+
+    def __init__(self, num_embeddings: int = MAX_ATOMIC_NUM,
+                 features: int = 16, device=None):
+        super().__init__()
+        self.embedding = nn.Parameter(
+            torch.empty(num_embeddings, features, device=device))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        ids = ids.long().clamp(0, self.embedding.shape[0] - 1)
+        return self.embedding[ids]
+
+
+class ChainerGRUCell(nn.Module):
+    """chainer.links.GRU (StatefulGRU) cell, gate order of layers.py:121-129:
+
+        z  = sigmoid(W_z x + U_z h)
+        r  = sigmoid(W_r x + U_r h)
+        h~ = tanh(W x + U (r * h))
+        h' = z * h~ + (1 - z) * h
+
+    Callers start from a zero state, which reproduces Chainer's
+    reset-state layer 0."""
+
+    def __init__(self, in_features: int, features: int, device=None):
+        super().__init__()
+        lin = lambda i: nn.Linear(i, features, device=device)
+        self.W_z, self.U_z = lin(in_features), lin(features)
+        self.W_r, self.U_r = lin(in_features), lin(features)
+        self.W, self.U = lin(in_features), lin(features)
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        z = torch.sigmoid(self.W_z(x) + self.U_z(h))
+        r = torch.sigmoid(self.W_r(x) + self.U_r(h))
+        h_bar = torch.tanh(self.W(x) + self.U(r * h))
+        return z * h_bar + (1.0 - z) * h
+
+
+class MLP(nn.Module):
+    """ReLU MLP: ``hidden_{i}`` layers, then ``out``."""
+
+    def __init__(self, in_features: int, out_dim: int,
+                 hidden_dims: Sequence[int] = (32, 16), device=None):
+        super().__init__()
+        self.n_hidden = len(hidden_dims)
+        d = in_features
+        for i, width in enumerate(hidden_dims):
+            self.add_module(f"hidden_{i}", nn.Linear(d, width, device=device))
+            d = width
+        self.out = nn.Linear(d, out_dim, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n_hidden):
+            x = torch.relu(getattr(self, f"hidden_{i}")(x))
+        return self.out(x)

@@ -1,0 +1,395 @@
+// Fused multi-layer GGNN forward over packed 128-atom tiles, for Hopper
+// (sm_90a).  Built by gcnbmp_tpu_torch/ops/build.py with nvcc into a shared
+// library with a plain C interface, loaded with ctypes.
+//
+// Replaces the TPU kernels of gcnbmp_tpu/ops/fused_ggnn.py:
+//   fused_ggnn_fwd          <- _fused_ggnn_fwd / _fwd_kernel (K1)
+//   fused_ggnn_readout_fwd  <- _fused_ggnn_readout_fwd / _fwd_readout_kernel (K2)
+//
+// Per layer l, on one tile of T=128 atoms (h: (T, H)):
+//   hw_e = h W_e + b_e                       e = 0..3 (edge types)
+//   m    = A_flat (T, 4T) @ [hw_0; hw_1; hw_2; hw_3] (4T, H)
+//   x    = [h, m]
+//   z    = sigmoid(x Wz + s Uz + bz)
+//   r    = sigmoid(x Wr + s Ur + br)
+//   n    = tanh(x Wn + (r*s) Un + bn)
+//   h'   = z*n + (1-z)*s                     s = 0 at layer 0, else h
+// K2 ends with the gated readout
+//   g = sigmoid([h, h0] Wi + bi) * (h Wj + bj) * mask.
+// Weight layout is the fused format of ops/fused_ggnn.py (kernels (in, out)).
+//
+// What bounds it on this card, and what the design does about it:
+// - The TPU kernel holds 16 f32 adjacency tiles (128 x 512, 256 KB each)
+//   in fast memory at once; a Hopper block has 227 KB of shared memory.
+//   Here one CTA owns one tile and loops over all L layers itself, so the
+//   grid is P and nothing carries between blocks.
+// - The adjacency is ~0.4% dense.  Layer 0 reads each adjacency row once
+//   from global memory (16 coalesced 128-byte loads per row, all issued
+//   before the scan, a warp per row), finds the nonzeros with a warp
+//   ballot and keeps up to NBR_CAP (column, value) pairs per row in
+//   shared memory.  Later layers gather
+//   through those lists; a row with more nonzeros than NBR_CAP rescans its
+//   dense row every layer, so any input is handled exactly.  The
+//   adjacency therefore costs one pass over global memory per forward
+//   instead of one per layer, and the aggregation's work scales with the
+//   number of edges, not with 128 x 512.
+// - Everything else is small dense products (H <= 32 wide).  All weights,
+//   h, m and the four hw_e blocks stay in shared memory (about 165 KB at
+//   H = 32), so one CTA fits an SM; it runs 512 threads (16 warps) to hide
+//   shared-memory latency.  Each thread owns one column and a strided
+//   set of rows, loading each weight once into a register and reusing it
+//   across its rows, so the loop is bound by shared-memory loads and f32
+//   FMAs.  Arithmetic is plain f32 (no TF32, no tensor cores), matching
+//   the JAX package's default f32 matmuls.
+// Later work: tensor cores (wgmma) for the dense products, more CTAs per
+// SM by shrinking the shared-memory plan, and the backward kernels.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int TILE = 128;
+constexpr int NE = 4;               // edge types
+constexpr int THREADS = 512;
+constexpr int WARPS = THREADS / 32;
+constexpr int NBR_CAP = 16;         // neighbour list slots per adjacency row
+constexpr int ROW_LEN = NE * TILE;  // 512 columns of the flat adjacency
+constexpr int MAX_DEVICES = 64;     // devices whose shared-memory opt-in is cached
+
+struct Weights {
+  const float* msg_w;  // (L, 4, H, H)
+  const float* msg_b;  // (L, 4, H)
+  const float* wz; const float* uz; const float* bz;  // (2H, H) (H, H) (H)
+  const float* wr; const float* ur; const float* br;
+  const float* wn; const float* un; const float* bn;
+};
+
+struct Readout {
+  const float* mask;  // (P, T)
+  const float* wi;    // (2H, D)
+  const float* bi;    // (D)
+  const float* wj;    // (H, D)
+  const float* bj;    // (D)
+};
+
+// Shared-memory plan, in 4-byte words.
+template <int H>
+struct Plan {
+  static constexpr int W_MSG = 0;                   // 4 H H
+  static constexpr int B_MSG = W_MSG + NE * H * H;  // 4 H
+  static constexpr int WZ = B_MSG + NE * H;         // 2H H each
+  static constexpr int WR = WZ + 2 * H * H;
+  static constexpr int WN = WR + 2 * H * H;
+  static constexpr int UZ = WN + 2 * H * H;         // H H each
+  static constexpr int UR = UZ + H * H;
+  static constexpr int UN = UR + H * H;
+  static constexpr int BZ = UN + H * H;             // H each
+  static constexpr int BR = BZ + H;
+  static constexpr int BN = BR + H;
+  static constexpr int HS = BN + H;                 // T H: h (the GRU state)
+  static constexpr int MS = HS + TILE * H;          // T H: m; h0 for the readout
+  static constexpr int HW = MS + TILE * H;          // 4T H: hw stack; r*s; readout weights
+  static constexpr int NV = HW + NE * TILE * H;     // T NBR_CAP neighbour values
+  static constexpr int NK = NV + TILE * NBR_CAP;    // T NBR_CAP neighbour columns (int)
+  static constexpr int NC = NK + TILE * NBR_CAP;    // T neighbour counts (int)
+  static constexpr int WORDS = NC + TILE;
+  static constexpr size_t BYTES = size_t(WORDS) * 4;
+};
+
+__device__ __forceinline__ float sigmoidf(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+template <int H, int D, bool READOUT>
+__global__ void __launch_bounds__(THREADS)
+fused_ggnn_kernel(const float* __restrict__ h0, const float* __restrict__ adj,
+                  Weights w, Readout ro, float* __restrict__ out, int n_layers) {
+  using S = Plan<H>;
+  extern __shared__ float smem[];
+  float* s_wmsg = smem + S::W_MSG;
+  float* s_bmsg = smem + S::B_MSG;
+  float* s_wz = smem + S::WZ;
+  float* s_wr = smem + S::WR;
+  float* s_wn = smem + S::WN;
+  float* s_uz = smem + S::UZ;
+  float* s_ur = smem + S::UR;
+  float* s_un = smem + S::UN;
+  float* s_bz = smem + S::BZ;
+  float* s_br = smem + S::BR;
+  float* s_bn = smem + S::BN;
+  float* s_h = smem + S::HS;
+  float* s_m = smem + S::MS;
+  float* s_hw = smem + S::HW;
+  float* s_rs = s_hw;  // r*s reuses the hw stack once m is built
+  float* s_nv = smem + S::NV;
+  int* s_nk = reinterpret_cast<int*>(smem + S::NK);
+  int* s_nc = reinterpret_cast<int*>(smem + S::NC);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const size_t tile = blockIdx.x;
+  const float* h0_t = h0 + tile * TILE * H;
+  const float* adj_t = adj + tile * TILE * ROW_LEN;
+
+  for (int i = tid; i < 2 * H * H; i += THREADS) {
+    s_wz[i] = w.wz[i]; s_wr[i] = w.wr[i]; s_wn[i] = w.wn[i];
+  }
+  for (int i = tid; i < H * H; i += THREADS) {
+    s_uz[i] = w.uz[i]; s_ur[i] = w.ur[i]; s_un[i] = w.un[i];
+  }
+  for (int i = tid; i < H; i += THREADS) {
+    s_bz[i] = w.bz[i]; s_br[i] = w.br[i]; s_bn[i] = w.bn[i];
+  }
+  for (int i = tid; i < TILE * H; i += THREADS) s_h[i] = h0_t[i];
+
+  // Row-wise phases: thread owns column `col` of rows row0 + k*RS.
+  constexpr int RS = THREADS / H;
+  constexpr int RPT = TILE / RS;
+  const int col = tid % H;
+  const int row0 = tid / H;
+
+  for (int l = 0; l < n_layers; ++l) {
+    const bool first = (l == 0);
+    for (int i = tid; i < NE * H * H; i += THREADS)
+      s_wmsg[i] = w.msg_w[size_t(l) * NE * H * H + i];
+    for (int i = tid; i < NE * H; i += THREADS)
+      s_bmsg[i] = w.msg_b[size_t(l) * NE * H + i];
+    __syncthreads();
+
+    // 1. hw[(e*T + j), c] = (h W_e + b_e)[j, c]
+    for (int e = 0; e < NE; ++e) {
+      const float* we = s_wmsg + e * H * H;
+      float acc[RPT];
+#pragma unroll
+      for (int k = 0; k < RPT; ++k) acc[k] = s_bmsg[e * H + col];
+#pragma unroll 4
+      for (int d = 0; d < H; ++d) {
+        const float wv = we[d * H + col];
+#pragma unroll
+        for (int k = 0; k < RPT; ++k)
+          acc[k] = fmaf(s_h[(row0 + k * RS) * H + d], wv, acc[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < RPT; ++k)
+        s_hw[(e * TILE + row0 + k * RS) * H + col] = acc[k];
+    }
+    __syncthreads();
+
+    // 2. m = A_flat @ hw: one warp per row, lane c < H owns column c.
+    for (int i = warp; i < TILE; i += WARPS) {
+      float acc = 0.0f;
+      if (first || s_nc[i] > NBR_CAP) {
+        const float* arow = adj_t + size_t(i) * ROW_LEN;
+        int cnt = 0;
+        float av[ROW_LEN / 32];  // all 16 loads in flight before the scan
+#pragma unroll
+        for (int q = 0; q < ROW_LEN / 32; ++q) av[q] = __ldg(arow + q * 32 + lane);
+#pragma unroll
+        for (int q = 0; q < ROW_LEN / 32; ++q) {
+          const float a = av[q];
+          unsigned nz = __ballot_sync(0xffffffffu, a != 0.0f);
+          while (nz) {
+            const int b = __ffs(nz) - 1;
+            nz &= nz - 1;
+            const float v = __shfl_sync(0xffffffffu, a, b);
+            const int kcol = q * 32 + b;
+            if (lane < H) acc = fmaf(v, s_hw[kcol * H + lane], acc);
+            if (first && lane == 0 && cnt < NBR_CAP) {
+              s_nk[i * NBR_CAP + cnt] = kcol;
+              s_nv[i * NBR_CAP + cnt] = v;
+            }
+            ++cnt;
+          }
+        }
+        if (first && lane == 0) s_nc[i] = cnt;
+      } else {
+        const int cnt = s_nc[i];
+        for (int n = 0; n < cnt; ++n) {
+          const int kcol = s_nk[i * NBR_CAP + n];
+          const float v = s_nv[i * NBR_CAP + n];
+          if (lane < H) acc = fmaf(v, s_hw[kcol * H + lane], acc);
+        }
+      }
+      if (lane < H) s_m[i * H + lane] = acc;
+    }
+    __syncthreads();
+
+    // 3. GRU, phase A: z and x Wn in registers, r*s to shared memory.
+    float gz[RPT], gr[RPT], gn[RPT];
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) {
+      gz[k] = s_bz[col]; gr[k] = s_br[col]; gn[k] = s_bn[col];
+    }
+#pragma unroll 2
+    for (int d = 0; d < H; ++d) {
+      const float wzh = s_wz[d * H + col], wzm = s_wz[(H + d) * H + col];
+      const float wrh = s_wr[d * H + col], wrm = s_wr[(H + d) * H + col];
+      const float wnh = s_wn[d * H + col], wnm = s_wn[(H + d) * H + col];
+      const float uz = first ? 0.0f : s_uz[d * H + col];
+      const float ur = first ? 0.0f : s_ur[d * H + col];
+#pragma unroll
+      for (int k = 0; k < RPT; ++k) {
+        const int i = row0 + k * RS;
+        const float hv = s_h[i * H + d], mv = s_m[i * H + d];
+        gz[k] = fmaf(hv, wzh, fmaf(mv, wzm, gz[k]));
+        gr[k] = fmaf(hv, wrh, fmaf(mv, wrm, gr[k]));
+        gn[k] = fmaf(hv, wnh, fmaf(mv, wnm, gn[k]));
+        if (!first) {
+          gz[k] = fmaf(hv, uz, gz[k]);
+          gr[k] = fmaf(hv, ur, gr[k]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) {
+      const int i = row0 + k * RS;
+      gz[k] = sigmoidf(gz[k]);
+      s_rs[i * H + col] = first ? 0.0f : sigmoidf(gr[k]) * s_h[i * H + col];
+    }
+    __syncthreads();
+
+    // GRU, phase B: n = tanh(x Wn + (r*s) Un + bn), h' = z n + (1-z) s.
+    if (!first) {
+#pragma unroll 2
+      for (int d = 0; d < H; ++d) {
+        const float un = s_un[d * H + col];
+#pragma unroll
+        for (int k = 0; k < RPT; ++k)
+          gn[k] = fmaf(s_rs[(row0 + k * RS) * H + d], un, gn[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) {
+      const int i = row0 + k * RS;
+      const float s = first ? 0.0f : s_h[i * H + col];
+      const float n = tanhf(gn[k]);
+      s_h[i * H + col] = gz[k] * n + (1.0f - gz[k]) * s;
+    }
+    __syncthreads();
+  }
+
+  if constexpr (!READOUT) {
+    float* out_t = out + tile * TILE * H;
+    for (int i = tid; i < TILE * H; i += THREADS) out_t[i] = s_h[i];
+  } else {
+    float* s_wi = s_hw;              // (2H, D)
+    float* s_wj = s_wi + 2 * H * D;  // (H, D)
+    float* s_bi = s_wj + H * D;
+    float* s_bj = s_bi + D;
+    float* s_h0 = s_m;
+    for (int i = tid; i < 2 * H * D; i += THREADS) s_wi[i] = ro.wi[i];
+    for (int i = tid; i < H * D; i += THREADS) s_wj[i] = ro.wj[i];
+    for (int i = tid; i < D; i += THREADS) { s_bi[i] = ro.bi[i]; s_bj[i] = ro.bj[i]; }
+    for (int i = tid; i < TILE * H; i += THREADS) s_h0[i] = h0_t[i];
+    __syncthreads();
+
+    constexpr int ORS = THREADS / D;
+    constexpr int ORPT = TILE / ORS;
+    const int oc = tid % D;
+    const int orow0 = tid / D;
+    float gi[ORPT], gj[ORPT];
+#pragma unroll
+    for (int k = 0; k < ORPT; ++k) { gi[k] = s_bi[oc]; gj[k] = s_bj[oc]; }
+#pragma unroll 2
+    for (int d = 0; d < H; ++d) {
+      const float wih = s_wi[d * D + oc], wi0 = s_wi[(H + d) * D + oc];
+      const float wjh = s_wj[d * D + oc];
+#pragma unroll
+      for (int k = 0; k < ORPT; ++k) {
+        const int i = orow0 + k * ORS;
+        const float hv = s_h[i * H + d];
+        gi[k] = fmaf(hv, wih, fmaf(s_h0[i * H + d], wi0, gi[k]));
+        gj[k] = fmaf(hv, wjh, gj[k]);
+      }
+    }
+    float* out_t = out + tile * TILE * D;
+    const float* mask_t = ro.mask + tile * TILE;
+#pragma unroll
+    for (int k = 0; k < ORPT; ++k) {
+      const int i = orow0 + k * ORS;
+      out_t[i * D + oc] = sigmoidf(gi[k]) * gj[k] * mask_t[i];
+    }
+  }
+}
+
+template <int H, int D, bool READOUT>
+cudaError_t launch(const float* h0, const float* adj, const Weights& w,
+                   const Readout& ro, float* out, int n_tiles, int n_layers,
+                   cudaStream_t stream) {
+  constexpr size_t bytes = Plan<H>::BYTES;
+  static_assert(bytes <= 232448, "shared-memory plan exceeds 227 KB");
+  static_assert(THREADS % H == 0 && TILE % (THREADS / H) == 0, "H");
+  static_assert(THREADS % D == 0 && TILE % (THREADS / D) == 0, "D");
+  static_assert(3 * H * D + 2 * D <= NE * TILE * H, "readout weights");
+  // The shared-memory opt-in is per device: set it at the first launch on
+  // each one, not on every launch (it costs host time on a host-bound path).
+  static bool attr_set[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES || !attr_set[dev]) {
+    err = cudaFuncSetAttribute(fused_ggnn_kernel<H, D, READOUT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               int(bytes));
+    if (err != cudaSuccess) return err;
+    if (dev < MAX_DEVICES) attr_set[dev] = true;
+  }
+  fused_ggnn_kernel<H, D, READOUT>
+      <<<n_tiles, THREADS, bytes, stream>>>(h0, adj, w, ro, out, n_layers);
+  return cudaGetLastError();
+}
+
+Weights make_weights(const float* msg_w, const float* msg_b,
+                     const float* wz, const float* uz, const float* bz,
+                     const float* wr, const float* ur, const float* br,
+                     const float* wn, const float* un, const float* bn) {
+  Weights w;
+  w.msg_w = msg_w; w.msg_b = msg_b;
+  w.wz = wz; w.uz = uz; w.bz = bz;
+  w.wr = wr; w.ur = ur; w.br = br;
+  w.wn = wn; w.un = un; w.bn = bn;
+  return w;
+}
+
+}  // namespace
+
+// K1: h (P, T, H) after n_layers GGNN layers.  Returns a cudaError_t.
+extern "C" int fused_ggnn_fwd(
+    const float* h0, const float* adj, const float* msg_w, const float* msg_b,
+    const float* wz, const float* uz, const float* bz,
+    const float* wr, const float* ur, const float* br,
+    const float* wn, const float* un, const float* bn,
+    float* out, int n_tiles, int n_layers, int hidden, void* stream) {
+  if (n_tiles <= 0 || n_layers <= 0) return int(cudaErrorInvalidValue);
+  const Weights w = make_weights(msg_w, msg_b, wz, uz, bz, wr, ur, br, wn, un, bn);
+  const Readout ro = {};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hidden) {
+    case 16: return int(launch<16, 16, false>(h0, adj, w, ro, out, n_tiles, n_layers, st));
+    case 32: return int(launch<32, 32, false>(h0, adj, w, ro, out, n_tiles, n_layers, st));
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// K2: g_nodes (P, T, D) = the gated readout of K1's h.  Returns a cudaError_t.
+extern "C" int fused_ggnn_readout_fwd(
+    const float* h0, const float* adj, const float* msg_w, const float* msg_b,
+    const float* wz, const float* uz, const float* bz,
+    const float* wr, const float* ur, const float* br,
+    const float* wn, const float* un, const float* bn,
+    const float* mask, const float* wi, const float* bi,
+    const float* wj, const float* bj,
+    float* out, int n_tiles, int n_layers, int hidden, int out_dim,
+    void* stream) {
+  if (n_tiles <= 0 || n_layers <= 0) return int(cudaErrorInvalidValue);
+  const Weights w = make_weights(msg_w, msg_b, wz, uz, bz, wr, ur, br, wn, un, bn);
+  const Readout ro = {mask, wi, bi, wj, bj};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (out_dim != hidden) return int(cudaErrorInvalidValue);
+  switch (hidden) {
+    case 16: return int(launch<16, 16, true>(h0, adj, w, ro, out, n_tiles, n_layers, st));
+    case 32: return int(launch<32, 32, true>(h0, adj, w, ro, out, n_tiles, n_layers, st));
+    default: return int(cudaErrorInvalidValue);
+  }
+}
