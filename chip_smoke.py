@@ -6,18 +6,30 @@
 Phases, each fatal on failure:
 1. device: the card's name and power limit; TF32 off.
 2. build: compile the CUDA kernels from ``gcnbmp_tpu_torch/ops/csrc``.
-3. kernels vs plain: K1 (``fused_ggnn``) and K2 (``fused_ggnn_readout``)
-   against their plain PyTorch versions on the card, at the shapes of real
-   packed batches (the first 2048 pairs of dataset/synth546's drug test
-   split at batch 256 and 2048; flagship L=8, H=32, D=32), one H=16
-   case, and one batch-256 case whose adjacency has rows with more than
-   the kernel's 16 neighbour slots; errors, and median CUDA-event times
-   of both per call over runs of back-to-back calls.
-4. the slice: ``gcnbmp_tpu_torch.cli.predict.main`` serves those 2048
-   pairs at batch 256 (eight requests) with seeded random weights; the
-   kernel launch counts must show the path went through K2 once per
+3. kernels vs plain: K1 (``fused_ggnn``), K2 (``fused_ggnn_readout``)
+   and their backward kernels K1b (``fused_ggnn_bwd``) and K2b
+   (``fused_ggnn_readout_bwd``) against their plain PyTorch versions on
+   the card, at the shapes of real packed batches (the first 2048 pairs
+   of dataset/synth546's drug test split at batch 256 and 2048; flagship
+   L=8, H=32, D=32), one H=16 case, and one batch-256 case whose
+   adjacency has rows with more than the kernels' 16 neighbour slots;
+   errors, and median CUDA-event times of both per call over runs of
+   back-to-back calls.
+4. the serving slice: ``gcnbmp_tpu_torch.cli.predict.main`` serves those
+   2048 pairs at batch 256 (eight requests) with seeded random weights;
+   the kernel launch counts must show the path went through K2 once per
    batch, every prob must be finite and in [0, 1], and the logits must
    match the plain layer stack of the same model on the card.
+5. the training slice: ``gcnbmp_tpu_torch.cli.train.main`` trains the
+   ``ggnn_hole_binary`` preset on the fused path for 2 epochs on the
+   first 2048 pairs of the train split (4096 with swap augmentation),
+   validating on the first 512 of the valid split; K2b must run once per
+   step, the loss must be finite and fall, ``log.json`` must hold the
+   val metrics and ``final/params.npz`` must serve through the predict
+   CLI.  Then one step's gradients from the kernel path must match
+   autograd through the plain layer stack on the card, and the train
+   step is timed (host clock) and profiled (torch.profiler) at batch 32
+   and 2048.
 
 Prints the kernels' JSON line, the nvidia-smi line, and last the device
 JSON line.  Exits non-zero when CUDA is unavailable or the port's
@@ -35,11 +47,20 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-DATA = os.path.join(ROOT, "dataset", "synth546", "drug", "ddi_drug_test.csv")
+DRUG = os.path.join(ROOT, "dataset", "synth546", "drug")
+DATA = os.path.join(DRUG, "ddi_drug_test.csv")
+TRAIN_CSV = os.path.join(DRUG, "ddi_drug_train.csv")
+VALID_CSV = os.path.join(DRUG, "ddi_drug_valid.csv")
 N_PAIRS = 2048
+N_VAL = 512
 SERVE_BATCH = 256
+TRAIN_EPOCHS = 2
 L, H, D = 8, 32, 32
 ATOL = RTOL = 1e-4  # f32 sums in another order across 8 layers
+# gradients: |got - want| <= GRAD_RTOL * max|want| + GRAD_ATOL per tensor;
+# weight gradients are sums over up to 387 x 128 rows, taken in another
+# order than the plain version's matmuls
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
 SEED = 2018
 REPS = 20
 BACK_TO_BACK = 10
@@ -82,6 +103,229 @@ def compare(name, got, want, torch) -> float:
     return max_abs
 
 
+def compare_grads(name, got, want, torch) -> float:
+    """Compare named gradient lists tensor by tensor; returns the max abs
+    error over all of them."""
+    worst_abs, worst = 0.0, ("", 0.0)
+    for (tname, g), (_, w) in zip(got, want):
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{name} {tname}: shape {tuple(g.shape)} vs "
+                                 f"{tuple(w.shape)} or non-finite values")
+        err = float((g - w).abs().max())
+        bound = GRAD_RTOL * float(w.abs().max()) + GRAD_ATOL
+        if err > bound:
+            raise AssertionError(f"{name} {tname}: max_abs_err {err:.3e} > "
+                                 f"{bound:.3e}")
+        worst_abs = max(worst_abs, err)
+        worst = max(worst, (tname, err / bound), key=lambda t: t[1])
+    print(f"{name}: {len(got)} tensors ok, max_abs_err={worst_abs:.3e}, "
+          f"closest to its bound: {worst[0]} at {worst[1]:.3f} of "
+          f"{GRAD_RTOL}*max|want|+{GRAD_ATOL}")
+    return worst_abs
+
+
+def named_grads(result, gru_keys):
+    """(name, tensor) pairs of a backward result tuple, the GRU dict
+    expanded in its key order."""
+    names = ["dh0", "dmsg_w", "dmsg_b", "gru", "dwi", "dbi", "dwj", "dbj"]
+    out = []
+    for name, x in zip(names, result):
+        if isinstance(x, dict):
+            out += [(f"d{k}", x[k]) for k in gru_keys]
+        else:
+            out.append((name, x))
+    return out
+
+
+def profile_steps(step, n_steps):
+    """Device busy share and the top kernels by device time over n_steps
+    calls of step(i), from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_steps):
+            step(i)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA]
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+    if not kernels:
+        return "the profiler recorded no device kernels", "none"
+    total = sum(dev_us(e) for e in kernels)
+    top = sorted(kernels, key=dev_us, reverse=True)[:5]
+    busy = (f"device busy {100 * total / wall_us:.1f}% of {wall_us / 1e3 / n_steps:.3f} "
+            f"ms wall per step (profiled)")
+    return busy, "; ".join(f"{e.key[:48]} {dev_us(e) / 1e3 / n_steps:.3f}"
+                           for e in top)
+
+
+def train_slice(dev, smi, reset_counts, read_counts):
+    """Phase 5: the train CLI on the card; returns the kernel launch
+    counts of its run."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from gcnbmp_tpu_torch.cli import predict
+    from gcnbmp_tpu_torch.cli import train as train_cli
+    from gcnbmp_tpu_torch.convert import from_jax_params, init_params
+    from gcnbmp_tpu_torch.data import CSVPairParser, estimate_coo_capacities
+    from gcnbmp_tpu_torch.data.wire import (
+        compact_coo_arrays, iter_coo_eval_batches, packed_coo_batch_iterator)
+    from gcnbmp_tpu_torch.models.packed import (
+        decode_compact_wire, make_packed_predictor)
+    from gcnbmp_tpu_torch.ops.aggregate import adj_from_coo
+    from gcnbmp_tpu_torch.train import loop as train_loop
+    from gcnbmp_tpu_torch.train.config import PRESETS
+
+    preset = PRESETS["ggnn_hole_binary"]
+    train_df = pd.read_csv(TRAIN_CSV).head(N_PAIRS)
+    val_df = pd.read_csv(VALID_CSV).head(N_VAL)
+    train_ds = CSVPairParser().parse(train_df).dataset
+    steps_per_epoch = 2 * len(train_ds) // preset.batch_size  # swap-augmented
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        train_path = os.path.join(tmp, "train.csv")
+        val_path = os.path.join(tmp, "val.csv")
+        out_dir = os.path.join(tmp, "run")
+        train_df.to_csv(train_path, index=False)
+        val_df.to_csv(val_path, index=False)
+        argv = ["--train", train_path, "--val", val_path,
+                "--preset", "ggnn_hole_binary", "--compute-path", "fused",
+                "--device", "cuda", "--epochs", str(TRAIN_EPOCHS),
+                "--seed", str(SEED), "--out", out_dir]
+        # record each step's loss (a device tensor) as the trainer takes it
+        step_losses = []
+        real_step = train_loop.train_step
+
+        def recording_step(*args, **kwargs):
+            loss = real_step(*args, **kwargs)
+            step_losses.append(loss)
+            return loss
+
+        train_loop.train_step = recording_step
+        try:
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = train_cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+        finally:
+            train_loop.train_step = real_step
+        if rc != 0:
+            raise AssertionError(f"train.main returned {rc}")
+        n_steps = len(step_losses)
+        print(f"train slice: train.main ran {n_steps} steps of batch "
+              f"{preset.batch_size} over {TRAIN_EPOCHS} epochs in {wall:.3f} s "
+              f"(CSV parse, pack, steps, per-epoch train+val evaluation, "
+              f"checkpoints) on {smi}; launches {launches}")
+        if n_steps != TRAIN_EPOCHS * steps_per_epoch:
+            raise AssertionError(f"{n_steps} steps, expected "
+                                 f"{TRAIN_EPOCHS * steps_per_epoch}")
+        if launches["fused_ggnn_readout_bwd"] != n_steps:
+            raise AssertionError(
+                f"K2b launched {launches['fused_ggnn_readout_bwd']} times for "
+                f"{n_steps} steps")
+        if launches["fused_ggnn_readout"] < n_steps:
+            raise AssertionError("K2 launched fewer times than steps")
+        losses = torch.stack(step_losses).cpu().numpy()
+        first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+        print(f"train slice: step loss mean first 10 {first:.5f}, last 10 "
+              f"{last:.5f}")
+        if not np.all(np.isfinite(losses)) or not last < first:
+            raise AssertionError("training loss not finite or not falling")
+        with open(os.path.join(out_dir, "log.json")) as f:
+            log = json.load(f)
+        print(f"train slice: last log entry {json.dumps(log[-1])}")
+        if len(log) != TRAIN_EPOCHS or not all(
+                np.isfinite(e.get("val/roc_auc", np.nan))
+                and np.isfinite(e["val/loss"]) for e in log):
+            raise AssertionError("log.json lacks finite val metrics")
+        preds_path = os.path.join(tmp, "preds.csv")
+        rc = predict.main(["--input", val_path, "--config",
+                           os.path.join(out_dir, "config.json"), "--params",
+                           os.path.join(out_dir, "final", "params.npz"),
+                           "--out", preds_path, "--device", "cuda"])
+        probs = pd.read_csv(preds_path)["prob"].to_numpy()
+        if rc != 0 or len(probs) != N_VAL or not np.all(np.isfinite(probs)) \
+                or probs.min() < 0 or probs.max() > 1:
+            raise AssertionError("final/params.npz did not serve")
+        print(f"train slice: final/params.npz served {len(probs)} val pairs "
+              f"through predict.main")
+
+    # one step's gradients: kernel path vs autograd through the plain
+    # layer stack, batch 256 of the train split
+    cfg = dict(fp_hidden_dim=H, fp_out_dim=D, conv_layers=L,
+               weight_tying=False)
+    model = from_jax_params(init_params(cfg, SEED),
+                            make_packed_predictor(**cfg)).to(dev)
+    tiles, cap = estimate_coo_capacities([train_ds], SERVE_BATCH)
+    batch, _ = next(iter_coo_eval_batches(train_ds, SERVE_BATCH, tiles, cap))
+    args = [torch.as_tensor(np.asarray(a)).to(dev)
+            for a in compact_coo_arrays(batch)]
+    labels = torch.as_tensor(batch.labels).to(dev)
+    params = list(model.parameters())
+    loss_k = train_loop.sigmoid_cross_entropy(model(*args), labels)
+    grads_k = torch.autograd.grad(loss_k, params)
+    nodes, e_packed, n_edges, left, right = args
+    num_mols = 2 * left.shape[0]
+    atom_ids, mol_id, mask, *edges = decode_compact_wire(
+        nodes, e_packed, n_edges, num_mols)
+    adj = adj_from_coo(*edges, num_tiles=atom_ids.shape[0],
+                       tile=atom_ids.shape[1])
+    g, _ = model.encoder(atom_ids, adj, mol_id, mask, num_mols)
+    loss_p = train_loop.sigmoid_cross_entropy(
+        model.head(g[left.long()], g[right.long()]), labels)
+    grads_p = torch.autograd.grad(loss_p, params)
+    lk, lp = float(loss_k.detach()), float(loss_p.detach())
+    print(f"train slice: batch {SERVE_BATCH} (P={tiles}) loss kernel path "
+          f"{lk:.7f}, plain layer stack {lp:.7f}")
+    if abs(lk - lp) > ATOL:
+        raise AssertionError("kernel-path loss disagrees with the plain stack")
+    names = [n for n, _ in model.named_parameters()]
+    compare_grads("train slice gradients (kernel path vs plain layer stack)",
+                  list(zip(names, grads_k)), list(zip(names, grads_p)), torch)
+
+    # the train step's time, on batches staged on the card beforehand
+    for bs, n_steps in ((preset.batch_size, 50), (N_PAIRS, 10)):
+        tiles, cap = estimate_coo_capacities([train_ds], bs)
+        rng = np.random.default_rng(SEED)
+        staged = []
+        for b in packed_coo_batch_iterator(train_ds, bs, tiles, cap, rng):
+            staged.append(([torch.as_tensor(np.asarray(a)).to(dev)
+                            for a in compact_coo_arrays(b)],
+                           torch.as_tensor(b.labels).to(dev)))
+            if len(staged) == 8:
+                break
+        model = from_jax_params(init_params(cfg, SEED),
+                                make_packed_predictor(**cfg)).to(dev)
+        opt, _ = train_loop.build_optimizer(preset, 1000, list(model.parameters()))
+        for i in range(3):  # warm up
+            train_loop.train_step(model, opt, *staged[i % len(staged)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_steps):
+            train_loop.train_step(model, opt, *staged[i % len(staged)])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        busy, top = profile_steps(
+            lambda i: train_loop.train_step(model, opt, *staged[i % len(staged)]),
+            n_steps)
+        print(f"train step: batch={bs} P={tiles}: {step_ms:.3f} ms per step, "
+              f"{bs * 1e3 / step_ms:.1f} pairs/s (host clock around {n_steps} "
+              f"back-to-back steps on staged batches) on {smi}")
+        print(f"  where it goes (torch.profiler over {n_steps} steps): {busy}; "
+              f"top kernels, device ms per step: {top}")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "gcnbmp_tpu_torch")):
         print("chip_smoke.py: the gcnbmp_tpu_torch package is not beside "
@@ -107,8 +351,21 @@ def main() -> int:
     from gcnbmp_tpu_torch.ops import build
     from gcnbmp_tpu_torch.ops.aggregate import adj_from_coo, adj_from_coo_flat
     from gcnbmp_tpu_torch.ops.fused_ggnn import (
-        fused_ggnn, fused_ggnn_readout, fused_ggnn_readout_reference,
+        GRU_KEYS, fused_ggnn, fused_ggnn_bwd, fused_ggnn_bwd_reference,
+        fused_ggnn_readout, fused_ggnn_readout_bwd,
+        fused_ggnn_readout_bwd_reference, fused_ggnn_readout_reference,
         fused_ggnn_reference, params_to_fused)
+
+    counters = {"fused_ggnn": fused_ggnn, "fused_ggnn_readout": fused_ggnn_readout,
+                "fused_ggnn_bwd": fused_ggnn_bwd,
+                "fused_ggnn_readout_bwd": fused_ggnn_readout_bwd}
+
+    def reset_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {name: fn.launches for name, fn in counters.items()}
 
     # 1. device
     smi = nvidia_smi_line()
@@ -170,7 +427,7 @@ def main() -> int:
 
     cfg = dict(fp_hidden_dim=H, fp_out_dim=D, conv_layers=L,
                weight_tying=False)
-    results = {"fused_ggnn": {}, "fused_ggnn_readout": {}}
+    results = {name: {} for name in counters}
     cases = [(SERVE_BATCH, cfg, False), (N_PAIRS, cfg, False),
              (SERVE_BATCH, dict(cfg, fp_hidden_dim=16, fp_out_dim=16), False),
              (SERVE_BATCH, cfg, True)]
@@ -185,15 +442,30 @@ def main() -> int:
             if crowd:
                 k1_args, crowded = crowd_rows(k1_args)
                 tag += f" rows>16nnz={crowded}"
+            # a seeded upstream gradient for the backward kernels
+            p_tiles, hidden = k1_args[1].shape[0], k1_args[1].shape[-1]
+            dout = torch.as_tensor(np.random.default_rng(SEED + bs).standard_normal(
+                (p_tiles, 128, hidden)).astype(np.float32)).to(dev)
             pairs = [
                 ("fused_ggnn", lambda: fused_ggnn(*k1_args),
                  lambda: fused_ggnn_reference(*k1_args)),
                 ("fused_ggnn_readout",
                  lambda: fused_ggnn_readout(*k1_args, *readout),
                  lambda: fused_ggnn_readout_reference(*k1_args, *readout)),
+                ("fused_ggnn_bwd", lambda: fused_ggnn_bwd(*k1_args, dout),
+                 lambda: fused_ggnn_bwd_reference(*k1_args, dout)),
+                ("fused_ggnn_readout_bwd",
+                 lambda: fused_ggnn_readout_bwd(*k1_args, *readout, dout),
+                 lambda: fused_ggnn_readout_bwd_reference(*k1_args, *readout,
+                                                          dout)),
             ]
             for name, kern, plain in pairs:
-                err = compare(f"{name} [{tag}]", kern(), plain(), torch)
+                if name.endswith("_bwd"):
+                    err = compare_grads(f"{name} [{tag}]",
+                                        named_grads(kern(), GRU_KEYS),
+                                        named_grads(plain(), GRU_KEYS), torch)
+                else:
+                    err = compare(f"{name} [{tag}]", kern(), plain(), torch)
                 kern(), plain()  # warm up
                 k_ms, p_ms = [], []
                 for _ in range(REPS):  # alternate plain and kernel
@@ -209,7 +481,7 @@ def main() -> int:
                 if bs == SERVE_BATCH and c is cfg and not crowd:
                     r["ms"], r["plain_ms"] = k_med, p_med
 
-    # 4. the slice through the predict CLI
+    # 4. the serving slice through the predict CLI
     n_batches = -(-N_PAIRS // SERVE_BATCH)
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         cfg_path = os.path.join(tmp, "config.json")
@@ -226,15 +498,13 @@ def main() -> int:
         argv = ["--input", in_path, "--config", cfg_path,
                 "--params", params_path, "--out", out_path,
                 "--batch-size", str(SERVE_BATCH), "--device", "cuda"]
-        fused_ggnn.launches = 0
-        fused_ggnn_readout.launches = 0
+        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rc = predict.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"fused_ggnn": fused_ggnn.launches,
-                    "fused_ggnn_readout": fused_ggnn_readout.launches}
+        launches = read_counts()
         if rc != 0:
             raise AssertionError(f"predict.main returned {rc}")
         print(f"slice: predict.main served {N_PAIRS} pairs in {n_batches} "
@@ -287,23 +557,32 @@ def main() -> int:
               f"({serve_s * 1e3 / n_batches:.3f} ms per 256-pair request, "
               f"warm, host clock around synchronized forwards) on {smi}")
 
-    kernels = [{
-        "name": "fused_ggnn_readout", "route": "cuda",
-        "source": "gcnbmp_tpu_torch/ops/csrc/fused_ggnn.cu",
-        "replaces": "gcnbmp_tpu/ops/fused_ggnn.py:818",
-        "launches": launches["fused_ggnn_readout"],
-        **{k: results["fused_ggnn_readout"][k]
-           for k in ("max_abs_err", "ms", "plain_ms")},
-    }]
-    # K1 shares K2's source and layer loop; the serving path launches K2
-    checked = [{
-        "name": "fused_ggnn", "route": "cuda",
-        "source": "gcnbmp_tpu_torch/ops/csrc/fused_ggnn.cu",
-        "replaces": "gcnbmp_tpu/ops/fused_ggnn.py:535",
-        "launches": launches["fused_ggnn"],
-        **{k: results["fused_ggnn"][k]
-           for k in ("max_abs_err", "ms", "plain_ms")},
-    }]
+    # 5. the training slice through the train CLI
+    serve_launches = launches
+    train_launches = train_slice(dev, smi, reset_counts, read_counts)
+
+    sources = {"fused_ggnn": "fused_ggnn.cu", "fused_ggnn_readout": "fused_ggnn.cu",
+               "fused_ggnn_bwd": "fused_ggnn_bwd.cu",
+               "fused_ggnn_readout_bwd": "fused_ggnn_bwd.cu"}
+    replaces = {"fused_ggnn": "gcnbmp_tpu/ops/fused_ggnn.py:535",
+                "fused_ggnn_readout": "gcnbmp_tpu/ops/fused_ggnn.py:818",
+                "fused_ggnn_bwd": "gcnbmp_tpu/ops/fused_ggnn.py:583",
+                "fused_ggnn_readout_bwd": "gcnbmp_tpu/ops/fused_ggnn.py:876"}
+
+    def entry(name):
+        return {"name": name, "route": "cuda",
+                "source": f"gcnbmp_tpu_torch/ops/csrc/{sources[name]}",
+                "replaces": replaces[name],
+                # the training slice is this script's main path; the
+                # serving slice's counts ride beside it
+                "launches": train_launches[name],
+                "launches_serving": serve_launches[name],
+                **{k: results[name][k] for k in ("max_abs_err", "ms", "plain_ms")}}
+
+    kernels = [entry("fused_ggnn_readout"), entry("fused_ggnn_readout_bwd")]
+    # K1 and K1b share K2's and K2b's sources and layer loops; the slices
+    # launch K2 (serving, training) and K2b (training)
+    checked = [entry("fused_ggnn"), entry("fused_ggnn_bwd")]
     print(json.dumps({"kernels": kernels, "checked_off_path": checked}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

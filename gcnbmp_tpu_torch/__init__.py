@@ -2,18 +2,24 @@
 
 A second package beside the JAX one, which stays unchanged and is the
 reference every module here is tested against.  The port covers the
-serving path of the flagship model (packed GGNN encoder + HolE head):
+serving and training paths of the flagship model (packed GGNN encoder +
+HolE head) on the fused path:
 
-- ``data.wire``      the wire-compact COO batch encoding and the
-                     fixed-shape evaluation batch iterator (numpy).
+- ``data.wire``      the wire-compact COO batch encoding, the training
+                     and evaluation batch iterators (numpy).
 - ``ops``            plain torch ops (COO adjacency scatter, circular
-                     correlation) and the fused GGNN forward kernels
+                     correlation) and the fused GGNN kernels, forward
+                     and backward, behind autograd functions
                      (hand-written CUDA for Hopper, ``ops/csrc``).
 - ``models``         ``nn.Module`` twins of the JAX modules, with the
                      same parameter names as the flax trees.
 - ``convert``        flax param tree <-> torch modules, ``.npz`` I/O,
                      seeded initialization.
-- ``eval``, ``cli``  the packed pair evaluator and the predict CLI.
+- ``train``          config and presets, schedules, numpy metrics,
+                     losses, the optimizer chain, the train step, the
+                     trainer and its checkpoints.
+- ``eval``, ``cli``  the packed pair evaluator, the predict and train
+                     CLIs.
 
 Host layers without a framework (``gcnbmp_tpu.chem``,
 ``gcnbmp_tpu.data.{parsers,dataset,packing,native_pack}``) are reused

@@ -21,47 +21,7 @@ import json
 import logging
 import sys
 
-# Model fields of a run config and the values this port serves.
-# compute_path is not read: the packed and padded parameter trees are the
-# same, and the port always serves the packed fused form.  compute_dtype
-# is a training knob; serving runs in f32, as the JAX packed evaluator does.
-_REQUIRED = {
-    "method": "ggnn",
-    "sim_method": "hole",
-    "attn": None,
-    "layer_aggregator": None,
-    "siamese": True,
-    "symmetric": None,
-    "concat_hidden": False,
-    "fp_batch_normalization": False,
-    "fp_dropout_rate": 0.0,
-}
-# TrainConfig defaults for fields a config.json may omit (the served
-# values above are TrainConfig's defaults as well)
-_DEFAULTS = {
-    **_REQUIRED, "fp_hidden_dim": 16, "fp_out_dim": 16, "conv_layers": 4,
-    "weight_tying": True, "net_hidden_dims": (), "class_num": 1,
-}
-
-
-def model_kwargs_from_config(cfg: dict) -> dict:
-    """``make_packed_predictor`` kwargs from a run config dict; raises
-    ValueError on any model value outside what the port serves."""
-    get = lambda k: cfg.get(k, _DEFAULTS[k])
-    bad = [f"{k}={get(k)!r} (served: {v!r})" for k, v in _REQUIRED.items()
-           if get(k) != v]
-    if bad:
-        raise ValueError("config outside the ported serving path: "
-                         + ", ".join(bad))
-    return {
-        "fp_hidden_dim": int(get("fp_hidden_dim")),
-        "fp_out_dim": int(get("fp_out_dim")),
-        "conv_layers": int(get("conv_layers")),
-        "weight_tying": bool(get("weight_tying")),
-        "sim_method": "hole",
-        "class_num": int(get("class_num")),
-        "net_hidden_dims": tuple(get("net_hidden_dims") or ()),
-    }
+from gcnbmp_tpu_torch.models.packed import model_kwargs_from_config
 
 
 def main(argv=None):

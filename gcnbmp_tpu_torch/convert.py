@@ -10,8 +10,9 @@ joining it with dots; flax ``kernel`` (in, out) becomes the transposed
 ``nn.Linear.weight``.
 
 Checkpoints travel as a flat ``.npz`` keyed by ``/``-joined paths in the
-flax layout.  Reading the JAX package's orbax checkpoints waits for the
-checkpoint port (ROADMAP queue 1, item 6).
+flax layout; ``to_jax_params`` takes a trained model back to that tree.
+Reading the JAX package's orbax checkpoints waits for the checkpoint
+restore (ROADMAP queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -68,8 +69,30 @@ def from_jax_params(tree: dict, model: nn.Module) -> nn.Module:
     return model
 
 
+def to_jax_params(model: nn.Module) -> dict:
+    """The flax param tree (numpy, f32) of the port's ``model``: the
+    inverse of ``from_jax_params``."""
+    return named_to_tree({name: p for name, p in model.named_parameters()})
+
+
+def named_to_tree(named: Dict[str, torch.Tensor]) -> dict:
+    """Tensors keyed by torch parameter name -> a flax-layout tree of
+    numpy arrays (``nn.Linear`` weights transposed back to kernels)."""
+    flat = {}
+    for name, t in named.items():
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        path = _flax_path(name)
+        flat[path] = np.ascontiguousarray(arr.T if path[-1] == "kernel" else arr)
+    return _unflatten(flat)
+
+
+def flat_npz(tree: dict) -> Dict[str, np.ndarray]:
+    """A tree as the ``/``-joined keys of its ``.npz`` form."""
+    return {"/".join(p): v for p, v in _flatten(tree)}
+
+
 def save_params_npz(path: str, tree: dict) -> None:
-    np.savez(path, **{"/".join(p): v for p, v in _flatten(tree)})
+    np.savez(path, **flat_npz(tree))
 
 
 def load_params_npz(path: str) -> dict:

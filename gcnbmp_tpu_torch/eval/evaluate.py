@@ -2,20 +2,22 @@
 (port of ``PackedPairEvaluator``, gcnbmp_tpu/eval/evaluate.py:110-197).
 
 Runs the wire-compact predictor over a whole ``PairDataset`` in
-fixed-shape batches and collects logits, labels and the pair's two
-molecule embeddings.  Co-attention and the metrics are not ported yet:
-metrics wait for the training-side port of ``train/metrics.py``.
+fixed-shape batches and collects logits, labels, the pair's two molecule
+embeddings and ``train.metrics.compute_metrics`` of the logits.
+Co-attention is not ported yet (ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Dict
 
 import numpy as np
 import torch
 
 from gcnbmp_tpu_torch.data import estimate_coo_capacities
 from gcnbmp_tpu_torch.data.wire import compact_coo_arrays, iter_coo_eval_batches
+from gcnbmp_tpu_torch.train.metrics import compute_metrics
 
 
 @dataclass
@@ -24,6 +26,7 @@ class EvalResult:
     labels: np.ndarray
     e1: np.ndarray
     e2: np.ndarray
+    metrics: Dict[str, float]
 
 
 class PackedPairEvaluator:
@@ -59,8 +62,10 @@ class PackedPairEvaluator:
             labels_all.append(labels[keep])
             e1_all.append(g1.cpu().numpy()[:valid][keep])
             e2_all.append(g2.cpu().numpy()[:valid][keep])
+        logits = np.concatenate(logits_all)
+        labels = np.concatenate(labels_all)
         return EvalResult(
-            logits=np.concatenate(logits_all),
-            labels=np.concatenate(labels_all),
+            logits=logits, labels=labels,
             e1=np.concatenate(e1_all), e2=np.concatenate(e2_all),
+            metrics=compute_metrics(logits, labels, self.class_num),
         )

@@ -11,13 +11,18 @@ Ported pieces:
   (:1121-1126): embed -> flat adjacency -> K2 -> segment sum -> left and
   right gather -> HolE.
 - ``make_packed_predictor``         <- :1235-1347, the ``method="ggnn"``,
-  no co-attention, no layer aggregator, f32 branch.
+  no co-attention, no layer aggregator, f32 branch;
+  ``model_kwargs_from_config`` reads its arguments from a run config.
 
 Parameter names match the flax tree (``encoder/embed``,
 ``encoder/update_{i}/message/dense``, ``encoder/gru/...``,
 ``encoder/readout_0/{i,j}``, ``head/mlp/...``).  On CPU tensors the
 forward runs the kernels' plain versions; on CUDA tensors it launches
-the kernels.
+the kernels.  The forward is differentiable end to end: K2's autograd
+function carries the gradient (K2b) back to h0, and through the
+embedding gather and ``params_to_fused``'s re-layout (stack, transpose,
+summed GRU biases) to the module's own parameters; a tied message
+function, stacked L times, gets the sum over the layers.
 """
 
 from __future__ import annotations
@@ -152,6 +157,51 @@ class PackedPairPredictorCOOCompact(nn.Module):
         if return_g:
             return logits, g1, g2
         return logits
+
+
+# Model fields of a run config and the values the port builds.
+# compute_path is not read: the packed and padded parameter trees are the
+# same, and the port always runs the packed fused form.  compute_dtype is
+# a training knob (the trainer rejects bfloat16); serving runs in f32, as
+# the JAX packed evaluator does.
+_REQUIRED = {
+    "method": "ggnn",
+    "sim_method": "hole",
+    "attn": None,
+    "layer_aggregator": None,
+    "siamese": True,
+    "symmetric": None,
+    "concat_hidden": False,
+    "fp_batch_normalization": False,
+    "fp_dropout_rate": 0.0,
+}
+# TrainConfig defaults for fields a config.json may omit (the ported
+# values above are TrainConfig's defaults as well)
+_DEFAULTS = {
+    **_REQUIRED, "fp_hidden_dim": 16, "fp_out_dim": 16, "conv_layers": 4,
+    "weight_tying": True, "net_hidden_dims": (), "class_num": 1,
+}
+
+
+def model_kwargs_from_config(cfg: dict) -> dict:
+    """``make_packed_predictor`` kwargs from a run config dict (a
+    ``config.json``, the port's or a JAX run's); raises ValueError on any
+    model value outside what the port builds."""
+    get = lambda k: cfg.get(k, _DEFAULTS[k])
+    bad = [f"{k}={get(k)!r} (ported: {v!r})" for k, v in _REQUIRED.items()
+           if get(k) != v]
+    if bad:
+        raise ValueError("config outside the ported model: "
+                         + ", ".join(bad))
+    return {
+        "fp_hidden_dim": int(get("fp_hidden_dim")),
+        "fp_out_dim": int(get("fp_out_dim")),
+        "conv_layers": int(get("conv_layers")),
+        "weight_tying": bool(get("weight_tying")),
+        "sim_method": "hole",
+        "class_num": int(get("class_num")),
+        "net_hidden_dims": tuple(get("net_hidden_dims") or ()),
+    }
 
 
 def make_packed_predictor(

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``csrc/`` have a plain C interface.  ``load_library``
-compiles them with ``nvcc`` into ``ops/build/`` (listed in .gitignore) at
-first use, names the library by a hash of its sources so an edited
-source is rebuilt, and loads it with ctypes.  Nothing is built or loaded
-at import time: the module imports on a machine without ``nvcc``.
+compiles each source with its own ``nvcc`` process, all started together,
+into ``ops/build/`` (listed in .gitignore) at first use, names each
+library by a hash of its source, the shared headers and the flags so an
+edited source is rebuilt, and loads them with ctypes.  Nothing is built or
+loaded at import time: the module imports on a machine without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -15,26 +16,33 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Optional
+import types
+from typing import Dict, Optional
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD_DIR = os.path.join(HERE, "build")
-SOURCES = ("fused_ggnn.cu",)
+HEADERS = ("fused_ggnn_common.cuh",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# (argtypes) per C entry point; every pointer and the stream are c_void_p
-_SIGNATURES = {
-    "fused_ggnn_fwd": [_P] * 14 + [_I, _I, _I, _P],
-    "fused_ggnn_readout_fwd": [_P] * 19 + [_I, _I, _I, _I, _P],
+# source -> {C entry point: argtypes}; every pointer and the stream are c_void_p
+SOURCES = {
+    "fused_ggnn.cu": {
+        "fused_ggnn_fwd": [_P] * 14 + [_I] * 3 + [_P],
+        "fused_ggnn_readout_fwd": [_P] * 19 + [_I] * 4 + [_P],
+    },
+    "fused_ggnn_bwd.cu": {
+        "fused_ggnn_bwd": [_P] * 18 + [_I] * 3 + [_P],
+        "fused_ggnn_readout_bwd": [_P] * 23 + [_I] * 4 + [_P],
+    },
 }
 
-_lib: Optional[ctypes.CDLL] = None
-# what the last build printed (ptxas register/shared-memory report) and
-# how long it took; None when the library was already built
+_lib: Optional[types.SimpleNamespace] = None
+# what the last build printed (ptxas register/shared-memory report, per
+# source) and how long it took; None when every library was already built
 last_build_log: Optional[str] = None
 last_build_seconds: Optional[float] = None
 
@@ -47,45 +55,62 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _library_path() -> str:
+def _library_path(source: str) -> str:
     digest = hashlib.sha256()
-    for name in SOURCES:
+    for name in (source, *HEADERS):
         with open(os.path.join(CSRC, name), "rb") as f:
             digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libgcnbmp_kernels_{digest.hexdigest()[:12]}.so")
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:12]}.so")
 
 
-def build() -> str:
-    """Compile the sources if their library is missing; returns its path."""
+def build() -> Dict[str, str]:
+    """Compile the sources whose library is missing, one nvcc per source,
+    all at once; returns {source: library path}."""
     global last_build_log, last_build_seconds
-    path = _library_path()
-    if os.path.exists(path):
-        return path
+    paths = {s: _library_path(s) for s in SOURCES}
+    missing = [s for s, p in paths.items() if not os.path.exists(p)]
+    if not missing:
+        return paths
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC, s) for s in SOURCES)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = {}
+    for s in missing:
+        tmp = f"{paths[s]}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, s)]
+        procs[s] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+    logs, failed = [], []
+    for s, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        logs.append(f"== {s}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{s} (nvcc exit {proc.returncode})")
+        else:
+            os.replace(tmp, paths[s])
     last_build_seconds = time.perf_counter() - t0
-    last_build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{last_build_log}")
-    os.replace(tmp, path)
-    return path
+    last_build_log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n"
+                           f"{last_build_log}")
+    return paths
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel library, with argtypes
-    set for every entry point.  Loaded once per process: the wrappers
-    call this on every launch."""
+def load_library() -> types.SimpleNamespace:
+    """Build (at first use) and load the kernel libraries; returns their
+    C entry points, with argtypes set, as attributes.  Loaded once per
+    process: the wrappers call this on every launch."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+        entries = {}
+        for source, path in build().items():
+            lib = ctypes.CDLL(path)
+            for name, argtypes in SOURCES[source].items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                entries[name] = fn
+        _lib = types.SimpleNamespace(**entries)
     return _lib

@@ -41,36 +41,16 @@
 //   across its rows, so the loop is bound by shared-memory loads and f32
 //   FMAs.  Arithmetic is plain f32 (no TF32, no tensor cores), matching
 //   the JAX package's default f32 matmuls.
-// Later work: tensor cores (wgmma) for the dense products, more CTAs per
-// SM by shrinking the shared-memory plan, and the backward kernels.
+// The layer's steps live in fused_ggnn_common.cuh, shared with the
+// backward kernels (fused_ggnn_bwd.cu), which recompute this forward.
+// Later work: tensor cores (wgmma) for the dense products, and more CTAs
+// per SM by shrinking the shared-memory plan.
 
-#include <cuda_runtime.h>
+#include "fused_ggnn_common.cuh"
 
 namespace {
 
-constexpr int TILE = 128;
-constexpr int NE = 4;               // edge types
-constexpr int THREADS = 512;
-constexpr int WARPS = THREADS / 32;
-constexpr int NBR_CAP = 16;         // neighbour list slots per adjacency row
-constexpr int ROW_LEN = NE * TILE;  // 512 columns of the flat adjacency
-constexpr int MAX_DEVICES = 64;     // devices whose shared-memory opt-in is cached
-
-struct Weights {
-  const float* msg_w;  // (L, 4, H, H)
-  const float* msg_b;  // (L, 4, H)
-  const float* wz; const float* uz; const float* bz;  // (2H, H) (H, H) (H)
-  const float* wr; const float* ur; const float* br;
-  const float* wn; const float* un; const float* bn;
-};
-
-struct Readout {
-  const float* mask;  // (P, T)
-  const float* wi;    // (2H, D)
-  const float* bi;    // (D)
-  const float* wj;    // (H, D)
-  const float* bj;    // (D)
-};
+using namespace ggnn;
 
 // Shared-memory plan, in 4-byte words.
 template <int H>
@@ -96,27 +76,18 @@ struct Plan {
   static constexpr size_t BYTES = size_t(WORDS) * 4;
 };
 
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
 template <int H, int D, bool READOUT>
 __global__ void __launch_bounds__(THREADS)
 fused_ggnn_kernel(const float* __restrict__ h0, const float* __restrict__ adj,
                   Weights w, Readout ro, float* __restrict__ out, int n_layers) {
   using S = Plan<H>;
+  using R = Rows<H>;
   extern __shared__ float smem[];
   float* s_wmsg = smem + S::W_MSG;
   float* s_bmsg = smem + S::B_MSG;
-  float* s_wz = smem + S::WZ;
-  float* s_wr = smem + S::WR;
-  float* s_wn = smem + S::WN;
-  float* s_uz = smem + S::UZ;
-  float* s_ur = smem + S::UR;
-  float* s_un = smem + S::UN;
-  float* s_bz = smem + S::BZ;
-  float* s_br = smem + S::BR;
-  float* s_bn = smem + S::BN;
+  const GruSmem g = {smem + S::WZ, smem + S::WR, smem + S::WN,
+                     smem + S::UZ, smem + S::UR, smem + S::UN,
+                     smem + S::BZ, smem + S::BR, smem + S::BN};
   float* s_h = smem + S::HS;
   float* s_m = smem + S::MS;
   float* s_hw = smem + S::HW;
@@ -126,145 +97,32 @@ fused_ggnn_kernel(const float* __restrict__ h0, const float* __restrict__ adj,
   int* s_nc = reinterpret_cast<int*>(smem + S::NC);
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const size_t tile = blockIdx.x;
   const float* h0_t = h0 + tile * TILE * H;
   const float* adj_t = adj + tile * TILE * ROW_LEN;
 
-  for (int i = tid; i < 2 * H * H; i += THREADS) {
-    s_wz[i] = w.wz[i]; s_wr[i] = w.wr[i]; s_wn[i] = w.wn[i];
-  }
-  for (int i = tid; i < H * H; i += THREADS) {
-    s_uz[i] = w.uz[i]; s_ur[i] = w.ur[i]; s_un[i] = w.un[i];
-  }
-  for (int i = tid; i < H; i += THREADS) {
-    s_bz[i] = w.bz[i]; s_br[i] = w.br[i]; s_bn[i] = w.bn[i];
-  }
+  load_gru<H>(w, g, tid);
   for (int i = tid; i < TILE * H; i += THREADS) s_h[i] = h0_t[i];
 
-  // Row-wise phases: thread owns column `col` of rows row0 + k*RS.
-  constexpr int RS = THREADS / H;
-  constexpr int RPT = TILE / RS;
   const int col = tid % H;
   const int row0 = tid / H;
 
   for (int l = 0; l < n_layers; ++l) {
     const bool first = (l == 0);
-    for (int i = tid; i < NE * H * H; i += THREADS)
-      s_wmsg[i] = w.msg_w[size_t(l) * NE * H * H + i];
-    for (int i = tid; i < NE * H; i += THREADS)
-      s_bmsg[i] = w.msg_b[size_t(l) * NE * H + i];
+    load_message<H>(w, l, s_wmsg, s_bmsg, tid);
     __syncthreads();
-
-    // 1. hw[(e*T + j), c] = (h W_e + b_e)[j, c]
-    for (int e = 0; e < NE; ++e) {
-      const float* we = s_wmsg + e * H * H;
-      float acc[RPT];
-#pragma unroll
-      for (int k = 0; k < RPT; ++k) acc[k] = s_bmsg[e * H + col];
-#pragma unroll 4
-      for (int d = 0; d < H; ++d) {
-        const float wv = we[d * H + col];
-#pragma unroll
-        for (int k = 0; k < RPT; ++k)
-          acc[k] = fmaf(s_h[(row0 + k * RS) * H + d], wv, acc[k]);
-      }
-#pragma unroll
-      for (int k = 0; k < RPT; ++k)
-        s_hw[(e * TILE + row0 + k * RS) * H + col] = acc[k];
-    }
+    message_hw<H>(s_h, s_wmsg, s_bmsg, s_hw, tid);
     __syncthreads();
-
-    // 2. m = A_flat @ hw: one warp per row, lane c < H owns column c.
-    for (int i = warp; i < TILE; i += WARPS) {
-      float acc = 0.0f;
-      if (first || s_nc[i] > NBR_CAP) {
-        const float* arow = adj_t + size_t(i) * ROW_LEN;
-        int cnt = 0;
-        float av[ROW_LEN / 32];  // all 16 loads in flight before the scan
-#pragma unroll
-        for (int q = 0; q < ROW_LEN / 32; ++q) av[q] = __ldg(arow + q * 32 + lane);
-#pragma unroll
-        for (int q = 0; q < ROW_LEN / 32; ++q) {
-          const float a = av[q];
-          unsigned nz = __ballot_sync(0xffffffffu, a != 0.0f);
-          while (nz) {
-            const int b = __ffs(nz) - 1;
-            nz &= nz - 1;
-            const float v = __shfl_sync(0xffffffffu, a, b);
-            const int kcol = q * 32 + b;
-            if (lane < H) acc = fmaf(v, s_hw[kcol * H + lane], acc);
-            if (first && lane == 0 && cnt < NBR_CAP) {
-              s_nk[i * NBR_CAP + cnt] = kcol;
-              s_nv[i * NBR_CAP + cnt] = v;
-            }
-            ++cnt;
-          }
-        }
-        if (first && lane == 0) s_nc[i] = cnt;
-      } else {
-        const int cnt = s_nc[i];
-        for (int n = 0; n < cnt; ++n) {
-          const int kcol = s_nk[i * NBR_CAP + n];
-          const float v = s_nv[i * NBR_CAP + n];
-          if (lane < H) acc = fmaf(v, s_hw[kcol * H + lane], acc);
-        }
-      }
-      if (lane < H) s_m[i * H + lane] = acc;
-    }
+    aggregate<H>(first, adj_t, s_hw, s_m, s_nk, s_nv, s_nc, tid);
     __syncthreads();
-
-    // 3. GRU, phase A: z and x Wn in registers, r*s to shared memory.
-    float gz[RPT], gr[RPT], gn[RPT];
+    float z[R::RPT], r[R::RPT], n[R::RPT];
+    gru_gates<H>(first, s_h, s_m, g, s_rs, z, r, n, tid);
+    // h' = z n + (1-z) s; each thread rewrites only its own elements
 #pragma unroll
-    for (int k = 0; k < RPT; ++k) {
-      gz[k] = s_bz[col]; gr[k] = s_br[col]; gn[k] = s_bn[col];
-    }
-#pragma unroll 2
-    for (int d = 0; d < H; ++d) {
-      const float wzh = s_wz[d * H + col], wzm = s_wz[(H + d) * H + col];
-      const float wrh = s_wr[d * H + col], wrm = s_wr[(H + d) * H + col];
-      const float wnh = s_wn[d * H + col], wnm = s_wn[(H + d) * H + col];
-      const float uz = first ? 0.0f : s_uz[d * H + col];
-      const float ur = first ? 0.0f : s_ur[d * H + col];
-#pragma unroll
-      for (int k = 0; k < RPT; ++k) {
-        const int i = row0 + k * RS;
-        const float hv = s_h[i * H + d], mv = s_m[i * H + d];
-        gz[k] = fmaf(hv, wzh, fmaf(mv, wzm, gz[k]));
-        gr[k] = fmaf(hv, wrh, fmaf(mv, wrm, gr[k]));
-        gn[k] = fmaf(hv, wnh, fmaf(mv, wnm, gn[k]));
-        if (!first) {
-          gz[k] = fmaf(hv, uz, gz[k]);
-          gr[k] = fmaf(hv, ur, gr[k]);
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < RPT; ++k) {
-      const int i = row0 + k * RS;
-      gz[k] = sigmoidf(gz[k]);
-      s_rs[i * H + col] = first ? 0.0f : sigmoidf(gr[k]) * s_h[i * H + col];
-    }
-    __syncthreads();
-
-    // GRU, phase B: n = tanh(x Wn + (r*s) Un + bn), h' = z n + (1-z) s.
-    if (!first) {
-#pragma unroll 2
-      for (int d = 0; d < H; ++d) {
-        const float un = s_un[d * H + col];
-#pragma unroll
-        for (int k = 0; k < RPT; ++k)
-          gn[k] = fmaf(s_rs[(row0 + k * RS) * H + d], un, gn[k]);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < RPT; ++k) {
-      const int i = row0 + k * RS;
+    for (int k = 0; k < R::RPT; ++k) {
+      const int i = row0 + k * R::RS;
       const float s = first ? 0.0f : s_h[i * H + col];
-      const float n = tanhf(gn[k]);
-      s_h[i * H + col] = gz[k] * n + (1.0f - gz[k]) * s;
+      s_h[i * H + col] = z[k] * n[k] + (1.0f - z[k]) * s;
     }
     __syncthreads();
   }
@@ -322,34 +180,12 @@ cudaError_t launch(const float* h0, const float* adj, const Weights& w,
   static_assert(THREADS % H == 0 && TILE % (THREADS / H) == 0, "H");
   static_assert(THREADS % D == 0 && TILE % (THREADS / D) == 0, "D");
   static_assert(3 * H * D + 2 * D <= NE * TILE * H, "readout weights");
-  // The shared-memory opt-in is per device: set it at the first launch on
-  // each one, not on every launch (it costs host time on a host-bound path).
-  static bool attr_set[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static bool opted_in[MAX_DEVICES] = {};
+  cudaError_t err = opt_in_smem(fused_ggnn_kernel<H, D, READOUT>, bytes, opted_in);
   if (err != cudaSuccess) return err;
-  if (dev >= MAX_DEVICES || !attr_set[dev]) {
-    err = cudaFuncSetAttribute(fused_ggnn_kernel<H, D, READOUT>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               int(bytes));
-    if (err != cudaSuccess) return err;
-    if (dev < MAX_DEVICES) attr_set[dev] = true;
-  }
   fused_ggnn_kernel<H, D, READOUT>
       <<<n_tiles, THREADS, bytes, stream>>>(h0, adj, w, ro, out, n_layers);
   return cudaGetLastError();
-}
-
-Weights make_weights(const float* msg_w, const float* msg_b,
-                     const float* wz, const float* uz, const float* bz,
-                     const float* wr, const float* ur, const float* br,
-                     const float* wn, const float* un, const float* bn) {
-  Weights w;
-  w.msg_w = msg_w; w.msg_b = msg_b;
-  w.wz = wz; w.uz = uz; w.bz = bz;
-  w.wr = wr; w.ur = ur; w.br = br;
-  w.wn = wn; w.un = un; w.bn = bn;
-  return w;
 }
 
 }  // namespace

@@ -1,0 +1,552 @@
+// Fused multi-layer GGNN backward over packed 128-atom tiles, for Hopper
+// (sm_90a).  Built by gcnbmp_tpu_torch/ops/build.py with nvcc into a shared
+// library with a plain C interface, loaded with ctypes.
+//
+// Replaces the TPU kernels of gcnbmp_tpu/ops/fused_ggnn.py:
+//   fused_ggnn_bwd          <- _fused_ggnn_bwd / _bwd_kernel (K1b)
+//   fused_ggnn_readout_bwd  <- _fused_ggnn_readout_bwd / _bwd_readout_kernel (K2b)
+//
+// Per tile, as the TPU kernels do (_reverse_layers, AGG_FLAT branch):
+// recompute the forward keeping each layer's input h, seed dh (dh_final
+// for K1b; the gated readout's backward for K2b, whose direct h0 term is
+// added to dh0 at the end), then for l = L-1 .. 0 recompute layer l's
+// m, z, r, n and take
+//   dz = dh (n - s), dn = dh z, ds = dh (1 - z)
+//   dn' = dn (1 - n^2), dz' = dz z (1 - z)
+//   drs = dn' Un^T, dr' = drs s r (1 - r), ds += drs r
+//   [dh_in, dm] = dz' Wz^T + dr' Wr^T + dn' Wn^T, ds += dz' Uz^T + dr' Ur^T
+//   dW{z,r,n} += [h, m]^T d{z,r,n}',  dU{z,r} += s^T d{z,r}',
+//   dUn += (r s)^T dn',  db += column sums
+//   dhw = A_flat^T dm,  dW_e = h^T dhw_e,  db_e = sum dhw_e,
+//   dh_in += dhw_e W_e^T,  dh = dh_in + ds (ds is dropped at layer 0,
+//   whose state is zero).
+//
+// What bounds it on this card, and what the design does about it:
+// - The TPU kernel accumulates the weight gradients across its sequential
+//   grid.  CTAs here run in no order, so each CTA (one tile) writes its
+//   own row of a (P, n_grad) partial buffer, and a second kernel sums the
+//   rows over P in tile order.  Nothing is atomic, so a run repeats
+//   bit for bit.  The partials are ~185 KB per tile at L=8, H=32.
+// - Shared memory: the forward's plan plus dh, the column lists and the
+//   GRU's pre-activation gradients comes to ~205 KB at H=32 (one CTA per
+//   SM).  The L per-layer inputs (128 KB per tile) do not fit beside it:
+//   they go to a global scratch (P, L, T, H) during the first forward
+//   and are read back one layer at a time.  In the reverse the hw stack's
+//   4T x H buffer holds r*s and dz', dr', dn', and then dhw; z, r and n
+//   stay in registers for the (row, column) each thread owns.  Weight
+//   gradients go straight to the tile's partial row (the GRU's summed
+//   over layers in place by the thread that owns each entry), so no
+//   L-sized accumulator lives on chip.
+// - The transposed aggregation A_flat^T dm needs the adjacency's column
+//   view.  After layer 0's scan builds the row lists (up to NBR_CAP per
+//   row), a pass builds column lists (CSR, ascending row order) from the
+//   rows that fit their lists: at most 128 x 16 entries, so they always
+//   fit.  Rows with more nonzeros are listed apart and read from global
+//   memory in every reverse layer, so any input stays exact, and the sum
+//   of each output runs in a fixed order.
+// - Products of H-wide rows against transposed weights (x W^T) would have
+//   every lane of a warp read one shared-memory bank; each thread walks
+//   the reduction index rotated by its column, so the lanes read distinct
+//   banks.
+// - Arithmetic is plain f32 FMAs (no TF32, no tensor cores), as in the
+//   forward.  Later work: tensor cores for the dense products, fewer
+//   passes over the partial buffer, more CTAs per SM.
+
+#include "fused_ggnn_common.cuh"
+
+namespace {
+
+using namespace ggnn;
+
+// Shared-memory plan, in 4-byte words.
+template <int H>
+struct BwdPlan {
+  static constexpr int TH = TILE * H;
+  static constexpr int W_MSG = 0;                   // 4 H H (layer l)
+  static constexpr int B_MSG = W_MSG + NE * H * H;  // 4 H
+  static constexpr int WZ = B_MSG + NE * H;         // 2H H each
+  static constexpr int WR = WZ + 2 * H * H;
+  static constexpr int WN = WR + 2 * H * H;
+  static constexpr int UZ = WN + 2 * H * H;         // H H each
+  static constexpr int UR = UZ + H * H;
+  static constexpr int UN = UR + H * H;
+  static constexpr int BZ = UN + H * H;             // H each
+  static constexpr int BR = BZ + H;
+  static constexpr int BN = BR + H;
+  static constexpr int HIN = BN + H;                // T H: layer input h (= s)
+  static constexpr int MS = HIN + TH;               // T H: m, then dm; h0 (readout)
+  static constexpr int DH = MS + TH;                // T H: dh
+  static constexpr int BIG = DH + TH;               // 4T H: hw | rs dz' dr' dn' | dhw
+  static constexpr int NV = BIG + NE * TH;          // T NBR_CAP row-list values
+  static constexpr int NK = NV + TILE * NBR_CAP;    // T NBR_CAP row-list columns (int)
+  static constexpr int NC = NK + TILE * NBR_CAP;    // T row nonzero counts (int)
+  static constexpr int CS = NC + TILE;              // 4T+1 column starts (int)
+  static constexpr int CR = CS + ROW_LEN + 1;       // T NBR_CAP column-list rows (int)
+  static constexpr int CV = CR + TILE * NBR_CAP;    // T NBR_CAP column-list values
+  static constexpr int OV = CV + TILE * NBR_CAP;    // T overflow rows (int)
+  static constexpr int OVN = OV + TILE;             // 1 overflow row count (int)
+  static constexpr int WORDS = OVN + 1;
+  static constexpr size_t BYTES = size_t(WORDS) * 4;
+};
+
+// Offsets in one tile's row of gradient partials: msg_w (L,4,H,H),
+// msg_b (L,4,H), the GRU in the order wz uz bz wr ur br wn un bn, then
+// (K2b) wi (2H,D) bi (D) wj (H,D) bj (D).  ops/fused_ggnn.py splits the
+// summed row in the same order.
+template <int H>
+struct GradLayout {
+  static constexpr int WZ = 0, UZ = 2 * H * H, BZ = 3 * H * H;
+  static constexpr int WR = BZ + H, UR = WR + 2 * H * H, BR = UR + H * H;
+  static constexpr int WN = BR + H, UN = WN + 2 * H * H, BN = UN + H * H;
+  static constexpr int GRU_WORDS = BN + H;  // 9 H H + 3 H
+  static constexpr int WI = 0, BI = 2 * H * H, WJ = BI + H, BJ = WJ + H * H;
+  static constexpr int RO_WORDS = BJ + H;   // 3 H D + 2 D with D = H
+  __host__ __device__ static size_t msg_b0(int n_layers) { return size_t(n_layers) * NE * H * H; }
+  __host__ __device__ static size_t gru0(int n_layers) { return size_t(n_layers) * NE * H * (H + 1); }
+  __host__ __device__ static size_t words(int n_layers, bool readout) {
+    return gru0(n_layers) + GRU_WORDS + (readout ? RO_WORDS : 0);
+  }
+};
+
+// out (RR, H) (+)= [a_lo | a_hi]^T b over the tile's rows; a_lo, a_hi, b
+// are (T, H) in shared memory (a_hi read for output rows >= H); a_lo ==
+// nullptr is a zero operand.  Each entry belongs to one thread.
+template <int H, int RR>
+__device__ __forceinline__ void grad_AtB(const float* a_lo, const float* a_hi,
+                                         const float* b, float* out,
+                                         bool accumulate, int tid) {
+  const int c = tid % H;
+  for (int a = tid / H; a < RR; a += THREADS / H) {
+    float acc = 0.0f;
+    if (a_lo != nullptr) {
+      const float* src = a < H ? a_lo + a : a_hi + (a - H);
+#pragma unroll 8
+      for (int i = 0; i < TILE; ++i) acc = fmaf(src[i * H], b[i * H + c], acc);
+    }
+    float* o = out + size_t(a) * H + c;
+    *o = accumulate ? *o + acc : acc;
+  }
+}
+
+// out (H) (+)= column sums of b (T, H).
+template <int H>
+__device__ __forceinline__ void bias_sum(const float* b, float* out,
+                                         bool accumulate, int tid) {
+  if (tid < H) {
+    float acc = 0.0f;
+    for (int i = 0; i < TILE; ++i) acc += b[i * H + tid];
+    out[tid] = accumulate ? out[tid] + acc : acc;
+  }
+}
+
+// Column lists of the rows that fit their row lists, in ascending row
+// order, and the list of rows that do not.  Thread k owns column k.
+__device__ __forceinline__ void build_columns(const int* s_nk, const float* s_nv,
+                                              const int* s_nc, int* s_cs,
+                                              int* s_cr, float* s_cv,
+                                              int* s_ov, int* s_ovn, int tid) {
+  static_assert(THREADS == ROW_LEN, "one thread per adjacency column");
+  const int k = tid;
+  int cnt = 0;
+  for (int i = 0; i < TILE; ++i) {
+    const int nc = s_nc[i];
+    if (nc <= NBR_CAP)
+      for (int n = 0; n < nc; ++n) cnt += (s_nk[i * NBR_CAP + n] == k);
+  }
+  s_cs[k + 1] = cnt;
+  if (tid == 0) {
+    s_cs[0] = 0;
+    int ov = 0;
+    for (int i = 0; i < TILE; ++i)
+      if (s_nc[i] > NBR_CAP) s_ov[ov++] = i;
+    *s_ovn = ov;
+  }
+  __syncthreads();
+  if (tid < 32) {  // inclusive scan of the counts: lane owns 16 columns
+    constexpr int PER = ROW_LEN / 32;
+    const int base = 1 + tid * PER;
+    int sum = 0;
+    for (int q = 0; q < PER; ++q) sum += s_cs[base + q];
+    int incl = sum;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, off);
+      if (tid >= off) incl += v;
+    }
+    int run = incl - sum;
+    for (int q = 0; q < PER; ++q) {
+      run += s_cs[base + q];
+      s_cs[base + q] = run;
+    }
+  }
+  __syncthreads();
+  int pos = s_cs[k];
+  for (int i = 0; i < TILE; ++i) {
+    const int nc = s_nc[i];
+    if (nc <= NBR_CAP)
+      for (int n = 0; n < nc; ++n)
+        if (s_nk[i * NBR_CAP + n] == k) {
+          s_cr[pos] = i;
+          s_cv[pos] = s_nv[i * NBR_CAP + n];
+          ++pos;
+        }
+  }
+  __syncthreads();
+}
+
+// dhw (4T, H) = A_flat^T dm: thread owns column c of rows k of dhw.
+template <int H>
+__device__ __forceinline__ void column_gather(const float* adj_t,
+                                              const float* s_dm,
+                                              const int* s_cs, const int* s_cr,
+                                              const float* s_cv,
+                                              const int* s_ov, int n_ov,
+                                              float* s_dhw, int tid) {
+  const int c = tid % H;
+  for (int k = tid / H; k < ROW_LEN; k += THREADS / H) {
+    float acc = 0.0f;
+    const int end = s_cs[k + 1];
+    for (int e = s_cs[k]; e < end; ++e)
+      acc = fmaf(s_cv[e], s_dm[s_cr[e] * H + c], acc);
+    for (int o = 0; o < n_ov; ++o) {
+      const int i = s_ov[o];
+      const float a = __ldg(adj_t + size_t(i) * ROW_LEN + k);
+      if (a != 0.0f) acc = fmaf(a, s_dm[i * H + c], acc);
+    }
+    s_dhw[k * H + c] = acc;
+  }
+}
+
+template <int H, bool READOUT>
+__global__ void __launch_bounds__(THREADS)
+fused_ggnn_bwd_kernel(const float* __restrict__ h0, const float* __restrict__ adj,
+                      Weights w, Readout ro, const float* __restrict__ dout,
+                      float* dh0, float* partial, float* hs, int n_layers,
+                      int n_grad) {
+  using S = BwdPlan<H>;
+  using R = Rows<H>;
+  using G = GradLayout<H>;
+  constexpr int D = H;
+  constexpr int TH = S::TH;
+  extern __shared__ float smem[];
+  float* s_wmsg = smem + S::W_MSG;
+  float* s_bmsg = smem + S::B_MSG;
+  const GruSmem g = {smem + S::WZ, smem + S::WR, smem + S::WN,
+                     smem + S::UZ, smem + S::UR, smem + S::UN,
+                     smem + S::BZ, smem + S::BR, smem + S::BN};
+  float* s_hin = smem + S::HIN;
+  float* s_m = smem + S::MS;
+  float* s_dh = smem + S::DH;
+  float* s_big = smem + S::BIG;
+  float* s_rs = s_big;            // reverse: r*s, dz', dr', dn'
+  float* s_dz = s_big + TH;
+  float* s_dr = s_big + 2 * TH;
+  float* s_dn = s_big + 3 * TH;
+  float* s_nv = smem + S::NV;
+  int* s_nk = reinterpret_cast<int*>(smem + S::NK);
+  int* s_nc = reinterpret_cast<int*>(smem + S::NC);
+  int* s_cs = reinterpret_cast<int*>(smem + S::CS);
+  int* s_cr = reinterpret_cast<int*>(smem + S::CR);
+  float* s_cv = smem + S::CV;
+  int* s_ov = reinterpret_cast<int*>(smem + S::OV);
+  int* s_ovn = reinterpret_cast<int*>(smem + S::OVN);
+
+  const int tid = threadIdx.x;
+  const int col = tid % H;
+  const int row0 = tid / H;
+  const size_t tile = blockIdx.x;
+  const float* h0_t = h0 + tile * TH;
+  const float* adj_t = adj + tile * TILE * ROW_LEN;
+  float* hs_t = hs + tile * size_t(n_layers) * TH;
+  float* dh0_t = dh0 + tile * TH;
+  float* part = partial + tile * size_t(n_grad);
+  float* gru_part = part + G::gru0(n_layers);
+
+  // 1. forward, keeping each layer's input in hs
+  load_gru<H>(w, g, tid);
+  for (int i = tid; i < TH; i += THREADS) s_hin[i] = h0_t[i];
+  for (int l = 0; l < n_layers; ++l) {
+    const bool first = (l == 0);
+    load_message<H>(w, l, s_wmsg, s_bmsg, tid);
+    __syncthreads();
+    for (int i = tid; i < TH; i += THREADS) hs_t[size_t(l) * TH + i] = s_hin[i];
+    message_hw<H>(s_hin, s_wmsg, s_bmsg, s_big, tid);
+    __syncthreads();
+    aggregate<H>(first, adj_t, s_big, s_m, s_nk, s_nv, s_nc, tid);
+    __syncthreads();
+    if (first)
+      build_columns(s_nk, s_nv, s_nc, s_cs, s_cr, s_cv, s_ov, s_ovn, tid);
+    float z[R::RPT], r[R::RPT], n[R::RPT];
+    gru_gates<H>(first, s_hin, s_m, g, s_rs, z, r, n, tid);
+#pragma unroll
+    for (int k = 0; k < R::RPT; ++k) {
+      const int i = row0 + k * R::RS;
+      const float s = first ? 0.0f : s_hin[i * H + col];
+      s_hin[i * H + col] = z[k] * n[k] + (1.0f - z[k]) * s;
+    }
+    __syncthreads();
+  }
+  const int n_ov = *s_ovn;
+
+  // 2. seed dh: the readout's backward (K2b) or dh_final (K1b)
+  if constexpr (READOUT) {
+    float* s_wi = s_big;               // (2H, D)
+    float* s_wj = s_wi + 2 * H * D;    // (H, D)
+    float* s_bi = s_wj + H * D;
+    float* s_bj = s_bi + D;
+    float* s_dpi = s_bj + D;           // (T, D) d(pre-gate)
+    float* s_doj = s_dpi + TILE * D;   // (T, D) d(h Wj + bj)
+    float* s_h0 = s_m;
+    static_assert(3 * H * D + 2 * D + 2 * TILE * D <= NE * TILE * H, "readout");
+    for (int i = tid; i < 2 * H * D; i += THREADS) s_wi[i] = ro.wi[i];
+    for (int i = tid; i < H * D; i += THREADS) s_wj[i] = ro.wj[i];
+    for (int i = tid; i < D; i += THREADS) { s_bi[i] = ro.bi[i]; s_bj[i] = ro.bj[i]; }
+    for (int i = tid; i < TH; i += THREADS) s_h0[i] = h0_t[i];
+    __syncthreads();
+    float gi[R::RPT], gj[R::RPT];
+#pragma unroll
+    for (int k = 0; k < R::RPT; ++k) { gi[k] = s_bi[col]; gj[k] = s_bj[col]; }
+#pragma unroll 2
+    for (int d = 0; d < H; ++d) {
+      const float wih = s_wi[d * D + col], wi0 = s_wi[(H + d) * D + col];
+      const float wjh = s_wj[d * D + col];
+#pragma unroll
+      for (int k = 0; k < R::RPT; ++k) {
+        const int i = row0 + k * R::RS;
+        const float hv = s_hin[i * H + d];
+        gi[k] = fmaf(hv, wih, fmaf(s_h0[i * H + d], wi0, gi[k]));
+        gj[k] = fmaf(hv, wjh, gj[k]);
+      }
+    }
+    const float* mask_t = ro.mask + tile * TILE;
+    const float* dg_t = dout + tile * TILE * D;
+#pragma unroll
+    for (int k = 0; k < R::RPT; ++k) {
+      const int i = row0 + k * R::RS;
+      const float gate = sigmoidf(gi[k]);
+      const float dgv = dg_t[i * D + col] * mask_t[i];
+      s_dpi[i * D + col] = dgv * gj[k] * gate * (1.0f - gate);
+      s_doj[i * D + col] = dgv * gate;
+    }
+    __syncthreads();
+    float* ro_part = gru_part + G::GRU_WORDS;
+    grad_AtB<H, 2 * H>(s_hin, s_h0, s_dpi, ro_part + G::WI, false, tid);
+    grad_AtB<H, H>(s_hin, nullptr, s_doj, ro_part + G::WJ, false, tid);
+    bias_sum<H>(s_dpi, ro_part + G::BI, false, tid);
+    bias_sum<H>(s_doj, ro_part + G::BJ, false, tid);
+    // dh = dpi Wi[:H]^T + doj Wj^T; h0's direct term dpi Wi[H:]^T goes to
+    // dh0 now and is added to the reverse's result by the same thread
+#pragma unroll
+    for (int k = 0; k < R::RPT; ++k) {
+      const int i = row0 + k * R::RS;
+      float dh = 0.0f, d0 = 0.0f;
+#pragma unroll 4
+      for (int j = 0; j < D; ++j) {
+        const int a = (j + col) & (D - 1);
+        const float dpi = s_dpi[i * D + a];
+        dh = fmaf(dpi, s_wi[col * D + a], fmaf(s_doj[i * D + a], s_wj[col * D + a], dh));
+        d0 = fmaf(dpi, s_wi[(H + col) * D + a], d0);
+      }
+      s_dh[i * H + col] = dh;
+      dh0_t[i * H + col] = d0;
+    }
+  } else {
+    const float* dh_t = dout + tile * TH;
+    for (int i = tid; i < TH; i += THREADS) s_dh[i] = dh_t[i];
+  }
+  __syncthreads();
+
+  // 3. reverse the layers
+  for (int l = n_layers - 1; l >= 0; --l) {
+    const bool zero_state = (l == 0);
+    const bool acc_gru = (l != n_layers - 1);
+    load_message<H>(w, l, s_wmsg, s_bmsg, tid);
+    for (int i = tid; i < TH; i += THREADS) s_hin[i] = hs_t[size_t(l) * TH + i];
+    __syncthreads();
+    message_hw<H>(s_hin, s_wmsg, s_bmsg, s_big, tid);
+    __syncthreads();
+    aggregate<H>(false, adj_t, s_big, s_m, s_nk, s_nv, s_nc, tid);
+    __syncthreads();
+    float z[R::RPT], r[R::RPT], n[R::RPT];
+    gru_gates<H>(zero_state, s_hin, s_m, g, s_rs, z, r, n, tid);
+
+    float ds[R::RPT];
+#pragma unroll
+    for (int k = 0; k < R::RPT; ++k) {
+      const int i = row0 + k * R::RS;
+      const float s = zero_state ? 0.0f : s_hin[i * H + col];
+      const float dhv = s_dh[i * H + col];
+      const float dz = dhv * (n[k] - s);
+      const float dn = dhv * z[k];
+      ds[k] = dhv * (1.0f - z[k]);
+      s_dn[i * H + col] = dn * (1.0f - n[k] * n[k]);
+      s_dz[i * H + col] = dz * z[k] * (1.0f - z[k]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < R::RPT; ++k) {
+      const int i = row0 + k * R::RS;
+      float drs = 0.0f;
+#pragma unroll 4
+      for (int j = 0; j < H; ++j) {
+        const int a = (j + col) & (H - 1);
+        drs = fmaf(s_dn[i * H + a], g.un[col * H + a], drs);
+      }
+      const float s = zero_state ? 0.0f : s_hin[i * H + col];
+      ds[k] = fmaf(drs, r[k], ds[k]);
+      s_dr[i * H + col] = drs * s * r[k] * (1.0f - r[k]);
+    }
+    __syncthreads();
+
+    float dhn[R::RPT], dm[R::RPT];
+#pragma unroll
+    for (int k = 0; k < R::RPT; ++k) {
+      const int i = row0 + k * R::RS;
+      float dxh = 0.0f, dxm = 0.0f, dsu = 0.0f;
+#pragma unroll 2
+      for (int j = 0; j < H; ++j) {
+        const int a = (j + col) & (H - 1);
+        const float dzp = s_dz[i * H + a], drp = s_dr[i * H + a], dnp = s_dn[i * H + a];
+        dxh = fmaf(dzp, g.wz[col * H + a], dxh);
+        dxh = fmaf(drp, g.wr[col * H + a], dxh);
+        dxh = fmaf(dnp, g.wn[col * H + a], dxh);
+        dxm = fmaf(dzp, g.wz[(H + col) * H + a], dxm);
+        dxm = fmaf(drp, g.wr[(H + col) * H + a], dxm);
+        dxm = fmaf(dnp, g.wn[(H + col) * H + a], dxm);
+        dsu = fmaf(dzp, g.uz[col * H + a], dsu);
+        dsu = fmaf(drp, g.ur[col * H + a], dsu);
+      }
+      dhn[k] = zero_state ? dxh : dxh + ds[k] + dsu;
+      dm[k] = dxm;
+    }
+
+    // GRU weight gradients, summed over the layers in the tile's row
+    grad_AtB<H, 2 * H>(s_hin, s_m, s_dz, gru_part + G::WZ, acc_gru, tid);
+    grad_AtB<H, 2 * H>(s_hin, s_m, s_dr, gru_part + G::WR, acc_gru, tid);
+    grad_AtB<H, 2 * H>(s_hin, s_m, s_dn, gru_part + G::WN, acc_gru, tid);
+    grad_AtB<H, H>(zero_state ? nullptr : s_hin, nullptr, s_dz, gru_part + G::UZ, acc_gru, tid);
+    grad_AtB<H, H>(zero_state ? nullptr : s_hin, nullptr, s_dr, gru_part + G::UR, acc_gru, tid);
+    grad_AtB<H, H>(zero_state ? nullptr : s_rs, nullptr, s_dn, gru_part + G::UN, acc_gru, tid);
+    bias_sum<H>(s_dz, gru_part + G::BZ, acc_gru, tid);
+    bias_sum<H>(s_dr, gru_part + G::BR, acc_gru, tid);
+    bias_sum<H>(s_dn, gru_part + G::BN, acc_gru, tid);
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < R::RPT; ++k) s_m[(row0 + k * R::RS) * H + col] = dm[k];
+    __syncthreads();
+
+    // message backward: dhw = A_flat^T dm, then layer l's message grads
+    column_gather<H>(adj_t, s_m, s_cs, s_cr, s_cv, s_ov, n_ov, s_big, tid);
+    __syncthreads();
+    for (int e = 0; e < NE; ++e)
+      grad_AtB<H, H>(s_hin, nullptr, s_big + e * TH,
+                     part + (size_t(l) * NE + e) * H * H, false, tid);
+    if (tid < NE * H) {
+      const int e = tid / H, c = tid % H;
+      float acc = 0.0f;
+      for (int j = 0; j < TILE; ++j) acc += s_big[(e * TILE + j) * H + c];
+      part[G::msg_b0(n_layers) + (size_t(l) * NE + e) * H + c] = acc;
+    }
+#pragma unroll
+    for (int k = 0; k < R::RPT; ++k) {
+      const int i = row0 + k * R::RS;
+      float acc = dhn[k];
+      for (int e = 0; e < NE; ++e) {
+        const float* dhw_e = s_big + (e * TILE + i) * H;
+        const float* we = s_wmsg + e * H * H;
+#pragma unroll 4
+        for (int j = 0; j < H; ++j) {
+          const int a = (j + col) & (H - 1);
+          acc = fmaf(dhw_e[a], we[col * H + a], acc);
+        }
+      }
+      s_dh[i * H + col] = acc;
+    }
+    __syncthreads();
+  }
+
+  // 4. dh0 (+ the readout's direct h0 term, written above by this thread)
+#pragma unroll
+  for (int k = 0; k < R::RPT; ++k) {
+    const int i = row0 + k * R::RS;
+    const float v = s_dh[i * H + col];
+    dh0_t[i * H + col] = READOUT ? v + dh0_t[i * H + col] : v;
+  }
+}
+
+// grads[j] = sum over tiles p (in order) of partial[p, j]
+__global__ void sum_tiles_kernel(const float* __restrict__ partial,
+                                 float* __restrict__ grads, int n_tiles,
+                                 int n_grad) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n_grad) return;
+  float acc = 0.0f;
+  for (int p = 0; p < n_tiles; ++p) acc += partial[size_t(p) * n_grad + j];
+  grads[j] = acc;
+}
+
+template <int H, bool READOUT>
+cudaError_t launch_bwd(const float* h0, const float* adj, const Weights& w,
+                       const Readout& ro, const float* dout, float* dh0,
+                       float* partial, float* grads, float* hs, int n_tiles,
+                       int n_layers, cudaStream_t stream) {
+  constexpr size_t bytes = BwdPlan<H>::BYTES;
+  static_assert(bytes <= 232448, "shared-memory plan exceeds 227 KB");
+  static bool opted_in[MAX_DEVICES] = {};
+  cudaError_t err = opt_in_smem(fused_ggnn_bwd_kernel<H, READOUT>, bytes, opted_in);
+  if (err != cudaSuccess) return err;
+  const int n_grad = int(GradLayout<H>::words(n_layers, READOUT));
+  fused_ggnn_bwd_kernel<H, READOUT><<<n_tiles, THREADS, bytes, stream>>>(
+      h0, adj, w, ro, dout, dh0, partial, hs, n_layers, n_grad);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  constexpr int SUM_THREADS = 256;
+  sum_tiles_kernel<<<(n_grad + SUM_THREADS - 1) / SUM_THREADS, SUM_THREADS, 0,
+                     stream>>>(partial, grads, n_tiles, n_grad);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// K1b: dh0 (P, T, H) and the summed weight gradients (grads, in the
+// GradLayout order) of K1 for the upstream gradient dh_final.  partial
+// (P, n_grad) and hs (P, L, T, H) are scratch.  Returns a cudaError_t.
+extern "C" int fused_ggnn_bwd(
+    const float* h0, const float* adj, const float* msg_w, const float* msg_b,
+    const float* wz, const float* uz, const float* bz,
+    const float* wr, const float* ur, const float* br,
+    const float* wn, const float* un, const float* bn,
+    const float* dh_final, float* dh0, float* partial, float* grads, float* hs,
+    int n_tiles, int n_layers, int hidden, void* stream) {
+  if (n_tiles <= 0 || n_layers <= 0) return int(cudaErrorInvalidValue);
+  const Weights w = make_weights(msg_w, msg_b, wz, uz, bz, wr, ur, br, wn, un, bn);
+  const Readout ro = {};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hidden) {
+    case 16: return int(launch_bwd<16, false>(h0, adj, w, ro, dh_final, dh0, partial, grads, hs, n_tiles, n_layers, st));
+    case 32: return int(launch_bwd<32, false>(h0, adj, w, ro, dh_final, dh0, partial, grads, hs, n_tiles, n_layers, st));
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// K2b: as K1b for K2's upstream gradient dg (P, T, D), with the readout's
+// weight gradients after the GRU's in grads.  Returns a cudaError_t.
+extern "C" int fused_ggnn_readout_bwd(
+    const float* h0, const float* adj, const float* msg_w, const float* msg_b,
+    const float* wz, const float* uz, const float* bz,
+    const float* wr, const float* ur, const float* br,
+    const float* wn, const float* un, const float* bn,
+    const float* mask, const float* wi, const float* bi,
+    const float* wj, const float* bj,
+    const float* dg, float* dh0, float* partial, float* grads, float* hs,
+    int n_tiles, int n_layers, int hidden, int out_dim, void* stream) {
+  if (n_tiles <= 0 || n_layers <= 0) return int(cudaErrorInvalidValue);
+  if (out_dim != hidden) return int(cudaErrorInvalidValue);
+  const Weights w = make_weights(msg_w, msg_b, wz, uz, bz, wr, ur, br, wn, un, bn);
+  const Readout ro = {mask, wi, bi, wj, bj};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hidden) {
+    case 16: return int(launch_bwd<16, true>(h0, adj, w, ro, dg, dh0, partial, grads, hs, n_tiles, n_layers, st));
+    case 32: return int(launch_bwd<32, true>(h0, adj, w, ro, dg, dh0, partial, grads, hs, n_tiles, n_layers, st));
+    default: return int(cudaErrorInvalidValue);
+  }
+}

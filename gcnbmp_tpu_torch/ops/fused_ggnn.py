@@ -1,9 +1,12 @@
-"""Fused multi-layer GGNN forward over packed 128-atom tiles.
+"""Fused multi-layer GGNN over packed 128-atom tiles, forward and backward.
 
-Port of the forward kernels of gcnbmp_tpu/ops/fused_ggnn.py:
+Port of the kernels of gcnbmp_tpu/ops/fused_ggnn.py:
 
-- ``fused_ggnn``          (K1) <- ``fused_ggnn`` / ``_fwd_kernel``
-- ``fused_ggnn_readout``  (K2) <- ``fused_ggnn_readout`` / ``_fwd_readout_kernel``
+- ``fused_ggnn``              (K1)  <- ``fused_ggnn`` / ``_fwd_kernel``
+- ``fused_ggnn_readout``      (K2)  <- ``fused_ggnn_readout`` / ``_fwd_readout_kernel``
+- ``fused_ggnn_bwd``          (K1b) <- ``_fused_ggnn_bwd`` / ``_bwd_kernel``
+- ``fused_ggnn_readout_bwd``  (K2b) <- ``_fused_ggnn_readout_bwd`` /
+  ``_bwd_readout_kernel``
 
 Per layer (semantics of the packed GGNN stack):
 
@@ -15,38 +18,53 @@ Per layer (semantics of the packed GGNN stack):
     h'   = z*n + (1-z)*s                      s = 0 at layer 0, else h
 
 K2 ends with the gated readout ``sigmoid([h, h0] Wi + bi) * (h Wj + bj) *
-mask``.  Each wrapper takes its plain PyTorch version (``*_reference``)
-for a tensor on the CPU; for a CUDA tensor it launches the hand-written
-Hopper kernel (``csrc/fused_ggnn.cu``) or raises.  Each wrapper counts
-its kernel launches in its ``launches`` attribute.
+mask``.  ``fused_ggnn`` and ``fused_ggnn_readout`` are differentiable:
+they run through ``FusedGGNNFunction`` and ``FusedGGNNReadoutFunction``
+(the ports of the custom VJPs ``fused_ggnn.defvjp`` and
+``fused_ggnn_readout.defvjp``), whose backward recomputes the layers from
+the saved inputs, as the TPU kernels do; like the JAX VJPs, they are
+differentiable once.
 
-The kernels run the forward only (serving); the backward kernels come
-with the training step.  The JAX package's TPU A/B knobs are not ported:
-AGG_KBATCH, MERGE_GATES, MATMUL_BF16, TWOPASS and GCNBMP_FUSED_BWD_K
-select among equivalent forms or precisions of the same math on the TPU.
-Adjacency is taken in f32, the serving default.
+Each wrapper takes its plain PyTorch version (``*_reference``) for a
+tensor on the CPU; for a CUDA tensor it launches the hand-written Hopper
+kernel (``csrc/fused_ggnn.cu``, ``csrc/fused_ggnn_bwd.cu``) or raises.
+Each counts its kernel launches in the ``launches`` attribute of
+``fused_ggnn``, ``fused_ggnn_readout``, ``fused_ggnn_bwd`` and
+``fused_ggnn_readout_bwd``; the autograd functions count the calls of
+their backward in ``backward_calls``.
+
+The JAX package's TPU A/B knobs are not ported: AGG_KBATCH, MERGE_GATES,
+MATMUL_BF16, TWOPASS and GCNBMP_FUSED_BWD_K select among equivalent forms
+or precisions of the same math on the TPU.  Adjacency is taken in f32.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 TILE = 128
 NUM_EDGE_TYPE = 4
-# widths the kernels' shared-memory plan is instantiated for; the
+# widths the kernels' shared-memory plans are instantiated for; the
 # readout width D equals H
 KERNEL_HIDDEN = (16, 32)
 GRU_KEYS = ("wz", "uz", "bz", "wr", "ur", "br", "wn", "un", "bn")
 
 
+def gru_shape(key: str, hidden: int) -> Tuple[int, ...]:
+    return ((hidden,) if key.startswith("b") else
+            (2 * hidden, hidden) if key.startswith("w") else
+            (hidden, hidden))
+
+
 # ---------------------------------------------------------------------------
-# plain versions
+# plain versions: forward
 
 
-def _layer_reference(h, state, adj, wmsg, bmsg, gru):
-    p, t, hidden = h.shape
+def _layer_parts(h, state, adj, wmsg, bmsg, gru):
+    """One layer: (h', (x, z, r, n)), as the JAX ``_layer_fwd``."""
     hw = torch.cat([h @ wmsg[e] + bmsg[e] for e in range(NUM_EDGE_TYPE)],
                    dim=1)                                  # (P, 4T, H)
     m = torch.bmm(adj, hw)                                 # (P, T, H)
@@ -54,17 +72,24 @@ def _layer_reference(h, state, adj, wmsg, bmsg, gru):
     z = torch.sigmoid(x @ gru["wz"] + state @ gru["uz"] + gru["bz"])
     r = torch.sigmoid(x @ gru["wr"] + state @ gru["ur"] + gru["br"])
     n = torch.tanh(x @ gru["wn"] + (r * state) @ gru["un"] + gru["bn"])
-    return z * n + (1.0 - z) * state
+    return z * n + (1.0 - z) * state, (x, z, r, n)
+
+
+def _forward_layers(n_layers, h0, adj, msg_w, msg_b, gru):
+    """Final h and the input of every layer."""
+    h = h0
+    state = torch.zeros_like(h0)
+    inputs = []
+    for l in range(n_layers):
+        inputs.append(h)
+        h, _ = _layer_parts(h, state, adj, msg_w[l], msg_b[l], gru)
+        state = h
+    return h, inputs
 
 
 def fused_ggnn_reference(n_layers: int, h0, adj, msg_w, msg_b, gru):
     """Plain PyTorch K1 (same math as the JAX ``_layer_fwd``)."""
-    h = h0
-    state = torch.zeros_like(h0)
-    for l in range(n_layers):
-        h = _layer_reference(h, state, adj, msg_w[l], msg_b[l], gru)
-        state = h
-    return h
+    return _forward_layers(n_layers, h0, adj, msg_w, msg_b, gru)[0]
 
 
 def readout_reference(h, h0, node_mask, ro_wi, ro_bi, ro_wj, ro_bj):
@@ -77,6 +102,100 @@ def fused_ggnn_readout_reference(n_layers: int, h0, adj, msg_w, msg_b, gru,
     """Plain PyTorch K2 (same math as the JAX ``_readout_fwd``)."""
     h = fused_ggnn_reference(n_layers, h0, adj, msg_w, msg_b, gru)
     return readout_reference(h, h0, node_mask, ro_wi, ro_bi, ro_wj, ro_bj)
+
+
+# ---------------------------------------------------------------------------
+# plain versions: backward, in closed form
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1, t.shape[-1])
+
+
+def _reverse_layers_reference(n_layers, dh, inputs, adj, msg_w, msg_b, gru):
+    """Port of ``_reverse_layers`` (fused_ggnn.py:266-370, the AGG_FLAT
+    message backward): dh at the top of the stack in; dh0 and the weight
+    gradients out.  ``inputs[l]`` is layer l's input h."""
+    hidden = dh.shape[-1]
+    dmsg_w = torch.zeros_like(msg_w)
+    dmsg_b = torch.zeros_like(msg_b)
+    dgru = {k: torch.zeros_like(gru[k]) for k in GRU_KEYS}
+    adj_t = adj.transpose(1, 2)                            # (P, 4T, T)
+    for l in range(n_layers - 1, -1, -1):
+        h_in = inputs[l]
+        state = torch.zeros_like(h_in) if l == 0 else h_in
+        _, (x, z, r, n) = _layer_parts(h_in, state, adj, msg_w[l], msg_b[l],
+                                       gru)
+        dz = dh * (n - state)
+        dn = dh * z
+        dstate = dh * (1.0 - z)
+        dn_pre = dn * (1.0 - n * n)
+        dz_pre = dz * z * (1.0 - z)
+        drs = dn_pre @ gru["un"].T
+        dr_pre = drs * state * r * (1.0 - r)
+        dstate = dstate + drs * r
+        dx = (dz_pre @ gru["wz"].T + dr_pre @ gru["wr"].T
+              + dn_pre @ gru["wn"].T)
+        dh_in, dm = dx[..., :hidden], dx[..., hidden:]
+        dstate = dstate + dz_pre @ gru["uz"].T + dr_pre @ gru["ur"].T
+        for key, left, right in (("wz", x, dz_pre), ("wr", x, dr_pre),
+                                 ("wn", x, dn_pre), ("uz", state, dz_pre),
+                                 ("ur", state, dr_pre),
+                                 ("un", r * state, dn_pre)):
+            dgru[key] += _rows(left).T @ _rows(right)
+        for key, d in (("bz", dz_pre), ("br", dr_pre), ("bn", dn_pre)):
+            dgru[key] += _rows(d).sum(0)
+        dhw = torch.bmm(adj_t, dm)                         # (P, 4T, H)
+        for e in range(NUM_EDGE_TYPE):
+            dhw_e = dhw[:, e * TILE:(e + 1) * TILE]
+            dmsg_w[l, e] = _rows(h_in).T @ _rows(dhw_e)
+            dmsg_b[l, e] = _rows(dhw_e).sum(0)
+            dh_in = dh_in + dhw_e @ msg_w[l, e].T
+        # layer l's input is also its state for l >= 1; layer 0's is zero
+        dh = dh_in + dstate if l > 0 else dh_in
+    return dh, dmsg_w, dmsg_b, dgru
+
+
+def fused_ggnn_bwd_reference(n_layers: int, h0, adj, msg_w, msg_b, gru,
+                             dh_final):
+    """Plain PyTorch K1b: (dh0, dmsg_w, dmsg_b, dgru) for the upstream
+    gradient dh_final of ``fused_ggnn``'s output (recompute as in
+    ``_bwd_kernel``, then ``_reverse_layers``)."""
+    _, inputs = _forward_layers(n_layers, h0, adj, msg_w, msg_b, gru)
+    return _reverse_layers_reference(n_layers, dh_final, inputs, adj, msg_w,
+                                     msg_b, gru)
+
+
+def readout_bwd_reference(h, h0, node_mask, ro_wi, ro_bi, ro_wj, ro_bj, dg):
+    """The gated readout's backward (``_bwd_readout_kernel``, :749-765):
+    (dh, dh0_direct, dwi, dbi, dwj, dbj)."""
+    hidden = h.shape[-1]
+    pre_cat = torch.cat([h, h0], dim=-1)
+    gate = torch.sigmoid(pre_cat @ ro_wi + ro_bi)
+    out_j = h @ ro_wj + ro_bj
+    mask = node_mask[..., None]
+    dgate = dg * out_j * mask
+    dout_j = dg * gate * mask
+    dpre_i = dgate * gate * (1.0 - gate)
+    dcat = dpre_i @ ro_wi.T                                # (P, T, 2H)
+    dh = dcat[..., :hidden] + dout_j @ ro_wj.T
+    return (dh, dcat[..., hidden:],
+            _rows(pre_cat).T @ _rows(dpre_i), _rows(dpre_i).sum(0),
+            _rows(h).T @ _rows(dout_j), _rows(dout_j).sum(0))
+
+
+def fused_ggnn_readout_bwd_reference(n_layers: int, h0, adj, msg_w, msg_b,
+                                     gru, node_mask, ro_wi, ro_bi, ro_wj,
+                                     ro_bj, dg):
+    """Plain PyTorch K2b: (dh0, dmsg_w, dmsg_b, dgru, dwi, dbi, dwj, dbj)
+    for the upstream gradient dg of ``fused_ggnn_readout``'s output.  dh0
+    includes the readout's direct h0 term (fused_ggnn.py:765, :773)."""
+    h, inputs = _forward_layers(n_layers, h0, adj, msg_w, msg_b, gru)
+    dh, dh0_direct, dwi, dbi, dwj, dbj = readout_bwd_reference(
+        h, h0, node_mask, ro_wi, ro_bi, ro_wj, ro_bj, dg)
+    dh0, dmsg_w, dmsg_b, dgru = _reverse_layers_reference(
+        n_layers, dh, inputs, adj, msg_w, msg_b, gru)
+    return dh0 + dh0_direct, dmsg_w, dmsg_b, dgru, dwi, dbi, dwj, dbj
 
 
 # ---------------------------------------------------------------------------
@@ -114,11 +233,21 @@ def _check_common(n_layers, h0, adj, msg_w, msg_b, gru):
     _check("msg_w", msg_w, (n_layers, NUM_EDGE_TYPE, hidden, hidden), dev)
     _check("msg_b", msg_b, (n_layers, NUM_EDGE_TYPE, hidden), dev)
     for k in GRU_KEYS:
-        shape = ((hidden,) if k.startswith("b") else
-                 (2 * hidden, hidden) if k.startswith("w") else
-                 (hidden, hidden))
-        _check(f"gru[{k!r}]", gru[k], shape, dev)
+        _check(f"gru[{k!r}]", gru[k], gru_shape(k, hidden), dev)
     return p, hidden
+
+
+def _check_readout(p, hidden, node_mask, ro_wi, ro_bi, ro_wj, ro_bj, dev):
+    d = ro_wj.shape[-1]
+    if d != hidden:
+        raise ValueError(f"readout width {d} differs from the hidden width "
+                         f"{hidden}; the kernels are built for D = H")
+    _check("node_mask", node_mask, (p, TILE), dev)
+    _check("ro_wi", ro_wi, (2 * hidden, d), dev)
+    _check("ro_bi", ro_bi, (d,), dev)
+    _check("ro_wj", ro_wj, (hidden, d), dev)
+    _check("ro_bj", ro_bj, (d,), dev)
+    return d
 
 
 def _weight_ptrs(msg_w, msg_b, gru):
@@ -131,12 +260,12 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed with cudaError_t {err}")
 
 
-def fused_ggnn(n_layers: int, h0, adj, msg_w, msg_b, gru):
-    """K1: run n_layers GGNN layers over packed tiles.
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
 
-    h0 (P, T, H); adj (P, T, 4T) flat layout (``adj_from_coo_flat``);
-    msg_w (L, 4, H, H); msg_b (L, 4, H); gru: wz/wr/wn (2H, H),
-    uz/ur/un (H, H), bz/br/bn (H,).  Returns (P, T, H)."""
+
+def _fused_ggnn_fwd(n_layers, h0, adj, msg_w, msg_b, gru):
+    """K1 on the tensors' device (plain version on the CPU)."""
     if h0.device.type == "cpu":
         return fused_ggnn_reference(n_layers, h0, adj, msg_w, msg_b, gru)
     from gcnbmp_tpu_torch.ops.build import load_library
@@ -147,11 +276,197 @@ def fused_ggnn(n_layers: int, h0, adj, msg_w, msg_b, gru):
     with torch.cuda.device(h0.device):  # launch in the tensors' context
         err = lib.fused_ggnn_fwd(
             h0.data_ptr(), adj.data_ptr(), *_weight_ptrs(msg_w, msg_b, gru),
-            out.data_ptr(), p, n_layers, hidden,
-            torch.cuda.current_stream().cuda_stream)
+            out.data_ptr(), p, n_layers, hidden, _stream())
     _raise_on(err, "fused_ggnn_fwd")
     fused_ggnn.launches += 1
     return out
+
+
+def _fused_ggnn_readout_fwd(n_layers, h0, adj, msg_w, msg_b, gru, node_mask,
+                            ro_wi, ro_bi, ro_wj, ro_bj):
+    """K2 on the tensors' device (plain version on the CPU)."""
+    if h0.device.type == "cpu":
+        return fused_ggnn_readout_reference(
+            n_layers, h0, adj, msg_w, msg_b, gru, node_mask,
+            ro_wi, ro_bi, ro_wj, ro_bj)
+    from gcnbmp_tpu_torch.ops.build import load_library
+
+    p, hidden = _check_common(n_layers, h0, adj, msg_w, msg_b, gru)
+    dev = h0.device
+    d = _check_readout(p, hidden, node_mask, ro_wi, ro_bi, ro_wj, ro_bj, dev)
+    lib = load_library()
+    out = torch.empty((p, TILE, d), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):  # launch in the tensors' context
+        err = lib.fused_ggnn_readout_fwd(
+            h0.data_ptr(), adj.data_ptr(), *_weight_ptrs(msg_w, msg_b, gru),
+            node_mask.data_ptr(), ro_wi.data_ptr(), ro_bi.data_ptr(),
+            ro_wj.data_ptr(), ro_bj.data_ptr(),
+            out.data_ptr(), p, n_layers, hidden, d, _stream())
+    _raise_on(err, "fused_ggnn_readout_fwd")
+    fused_ggnn_readout.launches += 1
+    return out
+
+
+def _grad_shapes(n_layers: int, hidden: int,
+                 d: Optional[int] = None) -> List[Tuple[int, ...]]:
+    """The order of the backward kernels' summed gradient row
+    (``GradLayout`` in csrc/fused_ggnn_bwd.cu)."""
+    shapes = [(n_layers, NUM_EDGE_TYPE, hidden, hidden),
+              (n_layers, NUM_EDGE_TYPE, hidden)]
+    shapes += [gru_shape(k, hidden) for k in GRU_KEYS]
+    if d is not None:
+        shapes += [(2 * hidden, d), (d,), (hidden, d), (d,)]
+    return shapes
+
+
+def _bwd_buffers(p, n_layers, hidden, d, dev):
+    shapes = _grad_shapes(n_layers, hidden, d)
+    sizes = [int(torch.Size(s).numel()) for s in shapes]
+    n_grad = sum(sizes)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dh0 = torch.empty((p, TILE, hidden), **f32)
+    partial = torch.empty((p, n_grad), **f32)
+    grads = torch.empty((n_grad,), **f32)
+    hs = torch.empty((p, n_layers, TILE, hidden), **f32)
+    return dh0, partial, grads, hs, shapes, sizes
+
+
+def _split_grads(grads, shapes, sizes):
+    parts = [g.view(s) for g, s in zip(grads.split(sizes), shapes)]
+    dgru = dict(zip(GRU_KEYS, parts[2:2 + len(GRU_KEYS)]))
+    return parts[0], parts[1], dgru, parts[2 + len(GRU_KEYS):]
+
+
+def fused_ggnn_bwd(n_layers: int, h0, adj, msg_w, msg_b, gru, dh_final):
+    """K1b: (dh0, dmsg_w, dmsg_b, dgru) for the upstream gradient dh_final
+    (P, T, H) of ``fused_ggnn``'s output."""
+    if h0.device.type == "cpu":
+        return fused_ggnn_bwd_reference(n_layers, h0, adj, msg_w, msg_b, gru,
+                                        dh_final)
+    from gcnbmp_tpu_torch.ops.build import load_library
+
+    p, hidden = _check_common(n_layers, h0, adj, msg_w, msg_b, gru)
+    dev = h0.device
+    _check("dh_final", dh_final, (p, TILE, hidden), dev)
+    lib = load_library()
+    dh0, partial, grads, hs, shapes, sizes = _bwd_buffers(
+        p, n_layers, hidden, None, dev)
+    with torch.cuda.device(dev):
+        err = lib.fused_ggnn_bwd(
+            h0.data_ptr(), adj.data_ptr(), *_weight_ptrs(msg_w, msg_b, gru),
+            dh_final.data_ptr(), dh0.data_ptr(), partial.data_ptr(),
+            grads.data_ptr(), hs.data_ptr(), p, n_layers, hidden, _stream())
+    _raise_on(err, "fused_ggnn_bwd")
+    fused_ggnn_bwd.launches += 1
+    dmsg_w, dmsg_b, dgru, _ = _split_grads(grads, shapes, sizes)
+    return dh0, dmsg_w, dmsg_b, dgru
+
+
+fused_ggnn_bwd.launches = 0
+
+
+def fused_ggnn_readout_bwd(n_layers: int, h0, adj, msg_w, msg_b, gru,
+                           node_mask, ro_wi, ro_bi, ro_wj, ro_bj, dg):
+    """K2b: (dh0, dmsg_w, dmsg_b, dgru, dwi, dbi, dwj, dbj) for the
+    upstream gradient dg (P, T, D) of ``fused_ggnn_readout``'s output."""
+    if h0.device.type == "cpu":
+        return fused_ggnn_readout_bwd_reference(
+            n_layers, h0, adj, msg_w, msg_b, gru, node_mask,
+            ro_wi, ro_bi, ro_wj, ro_bj, dg)
+    from gcnbmp_tpu_torch.ops.build import load_library
+
+    p, hidden = _check_common(n_layers, h0, adj, msg_w, msg_b, gru)
+    dev = h0.device
+    d = _check_readout(p, hidden, node_mask, ro_wi, ro_bi, ro_wj, ro_bj, dev)
+    _check("dg", dg, (p, TILE, d), dev)
+    lib = load_library()
+    dh0, partial, grads, hs, shapes, sizes = _bwd_buffers(
+        p, n_layers, hidden, d, dev)
+    with torch.cuda.device(dev):
+        err = lib.fused_ggnn_readout_bwd(
+            h0.data_ptr(), adj.data_ptr(), *_weight_ptrs(msg_w, msg_b, gru),
+            node_mask.data_ptr(), ro_wi.data_ptr(), ro_bi.data_ptr(),
+            ro_wj.data_ptr(), ro_bj.data_ptr(),
+            dg.data_ptr(), dh0.data_ptr(), partial.data_ptr(),
+            grads.data_ptr(), hs.data_ptr(), p, n_layers, hidden, d, _stream())
+    _raise_on(err, "fused_ggnn_readout_bwd")
+    fused_ggnn_readout_bwd.launches += 1
+    dmsg_w, dmsg_b, dgru, (dwi, dbi, dwj, dbj) = _split_grads(
+        grads, shapes, sizes)
+    return dh0, dmsg_w, dmsg_b, dgru, dwi, dbi, dwj, dbj
+
+
+fused_ggnn_readout_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# autograd
+
+
+class FusedGGNNFunction(torch.autograd.Function):
+    """K1 forward, K1b backward: the port of ``fused_ggnn.defvjp``
+    (fused_ggnn.py:669).  Saves the inputs, not activations."""
+
+    backward_calls = 0
+
+    @staticmethod
+    def forward(ctx, n_layers, h0, adj, msg_w, msg_b, *gru_values):
+        ctx.n_layers = n_layers
+        ctx.save_for_backward(h0, adj, msg_w, msg_b, *gru_values)
+        return _fused_ggnn_fwd(n_layers, h0, adj, msg_w, msg_b,
+                               dict(zip(GRU_KEYS, gru_values)))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dh):
+        FusedGGNNFunction.backward_calls += 1
+        h0, adj, msg_w, msg_b, *gru_values = ctx.saved_tensors
+        dh0, dmsg_w, dmsg_b, dgru = fused_ggnn_bwd(
+            ctx.n_layers, h0, adj, msg_w, msg_b,
+            dict(zip(GRU_KEYS, gru_values)), dh.contiguous())
+        return (None, dh0, None, dmsg_w, dmsg_b,
+                *(dgru[k] for k in GRU_KEYS))
+
+
+class FusedGGNNReadoutFunction(torch.autograd.Function):
+    """K2 forward, K2b backward: the port of ``fused_ggnn_readout.defvjp``
+    (fused_ggnn.py:896).  Saves the inputs, not activations."""
+
+    backward_calls = 0
+
+    @staticmethod
+    def forward(ctx, n_layers, h0, adj, msg_w, msg_b, node_mask, ro_wi, ro_bi,
+                ro_wj, ro_bj, *gru_values):
+        ctx.n_layers = n_layers
+        ctx.save_for_backward(h0, adj, msg_w, msg_b, node_mask, ro_wi, ro_bi,
+                              ro_wj, ro_bj, *gru_values)
+        return _fused_ggnn_readout_fwd(
+            n_layers, h0, adj, msg_w, msg_b, dict(zip(GRU_KEYS, gru_values)),
+            node_mask, ro_wi, ro_bi, ro_wj, ro_bj)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dg):
+        FusedGGNNReadoutFunction.backward_calls += 1
+        (h0, adj, msg_w, msg_b, node_mask, ro_wi, ro_bi, ro_wj, ro_bj,
+         *gru_values) = ctx.saved_tensors
+        dh0, dmsg_w, dmsg_b, dgru, dwi, dbi, dwj, dbj = fused_ggnn_readout_bwd(
+            ctx.n_layers, h0, adj, msg_w, msg_b,
+            dict(zip(GRU_KEYS, gru_values)), node_mask,
+            ro_wi, ro_bi, ro_wj, ro_bj, dg.contiguous())
+        return (None, dh0, None, dmsg_w, dmsg_b, None, dwi, dbi, dwj, dbj,
+                *(dgru[k] for k in GRU_KEYS))
+
+
+def fused_ggnn(n_layers: int, h0, adj, msg_w, msg_b, gru):
+    """K1: run n_layers GGNN layers over packed tiles; differentiable in
+    h0 and the weights (K1b).
+
+    h0 (P, T, H); adj (P, T, 4T) flat layout (``adj_from_coo_flat``);
+    msg_w (L, 4, H, H); msg_b (L, 4, H); gru: wz/wr/wn (2H, H),
+    uz/ur/un (H, H), bz/br/bn (H,).  Returns (P, T, H)."""
+    return FusedGGNNFunction.apply(n_layers, h0, adj, msg_w, msg_b,
+                                   *(gru[k] for k in GRU_KEYS))
 
 
 fused_ggnn.launches = 0
@@ -160,37 +475,12 @@ fused_ggnn.launches = 0
 def fused_ggnn_readout(n_layers: int, h0, adj, msg_w, msg_b, gru,
                        node_mask, ro_wi, ro_bi, ro_wj, ro_bj):
     """K2: ``fused_ggnn`` with the gated readout in the same kernel;
-    returns g_nodes (P, T, D).  node_mask (P, T) f32; ro_wi (2H, D),
-    ro_bi (D,), ro_wj (H, D), ro_bj (D,)."""
-    if h0.device.type == "cpu":
-        return fused_ggnn_readout_reference(
-            n_layers, h0, adj, msg_w, msg_b, gru, node_mask,
-            ro_wi, ro_bi, ro_wj, ro_bj)
-    from gcnbmp_tpu_torch.ops.build import load_library
-
-    p, hidden = _check_common(n_layers, h0, adj, msg_w, msg_b, gru)
-    d = ro_wj.shape[-1]
-    if d != hidden:
-        raise ValueError(f"readout width {d} differs from the hidden width "
-                         f"{hidden}; the kernel is built for D = H")
-    dev = h0.device
-    _check("node_mask", node_mask, (p, TILE), dev)
-    _check("ro_wi", ro_wi, (2 * hidden, d), dev)
-    _check("ro_bi", ro_bi, (d,), dev)
-    _check("ro_wj", ro_wj, (hidden, d), dev)
-    _check("ro_bj", ro_bj, (d,), dev)
-    lib = load_library()
-    out = torch.empty((p, TILE, d), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):  # launch in the tensors' context
-        err = lib.fused_ggnn_readout_fwd(
-            h0.data_ptr(), adj.data_ptr(), *_weight_ptrs(msg_w, msg_b, gru),
-            node_mask.data_ptr(), ro_wi.data_ptr(), ro_bi.data_ptr(),
-            ro_wj.data_ptr(), ro_bj.data_ptr(),
-            out.data_ptr(), p, n_layers, hidden, d,
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "fused_ggnn_readout_fwd")
-    fused_ggnn_readout.launches += 1
-    return out
+    returns g_nodes (P, T, D); differentiable in h0 and the weights (K2b).
+    node_mask (P, T) f32; ro_wi (2H, D), ro_bi (D,), ro_wj (H, D),
+    ro_bj (D,)."""
+    return FusedGGNNReadoutFunction.apply(
+        n_layers, h0, adj, msg_w, msg_b, node_mask, ro_wi, ro_bi, ro_wj,
+        ro_bj, *(gru[k] for k in GRU_KEYS))
 
 
 fused_ggnn_readout.launches = 0

@@ -1,4 +1,5 @@
-"""The PyTorch port imports without jax, flax, optax or orbax."""
+"""The PyTorch port imports without jax, flax, optax or orbax, and without
+scikit-learn or matplotlib, which the machine with the card lacks."""
 
 import os
 import subprocess
@@ -22,13 +23,20 @@ MODULES = [
     "gcnbmp_tpu_torch.convert",
     "gcnbmp_tpu_torch.eval.evaluate",
     "gcnbmp_tpu_torch.cli.predict",
+    "gcnbmp_tpu_torch.train.config",
+    "gcnbmp_tpu_torch.train.schedules",
+    "gcnbmp_tpu_torch.train.metrics",
+    "gcnbmp_tpu_torch.train.loop",
+    "gcnbmp_tpu_torch.train.checkpoints",
+    "gcnbmp_tpu_torch.cli.train",
 ]
 
 BLOCKER = """
 import importlib.abc, sys
 class Blocker(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax"):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                  "sklearn", "matplotlib"):
             raise ImportError("blocked: " + name)
 for m in [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")]:
     del sys.modules[m]
@@ -39,6 +47,7 @@ sys.meta_path.insert(0, Blocker())
 def test_port_imports_with_jax_blocked():
     code = BLOCKER + "".join(f"import {m}\n" for m in MODULES) + (
         "from gcnbmp_tpu_torch.cli.predict import main\n"
+        "from gcnbmp_tpu_torch.cli.train import main\n"
         "assert not [m for m in sys.modules if m.startswith('jax')]\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
