@@ -5,31 +5,42 @@
 
 Phases, each fatal on failure:
 1. device: the card's name and power limit; TF32 off.
-2. build: compile the CUDA kernels from ``gcnbmp_tpu_torch/ops/csrc``.
-3. kernels vs plain: K1 (``fused_ggnn``), K2 (``fused_ggnn_readout``)
-   and their backward kernels K1b (``fused_ggnn_bwd``) and K2b
-   (``fused_ggnn_readout_bwd``) against their plain PyTorch versions on
-   the card, at the shapes of real packed batches (the first 2048 pairs
-   of dataset/synth546's drug test split at batch 256 and 2048; flagship
-   L=8, H=32, D=32), one H=16 case, and one batch-256 case whose
-   adjacency has rows with more than the kernels' 16 neighbour slots;
-   errors, and median CUDA-event times of both per call over runs of
-   back-to-back calls.
-4. the serving slice: ``gcnbmp_tpu_torch.cli.predict.main`` serves those
-   2048 pairs at batch 256 (eight requests) with seeded random weights;
-   the kernel launch counts must show the path went through K2 once per
-   batch, every prob must be finite and in [0, 1], and the logits must
-   match the plain layer stack of the same model on the card.
-5. the training slice: ``gcnbmp_tpu_torch.cli.train.main`` trains the
+2. build: compile the CUDA kernels from ``gcnbmp_tpu_torch/ops/csrc``,
+   one nvcc per source, all at once.
+3. kernels vs plain, at the shapes of real packed batches (the first 2048
+   pairs of dataset/synth546's drug test split at batch 256 and 2048);
+   errors, and median CUDA-event times of kernel and plain version per
+   call over runs of back-to-back calls:
+   a. GGNN: K1 (``fused_ggnn``), K2 (``fused_ggnn_readout``) and their
+      backward kernels K1b (``fused_ggnn_bwd``), K2b
+      (``fused_ggnn_readout_bwd``) at the flagship L=8, H=32, D=32, one
+      H=16 case, and one batch-256 case whose adjacency has rows with
+      more than the kernels' 16 neighbour slots;
+   b. MPNN: K5 (``fused_mpnn``), K5b (``fused_mpnn_bwd``), K4
+      (``fused_set2set``) and K4b (``fused_set2set_bwd``) at the quality
+      row's model (L=4 tied, H=32; Set2Set tables 24 and 64 atoms wide),
+      the bench model (L=8 untied, H=32), one H=16 case and one crowded,
+      asymmetric adjacency for K5/K5b.
+4. GGNN serving: ``gcnbmp_tpu_torch.cli.predict.main`` serves those 2048
+   pairs at batch 256 (eight requests) with seeded random weights; K2
+   must launch once per request, every prob must be finite and in
+   [0, 1], and the logits must match the plain layer stack on the card.
+5. GGNN training: ``gcnbmp_tpu_torch.cli.train.main`` trains the
    ``ggnn_hole_binary`` preset on the fused path for 2 epochs on the
    first 2048 pairs of the train split (4096 with swap augmentation),
    validating on the first 512 of the valid split; K2b must run once per
    step, the loss must be finite and fall, ``log.json`` must hold the
    val metrics and ``final/params.npz`` must serve through the predict
    CLI.  Then one step's gradients from the kernel path must match
-   autograd through the plain layer stack on the card, and the train
-   step is timed (host clock) and profiled (torch.profiler) at batch 32
-   and 2048.
+   autograd through the plain layer stack, and the train step is timed
+   (host clock) and profiled (torch.profiler) at batch 32 and 2048.
+6. MPNN serving: phase 4 for an ``mpnn`` config (the quality row's
+   model); K5 and K4 must launch once per request.
+7. MPNN training: phase 5 with the quality row's flags (``--method mpnn
+   --compute-path coo --compute-dtype bfloat16 --augment``, L=4 tied,
+   H=D=32, lr 2e-3) at batch 256: 32 steps, K5b and K4b once per step;
+   gradients against the plain layer stack; the step timed and profiled
+   at batch 256 and 2048.
 
 Prints the kernels' JSON line, the nvidia-smi line, and last the device
 JSON line.  Exits non-zero when CUDA is unavailable or the port's
@@ -64,6 +75,15 @@ GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
 SEED = 2018
 REPS = 20
 BACK_TO_BACK = 10
+# the MPNN quality row (docs/QUALITY.md:80-84; scripts/tpu_queue_r5e.sh:11-17)
+MPNN_CFG = dict(fp_hidden_dim=32, fp_out_dim=32, conv_layers=4,
+                weight_tying=True, method="mpnn")
+MPNN_BENCH_CFG = dict(MPNN_CFG, conv_layers=8, weight_tying=False)
+MPNN_FLAGS = ["--method", "mpnn", "--sim-method", "hole", "--conv-layers", "4",
+              "--weight-tying", "true", "--fp-hidden-dim", "32",
+              "--fp-out-dim", "32", "--lr", "2e-3", "--compute-path", "coo",
+              "--compute-dtype", "bfloat16", "--augment"]
+S2S_STEPS = 3
 
 
 def nvidia_smi_line() -> str:
@@ -124,10 +144,9 @@ def compare_grads(name, got, want, torch) -> float:
     return worst_abs
 
 
-def named_grads(result, gru_keys):
-    """(name, tensor) pairs of a backward result tuple, the GRU dict
+def named_grads(result, gru_keys, names):
+    """(name, tensor) pairs of a backward result tuple, a GRU dict
     expanded in its key order."""
-    names = ["dh0", "dmsg_w", "dmsg_b", "gru", "dwi", "dbi", "dwj", "dbj"]
     out = []
     for name, x in zip(names, result):
         if isinstance(x, dict):
@@ -135,6 +154,37 @@ def named_grads(result, gru_keys):
         else:
             out.append((name, x))
     return out
+
+
+GGNN_GRAD_NAMES = ["dh0", "dmsg_w", "dmsg_b", "gru", "dwi", "dbi", "dwj", "dbj"]
+MPNN_GRAD_NAMES = ["dh0", "dwt", "dm0t", "gru"]
+S2S_GRAD_NAMES = ["datoms", "dwx", "dwh", "db"]
+
+
+def time_pair(name, tag, kern, plain, smi, torch):
+    """Median CUDA-event ms per call of kernel and plain version, run in
+    turns."""
+    kern(), plain()  # warm up
+    k_ms, p_ms = [], []
+    for _ in range(REPS):  # alternate plain and kernel
+        p_ms.append(cuda_ms(plain, torch))
+        k_ms.append(cuda_ms(kern, torch))
+    k_med, p_med = statistics.median(k_ms), statistics.median(p_ms)
+    print(f"  time {name} [{tag}]: kernel {k_med:.4f} ms, plain "
+          f"{p_med:.4f} ms per call (median of {REPS} runs of "
+          f"{BACK_TO_BACK} back-to-back calls, CUDA events) on {smi}")
+    return k_med, p_med
+
+
+def check_pair(name, tag, kern, plain, grad_names, gru_keys, smi, torch):
+    """Hold a kernel against its plain version, then time both."""
+    if grad_names is not None:
+        err = compare_grads(f"{name} [{tag}]",
+                            named_grads(kern(), gru_keys, grad_names),
+                            named_grads(plain(), gru_keys, grad_names), torch)
+    else:
+        err = compare(f"{name} [{tag}]", kern(), plain(), torch)
+    return (err, *time_pair(name, tag, kern, plain, smi, torch))
 
 
 def profile_steps(step, n_steps):
@@ -165,9 +215,113 @@ def profile_steps(step, n_steps):
                            for e in top)
 
 
-def train_slice(dev, smi, reset_counts, read_counts):
-    """Phase 5: the train CLI on the card; returns the kernel launch
-    counts of its run."""
+def plain_logits(model, args, torch):
+    """Logits of the model's plain layer stack (dense adjacency) on a
+    wire batch."""
+    from gcnbmp_tpu_torch.models.packed import decode_compact_wire
+    from gcnbmp_tpu_torch.ops.aggregate import adj_from_coo
+
+    nodes, e_packed, n_edges, left, right = args
+    num_mols = 2 * left.shape[0]
+    atom_ids, mol_id, mask, *edges = decode_compact_wire(
+        nodes, e_packed, n_edges, num_mols)
+    adj = adj_from_coo(*edges, num_tiles=atom_ids.shape[0],
+                       tile=atom_ids.shape[1])
+    g, _ = model.encoder(atom_ids, adj, mol_id, mask, num_mols)
+    return model.head(g[left.long()], g[right.long()])
+
+
+def serve_slice(tag, config, cfg, ds, df, dev, smi, reset_counts, read_counts,
+                kernels):
+    """Serve the pairs through predict.main with seeded weights; each of
+    ``kernels`` must launch once per request; the logits must match the
+    plain layer stack.  Returns the launch counts."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from gcnbmp_tpu_torch.cli import predict
+    from gcnbmp_tpu_torch.convert import (
+        from_jax_params, init_params, save_params_npz)
+    from gcnbmp_tpu_torch.data import estimate_coo_capacities
+    from gcnbmp_tpu_torch.data.wire import (
+        compact_coo_arrays, iter_coo_eval_batches)
+    from gcnbmp_tpu_torch.models.packed import make_packed_predictor
+
+    n_batches = -(-N_PAIRS // SERVE_BATCH)
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        cfg_path = os.path.join(tmp, "config.json")
+        params_path = os.path.join(tmp, "params.npz")
+        in_path = os.path.join(tmp, "pairs.csv")
+        out_path = os.path.join(tmp, "preds.csv")
+        with open(cfg_path, "w") as f:
+            json.dump(config, f)
+        save_params_npz(params_path, init_params(cfg, SEED))
+        df.to_csv(in_path, index=False)
+        argv = ["--input", in_path, "--config", cfg_path,
+                "--params", params_path, "--out", out_path,
+                "--batch-size", str(SERVE_BATCH), "--device", "cuda"]
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = predict.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        if rc != 0:
+            raise AssertionError(f"predict.main returned {rc}")
+        print(f"{tag} slice: predict.main served {N_PAIRS} pairs in "
+              f"{n_batches} requests in {wall:.3f} s = {N_PAIRS / wall:.1f} "
+              f"pairs/s (CSV parse + pack + device, first call) on {smi}; "
+              f"launches {launches}")
+        for name in kernels:
+            if launches[name] != n_batches:
+                raise AssertionError(f"{name} launched {launches[name]} "
+                                     f"times for {n_batches} batches")
+        probs = pd.read_csv(out_path)["prob"].to_numpy()
+        if len(probs) != N_PAIRS or not np.all(np.isfinite(probs)) or \
+                probs.min() < 0 or probs.max() > 1:
+            raise AssertionError("probs not finite in [0, 1] for every pair")
+
+    # the same batches: kernel path vs the plain layer stack on the card
+    model = from_jax_params(init_params(cfg, SEED),
+                            make_packed_predictor(**cfg)).to(dev).eval()
+    tiles, cap = estimate_coo_capacities([ds], SERVE_BATCH)
+    got_l, want_l = [], []
+    serve_s = 0.0
+    with torch.no_grad():
+        for batch, valid in iter_coo_eval_batches(ds, SERVE_BATCH, tiles, cap):
+            args = [torch.as_tensor(np.asarray(a)).to(dev)
+                    for a in compact_coo_arrays(batch)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = model(*args)
+            torch.cuda.synchronize()
+            serve_s += time.perf_counter() - t0
+            got_l.append(logits[:valid])
+            want_l.append(plain_logits(model, args, torch)[:valid])
+    got, want = torch.cat(got_l), torch.cat(want_l)
+    compare(f"{tag} slice logits (kernel path vs plain layer stack)", got,
+            want, torch)
+    want_p = torch.sigmoid(want).cpu().numpy().ravel()
+    p_err = float(np.abs(probs - want_p).max())
+    print(f"{tag} slice probs vs plain: max_abs_err={p_err:.3e}")
+    if p_err > ATOL:
+        raise AssertionError("served probs disagree with the plain model")
+    print(f"{tag} slice device path: {N_PAIRS / serve_s:.1f} pairs/s "
+          f"({serve_s * 1e3 / n_batches:.3f} ms per 256-pair request, "
+          f"warm, host clock around synchronized forwards) on {smi}")
+    return launches
+
+
+def train_slice(tag, flags, batch_size, train_cfg, model_cfg, bwd_kernels,
+                fwd_kernels, time_batches, dev, smi, reset_counts,
+                read_counts):
+    """The train CLI on the card with ``flags`` at ``batch_size`` for
+    TRAIN_EPOCHS epochs; each of ``bwd_kernels`` must launch once per
+    step (``fwd_kernels`` at least once).  Then one step's gradients vs
+    the plain layer stack, and the step's time and profile at each of
+    ``time_batches`` (batch size, steps).  Returns the launch counts."""
     import numpy as np
     import pandas as pd
     import torch
@@ -178,25 +332,21 @@ def train_slice(dev, smi, reset_counts, read_counts):
     from gcnbmp_tpu_torch.data import CSVPairParser, estimate_coo_capacities
     from gcnbmp_tpu_torch.data.wire import (
         compact_coo_arrays, iter_coo_eval_batches, packed_coo_batch_iterator)
-    from gcnbmp_tpu_torch.models.packed import (
-        decode_compact_wire, make_packed_predictor)
-    from gcnbmp_tpu_torch.ops.aggregate import adj_from_coo
+    from gcnbmp_tpu_torch.models.packed import make_packed_predictor
     from gcnbmp_tpu_torch.train import loop as train_loop
-    from gcnbmp_tpu_torch.train.config import PRESETS
 
-    preset = PRESETS["ggnn_hole_binary"]
     train_df = pd.read_csv(TRAIN_CSV).head(N_PAIRS)
     val_df = pd.read_csv(VALID_CSV).head(N_VAL)
     train_ds = CSVPairParser().parse(train_df).dataset
-    steps_per_epoch = 2 * len(train_ds) // preset.batch_size  # swap-augmented
+    steps_per_epoch = 2 * len(train_ds) // batch_size  # swap-augmented
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         train_path = os.path.join(tmp, "train.csv")
         val_path = os.path.join(tmp, "val.csv")
         out_dir = os.path.join(tmp, "run")
         train_df.to_csv(train_path, index=False)
         val_df.to_csv(val_path, index=False)
-        argv = ["--train", train_path, "--val", val_path,
-                "--preset", "ggnn_hole_binary", "--compute-path", "fused",
+        argv = ["--train", train_path, "--val", val_path, *flags,
+                "--batch-size", str(batch_size),
                 "--device", "cuda", "--epochs", str(TRAIN_EPOCHS),
                 "--seed", str(SEED), "--out", out_dir]
         # record each step's loss (a device tensor) as the trainer takes it
@@ -222,28 +372,30 @@ def train_slice(dev, smi, reset_counts, read_counts):
         if rc != 0:
             raise AssertionError(f"train.main returned {rc}")
         n_steps = len(step_losses)
-        print(f"train slice: train.main ran {n_steps} steps of batch "
-              f"{preset.batch_size} over {TRAIN_EPOCHS} epochs in {wall:.3f} s "
+        print(f"{tag} train slice: train.main ran {n_steps} steps of batch "
+              f"{batch_size} over {TRAIN_EPOCHS} epochs in {wall:.3f} s "
               f"(CSV parse, pack, steps, per-epoch train+val evaluation, "
               f"checkpoints) on {smi}; launches {launches}")
         if n_steps != TRAIN_EPOCHS * steps_per_epoch:
             raise AssertionError(f"{n_steps} steps, expected "
                                  f"{TRAIN_EPOCHS * steps_per_epoch}")
-        if launches["fused_ggnn_readout_bwd"] != n_steps:
-            raise AssertionError(
-                f"K2b launched {launches['fused_ggnn_readout_bwd']} times for "
-                f"{n_steps} steps")
-        if launches["fused_ggnn_readout"] < n_steps:
-            raise AssertionError("K2 launched fewer times than steps")
+        for name in bwd_kernels:
+            if launches[name] != n_steps:
+                raise AssertionError(f"{name} launched {launches[name]} "
+                                     f"times for {n_steps} steps")
+        for name in fwd_kernels:
+            if launches[name] < n_steps:
+                raise AssertionError(f"{name} launched fewer times than steps")
         losses = torch.stack(step_losses).cpu().numpy()
-        first, last = float(losses[:10].mean()), float(losses[-10:].mean())
-        print(f"train slice: step loss mean first 10 {first:.5f}, last 10 "
-              f"{last:.5f}")
+        k = min(10, n_steps // 3)
+        first, last = float(losses[:k].mean()), float(losses[-k:].mean())
+        print(f"{tag} train slice: step loss mean first {k} {first:.5f}, "
+              f"last {k} {last:.5f}")
         if not np.all(np.isfinite(losses)) or not last < first:
             raise AssertionError("training loss not finite or not falling")
         with open(os.path.join(out_dir, "log.json")) as f:
             log = json.load(f)
-        print(f"train slice: last log entry {json.dumps(log[-1])}")
+        print(f"{tag} train slice: last log entry {json.dumps(log[-1])}")
         if len(log) != TRAIN_EPOCHS or not all(
                 np.isfinite(e.get("val/roc_auc", np.nan))
                 and np.isfinite(e["val/loss"]) for e in log):
@@ -257,15 +409,13 @@ def train_slice(dev, smi, reset_counts, read_counts):
         if rc != 0 or len(probs) != N_VAL or not np.all(np.isfinite(probs)) \
                 or probs.min() < 0 or probs.max() > 1:
             raise AssertionError("final/params.npz did not serve")
-        print(f"train slice: final/params.npz served {len(probs)} val pairs "
-              f"through predict.main")
+        print(f"{tag} train slice: final/params.npz served {len(probs)} val "
+              f"pairs through predict.main")
 
     # one step's gradients: kernel path vs autograd through the plain
     # layer stack, batch 256 of the train split
-    cfg = dict(fp_hidden_dim=H, fp_out_dim=D, conv_layers=L,
-               weight_tying=False)
-    model = from_jax_params(init_params(cfg, SEED),
-                            make_packed_predictor(**cfg)).to(dev)
+    model = from_jax_params(init_params(model_cfg, SEED),
+                            make_packed_predictor(**model_cfg)).to(dev)
     tiles, cap = estimate_coo_capacities([train_ds], SERVE_BATCH)
     batch, _ = next(iter_coo_eval_batches(train_ds, SERVE_BATCH, tiles, cap))
     args = [torch.as_tensor(np.asarray(a)).to(dev)
@@ -274,27 +424,21 @@ def train_slice(dev, smi, reset_counts, read_counts):
     params = list(model.parameters())
     loss_k = train_loop.sigmoid_cross_entropy(model(*args), labels)
     grads_k = torch.autograd.grad(loss_k, params)
-    nodes, e_packed, n_edges, left, right = args
-    num_mols = 2 * left.shape[0]
-    atom_ids, mol_id, mask, *edges = decode_compact_wire(
-        nodes, e_packed, n_edges, num_mols)
-    adj = adj_from_coo(*edges, num_tiles=atom_ids.shape[0],
-                       tile=atom_ids.shape[1])
-    g, _ = model.encoder(atom_ids, adj, mol_id, mask, num_mols)
-    loss_p = train_loop.sigmoid_cross_entropy(
-        model.head(g[left.long()], g[right.long()]), labels)
+    loss_p = train_loop.sigmoid_cross_entropy(plain_logits(model, args, torch),
+                                              labels)
     grads_p = torch.autograd.grad(loss_p, params)
     lk, lp = float(loss_k.detach()), float(loss_p.detach())
-    print(f"train slice: batch {SERVE_BATCH} (P={tiles}) loss kernel path "
-          f"{lk:.7f}, plain layer stack {lp:.7f}")
+    print(f"{tag} train slice: batch {SERVE_BATCH} (P={tiles}) loss kernel "
+          f"path {lk:.7f}, plain layer stack {lp:.7f}")
     if abs(lk - lp) > ATOL:
         raise AssertionError("kernel-path loss disagrees with the plain stack")
     names = [n for n, _ in model.named_parameters()]
-    compare_grads("train slice gradients (kernel path vs plain layer stack)",
-                  list(zip(names, grads_k)), list(zip(names, grads_p)), torch)
+    compare_grads(f"{tag} train slice gradients (kernel path vs plain layer "
+                  f"stack)", list(zip(names, grads_k)),
+                  list(zip(names, grads_p)), torch)
 
     # the train step's time, on batches staged on the card beforehand
-    for bs, n_steps in ((preset.batch_size, 50), (N_PAIRS, 10)):
+    for bs, n_steps in time_batches:
         tiles, cap = estimate_coo_capacities([train_ds], bs)
         rng = np.random.default_rng(SEED)
         staged = []
@@ -304,9 +448,10 @@ def train_slice(dev, smi, reset_counts, read_counts):
                            torch.as_tensor(b.labels).to(dev)))
             if len(staged) == 8:
                 break
-        model = from_jax_params(init_params(cfg, SEED),
-                                make_packed_predictor(**cfg)).to(dev)
-        opt, _ = train_loop.build_optimizer(preset, 1000, list(model.parameters()))
+        model = from_jax_params(init_params(model_cfg, SEED),
+                                make_packed_predictor(**model_cfg)).to(dev)
+        opt, _ = train_loop.build_optimizer(train_cfg, 1000,
+                                            list(model.parameters()))
         for i in range(3):  # warm up
             train_loop.train_step(model, opt, *staged[i % len(staged)])
         torch.cuda.synchronize()
@@ -318,12 +463,28 @@ def train_slice(dev, smi, reset_counts, read_counts):
         busy, top = profile_steps(
             lambda i: train_loop.train_step(model, opt, *staged[i % len(staged)]),
             n_steps)
-        print(f"train step: batch={bs} P={tiles}: {step_ms:.3f} ms per step, "
-              f"{bs * 1e3 / step_ms:.1f} pairs/s (host clock around {n_steps} "
-              f"back-to-back steps on staged batches) on {smi}")
+        print(f"{tag} train step: batch={bs} P={tiles}: {step_ms:.3f} ms per "
+              f"step, {bs * 1e3 / step_ms:.1f} pairs/s (host clock around "
+              f"{n_steps} back-to-back steps on staged batches) on {smi}")
         print(f"  where it goes (torch.profiler over {n_steps} steps): {busy}; "
               f"top kernels, device ms per step: {top}")
     return launches
+
+
+def crowd_rows(adj, torch):
+    """``adj`` with ~5% of the columns of every other row set to 1: rows
+    with more nonzeros than the kernels' NBR_CAP=16 neighbour slots (which
+    they rescan densely at every layer), and an asymmetric adjacency."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    extra = torch.as_tensor(rng.random(tuple(adj.shape)) < 0.05).to(adj.device)
+    extra[:, 1::2, :] = False
+    adj = torch.where(extra, torch.ones_like(adj), adj).contiguous()
+    crowded = int(((adj != 0).sum(-1) > 16).sum())
+    if crowded == 0:
+        raise AssertionError("no adjacency row above 16 nonzeros")
+    return adj, crowded
 
 
 def main() -> int:
@@ -340,25 +501,35 @@ def main() -> int:
     import numpy as np
     import pandas as pd
 
-    from gcnbmp_tpu_torch.cli import predict
-    from gcnbmp_tpu_torch.convert import (
-        from_jax_params, init_params, save_params_npz)
+    from gcnbmp_tpu_torch.convert import from_jax_params, init_params
     from gcnbmp_tpu_torch.data import CSVPairParser, estimate_coo_capacities
     from gcnbmp_tpu_torch.data.wire import (
         compact_coo_arrays, iter_coo_eval_batches)
     from gcnbmp_tpu_torch.models.packed import (
-        decode_compact_wire, make_packed_predictor)
+        _device_slot_table, decode_compact_wire, make_packed_predictor)
     from gcnbmp_tpu_torch.ops import build
-    from gcnbmp_tpu_torch.ops.aggregate import adj_from_coo, adj_from_coo_flat
+    from gcnbmp_tpu_torch.ops.aggregate import adj_from_coo_flat
     from gcnbmp_tpu_torch.ops.fused_ggnn import (
         GRU_KEYS, fused_ggnn, fused_ggnn_bwd, fused_ggnn_bwd_reference,
         fused_ggnn_readout, fused_ggnn_readout_bwd,
         fused_ggnn_readout_bwd_reference, fused_ggnn_readout_reference,
         fused_ggnn_reference, params_to_fused)
+    from gcnbmp_tpu_torch.ops.fused_mpnn import (
+        fused_mpnn, fused_mpnn_bwd, fused_mpnn_bwd_reference,
+        fused_mpnn_reference, params_to_fused_mpnn)
+    from gcnbmp_tpu_torch.ops.set2set_kernel import (
+        fused_set2set, fused_set2set_bwd, fused_set2set_bwd_reference,
+        fused_set2set_reference)
+    from gcnbmp_tpu_torch.ops.slotgather import (
+        gather_slot_table, identity_mol_row)
+    from gcnbmp_tpu_torch.train.config import PRESETS, TrainConfig
 
     counters = {"fused_ggnn": fused_ggnn, "fused_ggnn_readout": fused_ggnn_readout,
                 "fused_ggnn_bwd": fused_ggnn_bwd,
-                "fused_ggnn_readout_bwd": fused_ggnn_readout_bwd}
+                "fused_ggnn_readout_bwd": fused_ggnn_readout_bwd,
+                "fused_mpnn": fused_mpnn, "fused_mpnn_bwd": fused_mpnn_bwd,
+                "fused_set2set": fused_set2set,
+                "fused_set2set_bwd": fused_set2set_bwd}
 
     def reset_counts():
         for fn in counters.values():
@@ -367,6 +538,7 @@ def main() -> int:
     def read_counts():
         return {name: fn.launches for name, fn in counters.items()}
 
+    t_start = time.perf_counter()
     # 1. device
     smi = nvidia_smi_line()
     dev = torch.device("cuda", 0)
@@ -381,7 +553,8 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
           f"{build.last_build_seconds} s)")
     for line in (build.last_build_log or "").splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if line.startswith("== ") or "registers" in line or "spill" in line \
+                or "error" in line:
             print(f"  ptxas: {line.strip()}")
 
     # 3. kernels vs plain at real batch shapes
@@ -396,52 +569,49 @@ def main() -> int:
         return tiles, [torch.as_tensor(np.asarray(a)).to(dev)
                        for a in compact_coo_arrays(batch)]
 
-    def kernel_inputs(model, args):
+    def decoded(args):
         nodes, e_packed, n_edges, left, _ = args
         num_mols = 2 * left.shape[0]
-        atom_ids, _, mask, *edges = decode_compact_wire(
+        atom_ids, mol_id, mask, *edges = decode_compact_wire(
             nodes, e_packed, n_edges, num_mols)
         p, t = atom_ids.shape
-        adj = adj_from_coo_flat(*edges, num_tiles=p, tile=t)
-        enc = model.encoder
-        msg_w, msg_b, gru = params_to_fused(enc)
-        ro = enc.readout_0
-        readout = (mask, ro.i.dense.weight.T.contiguous(), ro.i.dense.bias,
-                   ro.j.dense.weight.T.contiguous(), ro.j.dense.bias)
-        return (enc.n_layers, enc.embed(atom_ids), adj, msg_w, msg_b,
-                gru), readout
+        return (atom_ids, mol_id, mask, num_mols,
+                adj_from_coo_flat(*edges, num_tiles=p, tile=t))
 
-    def crowd_rows(k1_args):
-        """The same inputs with ~5% of the columns of every other adjacency
-        row set to 1: rows with more nonzeros than the kernel's NBR_CAP=16
-        neighbour slots, which it rescans densely at every layer."""
-        n_layers, h0, adj, *rest = k1_args
-        rng = np.random.default_rng(SEED)
-        extra = torch.as_tensor(rng.random(tuple(adj.shape)) < 0.05).to(dev)
-        extra[:, 1::2, :] = False
-        adj = torch.where(extra, torch.ones_like(adj), adj).contiguous()
-        crowded = int(((adj != 0).sum(-1) > 16).sum())
-        if crowded == 0:
-            raise AssertionError("no adjacency row above 16 nonzeros")
-        return (n_layers, h0, adj, *rest), crowded
+    def model_of(c):
+        return from_jax_params(init_params(c, SEED),
+                               make_packed_predictor(**c)).to(dev)
 
+    results = {name: {} for name in counters}
+
+    def record(name, err, k_med, p_med, headline):
+        r = results[name]
+        r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+        if headline:
+            r["ms"], r["plain_ms"] = k_med, p_med
+
+    # 3a. GGNN
     cfg = dict(fp_hidden_dim=H, fp_out_dim=D, conv_layers=L,
                weight_tying=False)
-    results = {name: {} for name in counters}
     cases = [(SERVE_BATCH, cfg, False), (N_PAIRS, cfg, False),
              (SERVE_BATCH, dict(cfg, fp_hidden_dim=16, fp_out_dim=16), False),
              (SERVE_BATCH, cfg, True)]
     with torch.no_grad():
         for bs, c, crowd in cases:
-            model = from_jax_params(init_params(c, SEED),
-                                    make_packed_predictor(**c)).to(dev)
+            model = model_of(c)
             tiles, args = first_batch(bs)
-            k1_args, readout = kernel_inputs(model, args)
+            atom_ids, _, mask, _, adj = decoded(args)
+            enc = model.encoder
+            msg_w, msg_b, gru = params_to_fused(enc)
+            ro = enc.readout_0
+            readout = (mask, ro.i.dense.weight.T.contiguous(), ro.i.dense.bias,
+                       ro.j.dense.weight.T.contiguous(), ro.j.dense.bias)
             tag = (f"batch={bs} P={tiles} L={c['conv_layers']} "
                    f"H={c['fp_hidden_dim']} D={c['fp_out_dim']}")
             if crowd:
-                k1_args, crowded = crowd_rows(k1_args)
+                adj, crowded = crowd_rows(adj, torch)
                 tag += f" rows>16nnz={crowded}"
+            k1_args = (enc.n_layers, enc.embed(atom_ids), adj, msg_w, msg_b, gru)
             # a seeded upstream gradient for the backward kernels
             p_tiles, hidden = k1_args[1].shape[0], k1_args[1].shape[-1]
             dout = torch.as_tensor(np.random.default_rng(SEED + bs).standard_normal(
@@ -460,129 +630,142 @@ def main() -> int:
                                                           dout)),
             ]
             for name, kern, plain in pairs:
-                if name.endswith("_bwd"):
-                    err = compare_grads(f"{name} [{tag}]",
-                                        named_grads(kern(), GRU_KEYS),
-                                        named_grads(plain(), GRU_KEYS), torch)
-                else:
-                    err = compare(f"{name} [{tag}]", kern(), plain(), torch)
-                kern(), plain()  # warm up
-                k_ms, p_ms = [], []
-                for _ in range(REPS):  # alternate plain and kernel
-                    p_ms.append(cuda_ms(plain, torch))
-                    k_ms.append(cuda_ms(kern, torch))
-                k_med, p_med = statistics.median(k_ms), statistics.median(p_ms)
-                print(f"  time {name} [{tag}]: kernel {k_med:.4f} ms, plain "
-                      f"{p_med:.4f} ms per call (median of {REPS} runs of "
-                      f"{BACK_TO_BACK} back-to-back calls, CUDA events) "
-                      f"on {smi}")
-                r = results[name]
-                r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
-                if bs == SERVE_BATCH and c is cfg and not crowd:
-                    r["ms"], r["plain_ms"] = k_med, p_med
+                grads = GGNN_GRAD_NAMES if name.endswith("_bwd") else None
+                record(name, *check_pair(name, tag, kern, plain, grads,
+                                         GRU_KEYS, smi, torch),
+                       bs == SERVE_BATCH and c is cfg and not crowd)
 
-    # 4. the serving slice through the predict CLI
-    n_batches = -(-N_PAIRS // SERVE_BATCH)
-    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
-        cfg_path = os.path.join(tmp, "config.json")
-        params_path = os.path.join(tmp, "params.npz")
-        in_path = os.path.join(tmp, "pairs.csv")
-        out_path = os.path.join(tmp, "preds.csv")
-        with open(cfg_path, "w") as f:
-            json.dump({"method": "ggnn", "sim_method": "hole",
-                       "conv_layers": L, "fp_hidden_dim": H,
-                       "fp_out_dim": D, "weight_tying": False,
-                       "net_hidden_dims": [], "class_num": 1}, f)
-        save_params_npz(params_path, init_params(cfg, SEED))
-        df.to_csv(in_path, index=False)
-        argv = ["--input", in_path, "--config", cfg_path,
-                "--params", params_path, "--out", out_path,
-                "--batch-size", str(SERVE_BATCH), "--device", "cuda"]
-        reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rc = predict.main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = read_counts()
-        if rc != 0:
-            raise AssertionError(f"predict.main returned {rc}")
-        print(f"slice: predict.main served {N_PAIRS} pairs in {n_batches} "
-              f"requests in {wall:.3f} s = {N_PAIRS / wall:.1f} pairs/s "
-              f"(CSV parse + pack + device, first call) on {smi}; "
-              f"launches {launches}")
-        if launches["fused_ggnn_readout"] != n_batches:
-            raise AssertionError(f"K2 launched {launches['fused_ggnn_readout']}"
-                                 f" times for {n_batches} batches")
-        probs = pd.read_csv(out_path)["prob"].to_numpy()
-        if len(probs) != N_PAIRS or not np.all(np.isfinite(probs)) or \
-                probs.min() < 0 or probs.max() > 1:
-            raise AssertionError("probs not finite in [0, 1] for every pair")
+    # 3b. MPNN: (batch, model, Set2Set table widths, crowded adjacency)
+    h16 = dict(MPNN_CFG, fp_hidden_dim=16, fp_out_dim=16)
+    mpnn_cases = [(SERVE_BATCH, MPNN_CFG, (24, 64), False),
+                  (N_PAIRS, MPNN_CFG, (24, 64), False),
+                  (SERVE_BATCH, MPNN_BENCH_CFG, (64,), False),
+                  (SERVE_BATCH, h16, (24,), False),
+                  (SERVE_BATCH, MPNN_CFG, (), True)]
+    with torch.no_grad():
+        for bs, c, widths, crowd in mpnn_cases:
+            model = model_of(c)
+            tiles, args = first_batch(bs)
+            atom_ids, mol_id, mask, num_mols, adj = decoded(args)
+            enc = model.encoder
+            tag = (f"batch={bs} P={tiles} L={c['conv_layers']} "
+                   f"{'tied' if c['weight_tying'] else 'untied'} "
+                   f"H={c['fp_hidden_dim']}")
+            if crowd:
+                adj, crowded = crowd_rows(adj, torch)
+                tag += f" asymmetric rows>16nnz={crowded}"
+            wt, m0t, gru = params_to_fused_mpnn(enc)
+            k5_args = (enc.n_layers, enc.weight_tying, enc.embed(atom_ids), adj,
+                       mol_id.contiguous(), mask, wt, m0t, gru)
+            dh = torch.as_tensor(np.random.default_rng(SEED + bs).standard_normal(
+                tuple(k5_args[2].shape)).astype(np.float32)).to(dev)
+            headline = bs == SERVE_BATCH and c is MPNN_CFG and not crowd
+            for name, kern, plain, grads in (
+                    ("fused_mpnn", lambda: fused_mpnn(*k5_args),
+                     lambda: fused_mpnn_reference(*k5_args), None),
+                    ("fused_mpnn_bwd", lambda: fused_mpnn_bwd(*k5_args, dh),
+                     lambda: fused_mpnn_bwd_reference(*k5_args, dh),
+                     MPNN_GRAD_NAMES)):
+                record(name, *check_pair(name, tag, kern, plain, grads,
+                                         GRU_KEYS, smi, torch), headline)
+            h = fused_mpnn_reference(*k5_args)
+            s2s = enc.readout_0.set2set
+            for n_max in widths:
+                slots, amask, over = _device_slot_table(
+                    mol_id.reshape(-1), mask.reshape(-1), num_mols, n_max)
+                if bool(over):
+                    raise AssertionError(f"a molecule is wider than {n_max}")
+                atoms = gather_slot_table(
+                    h.reshape(-1, h.shape[-1]), slots, amask,
+                    mol_id.reshape(-1), identity_mol_row(num_mols, dev))
+                k4_args = (S2S_STEPS, atoms, amask, *s2s.lstm.kernels())
+                dg = torch.as_tensor(np.random.default_rng(SEED + n_max).standard_normal(
+                    (num_mols, 2 * atoms.shape[-1])).astype(np.float32)).to(dev)
+                stag = f"{tag} M={num_mols} n_max={n_max}"
+                for name, kern, plain, grads in (
+                        ("fused_set2set", lambda: fused_set2set(*k4_args),
+                         lambda: fused_set2set_reference(*k4_args), None),
+                        ("fused_set2set_bwd",
+                         lambda: fused_set2set_bwd(*k4_args, dg),
+                         lambda: fused_set2set_bwd_reference(*k4_args, dg),
+                         S2S_GRAD_NAMES)):
+                    record(name, *check_pair(name, stag, kern, plain, grads,
+                                             GRU_KEYS, smi, torch),
+                           headline and n_max == 24)
+    print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
-        # the same batches: kernel path vs the plain layer stack on the card
-        model = from_jax_params(init_params(cfg, SEED),
-                                make_packed_predictor(**cfg)).to(dev).eval()
-        tiles, cap = estimate_coo_capacities([ds], SERVE_BATCH)
-        got_l, want_l = [], []
-        serve_s = 0.0
-        with torch.no_grad():
-            for batch, valid in iter_coo_eval_batches(ds, SERVE_BATCH,
-                                                      tiles, cap):
-                args = [torch.as_tensor(np.asarray(a)).to(dev)
-                        for a in compact_coo_arrays(batch)]
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                logits = model(*args)
-                torch.cuda.synchronize()
-                serve_s += time.perf_counter() - t0
-                nodes, e_packed, n_edges, left, right = args
-                num_mols = 2 * left.shape[0]
-                atom_ids, mol_id, mask, *edges = decode_compact_wire(
-                    nodes, e_packed, n_edges, num_mols)
-                adj = adj_from_coo(*edges, num_tiles=atom_ids.shape[0],
-                                   tile=atom_ids.shape[1])
-                g, _ = model.encoder(atom_ids, adj, mol_id, mask, num_mols)
-                plain = model.head(g[left.long()], g[right.long()])
-                got_l.append(logits[:valid])
-                want_l.append(plain[:valid])
-        got, want = torch.cat(got_l), torch.cat(want_l)
-        compare("slice logits (kernel path vs plain layer stack)", got,
-                want, torch)
-        want_p = torch.sigmoid(want).cpu().numpy().ravel()
-        p_err = float(np.abs(probs - want_p).max())
-        print(f"slice probs vs plain: max_abs_err={p_err:.3e}")
-        if p_err > ATOL:
-            raise AssertionError("served probs disagree with the plain model")
-        print(f"slice device path: {N_PAIRS / serve_s:.1f} pairs/s "
-              f"({serve_s * 1e3 / n_batches:.3f} ms per 256-pair request, "
-              f"warm, host clock around synchronized forwards) on {smi}")
+    # 4. GGNN serving through the predict CLI
+    ggnn_config = {"method": "ggnn", "sim_method": "hole", "conv_layers": L,
+                   "fp_hidden_dim": H, "fp_out_dim": D, "weight_tying": False,
+                   "net_hidden_dims": [], "class_num": 1}
+    serve_ggnn = serve_slice("ggnn", ggnn_config, cfg, ds, df, dev, smi,
+                             reset_counts, read_counts, ["fused_ggnn_readout"])
 
-    # 5. the training slice through the train CLI
-    serve_launches = launches
-    train_launches = train_slice(dev, smi, reset_counts, read_counts)
+    # 5. GGNN training through the train CLI
+    preset = PRESETS["ggnn_hole_binary"]
+    train_ggnn = train_slice(
+        "ggnn", ["--preset", "ggnn_hole_binary", "--compute-path", "fused"],
+        preset.batch_size, preset, cfg, ["fused_ggnn_readout_bwd"],
+        ["fused_ggnn_readout"], ((preset.batch_size, 50), (N_PAIRS, 10)),
+        dev, smi, reset_counts, read_counts)
+    print(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
+
+    # 6. MPNN serving through the predict CLI
+    mpnn_config = {"method": "mpnn", "sim_method": "hole",
+                   "conv_layers": MPNN_CFG["conv_layers"], "fp_hidden_dim": H,
+                   "fp_out_dim": D, "weight_tying": True,
+                   "net_hidden_dims": [], "class_num": 1}
+    serve_mpnn = serve_slice("mpnn", mpnn_config, MPNN_CFG, ds, df, dev, smi,
+                             reset_counts, read_counts,
+                             ["fused_mpnn", "fused_set2set"])
+
+    # 7. MPNN training through the train CLI, the quality row's flags
+    mpnn_train_cfg = TrainConfig(
+        method="mpnn", conv_layers=4, weight_tying=True, fp_hidden_dim=H,
+        fp_out_dim=D, learning_rate=2e-3, compute_path="coo",
+        compute_dtype="bfloat16", augment=True, batch_size=SERVE_BATCH)
+    train_mpnn = train_slice(
+        "mpnn", MPNN_FLAGS, SERVE_BATCH, mpnn_train_cfg,
+        dict(MPNN_CFG, s2s_n_max=24), ["fused_mpnn_bwd", "fused_set2set_bwd"],
+        ["fused_mpnn", "fused_set2set"], ((SERVE_BATCH, 20), (N_PAIRS, 10)),
+        dev, smi, reset_counts, read_counts)
+    print(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
 
     sources = {"fused_ggnn": "fused_ggnn.cu", "fused_ggnn_readout": "fused_ggnn.cu",
                "fused_ggnn_bwd": "fused_ggnn_bwd.cu",
-               "fused_ggnn_readout_bwd": "fused_ggnn_bwd.cu"}
+               "fused_ggnn_readout_bwd": "fused_ggnn_bwd.cu",
+               "fused_mpnn": "fused_mpnn.cu", "fused_mpnn_bwd": "fused_mpnn.cu",
+               "fused_set2set": "set2set.cu", "fused_set2set_bwd": "set2set.cu"}
     replaces = {"fused_ggnn": "gcnbmp_tpu/ops/fused_ggnn.py:535",
                 "fused_ggnn_readout": "gcnbmp_tpu/ops/fused_ggnn.py:818",
                 "fused_ggnn_bwd": "gcnbmp_tpu/ops/fused_ggnn.py:583",
-                "fused_ggnn_readout_bwd": "gcnbmp_tpu/ops/fused_ggnn.py:876"}
+                "fused_ggnn_readout_bwd": "gcnbmp_tpu/ops/fused_ggnn.py:876",
+                "fused_mpnn": "gcnbmp_tpu/ops/fused_mpnn.py:295",
+                "fused_mpnn_bwd": "gcnbmp_tpu/ops/fused_mpnn.py:342",
+                "fused_set2set": "gcnbmp_tpu/ops/set2set_kernel.py:225",
+                "fused_set2set_bwd": "gcnbmp_tpu/ops/set2set_kernel.py:253"}
 
-    def entry(name):
+    def entry(name, train, serve):
         return {"name": name, "route": "cuda",
                 "source": f"gcnbmp_tpu_torch/ops/csrc/{sources[name]}",
                 "replaces": replaces[name],
-                # the training slice is this script's main path; the
-                # serving slice's counts ride beside it
-                "launches": train_launches[name],
-                "launches_serving": serve_launches[name],
+                # each family's training slice is its main path; its
+                # serving slice's counts ride beside them
+                "launches": train[name],
+                "launches_serving": serve[name],
                 **{k: results[name][k] for k in ("max_abs_err", "ms", "plain_ms")}}
 
-    kernels = [entry("fused_ggnn_readout"), entry("fused_ggnn_readout_bwd")]
-    # K1 and K1b share K2's and K2b's sources and layer loops; the slices
-    # launch K2 (serving, training) and K2b (training)
-    checked = [entry("fused_ggnn"), entry("fused_ggnn_bwd")]
+    kernels = [entry("fused_ggnn_readout", train_ggnn, serve_ggnn),
+               entry("fused_ggnn_readout_bwd", train_ggnn, serve_ggnn),
+               entry("fused_mpnn", train_mpnn, serve_mpnn),
+               entry("fused_mpnn_bwd", train_mpnn, serve_mpnn),
+               entry("fused_set2set", train_mpnn, serve_mpnn),
+               entry("fused_set2set_bwd", train_mpnn, serve_mpnn)]
+    # K1 and K1b share K2's and K2b's sources and layer loops; the GGNN
+    # slices launch K2 (serving, training) and K2b (training)
+    checked = [entry("fused_ggnn", train_ggnn, serve_ggnn),
+               entry("fused_ggnn_bwd", train_ggnn, serve_ggnn)]
+    print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "checked_off_path": checked}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

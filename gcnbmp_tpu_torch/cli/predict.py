@@ -1,10 +1,12 @@
 #!/usr/bin/env python
-"""Score drug-pair CSVs with the port's packed GGNN pair predictor.
+"""Score drug-pair CSVs with the port's packed pair predictor.
 
 Port of the JAX package's predict CLI (gcnbmp_tpu/cli/predict.py:74-136)
-for the packed GGNN + HolE family: reads a pair CSV (label column
-optional), writes it back with a ``prob`` column (``prob_class{c}`` for
-multi-label models).
+for the packed GGNN + HolE and MPNN + HolE families (``method`` of the
+config; MPNN serves with the JAX evaluator's Set2Set table width of 64
+atoms, and a wider molecule turns its batch NaN): reads a pair CSV
+(label column optional), writes it back with a ``prob`` column
+(``prob_class{c}`` for multi-label models).
 
     python -m gcnbmp_tpu_torch.cli.predict --input pairs.csv \\
         --config run/config.json --params params.npz --out preds.csv

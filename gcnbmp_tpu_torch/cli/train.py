@@ -1,5 +1,6 @@
 #!/usr/bin/env python
-"""Train the packed GGNN pair predictor with the port (fused path).
+"""Train a packed pair predictor with the port: GGNN + HolE on the fused
+path, or MPNN (EdgeNet + Set2Set) + HolE on the coo path.
 
 Port of the JAX package's train CLI (gcnbmp_tpu/cli/train.py:23-211):
 the same flags and override logic, plus ``--device`` (``cuda``, the
@@ -7,12 +8,18 @@ default, runs the CUDA kernels; ``cpu`` runs their plain versions).
 
     python -m gcnbmp_tpu_torch.cli.train --train train.csv --val val.csv \\
         --preset ggnn_hole_binary --compute-path fused --device cuda
+    python -m gcnbmp_tpu_torch.cli.train --train train.csv --val val.csv \\
+        --method mpnn --sim-method hole --conv-layers 4 --weight-tying true \\
+        --fp-hidden-dim 32 --fp-out-dim 32 --batch-size 2048 --lr 2e-3 \\
+        --compute-path coo --compute-dtype bfloat16 --augment --device cuda
 
-Writes ``config.json`` (the JAX run's format), ``log.json`` and the
-``snapshot_epoch_*``, ``best`` and ``final`` checkpoints under ``--out``;
-``final/params.npz`` serves through ``gcnbmp_tpu_torch.cli.predict``.
-Prints the last log entry as JSON.  Options the port does not train yet
-raise before any work, naming their ROADMAP item.
+The second line is the MPNN quality row's recipe; its kernels compute in
+f32 whatever ``--compute-dtype`` says.  Writes ``config.json`` (the JAX
+run's format), ``log.json`` and the ``snapshot_epoch_*``, ``best`` and
+``final`` checkpoints under ``--out``; ``final/params.npz`` serves
+through ``gcnbmp_tpu_torch.cli.predict``.  Prints the last log entry as
+JSON.  Options the port does not train yet raise before any work, naming
+their ROADMAP item.
 """
 
 from __future__ import annotations

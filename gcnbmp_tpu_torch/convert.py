@@ -1,10 +1,13 @@
 """Weights carried between the JAX package and the port.
 
 A *tree* here is the flax param tree of the JAX package's
-``PackedPairPredictorCOOCompact`` as nested dicts of numpy arrays
-(``encoder/embed/embedding``, ``encoder/update_{l}/message/dense/{kernel,
-bias}``, ``encoder/gru/{W_z,U_z,W_r,U_r,W,U}/{kernel,bias}``,
-``encoder/readout_0/{i,j}/dense/*``, ``head/mlp/out/*``).  The port's
+``PackedPairPredictorCOOCompact`` as nested dicts of numpy arrays: for
+GGNN ``encoder/embed/embedding``, ``encoder/update_{l}/message/dense/
+{kernel,bias}``, ``encoder/gru/{W_z,U_z,W_r,U_r,W,U}/{kernel,bias}``,
+``encoder/readout_0/{i,j}/dense/*``; for MPNN ``encoder/message_{l}/
+{nn1,nn2}/*``, ``encoder/gru_{l}/...``, ``encoder/readout_0/set2set/lstm/
+{ii,if,ig,io}/kernel`` and ``{hi,hf,hg,ho}/{kernel,bias}``,
+``encoder/readout_0/{linear1,linear2}/*``; and ``head/mlp/out/*``.  The port's
 modules use the same names, so a flax path maps to a torch name by
 joining it with dots; flax ``kernel`` (in, out) becomes the transposed
 ``nn.Linear.weight``.
@@ -100,11 +103,25 @@ def load_params_npz(path: str) -> dict:
         return _unflatten({tuple(k.split("/")): z[k] for k in z.files})
 
 
+def _orthogonal(rng: np.random.Generator, rows: int, cols: int) -> np.ndarray:
+    """flax's ``initializers.orthogonal()`` for a (rows, cols) kernel: the
+    Q of a Gaussian matrix's QR, signs fixed by R's diagonal."""
+    a = rng.standard_normal((max(rows, cols), min(rows, cols)))
+    q, r = np.linalg.qr(a)
+    q = q * np.sign(np.diag(r))
+    return q.T if rows < cols else q
+
+
+# flax.linen.OptimizedLSTMCell's hidden kernels (recurrent_kernel_init)
+_ORTHOGONAL = {"hi", "hf", "hg", "ho"}
+
+
 def init_params(cfg: dict, seed: int) -> dict:
     """Seeded numpy weights, in the flax layout, for the predictor that
     ``models.packed.make_packed_predictor(**cfg)`` builds.  Drawn from the
-    flax initializers' distributions: lecun-normal kernels, zero biases,
-    Normal(1.0) atom embedding.  Load with ``from_jax_params``."""
+    flax initializers' distributions: lecun-normal kernels, orthogonal
+    LSTM hidden kernels, zero biases, Normal(1.0) atom embedding.  Load
+    with ``from_jax_params``."""
     from gcnbmp_tpu_torch.models.packed import make_packed_predictor
 
     shapes = make_packed_predictor(**cfg, device="meta").state_dict()
@@ -112,7 +129,9 @@ def init_params(cfg: dict, seed: int) -> dict:
     flat = {}
     for name, t in shapes.items():
         path = _flax_path(name)
-        if path[-1] == "kernel":
+        if path[-1] == "kernel" and path[-2] in _ORTHOGONAL:
+            arr = _orthogonal(rng, t.shape[1], t.shape[0])
+        elif path[-1] == "kernel":
             fan_in, fan_out = t.shape[1], t.shape[0]
             z = rng.standard_normal((fan_in, fan_out))
             while (bad := np.abs(z) > 2.0).any():

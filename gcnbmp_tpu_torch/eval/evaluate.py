@@ -30,8 +30,8 @@ class EvalResult:
 
 
 class PackedPairEvaluator:
-    """Serve ``predictor`` (a ``PackedPairPredictorCOOCompact``) over a
-    dataset on ``device``."""
+    """Serve ``predictor`` (a ``PackedPairPredictorCOOCompact`` of any
+    ported encoder, taken as it is given) over a dataset on ``device``."""
 
     def __init__(self, predictor, batch_size: int = 512, class_num: int = 1,
                  device="cuda"):

@@ -1,6 +1,7 @@
 """Building-block layers with Chainer-matching semantics.
 
-Ports gcnbmp_tpu/models/layers.py:34-176.  Module and parameter names
+Ports gcnbmp_tpu/models/layers.py:34-176, and flax's
+``OptimizedLSTMCell`` for the Set2Set readout.  Module and parameter names
 follow the flax trees (``dense``, ``embedding``, ``W_z``...) so that
 ``convert.from_jax_params`` maps a flax path to a torch name by joining
 it with dots.  A flax ``Dense.kernel`` is (in, out); the ``nn.Linear``
@@ -78,6 +79,47 @@ class ChainerGRUCell(nn.Module):
         r = torch.sigmoid(self.W_r(x) + self.U_r(h))
         h_bar = torch.tanh(self.W(x) + self.U(r * h))
         return z * h_bar + (1.0 - z) * h
+
+
+class OptimizedLSTMCell(nn.Module):
+    """flax.linen.OptimizedLSTMCell, as ``PackedSet2Set`` uses it: gate
+    order i|f|g|o, input kernels ``ii``/``if``/``ig``/``io`` without bias,
+    hidden kernels ``hi``/``hf``/``hg``/``ho`` with bias:
+
+        i = sigmoid(W_ii x + W_hi h + b_hi)     (f, o alike; g with tanh)
+        c' = f * c + i * g,  h' = o * tanh(c')
+
+    flax draws the hidden kernels orthogonally (``convert.init_params``)."""
+
+    GATES = "ifgo"
+
+    def __init__(self, in_features: int, features: int, device=None):
+        super().__init__()
+        for gate in self.GATES:
+            self.add_module(f"i{gate}", nn.Linear(in_features, features,
+                                                  bias=False, device=device))
+        for gate in self.GATES:
+            self.add_module(f"h{gate}", nn.Linear(features, features,
+                                                  device=device))
+
+    def kernels(self):
+        """The fused Set2Set kernel's weights: wx (in, 4F), wh (F, 4F),
+        b (1, 4F), gates concatenated in i|f|g|o order."""
+        get = lambda name: getattr(self, name)
+        wx = torch.cat([get(f"i{g}").weight.T for g in self.GATES], dim=-1)
+        wh = torch.cat([get(f"h{g}").weight.T for g in self.GATES], dim=-1)
+        b = torch.cat([get(f"h{g}").bias for g in self.GATES])[None]
+        return wx.contiguous(), wh.contiguous(), b
+
+    def forward(self, carry, x):
+        c, h = carry
+        pre = {g: getattr(self, f"i{g}")(x) + getattr(self, f"h{g}")(h)
+               for g in self.GATES}
+        i, f, o = (torch.sigmoid(pre[g]) for g in "ifo")
+        g = torch.tanh(pre["g"])
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        return (c, h), h
 
 
 class MLP(nn.Module):

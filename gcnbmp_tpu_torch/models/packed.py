@@ -1,28 +1,38 @@
-"""Packed-supergraph GGNN pair predictor (port of gcnbmp_tpu/models/packed.py).
+"""Packed-supergraph pair predictors (port of gcnbmp_tpu/models/packed.py).
 
 Ported pieces:
 
 - ``PackedGatedReadout``            <- :29-41
 - ``_segment_mol_sum``              <- :67-87
-- ``PackedGGNN``                    <- :147-210 (the plain layer stack)
+- ``PackedGGNN``                    <- :147-210 (the plain layer stack); its
+  kernel path ``fused_forward`` is ``fused_compact_logits`` (:1176-1212)
+  with the readout fused in (:1121-1126): K2 -> segment sum
+- ``PackedSet2Set``                 <- :343-430, the dense mode
+- ``_device_slot_table``            <- :433-455
+- ``PackedMPNNReadout``             <- :458-478
+- ``PackedEdgeNet``                 <- :531-613, the default ``dotgen`` form
+- ``PackedMPNN``                    <- :669-815, EdgeNet messages and the
+  Set2Set readout; its kernel path ``fused_forward`` is the JAX module's
+  fused branch (:717-774): K5 -> slot table -> K4 -> linear1, relu, linear2
 - ``decode_compact_wire``           <- :918-936
-- ``PackedPairPredictorCOOCompact`` <- :939-971; its forward is the fused
-  form, ``fused_compact_logits`` (:1176-1212) with the readout fused in
-  (:1121-1126): embed -> flat adjacency -> K2 -> segment sum -> left and
-  right gather -> HolE.
-- ``make_packed_predictor``         <- :1235-1347, the ``method="ggnn"``,
-  no co-attention, no layer aggregator, f32 branch;
+- ``PackedPairPredictorCOOCompact`` <- :939-971: embed -> flat adjacency ->
+  the encoder's kernel path -> left and right gather -> HolE
+- ``make_packed_predictor``         <- :1235-1347, the ``method="ggnn"``
+  and ``method="mpnn"`` branches, no co-attention, no layer aggregator;
   ``model_kwargs_from_config`` reads its arguments from a run config.
 
-Parameter names match the flax tree (``encoder/embed``,
+Parameter names match the flax trees (``encoder/embed``,
 ``encoder/update_{i}/message/dense``, ``encoder/gru/...``,
-``encoder/readout_0/{i,j}``, ``head/mlp/...``).  On CPU tensors the
-forward runs the kernels' plain versions; on CUDA tensors it launches
-the kernels.  The forward is differentiable end to end: K2's autograd
-function carries the gradient (K2b) back to h0, and through the
-embedding gather and ``params_to_fused``'s re-layout (stack, transpose,
-summed GRU biases) to the module's own parameters; a tied message
-function, stacked L times, gets the sum over the layers.
+``encoder/readout_0/{i,j}`` for GGNN; ``encoder/message_{i}/nn1|nn2``,
+``encoder/gru_{i}/...``, ``encoder/readout_0/set2set/lstm/...``,
+``encoder/readout_0/linear1|linear2`` for MPNN; ``head/mlp/...``).  On
+CPU tensors the kernel paths run the kernels' plain versions; on CUDA
+tensors they launch the kernels.  They are differentiable end to end: the
+kernels' autograd functions carry the gradient back to h0, and through the
+embedding gather and the weight re-layouts (``params_to_fused``,
+``params_to_fused_mpnn``: stacks, transposes, summed GRU biases) to the
+modules' own parameters; a tied layer, stacked L times, gets the sum over
+the layers.
 """
 
 from __future__ import annotations
@@ -32,16 +42,20 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from gcnbmp_tpu_torch.models.ggnn import GGNNMessage
+from gcnbmp_tpu_torch.models.ggnn import NUM_EDGE_TYPE, GGNNMessage
 from gcnbmp_tpu_torch.models.heads import make_head
 from gcnbmp_tpu_torch.models.layers import (
     MAX_ATOMIC_NUM,
     ChainerGRUCell,
     EmbedAtomID,
     GraphLinear,
+    OptimizedLSTMCell,
 )
 from gcnbmp_tpu_torch.ops.aggregate import adj_from_coo_flat
 from gcnbmp_tpu_torch.ops.fused_ggnn import fused_ggnn_readout, params_to_fused
+from gcnbmp_tpu_torch.ops.fused_mpnn import fused_mpnn, params_to_fused_mpnn
+from gcnbmp_tpu_torch.ops.set2set_kernel import NEG, fused_set2set
+from gcnbmp_tpu_torch.ops.slotgather import gather_slot_table, identity_mol_row
 
 
 class PackedGatedReadout(nn.Module):
@@ -71,8 +85,9 @@ def _segment_mol_sum(g_nodes: torch.Tensor, mol_id: torch.Tensor,
 
 class PackedGGNN(nn.Module):
     """GGNN encoder over packed tiles.  ``forward`` is the plain layer
-    stack of the JAX module (dense (P, 4, T, T) adjacency); the serving
-    forward reads these weights through ``params_to_fused`` instead.
+    stack of the JAX module (dense (P, 4, T, T) adjacency);
+    ``fused_forward``, the predictor's path, reads these weights through
+    ``params_to_fused`` into K2.
 
     Untied configs have one message function per layer and ONE shared
     GRU, as in the JAX module."""
@@ -105,6 +120,197 @@ class PackedGGNN(nn.Module):
         g_nodes = self.readout_0(h, h0, node_mask)
         return _segment_mol_sum(g_nodes, mol_id, num_mols), {"atoms": h, "h0": h0}
 
+    def fused_forward(self, atom_ids, adj_flat, mol_id, node_mask,
+                      num_mols: int) -> torch.Tensor:
+        """Per-molecule embeddings (num_mols, D) through K2 (K2b in the
+        backward), from the flat (P, T, 4T) adjacency."""
+        h0 = self.embed(atom_ids)
+        msg_w, msg_b, gru = params_to_fused(self)
+        ro = self.readout_0
+        g_nodes = fused_ggnn_readout(
+            self.n_layers, h0, adj_flat, msg_w, msg_b, gru, node_mask,
+            ro.i.dense.weight.T.contiguous(), ro.i.dense.bias,
+            ro.j.dense.weight.T.contiguous(), ro.j.dense.bias)
+        return _segment_mol_sum(g_nodes, mol_id, num_mols)
+
+
+def _device_slot_table(ids: torch.Tensor, valid: torch.Tensor, num_mols: int,
+                       n_max: int):
+    """Each molecule's flat slot indices (num_mols, n_max) and mask, from
+    the packed layout's invariant that a molecule occupies a contiguous
+    run of flat slots: start = the run's smallest position, count = its
+    real slots.  Molecules with no atoms (pair padding) get an all-zero
+    mask.  Also returns ``overflow``, a device flag set when a molecule
+    has more atoms than n_max."""
+    n = ids.shape[0]
+    ids = ids.long()
+    pos = torch.arange(n, device=ids.device)
+    starts = torch.full((num_mols + 1,), n, dtype=torch.long,
+                        device=ids.device).scatter_reduce(
+        0, ids, pos, "amin", include_self=True)[:num_mols]
+    counts = torch.zeros(num_mols + 1, dtype=valid.dtype,
+                         device=ids.device).index_add_(0, ids, valid)[:num_mols]
+    j = torch.arange(n_max, device=ids.device)[None, :]
+    slots = (starts[:, None] + j).clamp(0, n - 1)
+    amask = (j < counts[:, None]).to(valid.dtype)
+    return slots, amask, (counts > n_max).any()
+
+
+class PackedSet2Set(nn.Module):
+    """Set2Set readout over the packed layout, the JAX module's dense mode:
+    each molecule's atoms are gathered once into a (num_mols, n_max, C)
+    table (``_device_slot_table``, ``gather_slot_table``), then every
+    step is an LSTM, a masked softmax over the table and a weighted sum.
+    ``forward(..., fused=True)`` runs all steps in K4 (K4b in the
+    backward).  A molecule wider than ``dense_n_max`` turns the whole
+    output NaN, as in the JAX module."""
+
+    def __init__(self, channels: int, processing_steps: int = 3,
+                 dense_n_max: int = 64, device=None):
+        super().__init__()
+        self.channels = channels
+        self.processing_steps = processing_steps
+        self.dense_n_max = dense_n_max
+        self.lstm = OptimizedLSTMCell(2 * channels, channels, device=device)
+
+    def forward(self, h, mol_id, node_mask, num_mols: int,
+                fused: bool = False) -> torch.Tensor:
+        ch = h.shape[-1]
+        flat = h.reshape(-1, ch)
+        ids = mol_id.reshape(-1)
+        slots, amask, overflow = _device_slot_table(
+            ids, node_mask.reshape(-1), num_mols, self.dense_n_max)
+        atoms = gather_slot_table(flat, slots, amask, ids,
+                                  identity_mol_row(num_mols, h.device))
+        if fused:
+            q_star = fused_set2set(self.processing_steps, atoms, amask,
+                                   *self.lstm.kernels())
+        else:
+            c = h.new_zeros((num_mols, self.channels))
+            hh = h.new_zeros((num_mols, self.channels))
+            q_star = h.new_zeros((num_mols, 2 * ch))
+            for _ in range(self.processing_steps):
+                (c, hh), q = self.lstm((c, hh), q_star)
+                e = torch.einsum("mnc,mc->mn", atoms, q)
+                e = torch.where(amask > 0, e, torch.full_like(e, NEG))
+                a = torch.softmax(e, dim=1) * amask
+                r = torch.einsum("mn,mnc->mc", a, atoms)
+                q_star = torch.cat([q, r], dim=-1)
+        return torch.where(overflow, torch.full_like(q_star, float("nan")),
+                           q_star)
+
+
+class PackedMPNNReadout(nn.Module):
+    """Set2Set, then ``linear1`` -> relu -> ``linear2``; returns
+    per-molecule vectors (num_mols, out_dim)."""
+
+    def __init__(self, out_dim: int, hidden_dim: int,
+                 processing_steps: int = 3, s2s_n_max: int = 64, device=None):
+        super().__init__()
+        self.set2set = PackedSet2Set(hidden_dim, processing_steps, s2s_n_max,
+                                     device=device)
+        self.linear1 = nn.Linear(2 * hidden_dim, hidden_dim, device=device)
+        self.linear2 = nn.Linear(hidden_dim, out_dim, device=device)
+
+    def forward(self, h, mol_id, node_mask, num_mols: int,
+                fused: bool = False) -> torch.Tensor:
+        g = self.set2set(h, mol_id, node_mask, num_mols, fused)
+        return self.linear2(torch.relu(self.linear1(g)))
+
+
+class PackedEdgeNet(nn.Module):
+    """EdgeNet message over packed tiles, the JAX module's ``dotgen``
+    form: per-edge-type matrices M_e and the non-edge matrix M0 come from
+    ``nn1``/``nn2`` applied to the basis [0; I_4]; the message is
+    [out + bg, in + bg] with out/in the two directions of
+    sum_e A_e (h (M_e - M0)^T) over the raw (P, 4, T, T) adjacency and
+    bg = M0 times the per-molecule sum of real-node h."""
+
+    def __init__(self, out_channels: int, edge_hidden_dim: int = 16,
+                 device=None):
+        super().__init__()
+        self.out_channels = out_channels
+        self.nn1 = nn.Linear(NUM_EDGE_TYPE, edge_hidden_dim, device=device)
+        self.nn2 = nn.Linear(edge_hidden_dim, out_channels * out_channels,
+                             device=device)
+
+    def matrices(self):
+        """(M0 (C, C), M_e (4, C, C))."""
+        w = self.nn1.weight
+        basis = torch.cat([w.new_zeros((1, NUM_EDGE_TYPE)),
+                           torch.eye(NUM_EDGE_TYPE, dtype=w.dtype,
+                                     device=w.device)])
+        ch = self.out_channels
+        mats = self.nn2(torch.relu(self.nn1(basis))).reshape(5, ch, ch)
+        return mats[0], mats[1:]
+
+    def forward(self, h, adj, mol_id, node_mask, num_mols: int):
+        ch = h.shape[-1]
+        m0, m_types = self.matrices()
+        ids = mol_id.long()
+        mol_sum = h.new_zeros((num_mols + 1, ch)).index_add_(
+            0, ids.reshape(-1), (h * node_mask[..., None]).reshape(-1, ch))
+        bg = (mol_sum @ m0.T)[ids]                        # zero on pad slots
+        hm = torch.einsum("tcd,pjd->ptjc", m_types - m0, h)  # (P, 4, T, C)
+        out = torch.einsum("peij,pejc->pic", adj, hm)
+        inn = torch.einsum("peij,peic->pjc", adj, hm)
+        return torch.cat([out + bg, inn + bg], dim=-1)
+
+
+class PackedMPNN(nn.Module):
+    """MPNN encoder over packed tiles: EdgeNet messages, a GRU per layer
+    and the Set2Set readout.  Weight tying shares ONE message function and
+    ONE GRU, whose state carries across the layers; untied layers each
+    have their own and restart from a zero state, as in the JAX module.
+    ``forward`` is the plain layer stack (dense adjacency);
+    ``fused_forward``, the predictor's path, runs K5 and K4."""
+
+    def __init__(self, out_dim: int, hidden_dim: int = 16, n_layers: int = 4,
+                 n_atom_types: int = MAX_ATOMIC_NUM, weight_tying: bool = True,
+                 edge_hidden_dim: int = 16, s2s_n_max: int = 64, device=None):
+        super().__init__()
+        self.out_dim = out_dim
+        self.hidden_dim = hidden_dim
+        self.n_layers = n_layers
+        self.weight_tying = weight_tying
+        self.embed = EmbedAtomID(n_atom_types, hidden_dim, device=device)
+        for i in range(1 if weight_tying else n_layers):
+            self.add_module(f"message_{i}", PackedEdgeNet(
+                hidden_dim, edge_hidden_dim, device=device))
+            self.add_module(f"gru_{i}", ChainerGRUCell(
+                2 * hidden_dim, hidden_dim, device=device))
+        self.readout_0 = PackedMPNNReadout(out_dim, hidden_dim,
+                                           s2s_n_max=s2s_n_max, device=device)
+
+    def message(self, layer: int) -> PackedEdgeNet:
+        return getattr(self, f"message_{0 if self.weight_tying else layer}")
+
+    def gru(self, layer: int) -> ChainerGRUCell:
+        return getattr(self, f"gru_{0 if self.weight_tying else layer}")
+
+    def forward(self, atom_ids, adj, mol_id, node_mask, num_mols: int):
+        h = self.embed(atom_ids)
+        h0 = h
+        states = {}
+        for step in range(self.n_layers):
+            k = 0 if self.weight_tying else step
+            x = self.message(step)(h, adj, mol_id, node_mask, num_mols)
+            h = self.gru(step)(states.get(k, torch.zeros_like(h)), x)
+            states[k] = h
+        g = self.readout_0(h, mol_id, node_mask, num_mols)
+        return g, {"atoms": h, "h0": h0}
+
+    def fused_forward(self, atom_ids, adj_flat, mol_id, node_mask,
+                      num_mols: int) -> torch.Tensor:
+        """Per-molecule embeddings (num_mols, D) through K5 and K4 (K5b
+        and K4b in the backward), from the flat (P, T, 4T) adjacency."""
+        h0 = self.embed(atom_ids)
+        wt, m0t, gru = params_to_fused_mpnn(self)
+        h = fused_mpnn(self.n_layers, self.weight_tying, h0, adj_flat,
+                       mol_id.to(torch.int32).contiguous(), node_mask, wt,
+                       m0t, gru)
+        return self.readout_0(h, mol_id, node_mask, num_mols, fused=True)
+
 
 def decode_compact_wire(nodes, e_packed, n_edges, num_mols: int):
     """Decode the wire-compact batch (``data.wire.compact_coo_arrays``)
@@ -129,28 +335,21 @@ class PackedPairPredictorCOOCompact(nn.Module):
     e_packed (E,), n_edges (), left_index (B,), right_index (B,)) ->
     logits (B, C), and with ``return_g`` the pair's embeddings."""
 
-    def __init__(self, encoder: PackedGGNN, head: nn.Module):
+    def __init__(self, encoder: nn.Module, head: nn.Module):
         super().__init__()
-        self.encoder = encoder
+        self.encoder = encoder  # a PackedGGNN or a PackedMPNN
         self.head = head
 
     def forward(self, nodes, e_packed, n_edges, left_index, right_index,
                 return_g: bool = False):
-        enc = self.encoder
         num_mols = 2 * left_index.shape[0]
         (atom_ids, mol_id, node_mask, e_tile, e_type, e_src, e_dst,
          e_mask) = decode_compact_wire(nodes, e_packed, n_edges, num_mols)
         p, t = atom_ids.shape
         adj_flat = adj_from_coo_flat(e_tile, e_type, e_src, e_dst, e_mask,
                                      num_tiles=p, tile=t)
-        h0 = enc.embed(atom_ids)
-        msg_w, msg_b, gru = params_to_fused(enc)
-        ro = enc.readout_0
-        g_nodes = fused_ggnn_readout(
-            enc.n_layers, h0, adj_flat, msg_w, msg_b, gru, node_mask,
-            ro.i.dense.weight.T.contiguous(), ro.i.dense.bias,
-            ro.j.dense.weight.T.contiguous(), ro.j.dense.bias)
-        g = _segment_mol_sum(g_nodes, mol_id, num_mols)
+        g = self.encoder.fused_forward(atom_ids, adj_flat, mol_id, node_mask,
+                                       num_mols)
         g1 = g[left_index.long()]
         g2 = g[right_index.long()]
         logits = self.head(g1, g2)
@@ -161,11 +360,12 @@ class PackedPairPredictorCOOCompact(nn.Module):
 
 # Model fields of a run config and the values the port builds.
 # compute_path is not read: the packed and padded parameter trees are the
-# same, and the port always runs the packed fused form.  compute_dtype is
-# a training knob (the trainer rejects bfloat16); serving runs in f32, as
-# the JAX packed evaluator does.
+# same, and the port always runs the packed kernel path of the encoder.
+# compute_dtype is a training knob (the trainer takes bfloat16 for mpnn
+# and computes in f32); serving runs in f32, as the JAX packed evaluator
+# does.
+PORTED_METHODS = ("ggnn", "mpnn")
 _REQUIRED = {
-    "method": "ggnn",
     "sim_method": "hole",
     "attn": None,
     "layer_aggregator": None,
@@ -178,22 +378,29 @@ _REQUIRED = {
 # TrainConfig defaults for fields a config.json may omit (the ported
 # values above are TrainConfig's defaults as well)
 _DEFAULTS = {
-    **_REQUIRED, "fp_hidden_dim": 16, "fp_out_dim": 16, "conv_layers": 4,
-    "weight_tying": True, "net_hidden_dims": (), "class_num": 1,
+    **_REQUIRED, "method": "ggnn", "fp_hidden_dim": 16, "fp_out_dim": 16,
+    "conv_layers": 4, "weight_tying": True, "net_hidden_dims": (),
+    "class_num": 1,
 }
 
 
 def model_kwargs_from_config(cfg: dict) -> dict:
     """``make_packed_predictor`` kwargs from a run config dict (a
     ``config.json``, the port's or a JAX run's); raises ValueError on any
-    model value outside what the port builds."""
+    model value outside what the port builds.  The Set2Set table width
+    is not a config field: it takes ``make_packed_predictor``'s default,
+    as the JAX evaluator does, unless the caller adds it."""
     get = lambda k: cfg.get(k, _DEFAULTS[k])
     bad = [f"{k}={get(k)!r} (ported: {v!r})" for k, v in _REQUIRED.items()
            if get(k) != v]
+    if get("method") not in PORTED_METHODS:
+        bad.insert(0, f"method={get('method')!r} (ported: "
+                      f"{', '.join(map(repr, PORTED_METHODS))})")
     if bad:
         raise ValueError("config outside the ported model: "
                          + ", ".join(bad))
     return {
+        "method": get("method"),
         "fp_hidden_dim": int(get("fp_hidden_dim")),
         "fp_out_dim": int(get("fp_out_dim")),
         "conv_layers": int(get("conv_layers")),
@@ -215,11 +422,14 @@ def make_packed_predictor(
     attn: Optional[str] = None,
     method: str = "ggnn",
     layer_aggregator: Optional[str] = None,
+    s2s_n_max: int = 64,
     device=None,
 ) -> PackedPairPredictorCOOCompact:
-    """The wire-compact GGNN pair predictor of the JAX package's
-    ``make_packed_predictor(..., compact=True)`` for the flagship family."""
-    if method != "ggnn":
+    """The wire-compact pair predictor of the JAX package's
+    ``make_packed_predictor(..., compact=True)`` for the GGNN and MPNN
+    families.  ``s2s_n_max`` is the MPNN Set2Set table width: it must
+    bound the largest molecule (the trainer fits it to its data)."""
+    if method not in PORTED_METHODS:
         raise ValueError(
             f"method {method!r} is not ported yet: the other packed encoders "
             "come later (ROADMAP queue 1, item 9)")
@@ -229,9 +439,14 @@ def make_packed_predictor(
     if layer_aggregator is not None:
         raise ValueError("layer_aggregator is not ported yet "
                          "(ROADMAP queue 1, item 9)")
-    encoder = PackedGGNN(out_dim=fp_out_dim, hidden_dim=fp_hidden_dim,
-                         n_layers=conv_layers, weight_tying=weight_tying,
-                         device=device)
+    if method == "mpnn":
+        encoder = PackedMPNN(out_dim=fp_out_dim, hidden_dim=fp_hidden_dim,
+                             n_layers=conv_layers, weight_tying=weight_tying,
+                             s2s_n_max=s2s_n_max, device=device)
+    else:
+        encoder = PackedGGNN(out_dim=fp_out_dim, hidden_dim=fp_hidden_dim,
+                             n_layers=conv_layers, weight_tying=weight_tying,
+                             device=device)
     head = make_head(sim_method, fp_out_dim, class_num,
                      tuple(net_hidden_dims), device=device)
     return PackedPairPredictorCOOCompact(encoder, head)

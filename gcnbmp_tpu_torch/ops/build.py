@@ -38,6 +38,15 @@ SOURCES = {
         "fused_ggnn_bwd": [_P] * 18 + [_I] * 3 + [_P],
         "fused_ggnn_readout_bwd": [_P] * 23 + [_I] * 4 + [_P],
     },
+    "fused_mpnn.cu": {
+        "fused_mpnn_fwd": [_P] * 16 + [_I] * 4 + [_P],
+        "fused_mpnn_bwd": [_P] * 20 + [_I] * 4 + [_P],
+    },
+    "set2set.cu": {
+        "fused_set2set_fwd": [_P] * 6 + [_I] * 4 + [_P],
+        "fused_set2set_bwd": [_P] * 9 + [_I] * 4 + [_P],
+        "set2set_bwd_ctas": [_I],
+    },
 }
 
 _lib: Optional[types.SimpleNamespace] = None

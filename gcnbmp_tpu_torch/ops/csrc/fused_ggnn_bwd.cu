@@ -108,114 +108,6 @@ struct GradLayout {
   }
 };
 
-// out (RR, H) (+)= [a_lo | a_hi]^T b over the tile's rows; a_lo, a_hi, b
-// are (T, H) in shared memory (a_hi read for output rows >= H); a_lo ==
-// nullptr is a zero operand.  Each entry belongs to one thread.
-template <int H, int RR>
-__device__ __forceinline__ void grad_AtB(const float* a_lo, const float* a_hi,
-                                         const float* b, float* out,
-                                         bool accumulate, int tid) {
-  const int c = tid % H;
-  for (int a = tid / H; a < RR; a += THREADS / H) {
-    float acc = 0.0f;
-    if (a_lo != nullptr) {
-      const float* src = a < H ? a_lo + a : a_hi + (a - H);
-#pragma unroll 8
-      for (int i = 0; i < TILE; ++i) acc = fmaf(src[i * H], b[i * H + c], acc);
-    }
-    float* o = out + size_t(a) * H + c;
-    *o = accumulate ? *o + acc : acc;
-  }
-}
-
-// out (H) (+)= column sums of b (T, H).
-template <int H>
-__device__ __forceinline__ void bias_sum(const float* b, float* out,
-                                         bool accumulate, int tid) {
-  if (tid < H) {
-    float acc = 0.0f;
-    for (int i = 0; i < TILE; ++i) acc += b[i * H + tid];
-    out[tid] = accumulate ? out[tid] + acc : acc;
-  }
-}
-
-// Column lists of the rows that fit their row lists, in ascending row
-// order, and the list of rows that do not.  Thread k owns column k.
-__device__ __forceinline__ void build_columns(const int* s_nk, const float* s_nv,
-                                              const int* s_nc, int* s_cs,
-                                              int* s_cr, float* s_cv,
-                                              int* s_ov, int* s_ovn, int tid) {
-  static_assert(THREADS == ROW_LEN, "one thread per adjacency column");
-  const int k = tid;
-  int cnt = 0;
-  for (int i = 0; i < TILE; ++i) {
-    const int nc = s_nc[i];
-    if (nc <= NBR_CAP)
-      for (int n = 0; n < nc; ++n) cnt += (s_nk[i * NBR_CAP + n] == k);
-  }
-  s_cs[k + 1] = cnt;
-  if (tid == 0) {
-    s_cs[0] = 0;
-    int ov = 0;
-    for (int i = 0; i < TILE; ++i)
-      if (s_nc[i] > NBR_CAP) s_ov[ov++] = i;
-    *s_ovn = ov;
-  }
-  __syncthreads();
-  if (tid < 32) {  // inclusive scan of the counts: lane owns 16 columns
-    constexpr int PER = ROW_LEN / 32;
-    const int base = 1 + tid * PER;
-    int sum = 0;
-    for (int q = 0; q < PER; ++q) sum += s_cs[base + q];
-    int incl = sum;
-    for (int off = 1; off < 32; off <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, incl, off);
-      if (tid >= off) incl += v;
-    }
-    int run = incl - sum;
-    for (int q = 0; q < PER; ++q) {
-      run += s_cs[base + q];
-      s_cs[base + q] = run;
-    }
-  }
-  __syncthreads();
-  int pos = s_cs[k];
-  for (int i = 0; i < TILE; ++i) {
-    const int nc = s_nc[i];
-    if (nc <= NBR_CAP)
-      for (int n = 0; n < nc; ++n)
-        if (s_nk[i * NBR_CAP + n] == k) {
-          s_cr[pos] = i;
-          s_cv[pos] = s_nv[i * NBR_CAP + n];
-          ++pos;
-        }
-  }
-  __syncthreads();
-}
-
-// dhw (4T, H) = A_flat^T dm: thread owns column c of rows k of dhw.
-template <int H>
-__device__ __forceinline__ void column_gather(const float* adj_t,
-                                              const float* s_dm,
-                                              const int* s_cs, const int* s_cr,
-                                              const float* s_cv,
-                                              const int* s_ov, int n_ov,
-                                              float* s_dhw, int tid) {
-  const int c = tid % H;
-  for (int k = tid / H; k < ROW_LEN; k += THREADS / H) {
-    float acc = 0.0f;
-    const int end = s_cs[k + 1];
-    for (int e = s_cs[k]; e < end; ++e)
-      acc = fmaf(s_cv[e], s_dm[s_cr[e] * H + c], acc);
-    for (int o = 0; o < n_ov; ++o) {
-      const int i = s_ov[o];
-      const float a = __ldg(adj_t + size_t(i) * ROW_LEN + k);
-      if (a != 0.0f) acc = fmaf(a, s_dm[i * H + c], acc);
-    }
-    s_dhw[k * H + c] = acc;
-  }
-}
-
 template <int H, bool READOUT>
 __global__ void __launch_bounds__(THREADS)
 fused_ggnn_bwd_kernel(const float* __restrict__ h0, const float* __restrict__ adj,
@@ -471,17 +363,6 @@ fused_ggnn_bwd_kernel(const float* __restrict__ h0, const float* __restrict__ ad
     const float v = s_dh[i * H + col];
     dh0_t[i * H + col] = READOUT ? v + dh0_t[i * H + col] : v;
   }
-}
-
-// grads[j] = sum over tiles p (in order) of partial[p, j]
-__global__ void sum_tiles_kernel(const float* __restrict__ partial,
-                                 float* __restrict__ grads, int n_tiles,
-                                 int n_grad) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n_grad) return;
-  float acc = 0.0f;
-  for (int p = 0; p < n_tiles; ++p) acc += partial[size_t(p) * n_grad + j];
-  grads[j] = acc;
 }
 
 template <int H, bool READOUT>

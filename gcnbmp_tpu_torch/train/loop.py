@@ -1,5 +1,5 @@
-"""Training on the fused path: losses, the optimizer chain, the train step
-and the Trainer (port of gcnbmp_tpu/train/loop.py).
+"""Training on the kernel paths: losses, the optimizer chain, the train
+step and the Trainer (port of gcnbmp_tpu/train/loop.py).
 
 - losses        <- :43-126 (labels < 0 are ignored; the mean divides by
                    max(#valid, 1))
@@ -8,7 +8,9 @@ and the Trainer (port of gcnbmp_tpu/train/loop.py).
   the Lasso term g + l1 sign(p), then Adam (b1 0.9, b2 0.999, eps 1e-8,
   eps_root 0) at lr = schedule(count) taken before the count increments.
 - ``train_step``  <- ``make_packed_coo_train_step`` (:333-355)
-- ``Trainer``     <- :686-1408 for ``compute_path="fused"``
+- ``Trainer``     <- :686-1408 for GGNN on ``compute_path="fused"`` and
+  MPNN on ``compute_path="coo"`` (the Set2Set table width fitted to the
+  data, :817-827)
 - ``config_problems`` <- ``packed_config_problems`` (:532-575), for what
   the port trains.
 """
@@ -192,8 +194,9 @@ def build_optimizer(config: TrainConfig, steps_per_epoch: int,
 def train_step(model, optimizer: ChainedAdam, args, labels,
                loss_fn: Callable = sigmoid_cross_entropy,
                class_num: int = 1) -> torch.Tensor:
-    """One step over a wire-compact batch: loss, backward (K2b on the
-    card), optimizer update.  Returns the loss as a device tensor; the
+    """One step over a wire-compact batch: loss, backward (K2b for GGNN,
+    K4b and K5b for MPNN, on the card), optimizer update.  Returns the
+    loss as a device tensor; the
     caller fetches losses once per epoch."""
     for p in optimizer.params:
         p.grad = None
@@ -214,11 +217,19 @@ def config_problems(cfg: TrainConfig) -> List[str]:
     """Options of ``cfg`` the port does not train yet, each naming the
     ROADMAP item that brings it."""
     problems = []
-    if cfg.compute_path != "fused":
+    if cfg.method == "mpnn":
+        # as in the JAX package, MPNN trains on the coo path (its fused
+        # path is GGNN-only), which runs K5 and K4 on the card
+        if cfg.compute_path != "coo":
+            problems.append(f"compute_path={cfg.compute_path!r} with "
+                            "method='mpnn': MPNN trains on 'coo', as in the "
+                            "JAX package; its other layouts come with "
+                            "ROADMAP queue 1, items 4 and 7")
+    elif cfg.compute_path != "fused":
         problems.append(f"compute_path={cfg.compute_path!r}: the port trains "
                         "'fused' only; the other layouts come with ROADMAP "
                         "queue 1, items 4 and 7")
-    if cfg.method != "ggnn":
+    if cfg.method not in ("ggnn", "mpnn"):
         problems.append(f"method={cfg.method!r}: other encoders are ROADMAP "
                         "queue 1, item 9")
     if cfg.sim_method != "hole":
@@ -244,7 +255,9 @@ def config_problems(cfg: TrainConfig) -> List[str]:
     if cfg.scan_steps > 1:
         problems.append(f"scan_steps={cfg.scan_steps}: several steps per "
                         "dispatch (CUDA graphs) is ROADMAP queue 1, item 5")
-    if cfg.compute_dtype == "bfloat16":
+    # MPNN's kernels compute in f32 whatever compute_dtype says, as the
+    # JAX package's fused MPNN path does (only its 0/1 matrices were bf16)
+    if cfg.compute_dtype == "bfloat16" and cfg.method != "mpnn":
         problems.append("compute_dtype='bfloat16': ROADMAP queue 1, item 4")
     if cfg.resume:
         problems.append("resume: checkpoint restore is ROADMAP queue 1, "
@@ -267,7 +280,7 @@ class TrainState:
 
 
 class Trainer:
-    """Binary / multi-label DDI trainer over the fused path.
+    """Binary / multi-label DDI trainer over the kernel paths.
 
     Usage::
 
@@ -277,7 +290,8 @@ class Trainer:
     Initial weights come from ``convert.init_params(cfg, seed)``: seeded
     numpy draws from the flax initializers' distributions, so their
     values differ from a JAX run's (jax.random) with the same seed.
-    Each step runs K2 forward and K2b backward on the card; epoch ends
+    Each step runs K2 forward and K2b backward on the card (GGNN), or K5,
+    K4, K4b and K5b (MPNN); epoch ends
     evaluate train and val through ``PackedPairEvaluator``, stop early on
     val loss, and save ``snapshot_epoch_*``, ``best`` and ``final``
     checkpoints (``train.checkpoints``)."""
@@ -303,6 +317,14 @@ class Trainer:
         self.val_ds = val_ds
         self.np_rng = rng
         kwargs = model_kwargs_from_config(dataclasses.asdict(config))
+        if config.method == "mpnn":
+            # the Set2Set table width: the largest molecule of the run's
+            # datasets, rounded up to 8 (loop.py:817-827)
+            from gcnbmp_tpu.data.packing import max_atoms_lane_rounded
+
+            dss = [train_ds] + ([val_ds] if val_ds is not None
+                                and len(val_ds) else [])
+            kwargs["s2s_n_max"] = max_atoms_lane_rounded(dss)
         self.model = from_jax_params(
             init_params(kwargs, config.seed),
             make_packed_predictor(**kwargs)).to(self.device)

@@ -15,6 +15,9 @@ MODULES = [
     "gcnbmp_tpu_torch.ops.aggregate",
     "gcnbmp_tpu_torch.ops.circular",
     "gcnbmp_tpu_torch.ops.fused_ggnn",
+    "gcnbmp_tpu_torch.ops.fused_mpnn",
+    "gcnbmp_tpu_torch.ops.set2set_kernel",
+    "gcnbmp_tpu_torch.ops.slotgather",
     "gcnbmp_tpu_torch.ops.build",
     "gcnbmp_tpu_torch.models.layers",
     "gcnbmp_tpu_torch.models.ggnn",

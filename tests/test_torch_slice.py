@@ -180,7 +180,7 @@ def test_predict_cli_matches_jax(tmp_path):
                                rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("field,value", [("method", "mpnn"), ("attn", "para"),
+@pytest.mark.parametrize("field,value", [("method", "relgcn"), ("attn", "para"),
                                          ("layer_aggregator", "concat"),
                                          ("sim_method", "ntn"),
                                          ("symmetric", "or")])
