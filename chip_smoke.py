@@ -11,11 +11,15 @@ Phases, each fatal on failure:
    pairs of dataset/synth546's drug test split at batch 256 and 2048);
    errors, and median CUDA-event times of kernel and plain version per
    call over runs of back-to-back calls:
-   a. GGNN: K1 (``fused_ggnn``), K2 (``fused_ggnn_readout``) and their
-      backward kernels K1b (``fused_ggnn_bwd``), K2b
+   a. GGNN: K1 (``fused_ggnn``), K1m (``fused_ggnn_mid``, K1 that also
+      writes h_mid), K2 (``fused_ggnn_readout``) and the backward kernels
+      K1b (``fused_ggnn_bwd``), K3 (``fused_ggnn_half_bwd``, each half of
+      the two-pass backward on its own) and K2b
       (``fused_ggnn_readout_bwd``) at the flagship L=8, H=32, D=32, one
-      H=16 case, and one batch-256 case whose adjacency has rows with
-      more than the kernels' 16 neighbour slots;
+      H=16 case, one batch-256 case whose adjacency has rows with more
+      than the kernels' 16 neighbour slots, and one L=3 case (the odd
+      split); K1m's h must equal K1's bit for bit, and K3's two halves
+      summed must equal K1b within the gradient bound;
    b. MPNN: K5 (``fused_mpnn``), K5b (``fused_mpnn_bwd``), K4
       (``fused_set2set``) and K4b (``fused_set2set_bwd``) at the quality
       row's model (L=4 tied, H=32; Set2Set tables 24 and 64 atoms wide),
@@ -41,10 +45,23 @@ Phases, each fatal on failure:
    H=D=32, lr 2e-3) at batch 256: 32 steps, K5b and K4b once per step;
    gradients against the plain layer stack; the step timed and profiled
    at batch 256 and 2048.
+8. GGNN production recipe, two-pass: the train CLI with ``--preset
+   ggnn_hole_production --compute-path fused`` (L=8 untied, H=32, batch
+   2048, bf16 computed in f32, scan mode of 10 steps, reused packs) in
+   the JAX package's default fused form (``models.packed.FUSED_READOUT``
+   off) with ``ops.fused_ggnn.TWOPASS`` on, on the first 10,240 train
+   pairs (20,480 with augmentation: one chunk of 10 steps per epoch) for
+   2 epochs: K3 twice per step, K1m at least once, K2 and K2b never;
+   falling loss, val metrics, params served, gradients vs the plain
+   stack.  Then one epoch of the single-pass default form (K1, K1b), and
+   the batch-2048 step timed and profiled in all three forms (K2/K2b,
+   K1/K1b, K1m/K3).
 
-Prints the kernels' JSON line, the nvidia-smi line, and last the device
-JSON line.  Exits non-zero when CUDA is unavailable or the port's
-package is not beside this script.
+Prints the kernels' JSON line (with each kernel's bound: the larger of
+its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s, counted
+from this run's inputs, the sparse products by their nonzeros), the
+nvidia-smi line, and last the device JSON line.  Exits non-zero when
+CUDA is unavailable or the port's package is not beside this script.
 """
 
 from __future__ import annotations
@@ -73,7 +90,8 @@ ATOL = RTOL = 1e-4  # f32 sums in another order across 8 layers
 # order than the plain version's matmuls
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
 SEED = 2018
-REPS = 20
+REPS = 20          # timed runs of the headline cases (batch 256, the
+REPS_OTHER = 5     # flagship and quality-row models), and of the others
 BACK_TO_BACK = 10
 # the MPNN quality row (docs/QUALITY.md:80-84; scripts/tpu_queue_r5e.sh:11-17)
 MPNN_CFG = dict(fp_hidden_dim=32, fp_out_dim=32, conv_layers=4,
@@ -84,6 +102,70 @@ MPNN_FLAGS = ["--method", "mpnn", "--sim-method", "hole", "--conv-layers", "4",
               "--fp-out-dim", "32", "--lr", "2e-3", "--compute-path", "coo",
               "--compute-dtype", "bfloat16", "--augment"]
 S2S_STEPS = 3
+# phase 8: 10,240 train pairs, 20,480 with augmentation, one scan chunk of
+# 10 steps of 2048 per epoch
+N_PROD_TRAIN = 10240
+TILE = 128
+# NVIDIA's H100 SXM data sheet: HBM bytes/s, and f32 FLOP/s outside the
+# tensor cores, the arithmetic every kernel here does
+PEAK_BYTES_S, PEAK_F32_FLOPS = 3.35e12, 67e12
+
+
+def nbytes(*xs) -> int:
+    """Bytes of the tensors in ``xs`` (tensors, dicts, tuples, lists)."""
+    total = 0
+    for x in xs:
+        if isinstance(x, dict):
+            total += nbytes(*x.values())
+        elif isinstance(x, (tuple, list)):
+            total += nbytes(*x)
+        elif hasattr(x, "element_size"):
+            total += x.numel() * x.element_size()
+    return total
+
+
+def bound(flops, n_bytes):
+    """The least time in ms the card could take for a kernel's work (each
+    input read once, each output written once; its operations at the f32
+    peak), and which of the two terms binds."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def ggnn_flops(p, hidden, nnz, lo, hi, readout=False, backward=False):
+    """f32 operations of GGNN layers [lo, hi) over p tiles.  Per layer and
+    tile: the message product 8TH^2, the GRU's input products 12TH^2 and
+    state products 6TH^2 (none at layer 0, whose state is zero), the
+    aggregation 2H per adjacency nonzero; the readout 6TH^2 (D = H).  A
+    backward rebuilds the forward once (the kernels save only inputs)
+    and takes two products for each dense product (input and weight
+    gradients) and one for the aggregation (the adjacency gets none)."""
+    dense = p * TILE * hidden ** 2 * (26 * (hi - lo) - (6 if lo == 0 else 0)
+                                     + (6 if readout else 0))
+    sparse = 2 * nnz * hidden * (hi - lo)
+    return 3 * dense + 2 * sparse if backward else dense + sparse
+
+
+def mpnn_flops(p, hidden, n_layers, carry_state, nnz, mol_pairs,
+               backward=False):
+    """As ``ggnn_flops`` for EdgeNet layers: per layer and tile the
+    edge-type products 8TC^2, the molecule-sum product 2TC^2 and the
+    GRU's 12TC^2, plus its state products 6TC^2 where the state is carried
+    and not zero; the out and in aggregations 4C per adjacency nonzero,
+    the molecule sums 2C per same-molecule atom pair."""
+    state_layers = n_layers - 1 if carry_state else 0
+    dense = p * TILE * hidden ** 2 * (22 * n_layers + 6 * state_layers)
+    sparse = n_layers * hidden * (4 * nnz + 2 * mol_pairs)
+    return 3 * dense + 2 * sparse if backward else dense + sparse
+
+
+def set2set_flops(steps, m, hidden, n_atoms, backward=False):
+    """Set2Set: the LSTM's products 24MC^2 per step after the first (whose
+    q* and h are zero) and the attention's 4C per real atom per step;
+    the backward three times the forward, as above."""
+    f = 24 * m * hidden ** 2 * (steps - 1) + 4 * n_atoms * hidden * steps
+    return 3 * f if backward else f
 
 
 def nvidia_smi_line() -> str:
@@ -161,30 +243,38 @@ MPNN_GRAD_NAMES = ["dh0", "dwt", "dm0t", "gru"]
 S2S_GRAD_NAMES = ["datoms", "dwx", "dwh", "db"]
 
 
-def time_pair(name, tag, kern, plain, smi, torch):
+def time_pair(name, tag, kern, plain, smi, torch, labels=("kernel", "plain"),
+              reps=REPS):
     """Median CUDA-event ms per call of kernel and plain version, run in
     turns."""
     kern(), plain()  # warm up
     k_ms, p_ms = [], []
-    for _ in range(REPS):  # alternate plain and kernel
+    for _ in range(reps):  # alternate plain and kernel
         p_ms.append(cuda_ms(plain, torch))
         k_ms.append(cuda_ms(kern, torch))
     k_med, p_med = statistics.median(k_ms), statistics.median(p_ms)
-    print(f"  time {name} [{tag}]: kernel {k_med:.4f} ms, plain "
-          f"{p_med:.4f} ms per call (median of {REPS} runs of "
+    print(f"  time {name} [{tag}]: {labels[0]} {k_med:.4f} ms, {labels[1]} "
+          f"{p_med:.4f} ms per call (median of {reps} runs of "
           f"{BACK_TO_BACK} back-to-back calls, CUDA events) on {smi}")
     return k_med, p_med
 
 
-def check_pair(name, tag, kern, plain, grad_names, gru_keys, smi, torch):
-    """Hold a kernel against its plain version, then time both."""
+def check_pair(name, tag, kern, plain, grad_names, gru_keys, smi, torch,
+               reps=REPS):
+    """Hold a kernel against its plain version, then time both.  Returns
+    (max abs error, kernel ms, plain ms, the kernel's output)."""
+    got = kern()
     if grad_names is not None:
         err = compare_grads(f"{name} [{tag}]",
-                            named_grads(kern(), gru_keys, grad_names),
+                            named_grads(got, gru_keys, grad_names),
                             named_grads(plain(), gru_keys, grad_names), torch)
+    elif isinstance(got, tuple):  # several outputs, each held on its own
+        err = max(compare(f"{name} [{tag}] output {i}", g, w, torch)
+                  for i, (g, w) in enumerate(zip(got, plain())))
     else:
-        err = compare(f"{name} [{tag}]", kern(), plain(), torch)
-    return (err, *time_pair(name, tag, kern, plain, smi, torch))
+        err = compare(f"{name} [{tag}]", got, plain(), torch)
+    return (err, *time_pair(name, tag, kern, plain, smi, torch, reps=reps),
+            got)
 
 
 def profile_steps(step, n_steps):
@@ -314,14 +404,16 @@ def serve_slice(tag, config, cfg, ds, df, dev, smi, reset_counts, read_counts,
     return launches
 
 
-def train_slice(tag, flags, batch_size, train_cfg, model_cfg, bwd_kernels,
+def train_slice(tag, flags, batch_size, train_cfg, model_cfg, per_step,
                 fwd_kernels, time_batches, dev, smi, reset_counts,
-                read_counts):
-    """The train CLI on the card with ``flags`` at ``batch_size`` for
-    TRAIN_EPOCHS epochs; each of ``bwd_kernels`` must launch once per
-    step (``fwd_kernels`` at least once).  Then one step's gradients vs
-    the plain layer stack, and the step's time and profile at each of
-    ``time_batches`` (batch size, steps).  Returns the launch counts."""
+                read_counts, n_train=N_PAIRS, epochs=TRAIN_EPOCHS, absent=()):
+    """The train CLI on the card with ``flags`` at ``batch_size`` on the
+    first ``n_train`` train pairs for ``epochs`` epochs; each kernel of
+    ``per_step`` must launch that many times per step, each of
+    ``fwd_kernels`` at least once per step and each of ``absent`` never.
+    Then one step's gradients vs the plain layer stack, and the step's
+    time and profile at each of ``time_batches`` (batch size, steps).
+    Returns the launch counts and the parsed train pairs."""
     import numpy as np
     import pandas as pd
     import torch
@@ -331,14 +423,18 @@ def train_slice(tag, flags, batch_size, train_cfg, model_cfg, bwd_kernels,
     from gcnbmp_tpu_torch.convert import from_jax_params, init_params
     from gcnbmp_tpu_torch.data import CSVPairParser, estimate_coo_capacities
     from gcnbmp_tpu_torch.data.wire import (
-        compact_coo_arrays, iter_coo_eval_batches, packed_coo_batch_iterator)
+        compact_coo_arrays, iter_coo_eval_batches)
     from gcnbmp_tpu_torch.models.packed import make_packed_predictor
     from gcnbmp_tpu_torch.train import loop as train_loop
 
-    train_df = pd.read_csv(TRAIN_CSV).head(N_PAIRS)
+    train_df = pd.read_csv(TRAIN_CSV).head(n_train)
     val_df = pd.read_csv(VALID_CSV).head(N_VAL)
     train_ds = CSVPairParser().parse(train_df).dataset
+    if len(train_ds) != n_train:
+        raise AssertionError(f"parsed {len(train_ds)} of {n_train} pairs")
     steps_per_epoch = 2 * len(train_ds) // batch_size  # swap-augmented
+    if train_cfg.scan_steps > 1:  # scan mode drops the tail chunk
+        steps_per_epoch -= steps_per_epoch % train_cfg.scan_steps
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         train_path = os.path.join(tmp, "train.csv")
         val_path = os.path.join(tmp, "val.csv")
@@ -347,7 +443,7 @@ def train_slice(tag, flags, batch_size, train_cfg, model_cfg, bwd_kernels,
         val_df.to_csv(val_path, index=False)
         argv = ["--train", train_path, "--val", val_path, *flags,
                 "--batch-size", str(batch_size),
-                "--device", "cuda", "--epochs", str(TRAIN_EPOCHS),
+                "--device", "cuda", "--epochs", str(epochs),
                 "--seed", str(SEED), "--out", out_dir]
         # record each step's loss (a device tensor) as the trainer takes it
         step_losses = []
@@ -373,19 +469,24 @@ def train_slice(tag, flags, batch_size, train_cfg, model_cfg, bwd_kernels,
             raise AssertionError(f"train.main returned {rc}")
         n_steps = len(step_losses)
         print(f"{tag} train slice: train.main ran {n_steps} steps of batch "
-              f"{batch_size} over {TRAIN_EPOCHS} epochs in {wall:.3f} s "
+              f"{batch_size} over {epochs} epochs in {wall:.3f} s "
               f"(CSV parse, pack, steps, per-epoch train+val evaluation, "
               f"checkpoints) on {smi}; launches {launches}")
-        if n_steps != TRAIN_EPOCHS * steps_per_epoch:
+        if n_steps != epochs * steps_per_epoch:
             raise AssertionError(f"{n_steps} steps, expected "
-                                 f"{TRAIN_EPOCHS * steps_per_epoch}")
-        for name in bwd_kernels:
-            if launches[name] != n_steps:
+                                 f"{epochs * steps_per_epoch}")
+        for name, times in per_step.items():
+            if launches[name] != times * n_steps:
                 raise AssertionError(f"{name} launched {launches[name]} "
-                                     f"times for {n_steps} steps")
+                                     f"times for {n_steps} steps, expected "
+                                     f"{times} per step")
         for name in fwd_kernels:
             if launches[name] < n_steps:
                 raise AssertionError(f"{name} launched fewer times than steps")
+        for name in absent:
+            if launches[name]:
+                raise AssertionError(f"{name} launched {launches[name]} "
+                                     f"times on a path that does not run it")
         losses = torch.stack(step_losses).cpu().numpy()
         k = min(10, n_steps // 3)
         first, last = float(losses[:k].mean()), float(losses[-k:].mean())
@@ -396,7 +497,7 @@ def train_slice(tag, flags, batch_size, train_cfg, model_cfg, bwd_kernels,
         with open(os.path.join(out_dir, "log.json")) as f:
             log = json.load(f)
         print(f"{tag} train slice: last log entry {json.dumps(log[-1])}")
-        if len(log) != TRAIN_EPOCHS or not all(
+        if len(log) != epochs or not all(
                 np.isfinite(e.get("val/roc_auc", np.nan))
                 and np.isfinite(e["val/loss"]) for e in log):
             raise AssertionError("log.json lacks finite val metrics")
@@ -437,38 +538,56 @@ def train_slice(tag, flags, batch_size, train_cfg, model_cfg, bwd_kernels,
                   f"stack)", list(zip(names, grads_k)),
                   list(zip(names, grads_p)), torch)
 
-    # the train step's time, on batches staged on the card beforehand
     for bs, n_steps in time_batches:
-        tiles, cap = estimate_coo_capacities([train_ds], bs)
-        rng = np.random.default_rng(SEED)
-        staged = []
-        for b in packed_coo_batch_iterator(train_ds, bs, tiles, cap, rng):
-            staged.append(([torch.as_tensor(np.asarray(a)).to(dev)
-                            for a in compact_coo_arrays(b)],
-                           torch.as_tensor(b.labels).to(dev)))
-            if len(staged) == 8:
-                break
-        model = from_jax_params(init_params(model_cfg, SEED),
-                                make_packed_predictor(**model_cfg)).to(dev)
-        opt, _ = train_loop.build_optimizer(train_cfg, 1000,
-                                            list(model.parameters()))
-        for i in range(3):  # warm up
-            train_loop.train_step(model, opt, *staged[i % len(staged)])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(n_steps):
-            train_loop.train_step(model, opt, *staged[i % len(staged)])
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-        busy, top = profile_steps(
-            lambda i: train_loop.train_step(model, opt, *staged[i % len(staged)]),
-            n_steps)
-        print(f"{tag} train step: batch={bs} P={tiles}: {step_ms:.3f} ms per "
-              f"step, {bs * 1e3 / step_ms:.1f} pairs/s (host clock around "
-              f"{n_steps} back-to-back steps on staged batches) on {smi}")
-        print(f"  where it goes (torch.profiler over {n_steps} steps): {busy}; "
-              f"top kernels, device ms per step: {top}")
-    return launches
+        time_train_step(tag, train_ds, model_cfg, train_cfg, bs, n_steps, dev,
+                        smi)
+    return launches, train_ds
+
+
+def time_train_step(tag, train_ds, model_cfg, train_cfg, bs, n_steps, dev,
+                    smi):
+    """The train step's time (host clock) and profile at batch ``bs``, on
+    batches staged on the card beforehand; returns ms per step."""
+    import numpy as np
+    import torch
+
+    from gcnbmp_tpu_torch.convert import from_jax_params, init_params
+    from gcnbmp_tpu_torch.data import estimate_coo_capacities
+    from gcnbmp_tpu_torch.data.wire import (
+        compact_coo_arrays, packed_coo_batch_iterator)
+    from gcnbmp_tpu_torch.models.packed import make_packed_predictor
+    from gcnbmp_tpu_torch.train import loop as train_loop
+
+    tiles, cap = estimate_coo_capacities([train_ds], bs)
+    rng = np.random.default_rng(SEED)
+    staged = []
+    for b in packed_coo_batch_iterator(train_ds, bs, tiles, cap, rng):
+        staged.append(([torch.as_tensor(np.asarray(a)).to(dev)
+                        for a in compact_coo_arrays(b)],
+                       torch.as_tensor(b.labels).to(dev)))
+        if len(staged) == 8:
+            break
+    model = from_jax_params(init_params(model_cfg, SEED),
+                            make_packed_predictor(**model_cfg)).to(dev)
+    opt, _ = train_loop.build_optimizer(train_cfg, 1000,
+                                        list(model.parameters()))
+    for i in range(3):  # warm up
+        train_loop.train_step(model, opt, *staged[i % len(staged)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        train_loop.train_step(model, opt, *staged[i % len(staged)])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    busy, top = profile_steps(
+        lambda i: train_loop.train_step(model, opt, *staged[i % len(staged)]),
+        n_steps)
+    print(f"{tag} train step: batch={bs} P={tiles}: {step_ms:.3f} ms per "
+          f"step, {bs * 1e3 / step_ms:.1f} pairs/s (host clock around "
+          f"{n_steps} back-to-back steps on staged batches) on {smi}")
+    print(f"  where it goes (torch.profiler over {n_steps} steps): {busy}; "
+          f"top kernels, device ms per step: {top}")
+    return step_ms
 
 
 def crowd_rows(adj, torch):
@@ -509,13 +628,16 @@ def main() -> int:
         _device_slot_table, decode_compact_wire, make_packed_predictor)
     from gcnbmp_tpu_torch.ops import build
     from gcnbmp_tpu_torch.ops.aggregate import adj_from_coo_flat
+    from gcnbmp_tpu_torch.models import packed as packed_module
+    from gcnbmp_tpu_torch.ops import fused_ggnn as fused_ggnn_module
     from gcnbmp_tpu_torch.ops.fused_ggnn import (
         GRU_KEYS, fused_ggnn, fused_ggnn_bwd, fused_ggnn_bwd_reference,
-        fused_ggnn_readout, fused_ggnn_readout_bwd,
+        fused_ggnn_half_bwd, fused_ggnn_half_bwd_reference, fused_ggnn_mid,
+        fused_ggnn_mid_reference, fused_ggnn_readout, fused_ggnn_readout_bwd,
         fused_ggnn_readout_bwd_reference, fused_ggnn_readout_reference,
-        fused_ggnn_reference, params_to_fused)
+        fused_ggnn_reference, fused_ggnn_twopass_bwd, params_to_fused)
     from gcnbmp_tpu_torch.ops.fused_mpnn import (
-        fused_mpnn, fused_mpnn_bwd, fused_mpnn_bwd_reference,
+        build_molmat, fused_mpnn, fused_mpnn_bwd, fused_mpnn_bwd_reference,
         fused_mpnn_reference, params_to_fused_mpnn)
     from gcnbmp_tpu_torch.ops.set2set_kernel import (
         fused_set2set, fused_set2set_bwd, fused_set2set_bwd_reference,
@@ -524,8 +646,10 @@ def main() -> int:
         gather_slot_table, identity_mol_row)
     from gcnbmp_tpu_torch.train.config import PRESETS, TrainConfig
 
-    counters = {"fused_ggnn": fused_ggnn, "fused_ggnn_readout": fused_ggnn_readout,
+    counters = {"fused_ggnn": fused_ggnn, "fused_ggnn_mid": fused_ggnn_mid,
+                "fused_ggnn_readout": fused_ggnn_readout,
                 "fused_ggnn_bwd": fused_ggnn_bwd,
+                "fused_ggnn_half_bwd": fused_ggnn_half_bwd,
                 "fused_ggnn_readout_bwd": fused_ggnn_readout_bwd,
                 "fused_mpnn": fused_mpnn, "fused_mpnn_bwd": fused_mpnn_bwd,
                 "fused_set2set": fused_set2set,
@@ -584,18 +708,26 @@ def main() -> int:
 
     results = {name: {} for name in counters}
 
-    def record(name, err, k_med, p_med, headline):
+    def record(name, tag, err, k_med, p_med, got, headline, flops, inputs):
+        """Print the case's bound (from its inputs and the kernel's
+        outputs); keep the worst error over the cases, and the headline
+        case's times and bound."""
+        b_ms, b_by = bound(flops, nbytes(inputs, got))
+        print(f"  bound {name} [{tag}]: {b_ms:.4f} ms, by {b_by} "
+              f"({flops / 1e9:.3f} GFLOP, {nbytes(inputs, got) / 1e6:.1f} MB)")
         r = results[name]
         r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
         if headline:
             r["ms"], r["plain_ms"] = k_med, p_med
+            r["bound_ms"], r["bound_by"] = b_ms, b_by
 
     # 3a. GGNN
     cfg = dict(fp_hidden_dim=H, fp_out_dim=D, conv_layers=L,
                weight_tying=False)
     cases = [(SERVE_BATCH, cfg, False), (N_PAIRS, cfg, False),
              (SERVE_BATCH, dict(cfg, fp_hidden_dim=16, fp_out_dim=16), False),
-             (SERVE_BATCH, cfg, True)]
+             (SERVE_BATCH, cfg, True),
+             (SERVE_BATCH, dict(cfg, conv_layers=3), False)]
     with torch.no_grad():
         for bs, c, crowd in cases:
             model = model_of(c)
@@ -611,29 +743,85 @@ def main() -> int:
             if crowd:
                 adj, crowded = crowd_rows(adj, torch)
                 tag += f" rows>16nnz={crowded}"
-            k1_args = (enc.n_layers, enc.embed(atom_ids), adj, msg_w, msg_b, gru)
+            n_layers, h0 = enc.n_layers, enc.embed(atom_ids)
+            split = n_layers // 2
+            k1_args = (n_layers, h0, adj, msg_w, msg_b, gru)
             # a seeded upstream gradient for the backward kernels
-            p_tiles, hidden = k1_args[1].shape[0], k1_args[1].shape[-1]
+            p_tiles, hidden = h0.shape[0], h0.shape[-1]
             dout = torch.as_tensor(np.random.default_rng(SEED + bs).standard_normal(
                 (p_tiles, 128, hidden)).astype(np.float32)).to(dev)
+            # K3's halves: the top from h_mid and dout, the bottom from h0
+            # and dout standing in for dh_mid
+            h_mid = fused_ggnn_mid_reference(*k1_args)[1]
+            top = (split, n_layers, h_mid, adj, msg_w, msg_b, gru, dout)
+            bottom = (0, split, h0, adj, msg_w, msg_b, gru, dout)
+            nnz = int(torch.count_nonzero(adj))
+
+            def flops(lo, hi, **kw):
+                return ggnn_flops(p_tiles, hidden, nnz, lo, hi, **kw)
+
+            headline = bs == SERVE_BATCH and c is cfg and not crowd
+            reps = REPS if headline else REPS_OTHER
+            # the L=3 case is there for K1m's and K3's odd split
+            odd = n_layers % 2 == 1
+            # (name, range tag, kernel, plain, gradient names, headline,
+            #  operations, inputs)
             pairs = [
-                ("fused_ggnn", lambda: fused_ggnn(*k1_args),
-                 lambda: fused_ggnn_reference(*k1_args)),
-                ("fused_ggnn_readout",
+                ("fused_ggnn", "", lambda: fused_ggnn(*k1_args),
+                 lambda: fused_ggnn_reference(*k1_args), None, headline,
+                 flops(0, n_layers), k1_args[1:]),
+                ("fused_ggnn_mid", "", lambda: fused_ggnn_mid(*k1_args),
+                 lambda: fused_ggnn_mid_reference(*k1_args), None, headline,
+                 flops(0, n_layers), k1_args[1:]),
+                ("fused_ggnn_readout", "",
                  lambda: fused_ggnn_readout(*k1_args, *readout),
-                 lambda: fused_ggnn_readout_reference(*k1_args, *readout)),
-                ("fused_ggnn_bwd", lambda: fused_ggnn_bwd(*k1_args, dout),
-                 lambda: fused_ggnn_bwd_reference(*k1_args, dout)),
-                ("fused_ggnn_readout_bwd",
+                 lambda: fused_ggnn_readout_reference(*k1_args, *readout),
+                 None, headline, flops(0, n_layers, readout=True),
+                 (k1_args[1:], readout)),
+                ("fused_ggnn_bwd", "", lambda: fused_ggnn_bwd(*k1_args, dout),
+                 lambda: fused_ggnn_bwd_reference(*k1_args, dout),
+                 GGNN_GRAD_NAMES, headline,
+                 flops(0, n_layers, backward=True), (k1_args[1:], dout)),
+                ("fused_ggnn_half_bwd", f" layers [{split}, {n_layers})",
+                 lambda: fused_ggnn_half_bwd(*top),
+                 lambda: fused_ggnn_half_bwd_reference(*top),
+                 GGNN_GRAD_NAMES, headline,
+                 flops(split, n_layers, backward=True), top[2:]),
+                ("fused_ggnn_half_bwd", f" layers [0, {split})",
+                 lambda: fused_ggnn_half_bwd(*bottom),
+                 lambda: fused_ggnn_half_bwd_reference(*bottom),
+                 GGNN_GRAD_NAMES, False, flops(0, split, backward=True),
+                 bottom[2:]),
+                ("fused_ggnn_readout_bwd", "",
                  lambda: fused_ggnn_readout_bwd(*k1_args, *readout, dout),
                  lambda: fused_ggnn_readout_bwd_reference(*k1_args, *readout,
-                                                          dout)),
+                                                          dout),
+                 GGNN_GRAD_NAMES, headline,
+                 flops(0, n_layers, readout=True, backward=True),
+                 (k1_args[1:], readout, dout)),
             ]
-            for name, kern, plain in pairs:
-                grads = GGNN_GRAD_NAMES if name.endswith("_bwd") else None
-                record(name, *check_pair(name, tag, kern, plain, grads,
-                                         GRU_KEYS, smi, torch),
-                       bs == SERVE_BATCH and c is cfg and not crowd)
+            for name, rng_tag, kern, plain, grads, head, ops, inputs in pairs:
+                if odd and name not in ("fused_ggnn_mid", "fused_ggnn_half_bwd"):
+                    continue
+                record(name, tag + rng_tag,
+                       *check_pair(name, tag + rng_tag, kern, plain, grads,
+                                   GRU_KEYS, smi, torch, reps),
+                       head, ops, inputs)
+            # K1m is K1 with one more store: the same h, bit for bit
+            if not torch.equal(fused_ggnn_mid(*k1_args)[0], fused_ggnn(*k1_args)):
+                raise AssertionError(f"K1m's h differs from K1's [{tag}]")
+            # the two-pass backward (K1m's h_mid, K3 twice) against K1b
+            two = lambda: fused_ggnn_twopass_bwd(
+                n_layers, h0, fused_ggnn_mid(*k1_args)[1], adj, msg_w, msg_b,
+                gru, dout)
+            one = lambda: (fused_ggnn(*k1_args),
+                           fused_ggnn_bwd(*k1_args, dout))[1]
+            compare_grads(f"K3 top + bottom vs K1b [{tag}]",
+                          named_grads(two(), GRU_KEYS, GGNN_GRAD_NAMES),
+                          named_grads(one(), GRU_KEYS, GGNN_GRAD_NAMES), torch)
+            time_pair("forward + backward, two-pass vs single-pass", tag, two,
+                      one, smi, torch, labels=("K1m + K3 twice", "K1 + K1b"),
+                      reps=reps)
 
     # 3b. MPNN: (batch, model, Set2Set table widths, crowded adjacency)
     h16 = dict(MPNN_CFG, fp_hidden_dim=16, fp_out_dim=16)
@@ -660,14 +848,21 @@ def main() -> int:
             dh = torch.as_tensor(np.random.default_rng(SEED + bs).standard_normal(
                 tuple(k5_args[2].shape)).astype(np.float32)).to(dev)
             headline = bs == SERVE_BATCH and c is MPNN_CFG and not crowd
-            for name, kern, plain, grads in (
+            k5_work = (tiles, c["fp_hidden_dim"], enc.n_layers,
+                       enc.weight_tying, int(torch.count_nonzero(adj)),
+                       int(build_molmat(mol_id, mask).sum()))
+            for name, kern, plain, grads, ops, inputs in (
                     ("fused_mpnn", lambda: fused_mpnn(*k5_args),
-                     lambda: fused_mpnn_reference(*k5_args), None),
+                     lambda: fused_mpnn_reference(*k5_args), None,
+                     mpnn_flops(*k5_work), k5_args[2:]),
                     ("fused_mpnn_bwd", lambda: fused_mpnn_bwd(*k5_args, dh),
                      lambda: fused_mpnn_bwd_reference(*k5_args, dh),
-                     MPNN_GRAD_NAMES)):
-                record(name, *check_pair(name, tag, kern, plain, grads,
-                                         GRU_KEYS, smi, torch), headline)
+                     MPNN_GRAD_NAMES, mpnn_flops(*k5_work, backward=True),
+                     (k5_args[2:], dh))):
+                record(name, tag, *check_pair(name, tag, kern, plain, grads,
+                                              GRU_KEYS, smi, torch,
+                                              REPS if headline else REPS_OTHER),
+                       headline, ops, inputs)
             h = fused_mpnn_reference(*k5_args)
             s2s = enc.readout_0.set2set
             for n_max in widths:
@@ -682,16 +877,22 @@ def main() -> int:
                 dg = torch.as_tensor(np.random.default_rng(SEED + n_max).standard_normal(
                     (num_mols, 2 * atoms.shape[-1])).astype(np.float32)).to(dev)
                 stag = f"{tag} M={num_mols} n_max={n_max}"
-                for name, kern, plain, grads in (
+                k4_work = (S2S_STEPS, num_mols, atoms.shape[-1],
+                           int(amask.sum()))
+                for name, kern, plain, grads, ops, inputs in (
                         ("fused_set2set", lambda: fused_set2set(*k4_args),
-                         lambda: fused_set2set_reference(*k4_args), None),
+                         lambda: fused_set2set_reference(*k4_args), None,
+                         set2set_flops(*k4_work), k4_args[1:]),
                         ("fused_set2set_bwd",
                          lambda: fused_set2set_bwd(*k4_args, dg),
                          lambda: fused_set2set_bwd_reference(*k4_args, dg),
-                         S2S_GRAD_NAMES)):
-                    record(name, *check_pair(name, stag, kern, plain, grads,
-                                             GRU_KEYS, smi, torch),
-                           headline and n_max == 24)
+                         S2S_GRAD_NAMES, set2set_flops(*k4_work, backward=True),
+                         (k4_args[1:], dg))):
+                    head = headline and n_max == 24
+                    record(name, stag, *check_pair(name, stag, kern, plain,
+                                                   grads, GRU_KEYS, smi, torch,
+                                                   REPS if head else REPS_OTHER),
+                           head, ops, inputs)
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # 4. GGNN serving through the predict CLI
@@ -703,9 +904,9 @@ def main() -> int:
 
     # 5. GGNN training through the train CLI
     preset = PRESETS["ggnn_hole_binary"]
-    train_ggnn = train_slice(
+    train_ggnn, _ = train_slice(
         "ggnn", ["--preset", "ggnn_hole_binary", "--compute-path", "fused"],
-        preset.batch_size, preset, cfg, ["fused_ggnn_readout_bwd"],
+        preset.batch_size, preset, cfg, {"fused_ggnn_readout_bwd": 1},
         ["fused_ggnn_readout"], ((preset.batch_size, 50), (N_PAIRS, 10)),
         dev, smi, reset_counts, read_counts)
     print(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
@@ -724,49 +925,96 @@ def main() -> int:
         method="mpnn", conv_layers=4, weight_tying=True, fp_hidden_dim=H,
         fp_out_dim=D, learning_rate=2e-3, compute_path="coo",
         compute_dtype="bfloat16", augment=True, batch_size=SERVE_BATCH)
-    train_mpnn = train_slice(
+    train_mpnn, _ = train_slice(
         "mpnn", MPNN_FLAGS, SERVE_BATCH, mpnn_train_cfg,
-        dict(MPNN_CFG, s2s_n_max=24), ["fused_mpnn_bwd", "fused_set2set_bwd"],
+        dict(MPNN_CFG, s2s_n_max=24),
+        {"fused_mpnn_bwd": 1, "fused_set2set_bwd": 1},
         ["fused_mpnn", "fused_set2set"], ((SERVE_BATCH, 20), (N_PAIRS, 10)),
         dev, smi, reset_counts, read_counts)
     print(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
 
-    sources = {"fused_ggnn": "fused_ggnn.cu", "fused_ggnn_readout": "fused_ggnn.cu",
+    # 8. the production recipe through the train CLI in the JAX package's
+    # default fused form (K1 + the plain readout), two-pass, then one
+    # epoch single-pass; then the batch-2048 step in all three forms
+    prod = PRESETS["ggnn_hole_production"]
+    prod_flags = ["--preset", "ggnn_hole_production", "--compute-path", "fused"]
+    k2_kernels = ["fused_ggnn_readout", "fused_ggnn_readout_bwd"]
+    saved_form = (packed_module.FUSED_READOUT, fused_ggnn_module.TWOPASS)
+
+    def set_form(fused_readout, twopass):
+        packed_module.FUSED_READOUT = fused_readout
+        fused_ggnn_module.TWOPASS = twopass
+
+    try:
+        set_form(False, True)
+        train_twopass, prod_ds = train_slice(
+            "ggnn production two-pass", prod_flags, prod.batch_size, prod,
+            cfg, {"fused_ggnn_half_bwd": 2}, ["fused_ggnn_mid"], (), dev, smi,
+            reset_counts, read_counts, n_train=N_PROD_TRAIN,
+            absent=k2_kernels + ["fused_ggnn_bwd"])
+        set_form(False, False)
+        train_single, _ = train_slice(
+            "ggnn production single-pass", prod_flags, prod.batch_size, prod,
+            cfg, {"fused_ggnn_bwd": 1}, ["fused_ggnn"], (), dev, smi,
+            reset_counts, read_counts, n_train=N_PROD_TRAIN, epochs=1,
+            absent=k2_kernels + ["fused_ggnn_mid", "fused_ggnn_half_bwd"])
+        for form, flags in (("K2/K2b", (True, False)),
+                            ("K1/K1b", (False, False)),
+                            ("K1m/K3", (False, True))):
+            set_form(*flags)
+            time_train_step(f"ggnn production {form}", prod_ds, cfg, prod,
+                            prod.batch_size, 10, dev, smi)
+    finally:
+        set_form(*saved_form)
+    print(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
+
+    sources = {"fused_ggnn": "fused_ggnn.cu", "fused_ggnn_mid": "fused_ggnn.cu",
+               "fused_ggnn_readout": "fused_ggnn.cu",
                "fused_ggnn_bwd": "fused_ggnn_bwd.cu",
+               "fused_ggnn_half_bwd": "fused_ggnn_bwd.cu",
                "fused_ggnn_readout_bwd": "fused_ggnn_bwd.cu",
                "fused_mpnn": "fused_mpnn.cu", "fused_mpnn_bwd": "fused_mpnn.cu",
                "fused_set2set": "set2set.cu", "fused_set2set_bwd": "set2set.cu"}
     replaces = {"fused_ggnn": "gcnbmp_tpu/ops/fused_ggnn.py:535",
+                "fused_ggnn_mid": "gcnbmp_tpu/ops/fused_ggnn.py:526",
                 "fused_ggnn_readout": "gcnbmp_tpu/ops/fused_ggnn.py:818",
                 "fused_ggnn_bwd": "gcnbmp_tpu/ops/fused_ggnn.py:583",
+                "fused_ggnn_half_bwd": "gcnbmp_tpu/ops/fused_ggnn.py:627",
                 "fused_ggnn_readout_bwd": "gcnbmp_tpu/ops/fused_ggnn.py:876",
                 "fused_mpnn": "gcnbmp_tpu/ops/fused_mpnn.py:295",
                 "fused_mpnn_bwd": "gcnbmp_tpu/ops/fused_mpnn.py:342",
                 "fused_set2set": "gcnbmp_tpu/ops/set2set_kernel.py:225",
                 "fused_set2set_bwd": "gcnbmp_tpu/ops/set2set_kernel.py:253"}
-
-    def entry(name, train, serve):
-        return {"name": name, "route": "cuda",
-                "source": f"gcnbmp_tpu_torch/ops/csrc/{sources[name]}",
-                "replaces": replaces[name],
-                # each family's training slice is its main path; its
-                # serving slice's counts ride beside them
-                "launches": train[name],
-                "launches_serving": serve[name],
-                **{k: results[name][k] for k in ("max_abs_err", "ms", "plain_ms")}}
-
-    kernels = [entry("fused_ggnn_readout", train_ggnn, serve_ggnn),
-               entry("fused_ggnn_readout_bwd", train_ggnn, serve_ggnn),
-               entry("fused_mpnn", train_mpnn, serve_mpnn),
-               entry("fused_mpnn_bwd", train_mpnn, serve_mpnn),
-               entry("fused_set2set", train_mpnn, serve_mpnn),
-               entry("fused_set2set_bwd", train_mpnn, serve_mpnn)]
-    # K1 and K1b share K2's and K2b's sources and layer loops; the GGNN
-    # slices launch K2 (serving, training) and K2b (training)
-    checked = [entry("fused_ggnn", train_ggnn, serve_ggnn),
-               entry("fused_ggnn_bwd", train_ggnn, serve_ggnn)]
+    # each kernel's main path: the training run that launches it (K1 and
+    # K1b the single-pass production epoch, K1m and K3 the two-pass run,
+    # K2 and K2b phase 5, the MPNN kernels phase 7); serving counts ride
+    # beside those of the kernels that serve
+    main_path = {"fused_ggnn": train_single, "fused_ggnn_bwd": train_single,
+                 "fused_ggnn_mid": train_twopass,
+                 "fused_ggnn_half_bwd": train_twopass,
+                 "fused_ggnn_readout": train_ggnn,
+                 "fused_ggnn_readout_bwd": train_ggnn,
+                 "fused_mpnn": train_mpnn, "fused_mpnn_bwd": train_mpnn,
+                 "fused_set2set": train_mpnn, "fused_set2set_bwd": train_mpnn}
+    serving = {"fused_ggnn_readout": serve_ggnn, "fused_mpnn": serve_mpnn,
+               "fused_set2set": serve_mpnn}
+    kernels = []
+    for name in sources:
+        launches = main_path[name][name]
+        if launches == 0:
+            raise AssertionError(f"{name} never launched on its main path")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"gcnbmp_tpu_torch/ops/csrc/{sources[name]}",
+            "replaces": replaces[name], "launches": launches,
+            **({"launches_serving": serving[name][name]}
+               if name in serving else {}),
+            **{k: results[name][k] for k in
+               ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+            # no single PyTorch call computes any of these functions
+            "library_ms": None})
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels, "checked_off_path": checked}))
+    print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,12 @@ serving and training paths of the flagship model (packed GGNN encoder +
 HolE head) on the fused path, and of the MPNN family (EdgeNet messages,
 Set2Set readout, HolE head) on the coo path:
 
-- ``data.wire``      the wire-compact COO batch encoding, the training
-                     and evaluation batch iterators (numpy).
+- ``chem``, ``data``, ``native_lib``
+                     the host layers (numpy): SMILES parsing and
+                     featurizing, pair datasets, CSV parsing, COO packing
+                     (Python and the native C++ of ``native/``), the
+                     wire-compact batch encoding, the training, scan and
+                     evaluation batch iterators.
 - ``ops``            plain torch ops (COO adjacency scatter, circular
                      correlation, the slot-table gather) and the fused
                      GGNN, MPNN and Set2Set kernels, forward and
@@ -23,9 +27,11 @@ Set2Set readout, HolE head) on the coo path:
 - ``eval``, ``cli``  the packed pair evaluator, the predict and train
                      CLIs.
 
-Host layers without a framework (``gcnbmp_tpu.chem``,
-``gcnbmp_tpu.data.{parsers,dataset,packing,native_pack}``) are reused
-from the JAX package, not copied.  Nothing here imports jax.
+The host layers are the port's own copies of the JAX package's
+(``chem/{mol,smiles,featurize,native}.py``,
+``data/{dataset,parsers,packing,native_pack}.py``, ``native_lib.py``,
+under the JAX module names): nothing here imports jax or anything of
+``gcnbmp_tpu``.
 """
 
 __version__ = "0.1.0"

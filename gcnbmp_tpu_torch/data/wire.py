@@ -7,6 +7,7 @@ Ports host numpy code that lives inside jax modules of the JAX package
 - ``iter_coo_eval_batches``     <- gcnbmp_tpu/train/loop.py:577-614
 - ``packed_coo_batch_iterator`` <- gcnbmp_tpu/train/loop.py:437-518
 - ``_window_parallel``          <- gcnbmp_tpu/train/loop.py:413-434
+- ``scan_chunk_iterator``       <- gcnbmp_tpu/train/loop.py:393-410
 
 The bit layout must stay identical to the JAX package's, so one batch
 feeds both packages: edges pack as ``tile | type | src | dst`` with src
@@ -23,8 +24,8 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from gcnbmp_tpu.data import native_pack
-from gcnbmp_tpu.data.packing import (
+from gcnbmp_tpu_torch.data import native_pack
+from gcnbmp_tpu_torch.data.packing import (
     PackedCOOBatch,
     pack_pair_dataset_coo,
     smallest_pair_index,
@@ -128,6 +129,27 @@ def packed_coo_batch_iterator(ds, batch_size: int, num_tiles: int,
         if pack_cache is not None:
             pack_cache.append(b)
         yield b
+
+
+def scan_chunk_iterator(batches, scan_steps: int, args_fn):
+    """Group a COO batch iterator into stacks of ``scan_steps`` batches:
+    yields (stacked wire arrays, stacked labels, edge count), each array
+    with a leading (S,) axis, ready for one scan-mode call.  The tail
+    chunk is dropped; like the per-epoch tail batch, its pairs return
+    next epoch under the reshuffle."""
+    chunk = []
+    for b in batches:
+        chunk.append(b)
+        if len(chunk) == scan_steps:
+            argses = [args_fn(c) for c in chunk]
+            stacked = tuple(
+                np.stack([a[i] for a in argses])
+                for i in range(len(argses[0]))
+            )
+            labels = np.stack([c.labels for c in chunk])
+            edges = int(sum(c.num_edges for c in chunk))
+            yield stacked, labels, edges
+            chunk = []
 
 
 def iter_coo_eval_batches(

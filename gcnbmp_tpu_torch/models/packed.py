@@ -5,8 +5,9 @@ Ported pieces:
 - ``PackedGatedReadout``            <- :29-41
 - ``_segment_mol_sum``              <- :67-87
 - ``PackedGGNN``                    <- :147-210 (the plain layer stack); its
-  kernel path ``fused_forward`` is ``fused_compact_logits`` (:1176-1212)
-  with the readout fused in (:1121-1126): K2 -> segment sum
+  kernel path ``fused_forward`` is ``_fused_encoder_g_nodes`` (:1102-1133)
+  of ``fused_compact_logits`` (:1176-1212) in either form that
+  ``FUSED_READOUT`` picks -> segment sum
 - ``PackedSet2Set``                 <- :343-430, the dense mode
 - ``_device_slot_table``            <- :433-455
 - ``PackedMPNNReadout``             <- :458-478
@@ -37,6 +38,7 @@ the layers.
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence
 
 import torch
@@ -52,7 +54,8 @@ from gcnbmp_tpu_torch.models.layers import (
     OptimizedLSTMCell,
 )
 from gcnbmp_tpu_torch.ops.aggregate import adj_from_coo_flat
-from gcnbmp_tpu_torch.ops.fused_ggnn import fused_ggnn_readout, params_to_fused
+from gcnbmp_tpu_torch.ops.fused_ggnn import (
+    fused_ggnn, fused_ggnn_readout, params_to_fused)
 from gcnbmp_tpu_torch.ops.fused_mpnn import fused_mpnn, params_to_fused_mpnn
 from gcnbmp_tpu_torch.ops.set2set_kernel import NEG, fused_set2set
 from gcnbmp_tpu_torch.ops.slotgather import gather_slot_table, identity_mol_row
@@ -83,11 +86,35 @@ def _segment_mol_sum(g_nodes: torch.Tensor, mol_id: torch.Tensor,
     return out[:num_mols]
 
 
+# The GGNN kernel path's form, the JAX module's ``FUSED_READOUT``
+# (GCNBMP_FUSED_READOUT), read by ``PackedGGNN.fused_forward`` per call:
+# "1" runs the gated readout inside the kernel, K2 (K2b in the backward);
+# "0" runs the JAX package's default form, K1 (K1b, or K1m and K3 under
+# ``ops.fused_ggnn.TWOPASS``) with ``PackedGatedReadout`` in plain torch
+# after it.  Unset, the port keeps K2, where the JAX package defaults to
+# the other form: the TPU left K2 off only because K2b's 8-layer backward
+# did not compile there (ROADMAP queue 2, K2 note).  Both forms compute
+# the same function; the tests hold both against JAX.
+FUSED_READOUT = os.environ.get("GCNBMP_FUSED_READOUT", "1") == "1"
+
+
+def fused_form() -> str:
+    """The kernels the GGNN kernel path runs under the current flags."""
+    from gcnbmp_tpu_torch.ops import fused_ggnn as fg
+
+    if FUSED_READOUT:
+        return "K2/K2b (gated readout in the kernel)"
+    if fg.TWOPASS:
+        return "K1m/K3 (two-pass backward) + plain readout"
+    return "K1/K1b + plain readout"
+
+
 class PackedGGNN(nn.Module):
     """GGNN encoder over packed tiles.  ``forward`` is the plain layer
     stack of the JAX module (dense (P, 4, T, T) adjacency);
     ``fused_forward``, the predictor's path, reads these weights through
-    ``params_to_fused`` into K2.
+    ``params_to_fused`` into the kernels, in the form ``FUSED_READOUT``
+    picks.
 
     Untied configs have one message function per layer and ONE shared
     GRU, as in the JAX module."""
@@ -122,15 +149,20 @@ class PackedGGNN(nn.Module):
 
     def fused_forward(self, atom_ids, adj_flat, mol_id, node_mask,
                       num_mols: int) -> torch.Tensor:
-        """Per-molecule embeddings (num_mols, D) through K2 (K2b in the
-        backward), from the flat (P, T, 4T) adjacency."""
+        """Per-molecule embeddings (num_mols, D) from the flat (P, T, 4T)
+        adjacency: through K2 (K2b in the backward), or K1 and the plain
+        readout (K1b, or K3 twice, in the backward), by ``FUSED_READOUT``."""
         h0 = self.embed(atom_ids)
         msg_w, msg_b, gru = params_to_fused(self)
         ro = self.readout_0
-        g_nodes = fused_ggnn_readout(
-            self.n_layers, h0, adj_flat, msg_w, msg_b, gru, node_mask,
-            ro.i.dense.weight.T.contiguous(), ro.i.dense.bias,
-            ro.j.dense.weight.T.contiguous(), ro.j.dense.bias)
+        if FUSED_READOUT:
+            g_nodes = fused_ggnn_readout(
+                self.n_layers, h0, adj_flat, msg_w, msg_b, gru, node_mask,
+                ro.i.dense.weight.T.contiguous(), ro.i.dense.bias,
+                ro.j.dense.weight.T.contiguous(), ro.j.dense.bias)
+        else:
+            h = fused_ggnn(self.n_layers, h0, adj_flat, msg_w, msg_b, gru)
+            g_nodes = ro(h, h0, node_mask)
         return _segment_mol_sum(g_nodes, mol_id, num_mols)
 
 

@@ -32,10 +32,11 @@ _I = ctypes.c_int
 SOURCES = {
     "fused_ggnn.cu": {
         "fused_ggnn_fwd": [_P] * 14 + [_I] * 3 + [_P],
+        "fused_ggnn_mid_fwd": [_P] * 15 + [_I] * 4 + [_P],
         "fused_ggnn_readout_fwd": [_P] * 19 + [_I] * 4 + [_P],
     },
     "fused_ggnn_bwd.cu": {
-        "fused_ggnn_bwd": [_P] * 18 + [_I] * 3 + [_P],
+        "fused_ggnn_range_bwd": [_P] * 18 + [_I] * 4 + [_P],
         "fused_ggnn_readout_bwd": [_P] * 23 + [_I] * 4 + [_P],
     },
     "fused_mpnn.cu": {

@@ -4,6 +4,8 @@
 //
 // Replaces the TPU kernels of gcnbmp_tpu/ops/fused_ggnn.py:
 //   fused_ggnn_fwd          <- _fused_ggnn_fwd / _fwd_kernel (K1)
+//   fused_ggnn_mid_fwd      <- _fused_ggnn_fwd's TWOPASS branch /
+//                              _fwd_mid_kernel (K1m)
 //   fused_ggnn_readout_fwd  <- _fused_ggnn_readout_fwd / _fwd_readout_kernel (K2)
 //
 // Per layer l, on one tile of T=128 atoms (h: (T, H)):
@@ -16,6 +18,10 @@
 //   h'   = z*n + (1-z)*s                     s = 0 at layer 0, else h
 // K2 ends with the gated readout
 //   g = sigmoid([h, h0] Wi + bi) * (h Wj + bj) * mask.
+// K1m is K1 with one more store: h_mid, the input of layer split = L/2,
+// which the two-pass backward (K3, fused_ggnn_bwd.cu) starts its top half
+// from.  It is the same kernel body, so its final h is bit for bit K1's;
+// the extra output costs one (T, H) f32 write per tile.
 // Weight layout is the fused format of ops/fused_ggnn.py (kernels (in, out)).
 //
 // What bounds it on this card, and what the design does about it:
@@ -76,10 +82,11 @@ struct Plan {
   static constexpr size_t BYTES = size_t(WORDS) * 4;
 };
 
-template <int H, int D, bool READOUT>
+template <int H, int D, bool READOUT, bool MID>
 __global__ void __launch_bounds__(THREADS)
 fused_ggnn_kernel(const float* __restrict__ h0, const float* __restrict__ adj,
-                  Weights w, Readout ro, float* __restrict__ out, int n_layers) {
+                  Weights w, Readout ro, float* __restrict__ out,
+                  float* __restrict__ mid, int n_layers, int split) {
   using S = Plan<H>;
   using R = Rows<H>;
   extern __shared__ float smem[];
@@ -109,6 +116,12 @@ fused_ggnn_kernel(const float* __restrict__ h0, const float* __restrict__ adj,
 
   for (int l = 0; l < n_layers; ++l) {
     const bool first = (l == 0);
+    if constexpr (MID) {  // K1m: layer split's input, complete since the last sync
+      if (l == split) {
+        float* mid_t = mid + tile * TILE * H;
+        for (int i = tid; i < TILE * H; i += THREADS) mid_t[i] = s_h[i];
+      }
+    }
     load_message<H>(w, l, s_wmsg, s_bmsg, tid);
     __syncthreads();
     message_hw<H>(s_h, s_wmsg, s_bmsg, s_hw, tid);
@@ -171,20 +184,20 @@ fused_ggnn_kernel(const float* __restrict__ h0, const float* __restrict__ adj,
   }
 }
 
-template <int H, int D, bool READOUT>
+template <int H, int D, bool READOUT, bool MID = false>
 cudaError_t launch(const float* h0, const float* adj, const Weights& w,
                    const Readout& ro, float* out, int n_tiles, int n_layers,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, float* mid = nullptr, int split = 0) {
   constexpr size_t bytes = Plan<H>::BYTES;
   static_assert(bytes <= 232448, "shared-memory plan exceeds 227 KB");
   static_assert(THREADS % H == 0 && TILE % (THREADS / H) == 0, "H");
   static_assert(THREADS % D == 0 && TILE % (THREADS / D) == 0, "D");
   static_assert(3 * H * D + 2 * D <= NE * TILE * H, "readout weights");
   static bool opted_in[MAX_DEVICES] = {};
-  cudaError_t err = opt_in_smem(fused_ggnn_kernel<H, D, READOUT>, bytes, opted_in);
+  cudaError_t err = opt_in_smem(fused_ggnn_kernel<H, D, READOUT, MID>, bytes, opted_in);
   if (err != cudaSuccess) return err;
-  fused_ggnn_kernel<H, D, READOUT>
-      <<<n_tiles, THREADS, bytes, stream>>>(h0, adj, w, ro, out, n_layers);
+  fused_ggnn_kernel<H, D, READOUT, MID><<<n_tiles, THREADS, bytes, stream>>>(
+      h0, adj, w, ro, out, mid, n_layers, split);
   return cudaGetLastError();
 }
 
@@ -204,6 +217,26 @@ extern "C" int fused_ggnn_fwd(
   switch (hidden) {
     case 16: return int(launch<16, 16, false>(h0, adj, w, ro, out, n_tiles, n_layers, st));
     case 32: return int(launch<32, 32, false>(h0, adj, w, ro, out, n_tiles, n_layers, st));
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// K1m: K1's h (P, T, H) and h_mid (P, T, H), the input of layer split
+// (0 < split < n_layers).  Returns a cudaError_t.
+extern "C" int fused_ggnn_mid_fwd(
+    const float* h0, const float* adj, const float* msg_w, const float* msg_b,
+    const float* wz, const float* uz, const float* bz,
+    const float* wr, const float* ur, const float* br,
+    const float* wn, const float* un, const float* bn,
+    float* out, float* mid, int n_tiles, int n_layers, int split, int hidden,
+    void* stream) {
+  if (n_tiles <= 0 || split <= 0 || split >= n_layers) return int(cudaErrorInvalidValue);
+  const Weights w = make_weights(msg_w, msg_b, wz, uz, bz, wr, ur, br, wn, un, bn);
+  const Readout ro = {};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hidden) {
+    case 16: return int(launch<16, 16, false, true>(h0, adj, w, ro, out, n_tiles, n_layers, st, mid, split));
+    case 32: return int(launch<32, 32, false, true>(h0, adj, w, ro, out, n_tiles, n_layers, st, mid, split));
     default: return int(cudaErrorInvalidValue);
   }
 }

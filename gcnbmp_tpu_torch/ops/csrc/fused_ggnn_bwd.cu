@@ -3,7 +3,10 @@
 // library with a plain C interface, loaded with ctypes.
 //
 // Replaces the TPU kernels of gcnbmp_tpu/ops/fused_ggnn.py:
-//   fused_ggnn_bwd          <- _fused_ggnn_bwd / _bwd_kernel (K1b)
+//   fused_ggnn_range_bwd    <- _fused_ggnn_bwd / _bwd_kernel (K1b) over
+//                              layers [0, L), and _half_bwd_call /
+//                              _bwd_half_kernel (K3) over each half of
+//                              _fused_ggnn_bwd_twopass
 //   fused_ggnn_readout_bwd  <- _fused_ggnn_readout_bwd / _bwd_readout_kernel (K2b)
 //
 // Per tile, as the TPU kernels do (_reverse_layers, AGG_FLAT branch):
@@ -20,6 +23,20 @@
 //   dhw = A_flat^T dm,  dW_e = h^T dhw_e,  db_e = sum dhw_e,
 //   dh_in += dhw_e W_e^T,  dh = dh_in + ds (ds is dropped at layer 0,
 //   whose state is zero).
+// One kernel body runs over a layer range [lo, hi): K1b and K2b take
+// [0, L) from h0; K3 (the two-pass backward) takes [split, L) from the
+// forward's h_mid (K1m) with dh_final, hands dh_mid back through global
+// memory, then [0, split) from h0 with dh_mid.  Each half's recompute
+// scratch is (P, hi - lo, T, H), and it writes the gradients of its own
+// layers and its share of the shared GRU's.  Two traps of the range, both
+// easy to miss because a [0, L) range hides them:
+// (a) the adjacency scan that builds the row lists, and the column lists
+//     built from them, runs at the FIRST LAYER OF THE RANGE (l == lo), not
+//     at layer 0: the top half never visits layer 0.
+// (b) the GRU state is zero only at the GLOBAL layer 0 (l == 0).  At
+//     lo > 0 the state of layer lo is its input hin itself, and the
+//     gradient handed out (dh_mid) keeps that state's term ds, as
+//     _reverse_layers does at fused_ggnn.py:369.
 //
 // What bounds it on this card, and what the design does about it:
 // - The TPU kernel accumulates the weight gradients across its sequential
@@ -30,17 +47,18 @@
 // - Shared memory: the forward's plan plus dh, the column lists and the
 //   GRU's pre-activation gradients comes to ~205 KB at H=32 (one CTA per
 //   SM).  The L per-layer inputs (128 KB per tile) do not fit beside it:
-//   they go to a global scratch (P, L, T, H) during the first forward
-//   and are read back one layer at a time.  In the reverse the hw stack's
+//   they go to a global scratch (P, hi - lo, T, H) during the first
+//   forward and are read back one layer at a time; K3's halves need half
+//   of K1b's (25 MB instead of 51 MB at P=387, L=8, H=32).  In the reverse the hw stack's
 //   4T x H buffer holds r*s and dz', dr', dn', and then dhw; z, r and n
 //   stay in registers for the (row, column) each thread owns.  Weight
 //   gradients go straight to the tile's partial row (the GRU's summed
 //   over layers in place by the thread that owns each entry), so no
 //   L-sized accumulator lives on chip.
 // - The transposed aggregation A_flat^T dm needs the adjacency's column
-//   view.  After layer 0's scan builds the row lists (up to NBR_CAP per
-//   row), a pass builds column lists (CSR, ascending row order) from the
-//   rows that fit their lists: at most 128 x 16 entries, so they always
+//   view.  After the range's first scan builds the row lists (up to
+//   NBR_CAP per row), a pass builds column lists (CSR, ascending row
+//   order) from the rows that fit their lists: at most 128 x 16 entries, so they always
 //   fit.  Rows with more nonzeros are listed apart and read from global
 //   memory in every reverse layer, so any input stays exact, and the sum
 //   of each output runs in a fixed order.
@@ -89,8 +107,8 @@ struct BwdPlan {
   static constexpr size_t BYTES = size_t(WORDS) * 4;
 };
 
-// Offsets in one tile's row of gradient partials: msg_w (L,4,H,H),
-// msg_b (L,4,H), the GRU in the order wz uz bz wr ur br wn un bn, then
+// Offsets in one tile's row of gradient partials: msg_w (n,4,H,H),
+// msg_b (n,4,H) for the n = hi - lo layers of the range, the GRU in the order wz uz bz wr ur br wn un bn, then
 // (K2b) wi (2H,D) bi (D) wj (H,D) bj (D).  ops/fused_ggnn.py splits the
 // summed row in the same order.
 template <int H>
@@ -110,9 +128,9 @@ struct GradLayout {
 
 template <int H, bool READOUT>
 __global__ void __launch_bounds__(THREADS)
-fused_ggnn_bwd_kernel(const float* __restrict__ h0, const float* __restrict__ adj,
+fused_ggnn_bwd_kernel(const float* __restrict__ hin, const float* __restrict__ adj,
                       Weights w, Readout ro, const float* __restrict__ dout,
-                      float* dh0, float* partial, float* hs, int n_layers,
+                      float* dh_bot, float* partial, float* hs, int lo, int hi,
                       int n_grad) {
   using S = BwdPlan<H>;
   using R = Rows<H>;
@@ -146,33 +164,35 @@ fused_ggnn_bwd_kernel(const float* __restrict__ h0, const float* __restrict__ ad
   const int col = tid % H;
   const int row0 = tid / H;
   const size_t tile = blockIdx.x;
-  const float* h0_t = h0 + tile * TH;
+  const int n_range = hi - lo;
+  const float* h0_t = hin + tile * TH;  // h0 when lo == 0, else h_mid
   const float* adj_t = adj + tile * TILE * ROW_LEN;
-  float* hs_t = hs + tile * size_t(n_layers) * TH;
-  float* dh0_t = dh0 + tile * TH;
+  float* hs_t = hs + tile * size_t(n_range) * TH;
+  float* dh0_t = dh_bot + tile * TH;
   float* part = partial + tile * size_t(n_grad);
-  float* gru_part = part + G::gru0(n_layers);
+  float* gru_part = part + G::gru0(n_range);
 
-  // 1. forward, keeping each layer's input in hs
+  // 1. forward over the range, keeping each layer's input in hs
   load_gru<H>(w, g, tid);
   for (int i = tid; i < TH; i += THREADS) s_hin[i] = h0_t[i];
-  for (int l = 0; l < n_layers; ++l) {
-    const bool first = (l == 0);
+  for (int l = lo; l < hi; ++l) {
+    const bool scan = (l == lo);       // trap (a)
+    const bool zero_state = (l == 0);  // trap (b)
     load_message<H>(w, l, s_wmsg, s_bmsg, tid);
     __syncthreads();
-    for (int i = tid; i < TH; i += THREADS) hs_t[size_t(l) * TH + i] = s_hin[i];
+    for (int i = tid; i < TH; i += THREADS) hs_t[size_t(l - lo) * TH + i] = s_hin[i];
     message_hw<H>(s_hin, s_wmsg, s_bmsg, s_big, tid);
     __syncthreads();
-    aggregate<H>(first, adj_t, s_big, s_m, s_nk, s_nv, s_nc, tid);
+    aggregate<H>(scan, adj_t, s_big, s_m, s_nk, s_nv, s_nc, tid);
     __syncthreads();
-    if (first)
+    if (scan)
       build_columns(s_nk, s_nv, s_nc, s_cs, s_cr, s_cv, s_ov, s_ovn, tid);
     float z[R::RPT], r[R::RPT], n[R::RPT];
-    gru_gates<H>(first, s_hin, s_m, g, s_rs, z, r, n, tid);
+    gru_gates<H>(zero_state, s_hin, s_m, g, s_rs, z, r, n, tid);
 #pragma unroll
     for (int k = 0; k < R::RPT; ++k) {
       const int i = row0 + k * R::RS;
-      const float s = first ? 0.0f : s_hin[i * H + col];
+      const float s = zero_state ? 0.0f : s_hin[i * H + col];
       s_hin[i * H + col] = z[k] * n[k] + (1.0f - z[k]) * s;
     }
     __syncthreads();
@@ -247,12 +267,12 @@ fused_ggnn_bwd_kernel(const float* __restrict__ h0, const float* __restrict__ ad
   }
   __syncthreads();
 
-  // 3. reverse the layers
-  for (int l = n_layers - 1; l >= 0; --l) {
-    const bool zero_state = (l == 0);
-    const bool acc_gru = (l != n_layers - 1);
+  // 3. reverse the range's layers
+  for (int l = hi - 1; l >= lo; --l) {
+    const bool zero_state = (l == 0);  // trap (b): ds survives at l == lo > 0
+    const bool acc_gru = (l != hi - 1);
     load_message<H>(w, l, s_wmsg, s_bmsg, tid);
-    for (int i = tid; i < TH; i += THREADS) s_hin[i] = hs_t[size_t(l) * TH + i];
+    for (int i = tid; i < TH; i += THREADS) s_hin[i] = hs_t[size_t(l - lo) * TH + i];
     __syncthreads();
     message_hw<H>(s_hin, s_wmsg, s_bmsg, s_big, tid);
     __syncthreads();
@@ -331,12 +351,12 @@ fused_ggnn_bwd_kernel(const float* __restrict__ h0, const float* __restrict__ ad
     __syncthreads();
     for (int e = 0; e < NE; ++e)
       grad_AtB<H, H>(s_hin, nullptr, s_big + e * TH,
-                     part + (size_t(l) * NE + e) * H * H, false, tid);
+                     part + (size_t(l - lo) * NE + e) * H * H, false, tid);
     if (tid < NE * H) {
       const int e = tid / H, c = tid % H;
       float acc = 0.0f;
       for (int j = 0; j < TILE; ++j) acc += s_big[(e * TILE + j) * H + c];
-      part[G::msg_b0(n_layers) + (size_t(l) * NE + e) * H + c] = acc;
+      part[G::msg_b0(n_range) + (size_t(l - lo) * NE + e) * H + c] = acc;
     }
 #pragma unroll
     for (int k = 0; k < R::RPT; ++k) {
@@ -356,7 +376,8 @@ fused_ggnn_bwd_kernel(const float* __restrict__ h0, const float* __restrict__ ad
     __syncthreads();
   }
 
-  // 4. dh0 (+ the readout's direct h0 term, written above by this thread)
+  // 4. dh at the bottom of the range: dh0, or dh_mid for the top half
+  // (+ the readout's direct h0 term, written above by this thread)
 #pragma unroll
   for (int k = 0; k < R::RPT; ++k) {
     const int i = row0 + k * R::RS;
@@ -366,18 +387,18 @@ fused_ggnn_bwd_kernel(const float* __restrict__ h0, const float* __restrict__ ad
 }
 
 template <int H, bool READOUT>
-cudaError_t launch_bwd(const float* h0, const float* adj, const Weights& w,
-                       const Readout& ro, const float* dout, float* dh0,
+cudaError_t launch_bwd(const float* hin, const float* adj, const Weights& w,
+                       const Readout& ro, const float* dout, float* dh_bot,
                        float* partial, float* grads, float* hs, int n_tiles,
-                       int n_layers, cudaStream_t stream) {
+                       int lo, int hi, cudaStream_t stream) {
   constexpr size_t bytes = BwdPlan<H>::BYTES;
   static_assert(bytes <= 232448, "shared-memory plan exceeds 227 KB");
   static bool opted_in[MAX_DEVICES] = {};
   cudaError_t err = opt_in_smem(fused_ggnn_bwd_kernel<H, READOUT>, bytes, opted_in);
   if (err != cudaSuccess) return err;
-  const int n_grad = int(GradLayout<H>::words(n_layers, READOUT));
+  const int n_grad = int(GradLayout<H>::words(hi - lo, READOUT));
   fused_ggnn_bwd_kernel<H, READOUT><<<n_tiles, THREADS, bytes, stream>>>(
-      h0, adj, w, ro, dout, dh0, partial, hs, n_layers, n_grad);
+      hin, adj, w, ro, dout, dh_bot, partial, hs, lo, hi, n_grad);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   constexpr int SUM_THREADS = 256;
@@ -388,23 +409,27 @@ cudaError_t launch_bwd(const float* h0, const float* adj, const Weights& w,
 
 }  // namespace
 
-// K1b: dh0 (P, T, H) and the summed weight gradients (grads, in the
-// GradLayout order) of K1 for the upstream gradient dh_final.  partial
-// (P, n_grad) and hs (P, L, T, H) are scratch.  Returns a cudaError_t.
-extern "C" int fused_ggnn_bwd(
-    const float* h0, const float* adj, const float* msg_w, const float* msg_b,
+// K1b over [0, n_layers) and each half of K3: the backward over layers
+// [lo, hi) of the stack (0 <= lo < hi <= n_layers): from hin (h0 for
+// lo == 0, else the input of layer lo) and dh_top (the gradient of layer
+// hi-1's output), dh_bot (the gradient of layer lo's input) and the
+// summed gradients of the range's message weights (hi - lo layers) and of
+// the shared GRU, in the GradLayout order.  partial (P, n_grad) and hs
+// (P, hi - lo, T, H) are scratch.  Returns a cudaError_t.
+extern "C" int fused_ggnn_range_bwd(
+    const float* hin, const float* adj, const float* msg_w, const float* msg_b,
     const float* wz, const float* uz, const float* bz,
     const float* wr, const float* ur, const float* br,
     const float* wn, const float* un, const float* bn,
-    const float* dh_final, float* dh0, float* partial, float* grads, float* hs,
-    int n_tiles, int n_layers, int hidden, void* stream) {
-  if (n_tiles <= 0 || n_layers <= 0) return int(cudaErrorInvalidValue);
+    const float* dh_top, float* dh_bot, float* partial, float* grads, float* hs,
+    int n_tiles, int lo, int hi, int hidden, void* stream) {
+  if (n_tiles <= 0 || lo < 0 || hi <= lo) return int(cudaErrorInvalidValue);
   const Weights w = make_weights(msg_w, msg_b, wz, uz, bz, wr, ur, br, wn, un, bn);
   const Readout ro = {};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hidden) {
-    case 16: return int(launch_bwd<16, false>(h0, adj, w, ro, dh_final, dh0, partial, grads, hs, n_tiles, n_layers, st));
-    case 32: return int(launch_bwd<32, false>(h0, adj, w, ro, dh_final, dh0, partial, grads, hs, n_tiles, n_layers, st));
+    case 16: return int(launch_bwd<16, false>(hin, adj, w, ro, dh_top, dh_bot, partial, grads, hs, n_tiles, lo, hi, st));
+    case 32: return int(launch_bwd<32, false>(hin, adj, w, ro, dh_top, dh_bot, partial, grads, hs, n_tiles, lo, hi, st));
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -426,8 +451,8 @@ extern "C" int fused_ggnn_readout_bwd(
   const Readout ro = {mask, wi, bi, wj, bj};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hidden) {
-    case 16: return int(launch_bwd<16, true>(h0, adj, w, ro, dg, dh0, partial, grads, hs, n_tiles, n_layers, st));
-    case 32: return int(launch_bwd<32, true>(h0, adj, w, ro, dg, dh0, partial, grads, hs, n_tiles, n_layers, st));
+    case 16: return int(launch_bwd<16, true>(h0, adj, w, ro, dg, dh0, partial, grads, hs, n_tiles, 0, n_layers, st));
+    case 32: return int(launch_bwd<32, true>(h0, adj, w, ro, dg, dh0, partial, grads, hs, n_tiles, 0, n_layers, st));
     default: return int(cudaErrorInvalidValue);
   }
 }

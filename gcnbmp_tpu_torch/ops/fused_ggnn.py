@@ -3,8 +3,13 @@
 Port of the kernels of gcnbmp_tpu/ops/fused_ggnn.py:
 
 - ``fused_ggnn``              (K1)  <- ``fused_ggnn`` / ``_fwd_kernel``
+- ``fused_ggnn_mid``          (K1m) <- ``_fused_ggnn_fwd``'s TWOPASS branch /
+  ``_fwd_mid_kernel``: K1 that also returns h_mid, the input of layer
+  ``split = L // 2``
 - ``fused_ggnn_readout``      (K2)  <- ``fused_ggnn_readout`` / ``_fwd_readout_kernel``
 - ``fused_ggnn_bwd``          (K1b) <- ``_fused_ggnn_bwd`` / ``_bwd_kernel``
+- ``fused_ggnn_half_bwd``     (K3)  <- ``_half_bwd_call`` / ``_bwd_half_kernel``:
+  K1b over a layer range [lo, hi)
 - ``fused_ggnn_readout_bwd``  (K2b) <- ``_fused_ggnn_readout_bwd`` /
   ``_bwd_readout_kernel``
 
@@ -25,21 +30,36 @@ they run through ``FusedGGNNFunction`` and ``FusedGGNNReadoutFunction``
 the saved inputs, as the TPU kernels do; like the JAX VJPs, they are
 differentiable once.
 
+``TWOPASS`` (``GCNBMP_FUSED_TWOPASS=1``, the JAX name and meaning, read
+at call time so it can be set on the module) splits ``fused_ggnn``'s
+backward in two, as ``_fused_ggnn_bwd_twopass`` does: the forward runs
+K1m and keeps h_mid; the backward runs K3 over the top half [split, L)
+from h_mid and dh, hands dh_mid over in device memory, then runs K3 over
+the bottom half [0, split) from h0.  The gradients are the top half's
+plus the bottom half's, in that order, with no atomics, so a run repeats
+bit for bit.  Each half's recompute scratch is half of K1b's.  With L = 1
+the flag is ignored, as in JAX; with no gradient needed the forward runs
+K1, since h_mid serves only the backward.  ``fused_ggnn_readout`` (K2)
+has no two-pass form, as in JAX.
+
 Each wrapper takes its plain PyTorch version (``*_reference``) for a
 tensor on the CPU; for a CUDA tensor it launches the hand-written Hopper
 kernel (``csrc/fused_ggnn.cu``, ``csrc/fused_ggnn_bwd.cu``) or raises.
 Each counts its kernel launches in the ``launches`` attribute of
-``fused_ggnn``, ``fused_ggnn_readout``, ``fused_ggnn_bwd`` and
+``fused_ggnn``, ``fused_ggnn_mid``, ``fused_ggnn_readout``,
+``fused_ggnn_bwd``, ``fused_ggnn_half_bwd`` and
 ``fused_ggnn_readout_bwd``; the autograd functions count the calls of
 their backward in ``backward_calls``.
 
-The JAX package's TPU A/B knobs are not ported: AGG_KBATCH, MERGE_GATES,
-MATMUL_BF16, TWOPASS and GCNBMP_FUSED_BWD_K select among equivalent forms
-or precisions of the same math on the TPU.  Adjacency is taken in f32.
+The JAX package's other TPU A/B knobs are not ported: AGG_KBATCH,
+MERGE_GATES, MATMUL_BF16 and GCNBMP_FUSED_BWD_K select among equivalent
+forms, precisions or block sizes of the same math on the TPU.  Adjacency
+is taken in f32.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -51,6 +71,8 @@ NUM_EDGE_TYPE = 4
 # readout width D equals H
 KERNEL_HIDDEN = (16, 32)
 GRU_KEYS = ("wz", "uz", "bz", "wr", "ur", "br", "wn", "un", "bn")
+# the two-pass backward (K1m + K3); FusedGGNNFunction reads it per call
+TWOPASS = os.environ.get("GCNBMP_FUSED_TWOPASS") == "1"
 
 
 def gru_shape(key: str, hidden: int) -> Tuple[int, ...]:
@@ -75,12 +97,14 @@ def _layer_parts(h, state, adj, wmsg, bmsg, gru):
     return z * n + (1.0 - z) * state, (x, z, r, n)
 
 
-def _forward_layers(n_layers, h0, adj, msg_w, msg_b, gru):
-    """Final h and the input of every layer."""
+def _forward_layers(n_layers, h0, adj, msg_w, msg_b, gru, lo=0):
+    """Layers [lo, n_layers) from ``h0``, the input of layer lo: the final
+    h and the input of each layer of the range.  The GRU state is zero at
+    layer 0 only; at lo > 0 it is the layer's input itself."""
     h = h0
-    state = torch.zeros_like(h0)
+    state = torch.zeros_like(h0) if lo == 0 else h0
     inputs = []
-    for l in range(n_layers):
+    for l in range(lo, n_layers):
         inputs.append(h)
         h, _ = _layer_parts(h, state, adj, msg_w[l], msg_b[l], gru)
         state = h
@@ -90,6 +114,13 @@ def _forward_layers(n_layers, h0, adj, msg_w, msg_b, gru):
 def fused_ggnn_reference(n_layers: int, h0, adj, msg_w, msg_b, gru):
     """Plain PyTorch K1 (same math as the JAX ``_layer_fwd``)."""
     return _forward_layers(n_layers, h0, adj, msg_w, msg_b, gru)[0]
+
+
+def fused_ggnn_mid_reference(n_layers: int, h0, adj, msg_w, msg_b, gru):
+    """Plain PyTorch K1m: (h, h_mid), h_mid the input of layer
+    ``n_layers // 2`` (``_fwd_mid_kernel``); n_layers >= 2."""
+    h, inputs = _forward_layers(n_layers, h0, adj, msg_w, msg_b, gru)
+    return h, inputs[n_layers // 2]
 
 
 def readout_reference(h, h0, node_mask, ro_wi, ro_bi, ro_wj, ro_bj):
@@ -112,17 +143,21 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(-1, t.shape[-1])
 
 
-def _reverse_layers_reference(n_layers, dh, inputs, adj, msg_w, msg_b, gru):
+def _reverse_layers_reference(n_layers, dh, inputs, adj, msg_w, msg_b, gru,
+                              lo=0):
     """Port of ``_reverse_layers`` (fused_ggnn.py:266-370, the AGG_FLAT
-    message backward): dh at the top of the stack in; dh0 and the weight
-    gradients out.  ``inputs[l]`` is layer l's input h."""
+    message backward) over layers [lo, n_layers): dh at the top of the
+    range in; dh at its bottom (dh0 for lo == 0; for lo > 0 it keeps the
+    state term, since layer lo's input is also its state) and the weight
+    gradients out, zero outside the range.  ``inputs[l - lo]`` is layer
+    l's input h."""
     hidden = dh.shape[-1]
     dmsg_w = torch.zeros_like(msg_w)
     dmsg_b = torch.zeros_like(msg_b)
     dgru = {k: torch.zeros_like(gru[k]) for k in GRU_KEYS}
     adj_t = adj.transpose(1, 2)                            # (P, 4T, T)
-    for l in range(n_layers - 1, -1, -1):
-        h_in = inputs[l]
+    for l in range(n_layers - 1, lo - 1, -1):
+        h_in = inputs[l - lo]
         state = torch.zeros_like(h_in) if l == 0 else h_in
         _, (x, z, r, n) = _layer_parts(h_in, state, adj, msg_w[l], msg_b[l],
                                        gru)
@@ -164,6 +199,17 @@ def fused_ggnn_bwd_reference(n_layers: int, h0, adj, msg_w, msg_b, gru,
     _, inputs = _forward_layers(n_layers, h0, adj, msg_w, msg_b, gru)
     return _reverse_layers_reference(n_layers, dh_final, inputs, adj, msg_w,
                                      msg_b, gru)
+
+
+def fused_ggnn_half_bwd_reference(lo: int, hi: int, hin, adj, msg_w, msg_b,
+                                  gru, dh_top):
+    """Plain PyTorch K3 (``_bwd_half_kernel``): the backward over layers
+    [lo, hi) from hin (h0 for lo == 0, else the input of layer lo) and
+    dh_top; returns (dh_bot, dmsg_w, dmsg_b, dgru) with the message
+    gradients zero outside [lo, hi)."""
+    _, inputs = _forward_layers(hi, hin, adj, msg_w, msg_b, gru, lo=lo)
+    return _reverse_layers_reference(hi, dh_top, inputs, adj, msg_w, msg_b,
+                                     gru, lo=lo)
 
 
 def readout_bwd_reference(h, h0, node_mask, ro_wi, ro_bi, ro_wj, ro_bj, dg):
@@ -282,6 +328,33 @@ def _fused_ggnn_fwd(n_layers, h0, adj, msg_w, msg_b, gru):
     return out
 
 
+def fused_ggnn_mid(n_layers: int, h0, adj, msg_w, msg_b, gru):
+    """K1m: (h, h_mid) on the tensors' device (plain version on the CPU),
+    h_mid the input of layer ``n_layers // 2``; n_layers >= 2.  h is bit
+    for bit K1's."""
+    if h0.device.type == "cpu":
+        return fused_ggnn_mid_reference(n_layers, h0, adj, msg_w, msg_b, gru)
+    from gcnbmp_tpu_torch.ops.build import load_library
+
+    p, hidden = _check_common(n_layers, h0, adj, msg_w, msg_b, gru)
+    if n_layers < 2:
+        raise ValueError("K1m needs two layers or more to split")
+    lib = load_library()
+    out = torch.empty_like(h0)
+    mid = torch.empty_like(h0)
+    with torch.cuda.device(h0.device):
+        err = lib.fused_ggnn_mid_fwd(
+            h0.data_ptr(), adj.data_ptr(), *_weight_ptrs(msg_w, msg_b, gru),
+            out.data_ptr(), mid.data_ptr(), p, n_layers, n_layers // 2,
+            hidden, _stream())
+    _raise_on(err, "fused_ggnn_mid_fwd")
+    fused_ggnn_mid.launches += 1
+    return out, mid
+
+
+fused_ggnn_mid.launches = 0
+
+
 def _fused_ggnn_readout_fwd(n_layers, h0, adj, msg_w, msg_b, gru, node_mask,
                             ro_wi, ro_bi, ro_wj, ro_bj):
     """K2 on the tensors' device (plain version on the CPU)."""
@@ -337,32 +410,70 @@ def _split_grads(grads, shapes, sizes):
     return parts[0], parts[1], dgru, parts[2 + len(GRU_KEYS):]
 
 
+def _range_bwd(lo: int, hi: int, hin, adj, msg_w, msg_b, gru, dh_top):
+    """Launch the backward kernel over layers [lo, hi) of the
+    msg_w.shape[0]-layer stack on CUDA tensors (K1b for [0, L), each half
+    of K3 otherwise): (dh_bot, the range's dmsg_w and dmsg_b, dgru)."""
+    from gcnbmp_tpu_torch.ops.build import load_library
+
+    n_layers = msg_w.shape[0]
+    p, hidden = _check_common(n_layers, hin, adj, msg_w, msg_b, gru)
+    if not 0 <= lo < hi <= n_layers:
+        raise ValueError(f"layer range [{lo}, {hi}) outside [0, {n_layers})")
+    dev = hin.device
+    _check("dh_top", dh_top, (p, TILE, hidden), dev)
+    lib = load_library()
+    dh_bot, partial, grads, hs, shapes, sizes = _bwd_buffers(
+        p, hi - lo, hidden, None, dev)
+    with torch.cuda.device(dev):
+        err = lib.fused_ggnn_range_bwd(
+            hin.data_ptr(), adj.data_ptr(), *_weight_ptrs(msg_w, msg_b, gru),
+            dh_top.data_ptr(), dh_bot.data_ptr(), partial.data_ptr(),
+            grads.data_ptr(), hs.data_ptr(), p, lo, hi, hidden, _stream())
+    _raise_on(err, "fused_ggnn_range_bwd")
+    dmsg_w, dmsg_b, dgru, _ = _split_grads(grads, shapes, sizes)
+    return dh_bot, dmsg_w, dmsg_b, dgru
+
+
 def fused_ggnn_bwd(n_layers: int, h0, adj, msg_w, msg_b, gru, dh_final):
     """K1b: (dh0, dmsg_w, dmsg_b, dgru) for the upstream gradient dh_final
     (P, T, H) of ``fused_ggnn``'s output."""
     if h0.device.type == "cpu":
         return fused_ggnn_bwd_reference(n_layers, h0, adj, msg_w, msg_b, gru,
                                         dh_final)
-    from gcnbmp_tpu_torch.ops.build import load_library
-
-    p, hidden = _check_common(n_layers, h0, adj, msg_w, msg_b, gru)
-    dev = h0.device
-    _check("dh_final", dh_final, (p, TILE, hidden), dev)
-    lib = load_library()
-    dh0, partial, grads, hs, shapes, sizes = _bwd_buffers(
-        p, n_layers, hidden, None, dev)
-    with torch.cuda.device(dev):
-        err = lib.fused_ggnn_bwd(
-            h0.data_ptr(), adj.data_ptr(), *_weight_ptrs(msg_w, msg_b, gru),
-            dh_final.data_ptr(), dh0.data_ptr(), partial.data_ptr(),
-            grads.data_ptr(), hs.data_ptr(), p, n_layers, hidden, _stream())
-    _raise_on(err, "fused_ggnn_bwd")
+    if msg_w.shape[0] != n_layers:
+        raise ValueError(f"n_layers={n_layers} but msg_w has "
+                         f"{msg_w.shape[0]} layers")
+    out = _range_bwd(0, n_layers, h0, adj, msg_w, msg_b, gru, dh_final)
     fused_ggnn_bwd.launches += 1
-    dmsg_w, dmsg_b, dgru, _ = _split_grads(grads, shapes, sizes)
-    return dh0, dmsg_w, dmsg_b, dgru
+    return out
 
 
 fused_ggnn_bwd.launches = 0
+
+
+def fused_ggnn_half_bwd(lo: int, hi: int, hin, adj, msg_w, msg_b, gru,
+                        dh_top):
+    """K3: the backward over layers [lo, hi) of the msg_w.shape[0]-layer
+    stack, from hin (h0 for lo == 0, else the input of layer lo, h_mid)
+    and dh_top (P, T, H), the gradient of layer hi-1's output.  Returns
+    (dh_bot, dmsg_w, dmsg_b, dgru): dh_bot is the gradient of layer lo's
+    input; the message gradients have the full (L, ...) shapes, zero
+    outside [lo, hi), as ``_half_bwd_call``'s outputs."""
+    if hin.device.type == "cpu":
+        return fused_ggnn_half_bwd_reference(lo, hi, hin, adj, msg_w, msg_b,
+                                             gru, dh_top)
+    dh_bot, half_w, half_b, dgru = _range_bwd(lo, hi, hin, adj, msg_w, msg_b,
+                                              gru, dh_top)
+    fused_ggnn_half_bwd.launches += 1
+    dmsg_w = torch.zeros_like(msg_w)
+    dmsg_b = torch.zeros_like(msg_b)
+    dmsg_w[lo:hi] = half_w
+    dmsg_b[lo:hi] = half_b
+    return dh_bot, dmsg_w, dmsg_b, dgru
+
+
+fused_ggnn_half_bwd.launches = 0
 
 
 def fused_ggnn_readout_bwd(n_layers: int, h0, adj, msg_w, msg_b, gru,
@@ -403,27 +514,55 @@ fused_ggnn_readout_bwd.launches = 0
 # autograd
 
 
+def fused_ggnn_twopass_bwd(n_layers: int, h0, h_mid, adj, msg_w, msg_b, gru,
+                           dh_final):
+    """The two-pass backward (``_fused_ggnn_bwd_twopass``): K3 over the
+    top half [split, L) from h_mid, then over the bottom half [0, split)
+    from h0 with the top half's dh_mid; the gradients summed top +
+    bottom, in that order."""
+    split = n_layers // 2
+    dh_mid, tw, tb, tgru = fused_ggnn_half_bwd(
+        split, n_layers, h_mid, adj, msg_w, msg_b, gru, dh_final)
+    dh0, bw, bb, bgru = fused_ggnn_half_bwd(
+        0, split, h0, adj, msg_w, msg_b, gru, dh_mid)
+    return dh0, tw + bw, tb + bb, {k: tgru[k] + bgru[k] for k in GRU_KEYS}
+
+
 class FusedGGNNFunction(torch.autograd.Function):
     """K1 forward, K1b backward: the port of ``fused_ggnn.defvjp``
-    (fused_ggnn.py:669).  Saves the inputs, not activations."""
+    (fused_ggnn.py:669).  Saves the inputs, not activations; under
+    ``TWOPASS`` (n_layers > 1) the forward is K1m, which also saves h_mid,
+    and the backward is ``fused_ggnn_twopass_bwd`` (K3 twice)."""
 
     backward_calls = 0
 
     @staticmethod
     def forward(ctx, n_layers, h0, adj, msg_w, msg_b, *gru_values):
         ctx.n_layers = n_layers
+        gru = dict(zip(GRU_KEYS, gru_values))
+        if TWOPASS and n_layers > 1 and any(ctx.needs_input_grad):
+            h, h_mid = fused_ggnn_mid(n_layers, h0, adj, msg_w, msg_b, gru)
+            ctx.save_for_backward(h0, adj, msg_w, msg_b, h_mid, *gru_values)
+            ctx.twopass = True
+            return h
         ctx.save_for_backward(h0, adj, msg_w, msg_b, *gru_values)
-        return _fused_ggnn_fwd(n_layers, h0, adj, msg_w, msg_b,
-                               dict(zip(GRU_KEYS, gru_values)))
+        ctx.twopass = False
+        return _fused_ggnn_fwd(n_layers, h0, adj, msg_w, msg_b, gru)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dh):
         FusedGGNNFunction.backward_calls += 1
-        h0, adj, msg_w, msg_b, *gru_values = ctx.saved_tensors
-        dh0, dmsg_w, dmsg_b, dgru = fused_ggnn_bwd(
-            ctx.n_layers, h0, adj, msg_w, msg_b,
-            dict(zip(GRU_KEYS, gru_values)), dh.contiguous())
+        if ctx.twopass:
+            h0, adj, msg_w, msg_b, h_mid, *gru_values = ctx.saved_tensors
+            dh0, dmsg_w, dmsg_b, dgru = fused_ggnn_twopass_bwd(
+                ctx.n_layers, h0, h_mid, adj, msg_w, msg_b,
+                dict(zip(GRU_KEYS, gru_values)), dh.contiguous())
+        else:
+            h0, adj, msg_w, msg_b, *gru_values = ctx.saved_tensors
+            dh0, dmsg_w, dmsg_b, dgru = fused_ggnn_bwd(
+                ctx.n_layers, h0, adj, msg_w, msg_b,
+                dict(zip(GRU_KEYS, gru_values)), dh.contiguous())
         return (None, dh0, None, dmsg_w, dmsg_b,
                 *(dgru[k] for k in GRU_KEYS))
 

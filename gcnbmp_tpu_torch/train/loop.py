@@ -7,12 +7,22 @@ step and the Trainer (port of gcnbmp_tpu/train/loop.py).
   clip_by_global_norm, add_decayed_weights (coupled L2 on the gradient),
   the Lasso term g + l1 sign(p), then Adam (b1 0.9, b2 0.999, eps 1e-8,
   eps_root 0) at lr = schedule(count) taken before the count increments.
-- ``train_step``  <- ``make_packed_coo_train_step`` (:333-355)
-- ``Trainer``     <- :686-1408 for GGNN on ``compute_path="fused"`` and
-  MPNN on ``compute_path="coo"`` (the Set2Set table width fitted to the
-  data, :817-827)
+- ``train_step``  <- ``make_packed_coo_train_step`` (:333-355); scan mode
+  (``scan_steps`` S > 1) runs S of them back to back on one chunk, the
+  semantics of ``make_packed_scan_train_step`` (:358-390)
+- ``Trainer``     <- :686-1408 for GGNN on ``compute_path="fused"`` or
+  ``"coo"`` (one kernel path, :799-858) and MPNN on ``compute_path="coo"``
+  (the Set2Set table width fitted to the data, :817-827), per step or in
+  scan mode (the loop at :1185-1263, the guard at :739-745)
 - ``config_problems`` <- ``packed_config_problems`` (:532-575), for what
   the port trains.
+
+``compute_dtype="bfloat16"`` is accepted and computed in f32, for GGNN as
+the JAX fused path computes it (``_fused_encoder_g_nodes`` ignores
+compute_dtype; its bf16 adjacency of 0/1 values is exact) and for MPNN as
+its fused kernels do.  The JAX **coo** path with bf16 rounds its XLA
+matmul operands to bf16, so that pairing is where the port's numbers
+differ from JAX's; the parity tests run f32.
 """
 
 from __future__ import annotations
@@ -194,10 +204,11 @@ def build_optimizer(config: TrainConfig, steps_per_epoch: int,
 def train_step(model, optimizer: ChainedAdam, args, labels,
                loss_fn: Callable = sigmoid_cross_entropy,
                class_num: int = 1) -> torch.Tensor:
-    """One step over a wire-compact batch: loss, backward (K2b for GGNN,
-    K4b and K5b for MPNN, on the card), optimizer update.  Returns the
-    loss as a device tensor; the
-    caller fetches losses once per epoch."""
+    """One step over a wire-compact batch: loss, backward (for GGNN K2b,
+    K1b or K3 twice, by ``models.packed.FUSED_READOUT`` and
+    ``ops.fused_ggnn.TWOPASS``; K4b and K5b for MPNN; on the card),
+    optimizer update.  Returns the loss as a device tensor; the caller
+    fetches losses once per epoch."""
     for p in optimizer.params:
         p.grad = None
     logits = model(*args)
@@ -225,10 +236,12 @@ def config_problems(cfg: TrainConfig) -> List[str]:
                             "method='mpnn': MPNN trains on 'coo', as in the "
                             "JAX package; its other layouts come with "
                             "ROADMAP queue 1, items 4 and 7")
-    elif cfg.compute_path != "fused":
+    elif cfg.compute_path not in ("fused", "coo"):
+        # GGNN on coo trains through the same kernel path as fused: the
+        # JAX coo path runs XLA's stack, which has no Pallas kernel
         problems.append(f"compute_path={cfg.compute_path!r}: the port trains "
-                        "'fused' only; the other layouts come with ROADMAP "
-                        "queue 1, items 4 and 7")
+                        "GGNN on 'fused' and 'coo'; the other layouts come "
+                        "with ROADMAP queue 1, items 4 and 7")
     if cfg.method not in ("ggnn", "mpnn"):
         problems.append(f"method={cfg.method!r}: other encoders are ROADMAP "
                         "queue 1, item 9")
@@ -252,13 +265,6 @@ def config_problems(cfg: TrainConfig) -> List[str]:
                             "queue 1, item 7")
     if cfg.multi_device:
         problems.append("multi_device: ROADMAP queue 1, item 11")
-    if cfg.scan_steps > 1:
-        problems.append(f"scan_steps={cfg.scan_steps}: several steps per "
-                        "dispatch (CUDA graphs) is ROADMAP queue 1, item 5")
-    # MPNN's kernels compute in f32 whatever compute_dtype says, as the
-    # JAX package's fused MPNN path does (only its 0/1 matrices were bf16)
-    if cfg.compute_dtype == "bfloat16" and cfg.method != "mpnn":
-        problems.append("compute_dtype='bfloat16': ROADMAP queue 1, item 4")
     if cfg.resume:
         problems.append("resume: checkpoint restore is ROADMAP queue 1, "
                         "item 6")
@@ -267,6 +273,27 @@ def config_problems(cfg: TrainConfig) -> List[str]:
     if cfg.debug_checks:
         problems.append("debug_checks: ROADMAP queue 1, item 6")
     return problems
+
+
+def stage_chunk(stacked, labels, device):
+    """Copy a chunk of S stacked wire batches and their labels to
+    ``device`` in one transfer: the arrays (all 4-byte types: the int32
+    wire arrays, the f32 labels) laid side by side in one int32 buffer.
+    Returns (the wire arrays, the labels) as views of the copy, each with
+    its leading (S,) axis."""
+    parts = [np.ascontiguousarray(a) for a in stacked]
+    parts.append(np.ascontiguousarray(labels, np.float32))
+    if any(p.dtype.itemsize != 4 for p in parts):
+        raise TypeError("stage_chunk takes 4-byte arrays, got "
+                        f"{[str(p.dtype) for p in parts]}")
+    flat = torch.from_numpy(np.concatenate(
+        [p.view(np.int32).reshape(-1) for p in parts])).to(device)
+    views, start = [], 0
+    for p in parts:
+        dtype = torch.from_numpy(p[:0].reshape(-1)).dtype
+        views.append(flat[start:start + p.size].view(dtype).view(p.shape))
+        start += p.size
+    return views[:-1], views[-1]
 
 
 @dataclasses.dataclass
@@ -290,11 +317,16 @@ class Trainer:
     Initial weights come from ``convert.init_params(cfg, seed)``: seeded
     numpy draws from the flax initializers' distributions, so their
     values differ from a JAX run's (jax.random) with the same seed.
-    Each step runs K2 forward and K2b backward on the card (GGNN), or K5,
-    K4, K4b and K5b (MPNN); epoch ends
-    evaluate train and val through ``PackedPairEvaluator``, stop early on
-    val loss, and save ``snapshot_epoch_*``, ``best`` and ``final``
-    checkpoints (``train.checkpoints``)."""
+    Each step runs the GGNN kernel path in the form
+    ``models.packed.fused_form()`` names (K2 and K2b by default) or K5, K4,
+    K4b and K5b (MPNN) on the card.  Batches reach the device in chunks
+    of ``max(scan_steps, 1)``, one host-to-device copy per chunk
+    (``stage_chunk``), and the chunk's steps run back to back on slices of
+    it: the batches, order and updates of the JAX scan mode, whose tail
+    chunk is dropped likewise.  Epoch ends evaluate train and val through
+    ``PackedPairEvaluator``, stop early on val loss, and save
+    ``snapshot_epoch_*``, ``best`` and ``final`` checkpoints
+    (``train.checkpoints``)."""
 
     def __init__(self, config: TrainConfig, train_ds, val_ds=None,
                  device="cuda"):
@@ -320,7 +352,7 @@ class Trainer:
         if config.method == "mpnn":
             # the Set2Set table width: the largest molecule of the run's
             # datasets, rounded up to 8 (loop.py:817-827)
-            from gcnbmp_tpu.data.packing import max_atoms_lane_rounded
+            from gcnbmp_tpu_torch.data.packing import max_atoms_lane_rounded
 
             dss = [train_ds] + ([val_ds] if val_ds is not None
                                 and len(val_ds) else [])
@@ -329,6 +361,13 @@ class Trainer:
             init_params(kwargs, config.seed),
             make_packed_predictor(**kwargs)).to(self.device)
         self.steps_per_epoch = max(1, len(self.train_ds) // config.batch_size)
+        if config.scan_steps > 1 and config.scan_steps > self.steps_per_epoch:
+            raise ValueError(
+                f"scan_steps={config.scan_steps} exceeds the "
+                f"{self.steps_per_epoch} batches per epoch (dataset "
+                f"{len(self.train_ds)} pairs / batch_size "
+                f"{config.batch_size}): every epoch would train zero steps; "
+                "lower scan_steps or batch_size")
         self.optimizer, self.schedule = build_optimizer(
             config, self.steps_per_epoch, list(self.model.parameters()))
         self.loss_fn = make_loss(
@@ -349,7 +388,8 @@ class Trainer:
     def fit(self, max_epochs: Optional[int] = None) -> Dict[str, Any]:
         from gcnbmp_tpu_torch.data import estimate_coo_capacities
         from gcnbmp_tpu_torch.data.wire import (
-            compact_coo_arrays, packed_coo_batch_iterator)
+            compact_coo_arrays, packed_coo_batch_iterator, scan_chunk_iterator)
+        from gcnbmp_tpu_torch.models.packed import fused_form
         from gcnbmp_tpu_torch.train.checkpoints import save_checkpoint
 
         cfg = self.config
@@ -367,6 +407,9 @@ class Trainer:
         if cfg.plot_reports:
             logger.info("plot_reports: the port writes no loss/accuracy PNGs "
                         "(ROADMAP queue 1, item 6); log.json holds the curves")
+        if cfg.method == "ggnn":
+            logger.info("GGNN kernel path: %s", fused_form())
+        steps_per_chunk = max(cfg.scan_steps, 1)
         os.makedirs(cfg.out_dir, exist_ok=True)
         max_epochs = max_epochs or cfg.epochs
         self.model.train()
@@ -375,19 +418,19 @@ class Trainer:
             epoch_losses: List[torch.Tensor] = []
             epoch_edges = 0
             epoch_t0 = time.time()
-            for batch in packed_coo_batch_iterator(
-                    self.train_ds, cfg.batch_size, self.num_tiles,
-                    self.edge_capacity, self.np_rng,
-                    pack_workers=cfg.pack_workers, pack_cache=pack_cache):
-                args = [torch.as_tensor(np.asarray(a)).to(self.device)
-                        for a in compact_coo_arrays(batch)]
-                labels = torch.as_tensor(
-                    np.asarray(batch.labels, np.float32)).to(self.device)
-                epoch_losses.append(train_step(
-                    self.model, self.optimizer, args, labels, self.loss_fn,
-                    cfg.class_num))
-                epoch_edges += batch.num_edges
-                state.step += 1
+            batches = packed_coo_batch_iterator(
+                self.train_ds, cfg.batch_size, self.num_tiles,
+                self.edge_capacity, self.np_rng,
+                pack_workers=cfg.pack_workers, pack_cache=pack_cache)
+            for stacked, labels, edges in scan_chunk_iterator(
+                    batches, steps_per_chunk, compact_coo_arrays):
+                args, labels = stage_chunk(stacked, labels, self.device)
+                for i in range(steps_per_chunk):
+                    epoch_losses.append(train_step(
+                        self.model, self.optimizer, [a[i] for a in args],
+                        labels[i], self.loss_fn, cfg.class_num))
+                epoch_edges += edges
+                state.step += steps_per_chunk
             losses = (torch.stack(epoch_losses).double().cpu().numpy().tolist()
                       if epoch_losses else [])
             if cfg.check_numerics and not np.all(np.isfinite(losses)):

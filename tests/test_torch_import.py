@@ -1,5 +1,6 @@
-"""The PyTorch port imports without jax, flax, optax or orbax, and without
-scikit-learn or matplotlib, which the machine with the card lacks."""
+"""The PyTorch port imports without jax, flax, optax or orbax, without the
+JAX package ``gcnbmp_tpu`` itself, and without scikit-learn or matplotlib,
+which the machine with the card lacks."""
 
 import os
 import subprocess
@@ -8,9 +9,21 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "gcnbmp_tpu_torch")
+CHIP_SMOKE = os.path.join(ROOT, "chip_smoke.py")
 
 MODULES = [
     "gcnbmp_tpu_torch",
+    "gcnbmp_tpu_torch.native_lib",
+    "gcnbmp_tpu_torch.chem",
+    "gcnbmp_tpu_torch.chem.mol",
+    "gcnbmp_tpu_torch.chem.smiles",
+    "gcnbmp_tpu_torch.chem.featurize",
+    "gcnbmp_tpu_torch.chem.native",
+    "gcnbmp_tpu_torch.data",
+    "gcnbmp_tpu_torch.data.dataset",
+    "gcnbmp_tpu_torch.data.parsers",
+    "gcnbmp_tpu_torch.data.packing",
+    "gcnbmp_tpu_torch.data.native_pack",
     "gcnbmp_tpu_torch.data.wire",
     "gcnbmp_tpu_torch.ops.aggregate",
     "gcnbmp_tpu_torch.ops.circular",
@@ -39,9 +52,10 @@ import importlib.abc, sys
 class Blocker(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
         if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                  "sklearn", "matplotlib"):
+                                  "sklearn", "matplotlib", "gcnbmp_tpu"):
             raise ImportError("blocked: " + name)
-for m in [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")]:
+for m in [m for m in sys.modules
+          if m.split(".")[0] in ("jax", "jaxlib", "flax", "gcnbmp_tpu")]:
     del sys.modules[m]
 sys.meta_path.insert(0, Blocker())
 """
@@ -51,7 +65,8 @@ def test_port_imports_with_jax_blocked():
     code = BLOCKER + "".join(f"import {m}\n" for m in MODULES) + (
         "from gcnbmp_tpu_torch.cli.predict import main\n"
         "from gcnbmp_tpu_torch.cli.train import main\n"
-        "assert not [m for m in sys.modules if m.startswith('jax')]\n"
+        "assert not [m for m in sys.modules if m.startswith('jax')\n"
+        "            or m.split('.')[0] == 'gcnbmp_tpu']\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -61,11 +76,14 @@ def test_port_imports_with_jax_blocked():
 
 def test_no_jax_in_port_sources():
     words = ("import jax", "from jax", "import flax", "from flax",
-             "import optax", "from optax", "import orbax", "from orbax")
-    for dirpath, _, files in os.walk(PKG):
-        for name in files:
-            if name.endswith((".py", ".cu")):
-                with open(os.path.join(dirpath, name)) as f:
-                    src = f.read()
-                for word in words:
-                    assert word not in src, (word, os.path.join(dirpath, name))
+             "import optax", "from optax", "import orbax", "from orbax",
+             "from gcnbmp_tpu.", "import gcnbmp_tpu.", "from gcnbmp_tpu import",
+             "import gcnbmp_tpu\n")
+    paths = [CHIP_SMOKE] + [
+        os.path.join(dirpath, name) for dirpath, _, files in os.walk(PKG)
+        for name in files if name.endswith((".py", ".cu", ".cuh"))]
+    for path in paths:
+        with open(path) as f:
+            src = f.read()
+        for word in words:
+            assert word not in src, (word, path)

@@ -259,9 +259,9 @@ def test_multilabel_metrics_match_sklearn():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("compute_path", "coo"), ("compute_path", "padded"), ("method", "relgcn"),
+    ("compute_path", "packed"), ("compute_path", "padded"), ("method", "relgcn"),
     ("sim_method", "ntn"), ("attn", "para"), ("layer_aggregator", "concat"),
-    ("multi_device", True), ("scan_steps", 2), ("compute_dtype", "bfloat16"),
+    ("multi_device", True), ("concat_hidden", True), ("siamese", False),
     ("resume", "run/best"), ("profile_epoch", 0), ("debug_checks", True),
     ("fp_dropout_rate", 0.1), ("symmetric", "or")])
 def test_config_problems_name_their_roadmap_item(field, value):
@@ -276,7 +276,7 @@ def test_config_problems_name_their_roadmap_item(field, value):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--scan-steps", "4"], "scan_steps"), (["--compute-path", "coo"], "compute_path"),
+    (["--method", "gin"], "method"), (["--compute-path", "packed"], "compute_path"),
     (["--fixed-embeddings", "emb.csv"], "fixed-embeddings"),
     (["--platform", "cpu"], "platform"), (["--resume", "x"], "resume")])
 def test_train_cli_rejects_unported_options_before_any_work(tmp_path, flags,
@@ -291,7 +291,7 @@ def test_train_cli_rejects_unported_options_before_any_work(tmp_path, flags,
 
 def test_batch_iterator_matches_the_jax_one():
     ds = _dataset(40)
-    from gcnbmp_tpu.data.packing import estimate_coo_capacities
+    from gcnbmp_tpu_torch.data import estimate_coo_capacities
 
     tiles, cap = estimate_coo_capacities([ds], 8)
     want = list(jloop.packed_coo_batch_iterator(
