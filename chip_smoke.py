@@ -6,7 +6,8 @@
 Phases, each fatal on failure:
 1. device: the card's name and power limit; TF32 off.
 2. build: compile the CUDA kernels from ``gcnbmp_tpu_torch/ops/csrc``,
-   one nvcc per source, all at once.
+   one nvcc per source, all at once; print ptxas's registers and spills,
+   and those of each instance of the GGNN reverse body.
 3. kernels vs plain, at the shapes of real packed batches (the first 2048
    pairs of dataset/synth546's drug test split at batch 256 and 2048);
    errors, and median CUDA-event times of kernel and plain version per
@@ -18,8 +19,9 @@ Phases, each fatal on failure:
       (``fused_ggnn_readout_bwd``) at the flagship L=8, H=32, D=32, one
       H=16 case, one batch-256 case whose adjacency has rows with more
       than the kernels' 16 neighbour slots, and one L=3 case (the odd
-      split); K1m's h must equal K1's bit for bit, and K3's two halves
-      summed must equal K1b within the gradient bound;
+      split); K1m's h must equal K1's bit for bit, K3's two halves summed
+      must equal K1b within the gradient bound, and two K2b runs on the
+      same inputs must give the same bits;
    b. MPNN: K5 (``fused_mpnn``), K5b (``fused_mpnn_bwd``), K4
       (``fused_set2set``) and K4b (``fused_set2set_bwd``) at the quality
       row's model (L=4 tied, H=32; Set2Set tables 24 and 64 atoms wide),
@@ -166,6 +168,26 @@ def set2set_flops(steps, m, hidden, n_atoms, backward=False):
     the backward three times the forward, as above."""
     f = 24 * m * hidden ** 2 * (steps - 1) + 4 * n_atoms * hidden * steps
     return 3 * f if backward else f
+
+
+def backward_body_registers(log: str):
+    """(instance, registers and spills) of each instance of the GGNN
+    reverse body ``fused_ggnn_bwd_kernel<H, READOUT>`` in nvcc's
+    ``-Xptxas -v`` report."""
+    import re
+
+    out, body = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            b = re.search(r"fused_ggnn_bwd_kernelILi(\d+)ELb([01])E", m.group(1))
+            body = (f"fused_ggnn_bwd_kernel<{b.group(1)}, "
+                    f"{'true' if b.group(2) == '1' else 'false'}>" if b else None)
+        elif body and "spill" in line:
+            out.append((body, line.split(":", 1)[-1].strip()))
+        elif body and "registers" in line:
+            out.append((body, line.split(":", 1)[-1].strip()))
+    return out
 
 
 def nvidia_smi_line() -> str:
@@ -680,6 +702,8 @@ def main() -> int:
         if line.startswith("== ") or "registers" in line or "spill" in line \
                 or "error" in line:
             print(f"  ptxas: {line.strip()}")
+    for body, use in backward_body_registers(build.last_build_log or ""):
+        print(f"build: {body}: {use}")
 
     # 3. kernels vs plain at real batch shapes
     df = pd.read_csv(DATA).head(N_PAIRS)
@@ -810,6 +834,16 @@ def main() -> int:
             # K1m is K1 with one more store: the same h, bit for bit
             if not torch.equal(fused_ggnn_mid(*k1_args)[0], fused_ggnn(*k1_args)):
                 raise AssertionError(f"K1m's h differs from K1's [{tag}]")
+            # no atomics: two K2b runs on the same inputs give the same bits
+            if not odd:
+                runs = [named_grads(fused_ggnn_readout_bwd(*k1_args, *readout,
+                                                           dout),
+                                    GRU_KEYS, GGNN_GRAD_NAMES)
+                        for _ in range(2)]
+                if not all(torch.equal(a, b)
+                           for (_, a), (_, b) in zip(*runs)):
+                    raise AssertionError(f"two K2b runs differ [{tag}]")
+                print(f"K2b twice on the same inputs: equal bits [{tag}]")
             # the two-pass backward (K1m's h_mid, K3 twice) against K1b
             two = lambda: fused_ggnn_twopass_bwd(
                 n_layers, h0, fused_ggnn_mid(*k1_args)[1], adj, msg_w, msg_b,

@@ -12,8 +12,9 @@ atoms, and a wider molecule turns its batch NaN): reads a pair CSV
         --config run/config.json --params params.npz --out preds.csv
 
 ``--config`` is a JAX run's ``config.json``; only its model fields are
-read.  ``--params`` is a flat ``.npz`` of the flax param tree
-(``convert.save_params_npz``).
+read, and on ``--device cuda`` a width the card's kernels are not built
+for is refused before any pair is parsed.  ``--params`` is a flat
+``.npz`` of the flax param tree (``convert.save_params_npz``).
 """
 
 from __future__ import annotations
@@ -49,12 +50,18 @@ def main(argv=None):
     from gcnbmp_tpu_torch.convert import from_jax_params, load_params_npz
     from gcnbmp_tpu_torch.eval.evaluate import PackedPairEvaluator
     from gcnbmp_tpu_torch.models.packed import make_packed_predictor
+    from gcnbmp_tpu_torch.train.loop import kernel_problems
 
+    with open(args.config) as f:
+        config = json.load(f)
+    kwargs = model_kwargs_from_config(config)
+    problems = kernel_problems(config, args.device)
+    if problems:
+        raise ValueError("configuration outside what the card's kernels "
+                         "serve: " + "; ".join(problems))
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda requested but CUDA is not available")
-    with open(args.config) as f:
-        kwargs = model_kwargs_from_config(json.load(f))
     predictor = from_jax_params(load_params_npz(args.params),
                                 make_packed_predictor(**kwargs))
 

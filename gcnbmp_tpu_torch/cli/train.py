@@ -18,8 +18,9 @@ f32 whatever ``--compute-dtype`` says.  Writes ``config.json`` (the JAX
 run's format), ``log.json`` and the ``snapshot_epoch_*``, ``best`` and
 ``final`` checkpoints under ``--out``; ``final/params.npz`` serves
 through ``gcnbmp_tpu_torch.cli.predict``.  Prints the last log entry as
-JSON.  Options the port does not train yet raise before any work, naming
-their ROADMAP item.
+JSON.  Options the port does not train yet, and on ``--device cuda``
+widths the card's kernels are not built for, raise before any work,
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -140,13 +141,14 @@ def main(argv=None):
     import torch
 
     from gcnbmp_tpu_torch.data import CSVPairParser, get_class_labels
-    from gcnbmp_tpu_torch.train.loop import Trainer, config_problems
+    from gcnbmp_tpu_torch.train.loop import (
+        Trainer, config_problems, kernel_problems)
 
     classes = get_class_labels(args.labels_csv) if args.labels_csv else None
     cfg = build_config(args)
     if classes is not None:
         cfg = dataclasses.replace(cfg, class_num=len(classes))
-    problems = config_problems(cfg)
+    problems = config_problems(cfg) + kernel_problems(cfg, args.device)
     if problems:
         raise ValueError("configuration outside the ported training path: "
                          + "; ".join(problems))

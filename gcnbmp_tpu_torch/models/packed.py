@@ -94,15 +94,25 @@ def _segment_mol_sum(g_nodes: torch.Tensor, mol_id: torch.Tensor,
 # after it.  Unset, the port keeps K2, where the JAX package defaults to
 # the other form: the TPU left K2 off only because K2b's 8-layer backward
 # did not compile there (ROADMAP queue 2, K2 note).  Both forms compute
-# the same function; the tests hold both against JAX.
+# the same function; the tests hold both against JAX.  K2 is built for a
+# readout width D equal to the hidden width H: a GGNN with D != H takes
+# the JAX default form whatever the flag says.
 FUSED_READOUT = os.environ.get("GCNBMP_FUSED_READOUT", "1") == "1"
 
 
-def fused_form() -> str:
-    """The kernels the GGNN kernel path runs under the current flags."""
+def readout_in_kernel(hidden_dim: Optional[int] = None,
+                      out_dim: Optional[int] = None) -> bool:
+    """Whether the GGNN kernel path runs K2/K2b for these widths."""
+    return FUSED_READOUT and hidden_dim == out_dim
+
+
+def fused_form(hidden_dim: Optional[int] = None,
+               out_dim: Optional[int] = None) -> str:
+    """The kernels the GGNN kernel path runs under the current flags for
+    a model of these widths (unnamed widths: D = H)."""
     from gcnbmp_tpu_torch.ops import fused_ggnn as fg
 
-    if FUSED_READOUT:
+    if readout_in_kernel(hidden_dim, out_dim):
         return "K2/K2b (gated readout in the kernel)"
     if fg.TWOPASS:
         return "K1m/K3 (two-pass backward) + plain readout"
@@ -151,11 +161,12 @@ class PackedGGNN(nn.Module):
                       num_mols: int) -> torch.Tensor:
         """Per-molecule embeddings (num_mols, D) from the flat (P, T, 4T)
         adjacency: through K2 (K2b in the backward), or K1 and the plain
-        readout (K1b, or K3 twice, in the backward), by ``FUSED_READOUT``."""
+        readout (K1b, or K3 twice, in the backward), by ``FUSED_READOUT``
+        and the widths (``readout_in_kernel``)."""
         h0 = self.embed(atom_ids)
         msg_w, msg_b, gru = params_to_fused(self)
         ro = self.readout_0
-        if FUSED_READOUT:
+        if readout_in_kernel(self.hidden_dim, self.out_dim):
             g_nodes = fused_ggnn_readout(
                 self.n_layers, h0, adj_flat, msg_w, msg_b, gru, node_mask,
                 ro.i.dense.weight.T.contiguous(), ro.i.dense.bias,
@@ -188,6 +199,11 @@ def _device_slot_table(ids: torch.Tensor, valid: torch.Tensor, num_mols: int,
     return slots, amask, (counts > n_max).any()
 
 
+# Set2Set processing steps of the MPNN readout (the JAX module's default;
+# not a config field)
+SET2SET_STEPS = 3
+
+
 class PackedSet2Set(nn.Module):
     """Set2Set readout over the packed layout, the JAX module's dense mode:
     each molecule's atoms are gathered once into a (num_mols, n_max, C)
@@ -197,7 +213,7 @@ class PackedSet2Set(nn.Module):
     backward).  A molecule wider than ``dense_n_max`` turns the whole
     output NaN, as in the JAX module."""
 
-    def __init__(self, channels: int, processing_steps: int = 3,
+    def __init__(self, channels: int, processing_steps: int = SET2SET_STEPS,
                  dense_n_max: int = 64, device=None):
         super().__init__()
         self.channels = channels
@@ -237,7 +253,8 @@ class PackedMPNNReadout(nn.Module):
     per-molecule vectors (num_mols, out_dim)."""
 
     def __init__(self, out_dim: int, hidden_dim: int,
-                 processing_steps: int = 3, s2s_n_max: int = 64, device=None):
+                 processing_steps: int = SET2SET_STEPS, s2s_n_max: int = 64,
+                 device=None):
         super().__init__()
         self.set2set = PackedSet2Set(hidden_dim, processing_steps, s2s_n_max,
                                      device=device)

@@ -15,7 +15,8 @@ step and the Trainer (port of gcnbmp_tpu/train/loop.py).
   (the Set2Set table width fitted to the data, :817-827), per step or in
   scan mode (the loop at :1185-1263, the guard at :739-745)
 - ``config_problems`` <- ``packed_config_problems`` (:532-575), for what
-  the port trains.
+  the port trains; ``kernel_problems`` names the widths the card's
+  kernels are not built for.
 
 ``compute_dtype="bfloat16"`` is accepted and computed in f32, for GGNN as
 the JAX fused path computes it (``_fused_encoder_g_nodes`` ignores
@@ -275,6 +276,38 @@ def config_problems(cfg: TrainConfig) -> List[str]:
     return problems
 
 
+def kernel_problems(cfg, device) -> List[str]:
+    """Widths of ``cfg`` (a ``TrainConfig`` or a run config dict) that the
+    card's kernels are not built for, when ``device`` is CUDA; none on the
+    CPU, where the wrappers run their plain versions at any width.  A GGNN
+    whose readout width differs from its hidden width runs K1 with the
+    plain readout (``models.packed.fused_form``), so only H is checked."""
+    from gcnbmp_tpu_torch.models.packed import SET2SET_STEPS
+    from gcnbmp_tpu_torch.ops import fused_ggnn, fused_mpnn, set2set_kernel
+
+    if torch.device(device).type != "cuda":
+        return []
+    if dataclasses.is_dataclass(cfg):
+        cfg = dataclasses.asdict(cfg)
+    method = cfg.get("method", "ggnn")
+    hidden = int(cfg.get("fp_hidden_dim", TrainConfig.fp_hidden_dim))
+    item = 'ROADMAP queue 2, "Open: hidden widths"'
+    # MPNN runs K5 and K4 (Set2Set over H channels)
+    held = {"ggnn": fused_ggnn.KERNEL_HIDDEN,
+            "mpnn": [h for h in fused_mpnn.KERNEL_HIDDEN
+                     if h in set2set_kernel.KERNEL_HIDDEN]}.get(method, [])
+    problems = []
+    if held and hidden not in held:
+        problems.append(f"fp_hidden_dim={hidden} with method={method!r}: the "
+                        f"card's kernels are built for {list(held)}; other "
+                        f"widths are {item}")
+    if method == "mpnn" and SET2SET_STEPS > set2set_kernel.KERNEL_MAX_STEPS:
+        problems.append(f"{SET2SET_STEPS} Set2Set steps: the card's kernel "
+                        f"takes at most {set2set_kernel.KERNEL_MAX_STEPS}; "
+                        f"more are {item}")
+    return problems
+
+
 def stage_chunk(stacked, labels, device):
     """Copy a chunk of S stacked wire batches and their labels to
     ``device`` in one transfer: the arrays (all 4-byte types: the int32
@@ -318,7 +351,7 @@ class Trainer:
     numpy draws from the flax initializers' distributions, so their
     values differ from a JAX run's (jax.random) with the same seed.
     Each step runs the GGNN kernel path in the form
-    ``models.packed.fused_form()`` names (K2 and K2b by default) or K5, K4,
+    ``models.packed.fused_form`` names (K2 and K2b by default) or K5, K4,
     K4b and K5b (MPNN) on the card.  Batches reach the device in chunks
     of ``max(scan_steps, 1)``, one host-to-device copy per chunk
     (``stage_chunk``), and the chunk's steps run back to back on slices of
@@ -334,7 +367,7 @@ class Trainer:
         from gcnbmp_tpu_torch.models.packed import (
             make_packed_predictor, model_kwargs_from_config)
 
-        problems = config_problems(config)
+        problems = config_problems(config) + kernel_problems(config, device)
         if problems:
             raise ValueError("configuration outside the ported training "
                              "path: " + "; ".join(problems))
@@ -408,7 +441,8 @@ class Trainer:
             logger.info("plot_reports: the port writes no loss/accuracy PNGs "
                         "(ROADMAP queue 1, item 6); log.json holds the curves")
         if cfg.method == "ggnn":
-            logger.info("GGNN kernel path: %s", fused_form())
+            logger.info("GGNN kernel path: %s",
+                        fused_form(cfg.fp_hidden_dim, cfg.fp_out_dim))
         steps_per_chunk = max(cfg.scan_steps, 1)
         os.makedirs(cfg.out_dir, exist_ok=True)
         max_epochs = max_epochs or cfg.epochs
