@@ -7,11 +7,13 @@ Phases, each fatal on failure:
 1. device: the card's name and power limit; TF32 off.
 2. build: compile the CUDA kernels from ``gcnbmp_tpu_torch/ops/csrc``,
    one nvcc per source, all at once; print ptxas's registers and spills,
-   and those of each instance of the GGNN reverse body.
+   and those of each instance of the backward bodies (the GGNN reverse
+   body, K5b's, K4b's two kernels); a K5b instance that spills fails.
 3. kernels vs plain, at the shapes of real packed batches (the first 2048
    pairs of dataset/synth546's drug test split at batch 256 and 2048);
-   errors, and median CUDA-event times of kernel and plain version per
-   call over runs of back-to-back calls:
+   errors, median CUDA-event times of kernel and plain version per call
+   over runs of back-to-back calls, and the kernel's device time per call
+   (torch.profiler):
    a. GGNN: K1 (``fused_ggnn``), K1m (``fused_ggnn_mid``, K1 that also
       writes h_mid), K2 (``fused_ggnn_readout``) and the backward kernels
       K1b (``fused_ggnn_bwd``), K3 (``fused_ggnn_half_bwd``, each half of
@@ -25,8 +27,11 @@ Phases, each fatal on failure:
    b. MPNN: K5 (``fused_mpnn``), K5b (``fused_mpnn_bwd``), K4
       (``fused_set2set``) and K4b (``fused_set2set_bwd``) at the quality
       row's model (L=4 tied, H=32; Set2Set tables 24 and 64 atoms wide),
-      the bench model (L=8 untied, H=32), one H=16 case and one crowded,
-      asymmetric adjacency for K5/K5b.
+      the bench model (L=8 untied, H=32), one H=16 case, one crowded,
+      asymmetric adjacency and one layer for K5/K5b; two K5b runs, and
+      two K4b runs, on the same inputs must give the same bits, and the
+      resident CTAs per SM of K5b's and K4b's launches (the CUDA
+      occupancy query) and their waves over the card's SMs are printed.
 4. GGNN serving: ``gcnbmp_tpu_torch.cli.predict.main`` serves those 2048
    pairs at batch 256 (eight requests) with seeded random weights; K2
    must launch once per request, every prob must be finite and in
@@ -70,6 +75,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -170,22 +176,29 @@ def set2set_flops(steps, m, hidden, n_atoms, backward=False):
     return 3 * f if backward else f
 
 
-def backward_body_registers(log: str):
-    """(instance, registers and spills) of each instance of the GGNN
-    reverse body ``fused_ggnn_bwd_kernel<H, READOUT>`` in nvcc's
-    ``-Xptxas -v`` report."""
-    import re
+# the backward bodies whose registers and spills phase 2 reports: the
+# pattern of an instance's mangled name, and its name from the match
+BODIES = (
+    (r"fused_ggnn_bwd_kernelILi(\d+)ELb([01])E",
+     lambda m: f"fused_ggnn_bwd_kernel<{m[1]}, {'true' if m[2] == '1' else 'false'}>"),
+    (r"fused_mpnn_bwd_kernelILi(\d+)E",
+     lambda m: f"fused_mpnn_bwd_kernel<{m[1]}>"),
+    (r"(set2set_(?:bwd|grad)[a-z_]*kernel)ILi(\d+)E",
+     lambda m: f"{m[1]}<{m[2]}>"))
 
+
+def backward_body_registers(log: str):
+    """(instance, registers and spills) of each instance of the backward
+    bodies (the GGNN reverse body ``fused_ggnn_bwd_kernel<H, READOUT>``,
+    K5b's ``fused_mpnn_bwd_kernel<C>`` and K4b's kernels) in nvcc's
+    ``-Xptxas -v`` report."""
     out, body = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            b = re.search(r"fused_ggnn_bwd_kernelILi(\d+)ELb([01])E", m.group(1))
-            body = (f"fused_ggnn_bwd_kernel<{b.group(1)}, "
-                    f"{'true' if b.group(2) == '1' else 'false'}>" if b else None)
-        elif body and "spill" in line:
-            out.append((body, line.split(":", 1)[-1].strip()))
-        elif body and "registers" in line:
+            found = [(re.search(p, m.group(1)), name) for p, name in BODIES]
+            body = next((name(b) for b, name in found if b), None)
+        elif body and ("spill" in line or "registers" in line):
             out.append((body, line.split(":", 1)[-1].strip()))
     return out
 
@@ -281,10 +294,32 @@ def time_pair(name, tag, kern, plain, smi, torch, labels=("kernel", "plain"),
     return k_med, p_med
 
 
+def device_ms(fn, torch) -> float:
+    """Device ms per call of ``fn``: the time of the kernels it launches,
+    summed by torch.profiler over BACK_TO_BACK calls.  Beside the CUDA-event
+    time, which a call's host work bounds from below when its kernels are
+    short."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(BACK_TO_BACK):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages()
+             if getattr(e, "device_type", None) == DeviceType.CUDA)
+    return us / 1e3 / BACK_TO_BACK
+
+
 def check_pair(name, tag, kern, plain, grad_names, gru_keys, smi, torch,
                reps=REPS):
     """Hold a kernel against its plain version, then time both.  Returns
-    (max abs error, kernel ms, plain ms, the kernel's output)."""
+    (max abs error, kernel ms, plain ms, kernel device ms, the kernel's
+    output)."""
     got = kern()
     if grad_names is not None:
         err = compare_grads(f"{name} [{tag}]",
@@ -295,8 +330,40 @@ def check_pair(name, tag, kern, plain, grad_names, gru_keys, smi, torch,
                   for i, (g, w) in enumerate(zip(got, plain())))
     else:
         err = compare(f"{name} [{tag}]", got, plain(), torch)
-    return (err, *time_pair(name, tag, kern, plain, smi, torch, reps=reps),
-            got)
+    times = time_pair(name, tag, kern, plain, smi, torch, reps=reps)
+    dev_ms = device_ms(kern, torch)
+    print(f"  device {name} [{tag}]: {dev_ms:.4f} ms per call (its kernels' "
+          f"device time, torch.profiler over {BACK_TO_BACK} calls)")
+    return (err, *times, dev_ms, got)
+
+
+def repeat_bits(label, tag, fn, gru_keys, names, torch):
+    """No atomics: two runs of a backward kernel on the same inputs must
+    give the same bits."""
+    runs = [named_grads(fn(), gru_keys, names) for _ in range(2)]
+    if not all(torch.equal(a, b) for (_, a), (_, b) in zip(*runs)):
+        raise AssertionError(f"two {label} runs differ [{tag}]")
+    print(f"{label} twice on the same inputs: equal bits [{tag}]")
+
+
+def occupancy(label, tag, entry, *args):
+    """Print what ``entry`` (a kernel's exported occupancy query) reports:
+    the CTAs an SM holds at the shared memory of the kernel's launch
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the CTAs launched and
+    their warps, and the waves over the card's SMs."""
+    import ctypes
+
+    import torch
+
+    out = (ctypes.c_int * 3)()
+    err = entry(*args, ctypes.addressof(out))
+    if err != 0:
+        raise AssertionError(f"{label} occupancy query failed ({err})")
+    per_sm, ctas, warps = out
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"  occupancy {label} [{tag}]: {per_sm} resident CTAs of {warps} "
+          f"warps per SM ({per_sm * warps} warps), {ctas} CTAs on {sms} SMs "
+          f"= {ctas / (per_sm * sms):.2f} waves")
 
 
 def profile_steps(step, n_steps):
@@ -695,7 +762,7 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    build.load_library()
+    lib = build.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
           f"{build.last_build_seconds} s)")
     for line in (build.last_build_log or "").splitlines():
@@ -704,6 +771,9 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
     for body, use in backward_body_registers(build.last_build_log or ""):
         print(f"build: {body}: {use}")
+        spills = re.search(r"(\d+) bytes spill stores", use)
+        if body.startswith("fused_mpnn_bwd_kernel") and spills and int(spills[1]):
+            raise AssertionError(f"{body} spills registers: {use}")
 
     # 3. kernels vs plain at real batch shapes
     df = pd.read_csv(DATA).head(N_PAIRS)
@@ -732,7 +802,8 @@ def main() -> int:
 
     results = {name: {} for name in counters}
 
-    def record(name, tag, err, k_med, p_med, got, headline, flops, inputs):
+    def record(name, tag, err, k_med, p_med, dev_ms, got, headline, flops,
+               inputs):
         """Print the case's bound (from its inputs and the kernel's
         outputs); keep the worst error over the cases, and the headline
         case's times and bound."""
@@ -742,7 +813,7 @@ def main() -> int:
         r = results[name]
         r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
         if headline:
-            r["ms"], r["plain_ms"] = k_med, p_med
+            r["ms"], r["plain_ms"], r["device_ms"] = k_med, p_med, dev_ms
             r["bound_ms"], r["bound_by"] = b_ms, b_by
 
     # 3a. GGNN
@@ -834,16 +905,9 @@ def main() -> int:
             # K1m is K1 with one more store: the same h, bit for bit
             if not torch.equal(fused_ggnn_mid(*k1_args)[0], fused_ggnn(*k1_args)):
                 raise AssertionError(f"K1m's h differs from K1's [{tag}]")
-            # no atomics: two K2b runs on the same inputs give the same bits
             if not odd:
-                runs = [named_grads(fused_ggnn_readout_bwd(*k1_args, *readout,
-                                                           dout),
-                                    GRU_KEYS, GGNN_GRAD_NAMES)
-                        for _ in range(2)]
-                if not all(torch.equal(a, b)
-                           for (_, a), (_, b) in zip(*runs)):
-                    raise AssertionError(f"two K2b runs differ [{tag}]")
-                print(f"K2b twice on the same inputs: equal bits [{tag}]")
+                repeat_bits("K2b", tag, lambda: fused_ggnn_readout_bwd(
+                    *k1_args, *readout, dout), GRU_KEYS, GGNN_GRAD_NAMES, torch)
             # the two-pass backward (K1m's h_mid, K3 twice) against K1b
             two = lambda: fused_ggnn_twopass_bwd(
                 n_layers, h0, fused_ggnn_mid(*k1_args)[1], adj, msg_w, msg_b,
@@ -863,7 +927,10 @@ def main() -> int:
                   (N_PAIRS, MPNN_CFG, (24, 64), False),
                   (SERVE_BATCH, MPNN_BENCH_CFG, (64,), False),
                   (SERVE_BATCH, h16, (24,), False),
-                  (SERVE_BATCH, MPNN_CFG, (), True)]
+                  (SERVE_BATCH, MPNN_CFG, (), True),
+                  # one layer: with the L=4 and L=8 rows, K5 and K5b's cost
+                  # per layer and the part that does not grow with L
+                  (SERVE_BATCH, dict(MPNN_CFG, conv_layers=1), (), False)]
     with torch.no_grad():
         for bs, c, widths, crowd in mpnn_cases:
             model = model_of(c)
@@ -897,6 +964,10 @@ def main() -> int:
                                               GRU_KEYS, smi, torch,
                                               REPS if headline else REPS_OTHER),
                        headline, ops, inputs)
+            repeat_bits("K5b", tag, lambda: fused_mpnn_bwd(*k5_args, dh),
+                        GRU_KEYS, MPNN_GRAD_NAMES, torch)
+            occupancy("K5b", tag, lib.fused_mpnn_bwd_occupancy, tiles,
+                      c["fp_hidden_dim"])
             h = fused_mpnn_reference(*k5_args)
             s2s = enc.readout_0.set2set
             for n_max in widths:
@@ -927,6 +998,10 @@ def main() -> int:
                                                    grads, GRU_KEYS, smi, torch,
                                                    REPS if head else REPS_OTHER),
                            head, ops, inputs)
+                repeat_bits("K4b", stag, lambda: fused_set2set_bwd(*k4_args, dg),
+                            GRU_KEYS, S2S_GRAD_NAMES, torch)
+                occupancy("K4b", stag, lib.set2set_bwd_occupancy, num_mols,
+                          n_max, atoms.shape[-1], S2S_STEPS)
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # 4. GGNN serving through the predict CLI
@@ -1044,7 +1119,8 @@ def main() -> int:
             **({"launches_serving": serving[name][name]}
                if name in serving else {}),
             **{k: results[name][k] for k in
-               ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+               ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by")},
             # no single PyTorch call computes any of these functions
             "library_ms": None})
     print(f"total {time.perf_counter() - t_start:.1f} s")

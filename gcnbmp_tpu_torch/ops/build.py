@@ -42,11 +42,13 @@ SOURCES = {
     "fused_mpnn.cu": {
         "fused_mpnn_fwd": [_P] * 16 + [_I] * 4 + [_P],
         "fused_mpnn_bwd": [_P] * 20 + [_I] * 4 + [_P],
+        "fused_mpnn_bwd_occupancy": [_I] * 2 + [_P],
     },
     "set2set.cu": {
         "fused_set2set_fwd": [_P] * 6 + [_I] * 4 + [_P],
-        "fused_set2set_bwd": [_P] * 9 + [_I] * 4 + [_P],
-        "set2set_bwd_ctas": [_I],
+        "fused_set2set_bwd": [_P] * 10 + [_I] * 4 + [_P],
+        "set2set_bwd_splits": [_I] * 2,
+        "set2set_bwd_occupancy": [_I] * 4 + [_P],
     },
 }
 

@@ -156,111 +156,6 @@ struct GradLayout {
   }
 };
 
-// n consecutive floats (n = 4 or 2) from 16- or 8-byte aligned memory
-template <int N>
-__device__ __forceinline__ void ldv(const float* p, float (&v)[N]) {
-  if constexpr (N == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  } else {
-    static_assert(N == 2, "2 or 4 floats");
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    v[0] = t.x; v[1] = t.y;
-  }
-}
-
-// One pass of weight-gradient products over the tile's rows:
-//   out_p (H, H) (+)= a_p^T b_p  for p < NP   (a_p, b_p (T, H) in shared
-//   memory; out_p a global row of partials, row stride H; out2_p, where
-//   set, takes the same product (zeros without `add2`)),
-//   s_out_q (H) (+)= column sums of s_q (T, H)  for q < NS.
-// Threads [0, 64 NP) own one (H/8) x (H/8) block of one product each: per
-// row i they read H/8 entries of a_p's row and H/8 of b_p's and issue
-// (H/8)^2 FMAs.  A warp covers 4 x 8 blocks, so its two loads per row are
-// one 64-byte and one 128-byte span: two shared-memory wavefronts for
-// (H/8)^2 warp FMAs.  Threads [64 NP, 64 NP + NSUM) own columns of the
-// sums.  Each output belongs to one thread and sums the rows in order.
-template <int NP, int NS>
-struct GradPass {
-  const float* a[NP];
-  const float* b[NP];
-  float* out[NP];
-  float* out2[NP];
-  const float* s[NS];
-  float* s_out[NS];
-};
-
-template <int H, int NP, int NS, int NSUM>
-__device__ __forceinline__ void grad_pass(const GradPass<NP, NS>& gp,
-                                          bool accumulate, bool add2,
-                                          int tid) {
-  constexpr int BK = H / 8;
-  static_assert(64 * NP + NSUM <= THREADS, "threads of a gradient pass");
-  if (tid < 64 * NP) {
-    const int p = tid / 64, ta = (tid % 64) / 8, tc = tid % 8;
-    const float* a = gp.a[p] + ta * BK;
-    const float* b = gp.b[p] + tc * BK;
-    float acc[BK][BK] = {};
-#pragma unroll 2
-    for (int i = 0; i < TILE; ++i) {
-      float av[BK], bv[BK];
-      ldv<BK>(a + i * H, av);
-      ldv<BK>(b + i * H, bv);
-#pragma unroll
-      for (int x = 0; x < BK; ++x)
-#pragma unroll
-        for (int y = 0; y < BK; ++y) acc[x][y] = fmaf(av[x], bv[y], acc[x][y]);
-    }
-    float* out = gp.out[p] + (ta * BK) * H + tc * BK;
-    float* out2 = gp.out2[p];
-#pragma unroll
-    for (int x = 0; x < BK; ++x)
-#pragma unroll
-      for (int y = 0; y < BK; ++y) {
-        float* o = out + x * H + y;
-        *o = accumulate ? *o + acc[x][y] : acc[x][y];
-        if (out2 != nullptr) {
-          float* o2 = out2 + (ta * BK + x) * H + tc * BK + y;
-          const float v = add2 ? acc[x][y] : 0.0f;
-          *o2 = accumulate ? *o2 + v : v;
-        }
-      }
-  } else if (tid < 64 * NP + NSUM) {
-    constexpr int COLS = NS * H;
-    constexpr int PER = (COLS + NSUM - 1) / NSUM;
-    const int j = tid - 64 * NP;
-    const float* src[PER];
-    float acc[PER];
-#pragma unroll
-    for (int q = 0; q < PER; ++q) {
-      const int f = j + q * NSUM;
-      src[q] = f < COLS ? gp.s[f / H] + f % H : nullptr;
-      acc[q] = 0.0f;
-    }
-#pragma unroll 4
-    for (int i = 0; i < TILE; ++i)
-#pragma unroll
-      for (int q = 0; q < PER; ++q)
-        if (src[q] != nullptr) acc[q] += src[q][i * H];
-#pragma unroll
-    for (int q = 0; q < PER; ++q) {
-      const int f = j + q * NSUM;
-      if (f < COLS) {
-        float* o = gp.s_out[f / H] + f % H;
-        *o = accumulate ? *o + acc[q] : acc[q];
-      }
-    }
-  }
-}
-
-// Copy `rows` rows of H floats into shared memory with rows of H + 4.
-template <int H>
-__device__ __forceinline__ void load_padded(const float* __restrict__ src,
-                                            float* dst, int rows, int tid) {
-  for (int i = tid; i < rows * H; i += THREADS)
-    dst[(i / H) * (H + 4) + i % H] = src[i];
-}
-
 template <int H>
 __device__ __forceinline__ void load_gru_padded(const Weights& w,
                                                 const GruSmem& g, int tid) {
@@ -324,46 +219,6 @@ __device__ __forceinline__ void bwd_message_hw(const float* s_h,
 #pragma unroll
     for (int k = 0; k < R::RPT; ++k)
       s_hw[(e * TILE + row0 + k * R::RS) * H + col] = acc[e][k];
-}
-
-// z, r, n pre-activations += x_part W{z,r,n}[rows lo .. lo + H) (+ s
-// U{z,r} with STATE), blocked as bwd_message_hw.
-template <int H, bool STATE>
-__device__ __forceinline__ void gate_inputs(const float* x, const GruSmem& g,
-                                            int lo, int col, int row0,
-                                            float (&z)[Rows<H>::RPT],
-                                            float (&r)[Rows<H>::RPT],
-                                            float (&n)[Rows<H>::RPT]) {
-  using R = Rows<H>;
-  constexpr int HP = H + 4;
-#pragma unroll 1
-  for (int d0 = 0; d0 < H; d0 += 4) {
-    float wz[4], wr[4], wn[4], uz[4], ur[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int row = (lo + d0 + q) * HP + col;
-      wz[q] = g.wz[row]; wr[q] = g.wr[row]; wn[q] = g.wn[row];
-      if constexpr (STATE) {
-        uz[q] = g.uz[(d0 + q) * HP + col];
-        ur[q] = g.ur[(d0 + q) * HP + col];
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < R::RPT; ++k) {
-      float xv[4];
-      ldv<4>(x + (row0 + k * R::RS) * H + d0, xv);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        z[k] = fmaf(xv[q], wz[q], z[k]);
-        r[k] = fmaf(xv[q], wr[q], r[k]);
-        n[k] = fmaf(xv[q], wn[q], n[k]);
-        if constexpr (STATE) {
-          z[k] = fmaf(xv[q], uz[q], z[k]);
-          r[k] = fmaf(xv[q], ur[q], r[k]);
-        }
-      }
-    }
-  }
 }
 
 // The GRU gates of one layer for the thread's rows, x = [h, m], state
@@ -456,66 +311,6 @@ __device__ __forceinline__ void bwd_readout_pre(const float* s_h,
         gi[k] = fmaf(hv[q], wih[q], fmaf(h0v[q], wi0[q], gi[k]));
         gj[k] = fmaf(hv[q], wjh[q], gj[k]);
       }
-    }
-  }
-}
-
-// Rows of the threads [T0, T0 + NT) in a product against transposed
-// weights: thread t owns column (t - T0) % H of the rows
-// (t - T0) / H + k NT / H, k < RPT.
-template <int H, int NT>
-struct RowSet {
-  static constexpr int RS = NT / H;
-  static constexpr int RPT = TILE / RS;
-  static_assert(NT % H == 0 && TILE % RS == 0, "row set");
-};
-
-// acc[k] += sum_j x[i_k, j] w[c, j] for the thread's rows i_k of a
-// RowSet<H, NT> (x (T, H) row stride H, w rows padded to H + 4, c the
-// thread's column): per chunk of four j, one 16-byte load of w's row c and
-// one (a warp-wide broadcast) of each of the thread's x rows.
-template <int H, int NT>
-__device__ __forceinline__ void add_xwt(const float* x, const float* w, int c,
-                                        int row0, float (&acc)[RowSet<H, NT>::RPT]) {
-  using R = RowSet<H, NT>;
-#pragma unroll 2
-  for (int j0 = 0; j0 < H; j0 += 4) {
-    float wv[4];
-    ldv<4>(w + c * (H + 4) + j0, wv);
-#pragma unroll
-    for (int k = 0; k < R::RPT; ++k) {
-      float xv[4];
-      ldv<4>(x + (row0 + k * R::RS) * H + j0, xv);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[k] = fmaf(xv[q], wv[q], acc[k]);
-    }
-  }
-}
-
-// dxh += x Wt^T, dxm += x Wb^T (Wt, Wb the top and bottom halves of a
-// (2H, H) gate kernel) and, with U, dsu += x U^T, over the reduction
-// chunk [j0, j0 + 4) for the thread's rows (column c of each product).
-template <int H, bool WITH_U>
-__device__ __forceinline__ void dx_chunk(const float* x, const float* w,
-                                         const float* u, int c, int row0,
-                                         int j0, float (&dxh)[Rows<H>::RPT],
-                                         float (&dxm)[Rows<H>::RPT],
-                                         float (&dsu)[Rows<H>::RPT]) {
-  using R = Rows<H>;
-  constexpr int HP = H + 4;
-  float wh[4], wm[4], wu[4];
-  ldv<4>(w + c * HP + j0, wh);
-  ldv<4>(w + (H + c) * HP + j0, wm);
-  if constexpr (WITH_U) ldv<4>(u + c * HP + j0, wu);
-#pragma unroll
-  for (int k = 0; k < R::RPT; ++k) {
-    float xv[4];
-    ldv<4>(x + (row0 + k * R::RS) * H + j0, xv);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      dxh[k] = fmaf(xv[q], wh[q], dxh[k]);
-      dxm[k] = fmaf(xv[q], wm[q], dxm[k]);
-      if constexpr (WITH_U) dsu[k] = fmaf(xv[q], wu[q], dsu[k]);
     }
   }
 }

@@ -2,8 +2,10 @@
 // (fused_ggnn_bwd.cu) kernels and by the fused MPNN kernels
 // (fused_mpnn.cu): constants, weight pointers, one GGNN layer's forward
 // steps on a 128-atom tile held in shared memory, the adjacency's row and
-// column lists, the backward's weight-gradient products and the in-order
-// sum of per-tile gradient rows.
+// column lists, the backward's register-blocked products (weight
+// gradients, products against transposed weights, the GRU's
+// pre-activations; weights' rows padded to H + 4 words in shared memory)
+// and the in-order sum of per-tile gradient rows.
 //
 // Thread layout of the row-wise steps: thread `tid` owns column
 // col = tid % H of the rows row0 + k*RS, k < RPT (RS = THREADS / H).
@@ -124,11 +126,12 @@ __device__ __forceinline__ void message_hw(const float* s_h,
 // nonzeros of each row are kept as (column, value) lists, in ascending
 // column order, with the row's full count in s_nc; otherwise rows with at
 // most NBR_CAP nonzeros gather through their lists and the others rescan
-// their dense row, so any input is summed exactly.
-template <int H>
+// their dense row, so any input is summed exactly.  Idx, the type of the
+// list's columns, is int or a 16-bit type (columns < 512).
+template <int H, typename Idx>
 __device__ __forceinline__ void aggregate(bool scan, const float* adj_t,
                                           const float* s_hw, float* s_m,
-                                          int* s_nk, float* s_nv, int* s_nc,
+                                          Idx* s_nk, float* s_nv, int* s_nc,
                                           int tid) {
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -230,42 +233,225 @@ __device__ __forceinline__ void gru_gates(bool zero_state, const float* s_h,
   for (int k = 0; k < R::RPT; ++k) n[k] = tanhf(n[k]);
 }
 
-// out (RR, H) (+)= [a_lo | a_hi]^T b over the tile's rows; a_lo, a_hi, b
-// are (T, H) in shared memory (a_hi read for output rows >= H); a_lo ==
-// nullptr is a zero operand.  Each entry belongs to one thread.
-template <int H, int RR>
-__device__ __forceinline__ void grad_AtB(const float* a_lo, const float* a_hi,
-                                         const float* b, float* out,
-                                         bool accumulate, int tid) {
-  const int c = tid % H;
-  for (int a = tid / H; a < RR; a += THREADS / H) {
-    float acc = 0.0f;
-    if (a_lo != nullptr) {
-      const float* src = a < H ? a_lo + a : a_hi + (a - H);
-#pragma unroll 8
-      for (int i = 0; i < TILE; ++i) acc = fmaf(src[i * H], b[i * H + c], acc);
-    }
-    float* o = out + size_t(a) * H + c;
-    *o = accumulate ? *o + acc : acc;
+// n consecutive floats (n = 4 or 2) from 16- or 8-byte aligned memory
+template <int N>
+__device__ __forceinline__ void ldv(const float* p, float (&v)[N]) {
+  if constexpr (N == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    static_assert(N == 2, "2 or 4 floats");
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
   }
 }
 
-// out (H) (+)= column sums of b (T, H).
+// One pass of weight-gradient products over the tile's rows:
+//   out_p (H, H) (+)= a_p^T b_p  for p < NP   (a_p, b_p (T, H) in shared
+//   memory, a_p == nullptr a zero operand; out_p a global row of
+//   partials, row stride H; out2_p, where set, takes the same product
+//   (zeros without `add2`)),
+//   s_out_q (H) (+)= column sums of s_q (T, H)  for q < NS.
+// Threads [0, 64 NP) own one (H/8) x (H/8) block of one product each: per
+// row i they read H/8 entries of a_p's row and H/8 of b_p's and issue
+// (H/8)^2 FMAs.  A warp covers 4 x 8 blocks, so its two loads per row are
+// one 64-byte and one 128-byte span: two shared-memory wavefronts for
+// (H/8)^2 warp FMAs.  Threads [64 NP, 64 NP + NSUM) own columns of the
+// sums.  Each output belongs to one thread and sums the rows in order.
+template <int NP, int NS>
+struct GradPass {
+  const float* a[NP];
+  const float* b[NP];
+  float* out[NP];
+  float* out2[NP];
+  const float* s[NS > 0 ? NS : 1];  // unused when NS == 0
+  float* s_out[NS > 0 ? NS : 1];
+};
+
+template <int H, int NP, int NS, int NSUM>
+__device__ __forceinline__ void grad_pass(const GradPass<NP, NS>& gp,
+                                          bool accumulate, bool add2,
+                                          int tid) {
+  constexpr int BK = H / 8;
+  static_assert(64 * NP + NSUM <= THREADS, "threads of a gradient pass");
+  if (tid < 64 * NP) {
+    const int p = tid / 64, ta = (tid % 64) / 8, tc = tid % 8;
+    float acc[BK][BK] = {};
+    if (gp.a[p] != nullptr) {
+      const float* a = gp.a[p] + ta * BK;
+      const float* b = gp.b[p] + tc * BK;
+#pragma unroll 2
+      for (int i = 0; i < TILE; ++i) {
+        float av[BK], bv[BK];
+        ldv<BK>(a + i * H, av);
+        ldv<BK>(b + i * H, bv);
+#pragma unroll
+        for (int x = 0; x < BK; ++x)
+#pragma unroll
+          for (int y = 0; y < BK; ++y) acc[x][y] = fmaf(av[x], bv[y], acc[x][y]);
+      }
+    }
+    float* out = gp.out[p] + (ta * BK) * H + tc * BK;
+    float* out2 = gp.out2[p];
+#pragma unroll
+    for (int x = 0; x < BK; ++x)
+#pragma unroll
+      for (int y = 0; y < BK; ++y) {
+        float* o = out + x * H + y;
+        *o = accumulate ? *o + acc[x][y] : acc[x][y];
+        if (out2 != nullptr) {
+          float* o2 = out2 + (ta * BK + x) * H + tc * BK + y;
+          const float v = add2 ? acc[x][y] : 0.0f;
+          *o2 = accumulate ? *o2 + v : v;
+        }
+      }
+  } else if constexpr (NS > 0) {
+    if (tid >= 64 * NP + NSUM) return;
+    constexpr int COLS = NS * H;
+    constexpr int PER = (COLS + NSUM - 1) / NSUM;
+    const int j = tid - 64 * NP;
+    const float* src[PER];
+    float acc[PER];
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+      const int f = j + q * NSUM;
+      src[q] = f < COLS ? gp.s[f / H] + f % H : nullptr;
+      acc[q] = 0.0f;
+    }
+#pragma unroll 4
+    for (int i = 0; i < TILE; ++i)
+#pragma unroll
+      for (int q = 0; q < PER; ++q)
+        if (src[q] != nullptr) acc[q] += src[q][i * H];
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+      const int f = j + q * NSUM;
+      if (f < COLS) {
+        float* o = gp.s_out[f / H] + f % H;
+        *o = accumulate ? *o + acc[q] : acc[q];
+      }
+    }
+  }
+}
+
+// Copy `rows` rows of H floats into shared memory with rows of H + 4.
 template <int H>
-__device__ __forceinline__ void bias_sum(const float* b, float* out,
-                                         bool accumulate, int tid) {
-  if (tid < H) {
-    float acc = 0.0f;
-    for (int i = 0; i < TILE; ++i) acc += b[i * H + tid];
-    out[tid] = accumulate ? out[tid] + acc : acc;
+__device__ __forceinline__ void load_padded(const float* __restrict__ src,
+                                            float* dst, int rows, int tid) {
+  for (int i = tid; i < rows * H; i += THREADS)
+    dst[(i / H) * (H + 4) + i % H] = src[i];
+}
+
+// Rows of the threads [T0, T0 + NT) in a product against transposed
+// weights: thread t owns column (t - T0) % H of the rows
+// (t - T0) / H + k NT / H, k < RPT.
+template <int H, int NT>
+struct RowSet {
+  static constexpr int RS = NT / H;
+  static constexpr int RPT = TILE / RS;
+  static_assert(NT % H == 0 && TILE % RS == 0, "row set");
+};
+
+// acc[k] += sum_j x[i_k, j] w[c, j] for the thread's rows i_k of a
+// RowSet<H, NT> (x (T, H) row stride H, w rows padded to H + 4, c the
+// thread's column): per chunk of four j, one 16-byte load of w's row c and
+// one (a warp-wide broadcast) of each of the thread's x rows.
+template <int H, int NT>
+__device__ __forceinline__ void add_xwt(const float* x, const float* w, int c,
+                                        int row0, float (&acc)[RowSet<H, NT>::RPT]) {
+  using R = RowSet<H, NT>;
+#pragma unroll 2
+  for (int j0 = 0; j0 < H; j0 += 4) {
+    float wv[4];
+    ldv<4>(w + c * (H + 4) + j0, wv);
+#pragma unroll
+    for (int k = 0; k < R::RPT; ++k) {
+      float xv[4];
+      ldv<4>(x + (row0 + k * R::RS) * H + j0, xv);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[k] = fmaf(xv[q], wv[q], acc[k]);
+    }
+  }
+}
+
+// dxh += x Wt^T, dxm += x Wb^T (Wt, Wb the top and bottom halves of a
+// (2H, H) gate kernel) and, with U, dsu += x U^T, over the reduction
+// chunk [j0, j0 + 4) for the thread's rows (column c of each product).
+template <int H, bool WITH_U>
+__device__ __forceinline__ void dx_chunk(const float* x, const float* w,
+                                         const float* u, int c, int row0,
+                                         int j0, float (&dxh)[Rows<H>::RPT],
+                                         float (&dxm)[Rows<H>::RPT],
+                                         float (&dsu)[Rows<H>::RPT]) {
+  using R = Rows<H>;
+  constexpr int HP = H + 4;
+  float wh[4], wm[4], wu[4];
+  ldv<4>(w + c * HP + j0, wh);
+  ldv<4>(w + (H + c) * HP + j0, wm);
+  if constexpr (WITH_U) ldv<4>(u + c * HP + j0, wu);
+#pragma unroll
+  for (int k = 0; k < R::RPT; ++k) {
+    float xv[4];
+    ldv<4>(x + (row0 + k * R::RS) * H + j0, xv);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      dxh[k] = fmaf(xv[q], wh[q], dxh[k]);
+      dxm[k] = fmaf(xv[q], wm[q], dxm[k]);
+      if constexpr (WITH_U) dsu[k] = fmaf(xv[q], wu[q], dsu[k]);
+    }
+  }
+}
+
+// z, r, n pre-activations += x_part W{z,r,n}[rows lo .. lo + H) (+ s
+// U{z,r} with STATE) for the thread's rows (column col), the weights'
+// rows padded to H + 4: per chunk of four d, four entries of each
+// weight's rows d and one 16-byte load (a warp-wide broadcast) of each of
+// the thread's x rows.
+template <int H, bool STATE>
+__device__ __forceinline__ void gate_inputs(const float* x, const GruSmem& g,
+                                            int lo, int col, int row0,
+                                            float (&z)[Rows<H>::RPT],
+                                            float (&r)[Rows<H>::RPT],
+                                            float (&n)[Rows<H>::RPT]) {
+  using R = Rows<H>;
+  constexpr int HP = H + 4;
+#pragma unroll 1
+  for (int d0 = 0; d0 < H; d0 += 4) {
+    float wz[4], wr[4], wn[4], uz[4], ur[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int row = (lo + d0 + q) * HP + col;
+      wz[q] = g.wz[row]; wr[q] = g.wr[row]; wn[q] = g.wn[row];
+      if constexpr (STATE) {
+        uz[q] = g.uz[(d0 + q) * HP + col];
+        ur[q] = g.ur[(d0 + q) * HP + col];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < R::RPT; ++k) {
+      float xv[4];
+      ldv<4>(x + (row0 + k * R::RS) * H + d0, xv);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        z[k] = fmaf(xv[q], wz[q], z[k]);
+        r[k] = fmaf(xv[q], wr[q], r[k]);
+        n[k] = fmaf(xv[q], wn[q], n[k]);
+        if constexpr (STATE) {
+          z[k] = fmaf(xv[q], uz[q], z[k]);
+          r[k] = fmaf(xv[q], ur[q], r[k]);
+        }
+      }
+    }
   }
 }
 
 // Column lists of the rows that fit their row lists, in ascending row
-// order, and the list of rows that do not.  Thread k owns column k.
-__device__ __forceinline__ void build_columns(const int* s_nk, const float* s_nv,
+// order, and the list of rows that do not.  Thread k owns column k.  The
+// lists' indices are Idx (int, or a 16-bit type).
+template <typename Idx>
+__device__ __forceinline__ void build_columns(const Idx* s_nk, const float* s_nv,
                                               const int* s_nc, int* s_cs,
-                                              int* s_cr, float* s_cv,
+                                              Idx* s_cr, float* s_cv,
                                               int* s_ov, int* s_ovn, int tid) {
   static_assert(THREADS == ROW_LEN, "one thread per adjacency column");
   const int k = tid;
@@ -316,10 +502,10 @@ __device__ __forceinline__ void build_columns(const int* s_nk, const float* s_nv
 }
 
 // dhw (4T, H) = A_flat^T dm: thread owns column c of rows k of dhw.
-template <int H>
+template <int H, typename Idx>
 __device__ __forceinline__ void column_gather(const float* adj_t,
                                               const float* s_dm,
-                                              const int* s_cs, const int* s_cr,
+                                              const int* s_cs, const Idx* s_cr,
                                               const float* s_cv,
                                               const int* s_ov, int n_ov,
                                               float* s_dhw, int tid) {

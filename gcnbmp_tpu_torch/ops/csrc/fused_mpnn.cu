@@ -20,8 +20,8 @@
 // layer; tied weights carry s = h.
 // The backward recomputes the forward keeping each layer's input h, then
 // reverses the layers (fused_mpnn.py:158-216): the GRU's adjoint as in
-// fused_ggnn_bwd.cu with dx = [dout, din], then
-//   dbg = dout + din, dm0t = (Mmol h)^T dbg, dh += Mmol (dbg m0t^T)
+// fused_ggnn_bwd.cu with dx = [dout, din], then, Mmol being symmetric,
+//   dbg = dout + din, gdbg = Mmol dbg, dm0t = h^T gdbg, dh += gdbg m0t^T
 //   dhm_e = (A_flat^T dout)_e + A_e din,  dwt_e = h^T dhm_e,
 //   dh += sum_e dhm_e wt_e^T  (+ the state's gradient when carried)
 // and the U gradients get no term where the state is zero.
@@ -38,10 +38,10 @@
 //   (4T x C), the two halves of x, the adjacency's row lists (layer 0's
 //   ballot scan, NBR_CAP slots per row), its column lists (for the in
 //   direction, which reads A by columns) and the molecule groups come to
-//   ~210 KB at C=32 (forward) and ~226 KB with dh (backward): one CTA of
-//   512 threads per SM.  Layer inputs for the backward go to a global
-//   scratch (P, L, T, C).  The hm buffer is reused for r*s and the gate
-//   adjoints, then the background's sums, then dhm.
+//   ~210 KB at C=32 (forward) and ~220 KB with dh and padded weights
+//   (backward): one CTA of 512 threads per SM.  Layer inputs for the
+//   backward go to a global scratch (P, L, T, C).  The hm buffer is reused
+//   for r*s and the gate adjoints, then the background's sums, then dhm.
 // - The adjacency (256 KB per tile, ~0.4% dense) is read from global
 //   memory once per pass; rows with more than NBR_CAP nonzeros rescan
 //   their dense row, and are read by column from global memory, at every
@@ -49,13 +49,28 @@
 // - Mmol is never formed: the tile's real slots are grouped by molecule id
 //   once per pass (each row's group, each group's members in row order),
 //   and Mmol x is a sum over the row's group: the 64 KB per tile of the
-//   TPU kernel's molecule matrix is not read.
-// - The rest is small dense products at C <= 32 in plain f32 FMAs (no
-//   TF32, no tensor cores), each thread owning one column of a strided set
-//   of rows; products against transposed weights rotate the reduction
-//   index by the column to keep a warp's lanes on distinct banks.
+//   TPU kernel's molecule matrix is not read.  The backward takes each
+//   molecule's sum once and copies it to the molecule's rows.
+// - The forward's small dense products at C <= 32 run in plain f32 FMAs
+//   (no TF32, no tensor cores), each thread owning one column of a strided
+//   set of rows, one shared-memory load per FMA or two.  The backward's
+//   are register-blocked as the GGNN reverse body's (fused_ggnn_bwd.cu;
+//   helpers in fused_ggnn_common.cuh), since shared memory serves one
+//   wavefront per clock where the f32 pipes take four warp FMAs:
+//   * the weight gradients in three grad_pass passes per layer: the GRU's
+//     six W products, dUn and the three bias sums; dUz, dUr and dm0t
+//     (beside gdbg m0t^T on the other half of the CTA); the four dwt
+//     (beside the message dh);
+//   * drs, [dout, din] with the state's dsu, gdbg m0t^T and the message
+//     dh against the weights' rows padded to C + 4 words, four reduction
+//     steps per 16-byte load;
+//   * the recompute (hm_e for all e with bg, the gates) per chunk of four.
+//   Every output belongs to one thread and sums in a fixed order, so a run
+//   repeats bit for bit.
 // Later work: tensor cores for the dense products, several tiles' weight
 // loads shared by a cluster, fewer passes over the partial buffer.
+
+#include <type_traits>
 
 #include "fused_ggnn_common.cuh"
 
@@ -71,32 +86,39 @@ struct MpnnWeights {
   const float* wn; const float* un; const float* bn;
 };
 
-// Shared-memory plan, in 4-byte words; the backward adds dh.
+// Shared-memory plan, in 4-byte words.  The backward (BWD) adds dh, pads
+// the weights' rows to CP = C + 4 words (its products against transposed
+// weights read them by rows: the lanes' rows of one 16-byte chunk then
+// fall in distinct banks) and keeps the row lists' columns and the column
+// lists' rows as 16-bit indices, which makes room for the padding.
 template <int C, bool BWD>
 struct MpnnPlan {
+  using Idx = std::conditional_t<BWD, unsigned short, int>;
+  static constexpr int CP = BWD ? C + 4 : C;          // weight row stride
+  static constexpr int IDX = TILE * NBR_CAP * sizeof(Idx) / 4;  // words of one index list
   static constexpr int TC = TILE * C;
-  static constexpr int WT = 0;                        // 4 C C (layer l)
-  static constexpr int M0T = WT + NE * C * C;         // C C
-  static constexpr int WZ = M0T + C * C;              // 2C C each
-  static constexpr int WR = WZ + 2 * C * C;
-  static constexpr int WN = WR + 2 * C * C;
-  static constexpr int UZ = WN + 2 * C * C;           // C C each
-  static constexpr int UR = UZ + C * C;
-  static constexpr int UN = UR + C * C;
-  static constexpr int BZ = UN + C * C;               // C each
+  static constexpr int WT = 0;                        // 4 C rows (layer l)
+  static constexpr int M0T = WT + NE * C * CP;        // C rows
+  static constexpr int WZ = M0T + C * CP;             // 2C rows each
+  static constexpr int WR = WZ + 2 * C * CP;
+  static constexpr int WN = WR + 2 * C * CP;
+  static constexpr int UZ = WN + 2 * C * CP;          // C rows each
+  static constexpr int UR = UZ + C * CP;
+  static constexpr int UN = UR + C * CP;
+  static constexpr int BZ = UN + C * CP;              // C each
   static constexpr int BR = BZ + C;
   static constexpr int BN = BR + C;
   static constexpr int HS = BN + C;                   // T C: h (the layer input)
   static constexpr int DH = HS + TC;                  // T C: dh, then dout (backward)
-  static constexpr int HM = DH + (BWD ? TC : 0);      // 4T C: hm | rs dz' dr' dn' | gs dbg dgs | dhm
-  static constexpr int XO = HM + NE * TC;             // T C: out + bg
+  static constexpr int HM = DH + (BWD ? TC : 0);      // 4T C: hm | rs dz' dr' dn' | gdbg . . dbg | dhm
+  static constexpr int XO = HM + NE * TC;             // T C: out + bg; dh's partial sum
   static constexpr int XI = XO + TC;                  // T C: in + bg; din
   static constexpr int NV = XI + TC;                  // T NBR_CAP row-list values
-  static constexpr int NK = NV + TILE * NBR_CAP;      // T NBR_CAP row-list columns (int)
-  static constexpr int NC = NK + TILE * NBR_CAP;      // T row nonzero counts (int)
+  static constexpr int NK = NV + TILE * NBR_CAP;      // T NBR_CAP row-list columns (Idx)
+  static constexpr int NC = NK + IDX;                 // T row nonzero counts (int)
   static constexpr int CS = NC + TILE;                // 4T+1 column starts (int)
-  static constexpr int CR = CS + ROW_LEN + 1;         // T NBR_CAP column-list rows (int)
-  static constexpr int CV = CR + TILE * NBR_CAP;      // T NBR_CAP column-list values
+  static constexpr int CR = CS + ROW_LEN + 1;         // T NBR_CAP column-list rows (Idx)
+  static constexpr int CV = CR + IDX;                 // T NBR_CAP column-list values
   static constexpr int OV = CV + TILE * NBR_CAP;      // T overflow rows (int)
   static constexpr int OVN = OV + TILE;               // 1 overflow row count (int)
   static constexpr int GRP = OVN + 1;                 // T row -> its group's first row, or -1 (int)
@@ -105,6 +127,9 @@ struct MpnnPlan {
   static constexpr int GMEM = GSZ + TILE;             // T members, by group, rows ascending (int)
   static constexpr int WORDS = GMEM + TILE;
   static constexpr size_t BYTES = size_t(WORDS) * 4;
+  static_assert(CP % 4 == 0 && M0T % 4 == 0 && WZ % 4 == 0 && UZ % 4 == 0 &&
+                HS % 4 == 0 && DH % 4 == 0 && HM % 4 == 0 && XO % 4 == 0 &&
+                XI % 4 == 0, "16-byte aligned rows for float4 loads");
 };
 
 // Offsets in one tile's row of gradient partials: dwt (L,4,C,C), dm0t
@@ -124,30 +149,35 @@ struct MpnnGradLayout {
   __host__ __device__ static size_t words(int L) { return gru0(L) + 3 * gate(L); }
 };
 
-struct Tile {
+template <typename Idx>
+struct TileOf {
   float* wt; float* m0t; GruSmem g;
   float* h; float* dh; float* hm; float* xo; float* xi;
-  float* nv; int* nk; int* nc;
-  int* cs; int* cr; float* cv; int* ov; int* ovn;
+  float* nv; Idx* nk; int* nc;
+  int* cs; Idx* cr; float* cv; int* ov; int* ovn;
   int* grp; int* gst; int* gsz; int* gmem;
 };
+using Tile = TileOf<int>;                  // the forward's
+using BwdTile = TileOf<unsigned short>;    // the backward's
 
 __device__ __forceinline__ int* as_ints(float* p) {
   return reinterpret_cast<int*>(p);
 }
 
 template <int C, bool BWD>
-__device__ __forceinline__ Tile make_tile(float* smem) {
+__device__ __forceinline__ TileOf<typename MpnnPlan<C, BWD>::Idx> make_tile(float* smem) {
   using S = MpnnPlan<C, BWD>;
-  Tile s;
+  TileOf<typename S::Idx> s;
   s.wt = smem + S::WT; s.m0t = smem + S::M0T;
   s.g = {smem + S::WZ, smem + S::WR, smem + S::WN,
          smem + S::UZ, smem + S::UR, smem + S::UN,
          smem + S::BZ, smem + S::BR, smem + S::BN};
   s.h = smem + S::HS; s.dh = smem + S::DH; s.hm = smem + S::HM;
   s.xo = smem + S::XO; s.xi = smem + S::XI;
-  s.nv = smem + S::NV; s.nk = as_ints(smem + S::NK); s.nc = as_ints(smem + S::NC);
-  s.cs = as_ints(smem + S::CS); s.cr = as_ints(smem + S::CR); s.cv = smem + S::CV;
+  s.nv = smem + S::NV; s.nk = reinterpret_cast<typename S::Idx*>(smem + S::NK);
+  s.nc = as_ints(smem + S::NC);
+  s.cs = as_ints(smem + S::CS); s.cr = reinterpret_cast<typename S::Idx*>(smem + S::CR);
+  s.cv = smem + S::CV;
   s.ov = as_ints(smem + S::OV); s.ovn = as_ints(smem + S::OVN);
   s.grp = as_ints(smem + S::GRP); s.gst = as_ints(smem + S::GST);
   s.gsz = as_ints(smem + S::GSZ); s.gmem = as_ints(smem + S::GMEM);
@@ -181,8 +211,9 @@ __device__ __forceinline__ void load_layer(const MpnnWeights& w, int l,
 // contiguous): grp[i] = the first real row of row i's molecule, or -1 for
 // a pad row; for each such first row g, its members in ascending row order
 // at gmem[gst[g] .. gst[g] + gsz[g]).
+template <class TileT>
 __device__ __forceinline__ void build_groups(const int* mol_t, const float* mask_t,
-                                             const Tile& s, int tid) {
+                                             const TileT& s, int tid) {
   if (tid < TILE) {
     int g = -1;
     if (__ldg(mask_t + tid) > 0.0f) {
@@ -215,9 +246,9 @@ __device__ __forceinline__ void build_groups(const int* mol_t, const float* mask
 
 // (Mmol x)[i, c]: the sum of x[j, c] over the real rows j of row i's
 // molecule; 0 on a pad row.
-template <int C>
+template <int C, class TileT>
 __device__ __forceinline__ float group_sum(const float* x, int i, int c,
-                                           const Tile& s) {
+                                           const TileT& s) {
   const int g = s.grp[i];
   float acc = 0.0f;
   if (g >= 0) {
@@ -403,13 +434,197 @@ fused_mpnn_kernel(const float* __restrict__ h0, const float* __restrict__ adj,
   for (int i = tid; i < TC; i += THREADS) out[tile * TC + i] = s.h[i];
 }
 
+// K5b's own copies of the forward's layer steps, on its plan (weights'
+// rows padded to CP = C + 4, 16-bit list indices); K5 keeps its own, so
+// its output does not change.
+
+template <int C>
+__device__ __forceinline__ void load_layer_padded(const MpnnWeights& w, int l,
+                                                  const BwdTile& s, int tid) {
+  constexpr int CC = C * C;
+  load_padded<C>(w.wt + size_t(l) * NE * CC, s.wt, NE * C, tid);
+  load_padded<C>(w.m0t + size_t(l) * CC, s.m0t, C, tid);
+  load_padded<C>(w.wz + size_t(l) * 2 * CC, s.g.wz, 2 * C, tid);
+  load_padded<C>(w.wr + size_t(l) * 2 * CC, s.g.wr, 2 * C, tid);
+  load_padded<C>(w.wn + size_t(l) * 2 * CC, s.g.wn, 2 * C, tid);
+  load_padded<C>(w.uz + size_t(l) * CC, s.g.uz, C, tid);
+  load_padded<C>(w.ur + size_t(l) * CC, s.g.ur, C, tid);
+  load_padded<C>(w.un + size_t(l) * CC, s.g.un, C, tid);
+  copy_in(s.g.bz, w.bz + size_t(l) * C, C, tid);
+  copy_in(s.g.br, w.br + size_t(l) * C, C, tid);
+  copy_in(s.g.bn, w.bn + size_t(l) * C, C, tid);
+}
+
+// out[i, c] = (Mmol x)[i, c] for every row i (out != x): the threads of a
+// molecule's first row walk its members once, the other rows copy that
+// sum (0 on a pad row), so no thread walks a molecule per row it owns.
+// The sums are group_sum's, in the same order.  Synchronises once; the
+// caller synchronises before out is read.
+template <int C>
+__device__ __forceinline__ void group_sums(const float* x, float* out,
+                                           const BwdTile& s, int tid) {
+  using R = Rows<C>;
+  const int col = tid % C;
+  const int row0 = tid / C;
+#pragma unroll
+  for (int k = 0; k < R::RPT; ++k) {
+    const int i = row0 + k * R::RS;
+    if (s.grp[i] == i) out[i * C + col] = group_sum<C>(x, i, col, s);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < R::RPT; ++k) {
+    const int i = row0 + k * R::RS;
+    const int g = s.grp[i];
+    if (g != i) out[i * C + col] = g >= 0 ? out[g * C + col] : 0.0f;
+  }
+}
+
+// layer_input on K5b's plan, its dense products register-blocked: bg =
+// (Mmol h) m0t and hm_e = h wt_e for all four e at once, per chunk of four
+// d the five weights' entries of rows d at the thread's column and one
+// 16-byte load (a warp-wide broadcast) of each of its h and Mmol h rows.
+template <int C>
+__device__ void bwd_layer_input(bool scan, const float* adj_t, const BwdTile& s,
+                                int tid) {
+  using R = Rows<C>;
+  constexpr int CP = C + 4;
+  const int col = tid % C;
+  const int row0 = tid / C;
+  group_sums<C>(s.h, s.xi, s, tid);
+  __syncthreads();
+  float hm[NE][R::RPT] = {}, bg[R::RPT] = {};
+#pragma unroll 1
+  for (int d0 = 0; d0 < C; d0 += 4) {
+    float wv[NE][4], mv[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+#pragma unroll
+      for (int e = 0; e < NE; ++e) wv[e][q] = s.wt[(e * C + d0 + q) * CP + col];
+      mv[q] = s.m0t[(d0 + q) * CP + col];
+    }
+#pragma unroll
+    for (int k = 0; k < R::RPT; ++k) {
+      float hv[4], gv[4];
+      ldv<4>(s.h + (row0 + k * R::RS) * C + d0, hv);
+      ldv<4>(s.xi + (row0 + k * R::RS) * C + d0, gv);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int e = 0; e < NE; ++e) hm[e][k] = fmaf(hv[q], wv[e][q], hm[e][k]);
+        bg[k] = fmaf(gv[q], mv[q], bg[k]);
+      }
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < NE; ++e)
+#pragma unroll
+    for (int k = 0; k < R::RPT; ++k)
+      s.hm[(e * TILE + row0 + k * R::RS) * C + col] = hm[e][k];
+  __syncthreads();
+  aggregate<C>(scan, adj_t, s.hm, s.xo, s.nk, s.nv, s.nc, tid);
+  __syncthreads();
+  if (scan) build_columns(s.nk, s.nv, s.nc, s.cs, s.cr, s.cv, s.ov, s.ovn, tid);
+  const int n_ov = *s.ovn;
+#pragma unroll
+  for (int k = 0; k < R::RPT; ++k) {
+    const int j = row0 + k * R::RS;
+    float acc = 0.0f;
+    for (int e = 0; e < NE; ++e) {
+      const int kc = e * TILE + j;
+      const float* hm_e = s.hm + e * TILE * C;
+      const int end = s.cs[kc + 1];
+      for (int p = s.cs[kc]; p < end; ++p)
+        acc = fmaf(s.cv[p], hm_e[s.cr[p] * C + col], acc);
+      for (int o = 0; o < n_ov; ++o) {
+        const int i = s.ov[o];
+        const float a = __ldg(adj_t + size_t(i) * ROW_LEN + kc);
+        if (a != 0.0f) acc = fmaf(a, hm_e[i * C + col], acc);
+      }
+    }
+    s.xi[j * C + col] = acc + bg[k];
+    s.xo[j * C + col] += bg[k];
+  }
+  __syncthreads();
+}
+
+// acc[k] += sum_d x[i_k, d] w[d, col] for the thread's rows i_k (w rows
+// padded to C + 4), blocked as gate_inputs: the state's Uz and Ur
+// products, and (r*s) Un.
+template <int C, int NW>
+__device__ __forceinline__ void add_xw(const float* x, const float* const (&w)[NW],
+                                       int col, int row0,
+                                       float (&acc)[NW][Rows<C>::RPT]) {
+  using R = Rows<C>;
+  constexpr int CP = C + 4;
+#pragma unroll 1
+  for (int d0 = 0; d0 < C; d0 += 4) {
+    float wv[NW][4];
+#pragma unroll
+    for (int p = 0; p < NW; ++p)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) wv[p][q] = w[p][(d0 + q) * CP + col];
+#pragma unroll
+    for (int k = 0; k < R::RPT; ++k) {
+      float xv[4];
+      ldv<4>(x + (row0 + k * R::RS) * C + d0, xv);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int p = 0; p < NW; ++p) acc[p][k] = fmaf(xv[q], wv[p][q], acc[p][k]);
+    }
+  }
+}
+
+// mpnn_gates on K5b's plan, register-blocked: the input products through
+// gate_inputs (x = [xo, xi] against the top and bottom halves of W), the
+// state's through add_xw.
+template <int C>
+__device__ __forceinline__ void bwd_gates(bool zero_state, const BwdTile& s,
+                                          float* s_rs, float (&z)[Rows<C>::RPT],
+                                          float (&r)[Rows<C>::RPT],
+                                          float (&n)[Rows<C>::RPT], int tid) {
+  using R = Rows<C>;
+  const GruSmem& g = s.g;
+  const int col = tid % C;
+  const int row0 = tid / C;
+#pragma unroll
+  for (int k = 0; k < R::RPT; ++k) {
+    z[k] = g.bz[col]; r[k] = g.br[col]; n[k] = g.bn[col];
+  }
+  gate_inputs<C, false>(s.xo, g, 0, col, row0, z, r, n);
+  gate_inputs<C, false>(s.xi, g, C, col, row0, z, r, n);
+  if (!zero_state) {
+    float zr[2][R::RPT] = {};
+    add_xw<C, 2>(s.h, {g.uz, g.ur}, col, row0, zr);
+#pragma unroll
+    for (int k = 0; k < R::RPT; ++k) { z[k] += zr[0][k]; r[k] += zr[1][k]; }
+  }
+#pragma unroll
+  for (int k = 0; k < R::RPT; ++k) {
+    const int i = row0 + k * R::RS;
+    z[k] = sigmoidf(z[k]);
+    r[k] = sigmoidf(r[k]);
+    s_rs[i * C + col] = zero_state ? 0.0f : r[k] * s.h[i * C + col];
+  }
+  __syncthreads();
+  if (!zero_state) {
+    float un[1][R::RPT] = {};
+    add_xw<C, 1>(s_rs, {g.un}, col, row0, un);
+#pragma unroll
+    for (int k = 0; k < R::RPT; ++k) n[k] += un[0][k];
+  }
+#pragma unroll
+  for (int k = 0; k < R::RPT; ++k) n[k] = tanhf(n[k]);
+}
+
 // dhm_e[i] += sum_j A[i, eT+j] din[j] for every e: one warp per row i,
 // lane c < C owns column c; rows within NBR_CAP go through their lists,
 // the others rescan their dense row.
 template <int C>
 __device__ __forceinline__ void row_scatter(const float* adj_t,
                                             const float* s_din, float* s_dhm,
-                                            const Tile& s, int tid) {
+                                            const BwdTile& s, int tid) {
   const int lane = tid & 31;
   const int warp = tid >> 5;
   for (int i = warp; i < TILE; i += WARPS) {
@@ -445,8 +660,9 @@ __device__ __forceinline__ void row_scatter(const float* adj_t,
   }
 }
 
+// One CTA per SM (the shared-memory plan), so up to 128 registers a thread.
 template <int C>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 fused_mpnn_bwd_kernel(const float* __restrict__ h0, const float* __restrict__ adj,
                       const int* __restrict__ mol, const float* __restrict__ mask,
                       MpnnWeights w, const float* __restrict__ dout,
@@ -454,13 +670,19 @@ fused_mpnn_bwd_kernel(const float* __restrict__ h0, const float* __restrict__ ad
                       int carry, int n_grad) {
   using R = Rows<C>;
   using G = MpnnGradLayout<C>;
+  constexpr int HALF = THREADS / 2;
+  using RH = RowSet<C, HALF>;  // the row products of half the CTA
   constexpr int TC = TILE * C;
   constexpr int CC = C * C;
+  constexpr int CP = C + 4;
   extern __shared__ float smem[];
-  const Tile s = make_tile<C, true>(smem);
+  const BwdTile s = make_tile<C, true>(smem);
   const int tid = threadIdx.x;
   const int col = tid % C;
   const int row0 = tid / C;
+  // the half-CTA row products: threads [HALF, THREADS)
+  const int hcol = (tid - HALF) % C;
+  const int hrow0 = (tid - HALF) / C;
   const size_t tile = blockIdx.x;
   const float* adj_t = adj + tile * TILE * ROW_LEN;
   float* hs_t = hs + tile * size_t(n_layers) * TC;
@@ -471,10 +693,20 @@ fused_mpnn_bwd_kernel(const float* __restrict__ h0, const float* __restrict__ ad
   for (int i = tid; i < TC; i += THREADS) s.h[i] = h0[tile * TC + i];
   build_groups(mol + tile * TILE, mask + tile * TILE, s, tid);
   for (int l = 0; l < L; ++l) {
-    load_layer<C>(w, l, s, tid);
+    const bool zero_state = l == 0 || !carry;
+    load_layer_padded<C>(w, l, s, tid);
     for (int i = tid; i < TC; i += THREADS) hs_t[size_t(l) * TC + i] = s.h[i];
     __syncthreads();
-    forward_layer<C>(l == 0, l == 0 || !carry, adj_t, s, tid);
+    bwd_layer_input<C>(l == 0, adj_t, s, tid);
+    float z[R::RPT], r[R::RPT], n[R::RPT];
+    bwd_gates<C>(zero_state, s, s.hm, z, r, n, tid);
+#pragma unroll
+    for (int k = 0; k < R::RPT; ++k) {
+      const int i = row0 + k * R::RS;
+      const float sv = zero_state ? 0.0f : s.h[i * C + col];
+      s.h[i * C + col] = z[k] * n[k] + (1.0f - z[k]) * sv;
+    }
+    __syncthreads();
   }
   const int n_ov = *s.ovn;
 
@@ -489,12 +721,12 @@ fused_mpnn_bwd_kernel(const float* __restrict__ h0, const float* __restrict__ ad
   float* s_dn = s.hm + 3 * TC;
   for (int l = L - 1; l >= 0; --l) {
     const bool zero_state = (l == 0) || !carry;
-    load_layer<C>(w, l, s, tid);
+    load_layer_padded<C>(w, l, s, tid);
     for (int i = tid; i < TC; i += THREADS) s.h[i] = hs_t[size_t(l) * TC + i];
     __syncthreads();
-    layer_input<C>(false, adj_t, s, tid);
+    bwd_layer_input<C>(false, adj_t, s, tid);
     float z[R::RPT], r[R::RPT], n[R::RPT];
-    mpnn_gates<C>(zero_state, s, s_rs, z, r, n, tid);
+    bwd_gates<C>(zero_state, s, s_rs, z, r, n, tid);
 
     // the GRU's adjoint (dh read by its owner only)
     float ds[R::RPT];
@@ -510,111 +742,104 @@ fused_mpnn_bwd_kernel(const float* __restrict__ h0, const float* __restrict__ ad
       s_dz[i * C + col] = dz * z[k] * (1.0f - z[k]);
     }
     __syncthreads();
+    {  // drs = dn' Un^T; ds (complete but for dsu) goes to dh's place
+      float drs[R::RPT] = {};
+      add_xwt<C, THREADS>(s_dn, s.g.un, col, row0, drs);
 #pragma unroll
-    for (int k = 0; k < R::RPT; ++k) {
-      const int i = row0 + k * R::RS;
-      float drs = 0.0f;
-#pragma unroll 4
-      for (int j = 0; j < C; ++j) {
-        const int a = (j + col) & (C - 1);
-        drs = fmaf(s_dn[i * C + a], s.g.un[col * C + a], drs);
+      for (int k = 0; k < R::RPT; ++k) {
+        const int i = row0 + k * R::RS;
+        const float sv = zero_state ? 0.0f : s.h[i * C + col];
+        s.dh[i * C + col] = fmaf(drs[k], r[k], ds[k]);
+        s_dr[i * C + col] = drs[k] * sv * r[k] * (1.0f - r[k]);
       }
-      const float sv = zero_state ? 0.0f : s.h[i * C + col];
-      ds[k] = fmaf(drs, r[k], ds[k]);
-      s_dr[i * C + col] = drs * sv * r[k] * (1.0f - r[k]);
-    }
-    __syncthreads();
-    // dx = [dout, din]; dout replaces dh (now read by no one), din stays
-    // in registers until x is no longer needed
-    float din[R::RPT];
-#pragma unroll
-    for (int k = 0; k < R::RPT; ++k) {
-      const int i = row0 + k * R::RS;
-      float dxo = 0.0f, dxi = 0.0f, dsu = 0.0f;
-#pragma unroll 2
-      for (int j = 0; j < C; ++j) {
-        const int a = (j + col) & (C - 1);
-        const float dzp = s_dz[i * C + a], drp = s_dr[i * C + a], dnp = s_dn[i * C + a];
-        dxo = fmaf(dzp, s.g.wz[col * C + a], dxo);
-        dxo = fmaf(drp, s.g.wr[col * C + a], dxo);
-        dxo = fmaf(dnp, s.g.wn[col * C + a], dxo);
-        dxi = fmaf(dzp, s.g.wz[(C + col) * C + a], dxi);
-        dxi = fmaf(drp, s.g.wr[(C + col) * C + a], dxi);
-        dxi = fmaf(dnp, s.g.wn[(C + col) * C + a], dxi);
-        dsu = fmaf(dzp, s.g.uz[col * C + a], dsu);
-        dsu = fmaf(drp, s.g.ur[col * C + a], dsu);
-      }
-      s.dh[i * C + col] = dxo;
-      din[k] = dxi;
-      ds[k] += dsu;
-    }
-    // layer l's GRU weight gradients
-    const float* state = zero_state ? nullptr : s.h;
-    grad_AtB<C, 2 * C>(s.xo, s.xi, s_dz, part + G::w(L, l, 0), false, tid);
-    grad_AtB<C, 2 * C>(s.xo, s.xi, s_dr, part + G::w(L, l, 1), false, tid);
-    grad_AtB<C, 2 * C>(s.xo, s.xi, s_dn, part + G::w(L, l, 2), false, tid);
-    grad_AtB<C, C>(state, nullptr, s_dz, part + G::u(L, l, 0), false, tid);
-    grad_AtB<C, C>(state, nullptr, s_dr, part + G::u(L, l, 1), false, tid);
-    grad_AtB<C, C>(zero_state ? nullptr : s_rs, nullptr, s_dn, part + G::u(L, l, 2), false, tid);
-    bias_sum<C>(s_dz, part + G::b(L, l, 0), false, tid);
-    bias_sum<C>(s_dr, part + G::b(L, l, 1), false, tid);
-    bias_sum<C>(s_dn, part + G::b(L, l, 2), false, tid);
-    __syncthreads();
-
-    // the background: dm0t = (Mmol h)^T dbg, dh += Mmol (dbg m0t^T)
-    float* s_gs = s.hm;
-    float* s_dbg = s.hm + TC;
-    float* s_dgs = s.hm + 2 * TC;
-#pragma unroll
-    for (int k = 0; k < R::RPT; ++k) {
-      const int i = row0 + k * R::RS;
-      s.xi[i * C + col] = din[k];
-      s_gs[i * C + col] = group_sum<C>(s.h, i, col, s);
-      s_dbg[i * C + col] = s.dh[i * C + col] + din[k];
-    }
-    __syncthreads();
-    grad_AtB<C, C>(s_gs, nullptr, s_dbg, part + G::m0t(L, l), false, tid);
-#pragma unroll
-    for (int k = 0; k < R::RPT; ++k) {
-      const int i = row0 + k * R::RS;
-      float acc = 0.0f;
-#pragma unroll 4
-      for (int j = 0; j < C; ++j) {
-        const int a = (j + col) & (C - 1);
-        acc = fmaf(s_dbg[i * C + a], s.m0t[col * C + a], acc);
-      }
-      s_dgs[i * C + col] = acc;
-    }
-    __syncthreads();
-    float dhn[R::RPT];
-#pragma unroll
-    for (int k = 0; k < R::RPT; ++k) {
-      const int i = row0 + k * R::RS;
-      dhn[k] = group_sum<C>(s_dgs, i, col, s) + (zero_state ? 0.0f : ds[k]);
     }
     __syncthreads();
 
-    // the messages: dhm = A_flat^T dout (out) + A_e din (in)
+    // layer l's GRU gradients: the input weights' six products, dUn and
+    // the bias sums (dUn gets a zero operand where the state is zero)
+    {
+      float* gw = part + G::w(L, l, 0);
+      float* gr = part + G::w(L, l, 1);
+      float* gn = part + G::w(L, l, 2);
+      const GradPass<7, 3> gp = {
+          {s.xo, s.xi, s.xo, s.xi, s.xo, s.xi, zero_state ? nullptr : s_rs},
+          {s_dz, s_dz, s_dr, s_dr, s_dn, s_dn, s_dn},
+          {gw, gw + CC, gr, gr + CC, gn, gn + CC, part + G::u(L, l, 2)},
+          {nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr},
+          {s_dz, s_dr, s_dn},
+          {part + G::b(L, l, 0), part + G::b(L, l, 1), part + G::b(L, l, 2)}};
+      grad_pass<C, 7, 3, 64>(gp, false, false, tid);
+    }
+    // [dout, din] = d{z,r,n}' W{z,r,n}^T, dsu = d{z,r}' U{z,r}^T
+    float dxo[R::RPT] = {}, dxi[R::RPT] = {}, dsu[R::RPT] = {};
+#pragma unroll 1
+    for (int j0 = 0; j0 < C; j0 += 4) {
+      dx_chunk<C, true>(s_dz, s.g.wz, s.g.uz, col, row0, j0, dxo, dxi, dsu);
+      dx_chunk<C, true>(s_dr, s.g.wr, s.g.ur, col, row0, j0, dxo, dxi, dsu);
+      dx_chunk<C, false>(s_dn, s.g.wn, nullptr, col, row0, j0, dxo, dxi, dsu);
+    }
+    __syncthreads();
+    // x, r*s and dn' are dead: xo takes dh's partial sum (the state's
+    // gradient where it is carried), dh dout, xi din, and the fourth
+    // slot of hm dbg = dout + din
+    float* s_part = s.xo;
+    float* s_gdbg = s.hm;
+    float* s_dbg = s.hm + 3 * TC;
+#pragma unroll
+    for (int k = 0; k < R::RPT; ++k) {
+      const int i = row0 + k * R::RS;
+      s_part[i * C + col] = zero_state ? 0.0f : s.dh[i * C + col] + dsu[k];
+      s.dh[i * C + col] = dxo[k];
+      s.xi[i * C + col] = dxi[k];
+      s_dbg[i * C + col] = dxo[k] + dxi[k];
+    }
+    __syncthreads();
+    // the background, bg = (Mmol h) m0t with Mmol symmetric: gdbg = Mmol
+    // dbg, dm0t = h^T gdbg, dh += gdbg m0t^T
+    group_sums<C>(s_dbg, s_gdbg, s, tid);
+    __syncthreads();
+    {  // threads [0, 192): dUz, dUr (zero where the state is zero), dm0t
+      const float* state = zero_state ? nullptr : s.h;
+      const GradPass<3, 0> gp = {
+          {state, state, s.h}, {s_dz, s_dr, s_gdbg},
+          {part + G::u(L, l, 0), part + G::u(L, l, 1), part + G::m0t(L, l)},
+          {nullptr, nullptr, nullptr}};
+      grad_pass<C, 3, 0, 0>(gp, false, false, tid);
+    }
+    if (tid >= HALF) {
+      float acc[RH::RPT];
+#pragma unroll
+      for (int k = 0; k < RH::RPT; ++k) acc[k] = s_part[(hrow0 + k * RH::RS) * C + hcol];
+      add_xwt<C, HALF>(s_gdbg, s.m0t, hcol, hrow0, acc);
+#pragma unroll
+      for (int k = 0; k < RH::RPT; ++k) s_part[(hrow0 + k * RH::RS) * C + hcol] = acc[k];
+    }
+    __syncthreads();
+
+    // the messages: dhm = A_flat^T dout (out) + A_e din (in), then dwt_e =
+    // h^T dhm_e (threads [0, 256)) beside dh = part + sum_e dhm_e wt_e^T
+    // (threads [256, 512))
     column_gather<C>(adj_t, s.dh, s.cs, s.cr, s.cv, s.ov, n_ov, s.hm, tid);
     __syncthreads();
     row_scatter<C>(adj_t, s.xi, s.hm, s, tid);
     __syncthreads();
-    for (int e = 0; e < NE; ++e)
-      grad_AtB<C, C>(s.h, nullptr, s.hm + e * TC, part + G::wt(l, e), false, tid);
+    {
+      const GradPass<NE, 0> gp = {
+          {s.h, s.h, s.h, s.h},
+          {s.hm, s.hm + TC, s.hm + 2 * TC, s.hm + 3 * TC},
+          {part + G::wt(l, 0), part + G::wt(l, 1), part + G::wt(l, 2),
+           part + G::wt(l, 3)},
+          {nullptr, nullptr, nullptr, nullptr}};
+      grad_pass<C, NE, 0, 0>(gp, false, false, tid);
+    }
+    if (tid >= HALF) {
+      float acc[RH::RPT];
 #pragma unroll
-    for (int k = 0; k < R::RPT; ++k) {
-      const int i = row0 + k * R::RS;
-      float acc = dhn[k];
-      for (int e = 0; e < NE; ++e) {
-        const float* dhm_e = s.hm + (e * TILE + i) * C;
-        const float* we = s.wt + e * CC;
-#pragma unroll 4
-        for (int j = 0; j < C; ++j) {
-          const int a = (j + col) & (C - 1);
-          acc = fmaf(dhm_e[a], we[col * C + a], acc);
-        }
-      }
-      s.dh[i * C + col] = acc;
+      for (int k = 0; k < RH::RPT; ++k) acc[k] = s_part[(hrow0 + k * RH::RS) * C + hcol];
+      for (int e = 0; e < NE; ++e)
+        add_xwt<C, HALF>(s.hm + e * TC, s.wt + e * C * CP, hcol, hrow0, acc);
+#pragma unroll
+      for (int k = 0; k < RH::RPT; ++k) s.dh[(hrow0 + k * RH::RS) * C + hcol] = acc[k];
     }
     __syncthreads();
   }
@@ -657,6 +882,19 @@ cudaError_t launch_bwd(const float* h0, const float* adj, const int* mol,
   sum_tiles_kernel<<<(n_grad + SUM_THREADS - 1) / SUM_THREADS, SUM_THREADS, 0,
                      stream>>>(partial, grads, n_tiles, n_grad);
   return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t bwd_occupancy(int n_tiles, int* out) {
+  constexpr size_t bytes = MpnnPlan<C, true>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_mpnn_bwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, fused_mpnn_bwd_kernel<C>, THREADS, bytes);
+  out[1] = n_tiles;
+  out[2] = WARPS;
+  return err;
 }
 
 MpnnWeights make_mpnn_weights(const float* wt, const float* m0t,
@@ -711,6 +949,17 @@ extern "C" int fused_mpnn_bwd(
   switch (hidden) {
     case 16: return int(launch_bwd<16>(h0, adj, mol, mask, w, dh_final, dh0, partial, grads, hs, n_tiles, n_layers, carry, st));
     case 32: return int(launch_bwd<32>(h0, adj, mol, mask, w, dh_final, dh0, partial, grads, hs, n_tiles, n_layers, carry, st));
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// K5b's main kernel over n_tiles tiles: the CTAs an SM holds at its
+// shared-memory plan, the CTAs it launches and the warps of each, in
+// out[0..2].  Returns a cudaError_t.
+extern "C" int fused_mpnn_bwd_occupancy(int n_tiles, int hidden, int* out) {
+  switch (hidden) {
+    case 16: return int(bwd_occupancy<16>(n_tiles, out));
+    case 32: return int(bwd_occupancy<32>(n_tiles, out));
     default: return int(cudaErrorInvalidValue);
   }
 }

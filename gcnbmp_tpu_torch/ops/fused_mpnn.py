@@ -239,6 +239,25 @@ def _grad_shapes(n_layers: int, hidden: int) -> List[Tuple[int, ...]]:
             + [gru_stack_shape(k, n_layers, hidden) for k in GRU_KEYS])
 
 
+def _bwd_buffers(p, n_layers, hidden, dev):
+    """K5b's outputs and scratch: dh0, the (P, n_grad) per-tile partial
+    rows, the summed row and the (P, L, T, C) layer inputs."""
+    n_grad = sum(int(torch.Size(s).numel())
+                 for s in _grad_shapes(n_layers, hidden))
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.empty((p, TILE, hidden), **f32),
+            torch.empty((p, n_grad), **f32), torch.empty((n_grad,), **f32),
+            torch.empty((p, n_layers, TILE, hidden), **f32))
+
+
+def _split_grads(grads, n_layers, hidden):
+    """(dwt, dm0t, dgru) from K5b's summed gradient row."""
+    shapes = _grad_shapes(n_layers, hidden)
+    sizes = [int(torch.Size(s).numel()) for s in shapes]
+    parts = [g.view(s) for g, s in zip(grads.split(sizes), shapes)]
+    return parts[0], parts[1], dict(zip(GRU_KEYS, parts[2:]))
+
+
 def fused_mpnn_bwd(n_layers: int, carry_state: bool, h0, adj_flat, mol_id,
                    node_mask, wt, m0t, gru, dh_final):
     """K5b: (dh0, dwt, dm0t, dgru) for the upstream gradient dh_final
@@ -254,14 +273,7 @@ def fused_mpnn_bwd(n_layers: int, carry_state: bool, h0, adj_flat, mol_id,
     dev = h0.device
     _check("dh_final", dh_final, (p, TILE, hidden), dev)
     lib = load_library()
-    shapes = _grad_shapes(n_layers, hidden)
-    sizes = [int(torch.Size(s).numel()) for s in shapes]
-    n_grad = sum(sizes)
-    f32 = dict(dtype=torch.float32, device=dev)
-    dh0 = torch.empty((p, TILE, hidden), **f32)
-    partial = torch.empty((p, n_grad), **f32)
-    grads = torch.empty((n_grad,), **f32)
-    hs = torch.empty((p, n_layers, TILE, hidden), **f32)
+    dh0, partial, grads, hs = _bwd_buffers(p, n_layers, hidden, dev)
     with torch.cuda.device(dev):
         err = lib.fused_mpnn_bwd(
             h0.data_ptr(), adj_flat.data_ptr(), mol_id.data_ptr(),
@@ -271,8 +283,7 @@ def fused_mpnn_bwd(n_layers: int, carry_state: bool, h0, adj_flat, mol_id,
             int(carry_state), _stream())
     _raise_on(err, "fused_mpnn_bwd")
     fused_mpnn_bwd.launches += 1
-    parts = [g.view(s) for g, s in zip(grads.split(sizes), shapes)]
-    return dh0, parts[0], parts[1], dict(zip(GRU_KEYS, parts[2:]))
+    return (dh0, *_split_grads(grads, n_layers, hidden))
 
 
 fused_mpnn_bwd.launches = 0

@@ -180,23 +180,34 @@ def fused_set2set_bwd(steps: int, atoms, amask, wx, wh, b, dg):
     dev = atoms.device
     _check("dg", dg, (m, 2 * ch), dev)
     lib = load_library()
-    n_ctas = int(lib.set2set_bwd_ctas(m))
-    sizes = [2 * ch * 4 * ch, ch * 4 * ch, 4 * ch]
-    f32 = dict(dtype=torch.float32, device=dev)
     datoms = torch.empty_like(atoms)
-    partial = torch.empty((n_ctas, sum(sizes)), **f32)
-    grads = torch.empty((sum(sizes),), **f32)
+    xs, partial, grads = _bwd_buffers(lib, m, ch, steps, dev)
     with torch.cuda.device(dev):
         err = lib.fused_set2set_bwd(
             atoms.data_ptr(), amask.data_ptr(), wx.data_ptr(), wh.data_ptr(),
-            b.data_ptr(), dg.data_ptr(), datoms.data_ptr(),
+            b.data_ptr(), dg.data_ptr(), datoms.data_ptr(), xs.data_ptr(),
             partial.data_ptr(), grads.data_ptr(), m, n_max, ch, steps,
             _stream())
     _raise_on(err, "fused_set2set_bwd")
     fused_set2set_bwd.launches += 1
-    dwx, dwh, db = grads.split(sizes)
-    return (datoms, dwx.view(2 * ch, 4 * ch), dwh.view(ch, 4 * ch),
-            db.view(1, 4 * ch))
+    return (datoms, *_split_grads(grads, ch))
+
+
+def _bwd_buffers(lib, m, ch, steps, dev):
+    """K4b's scratch: each step's LSTM input and pre-activation adjoint
+    (M, S, 6C), the weight gradients' partial rows (one per split of
+    those rows) and their sum."""
+    n_grad = 12 * ch * ch + 4 * ch
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.empty((m, steps, 6 * ch), **f32),
+            torch.empty((int(lib.set2set_bwd_splits(m, steps)), n_grad), **f32),
+            torch.empty((n_grad,), **f32))
+
+
+def _split_grads(grads, ch):
+    """(dwx, dwh, db) from K4b's summed gradient row."""
+    dwx, dwh, db = grads.split([8 * ch * ch, 4 * ch * ch, 4 * ch])
+    return dwx.view(2 * ch, 4 * ch), dwh.view(ch, 4 * ch), db.view(1, 4 * ch)
 
 
 fused_set2set_bwd.launches = 0

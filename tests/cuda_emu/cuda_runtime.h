@@ -1,12 +1,15 @@
 // A CPU stand-in for the part of the CUDA runtime and device language that
-// gcnbmp_tpu_torch/ops/csrc/fused_ggnn_bwd.cu uses, so that g++ can build
-// the backward kernels' C entry points and the tests can run them on the
-// CPU (tests/test_torch_bwd_emulated.py).  Each CUDA thread of a block is
-// a std::thread; __syncthreads and the warp collectives are std::barriers.
-// Blocks run one after another.  Shared memory is filled with NaN before
-// each block, so a read of an entry no thread wrote shows in the results.
-// The test rewrites `extern __shared__` and `<<<...>>>` launches into calls
-// of this header before compiling.
+// the backward kernels of gcnbmp_tpu_torch/ops/csrc/ (fused_ggnn_bwd.cu,
+// fused_mpnn.cu, set2set.cu) use, so that g++ can build their C entry
+// points and the tests can run them on the CPU
+// (tests/test_torch_bwd_emulated.py, tests/test_torch_mpnn_emulated.py).
+// Each CUDA thread of a block is a std::thread; __syncthreads, __syncwarp
+// and the warp collectives are std::barriers.  Blocks run one after
+// another.  Shared memory is filled with NaN before each block, so a read
+// of an entry no thread wrote shows in the results.  The device has
+// EMU_SMS multiprocessors, each holding one block.  emulate.py rewrites
+// `extern __shared__` and `<<<...>>>` launches into calls of this header
+// before compiling.
 #pragma once
 
 #include <algorithm>
@@ -26,14 +29,29 @@
 #define __restrict__ __restrict
 #define __launch_bounds__(...)
 
+using std::max;
+using std::min;
+
+constexpr int EMU_SMS = 3;
+
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 template <class K>
 cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = EMU_SMS;
+  return cudaSuccess;
+}
+template <class K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
 
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(8) float2 { float x, y; };
@@ -43,7 +61,7 @@ inline int __ffs(unsigned x) { return x ? __builtin_ctz(x) + 1 : 0; }
 struct EmuDim { unsigned x = 0, y = 0, z = 0; };
 namespace emu {
 inline thread_local EmuDim thread_idx, block_idx;
-inline EmuDim block_dim;
+inline EmuDim block_dim, grid_dim;
 inline std::vector<float> smem_store;
 inline float* smem = nullptr;
 inline std::unique_ptr<std::barrier<>> block_barrier;
@@ -64,8 +82,13 @@ inline uint64_t exchange(uint64_t bits, int src) {
 #define threadIdx (emu::thread_idx)
 #define blockIdx (emu::block_idx)
 #define blockDim (emu::block_dim)
+#define gridDim (emu::grid_dim)
 
 inline void __syncthreads() { emu::block_barrier->arrive_and_wait(); }
+
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu::warp_barriers[threadIdx.x / 32]->arrive_and_wait();
+}
 
 inline unsigned __ballot_sync(unsigned, int pred) {
   const int w = threadIdx.x / 32;
@@ -95,11 +118,17 @@ inline T __shfl_up_sync(unsigned mask, T v, unsigned off) {
   return __shfl_sync(mask, v, lane >= int(off) ? lane - int(off) : lane);
 }
 
+template <class T>
+inline T __shfl_xor_sync(unsigned mask, T v, int lane_mask) {
+  return __shfl_sync(mask, v, (threadIdx.x % 32) ^ lane_mask);
+}
+
 // kernel<<<grid, threads, smem_bytes, stream>>>(args...)
 template <class K, class... A>
 void emu_launch(K kernel, int grid, int threads, size_t smem_bytes,
                 cudaStream_t, A... args) {
   emu::block_dim = {unsigned(threads), 1, 1};
+  emu::grid_dim = {unsigned(grid), 1, 1};
   emu::smem_store.assign(smem_bytes / 4 + 4, 0.0f);
   emu::smem = emu::smem_store.data();
   for (int b = 0; b < grid; ++b) {

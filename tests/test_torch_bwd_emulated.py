@@ -10,21 +10,14 @@ summed against K1b, and two K2b runs must give the same bits.  This checks
 the body's indexing, synchronisation and arithmetic here; its speed, and
 what nvcc makes of it, only the card can show (chip_smoke.py)."""
 
-import ctypes
-import os
-import re
-import shutil
-import subprocess
-
 import numpy as np
 import pytest
 import torch
 
-from gcnbmp_tpu_torch.ops import build
+from cuda_emu.emulate import build_emulated
 from gcnbmp_tpu_torch.ops import fused_ggnn as fg
 
 T = fg.TILE
-HERE = os.path.dirname(os.path.abspath(__file__))
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6  # chip_smoke.py's gradient bound
 # (tiles, layers, hidden, crowded rows): the flagship widths, H=16, and rows
 # with more nonzeros than the kernel's 16 neighbour slots
@@ -35,27 +28,8 @@ CASES = {"h32": (2, 3, 32, False), "h16": (2, 2, 16, False),
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
     """The backward source built with g++ against the CPU stand-in."""
-    if shutil.which("g++") is None:
-        pytest.skip("g++ is needed to build the emulated kernels")
-    work = tmp_path_factory.mktemp("emulated_bwd")
-    for name in ("fused_ggnn_bwd.cu", *build.HEADERS):
-        with open(os.path.join(build.CSRC, name)) as f:
-            text = f.read()
-        text = text.replace("extern __shared__ float smem[];",
-                            "float* smem = emu::smem;")
-        text = re.sub(r"(\w+(?:<[^<>;]*>)?)\s*<<<(.*?)>>>\s*\(",
-                      r"emu_launch(\1, \2, ", text, flags=re.S)
-        stem, ext = os.path.splitext(name)
-        (work / (stem + ".cpp" if ext == ".cu" else name)).write_text(text)
-    out = work / "libbwd.so"
-    subprocess.run(["g++", "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread",
-                    "-w", "-I", os.path.join(HERE, "cuda_emu"), "-o", str(out),
-                    str(work / "fused_ggnn_bwd.cpp")], check=True)
-    handle = ctypes.CDLL(str(out))
-    for name, argtypes in build.SOURCES["fused_ggnn_bwd.cu"].items():
-        getattr(handle, name).argtypes = argtypes
-        getattr(handle, name).restype = ctypes.c_int
-    return handle
+    return build_emulated("fused_ggnn_bwd.cu",
+                          str(tmp_path_factory.mktemp("emulated_bwd")))
 
 
 def _inputs(p, layers, hidden, crowd, seed):

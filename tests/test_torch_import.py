@@ -9,7 +9,8 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "gcnbmp_tpu_torch")
-CHIP_SMOKE = os.path.join(ROOT, "chip_smoke.py")
+CHIP_SCRIPTS = [os.path.join(ROOT, name)
+                for name in ("chip_smoke.py", "chip_k5b_phases.py")]
 
 MODULES = [
     "gcnbmp_tpu_torch",
@@ -79,7 +80,7 @@ def test_no_jax_in_port_sources():
              "import optax", "from optax", "import orbax", "from orbax",
              "from gcnbmp_tpu.", "import gcnbmp_tpu.", "from gcnbmp_tpu import",
              "import gcnbmp_tpu\n")
-    paths = [CHIP_SMOKE] + [
+    paths = CHIP_SCRIPTS + [
         os.path.join(dirpath, name) for dirpath, _, files in os.walk(PKG)
         for name in files if name.endswith((".py", ".cu", ".cuh"))]
     for path in paths:
