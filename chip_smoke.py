@@ -7,13 +7,14 @@ Phases, each fatal on failure:
 1. device: the card's name and power limit; TF32 off.
 2. build: compile the CUDA kernels from ``gcnbmp_tpu_torch/ops/csrc``,
    one nvcc per source, all at once; print ptxas's registers and spills,
-   and those of each instance of the backward bodies (the GGNN reverse
-   body, K5b's, K4b's two kernels); a K5b instance that spills fails.
+   and those of each instance of the forward and backward bodies (K1,
+   K1m, K2, the GGNN reverse body, K5, K5b, K4b's two kernels); an
+   instance of the GGNN or MPNN bodies that spills fails.
 3. kernels vs plain, at the shapes of real packed batches (the first 2048
    pairs of dataset/synth546's drug test split at batch 256 and 2048);
    errors, median CUDA-event times of kernel and plain version per call
    over runs of back-to-back calls, and the kernel's device time per call
-   (torch.profiler):
+   (torch.profiler, once it has kept every launch of the kernel):
    a. GGNN: K1 (``fused_ggnn``), K1m (``fused_ggnn_mid``, K1 that also
       writes h_mid), K2 (``fused_ggnn_readout``) and the backward kernels
       K1b (``fused_ggnn_bwd``), K3 (``fused_ggnn_half_bwd``, each half of
@@ -22,16 +23,17 @@ Phases, each fatal on failure:
       H=16 case, one batch-256 case whose adjacency has rows with more
       than the kernels' 16 neighbour slots, and one L=3 case (the odd
       split); K1m's h must equal K1's bit for bit, K3's two halves summed
-      must equal K1b within the gradient bound, and two K2b runs on the
-      same inputs must give the same bits;
+      must equal K1b within the gradient bound, and two K2 runs, and two
+      K2b runs, on the same inputs must give the same bits;
    b. MPNN: K5 (``fused_mpnn``), K5b (``fused_mpnn_bwd``), K4
       (``fused_set2set``) and K4b (``fused_set2set_bwd``) at the quality
       row's model (L=4 tied, H=32; Set2Set tables 24 and 64 atoms wide),
       the bench model (L=8 untied, H=32), one H=16 case, one crowded,
-      asymmetric adjacency and one layer for K5/K5b; two K5b runs, and
-      two K4b runs, on the same inputs must give the same bits, and the
-      resident CTAs per SM of K5b's and K4b's launches (the CUDA
-      occupancy query) and their waves over the card's SMs are printed.
+      asymmetric adjacency and one layer for K5/K5b; two K5 runs, two
+      K5b runs and two K4b runs on the same inputs must give the same
+      bits, and the resident CTAs per SM of K5b's and K4b's launches (the
+      CUDA occupancy query) and their waves over the card's SMs are
+      printed.
 4. GGNN serving: ``gcnbmp_tpu_torch.cli.predict.main`` serves those 2048
    pairs at batch 256 (eight requests) with seeded random weights; K2
    must launch once per request, every prob must be finite and in
@@ -73,6 +75,7 @@ CUDA is unavailable or the port's package is not beside this script.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import re
@@ -176,9 +179,13 @@ def set2set_flops(steps, m, hidden, n_atoms, backward=False):
     return 3 * f if backward else f
 
 
-# the backward bodies whose registers and spills phase 2 reports: the
-# pattern of an instance's mangled name, and its name from the match
+# the bodies whose registers and spills phase 2 reports: the pattern of an
+# instance's mangled name, and its name from the match
 BODIES = (
+    (r"fused_ggnn_kernelILi(\d+)ELb([01])ELb([01])E",
+     lambda m: f"fused_ggnn_kernel<{m[1]}> "
+               f"({'K2' if m[2] == '1' else 'K1m' if m[3] == '1' else 'K1'})"),
+    (r"fused_mpnn_kernelILi(\d+)E", lambda m: f"fused_mpnn_kernel<{m[1]}> (K5)"),
     (r"fused_ggnn_bwd_kernelILi(\d+)ELb([01])E",
      lambda m: f"fused_ggnn_bwd_kernel<{m[1]}, {'true' if m[2] == '1' else 'false'}>"),
     (r"fused_mpnn_bwd_kernelILi(\d+)E",
@@ -187,11 +194,12 @@ BODIES = (
      lambda m: f"{m[1]}<{m[2]}>"))
 
 
-def backward_body_registers(log: str):
-    """(instance, registers and spills) of each instance of the backward
-    bodies (the GGNN reverse body ``fused_ggnn_bwd_kernel<H, READOUT>``,
-    K5b's ``fused_mpnn_bwd_kernel<C>`` and K4b's kernels) in nvcc's
-    ``-Xptxas -v`` report."""
+def body_registers(log: str):
+    """(instance, registers and spills) of each instance of the forward
+    and backward bodies (K1, K1m and K2's ``fused_ggnn_kernel``, the GGNN
+    reverse body ``fused_ggnn_bwd_kernel<H, READOUT>``, K5's and K5b's
+    ``fused_mpnn_kernel<C>`` and ``fused_mpnn_bwd_kernel<C>``, K4b's
+    kernels) in nvcc's ``-Xptxas -v`` report."""
     out, body = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -294,25 +302,78 @@ def time_pair(name, tag, kern, plain, smi, torch, labels=("kernel", "plain"),
     return k_med, p_med
 
 
-def device_ms(fn, torch) -> float:
-    """Device ms per call of ``fn``: the time of the kernels it launches,
-    summed by torch.profiler over BACK_TO_BACK calls.  Beside the CUDA-event
-    time, which a call's host work bounds from below when its kernels are
-    short."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+# the hand-written kernels each wrapper launches, as their names appear in
+# the profiler's keys, with their launches per call
+BWD_SUM = {"fused_ggnn_bwd_kernel": 1, "sum_tiles_kernel": 1}
+WRAPPER_KERNELS = {
+    "fused_ggnn": {"fused_ggnn_kernel": 1},
+    "fused_ggnn_mid": {"fused_ggnn_kernel": 1},
+    "fused_ggnn_readout": {"fused_ggnn_kernel": 1},
+    "fused_ggnn_bwd": BWD_SUM,
+    "fused_ggnn_half_bwd": BWD_SUM,
+    "fused_ggnn_readout_bwd": BWD_SUM,
+    "fused_mpnn": {"fused_mpnn_kernel": 1},
+    "fused_mpnn_bwd": {"fused_mpnn_bwd_kernel": 1, "sum_tiles_kernel": 1},
+    "fused_set2set": {"set2set_fwd_kernel": 1},
+    "fused_set2set_bwd": {"set2set_bwd_kernel": 1, "set2set_grad_kernel": 1,
+                          "sum_tiles_kernel": 1}}
+PROFILE_TRIES = 10
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(BACK_TO_BACK):
-            fn()
+
+def lost_launches(kernels, name) -> list[str]:
+    """What a profiled round of BACK_TO_BACK calls of the wrapper ``name``
+    lacks: each of its hand-written kernels must show BACK_TO_BACK times
+    its launches per call, and every other kernel (the wrapper's PyTorch
+    fills and copies) a whole multiple of BACK_TO_BACK."""
+    counts = collections.Counter(e.name for e in kernels)
+    lost = []
+    for kernel, per_call in WRAPPER_KERNELS[name].items():
+        kept = sum(n for k, n in counts.items() if kernel in k)
+        if kept != per_call * BACK_TO_BACK:
+            lost.append(f"{kernel} {kept} of {per_call * BACK_TO_BACK}")
+    for k, n in counts.items():
+        if (n % BACK_TO_BACK
+                and not any(kernel in k for kernel in WRAPPER_KERNELS[name])):
+            lost.append(f"{k[:60]} {n}, not a multiple of {BACK_TO_BACK}")
+    return lost
+
+
+def device_ms(fn, name, torch) -> float:
+    """Device ms per call of ``fn``: the durations of the kernels it
+    launches, as torch.profiler records them over BACK_TO_BACK calls after
+    as many with the tracer warming up.  The profiler loses kernels of a
+    run now and then: the sum counts only once the round has kept every
+    launch of the wrapper ``name``'s kernels (``lost_launches``), and after
+    PROFILE_TRIES rounds that lost some the phase fails.  Beside the
+    CUDA-event time, which a call's host work bounds from below when its
+    kernels are short."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-             for e in prof.key_averages()
-             if getattr(e, "device_type", None) == DeviceType.CUDA)
-    return us / 1e3 / BACK_TO_BACK
+        # one round with the tracer on and its records dropped, then the
+        # round that counts
+        counted = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: counted.extend(p.events())
+                     ) as prof:
+            for _ in range(2):
+                for _ in range(BACK_TO_BACK):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        kernels = [e for e in counted
+                   if getattr(e, "device_type", None) == DeviceType.CUDA]
+        lost = lost_launches(kernels, name)
+        if not lost:
+            return (sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+                    / BACK_TO_BACK)
+        print(f"  device {name}: the profiler lost launches ({'; '.join(lost)})"
+              f"; profiling again")
+    raise AssertionError(f"{name}: the profiler lost launches in each of "
+                         f"{PROFILE_TRIES} rounds, the last: {'; '.join(lost)}")
 
 
 def check_pair(name, tag, kern, plain, grad_names, gru_keys, smi, torch,
@@ -331,17 +392,28 @@ def check_pair(name, tag, kern, plain, grad_names, gru_keys, smi, torch,
     else:
         err = compare(f"{name} [{tag}]", got, plain(), torch)
     times = time_pair(name, tag, kern, plain, smi, torch, reps=reps)
-    dev_ms = device_ms(kern, torch)
+    dev_ms = device_ms(kern, name, torch)
     print(f"  device {name} [{tag}]: {dev_ms:.4f} ms per call (its kernels' "
           f"device time, torch.profiler over {BACK_TO_BACK} calls)")
     return (err, *times, dev_ms, got)
 
 
-def repeat_bits(label, tag, fn, gru_keys, names, torch):
-    """No atomics: two runs of a backward kernel on the same inputs must
-    give the same bits."""
-    runs = [named_grads(fn(), gru_keys, names) for _ in range(2)]
-    if not all(torch.equal(a, b) for (_, a), (_, b) in zip(*runs)):
+def tensors(x):
+    """The tensors of a kernel's result (a tensor, or tuples and dicts of
+    them), in order."""
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in tensors(v)]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in tensors(v)]
+    return [x]
+
+
+def repeat_bits(label, tag, fn, torch):
+    """No atomics: two runs of a kernel on the same inputs must give the
+    same bits."""
+    first, second = tensors(fn()), tensors(fn())
+    if len(first) != len(second) or not all(
+            torch.equal(a, b) for a, b in zip(first, second)):
         raise AssertionError(f"two {label} runs differ [{tag}]")
     print(f"{label} twice on the same inputs: equal bits [{tag}]")
 
@@ -769,11 +841,14 @@ def main() -> int:
         if line.startswith("== ") or "registers" in line or "spill" in line \
                 or "error" in line:
             print(f"  ptxas: {line.strip()}")
-    for body, use in backward_body_registers(build.last_build_log or ""):
+    spilling = []
+    for body, use in body_registers(build.last_build_log or ""):
         print(f"build: {body}: {use}")
-        spills = re.search(r"(\d+) bytes spill stores", use)
-        if body.startswith("fused_mpnn_bwd_kernel") and spills and int(spills[1]):
-            raise AssertionError(f"{body} spills registers: {use}")
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill", use)]
+        if body.startswith(("fused_ggnn", "fused_mpnn")) and any(spills):
+            spilling.append(f"{body}: {use}")
+    if spilling:
+        raise AssertionError("instances that spill registers: " + "; ".join(spilling))
 
     # 3. kernels vs plain at real batch shapes
     df = pd.read_csv(DATA).head(N_PAIRS)
@@ -906,8 +981,10 @@ def main() -> int:
             if not torch.equal(fused_ggnn_mid(*k1_args)[0], fused_ggnn(*k1_args)):
                 raise AssertionError(f"K1m's h differs from K1's [{tag}]")
             if not odd:
+                repeat_bits("K2", tag, lambda: fused_ggnn_readout(
+                    *k1_args, *readout), torch)
                 repeat_bits("K2b", tag, lambda: fused_ggnn_readout_bwd(
-                    *k1_args, *readout, dout), GRU_KEYS, GGNN_GRAD_NAMES, torch)
+                    *k1_args, *readout, dout), torch)
             # the two-pass backward (K1m's h_mid, K3 twice) against K1b
             two = lambda: fused_ggnn_twopass_bwd(
                 n_layers, h0, fused_ggnn_mid(*k1_args)[1], adj, msg_w, msg_b,
@@ -964,8 +1041,8 @@ def main() -> int:
                                               GRU_KEYS, smi, torch,
                                               REPS if headline else REPS_OTHER),
                        headline, ops, inputs)
-            repeat_bits("K5b", tag, lambda: fused_mpnn_bwd(*k5_args, dh),
-                        GRU_KEYS, MPNN_GRAD_NAMES, torch)
+            repeat_bits("K5", tag, lambda: fused_mpnn(*k5_args), torch)
+            repeat_bits("K5b", tag, lambda: fused_mpnn_bwd(*k5_args, dh), torch)
             occupancy("K5b", tag, lib.fused_mpnn_bwd_occupancy, tiles,
                       c["fp_hidden_dim"])
             h = fused_mpnn_reference(*k5_args)
@@ -999,7 +1076,7 @@ def main() -> int:
                                                    REPS if head else REPS_OTHER),
                            head, ops, inputs)
                 repeat_bits("K4b", stag, lambda: fused_set2set_bwd(*k4_args, dg),
-                            GRU_KEYS, S2S_GRAD_NAMES, torch)
+                            torch)
                 occupancy("K4b", stag, lib.set2set_bwd_occupancy, num_mols,
                           n_max, atoms.shape[-1], S2S_STEPS)
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")

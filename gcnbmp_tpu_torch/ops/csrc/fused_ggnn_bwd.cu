@@ -30,9 +30,9 @@
 // scratch is (P, hi - lo, T, H), and it writes the gradients of its own
 // layers and its share of the shared GRU's.  Two traps of the range, both
 // easy to miss because a [0, L) range hides them:
-// (a) the adjacency scan that builds the row lists, and the column lists
-//     built from them, runs at the FIRST LAYER OF THE RANGE (l == lo), not
-//     at layer 0: the top half never visits layer 0.
+// (a) the adjacency's row and column lists come from a scan BEFORE THE
+//     RANGE'S FIRST LAYER, not from layer 0's step: the top half never
+//     visits layer 0.
 // (b) the GRU state is zero only at the GLOBAL layer 0 (l == 0).  At
 //     lo > 0 the state of layer lo is its input hin itself, and the
 //     gradient handed out (dh_mid) keeps that state's term ds, as
@@ -42,9 +42,9 @@
 // - The TPU kernel accumulates the weight gradients across its sequential
 //   grid.  CTAs here run in no order, so each CTA (one tile) writes its
 //   own row of a (P, n_grad) partial buffer, and a second kernel sums the
-//   rows over P in tile order.  Nothing is atomic, and every output of the
-//   body belongs to one thread that sums in a fixed order, so a run
-//   repeats bit for bit.  The partials are ~185 KB per tile at L=8, H=32.
+//   rows over P in tile order.  No sum is atomic (the column build's
+//   atomics only count), and every output of the body belongs to one
+//   thread that sums in a fixed order, so a run repeats bit for bit.  The partials are ~185 KB per tile at L=8, H=32.
 // - Shared memory: the forward's plan plus dh, the column lists and the
 //   GRU's pre-activation gradients comes to ~214 KB at H=32 (one CTA per
 //   SM).  The L per-layer inputs (128 KB per tile) do not fit beside it:
@@ -57,10 +57,10 @@
 //   over layers in place by the thread that owns each entry), so no
 //   L-sized accumulator lives on chip.
 // - The transposed aggregation A_flat^T dm needs the adjacency's column
-//   view.  After the range's first scan builds the row lists (up to
-//   NBR_CAP per row), a pass builds column lists (CSR, ascending row
-//   order) from the rows that fit their lists: at most 128 x 16 entries, so they always
-//   fit.  Rows with more nonzeros are listed apart and read from global
+//   view.  Right after the scan builds the row lists (up to NBR_CAP per
+//   row), count_columns builds column lists (CSR, ascending row order)
+//   from the rows that fit their lists, by counting: at most 128 x 16
+//   entries, so they always fit.  Rows with more nonzeros are listed apart and read from global
 //   memory in every reverse layer, so any input stays exact, and the sum
 //   of each output runs in a fixed order.
 // - Shared-memory bandwidth bounds the dense products.  An SM's shared
@@ -84,10 +84,10 @@
 //     the lanes' rows of one chunk fall in distinct banks (0.22-0.375
 //     wavefronts per warp FMA).
 //   * The recompute (h W_e + b_e, the GRU gates, the readout's
-//     pre-activations) in the body's own copies: per chunk of four, the
-//     weights of all four edge types (all gates) and one broadcast
-//     16-byte load of each row (0.19-0.375).  The forward kernels keep
-//     theirs, so K1m's h stays K1's bit for bit.
+//     pre-activations) in the forward kernels' own steps (edge_hw,
+//     ggnn_gates, readout_pre in fused_ggnn_common.cuh): per chunk of
+//     four, the weights of all four edge types (all gates) and one
+//     broadcast 16-byte load of each row (0.19-0.375).
 //   The message gradients and the message dh run side by side on the two
 //   halves of the CTA, as do the readout's gradients and its dh.
 // - Later work: tensor cores for the dense products (3xTF32 to hold the
@@ -99,43 +99,6 @@
 namespace {
 
 using namespace ggnn;
-
-// Shared-memory plan, in 4-byte words.  The weights' rows are padded to
-// HP = H + 4 words, so that 16-byte loads of one reduction chunk from the
-// rows of consecutive output columns fall in distinct banks; every
-// offset is a multiple of 4 words (16-byte loads).
-template <int H>
-struct BwdPlan {
-  static constexpr int HP = H + 4;
-  static constexpr int TH = TILE * H;
-  static constexpr int W_MSG = 0;                   // 4 (H, HP) (layer l)
-  static constexpr int B_MSG = W_MSG + NE * H * HP;  // 4 H
-  static constexpr int WZ = B_MSG + NE * H;         // (2H, HP) each
-  static constexpr int WR = WZ + 2 * H * HP;
-  static constexpr int WN = WR + 2 * H * HP;
-  static constexpr int UZ = WN + 2 * H * HP;        // (H, HP) each
-  static constexpr int UR = UZ + H * HP;
-  static constexpr int UN = UR + H * HP;
-  static constexpr int BZ = UN + H * HP;            // H each
-  static constexpr int BR = BZ + H;
-  static constexpr int BN = BR + H;
-  static constexpr int HIN = BN + H;                // T H: layer input h (= s)
-  static constexpr int MS = HIN + TH;               // T H: m, then dm; h0 (readout)
-  static constexpr int DH = MS + TH;                // T H: dh
-  static constexpr int BIG = DH + TH;               // 4T H: hw | rs dz' dr' dn' | dhw
-  static constexpr int NV = BIG + NE * TH;          // T NBR_CAP row-list values
-  static constexpr int NK = NV + TILE * NBR_CAP;    // T NBR_CAP row-list columns (int)
-  static constexpr int NC = NK + TILE * NBR_CAP;    // T row nonzero counts (int)
-  static constexpr int CS = NC + TILE;              // 4T+1 column starts (int)
-  static constexpr int CR = CS + ROW_LEN + 1;       // T NBR_CAP column-list rows (int)
-  static constexpr int CV = CR + TILE * NBR_CAP;    // T NBR_CAP column-list values
-  static constexpr int OV = CV + TILE * NBR_CAP;    // T overflow rows (int)
-  static constexpr int OVN = OV + TILE;             // 1 overflow row count (int)
-  static constexpr int WORDS = OVN + 1;
-  static constexpr size_t BYTES = size_t(WORDS) * 4;
-  static_assert(B_MSG % 4 == 0 && WZ % 4 == 0 && HP % 4 == 0 && BZ % 4 == 0 &&
-                HIN % 4 == 0 && BIG % 4 == 0, "16-byte aligned rows");
-};
 
 // Offsets in one tile's row of gradient partials: msg_w (n,4,H,H),
 // msg_b (n,4,H) for the n = hi - lo layers of the range, the GRU in the order wz uz bz wr ur br wn un bn, then
@@ -156,165 +119,6 @@ struct GradLayout {
   }
 };
 
-template <int H>
-__device__ __forceinline__ void load_gru_padded(const Weights& w,
-                                                const GruSmem& g, int tid) {
-  load_padded<H>(w.wz, g.wz, 2 * H, tid);
-  load_padded<H>(w.wr, g.wr, 2 * H, tid);
-  load_padded<H>(w.wn, g.wn, 2 * H, tid);
-  load_padded<H>(w.uz, g.uz, H, tid);
-  load_padded<H>(w.ur, g.ur, H, tid);
-  load_padded<H>(w.un, g.un, H, tid);
-  for (int i = tid; i < H; i += THREADS) {
-    g.bz[i] = w.bz[i]; g.br[i] = w.br[i]; g.bn[i] = w.bn[i];
-  }
-}
-
-template <int H>
-__device__ __forceinline__ void load_message_padded(const Weights& w, int l,
-                                                    float* s_wmsg,
-                                                    float* s_bmsg, int tid) {
-  load_padded<H>(w.msg_w + size_t(l) * NE * H * H, s_wmsg, NE * H, tid);
-  for (int i = tid; i < NE * H; i += THREADS)
-    s_bmsg[i] = w.msg_b[size_t(l) * NE * H + i];
-}
-
-// hw[(e*T + i), c] = (h W_e + b_e)[i, c] for the thread's rows i and
-// column c, all four edge types at once: per chunk of four d, four
-// entries of W_e's rows d (padded to H + 4) for each e and one 16-byte
-// load (a warp-wide broadcast) of each of the thread's h rows.
-template <int H>
-__device__ __forceinline__ void bwd_message_hw(const float* s_h,
-                                               const float* s_wmsg,
-                                               const float* s_bmsg,
-                                               float* s_hw, int tid) {
-  using R = Rows<H>;
-  constexpr int HP = H + 4;
-  const int col = tid % H;
-  const int row0 = tid / H;
-  float acc[NE][R::RPT];
-#pragma unroll
-  for (int e = 0; e < NE; ++e)
-#pragma unroll
-    for (int k = 0; k < R::RPT; ++k) acc[e][k] = s_bmsg[e * H + col];
-#pragma unroll 1
-  for (int d0 = 0; d0 < H; d0 += 4) {
-    float wv[NE][4];
-#pragma unroll
-    for (int e = 0; e < NE; ++e)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) wv[e][q] = s_wmsg[(e * H + d0 + q) * HP + col];
-#pragma unroll
-    for (int k = 0; k < R::RPT; ++k) {
-      float xv[4];
-      ldv<4>(s_h + (row0 + k * R::RS) * H + d0, xv);
-#pragma unroll
-      for (int e = 0; e < NE; ++e)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[e][k] = fmaf(xv[q], wv[e][q], acc[e][k]);
-    }
-  }
-#pragma unroll
-  for (int e = 0; e < NE; ++e)
-#pragma unroll
-    for (int k = 0; k < R::RPT; ++k)
-      s_hw[(e * TILE + row0 + k * R::RS) * H + col] = acc[e][k];
-}
-
-// The GRU gates of one layer for the thread's rows, x = [h, m], state
-// s = h (0 at layer 0, `zero_state`):
-//   z = sigmoid(x Wz + s Uz + bz), r = sigmoid(x Wr + s Ur + br),
-//   n = tanh(x Wn + (r*s) Un + bn).
-// Writes r*s to s_rs (all threads), synchronises once, and returns z, r,
-// n in registers.
-template <int H>
-__device__ __forceinline__ void bwd_gru_gates(bool zero_state, const float* s_h,
-                                              const float* s_m, const GruSmem& g,
-                                              float* s_rs, float (&z)[Rows<H>::RPT],
-                                              float (&r)[Rows<H>::RPT],
-                                              float (&n)[Rows<H>::RPT], int tid) {
-  using R = Rows<H>;
-  constexpr int HP = H + 4;
-  const int col = tid % H;
-  const int row0 = tid / H;
-#pragma unroll
-  for (int k = 0; k < R::RPT; ++k) {
-    z[k] = g.bz[col]; r[k] = g.br[col]; n[k] = g.bn[col];
-  }
-  if (zero_state)
-    gate_inputs<H, false>(s_h, g, 0, col, row0, z, r, n);
-  else
-    gate_inputs<H, true>(s_h, g, 0, col, row0, z, r, n);
-  gate_inputs<H, false>(s_m, g, H, col, row0, z, r, n);
-#pragma unroll
-  for (int k = 0; k < R::RPT; ++k) {
-    const int i = row0 + k * R::RS;
-    z[k] = sigmoidf(z[k]);
-    r[k] = sigmoidf(r[k]);
-    s_rs[i * H + col] = zero_state ? 0.0f : r[k] * s_h[i * H + col];
-  }
-  __syncthreads();
-  if (!zero_state) {
-#pragma unroll 1
-    for (int d0 = 0; d0 < H; d0 += 4) {
-      float un[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) un[q] = g.un[(d0 + q) * HP + col];
-#pragma unroll
-      for (int k = 0; k < R::RPT; ++k) {
-        float xv[4];
-        ldv<4>(s_rs + (row0 + k * R::RS) * H + d0, xv);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) n[k] = fmaf(xv[q], un[q], n[k]);
-      }
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < R::RPT; ++k) n[k] = tanhf(n[k]);
-}
-
-// The readout's pre-activations for the thread's rows (K2b's seed):
-// gi = [h, h0] Wi + bi, gj = h Wj + bj, the readout weights' rows padded
-// to H + 4; blocked as bwd_message_hw.
-template <int H>
-__device__ __forceinline__ void bwd_readout_pre(const float* s_h,
-                                                const float* s_h0,
-                                                const float* s_wi,
-                                                const float* s_wj,
-                                                const float* s_bi,
-                                                const float* s_bj,
-                                                float (&gi)[Rows<H>::RPT],
-                                                float (&gj)[Rows<H>::RPT],
-                                                int tid) {
-  using R = Rows<H>;
-  constexpr int HP = H + 4;
-  const int col = tid % H;
-  const int row0 = tid / H;
-#pragma unroll
-  for (int k = 0; k < R::RPT; ++k) { gi[k] = s_bi[col]; gj[k] = s_bj[col]; }
-#pragma unroll 1
-  for (int d0 = 0; d0 < H; d0 += 4) {
-    float wih[4], wi0[4], wjh[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      wih[q] = s_wi[(d0 + q) * HP + col];
-      wi0[q] = s_wi[(H + d0 + q) * HP + col];
-      wjh[q] = s_wj[(d0 + q) * HP + col];
-    }
-#pragma unroll
-    for (int k = 0; k < R::RPT; ++k) {
-      float hv[4], h0v[4];
-      ldv<4>(s_h + (row0 + k * R::RS) * H + d0, hv);
-      ldv<4>(s_h0 + (row0 + k * R::RS) * H + d0, h0v);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        gi[k] = fmaf(hv[q], wih[q], fmaf(h0v[q], wi0[q], gi[k]));
-        gj[k] = fmaf(hv[q], wjh[q], gj[k]);
-      }
-    }
-  }
-}
-
 // One CTA per SM (the shared-memory plan), so up to 128 registers a thread.
 template <int H, bool READOUT>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -322,7 +126,7 @@ fused_ggnn_bwd_kernel(const float* __restrict__ hin, const float* __restrict__ a
                       Weights w, Readout ro, const float* __restrict__ dout,
                       float* dh_bot, float* partial, float* hs, int lo, int hi,
                       int n_grad) {
-  using S = BwdPlan<H>;
+  using S = GgnnPlan<H, true>;
   using R = Rows<H>;
   using G = GradLayout<H>;
   constexpr int HALF = THREADS / 2;
@@ -368,23 +172,27 @@ fused_ggnn_bwd_kernel(const float* __restrict__ hin, const float* __restrict__ a
   float* part = partial + tile * size_t(n_grad);
   float* gru_part = part + G::gru0(n_range);
 
-  // 1. forward over the range, keeping each layer's input in hs
+  // 1. the row and column lists (trap (a)), then the forward over the
+  // range, keeping each layer's input in hs
   load_gru_padded<H>(w, g, tid);
   for (int i = tid; i < TH; i += THREADS) s_hin[i] = h0_t[i];
+  scan_rows(adj_t, s_nk, s_nv, s_nc, tid);
+  __syncthreads();
+  // the column build's row masks in the hw stack, dead until the forward
+  count_columns(s_nk, s_nv, s_nc, s_cs, s_cr, s_cv, s_ov, s_ovn,
+                reinterpret_cast<unsigned*>(s_big), tid);
+  const int n_ov = *s_ovn;
   for (int l = lo; l < hi; ++l) {
-    const bool scan = (l == lo);       // trap (a)
     const bool zero_state = (l == 0);  // trap (b)
     load_message_padded<H>(w, l, s_wmsg, s_bmsg, tid);
     __syncthreads();
     for (int i = tid; i < TH; i += THREADS) hs_t[size_t(l - lo) * TH + i] = s_hin[i];
-    bwd_message_hw<H>(s_hin, s_wmsg, s_bmsg, s_big, tid);
+    edge_hw<H>(s_hin, s_wmsg, s_bmsg, s_big, tid);
     __syncthreads();
-    aggregate<H>(scan, adj_t, s_big, s_m, s_nk, s_nv, s_nc, tid);
+    aggregate<H>(adj_t, s_big, s_m, s_nk, s_nv, s_nc, tid);
     __syncthreads();
-    if (scan)
-      build_columns(s_nk, s_nv, s_nc, s_cs, s_cr, s_cv, s_ov, s_ovn, tid);
     float z[R::RPT], r[R::RPT], n[R::RPT];
-    bwd_gru_gates<H>(zero_state, s_hin, s_m, g, s_rs, z, r, n, tid);
+    ggnn_gates<H>(zero_state, s_hin, s_m, g, s_rs, z, r, n, tid);
 #pragma unroll
     for (int k = 0; k < R::RPT; ++k) {
       const int i = row0 + k * R::RS;
@@ -393,7 +201,6 @@ fused_ggnn_bwd_kernel(const float* __restrict__ hin, const float* __restrict__ a
     }
     __syncthreads();
   }
-  const int n_ov = *s_ovn;
 
   // 2. seed dh: the readout's backward (K2b) or dh_final (K1b)
   if constexpr (READOUT) {
@@ -412,7 +219,7 @@ fused_ggnn_bwd_kernel(const float* __restrict__ hin, const float* __restrict__ a
     for (int i = tid; i < TH; i += THREADS) s_h0[i] = h0_t[i];
     __syncthreads();
     float gi[R::RPT], gj[R::RPT];
-    bwd_readout_pre<H>(s_hin, s_h0, s_wi, s_wj, s_bi, s_bj, gi, gj, tid);
+    readout_pre<H>(s_hin, s_h0, s_wi, s_wj, s_bi, s_bj, gi, gj, tid);
     const float* mask_t = ro.mask + tile * TILE;
     const float* dg_t = dout + tile * TILE * D;
 #pragma unroll
@@ -460,12 +267,12 @@ fused_ggnn_bwd_kernel(const float* __restrict__ hin, const float* __restrict__ a
     load_message_padded<H>(w, l, s_wmsg, s_bmsg, tid);
     for (int i = tid; i < TH; i += THREADS) s_hin[i] = hs_t[size_t(l - lo) * TH + i];
     __syncthreads();
-    bwd_message_hw<H>(s_hin, s_wmsg, s_bmsg, s_big, tid);
+    edge_hw<H>(s_hin, s_wmsg, s_bmsg, s_big, tid);
     __syncthreads();
-    aggregate<H>(false, adj_t, s_big, s_m, s_nk, s_nv, s_nc, tid);
+    aggregate<H>(adj_t, s_big, s_m, s_nk, s_nv, s_nc, tid);
     __syncthreads();
     float z[R::RPT], r[R::RPT], n[R::RPT];
-    bwd_gru_gates<H>(zero_state, s_hin, s_m, g, s_rs, z, r, n, tid);
+    ggnn_gates<H>(zero_state, s_hin, s_m, g, s_rs, z, r, n, tid);
 
     float ds[R::RPT];
 #pragma unroll
@@ -572,7 +379,7 @@ cudaError_t launch_bwd(const float* hin, const float* adj, const Weights& w,
                        const Readout& ro, const float* dout, float* dh_bot,
                        float* partial, float* grads, float* hs, int n_tiles,
                        int lo, int hi, cudaStream_t stream) {
-  constexpr size_t bytes = BwdPlan<H>::BYTES;
+  constexpr size_t bytes = GgnnPlan<H, true>::BYTES;
   static_assert(bytes <= 232448, "shared-memory plan exceeds 227 KB");
   static bool opted_in[MAX_DEVICES] = {};
   cudaError_t err = opt_in_smem(fused_ggnn_bwd_kernel<H, READOUT>, bytes, opted_in);

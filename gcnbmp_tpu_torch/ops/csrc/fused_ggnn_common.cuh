@@ -1,17 +1,20 @@
 // Pieces shared by the fused GGNN forward (fused_ggnn.cu) and backward
 // (fused_ggnn_bwd.cu) kernels and by the fused MPNN kernels
-// (fused_mpnn.cu): constants, weight pointers, one GGNN layer's forward
-// steps on a 128-atom tile held in shared memory, the adjacency's row and
-// column lists, the backward's register-blocked products (weight
-// gradients, products against transposed weights, the GRU's
-// pre-activations; weights' rows padded to H + 4 words in shared memory)
-// and the in-order sum of per-tile gradient rows.
+// (fused_mpnn.cu): constants, weight pointers, the GGNN kernels'
+// shared-memory plan, the adjacency's row lists (scan_rows) and column
+// lists (count_columns), weight loads into rows padded to H + 4 words (at
+// once or by cp.async), one copy of each register-blocked GGNN layer step
+// on a 128-atom tile held in shared memory (the forwards run them, and
+// the backward runs them to recompute), the backward's blocked products
+// (weight gradients, products against transposed weights) and the
+// in-order sum of per-tile gradient rows.
 //
 // Thread layout of the row-wise steps: thread `tid` owns column
 // col = tid % H of the rows row0 + k*RS, k < RPT (RS = THREADS / H).
 
 #pragma once
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace ggnn {
@@ -22,6 +25,7 @@ constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
 constexpr int NBR_CAP = 16;         // neighbour list slots per adjacency row
 constexpr int ROW_LEN = NE * TILE;  // 512 columns of the flat adjacency
+constexpr int COLUMN_MASK_WORDS = ROW_LEN * TILE / 32;  // count_columns' row masks
 constexpr int MAX_DEVICES = 64;     // devices whose shared-memory opt-in is cached
 
 struct Weights {
@@ -70,76 +74,54 @@ __device__ __forceinline__ float sigmoidf(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-template <int H>
-__device__ __forceinline__ void load_gru(const Weights& w, const GruSmem& g,
-                                         int tid) {
-  for (int i = tid; i < 2 * H * H; i += THREADS) {
-    g.wz[i] = w.wz[i]; g.wr[i] = w.wr[i]; g.wn[i] = w.wn[i];
-  }
-  for (int i = tid; i < H * H; i += THREADS) {
-    g.uz[i] = w.uz[i]; g.ur[i] = w.ur[i]; g.un[i] = w.un[i];
-  }
-  for (int i = tid; i < H; i += THREADS) {
-    g.bz[i] = w.bz[i]; g.br[i] = w.br[i]; g.bn[i] = w.bn[i];
-  }
-}
-
-template <int H>
-__device__ __forceinline__ void load_message(const Weights& w, int l,
-                                             float* s_wmsg, float* s_bmsg,
-                                             int tid) {
-  for (int i = tid; i < NE * H * H; i += THREADS)
-    s_wmsg[i] = w.msg_w[size_t(l) * NE * H * H + i];
-  for (int i = tid; i < NE * H; i += THREADS)
-    s_bmsg[i] = w.msg_b[size_t(l) * NE * H + i];
-}
-
-// hw[(e*T + j), c] = (h W_e + b_e)[j, c]
-template <int H>
-__device__ __forceinline__ void message_hw(const float* s_h,
-                                           const float* s_wmsg,
-                                           const float* s_bmsg, float* s_hw,
-                                           int tid) {
-  using R = Rows<H>;
-  const int col = tid % H;
-  const int row0 = tid / H;
-  for (int e = 0; e < NE; ++e) {
-    const float* we = s_wmsg + e * H * H;
-    float acc[R::RPT];
+// The row lists of one tile's adjacency, once per call: one warp per row
+// reads the dense row from global memory (16 coalesced 128-byte loads,
+// all in flight before the scan), finds its nonzeros with a warp ballot
+// per 32 columns, each lane writing its own, and keeps the first NBR_CAP
+// (column, value) pairs in ascending column order, with the row's full
+// count in s_nc.  Idx, the type of the lists' columns, is int or a 16-bit
+// type (columns < 512).  The caller synchronises before the lists are read.
+template <typename Idx>
+__device__ __forceinline__ void scan_rows(const float* adj_t, Idx* s_nk,
+                                          float* s_nv, int* s_nc, int tid) {
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  for (int i = warp; i < TILE; i += WARPS) {
+    const float* arow = adj_t + size_t(i) * ROW_LEN;
+    float av[ROW_LEN / 32];
 #pragma unroll
-    for (int k = 0; k < R::RPT; ++k) acc[k] = s_bmsg[e * H + col];
-#pragma unroll 4
-    for (int d = 0; d < H; ++d) {
-      const float wv = we[d * H + col];
+    for (int q = 0; q < ROW_LEN / 32; ++q) av[q] = __ldg(arow + q * 32 + lane);
+    int cnt = 0;
 #pragma unroll
-      for (int k = 0; k < R::RPT; ++k)
-        acc[k] = fmaf(s_h[(row0 + k * R::RS) * H + d], wv, acc[k]);
+    for (int q = 0; q < ROW_LEN / 32; ++q) {
+      const unsigned nz = __ballot_sync(0xffffffffu, av[q] != 0.0f);
+      const int pos = cnt + __popc(nz & ((1u << lane) - 1u));
+      if (av[q] != 0.0f && pos < NBR_CAP) {
+        s_nk[i * NBR_CAP + pos] = Idx(q * 32 + lane);
+        s_nv[i * NBR_CAP + pos] = av[q];
+      }
+      cnt += __popc(nz);
     }
-#pragma unroll
-    for (int k = 0; k < R::RPT; ++k)
-      s_hw[(e * TILE + row0 + k * R::RS) * H + col] = acc[k];
+    if (lane == 0) s_nc[i] = cnt;
   }
 }
 
-// m = A_flat @ hw: one warp per row, lane c < H owns column c.  With
-// `scan` the rows are read from global memory and the first NBR_CAP
-// nonzeros of each row are kept as (column, value) lists, in ascending
-// column order, with the row's full count in s_nc; otherwise rows with at
-// most NBR_CAP nonzeros gather through their lists and the others rescan
-// their dense row, so any input is summed exactly.  Idx, the type of the
-// list's columns, is int or a 16-bit type (columns < 512).
+// m = A_flat @ hw: one warp per row, lane c < H owns column c.  Rows with
+// at most NBR_CAP nonzeros gather through their lists (scan_rows); the
+// others rescan their dense row.  Both sum in ascending column order, so
+// any input is summed exactly and in the same order.
 template <int H, typename Idx>
-__device__ __forceinline__ void aggregate(bool scan, const float* adj_t,
-                                          const float* s_hw, float* s_m,
-                                          Idx* s_nk, float* s_nv, int* s_nc,
+__device__ __forceinline__ void aggregate(const float* adj_t, const float* s_hw,
+                                          float* s_m, const Idx* s_nk,
+                                          const float* s_nv, const int* s_nc,
                                           int tid) {
   const int lane = tid & 31;
   const int warp = tid >> 5;
   for (int i = warp; i < TILE; i += WARPS) {
     float acc = 0.0f;
-    if (scan || s_nc[i] > NBR_CAP) {
+    const int cnt = s_nc[i];
+    if (cnt > NBR_CAP) {
       const float* arow = adj_t + size_t(i) * ROW_LEN;
-      int cnt = 0;
       float av[ROW_LEN / 32];  // all 16 loads in flight before the scan
 #pragma unroll
       for (int q = 0; q < ROW_LEN / 32; ++q) av[q] = __ldg(arow + q * 32 + lane);
@@ -151,18 +133,10 @@ __device__ __forceinline__ void aggregate(bool scan, const float* adj_t,
           const int b = __ffs(nz) - 1;
           nz &= nz - 1;
           const float v = __shfl_sync(0xffffffffu, a, b);
-          const int kcol = q * 32 + b;
-          if (lane < H) acc = fmaf(v, s_hw[kcol * H + lane], acc);
-          if (scan && lane == 0 && cnt < NBR_CAP) {
-            s_nk[i * NBR_CAP + cnt] = kcol;
-            s_nv[i * NBR_CAP + cnt] = v;
-          }
-          ++cnt;
+          if (lane < H) acc = fmaf(v, s_hw[(q * 32 + b) * H + lane], acc);
         }
       }
-      if (scan && lane == 0) s_nc[i] = cnt;
     } else {
-      const int cnt = s_nc[i];
       for (int n = 0; n < cnt; ++n) {
         const int kcol = s_nk[i * NBR_CAP + n];
         const float v = s_nv[i * NBR_CAP + n];
@@ -173,65 +147,44 @@ __device__ __forceinline__ void aggregate(bool scan, const float* adj_t,
   }
 }
 
-// The GRU gates of one layer for the thread's rows, x = [h, m], state s =
-// h (or 0 when `zero_state`, layer 0):
-//   z = sigmoid(x Wz + s Uz + bz), r = sigmoid(x Wr + s Ur + br),
-//   n = tanh(x Wn + (r*s) Un + bn).
-// Writes r*s to s_rs (all threads), synchronises once, and returns z, r, n
-// in registers.
-template <int H>
-__device__ __forceinline__ void gru_gates(bool zero_state, const float* s_h,
-                                          const float* s_m, const GruSmem& g,
-                                          float* s_rs, float (&z)[Rows<H>::RPT],
-                                          float (&r)[Rows<H>::RPT],
-                                          float (&n)[Rows<H>::RPT], int tid) {
-  using R = Rows<H>;
-  const int col = tid % H;
-  const int row0 = tid / H;
-#pragma unroll
-  for (int k = 0; k < R::RPT; ++k) {
-    z[k] = g.bz[col]; r[k] = g.br[col]; n[k] = g.bn[col];
-  }
-#pragma unroll 2
-  for (int d = 0; d < H; ++d) {
-    const float wzh = g.wz[d * H + col], wzm = g.wz[(H + d) * H + col];
-    const float wrh = g.wr[d * H + col], wrm = g.wr[(H + d) * H + col];
-    const float wnh = g.wn[d * H + col], wnm = g.wn[(H + d) * H + col];
-    const float uz = zero_state ? 0.0f : g.uz[d * H + col];
-    const float ur = zero_state ? 0.0f : g.ur[d * H + col];
-#pragma unroll
-    for (int k = 0; k < R::RPT; ++k) {
-      const int i = row0 + k * R::RS;
-      const float hv = s_h[i * H + d], mv = s_m[i * H + d];
-      z[k] = fmaf(hv, wzh, fmaf(mv, wzm, z[k]));
-      r[k] = fmaf(hv, wrh, fmaf(mv, wrm, r[k]));
-      n[k] = fmaf(hv, wnh, fmaf(mv, wnm, n[k]));
-      if (!zero_state) {
-        z[k] = fmaf(hv, uz, z[k]);
-        r[k] = fmaf(hv, ur, r[k]);
-      }
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < R::RPT; ++k) {
-    const int i = row0 + k * R::RS;
-    z[k] = sigmoidf(z[k]);
-    r[k] = sigmoidf(r[k]);
-    s_rs[i * H + col] = zero_state ? 0.0f : r[k] * s_h[i * H + col];
-  }
-  __syncthreads();
-  if (!zero_state) {
-#pragma unroll 2
-    for (int d = 0; d < H; ++d) {
-      const float un = g.un[d * H + col];
-#pragma unroll
-      for (int k = 0; k < R::RPT; ++k)
-        n[k] = fmaf(s_rs[(row0 + k * R::RS) * H + d], un, n[k]);
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < R::RPT; ++k) n[k] = tanhf(n[k]);
-}
+// Shared-memory plan of the GGNN kernels, in 4-byte words.  The weights'
+// rows are padded to HP = H + 4 words, so that 16-byte loads of one
+// reduction chunk from the rows of consecutive output columns fall in
+// distinct banks; every offset is a multiple of 4 words (16-byte loads).
+// The backward (BWD) adds dh and the column lists.
+template <int H, bool BWD>
+struct GgnnPlan {
+  static constexpr int HP = H + 4;
+  static constexpr int TH = TILE * H;
+  static constexpr int W_MSG = 0;                   // 4 (H, HP) (layer l)
+  static constexpr int B_MSG = W_MSG + NE * H * HP;  // 4 H
+  static constexpr int WZ = B_MSG + NE * H;         // (2H, HP) each
+  static constexpr int WR = WZ + 2 * H * HP;
+  static constexpr int WN = WR + 2 * H * HP;
+  static constexpr int UZ = WN + 2 * H * HP;        // (H, HP) each
+  static constexpr int UR = UZ + H * HP;
+  static constexpr int UN = UR + H * HP;
+  static constexpr int BZ = UN + H * HP;            // H each
+  static constexpr int BR = BZ + H;
+  static constexpr int BN = BR + H;
+  static constexpr int HIN = BN + H;                // T H: layer input h (= s)
+  static constexpr int MS = HIN + TH;               // T H: m, then dm; h0 (readout)
+  static constexpr int DH = MS + TH;                // T H: dh (backward)
+  static constexpr int BIG = DH + (BWD ? TH : 0);   // 4T H: hw | rs dz' dr' dn' | dhw; readout weights
+  static constexpr int NV = BIG + NE * TH;          // T NBR_CAP row-list values
+  static constexpr int NK = NV + TILE * NBR_CAP;    // T NBR_CAP row-list columns (int)
+  static constexpr int NC = NK + TILE * NBR_CAP;    // T row nonzero counts (int)
+  static constexpr int CS = NC + TILE;              // 4T+1 column starts (int)
+  static constexpr int CR = CS + ROW_LEN + 1;       // T NBR_CAP column-list rows (int)
+  static constexpr int CV = CR + TILE * NBR_CAP;    // T NBR_CAP column-list values
+  static constexpr int OV = CV + TILE * NBR_CAP;    // T overflow rows (int)
+  static constexpr int OVN = OV + TILE;             // 1 overflow row count (int)
+  static constexpr int WORDS = BWD ? OVN + 1 : CS;
+  static constexpr size_t BYTES = size_t(WORDS) * 4;
+  static_assert(B_MSG % 4 == 0 && WZ % 4 == 0 && HP % 4 == 0 && BZ % 4 == 0 &&
+                HIN % 4 == 0 && BIG % 4 == 0, "16-byte aligned rows");
+  static_assert(!BWD || NE * TH >= COLUMN_MASK_WORDS, "row masks fit in BIG");
+};
 
 // n consecutive floats (n = 4 or 2) from 16- or 8-byte aligned memory
 template <int N>
@@ -334,12 +287,53 @@ __device__ __forceinline__ void grad_pass(const GradPass<NP, NS>& gp,
   }
 }
 
+// *dst = *src from global to shared memory: at once, or (ASYNC) by an
+// asynchronous 4-byte copy (cp.async) that runs while the thread goes on;
+// the caller commits it (__pipeline_commit) and waits for it
+// (__pipeline_wait_prior, then a barrier) before any thread reads dst.
+template <bool ASYNC>
+__device__ __forceinline__ void to_shared(float* dst, const float* src) {
+  if constexpr (ASYNC)
+    __pipeline_memcpy_async(dst, src, sizeof(float));
+  else
+    *dst = *src;
+}
+
 // Copy `rows` rows of H floats into shared memory with rows of H + 4.
-template <int H>
+template <int H, bool ASYNC = false>
 __device__ __forceinline__ void load_padded(const float* __restrict__ src,
                                             float* dst, int rows, int tid) {
   for (int i = tid; i < rows * H; i += THREADS)
-    dst[(i / H) * (H + 4) + i % H] = src[i];
+    to_shared<ASYNC>(dst + (i / H) * (H + 4) + i % H, src + i);
+}
+
+// Copy n floats into shared memory.
+template <bool ASYNC = false>
+__device__ __forceinline__ void copy_in(float* dst, const float* src, int n,
+                                        int tid) {
+  for (int i = tid; i < n; i += THREADS) to_shared<ASYNC>(dst + i, src + i);
+}
+
+template <int H>
+__device__ __forceinline__ void load_gru_padded(const Weights& w,
+                                                const GruSmem& g, int tid) {
+  load_padded<H>(w.wz, g.wz, 2 * H, tid);
+  load_padded<H>(w.wr, g.wr, 2 * H, tid);
+  load_padded<H>(w.wn, g.wn, 2 * H, tid);
+  load_padded<H>(w.uz, g.uz, H, tid);
+  load_padded<H>(w.ur, g.ur, H, tid);
+  load_padded<H>(w.un, g.un, H, tid);
+  copy_in(g.bz, w.bz, H, tid);
+  copy_in(g.br, w.br, H, tid);
+  copy_in(g.bn, w.bn, H, tid);
+}
+
+template <int H, bool ASYNC = false>
+__device__ __forceinline__ void load_message_padded(const Weights& w, int l,
+                                                    float* s_wmsg,
+                                                    float* s_bmsg, int tid) {
+  load_padded<H, ASYNC>(w.msg_w + size_t(l) * NE * H * H, s_wmsg, NE * H, tid);
+  copy_in<ASYNC>(s_bmsg, w.msg_b + size_t(l) * NE * H, NE * H, tid);
 }
 
 // Rows of the threads [T0, T0 + NT) in a product against transposed
@@ -445,29 +439,176 @@ __device__ __forceinline__ void gate_inputs(const float* x, const GruSmem& g,
   }
 }
 
-// Column lists of the rows that fit their row lists, in ascending row
-// order, and the list of rows that do not.  Thread k owns column k.  The
-// lists' indices are Idx (int, or a 16-bit type).
-template <typename Idx>
-__device__ __forceinline__ void build_columns(const Idx* s_nk, const float* s_nv,
-                                              const int* s_nc, int* s_cs,
-                                              Idx* s_cr, float* s_cv,
-                                              int* s_ov, int* s_ovn, int tid) {
-  static_assert(THREADS == ROW_LEN, "one thread per adjacency column");
-  const int k = tid;
-  int cnt = 0;
-  for (int i = 0; i < TILE; ++i) {
-    const int nc = s_nc[i];
-    if (nc <= NBR_CAP)
-      for (int n = 0; n < nc; ++n) cnt += (s_nk[i * NBR_CAP + n] == k);
+// hw[(e*T + i), c] = (h W_e + b_e)[i, c] for the thread's rows i and
+// column c, all four edge types at once: per chunk of four d, four
+// entries of W_e's rows d (padded to H + 4) for each e and one 16-byte
+// load (a warp-wide broadcast) of each of the thread's h rows.
+template <int H>
+__device__ __forceinline__ void edge_hw(const float* s_h, const float* s_wmsg,
+                                        const float* s_bmsg, float* s_hw,
+                                        int tid) {
+  using R = Rows<H>;
+  constexpr int HP = H + 4;
+  const int col = tid % H;
+  const int row0 = tid / H;
+  float acc[NE][R::RPT];
+#pragma unroll
+  for (int e = 0; e < NE; ++e)
+#pragma unroll
+    for (int k = 0; k < R::RPT; ++k) acc[e][k] = s_bmsg[e * H + col];
+#pragma unroll 1
+  for (int d0 = 0; d0 < H; d0 += 4) {
+    float wv[NE][4];
+#pragma unroll
+    for (int e = 0; e < NE; ++e)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) wv[e][q] = s_wmsg[(e * H + d0 + q) * HP + col];
+#pragma unroll
+    for (int k = 0; k < R::RPT; ++k) {
+      float xv[4];
+      ldv<4>(s_h + (row0 + k * R::RS) * H + d0, xv);
+#pragma unroll
+      for (int e = 0; e < NE; ++e)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[e][k] = fmaf(xv[q], wv[e][q], acc[e][k]);
+    }
   }
-  s_cs[k + 1] = cnt;
-  if (tid == 0) {
-    s_cs[0] = 0;
-    int ov = 0;
+#pragma unroll
+  for (int e = 0; e < NE; ++e)
+#pragma unroll
+    for (int k = 0; k < R::RPT; ++k)
+      s_hw[(e * TILE + row0 + k * R::RS) * H + col] = acc[e][k];
+}
+
+// The GRU gates of one layer for the thread's rows, x = [h, m], state
+// s = h (0 at layer 0, `zero_state`):
+//   z = sigmoid(x Wz + s Uz + bz), r = sigmoid(x Wr + s Ur + br),
+//   n = tanh(x Wn + (r*s) Un + bn).
+// Writes r*s to s_rs (all threads), synchronises once, and returns z, r,
+// n in registers.
+template <int H>
+__device__ __forceinline__ void ggnn_gates(bool zero_state, const float* s_h,
+                                           const float* s_m, const GruSmem& g,
+                                           float* s_rs, float (&z)[Rows<H>::RPT],
+                                           float (&r)[Rows<H>::RPT],
+                                           float (&n)[Rows<H>::RPT], int tid) {
+  using R = Rows<H>;
+  constexpr int HP = H + 4;
+  const int col = tid % H;
+  const int row0 = tid / H;
+#pragma unroll
+  for (int k = 0; k < R::RPT; ++k) {
+    z[k] = g.bz[col]; r[k] = g.br[col]; n[k] = g.bn[col];
+  }
+  if (zero_state)
+    gate_inputs<H, false>(s_h, g, 0, col, row0, z, r, n);
+  else
+    gate_inputs<H, true>(s_h, g, 0, col, row0, z, r, n);
+  gate_inputs<H, false>(s_m, g, H, col, row0, z, r, n);
+#pragma unroll
+  for (int k = 0; k < R::RPT; ++k) {
+    const int i = row0 + k * R::RS;
+    z[k] = sigmoidf(z[k]);
+    r[k] = sigmoidf(r[k]);
+    s_rs[i * H + col] = zero_state ? 0.0f : r[k] * s_h[i * H + col];
+  }
+  __syncthreads();
+  if (!zero_state) {
+#pragma unroll 1
+    for (int d0 = 0; d0 < H; d0 += 4) {
+      float un[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) un[q] = g.un[(d0 + q) * HP + col];
+#pragma unroll
+      for (int k = 0; k < R::RPT; ++k) {
+        float xv[4];
+        ldv<4>(s_rs + (row0 + k * R::RS) * H + d0, xv);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) n[k] = fmaf(xv[q], un[q], n[k]);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < R::RPT; ++k) n[k] = tanhf(n[k]);
+}
+
+// The readout's pre-activations for the thread's rows (K2's output, K2b's
+// seed): gi = [h, h0] Wi + bi, gj = h Wj + bj (D = H), the readout
+// weights' rows padded to H + 4; blocked as edge_hw.
+template <int H>
+__device__ __forceinline__ void readout_pre(const float* s_h, const float* s_h0,
+                                            const float* s_wi, const float* s_wj,
+                                            const float* s_bi, const float* s_bj,
+                                            float (&gi)[Rows<H>::RPT],
+                                            float (&gj)[Rows<H>::RPT], int tid) {
+  using R = Rows<H>;
+  constexpr int HP = H + 4;
+  const int col = tid % H;
+  const int row0 = tid / H;
+#pragma unroll
+  for (int k = 0; k < R::RPT; ++k) { gi[k] = s_bi[col]; gj[k] = s_bj[col]; }
+#pragma unroll 1
+  for (int d0 = 0; d0 < H; d0 += 4) {
+    float wih[4], wi0[4], wjh[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      wih[q] = s_wi[(d0 + q) * HP + col];
+      wi0[q] = s_wi[(H + d0 + q) * HP + col];
+      wjh[q] = s_wj[(d0 + q) * HP + col];
+    }
+#pragma unroll
+    for (int k = 0; k < R::RPT; ++k) {
+      float hv[4], h0v[4];
+      ldv<4>(s_h + (row0 + k * R::RS) * H + d0, hv);
+      ldv<4>(s_h0 + (row0 + k * R::RS) * H + d0, h0v);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        gi[k] = fmaf(hv[q], wih[q], fmaf(h0v[q], wi0[q], gi[k]));
+        gj[k] = fmaf(hv[q], wjh[q], gj[k]);
+      }
+    }
+  }
+}
+
+// Column lists (CSR: starts s_cs, rows s_cr and values s_cv) of the rows
+// that fit their row lists (scan_rows), each in ascending row order, and
+// the rows that do not, ascending, in s_ov (their count in *s_ovn).  Built
+// by counting, one thread per row-list slot (THREADS x 4 = T x NBR_CAP):
+// each slot adds one to its column's count (shared atomicAdd) and sets
+// its row's bit in the column's row mask (atomicOr; TILE / 32 words per
+// column); a warp scan turns the counts into starts; each slot then goes
+// to its column's start plus its rank, the number of lower rows that list
+// the column (__popc of the mask's lower bits).  The atomics only count
+// and set bits, so the lists are the same in every run, and the same as a
+// walk of the rows in order gives.  `bits` is COLUMN_MASK_WORDS = 2,048
+// words of scratch that nothing else uses during the call.  The lists'
+// indices are Idx (int, or a 16-bit type).  The caller synchronises after
+// the scan; this synchronises before it returns.
+template <typename Idx>
+__device__ __forceinline__ void count_columns(const Idx* s_nk, const float* s_nv,
+                                              const int* s_nc, int* s_cs,
+                                              Idx* s_cr, float* s_cv, int* s_ov,
+                                              int* s_ovn, unsigned* bits, int tid) {
+  constexpr int MW = TILE / 32;  // mask words per column
+  constexpr int SLOTS = TILE * NBR_CAP;
+  for (int q = tid; q < COLUMN_MASK_WORDS; q += THREADS) bits[q] = 0u;
+  for (int q = tid; q <= ROW_LEN; q += THREADS) s_cs[q] = 0;
+  if (tid == 0) {  // the crowded rows (a ballot here makes callers spill)
+    int n = 0;
     for (int i = 0; i < TILE; ++i)
-      if (s_nc[i] > NBR_CAP) s_ov[ov++] = i;
-    *s_ovn = ov;
+      if (s_nc[i] > NBR_CAP) s_ov[n++] = i;
+    *s_ovn = n;
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int q = tid; q < SLOTS; q += THREADS) {
+    const int i = q / NBR_CAP;
+    const int nc = s_nc[i];
+    if (nc <= NBR_CAP && q % NBR_CAP < nc) {
+      const int k = s_nk[q];
+      atomicAdd(s_cs + k + 1, 1);
+      atomicOr(bits + k * MW + i / 32, 1u << (i % 32));
+    }
   }
   __syncthreads();
   if (tid < 32) {  // inclusive scan of the counts: lane owns 16 columns
@@ -487,16 +628,23 @@ __device__ __forceinline__ void build_columns(const Idx* s_nk, const float* s_nv
     }
   }
   __syncthreads();
-  int pos = s_cs[k];
-  for (int i = 0; i < TILE; ++i) {
+#pragma unroll 1
+  for (int q = tid; q < SLOTS; q += THREADS) {
+    const int i = q / NBR_CAP;
     const int nc = s_nc[i];
-    if (nc <= NBR_CAP)
-      for (int n = 0; n < nc; ++n)
-        if (s_nk[i * NBR_CAP + n] == k) {
-          s_cr[pos] = i;
-          s_cv[pos] = s_nv[i * NBR_CAP + n];
-          ++pos;
-        }
+    if (nc <= NBR_CAP && q % NBR_CAP < nc) {
+      const int k = s_nk[q];
+      const unsigned* mask = bits + k * MW;
+      int rank = 0;
+#pragma unroll
+      for (int w = 0; w < MW; ++w) {
+        const unsigned m = mask[w];
+        rank += __popc(w < i / 32 ? m : w == i / 32 ? m & ((1u << (i % 32)) - 1u) : 0u);
+      }
+      const int pos = s_cs[k] + rank;
+      s_cr[pos] = Idx(i);
+      s_cv[pos] = s_nv[q];
+    }
   }
   __syncthreads();
 }

@@ -31,46 +31,48 @@
 //   block of tiles per grid step becomes the grid).  Nothing carries
 //   between CTAs; the backward writes each tile's weight gradients as one
 //   row of a (P, n_grad) partial buffer, summed over P in tile order by a
-//   second kernel: deterministic, no atomics (~460 KB per tile at L=8,
-//   C=32).
+//   second kernel: deterministic, no atomic sums (~460 KB per tile at
+//   L=8, C=32).
 // - Shared memory.  Unlike GGNN every layer has its own weights (57 KB
 //   at C=32), so they are loaded one layer at a time.  h, the hm stack
-//   (4T x C), the two halves of x, the adjacency's row lists (layer 0's
-//   ballot scan, NBR_CAP slots per row), its column lists (for the in
-//   direction, which reads A by columns) and the molecule groups come to
-//   ~210 KB at C=32 (forward) and ~220 KB with dh and padded weights
-//   (backward): one CTA of 512 threads per SM.  Layer inputs for the
+//   (4T x C), the two halves of x, the adjacency's row lists (a ballot
+//   scan before the first layer, NBR_CAP slots per row), its column
+//   lists (for the in direction, which reads A by columns) and the
+//   molecule groups come to ~209 KB at C=32 (forward) and ~225 KB with dh
+//   (backward), the weights' rows padded to C + 4 words and the lists'
+//   indices 16-bit in both: one CTA of 512 threads per SM.  Layer inputs for the
 //   backward go to a global scratch (P, L, T, C).  The hm buffer is reused
 //   for r*s and the gate adjoints, then the background's sums, then dhm.
 // - The adjacency (256 KB per tile, ~0.4% dense) is read from global
 //   memory once per pass; rows with more than NBR_CAP nonzeros rescan
 //   their dense row, and are read by column from global memory, at every
-//   layer, so any input (an asymmetric one too) is exact.
+//   layer, so any input (an asymmetric one too) is exact.  The column
+//   lists are built by counting (count_columns in fused_ggnn_common.cuh).
 // - Mmol is never formed: the tile's real slots are grouped by molecule id
 //   once per pass (each row's group, each group's members in row order),
 //   and Mmol x is a sum over the row's group: the 64 KB per tile of the
-//   TPU kernel's molecule matrix is not read.  The backward takes each
-//   molecule's sum once and copies it to the molecule's rows.
-// - The forward's small dense products at C <= 32 run in plain f32 FMAs
-//   (no TF32, no tensor cores), each thread owning one column of a strided
-//   set of rows, one shared-memory load per FMA or two.  The backward's
-//   are register-blocked as the GGNN reverse body's (fused_ggnn_bwd.cu;
-//   helpers in fused_ggnn_common.cuh), since shared memory serves one
-//   wavefront per clock where the f32 pipes take four warp FMAs:
+//   TPU kernel's molecule matrix is not read.  Each molecule's sum is
+//   taken once and copied to the molecule's rows.
+// - Shared-memory bandwidth bounds the small dense products at C <= 32
+//   (plain f32 FMAs: no TF32, no tensor cores): shared memory serves one
+//   wavefront per clock where the f32 pipes take four warp FMAs.  Every
+//   product is register-blocked as the GGNN reverse body's
+//   (fused_ggnn_bwd.cu; helpers in fused_ggnn_common.cuh):
+//   * the forward layer (hm_e for all e with bg, the gates) per chunk of
+//     four reduction steps, one copy (forward_layer) that K5 runs and K5b
+//     runs to recompute, so K5's h and every layer input K5b keeps come
+//     from the same code;
 //   * the weight gradients in three grad_pass passes per layer: the GRU's
 //     six W products, dUn and the three bias sums; dUz, dUr and dm0t
 //     (beside gdbg m0t^T on the other half of the CTA); the four dwt
 //     (beside the message dh);
 //   * drs, [dout, din] with the state's dsu, gdbg m0t^T and the message
 //     dh against the weights' rows padded to C + 4 words, four reduction
-//     steps per 16-byte load;
-//   * the recompute (hm_e for all e with bg, the gates) per chunk of four.
+//     steps per 16-byte load.
 //   Every output belongs to one thread and sums in a fixed order, so a run
 //   repeats bit for bit.
 // Later work: tensor cores for the dense products, several tiles' weight
 // loads shared by a cluster, fewer passes over the partial buffer.
-
-#include <type_traits>
 
 #include "fused_ggnn_common.cuh"
 
@@ -86,16 +88,16 @@ struct MpnnWeights {
   const float* wn; const float* un; const float* bn;
 };
 
-// Shared-memory plan, in 4-byte words.  The backward (BWD) adds dh, pads
-// the weights' rows to CP = C + 4 words (its products against transposed
-// weights read them by rows: the lanes' rows of one 16-byte chunk then
-// fall in distinct banks) and keeps the row lists' columns and the column
-// lists' rows as 16-bit indices, which makes room for the padding.
+// Shared-memory plan, in 4-byte words, of both kernels.  The weights'
+// rows are padded to CP = C + 4 words (the backward's products against
+// transposed weights read them by rows: the lanes' rows of one 16-byte
+// chunk then fall in distinct banks), and the row lists' columns and the
+// column lists' rows are 16-bit indices, which makes room for the
+// padding.  The backward (BWD) adds dh.
 template <int C, bool BWD>
 struct MpnnPlan {
-  using Idx = std::conditional_t<BWD, unsigned short, int>;
-  static constexpr int CP = BWD ? C + 4 : C;          // weight row stride
-  static constexpr int IDX = TILE * NBR_CAP * sizeof(Idx) / 4;  // words of one index list
+  static constexpr int CP = C + 4;                    // weight row stride
+  static constexpr int IDX = TILE * NBR_CAP / 2;      // words of one 16-bit index list
   static constexpr int TC = TILE * C;
   static constexpr int WT = 0;                        // 4 C rows (layer l)
   static constexpr int M0T = WT + NE * C * CP;        // C rows
@@ -112,12 +114,12 @@ struct MpnnPlan {
   static constexpr int DH = HS + TC;                  // T C: dh, then dout (backward)
   static constexpr int HM = DH + (BWD ? TC : 0);      // 4T C: hm | rs dz' dr' dn' | gdbg . . dbg | dhm
   static constexpr int XO = HM + NE * TC;             // T C: out + bg; dh's partial sum
-  static constexpr int XI = XO + TC;                  // T C: in + bg; din
+  static constexpr int XI = XO + TC;                  // T C: in + bg; din; the column build's row masks
   static constexpr int NV = XI + TC;                  // T NBR_CAP row-list values
-  static constexpr int NK = NV + TILE * NBR_CAP;      // T NBR_CAP row-list columns (Idx)
+  static constexpr int NK = NV + TILE * NBR_CAP;      // T NBR_CAP row-list columns (16-bit)
   static constexpr int NC = NK + IDX;                 // T row nonzero counts (int)
   static constexpr int CS = NC + TILE;                // 4T+1 column starts (int)
-  static constexpr int CR = CS + ROW_LEN + 1;         // T NBR_CAP column-list rows (Idx)
+  static constexpr int CR = CS + ROW_LEN + 1;         // T NBR_CAP column-list rows (16-bit)
   static constexpr int CV = CR + IDX;                 // T NBR_CAP column-list values
   static constexpr int OV = CV + TILE * NBR_CAP;      // T overflow rows (int)
   static constexpr int OVN = OV + TILE;               // 1 overflow row count (int)
@@ -130,6 +132,7 @@ struct MpnnPlan {
   static_assert(CP % 4 == 0 && M0T % 4 == 0 && WZ % 4 == 0 && UZ % 4 == 0 &&
                 HS % 4 == 0 && DH % 4 == 0 && HM % 4 == 0 && XO % 4 == 0 &&
                 XI % 4 == 0, "16-byte aligned rows for float4 loads");
+  static_assert(TC >= COLUMN_MASK_WORDS, "row masks fit in XI");
 };
 
 // Offsets in one tile's row of gradient partials: dwt (L,4,C,C), dm0t
@@ -149,34 +152,32 @@ struct MpnnGradLayout {
   __host__ __device__ static size_t words(int L) { return gru0(L) + 3 * gate(L); }
 };
 
-template <typename Idx>
-struct TileOf {
+struct Tile {
   float* wt; float* m0t; GruSmem g;
   float* h; float* dh; float* hm; float* xo; float* xi;
-  float* nv; Idx* nk; int* nc;
-  int* cs; Idx* cr; float* cv; int* ov; int* ovn;
+  float* nv; unsigned short* nk; int* nc;
+  int* cs; unsigned short* cr; float* cv; int* ov; int* ovn;
   int* grp; int* gst; int* gsz; int* gmem;
 };
-using Tile = TileOf<int>;                  // the forward's
-using BwdTile = TileOf<unsigned short>;    // the backward's
 
 __device__ __forceinline__ int* as_ints(float* p) {
   return reinterpret_cast<int*>(p);
 }
 
 template <int C, bool BWD>
-__device__ __forceinline__ TileOf<typename MpnnPlan<C, BWD>::Idx> make_tile(float* smem) {
+__device__ __forceinline__ Tile make_tile(float* smem) {
   using S = MpnnPlan<C, BWD>;
-  TileOf<typename S::Idx> s;
+  using Idx = unsigned short;
+  Tile s;
   s.wt = smem + S::WT; s.m0t = smem + S::M0T;
   s.g = {smem + S::WZ, smem + S::WR, smem + S::WN,
          smem + S::UZ, smem + S::UR, smem + S::UN,
          smem + S::BZ, smem + S::BR, smem + S::BN};
   s.h = smem + S::HS; s.dh = smem + S::DH; s.hm = smem + S::HM;
   s.xo = smem + S::XO; s.xi = smem + S::XI;
-  s.nv = smem + S::NV; s.nk = reinterpret_cast<typename S::Idx*>(smem + S::NK);
+  s.nv = smem + S::NV; s.nk = reinterpret_cast<Idx*>(smem + S::NK);
   s.nc = as_ints(smem + S::NC);
-  s.cs = as_ints(smem + S::CS); s.cr = reinterpret_cast<typename S::Idx*>(smem + S::CR);
+  s.cs = as_ints(smem + S::CS); s.cr = reinterpret_cast<Idx*>(smem + S::CR);
   s.cv = smem + S::CV;
   s.ov = as_ints(smem + S::OV); s.ovn = as_ints(smem + S::OVN);
   s.grp = as_ints(smem + S::GRP); s.gst = as_ints(smem + S::GST);
@@ -184,36 +185,13 @@ __device__ __forceinline__ TileOf<typename MpnnPlan<C, BWD>::Idx> make_tile(floa
   return s;
 }
 
-__device__ __forceinline__ void copy_in(float* dst, const float* src, int n,
-                                        int tid) {
-  for (int i = tid; i < n; i += THREADS) dst[i] = __ldg(src + i);
-}
-
-template <int C>
-__device__ __forceinline__ void load_layer(const MpnnWeights& w, int l,
-                                           const Tile& s, int tid) {
-  constexpr int CC = C * C;
-  copy_in(s.wt, w.wt + size_t(l) * NE * CC, NE * CC, tid);
-  copy_in(s.m0t, w.m0t + size_t(l) * CC, CC, tid);
-  copy_in(s.g.wz, w.wz + size_t(l) * 2 * CC, 2 * CC, tid);
-  copy_in(s.g.wr, w.wr + size_t(l) * 2 * CC, 2 * CC, tid);
-  copy_in(s.g.wn, w.wn + size_t(l) * 2 * CC, 2 * CC, tid);
-  copy_in(s.g.uz, w.uz + size_t(l) * CC, CC, tid);
-  copy_in(s.g.ur, w.ur + size_t(l) * CC, CC, tid);
-  copy_in(s.g.un, w.un + size_t(l) * CC, CC, tid);
-  copy_in(s.g.bz, w.bz + size_t(l) * C, C, tid);
-  copy_in(s.g.br, w.br + size_t(l) * C, C, tid);
-  copy_in(s.g.bn, w.bn + size_t(l) * C, C, tid);
-}
-
 // Molecule groups of the tile's real slots (node_mask > 0), from the
 // molecule ids alone (no assumption that a molecule's slots are
 // contiguous): grp[i] = the first real row of row i's molecule, or -1 for
 // a pad row; for each such first row g, its members in ascending row order
 // at gmem[gst[g] .. gst[g] + gsz[g]).
-template <class TileT>
 __device__ __forceinline__ void build_groups(const int* mol_t, const float* mask_t,
-                                             const TileT& s, int tid) {
+                                             const Tile& s, int tid) {
   if (tid < TILE) {
     int g = -1;
     if (__ldg(mask_t + tid) > 0.0f) {
@@ -246,9 +224,9 @@ __device__ __forceinline__ void build_groups(const int* mol_t, const float* mask
 
 // (Mmol x)[i, c]: the sum of x[j, c] over the real rows j of row i's
 // molecule; 0 on a pad row.
-template <int C, class TileT>
+template <int C>
 __device__ __forceinline__ float group_sum(const float* x, int i, int c,
-                                           const TileT& s) {
+                                           const Tile& s) {
   const int g = s.grp[i];
   float acc = 0.0f;
   if (g >= 0) {
@@ -259,200 +237,37 @@ __device__ __forceinline__ float group_sum(const float* x, int i, int c,
   return acc;
 }
 
-// x = [out + bg, in + bg] of one layer for the tile's h, with the layer's
-// weights in shared memory, into s.xo and s.xi.  `scan` (the first layer
-// of a pass) reads the adjacency rows and builds the row and column lists.
-template <int C>
-__device__ void layer_input(bool scan, const float* adj_t, const Tile& s,
-                            int tid) {
-  using R = Rows<C>;
+// Layer l's message weights wt and m0t, and its GRU's weights, into the
+// tile's shared memory (rows padded to C + 4); ASYNC: by cp.async
+// (to_shared).
+template <int C, bool ASYNC = false>
+__device__ __forceinline__ void load_messages(const MpnnWeights& w, int l,
+                                              const Tile& s, int tid) {
   constexpr int CC = C * C;
-  const int col = tid % C;
-  const int row0 = tid / C;
-  // Mmol h into s.xi (scratch), then bg = (Mmol h) m0t in registers
-#pragma unroll
-  for (int k = 0; k < R::RPT; ++k) {
-    const int i = row0 + k * R::RS;
-    s.xi[i * C + col] = group_sum<C>(s.h, i, col, s);
-  }
-  __syncthreads();
-  float bg[R::RPT];
-#pragma unroll
-  for (int k = 0; k < R::RPT; ++k) bg[k] = 0.0f;
-#pragma unroll 4
-  for (int d = 0; d < C; ++d) {
-    const float wv = s.m0t[d * C + col];
-#pragma unroll
-    for (int k = 0; k < R::RPT; ++k)
-      bg[k] = fmaf(s.xi[(row0 + k * R::RS) * C + d], wv, bg[k]);
-  }
-  // hm_e = h wt_e
-  for (int e = 0; e < NE; ++e) {
-    const float* we = s.wt + e * CC;
-    float acc[R::RPT];
-#pragma unroll
-    for (int k = 0; k < R::RPT; ++k) acc[k] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < C; ++d) {
-      const float wv = we[d * C + col];
-#pragma unroll
-      for (int k = 0; k < R::RPT; ++k)
-        acc[k] = fmaf(s.h[(row0 + k * R::RS) * C + d], wv, acc[k]);
-    }
-#pragma unroll
-    for (int k = 0; k < R::RPT; ++k)
-      s.hm[(e * TILE + row0 + k * R::RS) * C + col] = acc[k];
-  }
-  __syncthreads();
-  // out = A_flat hm (row lists; built by the scan)
-  aggregate<C>(scan, adj_t, s.hm, s.xo, s.nk, s.nv, s.nc, tid);
-  __syncthreads();
-  if (scan) build_columns(s.nk, s.nv, s.nc, s.cs, s.cr, s.cv, s.ov, s.ovn, tid);
-  // in_j = sum_e (A_e^T hm_e)[j] (column lists, crowded rows from global
-  // memory); both halves get bg
-  const int n_ov = *s.ovn;
-#pragma unroll
-  for (int k = 0; k < R::RPT; ++k) {
-    const int j = row0 + k * R::RS;
-    float acc = 0.0f;
-    for (int e = 0; e < NE; ++e) {
-      const int kc = e * TILE + j;
-      const float* hm_e = s.hm + e * TILE * C;
-      const int end = s.cs[kc + 1];
-      for (int p = s.cs[kc]; p < end; ++p)
-        acc = fmaf(s.cv[p], hm_e[s.cr[p] * C + col], acc);
-      for (int o = 0; o < n_ov; ++o) {
-        const int i = s.ov[o];
-        const float a = __ldg(adj_t + size_t(i) * ROW_LEN + kc);
-        if (a != 0.0f) acc = fmaf(a, hm_e[i * C + col], acc);
-      }
-    }
-    s.xi[j * C + col] = acc + bg[k];
-    s.xo[j * C + col] += bg[k];
-  }
-  __syncthreads();
+  load_padded<C, ASYNC>(w.wt + size_t(l) * NE * CC, s.wt, NE * C, tid);
+  load_padded<C, ASYNC>(w.m0t + size_t(l) * CC, s.m0t, C, tid);
 }
 
-// The GRU gates for x = [xo, xi] and state s = h (or 0 when
-// `zero_state`), as gru_gates does for GGNN: returns z, r, n in registers,
-// r*s in s_rs; synchronises once.
-template <int C>
-__device__ __forceinline__ void mpnn_gates(bool zero_state, const Tile& s,
-                                           float* s_rs, float (&z)[Rows<C>::RPT],
-                                           float (&r)[Rows<C>::RPT],
-                                           float (&n)[Rows<C>::RPT], int tid) {
-  using R = Rows<C>;
-  const GruSmem& g = s.g;
-  const int col = tid % C;
-  const int row0 = tid / C;
-#pragma unroll
-  for (int k = 0; k < R::RPT; ++k) {
-    z[k] = g.bz[col]; r[k] = g.br[col]; n[k] = g.bn[col];
-  }
-#pragma unroll 2
-  for (int d = 0; d < C; ++d) {
-    const float wzo = g.wz[d * C + col], wzi = g.wz[(C + d) * C + col];
-    const float wro = g.wr[d * C + col], wri = g.wr[(C + d) * C + col];
-    const float wno = g.wn[d * C + col], wni = g.wn[(C + d) * C + col];
-    const float uz = zero_state ? 0.0f : g.uz[d * C + col];
-    const float ur = zero_state ? 0.0f : g.ur[d * C + col];
-#pragma unroll
-    for (int k = 0; k < R::RPT; ++k) {
-      const int i = row0 + k * R::RS;
-      const float xo = s.xo[i * C + d], xi = s.xi[i * C + d];
-      z[k] = fmaf(xo, wzo, fmaf(xi, wzi, z[k]));
-      r[k] = fmaf(xo, wro, fmaf(xi, wri, r[k]));
-      n[k] = fmaf(xo, wno, fmaf(xi, wni, n[k]));
-      if (!zero_state) {
-        const float hv = s.h[i * C + d];
-        z[k] = fmaf(hv, uz, z[k]);
-        r[k] = fmaf(hv, ur, r[k]);
-      }
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < R::RPT; ++k) {
-    const int i = row0 + k * R::RS;
-    z[k] = sigmoidf(z[k]);
-    r[k] = sigmoidf(r[k]);
-    s_rs[i * C + col] = zero_state ? 0.0f : r[k] * s.h[i * C + col];
-  }
-  __syncthreads();
-  if (!zero_state) {
-#pragma unroll 2
-    for (int d = 0; d < C; ++d) {
-      const float un = g.un[d * C + col];
-#pragma unroll
-      for (int k = 0; k < R::RPT; ++k)
-        n[k] = fmaf(s_rs[(row0 + k * R::RS) * C + d], un, n[k]);
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < R::RPT; ++k) n[k] = tanhf(n[k]);
+template <int C, bool ASYNC = false>
+__device__ __forceinline__ void load_gru(const MpnnWeights& w, int l,
+                                         const Tile& s, int tid) {
+  constexpr int CC = C * C;
+  load_padded<C, ASYNC>(w.wz + size_t(l) * 2 * CC, s.g.wz, 2 * C, tid);
+  load_padded<C, ASYNC>(w.wr + size_t(l) * 2 * CC, s.g.wr, 2 * C, tid);
+  load_padded<C, ASYNC>(w.wn + size_t(l) * 2 * CC, s.g.wn, 2 * C, tid);
+  load_padded<C, ASYNC>(w.uz + size_t(l) * CC, s.g.uz, C, tid);
+  load_padded<C, ASYNC>(w.ur + size_t(l) * CC, s.g.ur, C, tid);
+  load_padded<C, ASYNC>(w.un + size_t(l) * CC, s.g.un, C, tid);
+  copy_in<ASYNC>(s.g.bz, w.bz + size_t(l) * C, C, tid);
+  copy_in<ASYNC>(s.g.br, w.br + size_t(l) * C, C, tid);
+  copy_in<ASYNC>(s.g.bn, w.bn + size_t(l) * C, C, tid);
 }
-
-// One forward layer in place on s.h.
-template <int C>
-__device__ __forceinline__ void forward_layer(bool scan, bool zero_state,
-                                              const float* adj_t, const Tile& s,
-                                              int tid) {
-  using R = Rows<C>;
-  const int col = tid % C;
-  const int row0 = tid / C;
-  layer_input<C>(scan, adj_t, s, tid);
-  float z[R::RPT], r[R::RPT], n[R::RPT];
-  mpnn_gates<C>(zero_state, s, s.hm, z, r, n, tid);
-  // each thread rewrites only its own elements of h
-#pragma unroll
-  for (int k = 0; k < R::RPT; ++k) {
-    const int i = row0 + k * R::RS;
-    const float sv = zero_state ? 0.0f : s.h[i * C + col];
-    s.h[i * C + col] = z[k] * n[k] + (1.0f - z[k]) * sv;
-  }
-  __syncthreads();
-}
-
-template <int C>
-__global__ void __launch_bounds__(THREADS)
-fused_mpnn_kernel(const float* __restrict__ h0, const float* __restrict__ adj,
-                  const int* __restrict__ mol, const float* __restrict__ mask,
-                  MpnnWeights w, float* __restrict__ out, int n_layers,
-                  int carry) {
-  extern __shared__ float smem[];
-  const Tile s = make_tile<C, false>(smem);
-  constexpr int TC = TILE * C;
-  const int tid = threadIdx.x;
-  const size_t tile = blockIdx.x;
-  const float* adj_t = adj + tile * TILE * ROW_LEN;
-  for (int i = tid; i < TC; i += THREADS) s.h[i] = h0[tile * TC + i];
-  build_groups(mol + tile * TILE, mask + tile * TILE, s, tid);
-  for (int l = 0; l < n_layers; ++l) {
-    load_layer<C>(w, l, s, tid);
-    __syncthreads();
-    forward_layer<C>(l == 0, l == 0 || !carry, adj_t, s, tid);
-  }
-  for (int i = tid; i < TC; i += THREADS) out[tile * TC + i] = s.h[i];
-}
-
-// K5b's own copies of the forward's layer steps, on its plan (weights'
-// rows padded to CP = C + 4, 16-bit list indices); K5 keeps its own, so
-// its output does not change.
 
 template <int C>
 __device__ __forceinline__ void load_layer_padded(const MpnnWeights& w, int l,
-                                                  const BwdTile& s, int tid) {
-  constexpr int CC = C * C;
-  load_padded<C>(w.wt + size_t(l) * NE * CC, s.wt, NE * C, tid);
-  load_padded<C>(w.m0t + size_t(l) * CC, s.m0t, C, tid);
-  load_padded<C>(w.wz + size_t(l) * 2 * CC, s.g.wz, 2 * C, tid);
-  load_padded<C>(w.wr + size_t(l) * 2 * CC, s.g.wr, 2 * C, tid);
-  load_padded<C>(w.wn + size_t(l) * 2 * CC, s.g.wn, 2 * C, tid);
-  load_padded<C>(w.uz + size_t(l) * CC, s.g.uz, C, tid);
-  load_padded<C>(w.ur + size_t(l) * CC, s.g.ur, C, tid);
-  load_padded<C>(w.un + size_t(l) * CC, s.g.un, C, tid);
-  copy_in(s.g.bz, w.bz + size_t(l) * C, C, tid);
-  copy_in(s.g.br, w.br + size_t(l) * C, C, tid);
-  copy_in(s.g.bn, w.bn + size_t(l) * C, C, tid);
+                                                  const Tile& s, int tid) {
+  load_messages<C>(w, l, s, tid);
+  load_gru<C>(w, l, s, tid);
 }
 
 // out[i, c] = (Mmol x)[i, c] for every row i (out != x): the threads of a
@@ -462,7 +277,7 @@ __device__ __forceinline__ void load_layer_padded(const MpnnWeights& w, int l,
 // caller synchronises before out is read.
 template <int C>
 __device__ __forceinline__ void group_sums(const float* x, float* out,
-                                           const BwdTile& s, int tid) {
+                                           const Tile& s, int tid) {
   using R = Rows<C>;
   const int col = tid % C;
   const int row0 = tid / C;
@@ -480,17 +295,32 @@ __device__ __forceinline__ void group_sums(const float* x, float* out,
   }
 }
 
-// layer_input on K5b's plan, its dense products register-blocked: bg =
-// (Mmol h) m0t and hm_e = h wt_e for all four e at once, per chunk of four
-// d the five weights' entries of rows d at the thread's column and one
-// 16-byte load (a warp-wide broadcast) of each of its h and Mmol h rows.
-template <int C>
-__device__ void bwd_layer_input(bool scan, const float* adj_t, const BwdTile& s,
-                                int tid) {
+// The adjacency's row lists (scan_rows) and column lists (count_columns,
+// its row masks in xi, which the first layer's molecule sums overwrite),
+// once per call.  Synchronises before it returns.
+__device__ __forceinline__ void build_lists(const float* adj_t, const Tile& s,
+                                            int tid) {
+  scan_rows(adj_t, s.nk, s.nv, s.nc, tid);
+  __syncthreads();
+  count_columns(s.nk, s.nv, s.nc, s.cs, s.cr, s.cv, s.ov, s.ovn,
+                reinterpret_cast<unsigned*>(s.xi), tid);
+}
+
+// x = [out + bg, in + bg] of one layer for the tile's h, with the layer's
+// weights in shared memory, into s.xo and s.xi.  The dense products are
+// register-blocked: bg = (Mmol h) m0t and hm_e = h wt_e for all four e at
+// once, per chunk of four d the five weights' entries of rows d at the
+// thread's column and one 16-byte load (a warp-wide broadcast) of each of
+// its h and Mmol h rows.  The out direction gathers through the row
+// lists, the in direction through the column lists (build_lists).
+template <int C, class Loads>
+__device__ void mpnn_x(const float* adj_t, const Tile& s, int tid,
+                       const Loads& loads) {
   using R = Rows<C>;
   constexpr int CP = C + 4;
   const int col = tid % C;
   const int row0 = tid / C;
+  // Mmol h into xi (scratch), then bg = (Mmol h) m0t and hm_e = h wt_e
   group_sums<C>(s.h, s.xi, s, tid);
   __syncthreads();
   float hm[NE][R::RPT] = {}, bg[R::RPT] = {};
@@ -522,9 +352,12 @@ __device__ void bwd_layer_input(bool scan, const float* adj_t, const BwdTile& s,
     for (int k = 0; k < R::RPT; ++k)
       s.hm[(e * TILE + row0 + k * R::RS) * C + col] = hm[e][k];
   __syncthreads();
-  aggregate<C>(scan, adj_t, s.hm, s.xo, s.nk, s.nv, s.nc, tid);
+  loads.after_products();
+  // out = A_flat hm through the row lists
+  aggregate<C>(adj_t, s.hm, s.xo, s.nk, s.nv, s.nc, tid);
   __syncthreads();
-  if (scan) build_columns(s.nk, s.nv, s.nc, s.cs, s.cr, s.cv, s.ov, s.ovn, tid);
+  // in_j = sum_e (A_e^T hm_e)[j] through the column lists (crowded rows
+  // from global memory); both halves get bg
   const int n_ov = *s.ovn;
 #pragma unroll
   for (int k = 0; k < R::RPT; ++k) {
@@ -576,14 +409,16 @@ __device__ __forceinline__ void add_xw(const float* x, const float* const (&w)[N
   }
 }
 
-// mpnn_gates on K5b's plan, register-blocked: the input products through
-// gate_inputs (x = [xo, xi] against the top and bottom halves of W), the
-// state's through add_xw.
+// The GRU gates for x = [xo, xi] and state s = h (or 0 when
+// `zero_state`), as ggnn_gates does for GGNN: returns z, r, n in
+// registers, r*s in s_rs; synchronises once.  Register-blocked: the input
+// products through gate_inputs (x against the top and bottom halves of
+// W), the state's through add_xw.
 template <int C>
-__device__ __forceinline__ void bwd_gates(bool zero_state, const BwdTile& s,
-                                          float* s_rs, float (&z)[Rows<C>::RPT],
-                                          float (&r)[Rows<C>::RPT],
-                                          float (&n)[Rows<C>::RPT], int tid) {
+__device__ __forceinline__ void mpnn_gru(bool zero_state, const Tile& s,
+                                         float* s_rs, float (&z)[Rows<C>::RPT],
+                                         float (&r)[Rows<C>::RPT],
+                                         float (&n)[Rows<C>::RPT], int tid) {
   using R = Rows<C>;
   const GruSmem& g = s.g;
   const int col = tid % C;
@@ -618,13 +453,93 @@ __device__ __forceinline__ void bwd_gates(bool zero_state, const BwdTile& s,
   for (int k = 0; k < R::RPT; ++k) n[k] = tanhf(n[k]);
 }
 
+// What a forward layer does about the weights at two points: once its
+// products have read wt and m0t, and before its gates read the GRU's.
+// K5b loads each layer's weights whole before the layer (its reverse
+// reads them after): nothing to do.
+struct NoLoads {
+  __device__ void after_products() const {}
+  __device__ void before_gates() const {}
+};
+
+// K5: layer l + 1's wt and m0t load (cp.async) once layer l's products
+// have read theirs, and arrive while it aggregates and gates; its GRU
+// weights load once layer l's gates are done (after forward_layer),
+// while layer l + 1 computes its x.  Each layer waits for a part just
+// before it reads it, with the part loaded after it still in flight.
+template <int C>
+struct NextLayerLoads {
+  const MpnnWeights& w;
+  const Tile& s;
+  int next, n_layers, tid;
+  __device__ void after_products() const {
+    if (next < n_layers) load_messages<C, true>(w, next, s, tid);
+    __pipeline_commit();
+  }
+  __device__ void before_gates() const {
+    __pipeline_wait_prior(1);  // this layer's GRU weights
+    __syncthreads();
+  }
+};
+
+// One forward layer in place on s.h: K5's layers, and the recompute of
+// K5b's forward, are this one copy.
+template <int C, class Loads>
+__device__ __forceinline__ void forward_layer(bool zero_state,
+                                              const float* adj_t, const Tile& s,
+                                              int tid, const Loads& loads) {
+  using R = Rows<C>;
+  const int col = tid % C;
+  const int row0 = tid / C;
+  mpnn_x<C>(adj_t, s, tid, loads);
+  loads.before_gates();
+  float z[R::RPT], r[R::RPT], n[R::RPT];
+  mpnn_gru<C>(zero_state, s, s.hm, z, r, n, tid);
+  // each thread rewrites only its own elements of h
+#pragma unroll
+  for (int k = 0; k < R::RPT; ++k) {
+    const int i = row0 + k * R::RS;
+    const float sv = zero_state ? 0.0f : s.h[i * C + col];
+    s.h[i * C + col] = z[k] * n[k] + (1.0f - z[k]) * sv;
+  }
+  __syncthreads();
+}
+
+// One CTA per SM (the shared-memory plan), so up to 128 registers a thread.
+template <int C>
+__global__ void __launch_bounds__(THREADS, 1)
+fused_mpnn_kernel(const float* __restrict__ h0, const float* __restrict__ adj,
+                  const int* __restrict__ mol, const float* __restrict__ mask,
+                  MpnnWeights w, float* __restrict__ out, int n_layers,
+                  int carry) {
+  extern __shared__ float smem[];
+  const Tile s = make_tile<C, false>(smem);
+  constexpr int TC = TILE * C;
+  const int tid = threadIdx.x;
+  const size_t tile = blockIdx.x;
+  const float* adj_t = adj + tile * TILE * ROW_LEN;
+  for (int i = tid; i < TC; i += THREADS) s.h[i] = h0[tile * TC + i];
+  build_groups(mol + tile * TILE, mask + tile * TILE, s, tid);
+  build_lists(adj_t, s, tid);
+  load_layer_padded<C>(w, 0, s, tid);
+  for (int l = 0; l < n_layers; ++l) {
+    __pipeline_wait_prior(1);  // layer l's wt and m0t
+    __syncthreads();
+    forward_layer<C>(l == 0 || !carry, adj_t, s, tid,
+                     NextLayerLoads<C>{w, s, l + 1, n_layers, tid});
+    if (l + 1 < n_layers) load_gru<C, true>(w, l + 1, s, tid);
+    __pipeline_commit();
+  }
+  for (int i = tid; i < TC; i += THREADS) out[tile * TC + i] = s.h[i];
+}
+
 // dhm_e[i] += sum_j A[i, eT+j] din[j] for every e: one warp per row i,
 // lane c < C owns column c; rows within NBR_CAP go through their lists,
 // the others rescan their dense row.
 template <int C>
 __device__ __forceinline__ void row_scatter(const float* adj_t,
                                             const float* s_din, float* s_dhm,
-                                            const BwdTile& s, int tid) {
+                                            const Tile& s, int tid) {
   const int lane = tid & 31;
   const int warp = tid >> 5;
   for (int i = warp; i < TILE; i += WARPS) {
@@ -676,7 +591,7 @@ fused_mpnn_bwd_kernel(const float* __restrict__ h0, const float* __restrict__ ad
   constexpr int CC = C * C;
   constexpr int CP = C + 4;
   extern __shared__ float smem[];
-  const BwdTile s = make_tile<C, true>(smem);
+  const Tile s = make_tile<C, true>(smem);
   const int tid = threadIdx.x;
   const int col = tid % C;
   const int row0 = tid / C;
@@ -692,21 +607,13 @@ fused_mpnn_bwd_kernel(const float* __restrict__ h0, const float* __restrict__ ad
   // 1. forward, keeping each layer's input in hs
   for (int i = tid; i < TC; i += THREADS) s.h[i] = h0[tile * TC + i];
   build_groups(mol + tile * TILE, mask + tile * TILE, s, tid);
+  build_lists(adj_t, s, tid);
   for (int l = 0; l < L; ++l) {
     const bool zero_state = l == 0 || !carry;
     load_layer_padded<C>(w, l, s, tid);
     for (int i = tid; i < TC; i += THREADS) hs_t[size_t(l) * TC + i] = s.h[i];
     __syncthreads();
-    bwd_layer_input<C>(l == 0, adj_t, s, tid);
-    float z[R::RPT], r[R::RPT], n[R::RPT];
-    bwd_gates<C>(zero_state, s, s.hm, z, r, n, tid);
-#pragma unroll
-    for (int k = 0; k < R::RPT; ++k) {
-      const int i = row0 + k * R::RS;
-      const float sv = zero_state ? 0.0f : s.h[i * C + col];
-      s.h[i * C + col] = z[k] * n[k] + (1.0f - z[k]) * sv;
-    }
-    __syncthreads();
+    forward_layer<C>(zero_state, adj_t, s, tid, NoLoads{});
   }
   const int n_ov = *s.ovn;
 
@@ -724,9 +631,9 @@ fused_mpnn_bwd_kernel(const float* __restrict__ h0, const float* __restrict__ ad
     load_layer_padded<C>(w, l, s, tid);
     for (int i = tid; i < TC; i += THREADS) s.h[i] = hs_t[size_t(l) * TC + i];
     __syncthreads();
-    bwd_layer_input<C>(false, adj_t, s, tid);
+    mpnn_x<C>(adj_t, s, tid, NoLoads{});
     float z[R::RPT], r[R::RPT], n[R::RPT];
-    bwd_gates<C>(zero_state, s, s_rs, z, r, n, tid);
+    mpnn_gru<C>(zero_state, s, s_rs, z, r, n, tid);
 
     // the GRU's adjoint (dh read by its owner only)
     float ds[R::RPT];

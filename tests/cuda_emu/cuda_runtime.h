@@ -1,8 +1,9 @@
 // A CPU stand-in for the part of the CUDA runtime and device language that
-// the backward kernels of gcnbmp_tpu_torch/ops/csrc/ (fused_ggnn_bwd.cu,
-// fused_mpnn.cu, set2set.cu) use, so that g++ can build their C entry
-// points and the tests can run them on the CPU
-// (tests/test_torch_bwd_emulated.py, tests/test_torch_mpnn_emulated.py).
+// the kernels of gcnbmp_tpu_torch/ops/csrc/ (fused_ggnn.cu,
+// fused_ggnn_bwd.cu, fused_mpnn.cu, set2set.cu) use, so that g++ can build
+// their C entry points and the tests can run them on the CPU
+// (tests/test_torch_bwd_emulated.py, tests/test_torch_mpnn_emulated.py,
+// tests/test_torch_fwd_emulated.py).
 // Each CUDA thread of a block is a std::thread; __syncthreads, __syncwarp
 // and the warp collectives are std::barriers.  Blocks run one after
 // another.  Shared memory is filled with NaN before each block, so a read
@@ -13,6 +14,7 @@
 #pragma once
 
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
@@ -57,6 +59,22 @@ struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(8) float2 { float x, y; };
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline int __ffs(unsigned x) { return x ? __builtin_ctz(x) + 1 : 0; }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+// shared-memory atomics: the threads of a block are threads here too
+template <class T> inline T atomicAdd(T* p, T v) {
+  return std::atomic_ref<T>(*p).fetch_add(v);
+}
+template <class T> inline T atomicOr(T* p, T v) {
+  return std::atomic_ref<T>(*p).fetch_or(v);
+}
+// cp.async through CUDA's pipeline primitives, synchronous here: the copy
+// is done when the call returns, so commit and wait have nothing to do.
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t size,
+                                    size_t = 0) {
+  std::memcpy(dst, src, size);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(size_t) {}
 
 struct EmuDim { unsigned x = 0, y = 0, z = 0; };
 namespace emu {

@@ -18,14 +18,17 @@ from gcnbmp_tpu_torch.ops import build
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def build_emulated(source, work):
-    """g++-build ``ops/csrc/<source>`` (and the shared headers) in the
-    directory ``work``; returns the loaded library with the argtypes of
-    ``build.SOURCES[source]`` set.  Skips the test without g++."""
+def build_emulated(source, work, entries=None, src_dir=build.CSRC):
+    """g++-build ``<src_dir>/<source>`` (by default ``ops/csrc``) and the
+    shared headers of ``ops/csrc`` in the directory ``work``; returns the
+    loaded library with the argtypes of ``entries`` set (by default
+    ``build.SOURCES[source]``; a test harness beside this file passes its
+    own).  Skips the test without g++."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is needed to build the emulated kernels")
-    for name in (source, *build.HEADERS):
-        with open(os.path.join(build.CSRC, name)) as f:
+    for where, name in ((src_dir, source),
+                        *((build.CSRC, h) for h in build.HEADERS)):
+        with open(os.path.join(where, name)) as f:
             text = f.read()
         text = text.replace("extern __shared__ float smem[];",
                             "float* smem = emu::smem;")
@@ -41,7 +44,7 @@ def build_emulated(source, work):
                     "-w", "-I", HERE, "-o", out,
                     os.path.join(work, stem + ".cpp")], check=True)
     handle = ctypes.CDLL(out)
-    for name, argtypes in build.SOURCES[source].items():
+    for name, argtypes in (entries or build.SOURCES[source]).items():
         getattr(handle, name).argtypes = argtypes
         getattr(handle, name).restype = ctypes.c_int
     return handle

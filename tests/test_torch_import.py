@@ -10,7 +10,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "gcnbmp_tpu_torch")
 CHIP_SCRIPTS = [os.path.join(ROOT, name)
-                for name in ("chip_smoke.py", "chip_k5b_phases.py")]
+                for name in ("chip_smoke.py", "chip_phases.py")]
 
 MODULES = [
     "gcnbmp_tpu_torch",
