@@ -8,8 +8,8 @@ Phases, each fatal on failure:
 2. build: compile the CUDA kernels from ``gcnbmp_tpu_torch/ops/csrc``,
    one nvcc per source, all at once; print ptxas's registers and spills,
    and those of each instance of the forward and backward bodies (K1,
-   K1m, K2, the GGNN reverse body, K5, K5b, K4b's two kernels); an
-   instance of the GGNN or MPNN bodies that spills fails.
+   K1m, K2, the GGNN reverse body, K5, K5b, K4, K4b's two kernels); an
+   instance of the GGNN or MPNN bodies or of K4 that spills fails.
 3. kernels vs plain, at the shapes of real packed batches (the first 2048
    pairs of dataset/synth546's drug test split at batch 256 and 2048);
    errors, median CUDA-event times of kernel and plain version per call
@@ -29,11 +29,11 @@ Phases, each fatal on failure:
       (``fused_set2set``) and K4b (``fused_set2set_bwd``) at the quality
       row's model (L=4 tied, H=32; Set2Set tables 24 and 64 atoms wide),
       the bench model (L=8 untied, H=32), one H=16 case, one crowded,
-      asymmetric adjacency and one layer for K5/K5b; two K5 runs, two
-      K5b runs and two K4b runs on the same inputs must give the same
-      bits, and the resident CTAs per SM of K5b's and K4b's launches (the
-      CUDA occupancy query) and their waves over the card's SMs are
-      printed.
+      asymmetric adjacency and one layer for K5/K5b; two runs each of K5,
+      K5b, K4 and K4b on the same inputs must give the same bits, and the
+      resident CTAs per SM of K5b's, K4's and K4b's launches (the CUDA
+      occupancy query), their warps (K4: its groups of four) and their
+      waves over the card's SMs are printed.
 4. GGNN serving: ``gcnbmp_tpu_torch.cli.predict.main`` serves those 2048
    pairs at batch 256 (eight requests) with seeded random weights; K2
    must launch once per request, every prob must be finite and in
@@ -190,6 +190,8 @@ BODIES = (
      lambda m: f"fused_ggnn_bwd_kernel<{m[1]}, {'true' if m[2] == '1' else 'false'}>"),
     (r"fused_mpnn_bwd_kernelILi(\d+)E",
      lambda m: f"fused_mpnn_bwd_kernel<{m[1]}>"),
+    (r"set2set_fwd_kernelILi(\d+)ELi(\d+)E",
+     lambda m: f"set2set_fwd_kernel<{m[1]}, {m[2]}> (K4)"),
     (r"(set2set_(?:bwd|grad)[a-z_]*kernel)ILi(\d+)E",
      lambda m: f"{m[1]}<{m[2]}>"))
 
@@ -198,8 +200,8 @@ def body_registers(log: str):
     """(instance, registers and spills) of each instance of the forward
     and backward bodies (K1, K1m and K2's ``fused_ggnn_kernel``, the GGNN
     reverse body ``fused_ggnn_bwd_kernel<H, READOUT>``, K5's and K5b's
-    ``fused_mpnn_kernel<C>`` and ``fused_mpnn_bwd_kernel<C>``, K4b's
-    kernels) in nvcc's ``-Xptxas -v`` report."""
+    ``fused_mpnn_kernel<C>`` and ``fused_mpnn_bwd_kernel<C>``, K4's and
+    K4b's kernels) in nvcc's ``-Xptxas -v`` report."""
     out, body = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -418,11 +420,12 @@ def repeat_bits(label, tag, fn, torch):
     print(f"{label} twice on the same inputs: equal bits [{tag}]")
 
 
-def occupancy(label, tag, entry, *args):
+def occupancy(label, tag, entry, *args, group_warps=None):
     """Print what ``entry`` (a kernel's exported occupancy query) reports:
     the CTAs an SM holds at the shared memory of the kernel's launch
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the CTAs launched and
-    their warps, and the waves over the card's SMs."""
+    their warps (and groups of ``group_warps`` warps), and the waves over
+    the card's SMs."""
     import ctypes
 
     import torch
@@ -433,9 +436,11 @@ def occupancy(label, tag, entry, *args):
         raise AssertionError(f"{label} occupancy query failed ({err})")
     per_sm, ctas, warps = out
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    groups = (f" ({warps // group_warps} groups of {group_warps})"
+              if group_warps else "")
     print(f"  occupancy {label} [{tag}]: {per_sm} resident CTAs of {warps} "
-          f"warps per SM ({per_sm * warps} warps), {ctas} CTAs on {sms} SMs "
-          f"= {ctas / (per_sm * sms):.2f} waves")
+          f"warps{groups} per SM ({per_sm * warps} warps), {ctas} CTAs on "
+          f"{sms} SMs = {ctas / (per_sm * sms):.2f} waves")
 
 
 def profile_steps(step, n_steps):
@@ -845,7 +850,8 @@ def main() -> int:
     for body, use in body_registers(build.last_build_log or ""):
         print(f"build: {body}: {use}")
         spills = [int(n) for n in re.findall(r"(\d+) bytes spill", use)]
-        if body.startswith(("fused_ggnn", "fused_mpnn")) and any(spills):
+        if body.startswith(("fused_ggnn", "fused_mpnn", "set2set_fwd")) \
+                and any(spills):
             spilling.append(f"{body}: {use}")
     if spilling:
         raise AssertionError("instances that spill registers: " + "; ".join(spilling))
@@ -1075,8 +1081,11 @@ def main() -> int:
                                                    grads, GRU_KEYS, smi, torch,
                                                    REPS if head else REPS_OTHER),
                            head, ops, inputs)
+                repeat_bits("K4", stag, lambda: fused_set2set(*k4_args), torch)
                 repeat_bits("K4b", stag, lambda: fused_set2set_bwd(*k4_args, dg),
                             torch)
+                occupancy("K4", stag, lib.set2set_fwd_occupancy, num_mols,
+                          n_max, atoms.shape[-1], S2S_STEPS, group_warps=4)
                 occupancy("K4b", stag, lib.set2set_bwd_occupancy, num_mols,
                           n_max, atoms.shape[-1], S2S_STEPS)
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")

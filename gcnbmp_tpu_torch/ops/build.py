@@ -49,6 +49,7 @@ SOURCES = {
         "fused_set2set_bwd": [_P] * 10 + [_I] * 4 + [_P],
         "set2set_bwd_splits": [_I] * 2,
         "set2set_bwd_occupancy": [_I] * 4 + [_P],
+        "set2set_fwd_occupancy": [_I] * 4 + [_P],
     },
 }
 

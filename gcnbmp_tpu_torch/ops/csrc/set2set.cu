@@ -22,21 +22,44 @@
 //
 // What bounds it on this card, and what the design does about it:
 // - Each molecule is a chain of S small dependent steps over <= 128 x 32
-//   values: latency, not bandwidth or FLOPs.  One warp owns a molecule
-//   (lane c holds channel c of c, q and r; lane n holds atoms n, n+32, ..
-//   of the softmax), so a step is warp shuffles and register math with no
-//   block-wide barrier.  A CTA keeps wx, wh and b (48.5 KB at C = 32) in
-//   shared memory and its warps walk the molecules grid-stride, so the
-//   weights are loaded once per CTA, not per molecule.  The forward runs
-//   CTAs of 4 warps; the backward, whose warps keep more, sizes its CTA
-//   at launch from n_max (16 warps at n_max = 24, C = 32: 200 KB, one CTA
-//   per SM) and launches at most one CTA per SM, so every SM's warps hide
-//   each other's latency and no warp waits for another.
-// - The molecule's atom rows are staged in shared memory with a padded
-//   row stride (C + 1 words), so the energies' per-lane row reads and the
-//   weighted sum's per-lane column reads are both free of bank conflicts.
-// - Weight gradients: the backward's warps write each step's LSTM input
-//   x = [q, r] of the step before (zero at the first) and pre-activation
+//   values: latency and instruction count, not bandwidth or FLOPs (the
+//   f32 work of M = 512 molecules is about 0.4 us of the card's FMA rate).
+// - K4 gives each molecule a group of four warps (GROUP threads) that
+//   synchronises on its own named barrier (bar.sync 1 + group, GROUP),
+//   never on the CTA's, so no group waits for another.  A CTA holds up to
+//   MAX_GROUPS groups, and the launch puts at most one CTA on each SM: at
+//   small M every SM works (M = 512: 132 CTAs of 4 groups, 512 of them
+//   with a molecule), at large M each SM keeps 16 warps in flight (its
+//   registers allow no more) and the groups walk the molecules.  In a
+//   step, thread j < 4C computes LSTM pre-activation j as q.W_q[:, j] +
+//   r.W_r[:, j] + b_j, with W_q = wx[0:C] + wh folded once (the LSTM's
+//   hidden is q: 2C terms, not 3C) and both columns held in registers;
+//   the gates meet in shared memory; four threads per atom take the
+//   energies by 16-byte reads; every warp takes the softmax of all the
+//   atoms itself (no barrier); each warp sums its share of the atoms for
+//   r, and threads c < C add the shares in a fixed order, so a run
+//   repeats bit for bit.  The kernel is instantiated per atoms per lane
+//   (NPL = ceil(n_max / 32)), so no loop runs over blocks of atoms the
+//   table does not have.  Step 0 has q* = hh = 0, so its gates are b.
+// - Weights and atoms by bulk copies (cp.async.bulk, completing on
+//   mbarriers): one thread copies wx and wh (48 KB at C = 32) to shared
+//   memory while step 0 runs (b, which step 0 needs, is a plain load);
+//   each group's threads wait for them at their first step 1 and take
+//   their columns into registers.  Each group's atom tables (unpadded,
+//   (n_max, C)) land two molecules ahead in two buffers, so the next
+//   molecule's copy runs under the current one's steps.
+// - Not tensor cores: with at most 4 molecules per SM in flight, a step's
+//   LSTM product has 4 rows against wgmma's 64.
+// - K4b: one warp owns a molecule (lane c holds channel c of c, q and r;
+//   lane n holds atoms n, n+32, .. of the softmax), so a step is warp
+//   shuffles and register math.  A CTA keeps wx, wh and b in shared
+//   memory; its CTA is sized at launch from n_max (16 warps at n_max =
+//   24, C = 32: 200 KB, one CTA per SM), at most one CTA per SM.  The
+//   molecule's atom rows are staged with a padded row stride (C + 1
+//   words), so the energies' per-lane row reads and the weighted sum's
+//   per-lane column reads are both free of bank conflicts.
+// - K4b's weight gradients: its warps write each step's LSTM input x =
+//   [q, r] of the step before (zero at the first) and pre-activation
 //   adjoint dy to a global scratch of (M, S, 6C) rows; a second kernel
 //   takes dwx = X^T DY (whose top C rows are dwh: the LSTM's hidden is q)
 //   and db = sum DY as register-blocked products over fixed splits of
@@ -47,6 +70,53 @@
 
 #include "fused_ggnn_common.cuh"
 
+#ifdef __CUDACC__
+// Hopper's named barriers, mbarriers and bulk copies, in PTX (the CPU
+// stand-in of tests/cuda_emu defines the same functions).
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+// arrive, and expect `bytes` more to land before the phase completes
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+// order this thread's generic-proxy accesses of shared memory before its
+// later bulk copies into it
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+// global -> shared, `bytes` a multiple of 16 at 16-byte-aligned addresses;
+// completes its bytes on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes),
+      "r"(smem_u32(bar)) : "memory");
+}
+#endif
+
 namespace {
 
 using ggnn::MAX_DEVICES;
@@ -54,12 +124,12 @@ using ggnn::opt_in_smem;
 using ggnn::sigmoidf;
 using ggnn::sum_tiles_kernel;
 
-constexpr int WARPS = 4;           // the forward's CTA
-constexpr int THREADS = WARPS * 32;
 constexpr int MAX_NPL = 4;         // atoms per lane: n_max <= 128
 constexpr int MAX_ATOMS = 32 * MAX_NPL;
 constexpr int MAX_STEPS = 4;
-constexpr int MAX_CTAS = 264;      // the forward's grid: two CTAs per SM of an H100
+constexpr int GROUP = 128;         // the forward's threads per molecule
+constexpr int MAX_GROUPS = 4;      // the forward's molecules in flight per CTA
+constexpr int EPT = 4;             // the forward's threads per atom's energy
 constexpr int MAX_BWD_WARPS = 16;  // the backward's CTA
 constexpr int GRAD_ROWS = 64;      // scratch rows per split of the weight gradients
 constexpr int GRAD_THREADS = 512;  // one (C/8) x (C/8) block of dwx (2C, 4C) each
@@ -67,7 +137,8 @@ constexpr size_t SMEM_MAX = 232448;  // shared memory a CTA may opt into
 constexpr float NEG = -1e9f;
 constexpr unsigned FULL = 0xffffffffu;
 
-// Shared-memory words of the weights: wx (2C, 4C), wh (C, 4C), b (4C).
+// K4b's shared-memory words of the weights: wx (2C, 4C), wh (C, 4C), b
+// (4C).
 template <int C>
 struct S2sWeights {
   static constexpr int G = 4 * C;
@@ -96,10 +167,12 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// K4b's one-warp steps, from here to set2set_bwd_kernel (K4 has its own,
+// molecule_steps).
 template <int C>
 __device__ __forceinline__ void load_weights(float* s_w, const float* wx,
                                              const float* wh, const float* b,
-                                             int threads = THREADS) {
+                                             int threads) {
   using W = S2sWeights<C>;
   for (int i = threadIdx.x; i < 2 * C * W::G; i += threads) s_w[W::WX + i] = wx[i];
   for (int i = threadIdx.x; i < C * W::G; i += threads) s_w[W::WH + i] = wh[i];
@@ -252,32 +325,254 @@ __device__ __forceinline__ void forward_steps(const float* s_w,
   }
 }
 
+// K4's shared-memory words: the weights' mbarrier (a 4-word header) and
+// staging area wx (2C, 4C), wh (C, 4C), then per group two atom tables
+// (n_max, C) unpadded, q and r (C each), the activated gates (4C), the
+// energies (n_max, rounded up to 4), the weighted sum's partials (GROUP /
+// C rows of C) and the tables' two mbarriers (4 words).  Every block
+// starts on a 16-byte boundary.
 template <int C>
-__global__ void __launch_bounds__(THREADS)
+struct FwdPlan {
+  static constexpr int G = 4 * C;
+  static constexpr int W = 4;                // wx, then wh
+  static constexpr int GROUPS_AT = W + 3 * C * G;
+  int table, q, r, y, e, part, bar, words;   // a group's blocks and size
+  __host__ __device__ constexpr explicit FwdPlan(int n_max)
+      : table(n_max * C), q(2 * table), r(q + C), y(r + C), e(y + G),
+        part(e + ((n_max + 3) & ~3)), bar(part + GROUP), words(bar + 4) {}
+  __host__ __device__ constexpr size_t bytes(int groups) const {
+    return size_t(GROUPS_AT + groups * words) * 4;
+  }
+};
+
+// Thread j < 4C's LSTM weights: b_j, and columns j of W_q = wx[0:C] + wh
+// (the LSTM's hidden is q) and of W_r = wx[C:2C] in registers, taken from
+// the CTA's staged copy of wx and wh once its bulk copy has landed.
+template <int C>
+struct ColumnWeights {
+  float wq[C], wr[C], bj;
+  bool ready;
+  const float* s_w;          // wx (2C, 4C), then wh (C, 4C)
+  unsigned long long* bar;   // completes when s_w has landed
+  __device__ __forceinline__ void take(int j) {
+    constexpr int G = 4 * C;
+    mbar_wait(bar, 0);
+#pragma unroll
+    for (int d = 0; d < C; ++d) {
+      wq[d] = s_w[d * G + j] + s_w[(2 * C + d) * G + j];
+      wr[d] = s_w[(C + d) * G + j];
+    }
+    ready = true;
+  }
+};
+
+// e += a . b for four channels
+__device__ __forceinline__ float dot4(float4 a, float4 b, float e) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, e))));
+}
+
+// The K4 steps of one molecule by one group (thread tid < GROUP of it, on
+// named barrier `bar`) over its table s_atoms, NPL = ceil(n_max / 32)
+// atoms per lane.  Returns, on threads tid < C, the molecule's q and r of
+// channel tid.
+template <int C, int NPL>
+__device__ __forceinline__ void molecule_steps(ColumnWeights<C>& w,
+                                               const float* s_atoms,
+                                               float* s_g, const FwdPlan<C>& pl,
+                                               const float (&am)[NPL],
+                                               int n_max, int steps, int bar,
+                                               int tid, float& q, float& r) {
+  constexpr int G = 4 * C;
+  constexpr int CPT = C / EPT;       // channels per energy thread: 8 or 4
+  constexpr int PARTS = GROUP / C;   // weighted-sum partials per channel
+  const int lane = tid & 31, warp = tid >> 5;
+  float* s_q = s_g + pl.q;
+  float* s_r = s_g + pl.r;
+  float* s_y = s_g + pl.y;
+  float* s_e = s_g + pl.e;
+  float* s_part = s_g + pl.part;
+  float c = 0.0f;
+  q = r = 0.0f;
+  for (int s = 0; s < steps; ++s) {
+    // LSTM: y_j = b_j + q . W_q[:, j] + r . W_r[:, j] (hh = q), in four
+    // partial sums; at step 0 q* = hh = 0 and y = b, so the weights are
+    // waited for (and taken into registers) only at the first step 1
+    if (tid < G) {
+      float y = w.bj;
+      if (s == 1 && !w.ready) w.take(tid);
+      if (s > 0) {
+        float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+#pragma unroll
+        for (int d = 0; d < C; d += 4) {
+          const float4 qv = *reinterpret_cast<const float4*>(s_q + d);
+          const float4 rv = *reinterpret_cast<const float4*>(s_r + d);
+          a0 = fmaf(qv.x, w.wq[d], a0);
+          a1 = fmaf(qv.y, w.wq[d + 1], a1);
+          a2 = fmaf(qv.z, w.wq[d + 2], a2);
+          a3 = fmaf(qv.w, w.wq[d + 3], a3);
+          a0 = fmaf(rv.x, w.wr[d], a0);
+          a1 = fmaf(rv.y, w.wr[d + 1], a1);
+          a2 = fmaf(rv.z, w.wr[d + 2], a2);
+          a3 = fmaf(rv.w, w.wr[d + 3], a3);
+        }
+        y += (a0 + a1) + (a2 + a3);
+      }
+      s_y[tid] = tid / C == 2 ? tanhf(y) : sigmoidf(y);
+    }
+    named_sync(bar, GROUP);
+    if (tid < C) {
+      c = s_y[C + tid] * c + s_y[tid] * s_y[2 * C + tid];
+      q = s_y[3 * C + tid] * tanhf(c);
+      s_q[tid] = q;
+    }
+    named_sync(bar, GROUP);
+    // energies atoms . q: EPT threads per atom, thread u the CPT channels
+    // from u CPT on, as 16-byte reads (at C = 32 the two halves in an
+    // order that alternates with the atom, so that each quarter warp's
+    // reads fall on distinct banks); q's CPT channels in registers
+    const int u = tid % EPT;
+    const float4* qu = reinterpret_cast<const float4*>(s_q + u * CPT);
+    const float4 qa = qu[0], qb = qu[CPT / 4 - 1];
+#pragma unroll
+    for (int k = 0; k < NPL; ++k) {
+      const int n = 32 * k + tid / EPT;
+      float e = 0.0f;
+      if (n < n_max) {
+        const float4* row = reinterpret_cast<const float4*>(s_atoms + n * C + u * CPT);
+        if (CPT == 8) {
+          const int odd = n & 1;
+          e = dot4(row[odd], odd ? qb : qa, e);
+          e = dot4(row[1 - odd], odd ? qa : qb, e);
+        } else {
+          e = dot4(row[0], qa, e);
+        }
+      }
+      e += __shfl_xor_sync(FULL, e, 1);
+      e += __shfl_xor_sync(FULL, e, 2);
+      if (u == 0 && n < n_max) s_e[n] = e;
+    }
+    named_sync(bar, GROUP);
+    // softmax over the atoms, -1e9 where the mask is 0: every warp takes
+    // the whole of it (lane holds atoms lane + 32k), then p amask
+    float p[NPL];
+    float mx = -3.0e38f;  // below every energy, -1e9 included
+#pragma unroll
+    for (int k = 0; k < NPL; ++k) {
+      if (lane + 32 * k < n_max) {
+        p[k] = am[k] > 0.0f ? s_e[lane + 32 * k] : NEG;
+        mx = fmaxf(mx, p[k]);
+      }
+    }
+    mx = warp_max(mx);
+    float sum = 0.0f;
+#pragma unroll
+    for (int k = 0; k < NPL; ++k) {
+      p[k] = lane + 32 * k < n_max ? expf(p[k] - mx) : 0.0f;
+      sum += p[k];
+    }
+    const float inv = 1.0f / warp_sum(sum);
+#pragma unroll
+    for (int k = 0; k < NPL; ++k) p[k] = p[k] * inv * am[k];
+    // r = sum_n (p amask)_n atoms_n: partial `part` (a warp, or half of
+    // one at C = 16) sums the atoms n = part mod PARTS for channel ch,
+    // then threads tid < C add the partials in order
+    const int part = warp * (32 / C) + lane / C, ch = lane % C;
+    float acc = 0.0f;
+#pragma unroll
+    for (int k = 0; k < NPL; ++k) {
+#pragma unroll
+      for (int j = part; j < 32; j += PARTS) {
+        const float pk = __shfl_sync(FULL, p[k], j);
+        if (32 * k + j < n_max) acc = fmaf(pk, s_atoms[(32 * k + j) * C + ch], acc);
+      }
+    }
+    s_part[part * C + ch] = acc;
+    named_sync(bar, GROUP);
+    if (tid < C) {
+      r = s_part[tid];
+#pragma unroll
+      for (int i = 1; i < PARTS; ++i) r += s_part[i * C + tid];
+      s_r[tid] = r;
+    }
+    if (s + 1 < steps) named_sync(bar, GROUP);
+  }
+}
+
+// K4: groups of GROUP threads (blockDim.x / GROUP of them) each walk the
+// molecules blockIdx.x + group gridDim.x, then on by gridDim.x groups.
+template <int C, int NPL>
+__global__ void __launch_bounds__(MAX_GROUPS * GROUP, 1)
 set2set_fwd_kernel(const float* __restrict__ atoms,
                    const float* __restrict__ amask,
                    const float* __restrict__ wx, const float* __restrict__ wh,
                    const float* __restrict__ b, float* __restrict__ out, int m,
                    int n_max, int steps) {
+  using Pl = FwdPlan<C>;
+  constexpr int G = Pl::G;
   extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  load_weights<C>(smem, wx, wh, b);
-  __syncthreads();
-  float* s_atoms = smem + S2sWeights<C>::WORDS + warp * n_max * (C + 1);
-  for (int base = blockIdx.x * WARPS; base < m; base += gridDim.x * WARPS) {
-    const int mol = base + warp;
-    if (mol >= m) break;  // warp-uniform
-    float am[MAX_NPL];
-    stage<C>(atoms, amask, mol, n_max, s_atoms, nullptr, am, lane);
-    float q, r;
-    forward_steps<C>(smem, s_atoms, am, n_max, steps, nullptr, q, r);
-    if (lane < C) {
-      out[size_t(mol) * 2 * C + lane] = q;
-      out[size_t(mol) * 2 * C + C + lane] = r;
+  const FwdPlan<C> pl(n_max);
+  const int groups = blockDim.x / GROUP;
+  const int group = threadIdx.x / GROUP, tid = threadIdx.x % GROUP;
+  const int lane = tid & 31;
+  float* s_w = smem + Pl::W;
+  float* s_g = smem + Pl::GROUPS_AT + group * pl.words;
+  unsigned long long* wbar = reinterpret_cast<unsigned long long*>(smem);
+  unsigned long long* tbar = reinterpret_cast<unsigned long long*>(s_g + pl.bar);
+  if (threadIdx.x == 0) {  // wx and wh by one bulk copy each, behind step 0
+    mbar_init(wbar, 1);
+    for (int g = 0; g < groups; ++g) {
+      unsigned long long* gb = reinterpret_cast<unsigned long long*>(
+          smem + Pl::GROUPS_AT + g * pl.words + pl.bar);
+      mbar_init(gb, 1);
+      mbar_init(gb + 1, 1);
     }
-    __syncwarp();  // the table is rewritten for the next molecule
+    mbar_fence_init();
+    mbar_expect_tx(wbar, 3 * C * G * 4);
+    bulk_copy(s_w, wx, 2 * C * G * 4, wbar);
+    bulk_copy(s_w + 2 * C * G, wh, C * G * 4, wbar);
   }
+  __syncthreads();  // the barrier is initialised before any thread waits on it
+  ColumnWeights<C> w;
+  w.ready = false;
+  w.s_w = s_w;
+  w.bar = wbar;
+  w.bj = tid < G ? b[tid] : 0.0f;
+  // the group's molecules first, first + stride, ...: molecule i's table
+  // lands in table i % 2 by one bulk copy, started two molecules ahead
+  const int stride = gridDim.x * groups;
+  const int first = blockIdx.x + group * gridDim.x;
+  const unsigned bytes = unsigned(pl.table) * 4;
+  auto fetch = [&](int buf, int mol) {
+    mbar_expect_tx(tbar + buf, bytes);
+    bulk_copy(s_g + buf * pl.table, atoms + size_t(mol) * pl.table, bytes, tbar + buf);
+  };
+  if (tid == 0) {
+    if (first < m) fetch(0, first);
+    if (first + stride < m) fetch(1, first + stride);
+  }
+  int i = 0;
+  for (int mol = first; mol < m; mol += stride, ++i) {
+    const int buf = i & 1;
+    float am[NPL];
+#pragma unroll
+    for (int k = 0; k < NPL; ++k)
+      am[k] = lane + 32 * k < n_max ? amask[size_t(mol) * n_max + lane + 32 * k] : 0.0f;
+    mbar_wait(tbar + buf, (i >> 1) & 1);
+    float q, r;
+    molecule_steps<C, NPL>(w, s_g + buf * pl.table, s_g, pl, am, n_max, steps,
+                           1 + group, tid, q, r);
+    // every thread of the group is past its last read of the table (the
+    // last step's partials barrier): the table takes molecule i + 2
+    if (tid == 0 && mol + 2 * stride < m) {
+      fence_proxy_async();
+      fetch(buf, mol + 2 * stride);
+    }
+    if (tid < C) {
+      out[size_t(mol) * 2 * C + tid] = q;
+      out[size_t(mol) * 2 * C + C + tid] = r;
+    }
+  }
+  if (threadIdx.x == 0) mbar_wait(wbar, 0);  // no exit before the copy lands
 }
 
 // dq* = dy wx^T and dhh = dy wh^T for channel `lane`, adding gate
@@ -466,11 +761,6 @@ set2set_grad_kernel(const float* __restrict__ xs, float* __restrict__ partial,
     for (int y = 0; y < BK; ++y) out[W::B + tc * BK + y] = db[y];
 }
 
-int fwd_ctas(int m) {
-  const int blocks = (m + WARPS - 1) / WARPS;
-  return blocks < MAX_CTAS ? blocks : MAX_CTAS;
-}
-
 int grad_splits(int m, int steps) {
   return (m * steps + GRAD_ROWS - 1) / GRAD_ROWS;
 }
@@ -504,23 +794,74 @@ cudaError_t bwd_launch(int m, int n_max, int steps, BwdLaunch& out) {
   return cudaSuccess;
 }
 
-template <int C>
-size_t fwd_bytes(int n_max) {
-  return size_t(S2sWeights<C>::WORDS + WARPS * n_max * (C + 1)) * 4;
+// K4's launch for m molecules: one CTA per SM at most (ctas), each of
+// `groups` groups, so that every SM works at small m and each SM keeps
+// MAX_GROUPS molecules (16 warps) in flight at large m.  Opts the kernel
+// into the widest table's shared memory first.
+struct FwdLaunch {
+  int ctas, groups;
+  size_t bytes;
+};
+
+template <int C, int NPL>
+cudaError_t fwd_launch(int m, int n_max, FwdLaunch& out) {
+  static_assert(FwdPlan<C>(MAX_ATOMS).bytes(MAX_GROUPS) <= SMEM_MAX,
+                "the widest tables of every group fit beside the weights");
+  static bool opted_in[MAX_DEVICES] = {};
+  static int sm_count[MAX_DEVICES] = {};
+  cudaError_t err = opt_in_smem(set2set_fwd_kernel<C, NPL>,
+                                FwdPlan<C>(32 * NPL).bytes(MAX_GROUPS), opted_in);
+  int dev = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && sm_count[dev] == 0)
+    err = cudaDeviceGetAttribute(&sm_count[dev], cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  out.ctas = min(sm_count[dev], m);
+  out.groups = min(MAX_GROUPS, (m + out.ctas - 1) / out.ctas);
+  out.bytes = FwdPlan<C>(n_max).bytes(out.groups);
+  return cudaSuccess;
 }
 
-template <int C>
+template <int C, int NPL>
 cudaError_t launch_fwd(const float* atoms, const float* amask, const float* wx,
                        const float* wh, const float* b, float* out, int m,
                        int n_max, int steps, cudaStream_t stream) {
-  constexpr size_t max_bytes = size_t(S2sWeights<C>::WORDS + WARPS * MAX_ATOMS * (C + 1)) * 4;
-  static_assert(max_bytes <= 232448, "shared-memory plan exceeds 227 KB");
-  static bool opted_in[MAX_DEVICES] = {};
-  cudaError_t err = opt_in_smem(set2set_fwd_kernel<C>, max_bytes, opted_in);
+  FwdLaunch lc;
+  const cudaError_t err = fwd_launch<C, NPL>(m, n_max, lc);
   if (err != cudaSuccess) return err;
-  set2set_fwd_kernel<C><<<fwd_ctas(m), THREADS, fwd_bytes<C>(n_max), stream>>>(
+  set2set_fwd_kernel<C, NPL><<<lc.ctas, lc.groups * GROUP, lc.bytes, stream>>>(
       atoms, amask, wx, wh, b, out, m, n_max, steps);
   return cudaGetLastError();
+}
+
+template <int C, int NPL>
+cudaError_t fwd_occupancy(int m, int n_max, int* out) {
+  FwdLaunch lc;
+  const cudaError_t err = fwd_launch<C, NPL>(m, n_max, lc);
+  if (err != cudaSuccess) return err;
+  out[1] = lc.ctas;
+  out[2] = lc.groups * GROUP / 32;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, set2set_fwd_kernel<C, NPL>, lc.groups * GROUP, lc.bytes);
+}
+
+// K4's instance for C channels and n_max atoms (atoms per lane
+// ceil(n_max / 32)): launched, or its occupancy queried
+template <int C>
+cudaError_t fwd_dispatch(bool launch, const float* atoms, const float* amask,
+                         const float* wx, const float* wh, const float* b,
+                         float* out, int m, int n_max, int steps,
+                         cudaStream_t stream, int* occ) {
+  switch ((n_max + 31) / 32) {
+#define K4_NPL(NPL)                                                            \
+  case NPL:                                                                    \
+    return launch ? launch_fwd<C, NPL>(atoms, amask, wx, wh, b, out, m, n_max, \
+                                       steps, stream)                          \
+                  : fwd_occupancy<C, NPL>(m, n_max, occ);
+    K4_NPL(1) K4_NPL(2) K4_NPL(3) K4_NPL(4)
+#undef K4_NPL
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <int C>
@@ -555,6 +896,9 @@ cudaError_t bwd_occupancy(int m, int n_max, int steps, int* out) {
       out, set2set_bwd_kernel<C>, lc.warps * 32, lc.bytes);
 }
 
+// K4's bulk copies read 16-byte-aligned global memory
+bool aligned16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
+
 bool valid(int m, int n_max, int steps) {
   return m > 0 && n_max > 0 && n_max <= MAX_ATOMS && steps > 0 &&
          steps <= MAX_STEPS;
@@ -579,6 +923,21 @@ extern "C" int set2set_bwd_occupancy(int m, int n_max, int channels,
   }
 }
 
+// K4's launch for m molecules: the CTAs an SM holds at the shared memory
+// the launch asks, the CTAs it launches and the warps of each (four per
+// group), in out[0..2].  Returns a cudaError_t.
+extern "C" int set2set_fwd_occupancy(int m, int n_max, int channels,
+                                     int steps, int* out) {
+  if (!valid(m, n_max, steps)) return int(cudaErrorInvalidValue);
+  switch (channels) {
+    case 16: return int(fwd_dispatch<16>(false, nullptr, nullptr, nullptr, nullptr,
+                                         nullptr, nullptr, m, n_max, steps, nullptr, out));
+    case 32: return int(fwd_dispatch<32>(false, nullptr, nullptr, nullptr, nullptr,
+                                         nullptr, nullptr, m, n_max, steps, nullptr, out));
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
 // K4: q* (M, 2C) after `steps` Set2Set steps over atoms (M, n_max, C) with
 // mask amask (M, n_max); wx (2C, 4C), wh (C, 4C), b (4C).  Returns a
 // cudaError_t.
@@ -586,11 +945,13 @@ extern "C" int fused_set2set_fwd(const float* atoms, const float* amask,
                                  const float* wx, const float* wh,
                                  const float* b, float* out, int m, int n_max,
                                  int channels, int steps, void* stream) {
-  if (!valid(m, n_max, steps)) return int(cudaErrorInvalidValue);
+  if (!valid(m, n_max, steps) || !aligned16(atoms) || !aligned16(wx) ||
+      !aligned16(wh))
+    return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (channels) {
-    case 16: return int(launch_fwd<16>(atoms, amask, wx, wh, b, out, m, n_max, steps, st));
-    case 32: return int(launch_fwd<32>(atoms, amask, wx, wh, b, out, m, n_max, steps, st));
+    case 16: return int(fwd_dispatch<16>(true, atoms, amask, wx, wh, b, out, m, n_max, steps, st, nullptr));
+    case 32: return int(fwd_dispatch<32>(true, atoms, amask, wx, wh, b, out, m, n_max, steps, st, nullptr));
     default: return int(cudaErrorInvalidValue);
   }
 }

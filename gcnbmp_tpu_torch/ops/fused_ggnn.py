@@ -59,11 +59,14 @@ is taken in f32.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
+
+from gcnbmp_tpu_torch.ops.build import load_library
 
 TILE = 128
 NUM_EDGE_TYPE = 4
@@ -254,7 +257,7 @@ def _check(name: str, x: torch.Tensor, shape: Tuple[int, ...],
         raise ValueError(f"{name} is on {x.device}, expected {device}")
     if x.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, got {x.dtype}")
-    if tuple(x.shape) != shape:
+    if x.shape != shape:
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
@@ -306,23 +309,34 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed with cudaError_t {err}")
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _stream(device: torch.device) -> int:
+    """The handle of ``device``'s current CUDA stream (no stream object is
+    built for it)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+def _on_device(device: torch.device):
+    """What a launch on ``device``'s tensors runs in: ``device`` made the
+    current CUDA device, or nothing when it is the current one."""
+    if device.index == torch.cuda.current_device():
+        return _SAME_DEVICE
+    return torch.cuda.device(device)
 
 
 def _fused_ggnn_fwd(n_layers, h0, adj, msg_w, msg_b, gru):
     """K1 on the tensors' device (plain version on the CPU)."""
     if h0.device.type == "cpu":
         return fused_ggnn_reference(n_layers, h0, adj, msg_w, msg_b, gru)
-    from gcnbmp_tpu_torch.ops.build import load_library
-
     p, hidden = _check_common(n_layers, h0, adj, msg_w, msg_b, gru)
     lib = load_library()
     out = torch.empty_like(h0)
-    with torch.cuda.device(h0.device):  # launch in the tensors' context
+    with _on_device(h0.device):
         err = lib.fused_ggnn_fwd(
             h0.data_ptr(), adj.data_ptr(), *_weight_ptrs(msg_w, msg_b, gru),
-            out.data_ptr(), p, n_layers, hidden, _stream())
+            out.data_ptr(), p, n_layers, hidden, _stream(h0.device))
     _raise_on(err, "fused_ggnn_fwd")
     fused_ggnn.launches += 1
     return out
@@ -334,19 +348,17 @@ def fused_ggnn_mid(n_layers: int, h0, adj, msg_w, msg_b, gru):
     for bit K1's."""
     if h0.device.type == "cpu":
         return fused_ggnn_mid_reference(n_layers, h0, adj, msg_w, msg_b, gru)
-    from gcnbmp_tpu_torch.ops.build import load_library
-
     p, hidden = _check_common(n_layers, h0, adj, msg_w, msg_b, gru)
     if n_layers < 2:
         raise ValueError("K1m needs two layers or more to split")
     lib = load_library()
     out = torch.empty_like(h0)
     mid = torch.empty_like(h0)
-    with torch.cuda.device(h0.device):
+    with _on_device(h0.device):
         err = lib.fused_ggnn_mid_fwd(
             h0.data_ptr(), adj.data_ptr(), *_weight_ptrs(msg_w, msg_b, gru),
             out.data_ptr(), mid.data_ptr(), p, n_layers, n_layers // 2,
-            hidden, _stream())
+            hidden, _stream(h0.device))
     _raise_on(err, "fused_ggnn_mid_fwd")
     fused_ggnn_mid.launches += 1
     return out, mid
@@ -362,19 +374,17 @@ def _fused_ggnn_readout_fwd(n_layers, h0, adj, msg_w, msg_b, gru, node_mask,
         return fused_ggnn_readout_reference(
             n_layers, h0, adj, msg_w, msg_b, gru, node_mask,
             ro_wi, ro_bi, ro_wj, ro_bj)
-    from gcnbmp_tpu_torch.ops.build import load_library
-
     p, hidden = _check_common(n_layers, h0, adj, msg_w, msg_b, gru)
     dev = h0.device
     d = _check_readout(p, hidden, node_mask, ro_wi, ro_bi, ro_wj, ro_bj, dev)
     lib = load_library()
     out = torch.empty((p, TILE, d), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):  # launch in the tensors' context
+    with _on_device(dev):
         err = lib.fused_ggnn_readout_fwd(
             h0.data_ptr(), adj.data_ptr(), *_weight_ptrs(msg_w, msg_b, gru),
             node_mask.data_ptr(), ro_wi.data_ptr(), ro_bi.data_ptr(),
             ro_wj.data_ptr(), ro_bj.data_ptr(),
-            out.data_ptr(), p, n_layers, hidden, d, _stream())
+            out.data_ptr(), p, n_layers, hidden, d, _stream(dev))
     _raise_on(err, "fused_ggnn_readout_fwd")
     fused_ggnn_readout.launches += 1
     return out
@@ -414,8 +424,6 @@ def _range_bwd(lo: int, hi: int, hin, adj, msg_w, msg_b, gru, dh_top):
     """Launch the backward kernel over layers [lo, hi) of the
     msg_w.shape[0]-layer stack on CUDA tensors (K1b for [0, L), each half
     of K3 otherwise): (dh_bot, the range's dmsg_w and dmsg_b, dgru)."""
-    from gcnbmp_tpu_torch.ops.build import load_library
-
     n_layers = msg_w.shape[0]
     p, hidden = _check_common(n_layers, hin, adj, msg_w, msg_b, gru)
     if not 0 <= lo < hi <= n_layers:
@@ -425,11 +433,11 @@ def _range_bwd(lo: int, hi: int, hin, adj, msg_w, msg_b, gru, dh_top):
     lib = load_library()
     dh_bot, partial, grads, hs, shapes, sizes = _bwd_buffers(
         p, hi - lo, hidden, None, dev)
-    with torch.cuda.device(dev):
+    with _on_device(dev):
         err = lib.fused_ggnn_range_bwd(
             hin.data_ptr(), adj.data_ptr(), *_weight_ptrs(msg_w, msg_b, gru),
             dh_top.data_ptr(), dh_bot.data_ptr(), partial.data_ptr(),
-            grads.data_ptr(), hs.data_ptr(), p, lo, hi, hidden, _stream())
+            grads.data_ptr(), hs.data_ptr(), p, lo, hi, hidden, _stream(dev))
     _raise_on(err, "fused_ggnn_range_bwd")
     dmsg_w, dmsg_b, dgru, _ = _split_grads(grads, shapes, sizes)
     return dh_bot, dmsg_w, dmsg_b, dgru
@@ -484,8 +492,6 @@ def fused_ggnn_readout_bwd(n_layers: int, h0, adj, msg_w, msg_b, gru,
         return fused_ggnn_readout_bwd_reference(
             n_layers, h0, adj, msg_w, msg_b, gru, node_mask,
             ro_wi, ro_bi, ro_wj, ro_bj, dg)
-    from gcnbmp_tpu_torch.ops.build import load_library
-
     p, hidden = _check_common(n_layers, h0, adj, msg_w, msg_b, gru)
     dev = h0.device
     d = _check_readout(p, hidden, node_mask, ro_wi, ro_bi, ro_wj, ro_bj, dev)
@@ -493,13 +499,14 @@ def fused_ggnn_readout_bwd(n_layers: int, h0, adj, msg_w, msg_b, gru,
     lib = load_library()
     dh0, partial, grads, hs, shapes, sizes = _bwd_buffers(
         p, n_layers, hidden, d, dev)
-    with torch.cuda.device(dev):
+    with _on_device(dev):
         err = lib.fused_ggnn_readout_bwd(
             h0.data_ptr(), adj.data_ptr(), *_weight_ptrs(msg_w, msg_b, gru),
             node_mask.data_ptr(), ro_wi.data_ptr(), ro_bi.data_ptr(),
             ro_wj.data_ptr(), ro_bj.data_ptr(),
             dg.data_ptr(), dh0.data_ptr(), partial.data_ptr(),
-            grads.data_ptr(), hs.data_ptr(), p, n_layers, hidden, d, _stream())
+            grads.data_ptr(), hs.data_ptr(), p, n_layers, hidden, d,
+            _stream(dev))
     _raise_on(err, "fused_ggnn_readout_bwd")
     fused_ggnn_readout_bwd.launches += 1
     dmsg_w, dmsg_b, dgru, (dwi, dbi, dwj, dbj) = _split_grads(

@@ -41,11 +41,13 @@ from typing import Dict, List, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from gcnbmp_tpu_torch.ops.build import load_library
 from gcnbmp_tpu_torch.ops.fused_ggnn import (
     GRU_KEYS,
     NUM_EDGE_TYPE,
     TILE,
     _check,
+    _on_device,
     _raise_on,
     _rows,
     _stream,
@@ -214,17 +216,16 @@ def _fused_mpnn_fwd(n_layers, carry_state, h0, adj, mol_id, node_mask, wt,
     if h0.device.type == "cpu":
         return fused_mpnn_reference(n_layers, carry_state, h0, adj, mol_id,
                                     node_mask, wt, m0t, gru)
-    from gcnbmp_tpu_torch.ops.build import load_library
-
     p, hidden = _check_inputs(n_layers, h0, adj, mol_id, node_mask, wt, m0t,
                               gru)
     lib = load_library()
     out = torch.empty_like(h0)
-    with torch.cuda.device(h0.device):  # launch in the tensors' context
+    with _on_device(h0.device):
         err = lib.fused_mpnn_fwd(
             h0.data_ptr(), adj.data_ptr(), mol_id.data_ptr(),
             node_mask.data_ptr(), *_weight_ptrs(wt, m0t, gru),
-            out.data_ptr(), p, n_layers, hidden, int(carry_state), _stream())
+            out.data_ptr(), p, n_layers, hidden, int(carry_state),
+            _stream(h0.device))
     _raise_on(err, "fused_mpnn_fwd")
     fused_mpnn.launches += 1
     return out
@@ -266,21 +267,19 @@ def fused_mpnn_bwd(n_layers: int, carry_state: bool, h0, adj_flat, mol_id,
         return fused_mpnn_bwd_reference(n_layers, carry_state, h0, adj_flat,
                                         mol_id, node_mask, wt, m0t, gru,
                                         dh_final)
-    from gcnbmp_tpu_torch.ops.build import load_library
-
     p, hidden = _check_inputs(n_layers, h0, adj_flat, mol_id, node_mask, wt,
                               m0t, gru)
     dev = h0.device
     _check("dh_final", dh_final, (p, TILE, hidden), dev)
     lib = load_library()
     dh0, partial, grads, hs = _bwd_buffers(p, n_layers, hidden, dev)
-    with torch.cuda.device(dev):
+    with _on_device(dev):
         err = lib.fused_mpnn_bwd(
             h0.data_ptr(), adj_flat.data_ptr(), mol_id.data_ptr(),
             node_mask.data_ptr(), *_weight_ptrs(wt, m0t, gru),
             dh_final.data_ptr(), dh0.data_ptr(), partial.data_ptr(),
             grads.data_ptr(), hs.data_ptr(), p, n_layers, hidden,
-            int(carry_state), _stream())
+            int(carry_state), _stream(dev))
     _raise_on(err, "fused_mpnn_bwd")
     fused_mpnn_bwd.launches += 1
     return (dh0, *_split_grads(grads, n_layers, hidden))

@@ -24,7 +24,9 @@ and the weights through ``FusedSet2SetFunction`` (the port of
 
 Each wrapper takes its plain PyTorch version (``*_reference``) for a
 tensor on the CPU; for a CUDA tensor it launches the hand-written Hopper
-kernel (``csrc/set2set.cu``) or raises.  Launches are counted in
+kernel (``csrc/set2set.cu``) or raises.  K4 copies atoms, wx and wh to
+shared memory in bulk, so each must start on a 16-byte boundary (a fresh
+allocation does); the wrapper raises otherwise.  Launches are counted in
 ``fused_set2set.launches`` and ``fused_set2set_bwd.launches``.
 """
 
@@ -33,7 +35,9 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from gcnbmp_tpu_torch.ops.fused_ggnn import _check, _raise_on, _stream
+from gcnbmp_tpu_torch.ops.build import load_library
+from gcnbmp_tpu_torch.ops.fused_ggnn import (
+    _check, _on_device, _raise_on, _stream)
 
 NEG = -1e9
 # what the kernels hold per warp: channels, atoms per molecule, steps
@@ -156,15 +160,18 @@ def _fused_set2set_fwd(steps, atoms, amask, wx, wh, b):
     """K4 on the tensors' device (plain version on the CPU)."""
     if atoms.device.type == "cpu":
         return fused_set2set_reference(steps, atoms, amask, wx, wh, b)
-    from gcnbmp_tpu_torch.ops.build import load_library
-
     m, n_max, ch = _check_inputs(steps, atoms, amask, wx, wh, b)
+    ptrs = [x.data_ptr() for x in (atoms, amask, wx, wh, b)]
+    for name, ptr in (("atoms", ptrs[0]), ("wx", ptrs[2]), ("wh", ptrs[3])):
+        if ptr % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary: K4 "
+                             f"copies it to shared memory in bulk")
     lib = load_library()
-    out = torch.empty((m, 2 * ch), dtype=torch.float32, device=atoms.device)
-    with torch.cuda.device(atoms.device):
-        err = lib.fused_set2set_fwd(
-            atoms.data_ptr(), amask.data_ptr(), wx.data_ptr(), wh.data_ptr(),
-            b.data_ptr(), out.data_ptr(), m, n_max, ch, steps, _stream())
+    dev = atoms.device
+    out = torch.empty((m, 2 * ch), dtype=torch.float32, device=dev)
+    with _on_device(dev):
+        err = lib.fused_set2set_fwd(*ptrs, out.data_ptr(), m, n_max, ch, steps,
+                                    _stream(dev))
     _raise_on(err, "fused_set2set_fwd")
     fused_set2set.launches += 1
     return out
@@ -174,20 +181,18 @@ def fused_set2set_bwd(steps: int, atoms, amask, wx, wh, b, dg):
     """K4b: (datoms, dwx, dwh, db) for the upstream gradient dg (M, 2C)."""
     if atoms.device.type == "cpu":
         return fused_set2set_bwd_reference(steps, atoms, amask, wx, wh, b, dg)
-    from gcnbmp_tpu_torch.ops.build import load_library
-
     m, n_max, ch = _check_inputs(steps, atoms, amask, wx, wh, b)
     dev = atoms.device
     _check("dg", dg, (m, 2 * ch), dev)
     lib = load_library()
     datoms = torch.empty_like(atoms)
     xs, partial, grads = _bwd_buffers(lib, m, ch, steps, dev)
-    with torch.cuda.device(dev):
+    with _on_device(dev):
         err = lib.fused_set2set_bwd(
             atoms.data_ptr(), amask.data_ptr(), wx.data_ptr(), wh.data_ptr(),
             b.data_ptr(), dg.data_ptr(), datoms.data_ptr(), xs.data_ptr(),
             partial.data_ptr(), grads.data_ptr(), m, n_max, ch, steps,
-            _stream())
+            _stream(dev))
     _raise_on(err, "fused_set2set_bwd")
     fused_set2set_bwd.launches += 1
     return (datoms, *_split_grads(grads, ch))
@@ -242,8 +247,13 @@ class FusedSet2SetFunction(torch.autograd.Function):
 def fused_set2set(steps: int, atoms, amask, wx, wh, b):
     """K4: all ``steps`` Set2Set steps; returns q* (M, 2C).
     atoms (M, n_max, C) masked atom table; amask (M, n_max) f32; wx
-    (2C, 4C), wh (C, 4C), b (1, 4C) in gate order i|f|g|o."""
-    return FusedSet2SetFunction.apply(steps, atoms, amask, wx, wh, b)
+    (2C, 4C), wh (C, 4C), b (1, 4C) in gate order i|f|g|o.  Goes through
+    ``FusedSet2SetFunction`` only when autograd has a graph to record (a
+    serving call skips its host cost)."""
+    if torch.is_grad_enabled() and (atoms.requires_grad or wx.requires_grad
+                                    or wh.requires_grad or b.requires_grad):
+        return FusedSet2SetFunction.apply(steps, atoms, amask, wx, wh, b)
+    return _fused_set2set_fwd(steps, atoms, amask, wx, wh, b)
 
 
 fused_set2set.launches = 0

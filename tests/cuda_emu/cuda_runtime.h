@@ -4,23 +4,27 @@
 // their C entry points and the tests can run them on the CPU
 // (tests/test_torch_bwd_emulated.py, tests/test_torch_mpnn_emulated.py,
 // tests/test_torch_fwd_emulated.py).
-// Each CUDA thread of a block is a std::thread; __syncthreads, __syncwarp
-// and the warp collectives are std::barriers.  Blocks run one after
-// another.  Shared memory is filled with NaN before each block, so a read
-// of an entry no thread wrote shows in the results.  The device has
-// EMU_SMS multiprocessors, each holding one block.  emulate.py rewrites
-// `extern __shared__` and `<<<...>>>` launches into calls of this header
-// before compiling.
+// Each CUDA thread of a block is a std::thread; __syncthreads, __syncwarp,
+// named barriers and the warp collectives are std::barriers.  Blocks run
+// one after another.  Shared memory is filled with NaN before each block,
+// so a read of an entry no thread wrote shows in the results.  The device
+// has EMU_SMS multiprocessors, each holding one block.  emulate.py
+// rewrites `extern __shared__` and `<<<...>>>` launches into calls of this
+// header before compiling.  The PTX wrappers of set2set.cu (named
+// barriers, mbarriers, bulk copies) are defined here for the CPU.
 #pragma once
 
 #include <algorithm>
 #include <atomic>
 #include <barrier>
 #include <cmath>
+#include <condition_variable>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
+#include <map>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -85,6 +89,24 @@ inline float* smem = nullptr;
 inline std::unique_ptr<std::barrier<>> block_barrier;
 inline std::vector<std::unique_ptr<std::barrier<>>> warp_barriers;
 inline std::vector<uint64_t> lanes;  // one exchange slot per thread
+// named barriers of the running block, made at first use with the
+// thread count their first caller gives
+inline std::mutex named_mu;
+inline std::unique_ptr<std::barrier<>> named[16];
+// mbarriers of the running block, by address: the phase parity, arrivals
+// still expected in this phase and bytes still to land
+struct Mbar { unsigned count = 0, pending = 0, phase = 0; long long tx = 0; };
+inline std::mutex mbar_mu;
+inline std::condition_variable mbar_cv;
+inline std::map<const void*, Mbar> mbars;
+
+inline void mbar_step(Mbar& m) {  // under mbar_mu
+  if (m.pending == 0 && m.tx == 0) {
+    m.phase ^= 1u;
+    m.pending = m.count;
+    mbar_cv.notify_all();
+  }
+}
 
 // every lane of the warp posts `bits` and reads lane `src`'s
 inline uint64_t exchange(uint64_t bits, int src) {
@@ -141,6 +163,44 @@ inline T __shfl_xor_sync(unsigned mask, T v, int lane_mask) {
   return __shfl_sync(mask, v, (threadIdx.x % 32) ^ lane_mask);
 }
 
+// bar.sync id, threads
+inline void named_sync(int id, int threads) {
+  std::barrier<>* b;
+  {
+    std::lock_guard<std::mutex> g(emu::named_mu);
+    if (!emu::named[id]) emu::named[id] = std::make_unique<std::barrier<>>(threads);
+    b = emu::named[id].get();
+  }
+  b->arrive_and_wait();
+}
+
+// mbarrier init, arrive with an expected byte count, and wait on a phase
+// parity; a bulk copy is a memcpy that then completes its bytes.
+inline void mbar_init(unsigned long long* bar, unsigned count) {
+  std::lock_guard<std::mutex> g(emu::mbar_mu);
+  emu::mbars[bar] = emu::Mbar{count, count, 0, 0};
+}
+inline void mbar_fence_init() {}
+inline void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
+  std::lock_guard<std::mutex> g(emu::mbar_mu);
+  emu::Mbar& m = emu::mbars.at(bar);
+  m.tx += bytes;
+  --m.pending;
+  emu::mbar_step(m);
+}
+inline void mbar_wait(unsigned long long* bar, unsigned parity) {
+  std::unique_lock<std::mutex> g(emu::mbar_mu);
+  emu::mbar_cv.wait(g, [&] { return emu::mbars.at(bar).phase != parity; });
+}
+inline void bulk_copy(void* dst, const void* src, unsigned bytes, unsigned long long* bar) {
+  std::memcpy(dst, src, bytes);
+  std::lock_guard<std::mutex> g(emu::mbar_mu);
+  emu::Mbar& m = emu::mbars.at(bar);
+  m.tx -= bytes;
+  emu::mbar_step(m);
+}
+inline void fence_proxy_async() {}
+
 // kernel<<<grid, threads, smem_bytes, stream>>>(args...)
 template <class K, class... A>
 void emu_launch(K kernel, int grid, int threads, size_t smem_bytes,
@@ -156,6 +216,8 @@ void emu_launch(K kernel, int grid, int threads, size_t smem_bytes,
     for (int w = 0; w < (threads + 31) / 32; ++w)
       emu::warp_barriers.push_back(std::make_unique<std::barrier<>>(32));
     emu::lanes.assign(threads, 0);
+    for (auto& nb : emu::named) nb.reset();
+    emu::mbars.clear();
     std::vector<std::thread> pool;
     pool.reserve(threads);
     for (int t = 0; t < threads; ++t)
