@@ -65,6 +65,19 @@ Phases, each fatal on failure:
    stack.  Then one epoch of the single-pass default form (K1, K1b), and
    the batch-2048 step timed and profiled in all three forms (K2/K2b,
    K1/K1b, K1m/K3).
+9. Co-attention serving: phase 4 for the ``ggnn_coattention`` model
+   (GGNN L=8 untied, H=D=32, parallel co-attention, NTN head): K1 once
+   per request, K2 never; the logits against the plain layer stack
+   (``PackedGGNN.forward``, then the same gather, co-attention and head).
+10. Co-attention training: the train CLI with the ``ref_scale_para``
+   flags (``--sim-method ntn --attn para --compute-path coo``, batch
+   2048, lr 2e-3, augmented) on phase 8's pairs for 2 epochs: K1b once
+   per step, K1 at least once, K2, K2b, K1m and K3 never; gradients of
+   every parameter (encoder, co-attention, NTN) against the plain stack.
+   Then one epoch of ``--attn nie --scan-steps 10`` under TWOPASS: K1m
+   once and K3 twice per step, K1b never (the epoch-end evaluations take
+   K1: no input of theirs needs a gradient).  Then the batch-2048 step
+   timed and profiled for ``para`` and ``nie``.
 
 Prints the kernels' JSON line (with each kernel's bound: the larger of
 its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s, counted
@@ -76,6 +89,7 @@ CUDA is unavailable or the port's package is not beside this script.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import os
 import re
@@ -444,8 +458,8 @@ def occupancy(label, tag, entry, *args, group_warps=None):
 
 
 def profile_steps(step, n_steps):
-    """Device busy share and the top kernels by device time over n_steps
-    calls of step(i), from torch.profiler."""
+    """Device busy share, kernel launches per step and the top kernels by
+    device time over n_steps calls of step(i), from torch.profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -465,33 +479,45 @@ def profile_steps(step, n_steps):
         return "the profiler recorded no device kernels", "none"
     total = sum(dev_us(e) for e in kernels)
     top = sorted(kernels, key=dev_us, reverse=True)[:5]
+    launches = sum(e.count for e in kernels) / n_steps
     busy = (f"device busy {100 * total / wall_us:.1f}% of {wall_us / 1e3 / n_steps:.3f} "
-            f"ms wall per step (profiled)")
+            f"ms wall per step (profiled), {launches:.0f} kernel launches "
+            f"per step")
     return busy, "; ".join(f"{e.key[:48]} {dev_us(e) / 1e3 / n_steps:.3f}"
                            for e in top)
 
 
 def plain_logits(model, args, torch):
     """Logits of the model's plain layer stack (dense adjacency) on a
-    wire batch."""
+    wire batch; for a co-attention batch (nine arrays) each side's atom
+    table is gathered by plain indexing, then co-attention."""
     from gcnbmp_tpu_torch.models.packed import decode_compact_wire
     from gcnbmp_tpu_torch.ops.aggregate import adj_from_coo
 
-    nodes, e_packed, n_edges, left, right = args
+    nodes, e_packed, n_edges, left, right = args[:5]
     num_mols = 2 * left.shape[0]
     atom_ids, mol_id, mask, *edges = decode_compact_wire(
         nodes, e_packed, n_edges, num_mols)
     adj = adj_from_coo(*edges, num_tiles=atom_ids.shape[0],
                        tile=atom_ids.shape[1])
-    g, _ = model.encoder(atom_ids, adj, mol_id, mask, num_mols)
-    return model.head(g[left.long()], g[right.long()])
+    g, aux = model.encoder(atom_ids, adj, mol_id, mask, num_mols)
+    g1, g2 = g[left.long()], g[right.long()]
+    if len(args) == 9:
+        left_slots, right_slots, left_mask, right_mask = args[5:]
+        flat = aux["atoms"].reshape(-1, aux["atoms"].shape[-1])
+        atoms1 = flat[left_slots.long()] * left_mask[..., None]
+        atoms2 = flat[right_slots.long()] * right_mask[..., None]
+        g1, g2 = model.coattention(atoms1, g1, atoms2, g2, left_mask,
+                                   right_mask)
+    return model.head(g1, g2)
 
 
 def serve_slice(tag, config, cfg, ds, df, dev, smi, reset_counts, read_counts,
-                kernels):
+                kernels, absent=()):
     """Serve the pairs through predict.main with seeded weights; each of
-    ``kernels`` must launch once per request; the logits must match the
-    plain layer stack.  Returns the launch counts."""
+    ``kernels`` must launch once per request and each of ``absent``
+    never; the logits must match the plain layer stack.  Returns the
+    launch counts."""
     import numpy as np
     import pandas as pd
     import torch
@@ -500,8 +526,7 @@ def serve_slice(tag, config, cfg, ds, df, dev, smi, reset_counts, read_counts,
     from gcnbmp_tpu_torch.convert import (
         from_jax_params, init_params, save_params_npz)
     from gcnbmp_tpu_torch.data import estimate_coo_capacities
-    from gcnbmp_tpu_torch.data.wire import (
-        compact_coo_arrays, iter_coo_eval_batches)
+    from gcnbmp_tpu_torch.data.wire import iter_coo_eval_batches
     from gcnbmp_tpu_torch.models.packed import make_packed_predictor
 
     n_batches = -(-N_PAIRS // SERVE_BATCH)
@@ -534,6 +559,10 @@ def serve_slice(tag, config, cfg, ds, df, dev, smi, reset_counts, read_counts,
             if launches[name] != n_batches:
                 raise AssertionError(f"{name} launched {launches[name]} "
                                      f"times for {n_batches} batches")
+        for name in absent:
+            if launches[name]:
+                raise AssertionError(f"{name} launched {launches[name]} "
+                                     f"times on a path that does not run it")
         probs = pd.read_csv(out_path)["prob"].to_numpy()
         if len(probs) != N_PAIRS or not np.all(np.isfinite(probs)) or \
                 probs.min() < 0 or probs.max() > 1:
@@ -543,12 +572,16 @@ def serve_slice(tag, config, cfg, ds, df, dev, smi, reset_counts, read_counts,
     model = from_jax_params(init_params(cfg, SEED),
                             make_packed_predictor(**cfg)).to(dev).eval()
     tiles, cap = estimate_coo_capacities([ds], SERVE_BATCH)
+    args_fn = model.wire_encoder([ds])
     got_l, want_l = [], []
     serve_s = 0.0
     with torch.no_grad():
-        for batch, valid in iter_coo_eval_batches(ds, SERVE_BATCH, tiles, cap):
+        for i, (batch, valid) in enumerate(
+                iter_coo_eval_batches(ds, SERVE_BATCH, tiles, cap)):
             args = [torch.as_tensor(np.asarray(a)).to(dev)
-                    for a in compact_coo_arrays(batch)]
+                    for a in args_fn(batch)]
+            if i == 0:  # first-use costs (lazy module loads) stay untimed
+                model(*args)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             logits = model(*args)
@@ -588,8 +621,7 @@ def train_slice(tag, flags, batch_size, train_cfg, model_cfg, per_step,
     from gcnbmp_tpu_torch.cli import train as train_cli
     from gcnbmp_tpu_torch.convert import from_jax_params, init_params
     from gcnbmp_tpu_torch.data import CSVPairParser, estimate_coo_capacities
-    from gcnbmp_tpu_torch.data.wire import (
-        compact_coo_arrays, iter_coo_eval_batches)
+    from gcnbmp_tpu_torch.data.wire import iter_coo_eval_batches
     from gcnbmp_tpu_torch.models.packed import make_packed_predictor
     from gcnbmp_tpu_torch.train import loop as train_loop
 
@@ -686,14 +718,22 @@ def train_slice(tag, flags, batch_size, train_cfg, model_cfg, per_step,
     tiles, cap = estimate_coo_capacities([train_ds], SERVE_BATCH)
     batch, _ = next(iter_coo_eval_batches(train_ds, SERVE_BATCH, tiles, cap))
     args = [torch.as_tensor(np.asarray(a)).to(dev)
-            for a in compact_coo_arrays(batch)]
+            for a in model.wire_encoder([train_ds])(batch)]
     labels = torch.as_tensor(batch.labels).to(dev)
     params = list(model.parameters())
+
+    def grads_of(loss):
+        # a co-attention variant that reads no g leaves the GGNN readout
+        # out of the loss: its gradient is zero, as jax.grad gives it
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g
+                for g, p in zip(grads, params)]
+
     loss_k = train_loop.sigmoid_cross_entropy(model(*args), labels)
-    grads_k = torch.autograd.grad(loss_k, params)
+    grads_k = grads_of(loss_k)
     loss_p = train_loop.sigmoid_cross_entropy(plain_logits(model, args, torch),
                                               labels)
-    grads_p = torch.autograd.grad(loss_p, params)
+    grads_p = grads_of(loss_p)
     lk, lp = float(loss_k.detach()), float(loss_p.detach())
     print(f"{tag} train slice: batch {SERVE_BATCH} (P={tiles}) loss kernel "
           f"path {lk:.7f}, plain layer stack {lp:.7f}")
@@ -719,22 +759,22 @@ def time_train_step(tag, train_ds, model_cfg, train_cfg, bs, n_steps, dev,
 
     from gcnbmp_tpu_torch.convert import from_jax_params, init_params
     from gcnbmp_tpu_torch.data import estimate_coo_capacities
-    from gcnbmp_tpu_torch.data.wire import (
-        compact_coo_arrays, packed_coo_batch_iterator)
+    from gcnbmp_tpu_torch.data.wire import packed_coo_batch_iterator
     from gcnbmp_tpu_torch.models.packed import make_packed_predictor
     from gcnbmp_tpu_torch.train import loop as train_loop
 
+    model = from_jax_params(init_params(model_cfg, SEED),
+                            make_packed_predictor(**model_cfg)).to(dev)
     tiles, cap = estimate_coo_capacities([train_ds], bs)
     rng = np.random.default_rng(SEED)
+    args_fn = model.wire_encoder([train_ds])
     staged = []
     for b in packed_coo_batch_iterator(train_ds, bs, tiles, cap, rng):
         staged.append(([torch.as_tensor(np.asarray(a)).to(dev)
-                        for a in compact_coo_arrays(b)],
+                        for a in args_fn(b)],
                        torch.as_tensor(b.labels).to(dev)))
         if len(staged) == 8:
             break
-    model = from_jax_params(init_params(model_cfg, SEED),
-                            make_packed_predictor(**model_cfg)).to(dev)
     opt, _ = train_loop.build_optimizer(train_cfg, 1000,
                                         list(model.parameters()))
     for i in range(3):  # warm up
@@ -1163,6 +1203,52 @@ def main() -> int:
         set_form(*saved_form)
     print(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
 
+    # 9. co-attention serving through the predict CLI: the
+    # ggnn_coattention model (parallel co-attention, NTN head) on K1
+    coattn_cfg = dict(cfg, sim_method="ntn", attn="para")
+    coattn_config = dict(ggnn_config, sim_method="ntn", attn="para")
+    serve_coattn = serve_slice(
+        "co-attention (para, ntn)", coattn_config, coattn_cfg, ds, df, dev,
+        smi, reset_counts, read_counts, ["fused_ggnn"],
+        absent=k2_kernels + ["fused_ggnn_mid"])
+    print(f"phase 9 done at {time.perf_counter() - t_start:.1f} s")
+
+    # 10. co-attention training through the train CLI: the ref_scale_para
+    # flags for 2 epochs on K1/K1b, then one scan epoch of nie under
+    # TWOPASS on K1m/K3, then both steps timed at batch 2048
+    coattn_flags = ["--method", "ggnn", "--conv-layers", str(L),
+                    "--fp-hidden-dim", str(H), "--fp-out-dim", str(D),
+                    "--weight-tying", "false", "--compute-path", "coo",
+                    "--lr", "2e-3", "--augment", "--sim-method", "ntn"]
+    coattn_train = TrainConfig(
+        method="ggnn", sim_method="ntn", attn="para", conv_layers=L,
+        fp_hidden_dim=H, fp_out_dim=D, weight_tying=False,
+        compute_path="coo", learning_rate=2e-3, augment=True,
+        batch_size=N_PAIRS)
+    nie_cfg = dict(cfg, sim_method="ntn", attn="nie")
+    nie_train = dataclasses.replace(coattn_train, attn="nie", scan_steps=10)
+    k1b_kernels = ["fused_ggnn_bwd"]
+    twopass_kernels = ["fused_ggnn_mid", "fused_ggnn_half_bwd"]
+    try:
+        set_form(False, False)
+        train_coattn, _ = train_slice(
+            "co-attention (para, ntn)", coattn_flags + ["--attn", "para"],
+            N_PAIRS, coattn_train, coattn_cfg, {"fused_ggnn_bwd": 1},
+            ["fused_ggnn"], ((N_PAIRS, 10),), dev, smi, reset_counts,
+            read_counts, n_train=N_PROD_TRAIN,
+            absent=k2_kernels + twopass_kernels)
+        set_form(False, True)
+        train_nie, _ = train_slice(
+            "co-attention (nie, ntn) scan two-pass",
+            coattn_flags + ["--attn", "nie", "--scan-steps", "10"], N_PAIRS,
+            nie_train, nie_cfg,
+            {"fused_ggnn_mid": 1, "fused_ggnn_half_bwd": 2}, [],
+            ((N_PAIRS, 10),), dev, smi, reset_counts, read_counts,
+            n_train=N_PROD_TRAIN, epochs=1, absent=k2_kernels + k1b_kernels)
+    finally:
+        set_form(*saved_form)
+    print(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
+
     sources = {"fused_ggnn": "fused_ggnn.cu", "fused_ggnn_mid": "fused_ggnn.cu",
                "fused_ggnn_readout": "fused_ggnn.cu",
                "fused_ggnn_bwd": "fused_ggnn_bwd.cu",
@@ -1193,6 +1279,10 @@ def main() -> int:
                  "fused_set2set": train_mpnn, "fused_set2set_bwd": train_mpnn}
     serving = {"fused_ggnn_readout": serve_ggnn, "fused_mpnn": serve_mpnn,
                "fused_set2set": serve_mpnn}
+    # the co-attention path's own runs (phases 9 and 10)
+    coattention = {"fused_ggnn": train_coattn, "fused_ggnn_bwd": train_coattn,
+                   "fused_ggnn_mid": train_nie,
+                   "fused_ggnn_half_bwd": train_nie}
     kernels = []
     for name in sources:
         launches = main_path[name][name]
@@ -1204,6 +1294,10 @@ def main() -> int:
             "replaces": replaces[name], "launches": launches,
             **({"launches_serving": serving[name][name]}
                if name in serving else {}),
+            **({"launches_coattention": coattention[name][name]}
+               if name in coattention else {}),
+            **({"launches_coattention_serving": serve_coattn[name]}
+               if name == "fused_ggnn" else {}),
             **{k: results[name][k] for k in
                ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                 "bound_by")},

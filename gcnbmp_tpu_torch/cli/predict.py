@@ -2,11 +2,13 @@
 """Score drug-pair CSVs with the port's packed pair predictor.
 
 Port of the JAX package's predict CLI (gcnbmp_tpu/cli/predict.py:74-136)
-for the packed GGNN + HolE and MPNN + HolE families (``method`` of the
+for the packed GGNN and MPNN families with any head, and GGNN with any
+co-attention variant (``method``, ``sim_method`` and ``attn`` of the
 config; MPNN serves with the JAX evaluator's Set2Set table width of 64
-atoms, and a wider molecule turns its batch NaN): reads a pair CSV
-(label column optional), writes it back with a ``prob`` column
-(``prob_class{c}`` for multi-label models).
+atoms, and a wider molecule turns its batch NaN; co-attention with the
+input's largest molecule rounded up to 8, which ``lt``'s weights must
+match): reads a pair CSV (label column optional), writes it back with a
+``prob`` column (``prob_class{c}`` for multi-label models).
 
     python -m gcnbmp_tpu_torch.cli.predict --input pairs.csv \\
         --config run/config.json --params params.npz --out preds.csv
@@ -62,8 +64,12 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda requested but CUDA is not available")
-    predictor = from_jax_params(load_params_npz(args.params),
-                                make_packed_predictor(**kwargs))
+    tree = load_params_npz(args.params)
+    if kwargs["attn"] == "lt":
+        # lt's weights fix its atom table width; the evaluator refuses a
+        # dataset that needs another
+        kwargs["coattn_n_max"] = tree["coattention"]["W1"].shape[0]
+    predictor = from_jax_params(tree, make_packed_predictor(**kwargs))
 
     df = pd.read_csv(args.input).copy()
     # every row gets a valid label so the evaluator keeps all of them

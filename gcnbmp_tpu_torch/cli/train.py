@@ -1,6 +1,7 @@
 #!/usr/bin/env python
-"""Train a packed pair predictor with the port: GGNN + HolE on the fused
-path, or MPNN (EdgeNet + Set2Set) + HolE on the coo path.
+"""Train a packed pair predictor with the port: GGNN on the fused or coo
+path, GGNN with co-attention on the coo path, or MPNN (EdgeNet +
+Set2Set) on the coo path, each with any of the six heads.
 
 Port of the JAX package's train CLI (gcnbmp_tpu/cli/train.py:23-211):
 the same flags and override logic, plus ``--device`` (``cuda``, the
@@ -12,11 +13,16 @@ default, runs the CUDA kernels; ``cpu`` runs their plain versions).
         --method mpnn --sim-method hole --conv-layers 4 --weight-tying true \\
         --fp-hidden-dim 32 --fp-out-dim 32 --batch-size 2048 --lr 2e-3 \\
         --compute-path coo --compute-dtype bfloat16 --augment --device cuda
+    python -m gcnbmp_tpu_torch.cli.train --train train.csv --val val.csv \\
+        --preset ggnn_coattention --compute-path coo --device cuda
 
 The second line is the MPNN quality row's recipe; its kernels compute in
-f32 whatever ``--compute-dtype`` says.  Writes ``config.json`` (the JAX
-run's format), ``log.json`` and the ``snapshot_epoch_*``, ``best`` and
-``final`` checkpoints under ``--out``; ``final/params.npz`` serves
+f32 whatever ``--compute-dtype`` says.  The third trains the paper's
+co-attention model (NTN head, parallel co-attention); co-attention is
+refused on ``--compute-path fused``, as in the JAX package.  Writes
+``config.json`` (the JAX run's format), ``log.json`` and the
+``snapshot_epoch_*``, ``best`` and ``final`` checkpoints under
+``--out``; ``final/params.npz`` serves
 through ``gcnbmp_tpu_torch.cli.predict``.  Prints the last log entry as
 JSON.  Options the port does not train yet, and on ``--device cuda``
 widths the card's kernels are not built for, raise before any work,

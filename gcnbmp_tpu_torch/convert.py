@@ -7,10 +7,13 @@ GGNN ``encoder/embed/embedding``, ``encoder/update_{l}/message/dense/
 ``encoder/readout_0/{i,j}/dense/*``; for MPNN ``encoder/message_{l}/
 {nn1,nn2}/*``, ``encoder/gru_{l}/...``, ``encoder/readout_0/set2set/lstm/
 {ii,if,ig,io}/kernel`` and ``{hi,hf,hg,ho}/{kernel,bias}``,
-``encoder/readout_0/{linear1,linear2}/*``; and ``head/mlp/out/*``.  The port's
-modules use the same names, so a flax path maps to a torch name by
-joining it with dots; flax ``kernel`` (in, out) becomes the transposed
-``nn.Linear.weight``.
+``encoder/readout_0/{linear1,linear2}/*``; the head's ``head/mlp/out/*``,
+``head/bilinear/{W,V1/kernel,V2/kernel,b}`` (NTN), ``head/W_diag``...;
+and a co-attention model's ``coattention/...`` (``W_0``, ``energy/W``,
+``j/dense/*``...).  The port's modules use the same names, so a flax
+path maps to a torch name by joining it with dots; flax ``kernel``
+(in, out) becomes the transposed ``nn.Linear.weight``, and every other
+leaf keeps its flax layout.
 
 Checkpoints travel as a flat ``.npz`` keyed by ``/``-joined paths in the
 flax layout; ``to_jax_params`` takes a trained model back to that tree.
@@ -20,6 +23,7 @@ restore (ROADMAP queue 1, item 6).
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Iterator, Tuple
 
 import numpy as np
@@ -66,8 +70,9 @@ def from_jax_params(tree: dict, model: nn.Module) -> nn.Module:
     for path, arr in _flatten(tree):
         if path[-1] == "kernel":
             arr = arr.T
+        # np.array keeps 0-d leaves 0-d (ascontiguousarray makes them 1-d)
         state[_torch_name(path)] = torch.from_numpy(
-            np.ascontiguousarray(arr, dtype=np.float32))
+            np.array(arr, dtype=np.float32, order="C"))
     model.load_state_dict(state, strict=True)
     return model
 
@@ -85,7 +90,8 @@ def named_to_tree(named: Dict[str, torch.Tensor]) -> dict:
     for name, t in named.items():
         arr = t.detach().to("cpu", torch.float32).numpy()
         path = _flax_path(name)
-        flat[path] = np.ascontiguousarray(arr.T if path[-1] == "kernel" else arr)
+        flat[path] = np.array(arr.T if path[-1] == "kernel" else arr,
+                              order="C")
     return _unflatten(flat)
 
 
@@ -114,33 +120,70 @@ def _orthogonal(rng: np.random.Generator, rows: int, cols: int) -> np.ndarray:
 
 # flax.linen.OptimizedLSTMCell's hidden kernels (recurrent_kernel_init)
 _ORTHOGONAL = {"hi", "hf", "hg", "ho"}
+# raw (non-Dense) leaves by their flax initializer: lecun-normal
+# (Bilinear, PairBilinear, the para gates, DistMult), glorot-normal (lt's
+# position projections), he-normal (BiMPM's perspectives), zeros (their
+# biases)
+_LECUN = re.compile(r"(W|V1|V2)(_\d+)?|W_diag")
+_GLOROT = re.compile(r"W[12]")
+_HE = re.compile(r"\w+_W")
+_ZEROS = re.compile(r"b(_\d+)?")
+
+
+def _fans(shape) -> Tuple[int, int]:
+    """flax's fan-in and fan-out: in_axis=-2, out_axis=-1, the other axes
+    a receptive field."""
+    receptive = int(np.prod(shape[:-2]))
+    return shape[-2] * receptive, shape[-1] * receptive
+
+
+def _truncated_normal(rng: np.random.Generator, shape, variance: float):
+    """flax's variance_scaling with a truncated normal: a unit normal
+    truncated to [-2, 2], scaled to ``variance``."""
+    z = rng.standard_normal(shape)
+    while (bad := np.abs(z) > 2.0).any():
+        z[bad] = rng.standard_normal(int(bad.sum()))
+    return z * (np.sqrt(variance) / _TRUNC_STD)
 
 
 def init_params(cfg: dict, seed: int) -> dict:
     """Seeded numpy weights, in the flax layout, for the predictor that
     ``models.packed.make_packed_predictor(**cfg)`` builds.  Drawn from the
-    flax initializers' distributions: lecun-normal kernels, orthogonal
-    LSTM hidden kernels, zero biases, Normal(1.0) atom embedding.  Load
-    with ``from_jax_params``."""
+    flax initializers' distributions: lecun-normal kernels and raw
+    bilinear weights, orthogonal LSTM hidden kernels, glorot-normal ``lt``
+    projections, he-normal BiMPM perspectives, zero biases, Normal(1.0)
+    atom embedding.  Load with ``from_jax_params``."""
     from gcnbmp_tpu_torch.models.packed import make_packed_predictor
 
-    shapes = make_packed_predictor(**cfg, device="meta").state_dict()
+    return init_module_params(make_packed_predictor(**cfg, device="meta"),
+                              seed)
+
+
+def init_module_params(module: nn.Module, seed: int) -> dict:
+    """``init_params`` for any of the port's modules (built on the meta
+    device will do): its flax-layout tree, drawn leaf by leaf."""
+    shapes = module.state_dict()
     rng = np.random.default_rng(seed)
     flat = {}
     for name, t in shapes.items():
         path = _flax_path(name)
-        if path[-1] == "kernel" and path[-2] in _ORTHOGONAL:
-            arr = _orthogonal(rng, t.shape[1], t.shape[0])
-        elif path[-1] == "kernel":
-            fan_in, fan_out = t.shape[1], t.shape[0]
-            z = rng.standard_normal((fan_in, fan_out))
-            while (bad := np.abs(z) > 2.0).any():
-                z[bad] = rng.standard_normal(int(bad.sum()))
-            arr = z * (np.sqrt(1.0 / fan_in) / _TRUNC_STD)
-        elif path[-1] == "embedding":
-            arr = rng.standard_normal(tuple(t.shape))
-        elif path[-1] == "bias":
-            arr = np.zeros(tuple(t.shape))
+        leaf = path[-1]
+        shape = tuple(t.shape)
+        if leaf == "kernel" and path[-2] in _ORTHOGONAL:
+            arr = _orthogonal(rng, shape[1], shape[0])
+        elif leaf == "kernel":
+            fan_in, fan_out = shape[1], shape[0]
+            arr = _truncated_normal(rng, (fan_in, fan_out), 1.0 / fan_in)
+        elif leaf == "embedding":
+            arr = rng.standard_normal(shape)
+        elif leaf == "bias" or _ZEROS.fullmatch(leaf):
+            arr = np.zeros(shape)
+        elif _LECUN.fullmatch(leaf):
+            arr = _truncated_normal(rng, shape, 1.0 / _fans(shape)[0])
+        elif _GLOROT.fullmatch(leaf):
+            arr = _truncated_normal(rng, shape, 2.0 / sum(_fans(shape)))
+        elif _HE.fullmatch(leaf):
+            arr = _truncated_normal(rng, shape, 2.0 / _fans(shape)[0])
         else:
             raise ValueError(f"no initializer for parameter {name!r}")
         flat[path] = arr.astype(np.float32)

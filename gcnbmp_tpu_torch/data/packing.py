@@ -167,6 +167,43 @@ class PackedCOOBatch:
         return float(self.node_mask.mean())
 
 
+def molecule_slot_table(mol_id: np.ndarray, num_mols: int,
+                        n_max: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Each molecule's flat slot indices into the packed layout
+    (gcnbmp_tpu/data/packing.py:465-489): ``slots (num_mols, n_max)
+    int32`` index the flattened (P*T,) node axis (pad entries point at
+    slot 0) and ``mask (num_mols, n_max) float32`` marks the real ones.
+    The co-attention predictor gathers each pair's atom tables with them."""
+    flat = mol_id.reshape(-1)
+    order = np.argsort(flat, kind="stable")
+    counts = np.bincount(flat, minlength=num_mols + 1)[:num_mols]
+    if counts.size and counts.max(initial=0) > n_max:
+        raise ValueError(f"molecule with {counts.max()} atoms > n_max={n_max}")
+    total = int(counts.sum())
+    starts = np.zeros(num_mols + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    rows = np.repeat(np.arange(num_mols), counts)
+    cols = np.arange(total) - np.repeat(starts[:-1], counts)
+    slots = np.zeros((num_mols, n_max), np.int32)
+    mask = np.zeros((num_mols, n_max), np.float32)
+    slots[rows, cols] = order[:total].astype(np.int32)
+    mask[rows, cols] = 1.0
+    return slots, mask
+
+
+def check_side_index_injective(index: np.ndarray, mask: np.ndarray) -> None:
+    """Raise when a co-attention side index repeats a molecule over rows
+    that have real atoms (:492-505): ``ops.slotgather.side_mol_row``
+    would drop one row's gradient."""
+    real = np.asarray(mask).reshape(mask.shape[0], -1).any(axis=1)
+    ids = np.asarray(index)[real]
+    if ids.size != np.unique(ids).size:
+        raise ValueError(
+            "co-attention side index repeats a molecule id across rows "
+            "with real atoms; slotgather.side_mol_row requires injectivity"
+        )
+
+
 def _pad_coo(e_tile, e_type, e_src, e_dst, edge_capacity: Optional[int]):
     n = len(e_tile)
     cap = n if edge_capacity is None else edge_capacity

@@ -4,6 +4,7 @@ Ports host numpy code that lives inside jax modules of the JAX package
 (and so cannot be imported without jax):
 
 - ``compact_coo_arrays``        <- gcnbmp_tpu/models/packed.py:1055-1088
+- ``compact_coattn_arrays``     <- gcnbmp_tpu/models/packed.py:1036-1052
 - ``iter_coo_eval_batches``     <- gcnbmp_tpu/train/loop.py:577-614
 - ``packed_coo_batch_iterator`` <- gcnbmp_tpu/train/loop.py:437-518
 - ``_window_parallel``          <- gcnbmp_tpu/train/loop.py:413-434
@@ -27,6 +28,8 @@ import numpy as np
 from gcnbmp_tpu_torch.data import native_pack
 from gcnbmp_tpu_torch.data.packing import (
     PackedCOOBatch,
+    check_side_index_injective,
+    molecule_slot_table,
     pack_pair_dataset_coo,
     smallest_pair_index,
 )
@@ -59,6 +62,20 @@ def compact_coo_arrays(batch: PackedCOOBatch) -> Tuple:
     ).astype(np.int32)
     n_edges = np.int32(n_real)
     return nodes, e_packed, n_edges, batch.left_index, batch.right_index
+
+
+def compact_coattn_arrays(batch: PackedCOOBatch, n_max: int) -> Tuple:
+    """``compact_coo_arrays`` plus each pair side's atom slot table and
+    mask (B, n_max), the co-attention predictor's wire: nine arrays, all
+    4-byte (int32, the masks f32)."""
+    base = compact_coo_arrays(batch)
+    slots, mask = molecule_slot_table(batch.mol_id, batch.num_mols, n_max)
+    lmask = mask[batch.left_index]
+    rmask = mask[batch.right_index]
+    check_side_index_injective(batch.left_index, lmask)
+    check_side_index_injective(batch.right_index, rmask)
+    return base + (slots[batch.left_index], slots[batch.right_index],
+                   lmask, rmask)
 
 
 def _pair_cache(ds):

@@ -3,20 +3,24 @@
 
 Runs the wire-compact predictor over a whole ``PairDataset`` in
 fixed-shape batches and collects logits, labels, the pair's two molecule
-embeddings and ``train.metrics.compute_metrics`` of the logits.
-Co-attention is not ported yet (ROADMAP queue 1, item 8).
+embeddings (after co-attention, for a co-attention model) and
+``train.metrics.compute_metrics`` of the logits.  A co-attention model's
+batches carry each pair side's atom slot table (``compact_coattn_arrays``)
+``n_max`` wide: the caller's width, or as the JAX evaluator takes it, the
+dataset's largest molecule rounded up to 8 (:156-162); the predictor's
+``wire_encoder`` makes that choice.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from gcnbmp_tpu_torch.data import estimate_coo_capacities
-from gcnbmp_tpu_torch.data.wire import compact_coo_arrays, iter_coo_eval_batches
+from gcnbmp_tpu_torch.data.wire import iter_coo_eval_batches
 from gcnbmp_tpu_torch.train.metrics import compute_metrics
 
 
@@ -31,24 +35,28 @@ class EvalResult:
 
 class PackedPairEvaluator:
     """Serve ``predictor`` (a ``PackedPairPredictorCOOCompact`` of any
-    ported encoder, taken as it is given) over a dataset on ``device``."""
+    ported encoder or a ``PackedCoattnPairPredictor``, taken as it is
+    given) over a dataset on ``device``.  ``n_max``: the co-attention
+    atom table width, default the dataset's."""
 
     def __init__(self, predictor, batch_size: int = 512, class_num: int = 1,
-                 device="cuda"):
+                 device="cuda", n_max: Optional[int] = None):
         self.device = torch.device(device)
         self.predictor = predictor.to(self.device).eval()
         self.batch_size = batch_size
         self.class_num = class_num
+        self.n_max = n_max
 
     @torch.no_grad()
     def evaluate(self, ds) -> EvalResult:
+        args_fn = self.predictor.wire_encoder([ds], self.n_max)
         bs = min(self.batch_size, len(ds))
         num_tiles, edge_capacity = estimate_coo_capacities([ds], bs)
         logits_all, labels_all, e1_all, e2_all = [], [], [], []
         for batch, valid in iter_coo_eval_batches(ds, bs, num_tiles,
                                                   edge_capacity):
             args = [torch.as_tensor(np.asarray(a)).to(self.device)
-                    for a in compact_coo_arrays(batch)]
+                    for a in args_fn(batch)]
             logits, g1, g2 = self.predictor(*args, return_g=True)
             labels = np.asarray(batch.labels)
             logits = logits.cpu().numpy().reshape(

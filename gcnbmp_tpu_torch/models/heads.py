@@ -1,8 +1,10 @@
-"""Pair scoring heads (port of gcnbmp_tpu/models/heads.py).
+"""Pair scoring heads (port of gcnbmp_tpu/models/heads.py):
+(left (B, in_dim), right (B, in_dim)) -> logits (B, out_dim).
 
-Only HolE, the flagship's head, is ported so far; the other heads of the
-JAX package raise until the port of the padded layout and other heads
-(ROADMAP queue 1, item 7)."""
+flax infers each head's input width; here the caller passes it as
+``in_dim``: the molecule embedding width, or the co-attention output
+width (3 D for ``bimpm``).  Sub-module and parameter names follow the
+flax trees (``mlp``, ``bilinear``, ``W_diag``, ``out``)."""
 
 from __future__ import annotations
 
@@ -11,8 +13,12 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from gcnbmp_tpu_torch.models.layers import MLP
+from gcnbmp_tpu_torch.models.layers import MLP, Bilinear
 from gcnbmp_tpu_torch.ops.circular import circular_correlation
+
+NTN_SLICES = 8    # NTNHead.ntn_out_dim
+DM_WIDTH = 8      # DistMultHead.dm_out_dim
+COSINE_EPS = 1e-8
 
 
 class HolEHead(nn.Module):
@@ -27,12 +33,88 @@ class HolEHead(nn.Module):
         return self.mlp(circular_correlation(left, right))
 
 
+class NTNHead(nn.Module):
+    """Bilinear tensor layer of ``NTN_SLICES`` slices -> MLP
+    (heads.py:36-48)."""
+
+    def __init__(self, in_dim: int, out_dim: int,
+                 hidden_dims: Sequence[int] = (16,), device=None):
+        super().__init__()
+        self.bilinear = Bilinear(in_dim, in_dim, NTN_SLICES, device=device)
+        self.mlp = MLP(NTN_SLICES, out_dim, hidden_dims, device=device)
+
+    def forward(self, left, right):
+        return self.mlp(self.bilinear(left, right))
+
+
+class DistMultHead(nn.Module):
+    """Diagonal bilinear (left * right) @ W_diag -> MLP (heads.py:51-66)."""
+
+    def __init__(self, in_dim: int, out_dim: int,
+                 hidden_dims: Sequence[int] = (16,), device=None):
+        super().__init__()
+        self.W_diag = nn.Parameter(torch.empty(in_dim, DM_WIDTH, device=device))
+        self.mlp = MLP(DM_WIDTH, out_dim, hidden_dims, device=device)
+
+    def forward(self, left, right):
+        return self.mlp((left * right) @ self.W_diag)
+
+
+class MLPHead(nn.Module):
+    """concat(left, right) -> MLP (heads.py:69-80)."""
+
+    def __init__(self, in_dim: int, out_dim: int,
+                 hidden_dims: Sequence[int] = (32, 16), device=None):
+        super().__init__()
+        self.mlp = MLP(2 * in_dim, out_dim, hidden_dims, device=device)
+
+    def forward(self, left, right):
+        return self.mlp(torch.cat([left, right], dim=-1))
+
+
+class SymMLPHead(nn.Module):
+    """concat(left + right, left * right) -> MLP, symmetric in the pair
+    (heads.py:83-96)."""
+
+    def __init__(self, in_dim: int, out_dim: int,
+                 hidden_dims: Sequence[int] = (32, 16), device=None):
+        super().__init__()
+        self.mlp = MLP(2 * in_dim, out_dim, hidden_dims, device=device)
+
+    def forward(self, left, right):
+        return self.mlp(torch.cat([left + right, left * right], dim=-1))
+
+
+class CosineHead(nn.Module):
+    """Cosine similarity, then a Dense ``out`` when out_dim > 1
+    (heads.py:99-115)."""
+
+    def __init__(self, in_dim: int, out_dim: int = 1, device=None):
+        super().__init__()
+        if out_dim > 1:
+            self.out = nn.Linear(1, out_dim, device=device)
+
+    def forward(self, left, right):
+        num = (left * right).sum(-1, keepdim=True)
+        den = (torch.linalg.vector_norm(left, dim=-1, keepdim=True)
+               * torch.linalg.vector_norm(right, dim=-1, keepdim=True))
+        sim = num / torch.clamp(den, min=COSINE_EPS)
+        return self.out(sim) if hasattr(self, "out") else sim
+
+
+HEADS = {"hole": HolEHead, "ntn": NTNHead, "dist-mult": DistMultHead,
+         "mlp": MLPHead, "symmlp": SymMLPHead, "cosine": CosineHead}
+
+
 def make_head(sim_method: str, in_dim: int, out_dim: int,
               hidden_dims: Sequence[int] = (), device=None) -> nn.Module:
-    if sim_method == "hole":
-        return HolEHead(in_dim, out_dim, hidden_dims, device=device)
-    if sim_method in ("ntn", "dist-mult", "mlp", "symmlp", "cosine"):
-        raise NotImplementedError(
-            f"head {sim_method!r} is not ported yet: it comes with the "
-            "padded layout and the other heads (ROADMAP queue 1, item 7)")
-    raise ValueError(f"unknown sim_method {sim_method!r}")
+    """The head the JAX ``make_packed_predictor`` builds for
+    ``sim_method``: every head but ``cosine`` takes ``hidden_dims`` (the
+    config's ``net_hidden_dims``)."""
+    if sim_method not in HEADS:
+        raise ValueError(f"unknown sim_method {sim_method!r}; available: "
+                         f"{sorted(HEADS)}")
+    if sim_method == "cosine":
+        return CosineHead(in_dim, out_dim, device=device)
+    return HEADS[sim_method](in_dim, out_dim, tuple(hidden_dims),
+                             device=device)

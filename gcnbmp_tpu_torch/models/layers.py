@@ -139,3 +139,20 @@ class MLP(nn.Module):
         for i in range(self.n_hidden):
             x = torch.relu(getattr(self, f"hidden_{i}")(x))
         return self.out(x)
+
+
+class Bilinear(nn.Module):
+    """chainer.links.Bilinear (layers.py:179-198):
+    y_k = x1^T W_k x2 + V1 x1 + V2 x2 + b.  ``W`` keeps the flax layout
+    (d1, d2, k); ``V1``/``V2`` are bias-free Dense layers."""
+
+    def __init__(self, d1: int, d2: int, out_dim: int, device=None):
+        super().__init__()
+        self.W = nn.Parameter(torch.empty(d1, d2, out_dim, device=device))
+        self.V1 = nn.Linear(d1, out_dim, bias=False, device=device)
+        self.V2 = nn.Linear(d2, out_dim, bias=False, device=device)
+        self.b = nn.Parameter(torch.empty(out_dim, device=device))
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        y = torch.einsum("...i,ijk,...j->...k", x1, self.W, x2)
+        return y + self.V1(x1) + self.V2(x2) + self.b

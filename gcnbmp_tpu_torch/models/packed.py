@@ -17,16 +17,20 @@ Ported pieces:
   fused branch (:717-774): K5 -> slot table -> K4 -> linear1, relu, linear2
 - ``decode_compact_wire``           <- :918-936
 - ``PackedPairPredictorCOOCompact`` <- :939-971: embed -> flat adjacency ->
-  the encoder's kernel path -> left and right gather -> HolE
+  the encoder's kernel path -> left and right gather -> the head
+- ``PackedCoattnPairPredictor``     <- :974-1033, over GGNN: the kernel
+  path in its K1 form -> per-pair atom tables -> co-attention -> the head
 - ``make_packed_predictor``         <- :1235-1347, the ``method="ggnn"``
-  and ``method="mpnn"`` branches, no co-attention, no layer aggregator;
-  ``model_kwargs_from_config`` reads its arguments from a run config.
+  and ``method="mpnn"`` branches with every head, co-attention over GGNN,
+  no layer aggregator; ``model_kwargs_from_config`` reads its arguments
+  from a run config.
 
 Parameter names match the flax trees (``encoder/embed``,
 ``encoder/update_{i}/message/dense``, ``encoder/gru/...``,
 ``encoder/readout_0/{i,j}`` for GGNN; ``encoder/message_{i}/nn1|nn2``,
 ``encoder/gru_{i}/...``, ``encoder/readout_0/set2set/lstm/...``,
-``encoder/readout_0/linear1|linear2`` for MPNN; ``head/mlp/...``).  On
+``encoder/readout_0/linear1|linear2`` for MPNN; ``head/...``;
+``coattention/...``, see ``models.coattention``).  On
 CPU tensors the kernel paths run the kernels' plain versions; on CUDA
 tensors they launch the kernels.  They are differentiable end to end: the
 kernels' autograd functions carry the gradient back to h0, and through the
@@ -44,8 +48,10 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from gcnbmp_tpu_torch.models.coattention import (
+    COATTENTION_REGISTRY, build_coattention)
 from gcnbmp_tpu_torch.models.ggnn import NUM_EDGE_TYPE, GGNNMessage
-from gcnbmp_tpu_torch.models.heads import make_head
+from gcnbmp_tpu_torch.models.heads import HEADS, make_head
 from gcnbmp_tpu_torch.models.layers import (
     MAX_ATOMIC_NUM,
     ChainerGRUCell,
@@ -58,7 +64,8 @@ from gcnbmp_tpu_torch.ops.fused_ggnn import (
     fused_ggnn, fused_ggnn_readout, params_to_fused)
 from gcnbmp_tpu_torch.ops.fused_mpnn import fused_mpnn, params_to_fused_mpnn
 from gcnbmp_tpu_torch.ops.set2set_kernel import NEG, fused_set2set
-from gcnbmp_tpu_torch.ops.slotgather import gather_slot_table, identity_mol_row
+from gcnbmp_tpu_torch.ops.slotgather import (
+    gather_slot_table, identity_mol_row, side_mol_row)
 
 
 class PackedGatedReadout(nn.Module):
@@ -107,12 +114,15 @@ def readout_in_kernel(hidden_dim: Optional[int] = None,
 
 
 def fused_form(hidden_dim: Optional[int] = None,
-               out_dim: Optional[int] = None) -> str:
+               out_dim: Optional[int] = None,
+               attn: Optional[str] = None) -> str:
     """The kernels the GGNN kernel path runs under the current flags for
-    a model of these widths (unnamed widths: D = H)."""
+    a model of these widths (unnamed widths: D = H); a co-attention model
+    (``attn``) needs the per-atom states, which K2 does not write, so it
+    always takes the K1 form."""
     from gcnbmp_tpu_torch.ops import fused_ggnn as fg
 
-    if readout_in_kernel(hidden_dim, out_dim):
+    if attn is None and readout_in_kernel(hidden_dim, out_dim):
         return "K2/K2b (gated readout in the kernel)"
     if fg.TWOPASS:
         return "K1m/K3 (two-pass backward) + plain readout"
@@ -158,15 +168,21 @@ class PackedGGNN(nn.Module):
         return _segment_mol_sum(g_nodes, mol_id, num_mols), {"atoms": h, "h0": h0}
 
     def fused_forward(self, atom_ids, adj_flat, mol_id, node_mask,
-                      num_mols: int) -> torch.Tensor:
+                      num_mols: int, return_atoms: bool = False):
         """Per-molecule embeddings (num_mols, D) from the flat (P, T, 4T)
         adjacency: through K2 (K2b in the backward), or K1 and the plain
         readout (K1b, or K3 twice, in the backward), by ``FUSED_READOUT``
-        and the widths (``readout_in_kernel``)."""
+        and the widths (``readout_in_kernel``).  ``return_atoms``: also
+        return the last layer's per-atom states h (P, T, H), for which the
+        path always takes the K1 form (K2 writes no h); h then feeds the
+        readout and the caller, and the backward takes the sum of both
+        gradients."""
         h0 = self.embed(atom_ids)
         msg_w, msg_b, gru = params_to_fused(self)
         ro = self.readout_0
-        if readout_in_kernel(self.hidden_dim, self.out_dim):
+        h = None
+        if not return_atoms and readout_in_kernel(self.hidden_dim,
+                                                  self.out_dim):
             g_nodes = fused_ggnn_readout(
                 self.n_layers, h0, adj_flat, msg_w, msg_b, gru, node_mask,
                 ro.i.dense.weight.T.contiguous(), ro.i.dense.bias,
@@ -174,7 +190,8 @@ class PackedGGNN(nn.Module):
         else:
             h = fused_ggnn(self.n_layers, h0, adj_flat, msg_w, msg_b, gru)
             g_nodes = ro(h, h0, node_mask)
-        return _segment_mol_sum(g_nodes, mol_id, num_mols)
+        g = _segment_mol_sum(g_nodes, mol_id, num_mols)
+        return (g, h) if return_atoms else g
 
 
 def _device_slot_table(ids: torch.Tensor, valid: torch.Tensor, num_mols: int,
@@ -389,6 +406,13 @@ class PackedPairPredictorCOOCompact(nn.Module):
         self.encoder = encoder  # a PackedGGNN or a PackedMPNN
         self.head = head
 
+    def wire_encoder(self, datasets=(), n_max: Optional[int] = None):
+        """The host encoder of this predictor's batches:
+        ``data.wire.compact_coo_arrays`` (it needs no atom table width)."""
+        from gcnbmp_tpu_torch.data.wire import compact_coo_arrays
+
+        return compact_coo_arrays
+
     def forward(self, nodes, e_packed, n_edges, left_index, right_index,
                 return_g: bool = False):
         num_mols = 2 * left_index.shape[0]
@@ -407,6 +431,74 @@ class PackedPairPredictorCOOCompact(nn.Module):
         return logits
 
 
+class PackedCoattnPairPredictor(nn.Module):
+    """Co-attention pair predictor over the wire-compact batch (JAX
+    :974-1033): the GGNN kernel path in its K1 form returns g and the
+    per-atom states h; each pair side's atoms are gathered out of the
+    tiles through its slot table (``data.wire.compact_coattn_arrays``,
+    gather-only backward), then co-attention and the head.  Takes the
+    nine wire arrays; with ``return_g`` also the co-attention outputs."""
+
+    def __init__(self, encoder: nn.Module, coattention: nn.Module,
+                 head: nn.Module):
+        super().__init__()
+        self.encoder = encoder  # a PackedGGNN
+        self.coattention = coattention
+        self.head = head
+
+    @property
+    def table_width(self) -> Optional[int]:
+        """The atom table width the weights fix (``lt``), else None."""
+        w1 = getattr(self.coattention, "W1", None)
+        return None if w1 is None else int(w1.shape[0])
+
+    def wire_encoder(self, datasets=(), n_max: Optional[int] = None):
+        """The host encoder of this predictor's batches:
+        ``data.wire.compact_coattn_arrays`` at atom table width ``n_max``,
+        by default the largest molecule of ``datasets`` rounded up to 8,
+        as the JAX evaluator takes it (evaluate.py:156-162).  A width other
+        than the one ``lt``'s weights fix is refused, as flax refuses it
+        (ScopeParamShapeError)."""
+        import functools
+
+        from gcnbmp_tpu_torch.data.packing import max_atoms_lane_rounded
+        from gcnbmp_tpu_torch.data.wire import compact_coattn_arrays
+
+        n_max = n_max or max_atoms_lane_rounded(datasets)
+        fixed = self.table_width
+        if fixed is not None and fixed != n_max:
+            raise ValueError(
+                f"the lt co-attention weights hold atom tables {fixed} wide; "
+                f"this dataset needs tables {n_max} wide, which the JAX "
+                "package cannot serve with these weights either")
+        return functools.partial(compact_coattn_arrays, n_max=n_max)
+
+    def forward(self, nodes, e_packed, n_edges, left_index, right_index,
+                left_slots, right_slots, left_mask, right_mask,
+                return_g: bool = False):
+        num_mols = 2 * left_index.shape[0]
+        (atom_ids, mol_id, node_mask, e_tile, e_type, e_src, e_dst,
+         e_mask) = decode_compact_wire(nodes, e_packed, n_edges, num_mols)
+        p, t = atom_ids.shape
+        adj_flat = adj_from_coo_flat(e_tile, e_type, e_src, e_dst, e_mask,
+                                     num_tiles=p, tile=t)
+        g, h = self.encoder.fused_forward(atom_ids, adj_flat, mol_id,
+                                          node_mask, num_mols,
+                                          return_atoms=True)
+        flat = h.reshape(p * t, -1)
+        ids = mol_id.reshape(-1)
+        atoms1 = gather_slot_table(flat, left_slots, left_mask, ids,
+                                   side_mol_row(left_index, num_mols))
+        atoms2 = gather_slot_table(flat, right_slots, right_mask, ids,
+                                   side_mol_row(right_index, num_mols))
+        g1, g2 = self.coattention(atoms1, g[left_index.long()], atoms2,
+                                  g[right_index.long()], left_mask, right_mask)
+        logits = self.head(g1, g2)
+        if return_g:
+            return logits, g1, g2
+        return logits
+
+
 # Model fields of a run config and the values the port builds.
 # compute_path is not read: the packed and padded parameter trees are the
 # same, and the port always runs the packed kernel path of the encoder.
@@ -415,8 +507,6 @@ class PackedPairPredictorCOOCompact(nn.Module):
 # does.
 PORTED_METHODS = ("ggnn", "mpnn")
 _REQUIRED = {
-    "sim_method": "hole",
-    "attn": None,
     "layer_aggregator": None,
     "siamese": True,
     "symmetric": None,
@@ -427,24 +517,45 @@ _REQUIRED = {
 # TrainConfig defaults for fields a config.json may omit (the ported
 # values above are TrainConfig's defaults as well)
 _DEFAULTS = {
-    **_REQUIRED, "method": "ggnn", "fp_hidden_dim": 16, "fp_out_dim": 16,
-    "conv_layers": 4, "weight_tying": True, "net_hidden_dims": (),
-    "class_num": 1,
+    **_REQUIRED, "method": "ggnn", "sim_method": "hole", "attn": None,
+    "fp_hidden_dim": 16, "fp_out_dim": 16, "conv_layers": 4,
+    "weight_tying": True, "net_hidden_dims": (), "class_num": 1,
 }
+
+
+def model_problems(method: str, sim_method: str,
+                   attn: Optional[str]) -> list:
+    """The encoder, head and co-attention choices the port does not
+    build, each with its reason."""
+    bad = []
+    if method not in PORTED_METHODS:
+        bad.append(f"method={method!r} (ported: "
+                   f"{', '.join(map(repr, PORTED_METHODS))}; the other "
+                   "packed encoders are ROADMAP queue 1, item 9)")
+    if sim_method not in HEADS:
+        bad.append(f"sim_method={sim_method!r} (heads: {sorted(HEADS)})")
+    if attn is not None:
+        if attn not in COATTENTION_REGISTRY:
+            bad.append(f"attn={attn!r} (variants: "
+                       f"{sorted(COATTENTION_REGISTRY)})")
+        elif method == "mpnn":
+            bad.append(f"attn={attn!r} with method='mpnn': the port runs "
+                       "co-attention over the GGNN encoder; MPNN with "
+                       "co-attention is ROADMAP queue 1, item 8")
+    return bad
 
 
 def model_kwargs_from_config(cfg: dict) -> dict:
     """``make_packed_predictor`` kwargs from a run config dict (a
     ``config.json``, the port's or a JAX run's); raises ValueError on any
-    model value outside what the port builds.  The Set2Set table width
-    is not a config field: it takes ``make_packed_predictor``'s default,
-    as the JAX evaluator does, unless the caller adds it."""
+    model value outside what the port builds.  The Set2Set and ``lt``
+    atom table widths are not config fields: they take
+    ``make_packed_predictor``'s default, as the JAX evaluator does, unless
+    the caller adds them (``s2s_n_max``, ``coattn_n_max``)."""
     get = lambda k: cfg.get(k, _DEFAULTS[k])
-    bad = [f"{k}={get(k)!r} (ported: {v!r})" for k, v in _REQUIRED.items()
-           if get(k) != v]
-    if get("method") not in PORTED_METHODS:
-        bad.insert(0, f"method={get('method')!r} (ported: "
-                      f"{', '.join(map(repr, PORTED_METHODS))})")
+    bad = model_problems(get("method"), get("sim_method"), get("attn"))
+    bad += [f"{k}={get(k)!r} (ported: {v!r})" for k, v in _REQUIRED.items()
+            if get(k) != v]
     if bad:
         raise ValueError("config outside the ported model: "
                          + ", ".join(bad))
@@ -454,7 +565,8 @@ def model_kwargs_from_config(cfg: dict) -> dict:
         "fp_out_dim": int(get("fp_out_dim")),
         "conv_layers": int(get("conv_layers")),
         "weight_tying": bool(get("weight_tying")),
-        "sim_method": "hole",
+        "sim_method": get("sim_method"),
+        "attn": get("attn"),
         "class_num": int(get("class_num")),
         "net_hidden_dims": tuple(get("net_hidden_dims") or ()),
     }
@@ -472,19 +584,19 @@ def make_packed_predictor(
     method: str = "ggnn",
     layer_aggregator: Optional[str] = None,
     s2s_n_max: int = 64,
+    coattn_n_max: Optional[int] = None,
     device=None,
-) -> PackedPairPredictorCOOCompact:
+) -> nn.Module:
     """The wire-compact pair predictor of the JAX package's
     ``make_packed_predictor(..., compact=True)`` for the GGNN and MPNN
-    families.  ``s2s_n_max`` is the MPNN Set2Set table width: it must
-    bound the largest molecule (the trainer fits it to its data)."""
-    if method not in PORTED_METHODS:
-        raise ValueError(
-            f"method {method!r} is not ported yet: the other packed encoders "
-            "come later (ROADMAP queue 1, item 9)")
-    if attn is not None:
-        raise ValueError("co-attention is not ported yet "
-                         "(ROADMAP queue 1, item 8)")
+    families, and with ``attn`` its co-attention predictor over GGNN
+    (:1327-1338).  ``s2s_n_max`` is the MPNN Set2Set table width: it must
+    bound the largest molecule (the trainer fits it to its data);
+    ``coattn_n_max``, the co-attention atom table width, sizes ``lt``'s
+    weights."""
+    bad = model_problems(method, sim_method, attn)
+    if bad:
+        raise ValueError("not ported: " + "; ".join(bad))
     if layer_aggregator is not None:
         raise ValueError("layer_aggregator is not ported yet "
                          "(ROADMAP queue 1, item 9)")
@@ -496,6 +608,12 @@ def make_packed_predictor(
         encoder = PackedGGNN(out_dim=fp_out_dim, hidden_dim=fp_hidden_dim,
                              n_layers=conv_layers, weight_tying=weight_tying,
                              device=device)
+    if attn is not None:
+        coattention = build_coattention(attn, fp_hidden_dim, fp_out_dim,
+                                        coattn_n_max, device=device)
+        head = make_head(sim_method, coattention.out_width, class_num,
+                         tuple(net_hidden_dims), device=device)
+        return PackedCoattnPairPredictor(encoder, coattention, head)
     head = make_head(sim_method, fp_out_dim, class_num,
                      tuple(net_hidden_dims), device=device)
     return PackedPairPredictorCOOCompact(encoder, head)

@@ -72,3 +72,19 @@ def identity_mol_row(num_mols: int, device=None) -> torch.Tensor:
     dense Set2Set case): [0, 1, ..., num_mols - 1, -1]."""
     return torch.cat([torch.arange(num_mols, dtype=torch.int64, device=device),
                       torch.full((1,), -1, dtype=torch.int64, device=device)])
+
+
+def side_mol_row(index: torch.Tensor, num_mols: int) -> torch.Tensor:
+    """mol_row for a per-pair table over one side of the pair batch (the
+    co-attention case): molecule ``index[i]`` maps to row i, every other
+    molecule (the other side, the sentinel) to -1.
+
+    ``index`` must not repeat a molecule over rows with real atoms: the
+    later row would take the molecule and the earlier row's gradient
+    would be lost.  The packers never repeat one (padded pairs reuse the
+    sentinel id, fully masked), and ``data.wire.compact_coattn_arrays``
+    checks it on the host (``data.packing.check_side_index_injective``)."""
+    rows = torch.full((num_mols + 1,), -1, dtype=torch.int64,
+                      device=index.device)
+    return rows.index_copy(0, index.long(), torch.arange(
+        index.shape[0], dtype=torch.int64, device=index.device))

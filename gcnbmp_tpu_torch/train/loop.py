@@ -12,8 +12,10 @@ step and the Trainer (port of gcnbmp_tpu/train/loop.py).
   semantics of ``make_packed_scan_train_step`` (:358-390)
 - ``Trainer``     <- :686-1408 for GGNN on ``compute_path="fused"`` or
   ``"coo"`` (one kernel path, :799-858) and MPNN on ``compute_path="coo"``
-  (the Set2Set table width fitted to the data, :817-827), per step or in
-  scan mode (the loop at :1185-1263, the guard at :739-745)
+  (the Set2Set table width fitted to the data, :817-827), GGNN with
+  co-attention on ``"coo"`` (the atom table width fitted alike,
+  :1089-1098), per step or in scan mode (the loop at :1185-1263, the
+  guard at :739-745)
 - ``config_problems`` <- ``packed_config_problems`` (:532-575), for what
   the port trains; ``kernel_problems`` names the widths the card's
   kernels are not built for.
@@ -39,6 +41,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from gcnbmp_tpu_torch.models.packed import model_problems
 from gcnbmp_tpu_torch.train.config import TrainConfig
 from gcnbmp_tpu_torch.train.schedules import (
     cyclical_schedule,
@@ -246,12 +249,12 @@ def config_problems(cfg: TrainConfig) -> List[str]:
     if cfg.method not in ("ggnn", "mpnn"):
         problems.append(f"method={cfg.method!r}: other encoders are ROADMAP "
                         "queue 1, item 9")
-    if cfg.sim_method != "hole":
-        problems.append(f"sim_method={cfg.sim_method!r}: other heads are "
-                        "ROADMAP queue 1, item 7")
-    if cfg.attn is not None:
-        problems.append(f"attn={cfg.attn!r}: co-attention is ROADMAP queue 1, "
-                        "item 8")
+    else:
+        problems += model_problems(cfg.method, cfg.sim_method, cfg.attn)
+    if cfg.attn is not None and cfg.compute_path == "fused":
+        # the JAX package refuses it alike (packed_config_problems)
+        problems.append(f"attn={cfg.attn!r} on compute_path='fused': "
+                        "co-attention (use compute_path='coo')")
     if cfg.layer_aggregator:
         problems.append(f"layer_aggregator={cfg.layer_aggregator!r}: "
                         "ROADMAP queue 1, item 9")
@@ -351,8 +354,12 @@ class Trainer:
     numpy draws from the flax initializers' distributions, so their
     values differ from a JAX run's (jax.random) with the same seed.
     Each step runs the GGNN kernel path in the form
-    ``models.packed.fused_form`` names (K2 and K2b by default) or K5, K4,
-    K4b and K5b (MPNN) on the card.  Batches reach the device in chunks
+    ``models.packed.fused_form`` names (K2 and K2b by default; K1 and K1b,
+    or K1m and K3 twice, with co-attention) or K5, K4, K4b and K5b (MPNN)
+    on the card.  A co-attention model's batches carry each pair side's
+    atom slot table, ``coattn_n_max`` wide (the run's largest molecule,
+    rounded up to 8), and its evaluations use the same width.  Batches
+    reach the device in chunks
     of ``max(scan_steps, 1)``, one host-to-device copy per chunk
     (``stage_chunk``), and the chunk's steps run back to back on slices of
     it: the batches, order and updates of the JAX scan mode, whose tail
@@ -382,14 +389,19 @@ class Trainer:
         self.val_ds = val_ds
         self.np_rng = rng
         kwargs = model_kwargs_from_config(dataclasses.asdict(config))
-        if config.method == "mpnn":
-            # the Set2Set table width: the largest molecule of the run's
-            # datasets, rounded up to 8 (loop.py:817-827)
-            from gcnbmp_tpu_torch.data.packing import max_atoms_lane_rounded
+        # the Set2Set (MPNN) and co-attention atom table widths: the
+        # largest molecule of the run's datasets, rounded up to 8
+        # (loop.py:817-827, :1089-1098)
+        from gcnbmp_tpu_torch.data.packing import max_atoms_lane_rounded
 
-            dss = [train_ds] + ([val_ds] if val_ds is not None
-                                and len(val_ds) else [])
+        dss = [train_ds] + ([val_ds] if val_ds is not None
+                            and len(val_ds) else [])
+        self.coattn_n_max = None
+        if config.method == "mpnn":
             kwargs["s2s_n_max"] = max_atoms_lane_rounded(dss)
+        if config.attn is not None:
+            self.coattn_n_max = kwargs["coattn_n_max"] = \
+                max_atoms_lane_rounded(dss)
         self.model = from_jax_params(
             init_params(kwargs, config.seed),
             make_packed_predictor(**kwargs)).to(self.device)
@@ -414,14 +426,15 @@ class Trainer:
 
         res = PackedPairEvaluator(self.model, batch_size=self.config.batch_size,
                                   class_num=self.config.class_num,
-                                  device=self.device).evaluate(ds)
+                                  device=self.device,
+                                  n_max=self.coattn_n_max).evaluate(ds)
         self.model.train()
         return res
 
     def fit(self, max_epochs: Optional[int] = None) -> Dict[str, Any]:
         from gcnbmp_tpu_torch.data import estimate_coo_capacities
         from gcnbmp_tpu_torch.data.wire import (
-            compact_coo_arrays, packed_coo_batch_iterator, scan_chunk_iterator)
+            packed_coo_batch_iterator, scan_chunk_iterator)
         from gcnbmp_tpu_torch.models.packed import fused_form
         from gcnbmp_tpu_torch.train.checkpoints import save_checkpoint
 
@@ -442,7 +455,8 @@ class Trainer:
                         "(ROADMAP queue 1, item 6); log.json holds the curves")
         if cfg.method == "ggnn":
             logger.info("GGNN kernel path: %s",
-                        fused_form(cfg.fp_hidden_dim, cfg.fp_out_dim))
+                        fused_form(cfg.fp_hidden_dim, cfg.fp_out_dim, cfg.attn))
+        args_fn = self.model.wire_encoder(n_max=self.coattn_n_max)
         steps_per_chunk = max(cfg.scan_steps, 1)
         os.makedirs(cfg.out_dir, exist_ok=True)
         max_epochs = max_epochs or cfg.epochs
@@ -457,7 +471,7 @@ class Trainer:
                 self.edge_capacity, self.np_rng,
                 pack_workers=cfg.pack_workers, pack_cache=pack_cache)
             for stacked, labels, edges in scan_chunk_iterator(
-                    batches, steps_per_chunk, compact_coo_arrays):
+                    batches, steps_per_chunk, args_fn):
                 args, labels = stage_chunk(stacked, labels, self.device)
                 for i in range(steps_per_chunk):
                     epoch_losses.append(train_step(

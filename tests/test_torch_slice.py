@@ -180,9 +180,9 @@ def test_predict_cli_matches_jax(tmp_path):
                                rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("field,value", [("method", "relgcn"), ("attn", "para"),
+@pytest.mark.parametrize("field,value", [("method", "relgcn"), ("method", "nfp"),
                                          ("layer_aggregator", "concat"),
-                                         ("sim_method", "ntn"),
+                                         ("concat_hidden", True),
                                          ("symmetric", "or")])
 def test_config_outside_slice_raises(field, value):
     d = json.loads(TrainConfig().to_json())

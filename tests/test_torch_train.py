@@ -260,7 +260,8 @@ def test_multilabel_metrics_match_sklearn():
 
 @pytest.mark.parametrize("field,value", [
     ("compute_path", "packed"), ("compute_path", "padded"), ("method", "relgcn"),
-    ("sim_method", "ntn"), ("attn", "para"), ("layer_aggregator", "concat"),
+    ("method", "gin"), ("fp_batch_normalization", True),
+    ("layer_aggregator", "concat"),
     ("multi_device", True), ("concat_hidden", True), ("siamese", False),
     ("resume", "run/best"), ("profile_epoch", 0), ("debug_checks", True),
     ("fp_dropout_rate", 0.1), ("symmetric", "or")])
