@@ -79,6 +79,27 @@ Phases, each fatal on failure:
    K1: no input of theirs needs a gradient).  Then the batch-2048 step
    timed and profiled for ``para`` and ``nie``.
 
+11. Evaluation and the trainer's modes, on phase 5's run directory (2
+   epochs with a val set, so ``best`` exists) and the 2048 test pairs:
+   the evaluate CLI at batch 256 on ``best`` (K2 once per batch;
+   ``eval_result.json`` with the keys of ``compute_metrics``; AUROC and
+   AUPRC within 1e-3 of those of the plain layer stack's logits, the
+   logits within atol = rtol = 1e-4; 2048 rows in ``_e.csv`` and
+   ``_e_y.csv``; ``--similarity cosine`` symmetric with a unit diagonal
+   within 1e-6); ``predict --run`` against ``--config/--params`` (the
+   same weights bit for bit, probs within 1e-4: the segment sum's
+   ``index_add_`` adds in a varying order on the card); ``snapshot_epoch_2`` restored into a fresh
+   ``Trainer`` bit for bit (every parameter and Adam moment), then the
+   train CLI with ``--resume`` it and ``--epochs 3`` (K2b once per step,
+   finite loss, ``log.json`` only epoch 3); ``profile_epoch=0`` at batch
+   256 (a Chrome trace under ``<out>/profile/`` naming K2b's kernel,
+   ``fused_ggnn_bwd_kernel<32, true>``); ``debug_checks`` for an epoch,
+   and a batch with a corrupted ``e_src`` refused before any launch;
+   multi-label: one epoch of ``ggnn_multilabel_x86`` with ``--labels-csv``
+   (synth546's 5 classes, a seeded rule) and focal loss at batch 256
+   (K2b once per step), then the evaluate CLI with ``--labels-csv``:
+   ``per_class`` with 5 finite entries.
+
 Prints the kernels' JSON line (with each kernel's bound: the larger of
 its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s, counted
 from this run's inputs, the sparse products by their nonzeros), the
@@ -89,6 +110,7 @@ CUDA is unavailable or the port's package is not beside this script.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -605,13 +627,16 @@ def serve_slice(tag, config, cfg, ds, df, dev, smi, reset_counts, read_counts,
 
 def train_slice(tag, flags, batch_size, train_cfg, model_cfg, per_step,
                 fwd_kernels, time_batches, dev, smi, reset_counts,
-                read_counts, n_train=N_PAIRS, epochs=TRAIN_EPOCHS, absent=()):
+                read_counts, n_train=N_PAIRS, epochs=TRAIN_EPOCHS, absent=(),
+                keep_dir=None):
     """The train CLI on the card with ``flags`` at ``batch_size`` on the
     first ``n_train`` train pairs for ``epochs`` epochs; each kernel of
     ``per_step`` must launch that many times per step, each of
     ``fwd_kernels`` at least once per step and each of ``absent`` never.
     Then one step's gradients vs the plain layer stack, and the step's
     time and profile at each of ``time_batches`` (batch size, steps).
+    The CSVs and the run (``train.csv``, ``val.csv``, ``run/``) go into
+    ``keep_dir`` when it is given, else into a directory removed after.
     Returns the launch counts and the parsed train pairs."""
     import numpy as np
     import pandas as pd
@@ -633,7 +658,9 @@ def train_slice(tag, flags, batch_size, train_cfg, model_cfg, per_step,
     steps_per_epoch = 2 * len(train_ds) // batch_size  # swap-augmented
     if train_cfg.scan_steps > 1:  # scan mode drops the tail chunk
         steps_per_epoch -= steps_per_epoch % train_cfg.scan_steps
-    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+    with contextlib.ExitStack() as stack:
+        tmp = keep_dir or stack.enter_context(
+            tempfile.TemporaryDirectory(dir=ROOT))
         train_path = os.path.join(tmp, "train.csv")
         val_path = os.path.join(tmp, "val.csv")
         out_dir = os.path.join(tmp, "run")
@@ -794,6 +821,308 @@ def time_train_step(tag, train_ds, model_cfg, train_cfg, bs, n_steps, dev,
     print(f"  where it goes (torch.profiler over {n_steps} steps): {busy}; "
           f"top kernels, device ms per step: {top}")
     return step_ms
+
+
+def multilabel_csv(src, dst, classes):
+    """``src``'s pairs with ||-joined labels over ``classes`` by a seeded
+    rule: the first class when the pair interacts, each other class with
+    probability 1/4."""
+    import numpy as np
+    import pandas as pd
+
+    df = pd.read_csv(src)
+    rng = np.random.default_rng(SEED)
+    draws = rng.random((len(df), len(classes))) < 0.25
+    draws[:, 0] = df["label"].to_numpy() > 0
+    df["label"] = ["||".join(c for c, on in zip(classes, row) if on)
+                   for row in draws]
+    df.to_csv(dst, index=False)
+
+
+def run_modes(kept, df, dev, smi, reset_counts, read_counts):
+    """Phase 11 on phase 5's kept run: the evaluate CLI, predict --run,
+    resume, profile_epoch, debug_checks and multi-label, each on the
+    card.  Returns the evaluate CLI's launch counts."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from gcnbmp_tpu_torch.cli import evaluate as evaluate_cli
+    from gcnbmp_tpu_torch.cli import predict
+    from gcnbmp_tpu_torch.cli import train as train_cli
+    from gcnbmp_tpu_torch.convert import flat_npz, load_params_npz, named_to_tree
+    from gcnbmp_tpu_torch.data import (
+        CSVPairParser, estimate_coo_capacities, get_class_labels)
+    from gcnbmp_tpu_torch.data import wire
+    from gcnbmp_tpu_torch.data.wire import iter_coo_eval_batches
+    from gcnbmp_tpu_torch.train import loop as train_loop
+    from gcnbmp_tpu_torch.train.checkpoints import (
+        load_run, restore_checkpoint, served_predictor)
+    from gcnbmp_tpu_torch.train.config import PRESETS, TrainConfig
+    from gcnbmp_tpu_torch.train.metrics import compute_metrics
+
+    run = os.path.join(kept, "run")
+    test_path = os.path.join(kept, "test.csv")
+    df.to_csv(test_path, index=False)
+    n_batches = -(-N_PAIRS // SERVE_BATCH)
+    times = {}
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[label] = time.perf_counter() - t0
+        return out
+
+    # a. the evaluate CLI on best
+    eval_dir = os.path.join(kept, "eval")
+    reset_counts()
+    rc = timed("evaluate", lambda: evaluate_cli.main([
+        "--test", test_path, "--run", run, "--checkpoint", "best",
+        "--batch-size", str(SERVE_BATCH), "--similarity", "cosine",
+        "--out", eval_dir, "--device", "cuda"]))
+    launches = read_counts()
+    print(f"run modes: evaluate CLI scored {N_PAIRS} pairs in {n_batches} "
+          f"batches of {SERVE_BATCH} in {times['evaluate']:.3f} s (CSV parse, "
+          f"pack, device, exports, similarity) on {smi}; launches {launches}")
+    if rc != 0:
+        raise AssertionError(f"evaluate.main returned {rc}")
+    if launches["fused_ggnn_readout"] != n_batches:
+        raise AssertionError(f"K2 launched {launches['fused_ggnn_readout']} "
+                             f"times for {n_batches} batches")
+    with open(os.path.join(eval_dir, "eval_result.json")) as f:
+        metrics = json.load(f)
+    keys = sorted(compute_metrics(np.array([0.0, 1.0]), np.array([0, 1])))
+    if sorted(metrics) != keys:
+        raise AssertionError(f"eval_result.json keys {sorted(metrics)}, "
+                             f"expected {keys}")
+    # the same params through the plain layer stack on the card
+    _, model = load_run(run, "best", dev)
+    model.eval()
+    ds = CSVPairParser().parse(test_path).dataset
+    tiles, cap = estimate_coo_capacities([ds], SERVE_BATCH)
+    got_l, want_l, labels = [], [], []
+    with torch.no_grad():
+        for batch, valid in iter_coo_eval_batches(ds, SERVE_BATCH, tiles, cap):
+            args = [torch.as_tensor(np.asarray(a)).to(dev)
+                    for a in model.wire_encoder([ds])(batch)]
+            got_l.append(model(*args)[:valid])
+            want_l.append(plain_logits(model, args, torch)[:valid])
+            labels.append(np.asarray(batch.labels)[:valid])
+    got, want = torch.cat(got_l).ravel(), torch.cat(want_l).ravel()
+    compare("run modes: best's logits (kernel path vs plain layer stack)",
+            got, want, torch)
+    want_np = want.cpu().numpy()
+    plain = compute_metrics(want_np, np.concatenate(labels))
+    for key in ("roc_auc", "prc_auc"):
+        err = abs(metrics[key] - plain[key])
+        print(f"run modes: evaluate CLI {key} {metrics[key]:.6f}, plain "
+              f"stack {plain[key]:.6f}, |diff| {err:.2e}")
+        if err > 1e-3:
+            raise AssertionError(f"evaluate CLI {key} disagrees with the "
+                                 "plain stack's")
+    stem = os.path.join(eval_dir, "test")
+    exports = {s: pd.read_csv(f"{stem}{s}.csv") for s in ("_e", "_e_y")}
+    if any(len(e) != N_PAIRS for e in exports.values()):
+        raise AssertionError(f"exports hold {[len(e) for e in exports.values()]}"
+                             f" rows, expected {N_PAIRS}")
+    y = exports["_e_y"]["y"].to_numpy()
+    p_err = float(np.abs(y - 1.0 / (1.0 + np.exp(-want_np))).max())
+    print(f"run modes: _e_y.csv y vs plain probs max_abs_err={p_err:.3e}")
+    if p_err > ATOL:
+        raise AssertionError("exported probabilities disagree with the "
+                             "plain stack")
+    sim = pd.read_csv(os.path.join(eval_dir, "similarity_cosine.csv"),
+                      index_col=0).to_numpy()
+    asym = float(np.abs(sim - sim.T).max())
+    diag = float(np.abs(np.diag(sim) - 1.0).max())
+    print(f"run modes: similarity_cosine.csv {sim.shape}, asymmetry "
+          f"{asym:.2e}, |diag - 1| {diag:.2e}")
+    if asym > 1e-6 or diag > 1e-6:
+        raise AssertionError("cosine similarity not symmetric with a unit "
+                             "diagonal")
+
+    # b. predict --run against --config/--params: the same weights bit
+    # for bit, the same probs within the served bound (the segment sum's
+    # index_add_ adds in an order that varies from run to run on the card)
+    with open(os.path.join(run, "config.json")) as f:
+        run_config = json.load(f)
+    config_form = served_predictor(
+        run_config, load_params_npz(os.path.join(run, "best", "params.npz")))
+    for (name, a), b in zip(model.state_dict().items(),
+                            config_form.state_dict().values()):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"--run and --config/--params load "
+                                 f"different {name}")
+    probs = []
+    for i, form in enumerate((["--run", run, "--checkpoint", "best"],
+                              ["--config", os.path.join(run, "config.json"),
+                               "--params",
+                               os.path.join(run, "best", "params.npz")])):
+        out = os.path.join(kept, f"preds_{i}.csv")
+        if predict.main(["--input", test_path, "--out", out, "--device",
+                         "cuda", *form]) != 0:
+            raise AssertionError("predict.main failed")
+        probs.append(pd.read_csv(out)["prob"].to_numpy())
+    p_err = float(np.abs(probs[0] - probs[1]).max())
+    print(f"run modes: predict --run and --config/--params load the same "
+          f"weights bit for bit; their probs over {len(probs[0])} pairs: "
+          f"max_abs_diff={p_err:.3e}, {int((probs[0] == probs[1]).sum())} "
+          "equal bit for bit")
+    if len(probs[0]) != N_PAIRS or p_err > ATOL:
+        raise AssertionError("predict --run and --config/--params differ")
+
+    # c. resume: restore bit for bit, then one epoch through the train CLI
+    snapshot = os.path.join(run, f"snapshot_epoch_{TRAIN_EPOCHS}")
+    with open(os.path.join(run, "config.json")) as f:
+        run_cfg = TrainConfig.from_json(f.read())
+    parser = CSVPairParser()
+    train_ds = parser.parse(os.path.join(kept, "train.csv")).dataset
+    val_ds = parser.parse(os.path.join(kept, "val.csv")).dataset
+    trainer = train_loop.Trainer(run_cfg, train_ds, val_ds, device=dev)
+    state = restore_checkpoint(snapshot, train_loop.TrainState(
+        trainer.model, trainer.optimizer, 0, 0, float("inf"), 0))
+    names = [n for n, _ in trainer.model.named_parameters()]
+    files = flat_npz(load_params_npz(os.path.join(snapshot, "params.npz")))
+    with np.load(os.path.join(snapshot, "opt_state.npz")) as z:
+        for prefix, tensors_ in (("", dict(trainer.model.named_parameters())),
+                                 ("mu/", dict(zip(names, trainer.optimizer.mu))),
+                                 ("nu/", dict(zip(names, trainer.optimizer.nu)))):
+            for key, v in flat_npz(named_to_tree(tensors_)).items():
+                want_v = files[key] if not prefix else z[prefix + key]
+                if not np.array_equal(v, want_v):
+                    raise AssertionError(f"restored {prefix}{key} differs "
+                                         "from the file")
+        if (trainer.optimizer.count, state.step, state.epoch) != (
+                int(z["count"]), int(z["step"]), TRAIN_EPOCHS):
+            raise AssertionError("restored count, step or epoch differ")
+    print(f"run modes: {snapshot.split(os.sep)[-1]} restored bit for bit: "
+          f"{len(files)} parameters and their Adam moments, count "
+          f"{trainer.optimizer.count}, step {state.step}, epoch {state.epoch}")
+    del trainer
+    resumed = os.path.join(kept, "resumed")
+    step_losses = []
+    real_step = train_loop.train_step
+
+    def recording_step(*args, **kwargs):
+        loss = real_step(*args, **kwargs)
+        step_losses.append(loss)
+        return loss
+
+    train_loop.train_step = recording_step
+    try:
+        reset_counts()
+        rc = timed("resume", lambda: train_cli.main([
+            "--train", os.path.join(kept, "train.csv"), "--val",
+            os.path.join(kept, "val.csv"), "--preset", "ggnn_hole_binary",
+            "--compute-path", "fused", "--device", "cuda", "--seed", str(SEED),
+            "--epochs", str(TRAIN_EPOCHS + 1), "--resume", snapshot,
+            "--out", resumed]))
+        launches_resume = read_counts()
+    finally:
+        train_loop.train_step = real_step
+    with open(os.path.join(resumed, "log.json")) as f:
+        log = json.load(f)
+    n_steps = len(step_losses)
+    losses = torch.stack(step_losses).cpu().numpy() if step_losses else []
+    print(f"run modes: train CLI --resume trained {n_steps} steps in "
+          f"{times['resume']:.3f} s on {smi}; launches {launches_resume}; "
+          f"log epochs {[e['epoch'] for e in log]}")
+    if rc != 0 or n_steps != 2 * N_PAIRS // PRESETS["ggnn_hole_binary"].batch_size:
+        raise AssertionError(f"resume ran {n_steps} steps (rc {rc})")
+    if launches_resume["fused_ggnn_readout_bwd"] != n_steps:
+        raise AssertionError("K2b did not launch once per resumed step")
+    if [e["epoch"] for e in log] != [TRAIN_EPOCHS + 1] or \
+            not np.all(np.isfinite(losses)):
+        raise AssertionError("resumed log.json or loss wrong")
+
+    # d. profile_epoch=0 and e. debug_checks, one epoch each at batch 256
+    base = dataclasses.replace(
+        PRESETS["ggnn_hole_binary"], compute_path="fused",
+        batch_size=SERVE_BATCH, epochs=1, seed=SEED, plot_reports=False)
+    prof_dir = os.path.join(kept, "profiled")
+    timed("profile_epoch", lambda: train_loop.Trainer(
+        dataclasses.replace(base, profile_epoch=0, out_dir=prof_dir),
+        train_ds, val_ds, device=dev).fit())
+    traces = os.listdir(os.path.join(prof_dir, "profile"))
+    with open(os.path.join(prof_dir, "profile", traces[0])) as f:
+        names_ = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    k2b = sorted(n for n in names_ if re.search(
+        r"fused_ggnn_bwd_kernel<\d+, true>", n))
+    print(f"run modes: profile_epoch=0 wrote {traces} in "
+          f"{times['profile_epoch']:.3f} s; K2b's kernel in it: {k2b[:1]}")
+    if len(traces) != 1 or not k2b:
+        raise AssertionError("the epoch's trace does not name K2b's kernel")
+    timed("debug_checks", lambda: train_loop.Trainer(
+        dataclasses.replace(base, debug_checks=True,
+                            out_dir=os.path.join(kept, "debug")),
+        train_ds, val_ds, device=dev).fit())
+    real_iter = wire.packed_coo_batch_iterator
+
+    def corrupted(*args, **kwargs):
+        for b in real_iter(*args, **kwargs):
+            b.e_src[int(np.flatnonzero(b.e_mask > 0)[0])] = TILE + 5
+            yield b
+
+    wire.packed_coo_batch_iterator = corrupted
+    try:
+        trainer = train_loop.Trainer(
+            dataclasses.replace(base, debug_checks=True,
+                                out_dir=os.path.join(kept, "debug_bad")),
+            train_ds, val_ds, device=dev)
+        reset_counts()
+        try:
+            trainer.fit()
+        except ValueError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("debug_checks passed a corrupted batch")
+        launches_bad = read_counts()
+    finally:
+        wire.packed_coo_batch_iterator = real_iter
+    print(f"run modes: debug_checks epoch passed in "
+          f"{times['debug_checks']:.3f} s; a corrupted batch: {refused!r}, "
+          f"launches {sum(launches_bad.values())}")
+    if "e_src" not in refused or any(launches_bad.values()):
+        raise AssertionError("the corrupted batch was not refused before "
+                             "any launch")
+
+    # f. multi-label: train one epoch with --labels-csv, then evaluate
+    classes_csv = os.path.join(ROOT, "dataset", "synth546", "labels.csv")
+    classes = get_class_labels(classes_csv)
+    paths = {}
+    for name in ("train", "val", "test"):
+        paths[name] = os.path.join(kept, f"multi_{name}.csv")
+        multilabel_csv(os.path.join(kept, f"{name}.csv"), paths[name], classes)
+    multi_run = os.path.join(kept, "multi")
+    reset_counts()
+    rc = timed("multi-label train", lambda: train_cli.main([
+        "--train", paths["train"], "--val", paths["val"], "--labels-csv",
+        classes_csv, "--preset", "ggnn_multilabel_x86", "--loss", "focal",
+        "--batch-size", str(SERVE_BATCH), "--scan-steps", "4", "--epochs", "1",
+        "--device", "cuda", "--seed", str(SEED), "--out", multi_run]))
+    launches_multi = read_counts()
+    steps = N_PAIRS // SERVE_BATCH
+    if rc != 0 or launches_multi["fused_ggnn_readout_bwd"] != steps:
+        raise AssertionError(f"multi-label training: rc {rc}, launches "
+                             f"{launches_multi}")
+    rc = timed("multi-label evaluate", lambda: evaluate_cli.main([
+        "--test", paths["test"], "--run", multi_run, "--labels-csv",
+        classes_csv, "--batch-size", str(SERVE_BATCH), "--device", "cuda"]))
+    with open(os.path.join(multi_run, "eval", "eval_result.json")) as f:
+        per_class = json.load(f).get("per_class", {})
+    print(f"run modes: multi-label ({len(classes)} classes) trained {steps} "
+          f"steps in {times['multi-label train']:.3f} s, launches "
+          f"{launches_multi}; evaluated in "
+          f"{times['multi-label evaluate']:.3f} s; per_class roc_auc "
+          f"{ {c: round(v['roc_auc'], 4) for c, v in per_class.items()} }")
+    if rc != 0 or sorted(per_class) != sorted(classes) or not all(
+            np.isfinite(v) for c in per_class.values() for v in c.values()):
+        raise AssertionError("multi-label per_class lacks finite entries")
+    print("run modes: times (s) " + json.dumps(
+        {k: round(v, 3) for k, v in times.items()}))
+    return launches
 
 
 def crowd_rows(adj, torch):
@@ -1137,13 +1466,14 @@ def main() -> int:
     serve_ggnn = serve_slice("ggnn", ggnn_config, cfg, ds, df, dev, smi,
                              reset_counts, read_counts, ["fused_ggnn_readout"])
 
-    # 5. GGNN training through the train CLI
+    # 5. GGNN training through the train CLI; phase 11 takes its run
     preset = PRESETS["ggnn_hole_binary"]
+    kept = tempfile.TemporaryDirectory(dir=ROOT)
     train_ggnn, _ = train_slice(
         "ggnn", ["--preset", "ggnn_hole_binary", "--compute-path", "fused"],
         preset.batch_size, preset, cfg, {"fused_ggnn_readout_bwd": 1},
         ["fused_ggnn_readout"], ((preset.batch_size, 50), (N_PAIRS, 10)),
-        dev, smi, reset_counts, read_counts)
+        dev, smi, reset_counts, read_counts, keep_dir=kept.name)
     print(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
 
     # 6. MPNN serving through the predict CLI
@@ -1249,6 +1579,16 @@ def main() -> int:
         set_form(*saved_form)
     print(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
 
+    # 11. evaluation and the trainer's modes on phase 5's run
+    t11 = time.perf_counter()
+    try:
+        evaluate_ggnn = run_modes(kept.name, df, dev, smi, reset_counts,
+                                  read_counts)
+    finally:
+        kept.cleanup()
+    print(f"phase 11: {time.perf_counter() - t11:.1f} s")
+    print(f"phase 11 done at {time.perf_counter() - t_start:.1f} s")
+
     sources = {"fused_ggnn": "fused_ggnn.cu", "fused_ggnn_mid": "fused_ggnn.cu",
                "fused_ggnn_readout": "fused_ggnn.cu",
                "fused_ggnn_bwd": "fused_ggnn_bwd.cu",
@@ -1294,6 +1634,8 @@ def main() -> int:
             "replaces": replaces[name], "launches": launches,
             **({"launches_serving": serving[name][name]}
                if name in serving else {}),
+            **({"launches_evaluate": evaluate_ggnn[name]}
+               if name == "fused_ggnn_readout" else {}),
             **({"launches_coattention": coattention[name][name]}
                if name in coattention else {}),
             **({"launches_coattention_serving": serve_coattn[name]}

@@ -11,8 +11,12 @@ match): reads a pair CSV (label column optional), writes it back with a
 ``prob`` column (``prob_class{c}`` for multi-label models).
 
     python -m gcnbmp_tpu_torch.cli.predict --input pairs.csv \\
+        --run results/run1 --checkpoint best --out preds.csv
+    python -m gcnbmp_tpu_torch.cli.predict --input pairs.csv \\
         --config run/config.json --params params.npz --out preds.csv
 
+Give a trained run (``--run``, with ``--checkpoint``, default ``best``:
+``train.checkpoints.load_run``) or a config and params pair, not both.
 ``--config`` is a JAX run's ``config.json``; only its model fields are
 read, and on ``--device cuda`` a width the card's kernels are not built
 for is refused before any pair is parsed.  ``--params`` is a flat
@@ -24,6 +28,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import sys
 
 from gcnbmp_tpu_torch.models.packed import model_kwargs_from_config
@@ -33,8 +38,12 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--input", required=True, help="pair CSV to score")
-    p.add_argument("--config", required=True, help="run config.json")
-    p.add_argument("--params", required=True, help="flax-layout params .npz")
+    p.add_argument("--run", default=None, help="training output dir")
+    p.add_argument("--checkpoint", default="best",
+                   help="checkpoint name under --run (best/final/"
+                        "snapshot_epoch_N)")
+    p.add_argument("--config", default=None, help="run config.json")
+    p.add_argument("--params", default=None, help="flax-layout params .npz")
     p.add_argument("--out", default=None, help="output CSV (default stdout)")
     p.add_argument("--batch-size", type=int, default=256)
     p.add_argument("--smiles-cols", default="smiles_1,smiles_2",
@@ -42,6 +51,11 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (plain versions, for tests)")
     args = p.parse_args(argv)
+    pair_given = args.config is not None or args.params is not None
+    if (args.run is not None) == pair_given or (
+            pair_given and None in (args.config, args.params)):
+        p.error("give either --run (with --checkpoint) or both --config "
+                "and --params")
     logging.basicConfig(level=logging.INFO)
 
     import numpy as np
@@ -49,12 +63,14 @@ def main(argv=None):
     import torch
 
     from gcnbmp_tpu_torch.data import CSVPairParser
-    from gcnbmp_tpu_torch.convert import from_jax_params, load_params_npz
+    from gcnbmp_tpu_torch.convert import load_params_npz
     from gcnbmp_tpu_torch.eval.evaluate import PackedPairEvaluator
-    from gcnbmp_tpu_torch.models.packed import make_packed_predictor
+    from gcnbmp_tpu_torch.train.checkpoints import load_run, served_predictor
     from gcnbmp_tpu_torch.train.loop import kernel_problems
 
-    with open(args.config) as f:
+    config_path = (os.path.join(args.run, "config.json") if args.run
+                   else args.config)
+    with open(config_path) as f:
         config = json.load(f)
     kwargs = model_kwargs_from_config(config)
     problems = kernel_problems(config, args.device)
@@ -64,12 +80,10 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda requested but CUDA is not available")
-    tree = load_params_npz(args.params)
-    if kwargs["attn"] == "lt":
-        # lt's weights fix its atom table width; the evaluator refuses a
-        # dataset that needs another
-        kwargs["coattn_n_max"] = tree["coattention"]["W1"].shape[0]
-    predictor = from_jax_params(tree, make_packed_predictor(**kwargs))
+    if args.run:
+        _, predictor = load_run(args.run, args.checkpoint, device)
+    else:
+        predictor = served_predictor(config, load_params_npz(args.params))
 
     df = pd.read_csv(args.input).copy()
     # every row gets a valid label so the evaluator keeps all of them

@@ -23,8 +23,11 @@ refused on ``--compute-path fused``, as in the JAX package.  Writes
 ``config.json`` (the JAX run's format), ``log.json`` and the
 ``snapshot_epoch_*``, ``best`` and ``final`` checkpoints under
 ``--out``; ``final/params.npz`` serves
-through ``gcnbmp_tpu_torch.cli.predict``.  Prints the last log entry as
-JSON.  Options the port does not train yet, and on ``--device cuda``
+through ``gcnbmp_tpu_torch.cli.predict``, and ``--run <out>`` serves and
+evaluates (``gcnbmp_tpu_torch.cli.evaluate``) its ``best`` checkpoint.
+``--resume <out>/snapshot_epoch_N`` continues a run from that
+checkpoint up to ``--epochs`` (``train.loop.Trainer``).  Prints the last
+log entry as JSON.  Options the port does not train yet, and on ``--device cuda``
 widths the card's kernels are not built for, raise before any work,
 naming their ROADMAP item.
 """
@@ -158,6 +161,10 @@ def main(argv=None):
     if problems:
         raise ValueError("configuration outside the ported training path: "
                          + "; ".join(problems))
+    if cfg.resume and not os.path.exists(
+            os.path.join(cfg.resume, "params.npz")):
+        raise FileNotFoundError(f"--resume {cfg.resume}: no params.npz "
+                                "there to resume from")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda requested but CUDA is not available")

@@ -17,8 +17,9 @@ leaf keeps its flax layout.
 
 Checkpoints travel as a flat ``.npz`` keyed by ``/``-joined paths in the
 flax layout; ``to_jax_params`` takes a trained model back to that tree.
-Reading the JAX package's orbax checkpoints waits for the checkpoint
-restore (ROADMAP queue 1, item 6).
+``train.checkpoints`` saves and restores the port's checkpoints in this
+form; the JAX package's orbax checkpoints need orbax, which the port
+does not read.
 """
 
 from __future__ import annotations

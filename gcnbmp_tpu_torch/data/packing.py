@@ -23,7 +23,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from gcnbmp_tpu_torch.chem.featurize import MolGraph
+from gcnbmp_tpu_torch.chem.featurize import NUM_EDGE_TYPES, MolGraph
 
 TILE = 128
 
@@ -165,6 +165,42 @@ class PackedCOOBatch:
     @property
     def occupancy(self) -> float:
         return float(self.node_mask.mean())
+
+    def validate(self) -> "PackedCOOBatch":
+        """Bounds and consistency check of the COO wire format (the
+        trainer's ``debug_checks``; gcnbmp_tpu/data/packing.py:320-354,
+        the same checks and error text).  The device's COO scatter takes
+        out-of-range indices on trust; this turns a corrupted batch or a
+        packer fault into an error on the host, before any launch."""
+        p = self.num_tiles
+        real = self.e_mask > 0
+        problems = []
+        for name, arr, hi in (
+            ("e_tile", self.e_tile, p), ("e_type", self.e_type,
+                                         NUM_EDGE_TYPES),
+            ("e_src", self.e_src, TILE), ("e_dst", self.e_dst, TILE),
+        ):
+            bad = (arr[real] < 0) | (arr[real] >= hi)
+            if bad.any():
+                problems.append(f"{name}: {int(bad.sum())} edges out of "
+                                f"[0, {hi})")
+        if not np.isin(self.e_mask, (0.0, 1.0)).all():
+            problems.append("e_mask not 0/1")
+        if ((self.mol_id >= self.num_mols) != (self.node_mask == 0)).any():
+            problems.append("node_mask inconsistent with mol_id padding")
+        idx = np.concatenate([self.left_index, self.right_index])
+        if ((idx < 0) | (idx >= self.num_mols)).any():
+            problems.append("left/right_index out of range")
+        if not problems:
+            # real edges must land on real (unpadded) node slots, which
+            # is checkable only once the indices are in bounds
+            src_ok = self.node_mask[self.e_tile[real], self.e_src[real]] > 0
+            dst_ok = self.node_mask[self.e_tile[real], self.e_dst[real]] > 0
+            if not (src_ok.all() and dst_ok.all()):
+                problems.append("edges touch padded node slots")
+        if problems:
+            raise ValueError("invalid PackedCOOBatch: " + "; ".join(problems))
+        return self
 
 
 def molecule_slot_table(mol_id: np.ndarray, num_mols: int,

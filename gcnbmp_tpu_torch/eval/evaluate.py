@@ -1,5 +1,6 @@
-"""Packed pair evaluation, the serving path
-(port of ``PackedPairEvaluator``, gcnbmp_tpu/eval/evaluate.py:110-197).
+"""Packed pair evaluation, the serving path (port of
+``PackedPairEvaluator``, ``export_representations`` and
+``evaluate_dataset``, gcnbmp_tpu/eval/evaluate.py:110-293).
 
 Runs the wire-compact predictor over a whole ``PairDataset`` in
 fixed-shape batches and collects logits, labels, the pair's two molecule
@@ -8,20 +9,29 @@ embeddings (after co-attention, for a co-attention model) and
 batches carry each pair side's atom slot table (``compact_coattn_arrays``)
 ``n_max`` wide: the caller's width, or as the JAX evaluator takes it, the
 dataset's largest molecule rounded up to 8 (:156-162); the predictor's
-``wire_encoder`` makes that choice.
+``wire_encoder`` makes that choice.  ``evaluate_dataset`` writes
+``eval_result.json`` and, given the source CSV, the embedding exports
+of the JAX package: ``<test>_e.csv``, ``<test>_e_y.csv`` and
+``drug_list_with_representation.csv``.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass
 from typing import Dict, Optional
 
 import numpy as np
+import pandas as pd
 import torch
 
 from gcnbmp_tpu_torch.data import estimate_coo_capacities
 from gcnbmp_tpu_torch.data.wire import iter_coo_eval_batches
 from gcnbmp_tpu_torch.train.metrics import compute_metrics
+
+# the pair CSV's id columns; the drug list is written when both exist
+ID_COLS = ("drugbank_id_1", "drugbank_id_2")
 
 
 @dataclass
@@ -37,15 +47,18 @@ class PackedPairEvaluator:
     """Serve ``predictor`` (a ``PackedPairPredictorCOOCompact`` of any
     ported encoder or a ``PackedCoattnPairPredictor``, taken as it is
     given) over a dataset on ``device``.  ``n_max``: the co-attention
-    atom table width, default the dataset's."""
+    atom table width, default the dataset's.  ``class_names`` (a
+    multi-label run's classes) add ``per_class`` to the metrics."""
 
     def __init__(self, predictor, batch_size: int = 512, class_num: int = 1,
-                 device="cuda", n_max: Optional[int] = None):
+                 device="cuda", n_max: Optional[int] = None,
+                 class_names=None):
         self.device = torch.device(device)
         self.predictor = predictor.to(self.device).eval()
         self.batch_size = batch_size
         self.class_num = class_num
         self.n_max = n_max
+        self.class_names = class_names
 
     @torch.no_grad()
     def evaluate(self, ds) -> EvalResult:
@@ -75,5 +88,84 @@ class PackedPairEvaluator:
         return EvalResult(
             logits=logits, labels=labels,
             e1=np.concatenate(e1_all), e2=np.concatenate(e2_all),
-            metrics=compute_metrics(logits, labels, self.class_num),
+            metrics=compute_metrics(logits, labels, self.class_num,
+                                    class_names=self.class_names),
         )
+
+
+def _float_list_to_str(v: np.ndarray) -> str:
+    return " ".join(f"{x:.6g}" for x in np.ravel(v))
+
+
+def export_representations(
+    source_csv: str,
+    out_dir: str,
+    result: EvalResult,
+    is_successful: Optional[np.ndarray] = None,
+) -> None:
+    """Write <test>_e.csv, <test>_e_y.csv, drug_list_with_representation.csv
+    (the JAX package's :222-260): each pair's two embeddings as
+    space-joined ``%.6g`` floats in columns ``e1``/``e2`` before the last
+    column, ``y`` the probabilities, and each id's embedding when both
+    ``ID_COLS`` exist.  Refuses when the evaluated rows do not line up
+    with the CSV's parseable ones."""
+    os.makedirs(out_dir, exist_ok=True)
+    df = pd.read_csv(source_csv)
+    if is_successful is not None:
+        df = df[np.asarray(is_successful)].reset_index(drop=True)
+    if len(result.e1) != len(df):
+        # evaluators drop ignore-labelled (label < 0 / NaN) rows, which
+        # the is_successful mask cannot see
+        raise ValueError(
+            f"export alignment mismatch: {len(result.e1)} evaluated rows "
+            f"vs {len(df)} parseable CSV rows (does the CSV contain "
+            "negative/NaN labels?)"
+        )
+    base = os.path.splitext(os.path.basename(source_csv))[0]
+    e1 = [_float_list_to_str(x) for x in result.e1]
+    e2 = [_float_list_to_str(x) for x in result.e2]
+    out = df.copy()
+    out.insert(len(out.columns) - 1, "e1", e1)
+    out.insert(len(out.columns) - 1, "e2", e2)
+    out.to_csv(os.path.join(out_dir, f"{base}_e.csv"), index=False)
+    out_y = out.copy()
+    probs = 1.0 / (1.0 + np.exp(-result.logits))
+    out_y["y"] = list(np.ravel(probs) if probs.ndim == 1 else probs.tolist())
+    out_y.to_csv(os.path.join(out_dir, f"{base}_e_y.csv"), index=False)
+    if all(c in df.columns for c in ID_COLS):
+        mapping = dict(zip(df[ID_COLS[0]], e1))
+        mapping.update(dict(zip(df[ID_COLS[1]], e2)))
+        pd.DataFrame(
+            {"cid": list(mapping.keys()), "entity": list(mapping.values())}
+        ).to_csv(
+            os.path.join(out_dir, "drug_list_with_representation.csv"),
+            index=False,
+        )
+
+
+def evaluate_dataset(
+    predictor, ds, out_dir: Optional[str] = None,
+    source_csv: Optional[str] = None, batch_size: int = 32,
+    class_num: int = 1, is_successful: Optional[np.ndarray] = None,
+    class_names=None, device="cuda",
+) -> EvalResult:
+    """One call: evaluate ``predictor`` over ``ds`` on ``device``, write
+    ``eval_result.json`` (the metrics, under the JAX package's keys)
+    into ``out_dir`` and, given ``source_csv``, the exports
+    (``export_representations``).  The JAX function (:263-293) takes a
+    flax predictor and its params, and chooses the packed or the padded
+    evaluator; the port has the packed one.  A co-attention model's atom
+    table is the dataset's width, as the JAX evaluator takes it."""
+    result = PackedPairEvaluator(
+        predictor, batch_size=batch_size, class_num=class_num,
+        device=device, class_names=class_names,
+    ).evaluate(ds)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "eval_result.json"), "w") as f:
+            json.dump(result.metrics, f, indent=2)
+        if source_csv:
+            export_representations(
+                source_csv, out_dir, result, is_successful=is_successful
+            )
+    return result

@@ -15,7 +15,8 @@ step and the Trainer (port of gcnbmp_tpu/train/loop.py).
   (the Set2Set table width fitted to the data, :817-827), GGNN with
   co-attention on ``"coo"`` (the atom table width fitted alike,
   :1089-1098), per step or in scan mode (the loop at :1185-1263, the
-  guard at :739-745)
+  guard at :739-745); resume (:786-790), ``profile_epoch``
+  (:1149-1157) and ``debug_checks`` (:1172-1173, :183-207)
 - ``config_problems`` <- ``packed_config_problems`` (:532-575), for what
   the port trains; ``kernel_problems`` names the widths the card's
   kernels are not built for.
@@ -269,13 +270,6 @@ def config_problems(cfg: TrainConfig) -> List[str]:
                             "queue 1, item 7")
     if cfg.multi_device:
         problems.append("multi_device: ROADMAP queue 1, item 11")
-    if cfg.resume:
-        problems.append("resume: checkpoint restore is ROADMAP queue 1, "
-                        "item 6")
-    if cfg.profile_epoch is not None:
-        problems.append("profile_epoch: tracing is ROADMAP queue 1, item 6")
-    if cfg.debug_checks:
-        problems.append("debug_checks: ROADMAP queue 1, item 6")
     return problems
 
 
@@ -431,6 +425,42 @@ class Trainer:
         self.model.train()
         return res
 
+    def _start_profile(self, epoch: int):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        logger.info("profiling epoch %d", epoch)
+        profiler = profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profile(self, profiler, epoch: int) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        out = os.path.join(self.config.out_dir, "profile")
+        os.makedirs(out, exist_ok=True)
+        path = os.path.join(out, f"epoch_{epoch}.trace.json")
+        profiler.export_chrome_trace(path)
+        logger.info("epoch %d trace: %s", epoch, path)
+
+    def _check_finite(self, epoch: int, step: int) -> None:
+        """Raise FloatingPointError naming the first parameter whose
+        gradient or updated value holds a NaN or an infinity (one device
+        sync)."""
+        checks = []
+        for name, p in self.model.named_parameters():
+            if p.grad is not None:
+                checks.append((f"the gradient of {name}", p.grad))
+            checks.append((name, p))
+        ok = torch.stack([torch.isfinite(t).all() for _, t in checks]).cpu()
+        if not bool(ok.all()):
+            what = checks[int(torch.argmin(ok.to(torch.int8)))][0]
+            raise FloatingPointError(f"non-finite values in {what} at "
+                                     f"epoch {epoch} step {step}")
+
     def fit(self, max_epochs: Optional[int] = None) -> Dict[str, Any]:
         from gcnbmp_tpu_torch.data import estimate_coo_capacities
         from gcnbmp_tpu_torch.data.wire import (
@@ -440,6 +470,11 @@ class Trainer:
 
         cfg = self.config
         state = TrainState(self.model, self.optimizer, 0, 0, float("inf"), 0)
+        if cfg.resume:
+            from gcnbmp_tpu_torch.train.checkpoints import restore_checkpoint
+
+            restore_checkpoint(cfg.resume, state)
+            logger.info("resumed from %s at epoch %d", cfg.resume, state.epoch)
         datasets = [self.train_ds]
         if self.val_ds is not None and len(self.val_ds):
             datasets.append(self.val_ds)
@@ -463,6 +498,9 @@ class Trainer:
         self.model.train()
         t0 = time.time()
         for epoch in range(state.epoch, max_epochs):
+            profiler = None
+            if cfg.profile_epoch is not None and epoch == cfg.profile_epoch:
+                profiler = self._start_profile(epoch)
             epoch_losses: List[torch.Tensor] = []
             epoch_edges = 0
             epoch_t0 = time.time()
@@ -470,6 +508,8 @@ class Trainer:
                 self.train_ds, cfg.batch_size, self.num_tiles,
                 self.edge_capacity, self.np_rng,
                 pack_workers=cfg.pack_workers, pack_cache=pack_cache)
+            if cfg.debug_checks:
+                batches = (b.validate() for b in batches)
             for stacked, labels, edges in scan_chunk_iterator(
                     batches, steps_per_chunk, args_fn):
                 args, labels = stage_chunk(stacked, labels, self.device)
@@ -477,10 +517,14 @@ class Trainer:
                     epoch_losses.append(train_step(
                         self.model, self.optimizer, [a[i] for a in args],
                         labels[i], self.loss_fn, cfg.class_num))
+                    if cfg.debug_checks:
+                        self._check_finite(epoch, state.step + i)
                 epoch_edges += edges
                 state.step += steps_per_chunk
             losses = (torch.stack(epoch_losses).double().cpu().numpy().tolist()
                       if epoch_losses else [])
+            if profiler is not None:
+                self._stop_profile(profiler, epoch)
             if cfg.check_numerics and not np.all(np.isfinite(losses)):
                 bad = int(np.argmax(~np.isfinite(losses)))
                 raise FloatingPointError(f"non-finite loss {losses[bad]} at "

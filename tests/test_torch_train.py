@@ -263,7 +263,6 @@ def test_multilabel_metrics_match_sklearn():
     ("method", "gin"), ("fp_batch_normalization", True),
     ("layer_aggregator", "concat"),
     ("multi_device", True), ("concat_hidden", True), ("siamese", False),
-    ("resume", "run/best"), ("profile_epoch", 0), ("debug_checks", True),
     ("fp_dropout_rate", 0.1), ("symmetric", "or")])
 def test_config_problems_name_their_roadmap_item(field, value):
     base = TrainConfig(compute_path="fused")
@@ -282,11 +281,18 @@ def test_config_problems_name_their_roadmap_item(field, value):
     (["--platform", "cpu"], "platform"), (["--resume", "x"], "resume")])
 def test_train_cli_rejects_unported_options_before_any_work(tmp_path, flags,
                                                             match):
+    """Unported options name their ROADMAP item; a resume path that holds
+    no checkpoint is named.  Both before any CSV is read."""
     argv = ["--train", str(tmp_path / "missing.csv"), "--compute-path", "fused",
             "--device", "cpu", "--out", str(tmp_path / "run"), *flags]
-    with pytest.raises(ValueError, match=match) as e:
+    resume = flags[0] == "--resume"
+    with pytest.raises(FileNotFoundError if resume else ValueError,
+                       match=match) as e:
         train_cli.main(argv)
-    assert "ROADMAP queue 1, item" in str(e.value)
+    if resume:
+        assert "--resume x: no params.npz" in str(e.value)
+    else:
+        assert "ROADMAP queue 1, item" in str(e.value)
     assert not (tmp_path / "run").exists()
 
 
