@@ -99,6 +99,21 @@ Phases, each fatal on failure:
    (synth546's 5 classes, a seeded rule) and focal loss at batch 256
    (K2b once per step), then the evaluate CLI with ``--labels-csv``:
    ``per_class`` with 5 finite entries.
+12. The packed encoders without a kernel, and the generator: RelGCN (the
+   ``relgcn_binary`` preset, L=4, H=32, D=64), GIN (``gin_binary``, 8
+   untied layers, H=D=32), NFP (4 layers) and GGNN with the ``gru``
+   layer aggregator (``ggnn_multilabel_x37``, 8 untied layers, on phase
+   11's seeded 5-class labels), each trained 2 epochs on coo through the
+   train CLI at batch 256 on the first 2048 train pairs: no kernel
+   launches, the loss finite and falling, val metrics in ``log.json``;
+   ``final`` served through the predict CLI (2048 finite probs) and
+   ``best`` scored through the evaluate CLI; the card's logits on the
+   first 512 test pairs against the same weights on the CPU (atol = rtol
+   = 1e-4), the predict CLI's probs too; the train step timed and
+   profiled at batch 256 and 2048.  Then the port's generator builds
+   synth546's ``inter`` (with the isc35000 subsample) and ``kaist``
+   splits in a temporary directory, and their sha256 sums must be the
+   recorded ones.
 
 Prints the kernels' JSON line (with each kernel's bound: the larger of
 its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s, counted
@@ -780,7 +795,9 @@ def train_slice(tag, flags, batch_size, train_cfg, model_cfg, per_step,
 def time_train_step(tag, train_ds, model_cfg, train_cfg, bs, n_steps, dev,
                     smi):
     """The train step's time (host clock) and profile at batch ``bs``, on
-    batches staged on the card beforehand; returns ms per step."""
+    batches staged on the card beforehand; returns ms per step.  A
+    multi-label model (``class_num`` in ``model_cfg``) takes the sigmoid
+    cross-entropy over ``train_ds``'s multi-hot labels."""
     import numpy as np
     import torch
 
@@ -804,17 +821,21 @@ def time_train_step(tag, train_ds, model_cfg, train_cfg, bs, n_steps, dev,
             break
     opt, _ = train_loop.build_optimizer(train_cfg, 1000,
                                         list(model.parameters()))
+    class_num = model_cfg.get("class_num", 1)
+
+    def step(i):
+        train_loop.train_step(model, opt, *staged[i % len(staged)],
+                              class_num=class_num)
+
     for i in range(3):  # warm up
-        train_loop.train_step(model, opt, *staged[i % len(staged)])
+        step(i)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(n_steps):
-        train_loop.train_step(model, opt, *staged[i % len(staged)])
+        step(i)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-    busy, top = profile_steps(
-        lambda i: train_loop.train_step(model, opt, *staged[i % len(staged)]),
-        n_steps)
+    busy, top = profile_steps(step, n_steps)
     print(f"{tag} train step: batch={bs} P={tiles}: {step_ms:.3f} ms per "
           f"step, {bs * 1e3 / step_ms:.1f} pairs/s (host clock around "
           f"{n_steps} back-to-back steps on staged batches) on {smi}")
@@ -1123,6 +1144,174 @@ def run_modes(kept, df, dev, smi, reset_counts, read_counts):
     print("run modes: times (s) " + json.dumps(
         {k: round(v, 3) for k, v in times.items()}))
     return launches
+
+
+# phase 12: the packed encoders that run no kernel, each trained through
+# the train CLI on coo: (tag, train CLI flags, make_packed_predictor
+# kwargs, multi-label)
+ENCODER_ROWS = (
+    ("relgcn", ["--preset", "relgcn_binary"],
+     dict(method="relgcn", fp_hidden_dim=32, fp_out_dim=64, conv_layers=4),
+     False),
+    ("gin", ["--preset", "gin_binary", "--weight-tying", "false"],
+     dict(method="gin", fp_hidden_dim=32, fp_out_dim=32, conv_layers=8,
+          weight_tying=False), False),
+    ("nfp", ["--method", "nfp", "--conv-layers", "4", "--fp-hidden-dim", "32",
+             "--fp-out-dim", "32"],
+     dict(method="nfp", fp_hidden_dim=32, fp_out_dim=32, conv_layers=4),
+     False),
+    ("ggnn gru aggregator", ["--preset", "ggnn_multilabel_x37",
+                             "--weight-tying", "false",
+                             "--layer-aggregator", "gru"],
+     dict(method="ggnn", fp_hidden_dim=32, fp_out_dim=32, conv_layers=8,
+          weight_tying=False, layer_aggregator="gru"), True),
+)
+N_CPU_CHECK = 512  # test pairs served on the CPU to hold the card's logits
+
+
+def encoder_slices(df, dev, smi, reset_counts, read_counts):
+    """Phase 12: RelGCN, GIN, NFP and GGNN with the gru aggregator
+    (multi-label), each trained 2 epochs through the train CLI on coo
+    (no kernel may launch), served through the predict CLI and scored
+    through the evaluate CLI; the card's logits against the same weights
+    on the CPU; each step timed at batch 256 and 2048.  Then the
+    generator's files against their sums."""
+    import hashlib
+
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from chip_quality import SHA256, build_synth546
+    from gcnbmp_tpu_torch.cli import evaluate as evaluate_cli
+    from gcnbmp_tpu_torch.cli import predict
+    from gcnbmp_tpu_torch.cli import train as train_cli
+    from gcnbmp_tpu_torch.data import CSVPairParser, get_class_labels
+    from gcnbmp_tpu_torch.eval.evaluate import PackedPairEvaluator
+    from gcnbmp_tpu_torch.train import loop as train_loop
+    from gcnbmp_tpu_torch.train.checkpoints import load_run
+    from gcnbmp_tpu_torch.train.config import TrainConfig
+
+    classes_csv = os.path.join(ROOT, "dataset", "synth546", "labels.csv")
+    classes = get_class_labels(classes_csv)
+    times = {}
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        paths = {}
+        for name, frame in (("train", pd.read_csv(TRAIN_CSV).head(N_PAIRS)),
+                            ("val", pd.read_csv(VALID_CSV).head(N_VAL)),
+                            ("test", df)):
+            paths[name] = os.path.join(tmp, f"{name}.csv")
+            frame.to_csv(paths[name], index=False)
+            paths[f"multi_{name}"] = os.path.join(tmp, f"multi_{name}.csv")
+            multilabel_csv(paths[name], paths[f"multi_{name}"], classes)
+        for tag, flags, model_cfg, multi in ENCODER_ROWS:
+            t0 = time.perf_counter()
+            pre = "multi_" if multi else ""
+            labels_flags = ["--labels-csv", classes_csv] if multi else []
+            class_num = len(classes) if multi else 1
+            run = os.path.join(tmp, tag.replace(" ", "_"))
+            step_losses = []
+            real_step = train_loop.train_step
+
+            def recording_step(*args, **kwargs):
+                loss = real_step(*args, **kwargs)
+                step_losses.append(loss)
+                return loss
+
+            train_loop.train_step = recording_step
+            try:
+                reset_counts()
+                rc = train_cli.main([
+                    "--train", paths[pre + "train"], "--val",
+                    paths[pre + "val"], *flags, *labels_flags,
+                    "--compute-path", "coo", "--batch-size", str(SERVE_BATCH),
+                    "--lr", "2e-3", "--epochs", str(TRAIN_EPOCHS), "--seed",
+                    str(SEED), "--device", "cuda", "--out", run])
+                launches = read_counts()
+            finally:
+                train_loop.train_step = real_step
+            losses = torch.stack(step_losses).cpu().numpy()
+            n_steps = len(losses)
+            k = min(5, n_steps // 3)
+            first, last = float(losses[:k].mean()), float(losses[-k:].mean())
+            print(f"{tag} encoder: train.main ran {n_steps} steps of batch "
+                  f"{SERVE_BATCH} in {time.perf_counter() - t0:.3f} s on "
+                  f"{smi}; step loss mean first {k} {first:.5f}, last {k} "
+                  f"{last:.5f}; kernel launches {sum(launches.values())}")
+            if rc != 0 or n_steps != TRAIN_EPOCHS * N_PAIRS // SERVE_BATCH:
+                raise AssertionError(f"{tag}: train.main rc {rc}, {n_steps} steps")
+            if any(launches.values()):
+                raise AssertionError(f"{tag}: kernels launched on a path that "
+                                     f"runs none: {launches}")
+            if not np.all(np.isfinite(losses)) or not last < first:
+                raise AssertionError(f"{tag}: training loss not finite or "
+                                     "not falling")
+            with open(os.path.join(run, "log.json")) as f:
+                log = json.load(f)
+            if not all(np.isfinite(e["val/loss"]) and
+                       np.isfinite(e["val/roc_auc"]) for e in log):
+                raise AssertionError(f"{tag}: log.json lacks finite val metrics")
+            preds_path = os.path.join(run, "preds.csv")
+            rc = predict.main(["--input", paths[pre + "test"], "--run", run,
+                               "--checkpoint", "final", "--out", preds_path,
+                               "--batch-size", str(SERVE_BATCH), "--device",
+                               "cuda"])
+            probs = pd.read_csv(preds_path).filter(like="prob").to_numpy()
+            if rc != 0 or probs.shape != (N_PAIRS, class_num) \
+                    or not np.all(np.isfinite(probs)) or probs.min() < 0 \
+                    or probs.max() > 1:
+                raise AssertionError(f"{tag}: the predict CLI did not serve")
+            rc = evaluate_cli.main(["--test", paths[pre + "test"], "--run",
+                                    run, *labels_flags, "--batch-size",
+                                    str(SERVE_BATCH), "--device", "cuda"])
+            with open(os.path.join(run, "eval", "eval_result.json")) as f:
+                result = json.load(f)
+            if rc != 0 or not np.isfinite(result["roc_auc"]):
+                raise AssertionError(f"{tag}: the evaluate CLI did not score")
+            # the card's logits against the same weights on the CPU
+            parser = CSVPairParser(multi_label_classes=classes if multi else None)
+            check_ds = parser.parse(pd.read_csv(
+                paths[pre + "test"]).head(N_CPU_CHECK)).dataset
+            logits = {}
+            for where in ("cuda", "cpu"):
+                _, model = load_run(run, "final", where)
+                logits[where] = PackedPairEvaluator(
+                    model, batch_size=SERVE_BATCH,
+                    class_num=class_num, device=where,
+                    with_metrics=False).evaluate(check_ds).logits
+            compare(f"{tag} encoder served logits (card vs CPU, same weights)",
+                    torch.as_tensor(logits["cuda"]),
+                    torch.as_tensor(logits["cpu"]), torch)
+            p_err = float(np.abs(probs[:N_CPU_CHECK] - 1.0 / (
+                1.0 + np.exp(-logits["cpu"].reshape(N_CPU_CHECK, -1)))).max())
+            print(f"{tag} encoder: predict CLI probs vs CPU: max_abs_err="
+                  f"{p_err:.3e}; evaluate CLI test roc_auc "
+                  f"{result['roc_auc']:.5f}")
+            if p_err > ATOL:
+                raise AssertionError(f"{tag}: served probs disagree with the CPU")
+            train_ds = parser.parse(paths[pre + "train"]).dataset
+            with open(os.path.join(run, "config.json")) as f:
+                train_cfg = TrainConfig.from_json(f.read())
+            for bs in (SERVE_BATCH, N_PAIRS):
+                time_train_step(f"{tag} encoder", train_ds,
+                                dict(model_cfg, class_num=class_num),
+                                train_cfg, bs, 10, dev, smi)
+            times[tag] = time.perf_counter() - t0
+        # the generator, on the card machine's pandas
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, "synth546")
+        build_synth546(out)
+        sums = {name: hashlib.sha256(open(os.path.join(out, name), "rb")
+                                     .read()).hexdigest()[:16]
+                for name in SHA256}
+        times["generator"] = time.perf_counter() - t0
+        bad = {k: v for k, v in sums.items() if v != SHA256[k]}
+        print(f"generator: {len(sums)} files in {times['generator']:.3f} s, "
+              f"sha256 {'all as recorded' if not bad else bad}")
+        if bad:
+            raise AssertionError(f"generator files differ: {bad}")
+    print("encoders: times (s) " + json.dumps(
+        {k: round(v, 3) for k, v in times.items()}))
 
 
 def crowd_rows(adj, torch):
@@ -1588,6 +1777,12 @@ def main() -> int:
         kept.cleanup()
     print(f"phase 11: {time.perf_counter() - t11:.1f} s")
     print(f"phase 11 done at {time.perf_counter() - t_start:.1f} s")
+
+    # 12. the packed encoders that run no kernel, and the generator
+    t12 = time.perf_counter()
+    encoder_slices(df, dev, smi, reset_counts, read_counts)
+    print(f"phase 12: {time.perf_counter() - t12:.1f} s")
+    print(f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
 
     sources = {"fused_ggnn": "fused_ggnn.cu", "fused_ggnn_mid": "fused_ggnn.cu",
                "fused_ggnn_readout": "fused_ggnn.cu",

@@ -2,16 +2,18 @@
 
 A second package beside the JAX one, which stays unchanged and is the
 reference every module here is tested against.  The port covers the
-serving and training paths of the flagship model (packed GGNN encoder +
-HolE head) on the fused path, and of the MPNN family (EdgeNet messages,
-Set2Set readout, HolE head) on the coo path:
+serving, training and evaluation paths of the flagship model (packed
+GGNN encoder + HolE head) on the fused path, and on the coo path of the
+co-attention model, the MPNN family (EdgeNet messages, Set2Set readout),
+RelGCN, GIN, NFP and GGNN with a layer aggregator, with any head:
 
 - ``chem``, ``data``, ``native_lib``
                      the host layers (numpy): SMILES parsing and
                      featurizing, pair datasets, CSV parsing, COO packing
                      (Python and the native C++ of ``native/``), the
                      wire-compact batch encoding, the training, scan and
-                     evaluation batch iterators.
+                     evaluation batch iterators; the dataset generator
+                     (``data.synth``, ``data.splits``).
 - ``ops``            plain torch ops (COO adjacency scatter, circular
                      correlation, the slot-table gather) and the fused
                      GGNN, MPNN and Set2Set kernels, forward and
@@ -24,8 +26,8 @@ Set2Set readout, HolE head) on the coo path:
 - ``train``          config and presets, schedules, numpy metrics,
                      losses, the optimizer chain, the train step, the
                      trainer and its checkpoints.
-- ``eval``, ``cli``  the packed pair evaluator, the predict and train
-                     CLIs.
+- ``eval``, ``cli``  the packed pair evaluator; the predict, train,
+                     evaluate and data_generator CLIs.
 
 The host layers are the port's own copies of the JAX package's
 (``chem/{mol,smiles,featurize,native}.py``,

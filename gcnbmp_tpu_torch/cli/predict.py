@@ -2,9 +2,10 @@
 """Score drug-pair CSVs with the port's packed pair predictor.
 
 Port of the JAX package's predict CLI (gcnbmp_tpu/cli/predict.py:74-136)
-for the packed GGNN and MPNN families with any head, and GGNN with any
-co-attention variant (``method``, ``sim_method`` and ``attn`` of the
-config; MPNN serves with the JAX evaluator's Set2Set table width of 64
+for every packed encoder (GGNN with or without a layer aggregator, MPNN,
+RelGCN, GIN, NFP) with any head, and any of them but MPNN with any
+co-attention variant (``method``, ``layer_aggregator``, ``sim_method`` and
+``attn`` of the config; MPNN serves with the JAX evaluator's Set2Set table width of 64
 atoms, and a wider molecule turns its batch NaN; co-attention with the
 input's largest molecule rounded up to 8, which ``lt``'s weights must
 match): reads a pair CSV (label column optional), writes it back with a
@@ -92,9 +93,12 @@ def main(argv=None):
     res = CSVPairParser(smiles_cols=tuple(args.smiles_cols.split(","))).parse(df)
     logging.info("scoring %d pairs (%d unparseable)",
                  len(res.dataset), res.fail_count)
+    # no metrics over the placeholder labels: the JAX CLI computes them
+    # and so cannot serve a multi-label run (its labels lack the classes'
+    # axis)
     result = PackedPairEvaluator(
         predictor, batch_size=args.batch_size,
-        class_num=kwargs["class_num"], device=device,
+        class_num=kwargs["class_num"], device=device, with_metrics=False,
     ).evaluate(res.dataset)
     probs = 1.0 / (1.0 + np.exp(-result.logits))
 

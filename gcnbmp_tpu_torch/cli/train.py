@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """Train a packed pair predictor with the port: GGNN on the fused or coo
-path, GGNN with co-attention on the coo path, or MPNN (EdgeNet +
-Set2Set) on the coo path, each with any of the six heads.
+path, and on the coo path GGNN with co-attention or a layer aggregator,
+MPNN (EdgeNet + Set2Set), RelGCN, GIN and NFP (with co-attention too,
+but for MPNN), each with any of the six heads.
 
 Port of the JAX package's train CLI (gcnbmp_tpu/cli/train.py:23-211):
 the same flags and override logic, plus ``--device`` (``cuda``, the
@@ -15,11 +16,20 @@ default, runs the CUDA kernels; ``cpu`` runs their plain versions).
         --compute-path coo --compute-dtype bfloat16 --augment --device cuda
     python -m gcnbmp_tpu_torch.cli.train --train train.csv --val val.csv \\
         --preset ggnn_coattention --compute-path coo --device cuda
+    python -m gcnbmp_tpu_torch.cli.train --train train.csv --val val.csv \\
+        --method relgcn --conv-layers 8 --compute-path coo --device cuda
+    python -m gcnbmp_tpu_torch.cli.train --train train_multi.csv \\
+        --val val_multi.csv --labels-csv labels.csv --conv-layers 8 \\
+        --weight-tying false --layer-aggregator gru --compute-path coo
 
 The second line is the MPNN quality row's recipe; its kernels compute in
 f32 whatever ``--compute-dtype`` says.  The third trains the paper's
 co-attention model (NTN head, parallel co-attention); co-attention is
-refused on ``--compute-path fused``, as in the JAX package.  Writes
+refused on ``--compute-path fused``, as in the JAX package, and so are
+the fused path for any method but GGNN and a layer aggregator on it.  The
+fourth line trains RelGCN and the fifth GGNN with the JKNet ``gru``
+aggregator on multi-label data; they, GIN and NFP run plain PyTorch ops
+(no kernel computes them, in either package).  Writes
 ``config.json`` (the JAX run's format), ``log.json`` and the
 ``snapshot_epoch_*``, ``best`` and ``final`` checkpoints under
 ``--out``; ``final/params.npz`` serves

@@ -7,7 +7,11 @@ GGNN ``encoder/embed/embedding``, ``encoder/update_{l}/message/dense/
 ``encoder/readout_0/{i,j}/dense/*``; for MPNN ``encoder/message_{l}/
 {nn1,nn2}/*``, ``encoder/gru_{l}/...``, ``encoder/readout_0/set2set/lstm/
 {ii,if,ig,io}/kernel`` and ``{hi,hf,hg,ho}/{kernel,bias}``,
-``encoder/readout_0/{linear1,linear2}/*``; the head's ``head/mlp/out/*``,
+``encoder/readout_0/{linear1,linear2}/*``; RelGCN's ``encoder/conv_{l}/
+{self,edge}/dense/kernel``..., GIN's ``encoder/update_{l}/linear_g{1,2}``,
+NFP's ``encoder/update_{l}/linear_d{d}`` and ``encoder/readout_{l}/
+output_weight``, a layer aggregator's ``encoder/layer_aggregator/
+{rnn_fwd,rnn_bwd,attn_dense}/...``; the head's ``head/mlp/out/*``,
 ``head/bilinear/{W,V1/kernel,V2/kernel,b}`` (NTN), ``head/W_diag``...;
 and a co-attention model's ``coattention/...`` (``W_0``, ``energy/W``,
 ``j/dense/*``...).  The port's modules use the same names, so a flax
@@ -119,8 +123,9 @@ def _orthogonal(rng: np.random.Generator, rows: int, cols: int) -> np.ndarray:
     return q.T if rows < cols else q
 
 
-# flax.linen.OptimizedLSTMCell's hidden kernels (recurrent_kernel_init)
-_ORTHOGONAL = {"hi", "hf", "hg", "ho"}
+# the hidden kernels (recurrent_kernel_init) of flax.linen's
+# OptimizedLSTMCell and GRUCell
+_ORTHOGONAL = {"hi", "hf", "hg", "ho", "hr", "hz", "hn"}
 # raw (non-Dense) leaves by their flax initializer: lecun-normal
 # (Bilinear, PairBilinear, the para gates, DistMult), glorot-normal (lt's
 # position projections), he-normal (BiMPM's perspectives), zeros (their
@@ -151,7 +156,7 @@ def init_params(cfg: dict, seed: int) -> dict:
     """Seeded numpy weights, in the flax layout, for the predictor that
     ``models.packed.make_packed_predictor(**cfg)`` builds.  Drawn from the
     flax initializers' distributions: lecun-normal kernels and raw
-    bilinear weights, orthogonal LSTM hidden kernels, glorot-normal ``lt``
+    bilinear weights, orthogonal LSTM and GRU hidden kernels, glorot-normal ``lt``
     projections, he-normal BiMPM perspectives, zero biases, Normal(1.0)
     atom embedding.  Load with ``from_jax_params``."""
     from gcnbmp_tpu_torch.models.packed import make_packed_predictor

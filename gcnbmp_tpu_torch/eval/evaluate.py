@@ -48,17 +48,21 @@ class PackedPairEvaluator:
     ported encoder or a ``PackedCoattnPairPredictor``, taken as it is
     given) over a dataset on ``device``.  ``n_max``: the co-attention
     atom table width, default the dataset's.  ``class_names`` (a
-    multi-label run's classes) add ``per_class`` to the metrics."""
+    multi-label run's classes) add ``per_class`` to the metrics;
+    ``with_metrics=False`` computes none (serving, whose labels are
+    placeholders: a multi-label run's would not have its classes'
+    shape)."""
 
     def __init__(self, predictor, batch_size: int = 512, class_num: int = 1,
                  device="cuda", n_max: Optional[int] = None,
-                 class_names=None):
+                 class_names=None, with_metrics: bool = True):
         self.device = torch.device(device)
         self.predictor = predictor.to(self.device).eval()
         self.batch_size = batch_size
         self.class_num = class_num
         self.n_max = n_max
         self.class_names = class_names
+        self.with_metrics = with_metrics
 
     @torch.no_grad()
     def evaluate(self, ds) -> EvalResult:
@@ -88,8 +92,9 @@ class PackedPairEvaluator:
         return EvalResult(
             logits=logits, labels=labels,
             e1=np.concatenate(e1_all), e2=np.concatenate(e2_all),
-            metrics=compute_metrics(logits, labels, self.class_num,
-                                    class_names=self.class_names),
+            metrics=(compute_metrics(logits, labels, self.class_num,
+                                     class_names=self.class_names)
+                     if self.with_metrics else {}),
         )
 
 

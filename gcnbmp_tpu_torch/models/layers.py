@@ -1,7 +1,8 @@
 """Building-block layers with Chainer-matching semantics.
 
 Ports gcnbmp_tpu/models/layers.py:34-176, and flax's
-``OptimizedLSTMCell`` for the Set2Set readout.  Module and parameter names
+``OptimizedLSTMCell`` (the Set2Set readout, the ``lstm`` layer
+aggregators) and ``GRUCell`` (the ``gru`` layer aggregators).  Module and parameter names
 follow the flax trees (``dense``, ``embedding``, ``W_z``...) so that
 ``convert.from_jax_params`` maps a flax path to a torch name by joining
 it with dots.  A flax ``Dense.kernel`` is (in, out); the ``nn.Linear``
@@ -120,6 +121,36 @@ class OptimizedLSTMCell(nn.Module):
         c = f * c + i * g
         h = o * torch.tanh(c)
         return (c, h), h
+
+
+class GRUCell(nn.Module):
+    """flax.linen.GRUCell, as the ``gru`` layer aggregators use it: input
+    kernels ``ir``/``iz``/``in`` with bias, hidden kernels ``hr``/``hz``
+    without and ``hn`` with bias:
+
+        r = sigmoid(ir(x) + hr(h)),  z = sigmoid(iz(x) + hz(h))
+        n = tanh(in(x) + r * hn(h)),  h' = (1 - z) * n + z * h
+
+    flax draws the hidden kernels orthogonally (``convert.init_params``).
+    Returns (h', h'), flax's (carry, output)."""
+
+    def __init__(self, in_features: int, features: int, device=None):
+        super().__init__()
+        for gate in "rzn":
+            self.add_module(f"i{gate}", nn.Linear(in_features, features,
+                                                  device=device))
+        for gate in "rz":
+            self.add_module(f"h{gate}", nn.Linear(features, features,
+                                                  bias=False, device=device))
+        self.hn = nn.Linear(features, features, device=device)
+
+    def forward(self, h, x):
+        get = lambda name: getattr(self, name)
+        r = torch.sigmoid(get("ir")(x) + get("hr")(h))
+        z = torch.sigmoid(get("iz")(x) + get("hz")(h))
+        n = torch.tanh(get("in")(x) + r * self.hn(h))
+        h = (1.0 - z) * n + z * h
+        return h, h
 
 
 class MLP(nn.Module):

@@ -3,11 +3,17 @@
 Ported pieces:
 
 - ``PackedGatedReadout``            <- :29-41
+- ``PackedCommonReadout``           <- :44-65
 - ``_segment_mol_sum``              <- :67-87
-- ``PackedGGNN``                    <- :147-210 (the plain layer stack); its
+- ``PackedGGNN``                    <- :147-210 (the plain layer stack, and
+  with ``layer_aggregator`` the jumping-knowledge branch :186-210); its
   kernel path ``fused_forward`` is ``_fused_encoder_g_nodes`` (:1102-1133)
   of ``fused_compact_logits`` (:1176-1212) in either form that
   ``FUSED_READOUT`` picks -> segment sum
+- ``PackedRelGCN``                  <- :213-246
+- ``PackedGIN``                     <- :249-285
+- ``PackedNFPReadout``              <- :288-300
+- ``PackedNFP``                     <- :818-853
 - ``PackedSet2Set``                 <- :343-430, the dense mode
 - ``_device_slot_table``            <- :433-455
 - ``PackedMPNNReadout``             <- :458-478
@@ -16,18 +22,35 @@ Ported pieces:
   Set2Set readout; its kernel path ``fused_forward`` is the JAX module's
   fused branch (:717-774): K5 -> slot table -> K4 -> linear1, relu, linear2
 - ``decode_compact_wire``           <- :918-936
-- ``PackedPairPredictorCOOCompact`` <- :939-971: embed -> flat adjacency ->
-  the encoder's kernel path -> left and right gather -> the head
-- ``PackedCoattnPairPredictor``     <- :974-1033, over GGNN: the kernel
-  path in its K1 form -> per-pair atom tables -> co-attention -> the head
-- ``make_packed_predictor``         <- :1235-1347, the ``method="ggnn"``
-  and ``method="mpnn"`` branches with every head, co-attention over GGNN,
-  no layer aggregator; ``model_kwargs_from_config`` reads its arguments
-  from a run config.
+- ``PackedPairPredictorCOOCompact`` <- :939-971: the encoder's ``encode``
+  on the decoded edges -> left and right gather -> the head
+- ``PackedCoattnPairPredictor``     <- :974-1033: ``encode`` with the
+  per-atom states -> per-pair atom tables -> co-attention -> the head
+- ``make_packed_predictor``         <- :1235-1347, every packed encoder
+  (GGNN with or without a layer aggregator, MPNN, RelGCN, GIN, NFP) with
+  every head, co-attention over every encoder but MPNN;
+  ``model_kwargs_from_config`` reads its arguments from a run config.
+
+Every encoder has ``encode(atom_ids, edges, mol_id, node_mask, num_mols,
+return_atoms=False)``, the one method the predictors call: it builds the
+adjacency layout the encoder needs from the decoded COO edges.  GGNN
+(without an aggregator) and MPNN build the kernels' flat (P, T, 4T)
+layout and run their kernel paths; RelGCN, GIN, NFP and GGNN with a layer
+aggregator build the dense (P, 4, T, T) adjacency and run their plain
+stacks (``DenseAdjacencyEncoder``).  The JAX package has no Pallas kernel for any of those four (its
+trainer runs them as XLA ops on ``coo`` and refuses ``fused``), so the
+port runs them as PyTorch ops on the card: the same design, not a
+fallback.  The GGNN kernels keep no per-layer states (K1 has no
+layer-range forward), which is why the aggregator takes the plain stack.
 
 Parameter names match the flax trees (``encoder/embed``,
 ``encoder/update_{i}/message/dense``, ``encoder/gru/...``,
-``encoder/readout_0/{i,j}`` for GGNN; ``encoder/message_{i}/nn1|nn2``,
+``encoder/readout_0/{i,j}`` for GGNN, ``encoder/layer_aggregator/...`` and
+``encoder/readout_agg/{i,j}`` with an aggregator; ``encoder/conv_{i}/
+{self,edge}``, ``encoder/readout/{i,j}`` for RelGCN;
+``encoder/update_{i}/linear_g{1,2}``, ``encoder/readout_0/{i,j}`` for GIN;
+``encoder/update_{i}/linear_d{d}``, ``encoder/readout_{i}/output_weight``
+for NFP; ``encoder/message_{i}/nn1|nn2``,
 ``encoder/gru_{i}/...``, ``encoder/readout_0/set2set/lstm/...``,
 ``encoder/readout_0/linear1|linear2`` for MPNN; ``head/...``;
 ``coattention/...``, see ``models.coattention``).  On
@@ -48,9 +71,11 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from gcnbmp_tpu_torch.models import ggnn_extras
 from gcnbmp_tpu_torch.models.coattention import (
     COATTENTION_REGISTRY, build_coattention)
 from gcnbmp_tpu_torch.models.ggnn import NUM_EDGE_TYPE, GGNNMessage
+from gcnbmp_tpu_torch.models.gin import GINUpdate
 from gcnbmp_tpu_torch.models.heads import HEADS, make_head
 from gcnbmp_tpu_torch.models.layers import (
     MAX_ATOMIC_NUM,
@@ -59,7 +84,9 @@ from gcnbmp_tpu_torch.models.layers import (
     GraphLinear,
     OptimizedLSTMCell,
 )
-from gcnbmp_tpu_torch.ops.aggregate import adj_from_coo_flat
+from gcnbmp_tpu_torch.models.nfp import NFPUpdate
+from gcnbmp_tpu_torch.models.relgcn import RelGCNUpdate, rescale_adj
+from gcnbmp_tpu_torch.ops.aggregate import adj_from_coo, adj_from_coo_flat
 from gcnbmp_tpu_torch.ops.fused_ggnn import (
     fused_ggnn, fused_ggnn_readout, params_to_fused)
 from gcnbmp_tpu_torch.ops.fused_mpnn import fused_mpnn, params_to_fused_mpnn
@@ -80,6 +107,40 @@ class PackedGatedReadout(nn.Module):
     def forward(self, h, h0, node_mask):
         gate = torch.sigmoid(self.i(torch.cat([h, h0], dim=-1)))
         return gate * self.j(h) * node_mask[..., None]
+
+
+class PackedCommonReadout(nn.Module):
+    """Node-level sigmoid(i(x)) * activation(j(x)), masked, with x =
+    [h, h0], or h alone when the caller passes h0=None; ``in_features`` is
+    x's width.  ``nobias`` drops both biases."""
+
+    def __init__(self, in_features: int, out_dim: int, nobias: bool = False,
+                 activation=None, device=None):
+        super().__init__()
+        self.activation = activation
+        self.i = GraphLinear(in_features, out_dim, bias=not nobias,
+                             device=device)
+        self.j = GraphLinear(in_features, out_dim, bias=not nobias,
+                             device=device)
+
+    def forward(self, h, h0, node_mask):
+        x = h if h0 is None else torch.cat([h, h0], dim=-1)
+        value = self.j(x)
+        if self.activation is not None:
+            value = self.activation(value)
+        return torch.sigmoid(self.i(x)) * value * node_mask[..., None]
+
+
+class PackedNFPReadout(nn.Module):
+    """Node-level softmax over channels of ``output_weight(h)``, masked;
+    the molecule sums happen outside."""
+
+    def __init__(self, in_features: int, out_dim: int, device=None):
+        super().__init__()
+        self.output_weight = GraphLinear(in_features, out_dim, device=device)
+
+    def forward(self, h, node_mask):
+        return torch.softmax(self.output_weight(h), dim=-1) * node_mask[..., None]
 
 
 def _segment_mol_sum(g_nodes: torch.Tensor, mol_id: torch.Tensor,
@@ -115,13 +176,18 @@ def readout_in_kernel(hidden_dim: Optional[int] = None,
 
 def fused_form(hidden_dim: Optional[int] = None,
                out_dim: Optional[int] = None,
-               attn: Optional[str] = None) -> str:
+               attn: Optional[str] = None,
+               layer_aggregator: Optional[str] = None) -> str:
     """The kernels the GGNN kernel path runs under the current flags for
     a model of these widths (unnamed widths: D = H); a co-attention model
     (``attn``) needs the per-atom states, which K2 does not write, so it
-    always takes the K1 form."""
+    always takes the K1 form.  A layer aggregator needs every layer's
+    states, which no kernel keeps: that model runs the plain stack."""
     from gcnbmp_tpu_torch.ops import fused_ggnn as fg
 
+    if layer_aggregator is not None:
+        return (f"none: the layer aggregator ({layer_aggregator}) reads "
+                "every layer's states, so the plain layer stack runs")
     if attn is None and readout_in_kernel(hidden_dim, out_dim):
         return "K2/K2b (gated readout in the kernel)"
     if fg.TWOPASS:
@@ -129,19 +195,38 @@ def fused_form(hidden_dim: Optional[int] = None,
     return "K1/K1b + plain readout"
 
 
-class PackedGGNN(nn.Module):
+class DenseAdjacencyEncoder(nn.Module):
+    """An encoder whose ``encode`` runs its plain stack, ``forward``, on
+    the dense (P, 4, T, T) adjacency built from the COO edges: RelGCN,
+    GIN, NFP, and GGNN with a layer aggregator."""
+
+    def encode(self, atom_ids, edges, mol_id, node_mask, num_mols: int,
+               return_atoms: bool = False):
+        """Per-molecule embeddings (num_mols, D) from the decoded edges
+        (e_tile, e_type, e_src, e_dst, e_mask); ``return_atoms``: also
+        the last layer's per-atom states."""
+        p, t = atom_ids.shape
+        adj = adj_from_coo(*edges, num_tiles=p, tile=t)
+        g, aux = self(atom_ids, adj, mol_id, node_mask, num_mols)
+        return (g, aux["atoms"]) if return_atoms else g
+
+
+class PackedGGNN(DenseAdjacencyEncoder):
     """GGNN encoder over packed tiles.  ``forward`` is the plain layer
     stack of the JAX module (dense (P, 4, T, T) adjacency);
-    ``fused_forward``, the predictor's path, reads these weights through
-    ``params_to_fused`` into the kernels, in the form ``FUSED_READOUT``
-    picks.
+    ``fused_forward``, which ``encode`` (the predictors' path) runs,
+    reads these weights through ``params_to_fused`` into the kernels, in
+    the form ``FUSED_READOUT`` picks.
 
     Untied configs have one message function per layer and ONE shared
-    GRU, as in the JAX module."""
+    GRU, as in the JAX module.  With ``layer_aggregator`` (a mode of
+    ``models.ggnn_extras``) the readout is ``readout_agg`` over the
+    aggregated states of every layer, and ``encode`` runs the plain
+    stack: the kernels keep no per-layer states."""
 
     def __init__(self, out_dim: int, hidden_dim: int = 16, n_layers: int = 4,
                  n_atom_types: int = MAX_ATOMIC_NUM, weight_tying: bool = True,
-                 device=None):
+                 layer_aggregator: Optional[str] = None, device=None):
         super().__init__()
         self.out_dim = out_dim
         self.hidden_dim = hidden_dim
@@ -151,7 +236,16 @@ class PackedGGNN(nn.Module):
         for i in range(1 if weight_tying else n_layers):
             self.add_module(f"update_{i}", GGNNMessage(hidden_dim, device=device))
         self.gru = ChainerGRUCell(2 * hidden_dim, hidden_dim, device=device)
-        self.readout_0 = PackedGatedReadout(hidden_dim, out_dim, device=device)
+        if layer_aggregator is None:
+            self.layer_aggregator = None
+            self.readout_0 = PackedGatedReadout(hidden_dim, out_dim,
+                                                device=device)
+        else:
+            self.layer_aggregator = ggnn_extras.LayerAggregator(
+                layer_aggregator, hidden_dim, n_layers, device=device)
+            self.readout_agg = PackedGatedReadout(
+                ggnn_extras.aggregated_width(layer_aggregator, hidden_dim,
+                                             n_layers), out_dim, device=device)
 
     def message(self, layer: int) -> GGNNMessage:
         return getattr(self, f"update_{0 if self.weight_tying else layer}")
@@ -160,12 +254,31 @@ class PackedGGNN(nn.Module):
         h = self.embed(atom_ids)
         h0 = h
         state = torch.zeros_like(h)
+        h_list = []
         for step in range(self.n_layers):
             m = self.message(step)(h, adj)
             state = self.gru(state, torch.cat([h, m], dim=-1))
             h = state
-        g_nodes = self.readout_0(h, h0, node_mask)
+            h_list.append(h)
+        if self.layer_aggregator is None:
+            g_nodes = self.readout_0(h, h0, node_mask)
+        else:
+            g_nodes = self.readout_agg(*self.layer_aggregator(h_list, h0),
+                                       node_mask)
         return _segment_mol_sum(g_nodes, mol_id, num_mols), {"atoms": h, "h0": h0}
+
+    def encode(self, atom_ids, edges, mol_id, node_mask, num_mols: int,
+               return_atoms: bool = False):
+        """The predictors' entry: ``fused_forward`` on the flat adjacency
+        built from ``edges`` (e_tile, e_type, e_src, e_dst, e_mask), or
+        with a layer aggregator the plain stack on the dense one."""
+        if self.layer_aggregator is not None:
+            return super().encode(atom_ids, edges, mol_id, node_mask,
+                                  num_mols, return_atoms)
+        p, t = atom_ids.shape
+        adj_flat = adj_from_coo_flat(*edges, num_tiles=p, tile=t)
+        return self.fused_forward(atom_ids, adj_flat, mol_id, node_mask,
+                                  num_mols, return_atoms=return_atoms)
 
     def fused_forward(self, atom_ids, adj_flat, mol_id, node_mask,
                       num_mols: int, return_atoms: bool = False):
@@ -192,6 +305,99 @@ class PackedGGNN(nn.Module):
             g_nodes = ro(h, h0, node_mask)
         g = _segment_mol_sum(g_nodes, mol_id, num_mols)
         return (g, h) if return_atoms else g
+
+
+class PackedRelGCN(DenseAdjacencyEncoder):
+    """RelGCN encoder over packed tiles: ``embed``, then per layer
+    tanh(``conv_{i}``), then ``readout`` (``PackedCommonReadout`` over h
+    alone, no biases, tanh) summed per molecule.  The channel list is
+    [hidden] * (n_layers + 1), as the JAX factory builds it; ``scale_adj``
+    divides the adjacency by each atom's in-degree first."""
+
+    def __init__(self, out_dim: int, hidden_dim: int = 16, n_layers: int = 2,
+                 n_atom_types: int = MAX_ATOMIC_NUM, scale_adj: bool = False,
+                 device=None):
+        super().__init__()
+        self.scale_adj = scale_adj
+        self.n_layers = n_layers
+        self.embed = EmbedAtomID(n_atom_types, hidden_dim, device=device)
+        for i in range(n_layers):
+            self.add_module(f"conv_{i}", RelGCNUpdate(hidden_dim, hidden_dim,
+                                                      device=device))
+        self.readout = PackedCommonReadout(hidden_dim, out_dim, nobias=True,
+                                           activation=torch.tanh,
+                                           device=device)
+
+    def forward(self, atom_ids, adj, mol_id, node_mask, num_mols: int):
+        h = self.embed(atom_ids)
+        if self.scale_adj:
+            adj = rescale_adj(adj)
+        for i in range(self.n_layers):
+            h = torch.tanh(getattr(self, f"conv_{i}")(h, adj))
+        g_nodes = self.readout(h, None, node_mask)
+        return _segment_mol_sum(g_nodes, mol_id, num_mols), {"atoms": h, "h0": None}
+
+
+class PackedGIN(DenseAdjacencyEncoder):
+    """GIN encoder over packed tiles: ``embed``, the ``update_{i}`` layers
+    (one shared under weight tying, applied n_layers times), then
+    ``readout_0`` (``PackedCommonReadout`` over [h, h0]) summed per
+    molecule.  Deterministic: the trainer refuses dropout."""
+
+    def __init__(self, out_dim: int, hidden_dim: int = 16, n_layers: int = 4,
+                 n_atom_types: int = MAX_ATOMIC_NUM, weight_tying: bool = True,
+                 device=None):
+        super().__init__()
+        self.n_layers = n_layers
+        self.weight_tying = weight_tying
+        self.embed = EmbedAtomID(n_atom_types, hidden_dim, device=device)
+        for i in range(1 if weight_tying else n_layers):
+            self.add_module(f"update_{i}", GINUpdate(hidden_dim, device=device))
+        self.readout_0 = PackedCommonReadout(2 * hidden_dim, out_dim,
+                                             device=device)
+
+    def forward(self, atom_ids, adj, mol_id, node_mask, num_mols: int):
+        h = self.embed(atom_ids)
+        h0 = h
+        for step in range(self.n_layers):
+            h = getattr(self, f"update_{0 if self.weight_tying else step}")(
+                h, adj)
+        g_nodes = self.readout_0(h, h0, node_mask)
+        return _segment_mol_sum(g_nodes, mol_id, num_mols), {"atoms": h, "h0": h0}
+
+
+class PackedNFP(DenseAdjacencyEncoder):
+    """NFP encoder over packed tiles: the plain adjacency is the edge
+    types' sum clipped to [0, 1] plus self-loops on real slots only; each
+    atom's integer degree counts its self-loop; per layer ``update_{i}``
+    (degree-conditioned linears, sigmoid) and its own ``readout_{i}``
+    (``PackedNFPReadout``), the molecule sums added over the layers."""
+
+    def __init__(self, out_dim: int, hidden_dim: int = 16, n_layers: int = 4,
+                 max_degree: int = 6, n_atom_types: int = MAX_ATOMIC_NUM,
+                 device=None):
+        super().__init__()
+        self.n_layers = n_layers
+        self.embed = EmbedAtomID(n_atom_types, hidden_dim, device=device)
+        for i in range(n_layers):
+            self.add_module(f"update_{i}", NFPUpdate(
+                hidden_dim, hidden_dim, max_degree, device=device))
+            self.add_module(f"readout_{i}", PackedNFPReadout(
+                hidden_dim, out_dim, device=device))
+
+    def forward(self, atom_ids, adj, mol_id, node_mask, num_mols: int):
+        h = self.embed(atom_ids)
+        plain = adj.sum(dim=1).clamp(0.0, 1.0)
+        t = plain.shape[-1]
+        eye = torch.eye(t, dtype=plain.dtype, device=plain.device)[None]
+        plain = plain + eye * node_mask[:, :, None] * node_mask[:, None, :]
+        deg = plain.sum(dim=1).to(torch.int32)
+        g = 0.0
+        for i in range(self.n_layers):
+            h = getattr(self, f"update_{i}")(h, plain, deg)
+            per = getattr(self, f"readout_{i}")(h, node_mask)
+            g = g + _segment_mol_sum(per, mol_id, num_mols)
+        return g, {"atoms": h, "h0": None}
 
 
 def _device_slot_table(ids: torch.Tensor, valid: torch.Tensor, num_mols: int,
@@ -377,6 +583,19 @@ class PackedMPNN(nn.Module):
                        m0t, gru)
         return self.readout_0(h, mol_id, node_mask, num_mols, fused=True)
 
+    def encode(self, atom_ids, edges, mol_id, node_mask, num_mols: int,
+               return_atoms: bool = False):
+        """The predictors' entry: ``fused_forward`` on the flat adjacency
+        built from ``edges``.  The kernel path returns no per-atom states
+        (co-attention over MPNN is refused, ``model_problems``)."""
+        if return_atoms:
+            raise ValueError("the MPNN kernel path returns no per-atom "
+                             "states (ROADMAP queue 1, item 8)")
+        p, t = atom_ids.shape
+        adj_flat = adj_from_coo_flat(*edges, num_tiles=p, tile=t)
+        return self.fused_forward(atom_ids, adj_flat, mol_id, node_mask,
+                                  num_mols)
+
 
 def decode_compact_wire(nodes, e_packed, n_edges, num_mols: int):
     """Decode the wire-compact batch (``data.wire.compact_coo_arrays``)
@@ -403,7 +622,7 @@ class PackedPairPredictorCOOCompact(nn.Module):
 
     def __init__(self, encoder: nn.Module, head: nn.Module):
         super().__init__()
-        self.encoder = encoder  # a PackedGGNN or a PackedMPNN
+        self.encoder = encoder  # any packed encoder (its ``encode``)
         self.head = head
 
     def wire_encoder(self, datasets=(), n_max: Optional[int] = None):
@@ -416,13 +635,9 @@ class PackedPairPredictorCOOCompact(nn.Module):
     def forward(self, nodes, e_packed, n_edges, left_index, right_index,
                 return_g: bool = False):
         num_mols = 2 * left_index.shape[0]
-        (atom_ids, mol_id, node_mask, e_tile, e_type, e_src, e_dst,
-         e_mask) = decode_compact_wire(nodes, e_packed, n_edges, num_mols)
-        p, t = atom_ids.shape
-        adj_flat = adj_from_coo_flat(e_tile, e_type, e_src, e_dst, e_mask,
-                                     num_tiles=p, tile=t)
-        g = self.encoder.fused_forward(atom_ids, adj_flat, mol_id, node_mask,
-                                       num_mols)
+        atom_ids, mol_id, node_mask, *edges = decode_compact_wire(
+            nodes, e_packed, n_edges, num_mols)
+        g = self.encoder.encode(atom_ids, edges, mol_id, node_mask, num_mols)
         g1 = g[left_index.long()]
         g2 = g[right_index.long()]
         logits = self.head(g1, g2)
@@ -433,8 +648,8 @@ class PackedPairPredictorCOOCompact(nn.Module):
 
 class PackedCoattnPairPredictor(nn.Module):
     """Co-attention pair predictor over the wire-compact batch (JAX
-    :974-1033): the GGNN kernel path in its K1 form returns g and the
-    per-atom states h; each pair side's atoms are gathered out of the
+    :974-1033): the encoder's ``encode`` returns g and the last layer's
+    per-atom states h (GGNN's kernel path in its K1 form); each pair side's atoms are gathered out of the
     tiles through its slot table (``data.wire.compact_coattn_arrays``,
     gather-only backward), then co-attention and the head.  Takes the
     nine wire arrays; with ``return_g`` also the co-attention outputs."""
@@ -442,7 +657,7 @@ class PackedCoattnPairPredictor(nn.Module):
     def __init__(self, encoder: nn.Module, coattention: nn.Module,
                  head: nn.Module):
         super().__init__()
-        self.encoder = encoder  # a PackedGGNN
+        self.encoder = encoder  # any packed encoder but PackedMPNN
         self.coattention = coattention
         self.head = head
 
@@ -477,15 +692,11 @@ class PackedCoattnPairPredictor(nn.Module):
                 left_slots, right_slots, left_mask, right_mask,
                 return_g: bool = False):
         num_mols = 2 * left_index.shape[0]
-        (atom_ids, mol_id, node_mask, e_tile, e_type, e_src, e_dst,
-         e_mask) = decode_compact_wire(nodes, e_packed, n_edges, num_mols)
-        p, t = atom_ids.shape
-        adj_flat = adj_from_coo_flat(e_tile, e_type, e_src, e_dst, e_mask,
-                                     num_tiles=p, tile=t)
-        g, h = self.encoder.fused_forward(atom_ids, adj_flat, mol_id,
-                                          node_mask, num_mols,
-                                          return_atoms=True)
-        flat = h.reshape(p * t, -1)
+        atom_ids, mol_id, node_mask, *edges = decode_compact_wire(
+            nodes, e_packed, n_edges, num_mols)
+        g, h = self.encoder.encode(atom_ids, edges, mol_id, node_mask,
+                                   num_mols, return_atoms=True)
+        flat = h.reshape(-1, h.shape[-1])
         ids = mol_id.reshape(-1)
         atoms1 = gather_slot_table(flat, left_slots, left_mask, ids,
                                    side_mol_row(left_index, num_mols))
@@ -501,13 +712,39 @@ class PackedCoattnPairPredictor(nn.Module):
 
 # Model fields of a run config and the values the port builds.
 # compute_path is not read: the packed and padded parameter trees are the
-# same, and the port always runs the packed kernel path of the encoder.
-# compute_dtype is a training knob (the trainer takes bfloat16 for mpnn
-# and computes in f32); serving runs in f32, as the JAX packed evaluator
+# same, and the port always runs the packed path of the encoder.
+# compute_dtype is a training knob (the trainer takes bfloat16 and
+# computes in f32); serving runs in f32, as the JAX packed evaluator
 # does.
-PORTED_METHODS = ("ggnn", "mpnn")
+
+
+def _build_encoder(method: str, out_dim: int, hidden_dim: int, n_layers: int,
+                   weight_tying: bool, layer_aggregator: Optional[str],
+                   s2s_n_max: int, device) -> nn.Module:
+    """The packed encoder of ``method``, with the arguments the JAX
+    factory passes it (packed.py:1292-1324): RelGCN and NFP take no
+    weight tying, only GGNN a layer aggregator."""
+    builders = {
+        "ggnn": lambda: PackedGGNN(out_dim, hidden_dim, n_layers,
+                                   weight_tying=weight_tying,
+                                   layer_aggregator=layer_aggregator,
+                                   device=device),
+        "mpnn": lambda: PackedMPNN(out_dim, hidden_dim, n_layers,
+                                   weight_tying=weight_tying,
+                                   s2s_n_max=s2s_n_max, device=device),
+        "relgcn": lambda: PackedRelGCN(out_dim, hidden_dim, n_layers,
+                                       device=device),
+        "gin": lambda: PackedGIN(out_dim, hidden_dim, n_layers,
+                                 weight_tying=weight_tying, device=device),
+        "nfp": lambda: PackedNFP(out_dim, hidden_dim, n_layers,
+                                 device=device),
+    }
+    return builders[method]()
+
+
+# the JAX package's PACKED_ENCODERS (packed.py:1232)
+PORTED_METHODS = ("ggnn", "relgcn", "gin", "nfp", "mpnn")
 _REQUIRED = {
-    "layer_aggregator": None,
     "siamese": True,
     "symmetric": None,
     "concat_hidden": False,
@@ -518,20 +755,24 @@ _REQUIRED = {
 # values above are TrainConfig's defaults as well)
 _DEFAULTS = {
     **_REQUIRED, "method": "ggnn", "sim_method": "hole", "attn": None,
-    "fp_hidden_dim": 16, "fp_out_dim": 16, "conv_layers": 4,
-    "weight_tying": True, "net_hidden_dims": (), "class_num": 1,
+    "layer_aggregator": None, "fp_hidden_dim": 16, "fp_out_dim": 16,
+    "conv_layers": 4, "weight_tying": True, "net_hidden_dims": (),
+    "class_num": 1,
 }
 
 
-def model_problems(method: str, sim_method: str,
-                   attn: Optional[str]) -> list:
-    """The encoder, head and co-attention choices the port does not
-    build, each with its reason."""
+def model_problems(method: str, sim_method: str, attn: Optional[str],
+                   layer_aggregator: Optional[str] = None) -> list:
+    """The encoder, head, co-attention and layer aggregator choices the
+    port does not build, each with its reason."""
     bad = []
-    if method not in PORTED_METHODS:
-        bad.append(f"method={method!r} (ported: "
-                   f"{', '.join(map(repr, PORTED_METHODS))}; the other "
-                   "packed encoders are ROADMAP queue 1, item 9)")
+    if method == "ggnn-gwm":
+        bad.append("method='ggnn-gwm': the GWM packed twins are ROADMAP "
+                   "queue 1, item 9")
+    elif method not in PORTED_METHODS:
+        bad.append(f"method={method!r} (the packed encoders: "
+                   f"{', '.join(map(repr, PORTED_METHODS))}; the JAX "
+                   "package builds no other either)")
     if sim_method not in HEADS:
         bad.append(f"sim_method={sim_method!r} (heads: {sorted(HEADS)})")
     if attn is not None:
@@ -539,9 +780,18 @@ def model_problems(method: str, sim_method: str,
             bad.append(f"attn={attn!r} (variants: "
                        f"{sorted(COATTENTION_REGISTRY)})")
         elif method == "mpnn":
-            bad.append(f"attn={attn!r} with method='mpnn': the port runs "
-                       "co-attention over the GGNN encoder; MPNN with "
+            bad.append(f"attn={attn!r} with method='mpnn': the MPNN kernel "
+                       "path returns no per-atom states; MPNN with "
                        "co-attention is ROADMAP queue 1, item 8")
+    if layer_aggregator is not None:
+        if method != "ggnn":
+            bad.append(f"layer_aggregator={layer_aggregator!r} with "
+                       f"method={method!r}: the layer aggregator rides the "
+                       "packed GGNN only, as in the JAX package")
+        elif layer_aggregator not in ggnn_extras.MODES:
+            bad.append(f"layer_aggregator={layer_aggregator!r} (modes: "
+                       f"{', '.join(ggnn_extras.MODES)}; the reference's "
+                       "'self-attn' is unfinished)")
     return bad
 
 
@@ -553,7 +803,8 @@ def model_kwargs_from_config(cfg: dict) -> dict:
     ``make_packed_predictor``'s default, as the JAX evaluator does, unless
     the caller adds them (``s2s_n_max``, ``coattn_n_max``)."""
     get = lambda k: cfg.get(k, _DEFAULTS[k])
-    bad = model_problems(get("method"), get("sim_method"), get("attn"))
+    bad = model_problems(get("method"), get("sim_method"), get("attn"),
+                         get("layer_aggregator"))
     bad += [f"{k}={get(k)!r} (ported: {v!r})" for k, v in _REQUIRED.items()
             if get(k) != v]
     if bad:
@@ -567,6 +818,7 @@ def model_kwargs_from_config(cfg: dict) -> dict:
         "weight_tying": bool(get("weight_tying")),
         "sim_method": get("sim_method"),
         "attn": get("attn"),
+        "layer_aggregator": get("layer_aggregator"),
         "class_num": int(get("class_num")),
         "net_hidden_dims": tuple(get("net_hidden_dims") or ()),
     }
@@ -588,26 +840,19 @@ def make_packed_predictor(
     device=None,
 ) -> nn.Module:
     """The wire-compact pair predictor of the JAX package's
-    ``make_packed_predictor(..., compact=True)`` for the GGNN and MPNN
-    families, and with ``attn`` its co-attention predictor over GGNN
-    (:1327-1338).  ``s2s_n_max`` is the MPNN Set2Set table width: it must
-    bound the largest molecule (the trainer fits it to its data);
-    ``coattn_n_max``, the co-attention atom table width, sizes ``lt``'s
-    weights."""
-    bad = model_problems(method, sim_method, attn)
+    ``make_packed_predictor(..., compact=True)`` for every packed encoder
+    (``PORTED_METHODS``), and with ``attn`` its co-attention predictor
+    (:1327-1338) over any of them but MPNN.  ``layer_aggregator`` rides
+    GGNN only, as in the JAX factory (:1262-1265).  ``s2s_n_max`` is the
+    MPNN Set2Set table width: it must bound the largest molecule (the
+    trainer fits it to its data); ``coattn_n_max``, the co-attention atom
+    table width, sizes ``lt``'s weights."""
+    bad = model_problems(method, sim_method, attn, layer_aggregator)
     if bad:
         raise ValueError("not ported: " + "; ".join(bad))
-    if layer_aggregator is not None:
-        raise ValueError("layer_aggregator is not ported yet "
-                         "(ROADMAP queue 1, item 9)")
-    if method == "mpnn":
-        encoder = PackedMPNN(out_dim=fp_out_dim, hidden_dim=fp_hidden_dim,
-                             n_layers=conv_layers, weight_tying=weight_tying,
-                             s2s_n_max=s2s_n_max, device=device)
-    else:
-        encoder = PackedGGNN(out_dim=fp_out_dim, hidden_dim=fp_hidden_dim,
-                             n_layers=conv_layers, weight_tying=weight_tying,
-                             device=device)
+    encoder = _build_encoder(method, fp_out_dim, fp_hidden_dim, conv_layers,
+                             weight_tying, layer_aggregator, s2s_n_max,
+                             device)
     if attn is not None:
         coattention = build_coattention(attn, fp_hidden_dim, fp_out_dim,
                                         coattn_n_max, device=device)

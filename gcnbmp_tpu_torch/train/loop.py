@@ -14,7 +14,9 @@ step and the Trainer (port of gcnbmp_tpu/train/loop.py).
   ``"coo"`` (one kernel path, :799-858) and MPNN on ``compute_path="coo"``
   (the Set2Set table width fitted to the data, :817-827), GGNN with
   co-attention on ``"coo"`` (the atom table width fitted alike,
-  :1089-1098), per step or in scan mode (the loop at :1185-1263, the
+  :1089-1098), and RelGCN, GIN, NFP and GGNN with a layer aggregator on
+  ``"coo"`` (plain PyTorch ops: the JAX package has no kernel for them
+  either), per step or in scan mode (the loop at :1185-1263, the
   guard at :739-745); resume (:786-790), ``profile_epoch``
   (:1149-1157) and ``debug_checks`` (:1172-1173, :183-207)
 - ``config_problems`` <- ``packed_config_problems`` (:532-575), for what
@@ -24,9 +26,12 @@ step and the Trainer (port of gcnbmp_tpu/train/loop.py).
 ``compute_dtype="bfloat16"`` is accepted and computed in f32, for GGNN as
 the JAX fused path computes it (``_fused_encoder_g_nodes`` ignores
 compute_dtype; its bf16 adjacency of 0/1 values is exact) and for MPNN as
-its fused kernels do.  The JAX **coo** path with bf16 rounds its XLA
-matmul operands to bf16, so that pairing is where the port's numbers
-differ from JAX's; the parity tests run f32.
+its fused kernels do, and for RelGCN and GIN, whose plain stacks run in
+f32 too.  NFP ignores it, as the JAX trainer does (it passes
+compute_dtype to ggnn, relgcn, gin and mpnn only, loop.py:845-851).  The
+JAX **coo** path with bf16 rounds its XLA matmul operands to bf16, so
+that pairing is where the port's numbers differ from JAX's; the parity
+tests run f32.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from gcnbmp_tpu_torch.models.packed import model_problems
+from gcnbmp_tpu_torch.models.packed import PORTED_METHODS, model_problems
 from gcnbmp_tpu_torch.train.config import TrainConfig
 from gcnbmp_tpu_torch.train.schedules import (
     cyclical_schedule,
@@ -230,35 +235,41 @@ def train_step(model, optimizer: ChainedAdam, args, labels,
 
 
 def config_problems(cfg: TrainConfig) -> List[str]:
-    """Options of ``cfg`` the port does not train yet, each naming the
-    ROADMAP item that brings it."""
+    """Options of ``cfg`` the port does not train, each with its reason:
+    the ROADMAP item that brings it, or the JAX package's own refusal
+    (``packed_config_problems``, gcnbmp_tpu/train/loop.py:532-575)."""
     problems = []
-    if cfg.method == "mpnn":
-        # as in the JAX package, MPNN trains on the coo path (its fused
-        # path is GGNN-only), which runs K5 and K4 on the card
-        if cfg.compute_path != "coo":
-            problems.append(f"compute_path={cfg.compute_path!r} with "
-                            "method='mpnn': MPNN trains on 'coo', as in the "
-                            "JAX package; its other layouts come with "
-                            "ROADMAP queue 1, items 4 and 7")
-    elif cfg.compute_path not in ("fused", "coo"):
-        # GGNN on coo trains through the same kernel path as fused: the
-        # JAX coo path runs XLA's stack, which has no Pallas kernel
-        problems.append(f"compute_path={cfg.compute_path!r}: the port trains "
-                        "GGNN on 'fused' and 'coo'; the other layouts come "
-                        "with ROADMAP queue 1, items 4 and 7")
-    if cfg.method not in ("ggnn", "mpnn"):
-        problems.append(f"method={cfg.method!r}: other encoders are ROADMAP "
-                        "queue 1, item 9")
-    else:
-        problems += model_problems(cfg.method, cfg.sim_method, cfg.attn)
+    if cfg.method in PORTED_METHODS and cfg.compute_path != "coo":
+        if cfg.method != "ggnn":
+            # as in the JAX package, the fused path is GGNN-only: the
+            # other encoders train on coo (MPNN runs K5 and K4 there)
+            problems.append(
+                f"compute_path={cfg.compute_path!r} with method="
+                f"{cfg.method!r}: {cfg.method} trains on 'coo', as in the "
+                "JAX package, whose fused kernel path is GGNN-only; the "
+                "other layouts come with ROADMAP queue 1, items 4 and 7")
+        elif cfg.compute_path != "fused":
+            # GGNN on coo trains through the same kernel path as fused:
+            # the JAX coo path runs XLA's stack, which has no Pallas kernel
+            problems.append(
+                f"compute_path={cfg.compute_path!r}: the port trains GGNN "
+                "on 'fused' and 'coo'; the other layouts come with ROADMAP "
+                "queue 1, items 4 and 7")
+    problems += model_problems(cfg.method, cfg.sim_method, cfg.attn,
+                               cfg.layer_aggregator)
     if cfg.attn is not None and cfg.compute_path == "fused":
         # the JAX package refuses it alike (packed_config_problems)
         problems.append(f"attn={cfg.attn!r} on compute_path='fused': "
                         "co-attention (use compute_path='coo')")
-    if cfg.layer_aggregator:
-        problems.append(f"layer_aggregator={cfg.layer_aggregator!r}: "
-                        "ROADMAP queue 1, item 9")
+    if (cfg.layer_aggregator and cfg.method == "ggnn"
+            and cfg.compute_path == "fused"):
+        # refused alike by the JAX package: the kernels keep no
+        # per-layer states
+        problems.append(
+            f"layer_aggregator={cfg.layer_aggregator!r} on "
+            "compute_path='fused': the fused kernels keep no per-layer "
+            "states, as in the JAX package (use compute_path='coo'; a "
+            'layer-range kernel forward is ROADMAP queue 2, "Open: JKNet")')
     for flag, value in (("siamese", not cfg.siamese),
                         ("symmetric", cfg.symmetric is not None),
                         ("fp_dropout_rate", cfg.fp_dropout_rate > 0),
@@ -278,7 +289,9 @@ def kernel_problems(cfg, device) -> List[str]:
     card's kernels are not built for, when ``device`` is CUDA; none on the
     CPU, where the wrappers run their plain versions at any width.  A GGNN
     whose readout width differs from its hidden width runs K1 with the
-    plain readout (``models.packed.fused_form``), so only H is checked."""
+    plain readout (``models.packed.fused_form``), so only H is checked.
+    RelGCN, GIN, NFP and GGNN with a layer aggregator run no kernel, so
+    none of their widths is refused."""
     from gcnbmp_tpu_torch.models.packed import SET2SET_STEPS
     from gcnbmp_tpu_torch.ops import fused_ggnn, fused_mpnn, set2set_kernel
 
@@ -293,6 +306,8 @@ def kernel_problems(cfg, device) -> List[str]:
     held = {"ggnn": fused_ggnn.KERNEL_HIDDEN,
             "mpnn": [h for h in fused_mpnn.KERNEL_HIDDEN
                      if h in set2set_kernel.KERNEL_HIDDEN]}.get(method, [])
+    if cfg.get("layer_aggregator"):
+        held = []
     problems = []
     if held and hidden not in held:
         problems.append(f"fp_hidden_dim={hidden} with method={method!r}: the "
@@ -490,7 +505,8 @@ class Trainer:
                         "(ROADMAP queue 1, item 6); log.json holds the curves")
         if cfg.method == "ggnn":
             logger.info("GGNN kernel path: %s",
-                        fused_form(cfg.fp_hidden_dim, cfg.fp_out_dim, cfg.attn))
+                        fused_form(cfg.fp_hidden_dim, cfg.fp_out_dim, cfg.attn,
+                                   cfg.layer_aggregator))
         args_fn = self.model.wire_encoder(n_max=self.coattn_n_max)
         steps_per_chunk = max(cfg.scan_steps, 1)
         os.makedirs(cfg.out_dir, exist_ok=True)

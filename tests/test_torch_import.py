@@ -10,7 +10,8 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "gcnbmp_tpu_torch")
 CHIP_SCRIPTS = [os.path.join(ROOT, name)
-                for name in ("chip_smoke.py", "chip_phases.py")]
+                for name in ("chip_smoke.py", "chip_phases.py",
+                             "chip_quality.py")]
 
 MODULES = [
     "gcnbmp_tpu_torch",
@@ -26,6 +27,8 @@ MODULES = [
     "gcnbmp_tpu_torch.data.packing",
     "gcnbmp_tpu_torch.data.native_pack",
     "gcnbmp_tpu_torch.data.wire",
+    "gcnbmp_tpu_torch.data.splits",
+    "gcnbmp_tpu_torch.data.synth",
     "gcnbmp_tpu_torch.ops.aggregate",
     "gcnbmp_tpu_torch.ops.circular",
     "gcnbmp_tpu_torch.ops.fused_ggnn",
@@ -35,6 +38,10 @@ MODULES = [
     "gcnbmp_tpu_torch.ops.build",
     "gcnbmp_tpu_torch.models.layers",
     "gcnbmp_tpu_torch.models.ggnn",
+    "gcnbmp_tpu_torch.models.ggnn_extras",
+    "gcnbmp_tpu_torch.models.relgcn",
+    "gcnbmp_tpu_torch.models.gin",
+    "gcnbmp_tpu_torch.models.nfp",
     "gcnbmp_tpu_torch.models.heads",
     "gcnbmp_tpu_torch.models.packed",
     "gcnbmp_tpu_torch.convert",
@@ -46,6 +53,8 @@ MODULES = [
     "gcnbmp_tpu_torch.train.loop",
     "gcnbmp_tpu_torch.train.checkpoints",
     "gcnbmp_tpu_torch.cli.train",
+    "gcnbmp_tpu_torch.cli.evaluate",
+    "gcnbmp_tpu_torch.cli.data_generator",
 ]
 
 BLOCKER = """
@@ -66,6 +75,8 @@ def test_port_imports_with_jax_blocked():
     code = BLOCKER + "".join(f"import {m}\n" for m in MODULES) + (
         "from gcnbmp_tpu_torch.cli.predict import main\n"
         "from gcnbmp_tpu_torch.cli.train import main\n"
+        "sys.path.insert(0, '.')\n"
+        "import chip_quality\n"
         "assert not [m for m in sys.modules if m.startswith('jax')\n"
         "            or m.split('.')[0] == 'gcnbmp_tpu']\n"
         "print('ok')\n")

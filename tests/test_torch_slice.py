@@ -180,12 +180,13 @@ def test_predict_cli_matches_jax(tmp_path):
                                rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("field,value", [("method", "relgcn"), ("method", "nfp"),
-                                         ("layer_aggregator", "concat"),
-                                         ("concat_hidden", True),
-                                         ("symmetric", "or")])
-def test_config_outside_slice_raises(field, value):
-    d = json.loads(TrainConfig().to_json())
-    d[field] = value
+@pytest.mark.parametrize("field,changes", [
+    ("method", {"method": "ggnn-gwm"}),
+    ("layer_aggregator", {"method": "relgcn", "layer_aggregator": "gru"}),
+    ("layer_aggregator", {"layer_aggregator": "self-attn"}),
+    ("concat_hidden", {"concat_hidden": True}),
+    ("symmetric", {"symmetric": "or"})])
+def test_config_outside_slice_raises(field, changes):
+    d = {**json.loads(TrainConfig().to_json()), **changes}
     with pytest.raises(ValueError, match=field):
         predict.model_kwargs_from_config(d)
