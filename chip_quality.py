@@ -34,7 +34,16 @@ The JAX package's test AUROC / AUPRC (docs/QUALITY.md) beside each:
   --compute-dtype bfloat16`` on isc35000 through K5/K4
   (``ref_scale_mpnn_fusedkernel_r5``; 0.9644);
 - ``production``: ``--preset ggnn_hole_production`` (bf16 computed in
-  f32, scan 10, reused packs) on isc35000 (0.9645).
+  f32, scan 10, reused packs) on isc35000 (0.9645);
+- ``gwm``: GGNN-GWM, ``--method ggnn-gwm --conv-layers 4 --compute-path
+  coo --scan-steps 10 --epochs 30`` on isc35000 (``ref_scale_gwm_cooscan``,
+  scripts/quality_battery_r3.sh:48-50; 0.9641 / 0.9494);
+- ``gwm_packed``: the same with ``--compute-path packed`` and no scan
+  mode (``ref_scale_gwm_full``, 0.9635 / 0.9489; the JAX run shipped the
+  dense adjacency from the host and validated on ``inter_valid_4k.csv``,
+  examples/ref_scale_battery.sh:63-80; the port trains ``packed`` on the
+  wire-compact COO predictor and validates on the full valid split, as
+  ``gwm`` does).
 
 The ``inter``, ``kaist`` and isc35000 splits are gitignored: when one is
 missing, ``build_synth546`` makes the whole synth546 tree with the port's
@@ -86,6 +95,9 @@ GGNN = ["--method", "ggnn", "--conv-layers", "8", "--fp-hidden-dim", "32",
         "--fp-out-dim", "32", "--weight-tying", "false"]
 FLAGS = GGNN + COMMON + ["--epochs", "80", "--augment"]
 WIDTHS = ["--fp-hidden-dim", "32", "--fp-out-dim", "32"]
+GWM = ["--method", "ggnn-gwm", "--sim-method", "hole", "--conv-layers", "4",
+       *WIDTHS, "--batch-size", "2048", "--lr", "2e-3", "--epochs", "30",
+       "--patience", "10", "--augment", "--no-eval-train"]
 # row -> (split, train CLI flags, evaluate CLI flags)
 ROWS = {
     "drug": ("drug", FLAGS, []),
@@ -104,6 +116,8 @@ ROWS = {
                      "--compute-dtype", "bfloat16", "--epochs", "80",
                      "--augment"], []),
     "production": ("isc", ["--preset", "ggnn_hole_production", *FLAGS], []),
+    "gwm": ("isc", GWM + ["--compute-path", "coo", "--scan-steps", "10"], []),
+    "gwm_packed": ("isc", GWM + ["--compute-path", "packed"], []),
 }
 # the files build_synth546 makes beside the committed drug_list.csv and
 # rule_stats.json (and the drug and scaffold splits, which it can remake)

@@ -114,8 +114,28 @@ Phases, each fatal on failure:
    synth546's ``inter`` (with the isc35000 subsample) and ``kaist``
    splits in a temporary directory, and their sha256 sums must be the
    recorded ones.
+13. GWM and the ``packed`` compute path: the GWM quality row's model
+   (``--method ggnn-gwm``, L=4 tied, H=D=32, 8 heads, 244 supernode
+   features) served through the predict CLI with seeded weights (no
+   kernel may launch; the card's logits and probs on the first 512 test
+   pairs against the CPU's, atol = rtol = 1e-4); trained 2 epochs
+   through the train CLI at batch 256 on coo in scan mode (chunks of 4)
+   and with ``--compute-path packed`` (no kernel; loss finite and
+   falling; val metrics), each run served by predict ``--run`` and
+   ``--config/--params`` (probs within 1e-4) and scored by the evaluate
+   CLI; the GWM step timed and profiled at batch 256 and 2048, with the
+   staging of one batch (``stage_chunk``) split into its host gather and
+   its copy, and the same bytes copied from pinned memory.  Then GGNN
+   (``ggnn_hole_binary``, K2/K2b) and MPNN (the quality row,
+   K5/K5b/K4/K4b) trained 2 epochs with ``--compute-path packed``
+   through the train CLI as phases 5 and 7 check them (each backward
+   kernel once per step, gradients against the plain stack).  The port
+   trains ``packed`` on the wire-compact COO predictor, the adjacency
+   built on the card.
 
-Prints the kernels' JSON line (with each kernel's bound: the larger of
+Prints the kernels' JSON line (``launches`` from each kernel's main
+path; ``launches_packed`` from phase 13's packed runs; with each
+kernel's bound: the larger of
 its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s, counted
 from this run's inputs, the sparse products by their nonzeros), the
 nvidia-smi line, and last the device JSON line.  Exits non-zero when
@@ -797,7 +817,10 @@ def time_train_step(tag, train_ds, model_cfg, train_cfg, bs, n_steps, dev,
     """The train step's time (host clock) and profile at batch ``bs``, on
     batches staged on the card beforehand; returns ms per step.  A
     multi-label model (``class_num`` in ``model_cfg``) takes the sigmoid
-    cross-entropy over ``train_ds``'s multi-hot labels."""
+    cross-entropy over ``train_ds``'s multi-hot labels.  Also times the
+    trainer's staging of one batch (``stage_chunk``) and its two parts:
+    the host gather into one buffer and the copy from pageable memory;
+    and, for comparison, the copy of the same bytes from pinned memory."""
     import numpy as np
     import torch
 
@@ -812,13 +835,18 @@ def time_train_step(tag, train_ds, model_cfg, train_cfg, bs, n_steps, dev,
     tiles, cap = estimate_coo_capacities([train_ds], bs)
     rng = np.random.default_rng(SEED)
     args_fn = model.wire_encoder([train_ds])
-    staged = []
-    for b in packed_coo_batch_iterator(train_ds, bs, tiles, cap, rng):
-        staged.append(([torch.as_tensor(np.asarray(a)).to(dev)
-                        for a in args_fn(b)],
-                       torch.as_tensor(b.labels).to(dev)))
+    staged, hosts = [], []
+    for b in packed_coo_batch_iterator(
+            train_ds, bs, tiles, cap, rng,
+            supernode_fn=getattr(model, "supernode_fn", None)):
+        hosts.append(([np.asarray(a)[None] for a in args_fn(b)],
+                      b.labels[None]))
+        args, labels = train_loop.stage_chunk(*hosts[-1], dev)
+        staged.append(([a[0] for a in args], labels[0]))
         if len(staged) == 8:
             break
+    stage_ms = staging_ms(hosts[0], dev, torch)
+    del hosts
     opt, _ = train_loop.build_optimizer(train_cfg, 1000,
                                         list(model.parameters()))
     class_num = model_cfg.get("class_num", 1)
@@ -841,7 +869,49 @@ def time_train_step(tag, train_ds, model_cfg, train_cfg, bs, n_steps, dev,
           f"{n_steps} back-to-back steps on staged batches) on {smi}")
     print(f"  where it goes (torch.profiler over {n_steps} steps): {busy}; "
           f"top kernels, device ms per step: {top}")
+    mb = stage_ms.pop("MB")
+    print(f"  staging one batch, {mb:.3f} MB, ms (median of 5, host clock "
+          "around synchronized calls): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in stage_ms.items())
+          + f"; pageable copy {mb / stage_ms['pageable copy']:.3f} GB/s, "
+          f"pinned copy {mb / stage_ms['pinned copy']:.3f} GB/s")
     return step_ms
+
+
+def staging_ms(host, dev, torch) -> dict:
+    """``stage_chunk`` on one host batch (``host``: the wire arrays and
+    labels, each with a leading axis of 1), and its two parts timed
+    apart: the gather of every array's bits into one int32 buffer and the
+    copy of that buffer from pageable memory; and the copy of the same
+    bytes from a pinned buffer, which the trainer does not use."""
+    import numpy as np
+
+    from gcnbmp_tpu_torch.train import loop as train_loop
+
+    parts = [np.ascontiguousarray(a) for a in host[0]]
+    parts.append(np.ascontiguousarray(host[1], np.float32))
+
+    def gather():
+        return np.concatenate([p.view(np.int32).reshape(-1) for p in parts])
+
+    flat = torch.from_numpy(gather())
+    pinned = flat.pin_memory()
+    calls = {"stage_chunk": lambda: train_loop.stage_chunk(*host, dev),
+             "host gather": gather,
+             "pageable copy": lambda: flat.to(dev),
+             "pinned copy": lambda: pinned.to(dev, non_blocking=True)}
+    out = {}
+    for name, fn in calls.items():
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = statistics.median(times[1:])
+    out["MB"] = flat.numel() * 4 / 1e6
+    return out
 
 
 def multilabel_csv(src, dst, classes):
@@ -1314,6 +1384,180 @@ def encoder_slices(df, dev, smi, reset_counts, read_counts):
         {k: round(v, 3) for k, v in times.items()}))
 
 
+# phase 13: the GWM quality row's model (scripts/quality_battery_r3.sh:48-50)
+GWM_CFG = dict(method="ggnn-gwm", fp_hidden_dim=32, fp_out_dim=32,
+               conv_layers=4, weight_tying=True)
+GWM_FLAGS = ["--method", "ggnn-gwm", "--sim-method", "hole", "--conv-layers",
+             "4", "--fp-hidden-dim", "32", "--fp-out-dim", "32", "--lr",
+             "2e-3", "--augment"]
+GWM_SCAN = 4  # steps per scan chunk on coo: 16 steps of 256 per epoch
+
+
+def gwm_slice(df, dev, smi, reset_counts, read_counts):
+    """Phase 13, GWM: served through the predict CLI with seeded weights
+    (no kernel may launch), the card's logits and probs against the
+    CPU's; trained 2 epochs through the train CLI on coo in scan mode and
+    with ``--compute-path packed`` (no kernel; loss finite and falling;
+    val metrics), each run served by predict ``--run`` and
+    ``--config/--params`` and scored by the evaluate CLI; the step timed
+    and profiled at batch 256 and 2048."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from gcnbmp_tpu_torch.cli import evaluate as evaluate_cli
+    from gcnbmp_tpu_torch.cli import predict
+    from gcnbmp_tpu_torch.cli import train as train_cli
+    from gcnbmp_tpu_torch.convert import init_params, save_params_npz
+    from gcnbmp_tpu_torch.data import CSVPairParser
+    from gcnbmp_tpu_torch.eval.evaluate import PackedPairEvaluator
+    from gcnbmp_tpu_torch.train import loop as train_loop
+    from gcnbmp_tpu_torch.train.checkpoints import served_predictor
+    from gcnbmp_tpu_torch.train.config import TrainConfig
+
+    config = dict(GWM_CFG, sim_method="hole", net_hidden_dims=[],
+                  class_num=1)
+    check_ds = CSVPairParser().parse(df.head(N_CPU_CHECK)).dataset
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        paths = {}
+        for name, frame in (("train", pd.read_csv(TRAIN_CSV).head(N_PAIRS)),
+                            ("val", pd.read_csv(VALID_CSV).head(N_VAL)),
+                            ("test", df)):
+            paths[name] = os.path.join(tmp, f"{name}.csv")
+            frame.to_csv(paths[name], index=False)
+        # a. serving with seeded weights
+        cfg_path = os.path.join(tmp, "config.json")
+        params_path = os.path.join(tmp, "params.npz")
+        with open(cfg_path, "w") as f:
+            json.dump(config, f)
+        tree = init_params(GWM_CFG, SEED)
+        save_params_npz(params_path, tree)
+        out_path = os.path.join(tmp, "preds.csv")
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = predict.main(["--input", paths["test"], "--config", cfg_path,
+                           "--params", params_path, "--out", out_path,
+                           "--batch-size", str(SERVE_BATCH), "--device",
+                           "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        probs = pd.read_csv(out_path)["prob"].to_numpy()
+        print(f"gwm slice: predict.main served {len(probs)} pairs in "
+              f"{wall:.3f} s = {len(probs) / wall:.1f} pairs/s (CSV parse, "
+              f"supernode features, pack, device, first call) on {smi}; "
+              f"kernel launches {sum(launches.values())}")
+        if rc != 0 or len(probs) != N_PAIRS or not np.all(np.isfinite(probs)) \
+                or probs.min() < 0 or probs.max() > 1:
+            raise AssertionError("gwm: the predict CLI did not serve")
+        if any(launches.values()):
+            raise AssertionError(f"gwm: kernels launched on a path that runs "
+                                 f"none: {launches}")
+        logits = {}
+        for name, where in (("card", dev), ("cpu", "cpu")):
+            model = served_predictor(config, tree).to(where)
+            logits[name] = PackedPairEvaluator(
+                model, batch_size=SERVE_BATCH, device=where,
+                with_metrics=False).evaluate(check_ds).logits
+        compare("gwm served logits (card vs CPU, same weights)",
+                torch.as_tensor(logits["card"]),
+                torch.as_tensor(logits["cpu"]), torch)
+        p_err = float(np.abs(probs[:N_CPU_CHECK] - 1.0 / (
+            1.0 + np.exp(-logits["cpu"].ravel()))).max())
+        print(f"gwm slice: predict CLI probs vs CPU: max_abs_err={p_err:.3e}")
+        if p_err > ATOL:
+            raise AssertionError("gwm: served probs disagree with the CPU")
+
+        # b. training on coo in scan mode, and on packed
+        train_ds = CSVPairParser().parse(paths["train"]).dataset
+        for layout, extra in (("coo", ["--compute-path", "coo",
+                                       "--scan-steps", str(GWM_SCAN)]),
+                              ("packed", ["--compute-path", "packed"])):
+            run = os.path.join(tmp, f"run_{layout}")
+            step_losses = []
+            real_step = train_loop.train_step
+
+            def recording_step(*args, **kwargs):
+                loss = real_step(*args, **kwargs)
+                step_losses.append(loss)
+                return loss
+
+            train_loop.train_step = recording_step
+            try:
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rc = train_cli.main([
+                    "--train", paths["train"], "--val", paths["val"],
+                    *GWM_FLAGS, *extra, "--batch-size", str(SERVE_BATCH),
+                    "--epochs", str(TRAIN_EPOCHS), "--seed", str(SEED),
+                    "--device", "cuda", "--out", run])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = read_counts()
+            finally:
+                train_loop.train_step = real_step
+            losses = torch.stack(step_losses).cpu().numpy()
+            n_steps = len(losses)
+            k = min(5, n_steps // 3)
+            first, last = float(losses[:k].mean()), float(losses[-k:].mean())
+            print(f"gwm train slice ({layout}): train.main ran {n_steps} "
+                  f"steps of batch {SERVE_BATCH} over {TRAIN_EPOCHS} epochs "
+                  f"in {wall:.3f} s on {smi}; step loss mean first {k} "
+                  f"{first:.5f}, last {k} {last:.5f}; kernel launches "
+                  f"{sum(launches.values())}")
+            if rc != 0 or n_steps != TRAIN_EPOCHS * 2 * N_PAIRS // SERVE_BATCH:
+                raise AssertionError(f"gwm {layout}: train.main rc {rc}, "
+                                     f"{n_steps} steps")
+            if any(launches.values()):
+                raise AssertionError(f"gwm {layout}: kernels launched on a "
+                                     f"path that runs none: {launches}")
+            if not np.all(np.isfinite(losses)) or not last < first:
+                raise AssertionError(f"gwm {layout}: training loss not "
+                                     "finite or not falling")
+            with open(os.path.join(run, "log.json")) as f:
+                log = json.load(f)
+            if len(log) != TRAIN_EPOCHS or not all(
+                    np.isfinite(e["val/loss"]) and np.isfinite(e["val/roc_auc"])
+                    for e in log):
+                raise AssertionError(f"gwm {layout}: log.json lacks finite "
+                                     "val metrics")
+            served = {}
+            for form, args in (
+                    ("run", ["--run", run, "--checkpoint", "final"]),
+                    ("config", ["--config", os.path.join(run, "config.json"),
+                                "--params", os.path.join(run, "final",
+                                                         "params.npz")])):
+                path = os.path.join(tmp, f"{layout}_{form}.csv")
+                rc = predict.main(["--input", paths["test"], *args, "--out",
+                                   path, "--batch-size", str(SERVE_BATCH),
+                                   "--device", "cuda"])
+                served[form] = pd.read_csv(path)["prob"].to_numpy()
+                if rc != 0 or not np.all(np.isfinite(served[form])):
+                    raise AssertionError(f"gwm {layout}: predict {form} did "
+                                         "not serve")
+            # the segment sums' index_add_ adds in a varying order on the
+            # card: the two serve the same weights within the probs bound
+            d = float(np.abs(served["run"] - served["config"]).max())
+            rc = evaluate_cli.main(["--test", paths["test"], "--run", run,
+                                    "--batch-size", str(SERVE_BATCH),
+                                    "--device", "cuda"])
+            with open(os.path.join(run, "eval", "eval_result.json")) as f:
+                result = json.load(f)
+            print(f"gwm train slice ({layout}): predict --run vs "
+                  f"--config/--params max_abs_err={d:.3e}; evaluate CLI test "
+                  f"roc_auc {result['roc_auc']:.5f}; last log entry "
+                  f"{json.dumps(log[-1])}")
+            if d > ATOL or rc != 0 or not np.isfinite(result["roc_auc"]):
+                raise AssertionError(f"gwm {layout}: served or scored wrong")
+        with open(os.path.join(run, "config.json")) as f:
+            train_cfg = TrainConfig.from_json(f.read())
+        for bs in (SERVE_BATCH, N_PAIRS):
+            time_train_step("gwm", train_ds, dict(config), train_cfg, bs, 10,
+                            dev, smi)
+
+
 def crowd_rows(adj, torch):
     """``adj`` with ~5% of the columns of every other row set to 1: rows
     with more nonzeros than the kernels' NBR_CAP=16 neighbour slots (which
@@ -1784,6 +2028,26 @@ def main() -> int:
     print(f"phase 12: {time.perf_counter() - t12:.1f} s")
     print(f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
 
+    # 13. GWM, and compute_path packed through the GGNN and MPNN kernels
+    t13 = time.perf_counter()
+    gwm_slice(df, dev, smi, reset_counts, read_counts)
+    train_packed_ggnn, _ = train_slice(
+        "ggnn packed", ["--preset", "ggnn_hole_binary", "--compute-path",
+                        "packed"], SERVE_BATCH,
+        dataclasses.replace(preset, compute_path="packed"), cfg,
+        {"fused_ggnn_readout_bwd": 1}, ["fused_ggnn_readout"],
+        (), dev, smi, reset_counts, read_counts)
+    train_packed_mpnn, _ = train_slice(
+        "mpnn packed", [f if f != "coo" else "packed" for f in MPNN_FLAGS],
+        SERVE_BATCH, dataclasses.replace(mpnn_train_cfg,
+                                         compute_path="packed"),
+        dict(MPNN_CFG, s2s_n_max=24),
+        {"fused_mpnn_bwd": 1, "fused_set2set_bwd": 1},
+        ["fused_mpnn", "fused_set2set"], (), dev, smi, reset_counts,
+        read_counts)
+    print(f"phase 13: {time.perf_counter() - t13:.1f} s")
+    print(f"phase 13 done at {time.perf_counter() - t_start:.1f} s")
+
     sources = {"fused_ggnn": "fused_ggnn.cu", "fused_ggnn_mid": "fused_ggnn.cu",
                "fused_ggnn_readout": "fused_ggnn.cu",
                "fused_ggnn_bwd": "fused_ggnn_bwd.cu",
@@ -1818,6 +2082,13 @@ def main() -> int:
     coattention = {"fused_ggnn": train_coattn, "fused_ggnn_bwd": train_coattn,
                    "fused_ggnn_mid": train_nie,
                    "fused_ggnn_half_bwd": train_nie}
+    # the runs with compute_path packed (phase 13)
+    packed_path = {"fused_ggnn_readout": train_packed_ggnn,
+                   "fused_ggnn_readout_bwd": train_packed_ggnn,
+                   "fused_mpnn": train_packed_mpnn,
+                   "fused_mpnn_bwd": train_packed_mpnn,
+                   "fused_set2set": train_packed_mpnn,
+                   "fused_set2set_bwd": train_packed_mpnn}
     kernels = []
     for name in sources:
         launches = main_path[name][name]
@@ -1835,6 +2106,8 @@ def main() -> int:
                if name in coattention else {}),
             **({"launches_coattention_serving": serve_coattn[name]}
                if name == "fused_ggnn" else {}),
+            **({"launches_packed": packed_path[name][name]}
+               if name in packed_path else {}),
             **{k: results[name][k] for k in
                ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                 "bound_by")},

@@ -4,21 +4,34 @@ The port's copy of the parts of gcnbmp_tpu/chem/featurize.py that its
 parsing path runs: ``MolGraph`` and ``GGNNFeaturizer`` (atom-ID array +
 4-channel one-hot bond-type adjacency, the default ``atomic_number`` mode
 of chainer_chemistry's GGNNPreprocessor, and the ``wl`` vocabulary mode).
-The dense-feature featurizers (DrugFP, Weave) and the ``add_hs`` /
-``kekulize`` options, which need ``chem/transforms.py``, feed encoders the
-port has not taken yet and stay in the JAX package.
+``drugfp_atom_features`` (:198-215, with ``_one_hot``, ``DRUGFP_SYMBOLS``
+and ``DRUGFP_DEGREES``, :39-46) gives the 66 DrugFP values per atom that
+GWM's supernode features pool (``models.gwm.supernode_features``).  The
+DrugFP and Weave featurizers and the ``add_hs`` / ``kekulize`` options,
+which need ``chem/transforms.py``, feed encoders the port has not taken
+yet and stay in the JAX package.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from gcnbmp_tpu_torch.chem.mol import Mol
 
 NUM_EDGE_TYPES = 4
+
+DRUGFP_SYMBOLS = [
+    "C", "N", "O", "S", "F", "Si", "P", "Cl", "Br", "Mg", "Na",
+    "Ca", "Fe", "As", "Al", "I", "B", "V", "K", "Tl", "Yb",
+    "Sb", "Sn", "Ag", "Pd", "Co", "Se", "Ti", "Zn", "H",
+    "Li", "Ge", "Cu", "Au", "Ni", "Cd", "In", "Mn", "Zr",
+    "Cr", "Pt", "Hg", "Pb", "Unknown",
+]
+DRUGFP_DEGREES = [0, 1, 2, 3, 4, 5, 6]
+DRUGFP_NUM_FEATURES = len(DRUGFP_SYMBOLS) + 3 * len(DRUGFP_DEGREES) + 1  # 66
 
 
 class FeaturizeError(ValueError):
@@ -152,3 +165,26 @@ class GGNNFeaturizer:
             atom_ids=ids, edge_src=src, edge_dst=dst, edge_type=typ,
             smiles=mol.smiles,
         )
+
+
+def _one_hot(value, allowable, unk_last: bool) -> List[float]:
+    if value not in allowable:
+        if not unk_last:
+            raise FeaturizeError(f"{value!r} not in {allowable}")
+        value = allowable[-1]
+    return [1.0 if value == a else 0.0 for a in allowable]
+
+
+def drugfp_atom_features(mol: Mol, idx: int) -> np.ndarray:
+    """The 66 DrugFP values of atom ``idx``: symbol one-hot (44), degree,
+    hydrogen count and implicit valence one-hots (7 each; the last two
+    both read the hydrogen count, as in the JAX package), aromatic flag."""
+    a = mol.atoms[idx]
+    feats = (
+        _one_hot(a.symbol, DRUGFP_SYMBOLS, unk_last=True)
+        + _one_hot(mol.degree(idx), DRUGFP_DEGREES, unk_last=False)
+        + _one_hot(a.total_h, DRUGFP_DEGREES, unk_last=True)
+        + _one_hot(a.total_h, DRUGFP_DEGREES, unk_last=True)
+        + [1.0 if a.aromatic else 0.0]
+    )
+    return np.asarray(feats, dtype=np.float32)

@@ -3,8 +3,11 @@
 
 Port of the JAX package's evaluate CLI (gcnbmp_tpu/cli/evaluate.py):
 loads ``<run>/config.json`` and ``<run>/<checkpoint>/params.npz``
-(``train.checkpoints.load_run``), runs the packed predictor over the
-test CSV and writes, under ``--out`` (default ``<run>/eval``),
+(``train.checkpoints.load_run``), runs the packed compact-COO predictor
+over the test CSV (a GWM run's with its supernode features: the JAX CLI
+scores GWM with the padded evaluator, gcnbmp_tpu/cli/evaluate.py:114-117,
+on the same parameter tree) and writes, under ``--out`` (default
+``<run>/eval``),
 ``eval_result.json`` (the metrics), ``<test>_e.csv``, ``<test>_e_y.csv``
 and ``drug_list_with_representation.csv``; on request
 ``similarity_<method>.csv`` and ``correlation.json``.  Prints the

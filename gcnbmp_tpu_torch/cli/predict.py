@@ -3,13 +3,18 @@
 
 Port of the JAX package's predict CLI (gcnbmp_tpu/cli/predict.py:74-136)
 for every packed encoder (GGNN with or without a layer aggregator, MPNN,
-RelGCN, GIN, NFP) with any head, and any of them but MPNN with any
-co-attention variant (``method``, ``layer_aggregator``, ``sim_method`` and
+RelGCN, GIN, NFP, GGNN-GWM) with any head, and any of them but MPNN and
+GWM with any co-attention variant (``method``, ``layer_aggregator``,
+``sim_method`` and
 ``attn`` of the config; MPNN serves with the JAX evaluator's Set2Set table width of 64
 atoms, and a wider molecule turns its batch NaN; co-attention with the
 input's largest molecule rounded up to 8, which ``lt``'s weights must
-match): reads a pair CSV (label column optional), writes it back with a
-``prob`` column (``prob_class{c}`` for multi-label models).
+match; GWM with the supernode features of each SMILES, on its packed COO
+predictor where the JAX CLI takes the padded one, :106-109): reads a pair
+CSV (label column optional), writes it back with a ``prob`` column
+(``prob_class{c}`` for multi-label models).  A run trained on any
+layout (``coo``, ``fused``, ``packed``) serves through the compact-COO
+predictor: the parameter trees are the same.
 
     python -m gcnbmp_tpu_torch.cli.predict --input pairs.csv \\
         --run results/run1 --checkpoint best --out preds.csv

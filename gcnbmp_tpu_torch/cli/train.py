@@ -1,8 +1,8 @@
 #!/usr/bin/env python
-"""Train a packed pair predictor with the port: GGNN on the fused or coo
-path, and on the coo path GGNN with co-attention or a layer aggregator,
-MPNN (EdgeNet + Set2Set), RelGCN, GIN and NFP (with co-attention too,
-but for MPNN), each with any of the six heads.
+"""Train a packed pair predictor with the port: GGNN on the fused, coo
+or packed path, GGNN with a layer aggregator, MPNN (EdgeNet + Set2Set),
+RelGCN, GIN, NFP and GGNN-GWM on coo or packed, and on coo co-attention
+over any of them but MPNN and GWM, each with any of the six heads.
 
 Port of the JAX package's train CLI (gcnbmp_tpu/cli/train.py:23-211):
 the same flags and override logic, plus ``--device`` (``cuda``, the
@@ -21,6 +21,10 @@ default, runs the CUDA kernels; ``cpu`` runs their plain versions).
     python -m gcnbmp_tpu_torch.cli.train --train train_multi.csv \\
         --val val_multi.csv --labels-csv labels.csv --conv-layers 8 \\
         --weight-tying false --layer-aggregator gru --compute-path coo
+    python -m gcnbmp_tpu_torch.cli.train --train train.csv --val val.csv \\
+        --method ggnn-gwm --conv-layers 4 --fp-hidden-dim 32 \\
+        --fp-out-dim 32 --batch-size 2048 --lr 2e-3 --augment \\
+        --compute-path coo --scan-steps 10 --device cuda
 
 The second line is the MPNN quality row's recipe; its kernels compute in
 f32 whatever ``--compute-dtype`` says.  The third trains the paper's
@@ -29,7 +33,13 @@ refused on ``--compute-path fused``, as in the JAX package, and so are
 the fused path for any method but GGNN and a layer aggregator on it.  The
 fourth line trains RelGCN and the fifth GGNN with the JKNet ``gru``
 aggregator on multi-label data; they, GIN and NFP run plain PyTorch ops
-(no kernel computes them, in either package).  Writes
+(no kernel computes them, in either package).  The sixth trains
+GGNN-GWM, the supernode table on the wire, in scan mode (plain PyTorch
+ops too); GWM scan mode needs ``coo``, as in the JAX package.
+``--compute-path packed`` ships each batch's dense adjacency from the
+host instead of the compact edge list, for every method above (GGNN
+and MPNN through the same kernels; co-attention refused, as in the JAX
+package).  Writes
 ``config.json`` (the JAX run's format), ``log.json`` and the
 ``snapshot_epoch_*``, ``best`` and ``final`` checkpoints under
 ``--out``; ``final/params.npz`` serves

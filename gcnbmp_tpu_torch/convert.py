@@ -11,7 +11,10 @@ GGNN ``encoder/embed/embedding``, ``encoder/update_{l}/message/dense/
 {self,edge}/dense/kernel``..., GIN's ``encoder/update_{l}/linear_g{1,2}``,
 NFP's ``encoder/update_{l}/linear_d{d}`` and ``encoder/readout_{l}/
 output_weight``, a layer aggregator's ``encoder/layer_aggregator/
-{rnn_fwd,rnn_bwd,attn_dense}/...``; the head's ``head/mlp/out/*``,
+{rnn_fwd,rnn_bwd,attn_dense}/...``, GWM's ``encoder/embed_super``,
+``encoder/pre_update_{l}``, ``encoder/gwm_{l}/{super_query,...}``,
+``encoder/gru_local``, ``encoder/gru_super`` and
+``encoder/linear_for_concat_super``; the head's ``head/mlp/out/*``,
 ``head/bilinear/{W,V1/kernel,V2/kernel,b}`` (NTN), ``head/W_diag``...;
 and a co-attention model's ``coattention/...`` (``W_0``, ``energy/W``,
 ``j/dense/*``...).  The port's modules use the same names, so a flax

@@ -11,9 +11,11 @@ tiles of TILE=128 atoms.  A batch is
 
 Molecules never split across tiles and mol_id ascends within each tile.
 The dense adjacency is built on the device from the edges
-(``ops.aggregate.adj_from_coo_flat``).  The dense host-side batches,
-supernode features and pair-local packing of the JAX module belong to
-layouts and encoders the port has not taken yet.
+(``ops.aggregate.adj_from_coo_flat``), also for the ``packed`` compute
+path.  A batch for GWM carries the per-molecule supernode table
+``supers`` (num_mols, F) in packed-mol-id order (``attach_supers_coo``).
+The dense host-side batches and pair-local packing of the JAX module
+belong to the multi-device path, which the port has not taken yet.
 """
 
 from __future__ import annotations
@@ -133,6 +135,16 @@ def smallest_pair_index(ds) -> int:
     ))
 
 
+def _supers_problems(supers, num_mols: int) -> List[str]:
+    if supers is None:
+        return []
+    if supers.ndim != 2 or supers.shape[0] != num_mols:
+        return [f"supers shape {supers.shape}, not ({num_mols}, F)"]
+    if not np.isfinite(supers).all():
+        return ["supers not finite"]
+    return []
+
+
 @dataclass
 class PackedCOOBatch:
     """Packed tiles with the adjacency in COO form.
@@ -153,6 +165,9 @@ class PackedCOOBatch:
     left_index: np.ndarray   # (B,) int32
     right_index: np.ndarray  # (B,) int32
     labels: np.ndarray       # (B,) or (B, C) float32
+    # per-molecule feature vectors in packed-mol-id order (num_mols, F);
+    # set by attach_supers_coo for supernode encoders (PackedGGNN_GWM)
+    supers: Optional[np.ndarray] = None
 
     @property
     def num_tiles(self) -> int:
@@ -198,6 +213,7 @@ class PackedCOOBatch:
             dst_ok = self.node_mask[self.e_tile[real], self.e_dst[real]] > 0
             if not (src_ok.all() and dst_ok.all()):
                 problems.append("edges touch padded node slots")
+        problems += _supers_problems(self.supers, self.num_mols)
         if problems:
             raise ValueError("invalid PackedCOOBatch: " + "; ".join(problems))
         return self
@@ -315,3 +331,18 @@ def pack_pair_dataset_coo(
         right_index=remap[1::2].astype(np.int32),
         labels=np.asarray(labels, np.float32),
     )
+
+
+def attach_supers_coo(batch, ds, indices: Sequence[int], supernode_fn):
+    """Set ``batch.supers`` (num_mols, F) from each pair's two SMILES
+    through the batch's pair -> molecule maps, so any packer's batch
+    takes it (the native one knows nothing of supernodes).  Molecules no
+    pair names keep the zero row.  Returns ``batch``."""
+    n = len(indices)
+    left = np.stack([supernode_fn(ds.graphs1[i].smiles) for i in indices])
+    right = np.stack([supernode_fn(ds.graphs2[i].smiles) for i in indices])
+    supers = np.zeros((batch.num_mols, left.shape[1]), np.float32)
+    supers[batch.left_index[:n]] = left
+    supers[batch.right_index[:n]] = right
+    batch.supers = supers
+    return batch

@@ -5,8 +5,9 @@ Ports host numpy code that lives inside jax modules of the JAX package
 
 - ``compact_coo_arrays``        <- gcnbmp_tpu/models/packed.py:1055-1088
 - ``compact_coattn_arrays``     <- gcnbmp_tpu/models/packed.py:1036-1052
-- ``iter_coo_eval_batches``     <- gcnbmp_tpu/train/loop.py:577-614
-- ``packed_coo_batch_iterator`` <- gcnbmp_tpu/train/loop.py:437-518
+- ``compact_gwm_arrays``        <- gcnbmp_tpu/models/packed.py:1091-1099
+- ``iter_coo_eval_batches``     <- gcnbmp_tpu/train/loop.py:577-616
+- ``packed_coo_batch_iterator`` <- gcnbmp_tpu/train/loop.py:437-519
 - ``_window_parallel``          <- gcnbmp_tpu/train/loop.py:413-434
 - ``scan_chunk_iterator``       <- gcnbmp_tpu/train/loop.py:393-410
 
@@ -28,6 +29,7 @@ import numpy as np
 from gcnbmp_tpu_torch.data import native_pack
 from gcnbmp_tpu_torch.data.packing import (
     PackedCOOBatch,
+    attach_supers_coo,
     check_side_index_injective,
     molecule_slot_table,
     pack_pair_dataset_coo,
@@ -78,6 +80,16 @@ def compact_coattn_arrays(batch: PackedCOOBatch, n_max: int) -> Tuple:
                    lmask, rmask)
 
 
+def compact_gwm_arrays(batch: PackedCOOBatch) -> Tuple:
+    """``compact_coo_arrays`` with the supernode table (num_mols, F) f32
+    before left_index, right_index: the GWM predictor's wire."""
+    nodes, e_packed, n_edges, left, right = compact_coo_arrays(batch)
+    if batch.supers is None:
+        raise ValueError("COO batch has no supernode features; build it "
+                         "with attach_supers_coo")
+    return nodes, e_packed, n_edges, batch.supers, left, right
+
+
 def _pair_cache(ds):
     """The native packer's per-dataset cache, or None when the native
     packer does not load (the Python packer is used then)."""
@@ -115,11 +127,12 @@ def packed_coo_batch_iterator(ds, batch_size: int, num_tiles: int,
     generator), packing runs ``pack_workers`` batches ahead, with the
     native packer when it loads.  ``pack_cache``: a caller-owned list;
     empty, it collects this epoch's batches; filled, its batches are
-    yielded in a fresh random order without packing (``reuse_packs``).
-    GWM supernodes and pair-local packing belong to later slices."""
-    if supernode_fn is not None:
-        raise NotImplementedError("GWM supernode batches are not ported yet "
-                                  "(ROADMAP queue 1, item 9)")
+    yielded in a fresh random order without packing (``reuse_packs``), the
+    supernode tables they hold with them.  ``supernode_fn`` attaches the
+    per-molecule supernode table (GWM, ``attach_supers_coo``) to each
+    batch after packing.  Pair-local packing is refused: it belongs to
+    the multi-device path, and its per-part ordering would break
+    ``attach_supers_coo``."""
     if pairlocal_parts:
         raise NotImplementedError("pair-local packing is not ported yet "
                                   "(ROADMAP queue 1, item 11)")
@@ -133,11 +146,7 @@ def packed_coo_batch_iterator(ds, batch_size: int, num_tiles: int,
 
     def build(start):
         idx = order[start:start + batch_size].tolist()
-        if cache is not None:
-            return native_pack.pack_pairs_native(
-                cache, idx, num_tiles=num_tiles, edge_capacity=edge_capacity)
-        return pack_pair_dataset_coo(ds, idx, num_tiles=num_tiles,
-                                     edge_capacity=edge_capacity)
+        return _pack(ds, cache, idx, num_tiles, edge_capacity, supernode_fn)
 
     starts = range(0, len(ds) - batch_size + 1, batch_size)
     produced = (_window_parallel(starts, build, pack_workers)
@@ -146,6 +155,21 @@ def packed_coo_batch_iterator(ds, batch_size: int, num_tiles: int,
         if pack_cache is not None:
             pack_cache.append(b)
         yield b
+
+
+def _pack(ds, cache, idx, num_tiles: int, edge_capacity: int,
+          supernode_fn=None) -> PackedCOOBatch:
+    """The COO batch of pairs ``idx``: the native packer when ``cache``
+    is given, else the Python one; then the supernode table."""
+    if cache is not None:
+        batch = native_pack.pack_pairs_native(
+            cache, idx, num_tiles=num_tiles, edge_capacity=edge_capacity)
+    else:
+        batch = pack_pair_dataset_coo(ds, idx, num_tiles=num_tiles,
+                                      edge_capacity=edge_capacity)
+    if supernode_fn is not None:
+        batch = attach_supers_coo(batch, ds, idx, supernode_fn)
+    return batch
 
 
 def scan_chunk_iterator(batches, scan_steps: int, args_fn):
@@ -170,13 +194,15 @@ def scan_chunk_iterator(batches, scan_steps: int, args_fn):
 
 
 def iter_coo_eval_batches(
-    ds, batch_size: int, num_tiles: int, edge_capacity: int
+    ds, batch_size: int, num_tiles: int, edge_capacity: int,
+    supernode_fn=None,
 ) -> Iterator[Tuple[PackedCOOBatch, int]]:
     """Sequential fixed-shape COO batches over a whole dataset: yields
     (PackedCOOBatch, valid_count).  Tail batches are filled with the
     dataset's smallest pair so the capacities from
     ``estimate_coo_capacities`` hold for every batch; callers drop rows
-    past ``valid_count``.  Uses the native C++ packer when it loads."""
+    past ``valid_count``.  Uses the native C++ packer when it loads;
+    ``supernode_fn`` attaches the supernode table (GWM)."""
     cache = _pair_cache(ds)
     fill = smallest_pair_index(ds)
     n = len(ds)
@@ -184,12 +210,5 @@ def iter_coo_eval_batches(
         idx = list(range(start, min(start + batch_size, n)))
         valid = len(idx)
         idx = idx + [fill] * (batch_size - valid)
-        if cache is not None:
-            batch = native_pack.pack_pairs_native(
-                cache, idx, num_tiles=num_tiles, edge_capacity=edge_capacity
-            )
-        else:
-            batch = pack_pair_dataset_coo(
-                ds, idx, num_tiles=num_tiles, edge_capacity=edge_capacity
-            )
-        yield batch, valid
+        yield _pack(ds, cache, idx, num_tiles, edge_capacity,
+                    supernode_fn), valid

@@ -9,7 +9,11 @@ embeddings (after co-attention, for a co-attention model) and
 batches carry each pair side's atom slot table (``compact_coattn_arrays``)
 ``n_max`` wide: the caller's width, or as the JAX evaluator takes it, the
 dataset's largest molecule rounded up to 8 (:156-162); the predictor's
-``wire_encoder`` makes that choice.  ``evaluate_dataset`` writes
+``wire_encoder`` makes that choice.  A GWM model's batches carry the
+supernode table of its ``supernode_fn``: the port scores GWM with its
+packed COO predictor, where the JAX package takes the padded
+``PairEvaluator`` over ``GWMPairPredictor`` (:200-211; the parameter
+trees are the same).  ``evaluate_dataset`` writes
 ``eval_result.json`` and, given the source CSV, the embedding exports
 of the JAX package: ``<test>_e.csv``, ``<test>_e_y.csv`` and
 ``drug_list_with_representation.csv``.
@@ -45,8 +49,9 @@ class EvalResult:
 
 class PackedPairEvaluator:
     """Serve ``predictor`` (a ``PackedPairPredictorCOOCompact`` of any
-    ported encoder or a ``PackedCoattnPairPredictor``, taken as it is
-    given) over a dataset on ``device``.  ``n_max``: the co-attention
+    ported encoder, a ``PackedCoattnPairPredictor`` or a
+    ``PackedGWMPairPredictorCOOCompact``, taken as it is given) over a
+    dataset on ``device``.  ``n_max``: the co-attention
     atom table width, default the dataset's.  ``class_names`` (a
     multi-label run's classes) add ``per_class`` to the metrics;
     ``with_metrics=False`` computes none (serving, whose labels are
@@ -70,8 +75,10 @@ class PackedPairEvaluator:
         bs = min(self.batch_size, len(ds))
         num_tiles, edge_capacity = estimate_coo_capacities([ds], bs)
         logits_all, labels_all, e1_all, e2_all = [], [], [], []
+        supernode_fn = getattr(self.predictor, "supernode_fn", None)
         for batch, valid in iter_coo_eval_batches(ds, bs, num_tiles,
-                                                  edge_capacity):
+                                                  edge_capacity,
+                                                  supernode_fn):
             args = [torch.as_tensor(np.asarray(a)).to(self.device)
                     for a in args_fn(batch)]
             logits, g1, g2 = self.predictor(*args, return_g=True)

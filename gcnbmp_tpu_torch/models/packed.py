@@ -5,6 +5,7 @@ Ported pieces:
 - ``PackedGatedReadout``            <- :29-41
 - ``PackedCommonReadout``           <- :44-65
 - ``_segment_mol_sum``              <- :67-87
+- ``segment_softmax``               <- :332-340 (GWM's attention)
 - ``PackedGGNN``                    <- :147-210 (the plain layer stack, and
   with ``layer_aggregator`` the jumping-knowledge branch :186-210); its
   kernel path ``fused_forward`` is ``_fused_encoder_g_nodes`` (:1102-1133)
@@ -27,9 +28,10 @@ Ported pieces:
 - ``PackedCoattnPairPredictor``     <- :974-1033: ``encode`` with the
   per-atom states -> per-pair atom tables -> co-attention -> the head
 - ``make_packed_predictor``         <- :1235-1347, every packed encoder
-  (GGNN with or without a layer aggregator, MPNN, RelGCN, GIN, NFP) with
-  every head, co-attention over every encoder but MPNN;
-  ``model_kwargs_from_config`` reads its arguments from a run config.
+  (GGNN with or without a layer aggregator, MPNN, RelGCN, GIN, NFP, and
+  GGNN-GWM from ``models.gwm``) with every head, co-attention over every
+  encoder but MPNN and GWM; ``model_kwargs_from_config`` reads its
+  arguments from a run config.
 
 Every encoder has ``encode(atom_ids, edges, mol_id, node_mask, num_mols,
 return_atoms=False)``, the one method the predictors call: it builds the
@@ -141,6 +143,29 @@ class PackedNFPReadout(nn.Module):
 
     def forward(self, h, node_mask):
         return torch.softmax(self.output_weight(h), dim=-1) * node_mask[..., None]
+
+
+def segment_softmax(scores: torch.Tensor, ids: torch.Tensor,
+                    valid: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Softmax of ``scores`` (N, K) over the rows of each segment
+    (``ids`` (N,)); invalid rows (``valid`` 0) get score -1e9 and weight
+    0, and a segment's denominator is clamped at 1e-9, so a segment
+    without a valid row (the pad segment, an empty molecule) weighs 0,
+    not NaN.  The shift by each segment's max is taken without gradient:
+    the softmax does not depend on it, so its gradient is the softmax's
+    own, which the JAX function's (through ``segment_max``) equals up to
+    rounding."""
+    ids = ids.long()
+    masked = torch.where(valid[:, None] > 0, scores,
+                         torch.full_like(scores, -1e9))
+    with torch.no_grad():
+        # segments that receive no row keep 0 (include_self=False)
+        m = masked.new_zeros((num_segments, scores.shape[1])).scatter_reduce(
+            0, ids[:, None].expand_as(masked), masked, "amax",
+            include_self=False)
+    e = torch.exp(masked - m[ids]) * valid[:, None]
+    s = e.new_zeros((num_segments, scores.shape[1])).index_add_(0, ids, e)
+    return e / torch.clamp(s[ids], min=1e-9)
 
 
 def _segment_mol_sum(g_nodes: torch.Tensor, mol_id: torch.Tensor,
@@ -596,7 +621,6 @@ class PackedMPNN(nn.Module):
         return self.fused_forward(atom_ids, adj_flat, mol_id, node_mask,
                                   num_mols)
 
-
 def decode_compact_wire(nodes, e_packed, n_edges, num_mols: int):
     """Decode the wire-compact batch (``data.wire.compact_coo_arrays``)
     into (atom_ids, mol_id, node_mask, e_tile, e_type, e_src, e_dst,
@@ -613,6 +637,16 @@ def decode_compact_wire(nodes, e_packed, n_edges, num_mols: int):
     e_mask = (torch.arange(e_packed.shape[0], device=e_packed.device)
               < n_edges).float()
     return atom_ids, mol_id, node_mask, e_tile, e_type, e_src, e_dst, e_mask
+
+
+def pair_logits(head: nn.Module, g: torch.Tensor, left_index, right_index,
+                return_g: bool = False):
+    """The head over each pair's two molecule embeddings, gathered from
+    g (num_mols, D); with ``return_g`` also the two embeddings."""
+    g1 = g[left_index.long()]
+    g2 = g[right_index.long()]
+    logits = head(g1, g2)
+    return (logits, g1, g2) if return_g else logits
 
 
 class PackedPairPredictorCOOCompact(nn.Module):
@@ -638,12 +672,7 @@ class PackedPairPredictorCOOCompact(nn.Module):
         atom_ids, mol_id, node_mask, *edges = decode_compact_wire(
             nodes, e_packed, n_edges, num_mols)
         g = self.encoder.encode(atom_ids, edges, mol_id, node_mask, num_mols)
-        g1 = g[left_index.long()]
-        g2 = g[right_index.long()]
-        logits = self.head(g1, g2)
-        if return_g:
-            return logits, g1, g2
-        return logits
+        return pair_logits(self.head, g, left_index, right_index, return_g)
 
 
 class PackedCoattnPairPredictor(nn.Module):
@@ -712,7 +741,7 @@ class PackedCoattnPairPredictor(nn.Module):
 
 # Model fields of a run config and the values the port builds.
 # compute_path is not read: the packed and padded parameter trees are the
-# same, and the port always runs the packed path of the encoder.
+# same, and the port always runs the compact-COO predictor.
 # compute_dtype is a training knob (the trainer takes bfloat16 and
 # computes in f32); serving runs in f32, as the JAX packed evaluator
 # does.
@@ -722,9 +751,15 @@ def _build_encoder(method: str, out_dim: int, hidden_dim: int, n_layers: int,
                    weight_tying: bool, layer_aggregator: Optional[str],
                    s2s_n_max: int, device) -> nn.Module:
     """The packed encoder of ``method``, with the arguments the JAX
-    factory passes it (packed.py:1292-1324): RelGCN and NFP take no
-    weight tying, only GGNN a layer aggregator."""
+    factory passes it (packed.py:1282-1324): RelGCN and NFP take no
+    weight tying, only GGNN a layer aggregator; GWM's supernode width is
+    its hidden width, with 8 heads."""
+    from gcnbmp_tpu_torch.models.gwm import PackedGGNN_GWM
+
     builders = {
+        "ggnn-gwm": lambda: PackedGGNN_GWM(
+            out_dim, hidden_dim, hidden_dim_super=hidden_dim,
+            n_layers=n_layers, weight_tying=weight_tying, device=device),
         "ggnn": lambda: PackedGGNN(out_dim, hidden_dim, n_layers,
                                    weight_tying=weight_tying,
                                    layer_aggregator=layer_aggregator,
@@ -766,13 +801,10 @@ def model_problems(method: str, sim_method: str, attn: Optional[str],
     """The encoder, head, co-attention and layer aggregator choices the
     port does not build, each with its reason."""
     bad = []
-    if method == "ggnn-gwm":
-        bad.append("method='ggnn-gwm': the GWM packed twins are ROADMAP "
-                   "queue 1, item 9")
-    elif method not in PORTED_METHODS:
+    if method not in PORTED_METHODS + ("ggnn-gwm",):
         bad.append(f"method={method!r} (the packed encoders: "
-                   f"{', '.join(map(repr, PORTED_METHODS))}; the JAX "
-                   "package builds no other either)")
+                   f"{', '.join(map(repr, PORTED_METHODS))} and "
+                   "'ggnn-gwm'; the JAX package builds no other either)")
     if sim_method not in HEADS:
         bad.append(f"sim_method={sim_method!r} (heads: {sorted(HEADS)})")
     if attn is not None:
@@ -783,6 +815,11 @@ def model_problems(method: str, sim_method: str, attn: Optional[str],
             bad.append(f"attn={attn!r} with method='mpnn': the MPNN kernel "
                        "path returns no per-atom states; MPNN with "
                        "co-attention is ROADMAP queue 1, item 8")
+        elif method == "ggnn-gwm":
+            # the JAX factory's refusal (packed.py:1266-1274)
+            bad.append(f"attn={attn!r} with method='ggnn-gwm': ggnn-gwm "
+                       "rides the dense packed or wire-compact COO layouts, "
+                       "without co-attention, as in the JAX package")
     if layer_aggregator is not None:
         if method != "ggnn":
             bad.append(f"layer_aggregator={layer_aggregator!r} with "
@@ -841,18 +878,25 @@ def make_packed_predictor(
 ) -> nn.Module:
     """The wire-compact pair predictor of the JAX package's
     ``make_packed_predictor(..., compact=True)`` for every packed encoder
-    (``PORTED_METHODS``), and with ``attn`` its co-attention predictor
-    (:1327-1338) over any of them but MPNN.  ``layer_aggregator`` rides
-    GGNN only, as in the JAX factory (:1262-1265).  ``s2s_n_max`` is the
-    MPNN Set2Set table width: it must bound the largest molecule (the
-    trainer fits it to its data); ``coattn_n_max``, the co-attention atom
-    table width, sizes ``lt``'s weights."""
+    (``PORTED_METHODS`` and ``'ggnn-gwm'``), and with ``attn`` its
+    co-attention predictor (:1327-1338) over any of them but MPNN and
+    GWM.  ``layer_aggregator`` rides GGNN
+    only, as in the JAX factory (:1262-1265).  ``s2s_n_max`` is the MPNN
+    Set2Set table width: it must bound the largest molecule (the trainer
+    fits it to its data); ``coattn_n_max``, the co-attention atom table
+    width, sizes ``lt``'s weights."""
     bad = model_problems(method, sim_method, attn, layer_aggregator)
     if bad:
         raise ValueError("not ported: " + "; ".join(bad))
     encoder = _build_encoder(method, fp_out_dim, fp_hidden_dim, conv_layers,
                              weight_tying, layer_aggregator, s2s_n_max,
                              device)
+    if method == "ggnn-gwm":
+        from gcnbmp_tpu_torch.models import gwm
+
+        head = make_head(sim_method, fp_out_dim, class_num,
+                         tuple(net_hidden_dims), device=device)
+        return gwm.PackedGWMPairPredictorCOOCompact(encoder, head)
     if attn is not None:
         coattention = build_coattention(attn, fp_hidden_dim, fp_out_dim,
                                         coattn_n_max, device=device)

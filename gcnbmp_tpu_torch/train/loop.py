@@ -10,15 +10,23 @@ step and the Trainer (port of gcnbmp_tpu/train/loop.py).
 - ``train_step``  <- ``make_packed_coo_train_step`` (:333-355); scan mode
   (``scan_steps`` S > 1) runs S of them back to back on one chunk, the
   semantics of ``make_packed_scan_train_step`` (:358-390)
-- ``Trainer``     <- :686-1408 for GGNN on ``compute_path="fused"`` or
-  ``"coo"`` (one kernel path, :799-858) and MPNN on ``compute_path="coo"``
-  (the Set2Set table width fitted to the data, :817-827), GGNN with
-  co-attention on ``"coo"`` (the atom table width fitted alike,
-  :1089-1098), and RelGCN, GIN, NFP and GGNN with a layer aggregator on
-  ``"coo"`` (plain PyTorch ops: the JAX package has no kernel for them
-  either), per step or in scan mode (the loop at :1185-1263, the
-  guard at :739-745); resume (:786-790), ``profile_epoch``
-  (:1149-1157) and ``debug_checks`` (:1172-1173, :183-207)
+- ``Trainer``     <- :686-1408 for GGNN on ``compute_path="fused"``,
+  ``"coo"`` or ``"packed"`` (one kernel path, :799-858), MPNN on ``"coo"``
+  or ``"packed"`` (the Set2Set table width fitted to the data, :817-827;
+  K5 and K4), GGNN with co-attention on ``"coo"`` (the atom table width
+  fitted alike, :1089-1098), RelGCN, GIN, NFP and GGNN with a layer
+  aggregator on ``"coo"`` or ``"packed"``, and GGNN-GWM on ``"coo"``
+  (wire-compact, the supernode table on the wire, :731-737, :1087-1088)
+  or ``"packed"`` (plain PyTorch ops for these: the JAX package has no
+  kernel for them either), per step or in scan mode (the loop at
+  :1185-1263, the guard at :739-745); resume (:786-790),
+  ``profile_epoch`` (:1149-1157) and ``debug_checks`` (:1172-1173,
+  :183-207).  ``packed`` trains the wire-compact COO predictor, the
+  adjacency built on the card from the edges, where the JAX trainer
+  ships each batch's dense (P, 4, T, T) adjacency from the host
+  (``make_packed_train_step``, :251-286, :302-331): the same pairs in the
+  same order, the same parameters and the same logits, without ~91 MB of
+  host copy per 2048-pair batch.
 - ``config_problems`` <- ``packed_config_problems`` (:532-575), for what
   the port trains; ``kernel_problems`` names the widths the card's
   kernels are not built for.
@@ -239,27 +247,33 @@ def config_problems(cfg: TrainConfig) -> List[str]:
     the ROADMAP item that brings it, or the JAX package's own refusal
     (``packed_config_problems``, gcnbmp_tpu/train/loop.py:532-575)."""
     problems = []
-    if cfg.method in PORTED_METHODS and cfg.compute_path != "coo":
-        if cfg.method != "ggnn":
-            # as in the JAX package, the fused path is GGNN-only: the
-            # other encoders train on coo (MPNN runs K5 and K4 there)
-            problems.append(
-                f"compute_path={cfg.compute_path!r} with method="
-                f"{cfg.method!r}: {cfg.method} trains on 'coo', as in the "
-                "JAX package, whose fused kernel path is GGNN-only; the "
-                "other layouts come with ROADMAP queue 1, items 4 and 7")
-        elif cfg.compute_path != "fused":
-            # GGNN on coo trains through the same kernel path as fused:
-            # the JAX coo path runs XLA's stack, which has no Pallas kernel
-            problems.append(
-                f"compute_path={cfg.compute_path!r}: the port trains GGNN "
-                "on 'fused' and 'coo'; the other layouts come with ROADMAP "
-                "queue 1, items 4 and 7")
+    path, method = cfg.compute_path, cfg.method
+    gwm = method == "ggnn-gwm"
+    if path not in ("fused", "coo", "packed"):
+        problems.append(f"compute_path={path!r}: the port trains on "
+                        "'fused', 'coo' and 'packed'; the padded layout is "
+                        "ROADMAP queue 1, item 7")
+    elif path == "fused" and (gwm or method in PORTED_METHODS) \
+            and method != "ggnn":
+        # as in the JAX package, the fused path is GGNN-only: the other
+        # encoders train on coo and packed (MPNN runs K5 and K4 there)
+        rides = ("ggnn-gwm rides compute_path 'packed' or 'coo', and "
+                 if gwm else "")
+        problems.append(
+            f"compute_path='fused' with method={method!r}: {rides}the fused "
+            "kernel path is GGNN-only, as in the JAX package; "
+            f"{method} trains on 'coo' or 'packed' (the padded layout is "
+            "ROADMAP queue 1, item 7)")
+    elif gwm and cfg.scan_steps > 1 and path != "coo":
+        problems.append(f"scan_steps={cfg.scan_steps} with method="
+                        "'ggnn-gwm' on compute_path='packed': ggnn-gwm scan "
+                        "mode requires compute_path='coo', as in the JAX "
+                        "package")
     problems += model_problems(cfg.method, cfg.sim_method, cfg.attn,
                                cfg.layer_aggregator)
-    if cfg.attn is not None and cfg.compute_path == "fused":
+    if cfg.attn is not None and path in ("fused", "packed") and not gwm:
         # the JAX package refuses it alike (packed_config_problems)
-        problems.append(f"attn={cfg.attn!r} on compute_path='fused': "
+        problems.append(f"attn={cfg.attn!r} on compute_path={path!r}: "
                         "co-attention (use compute_path='coo')")
     if (cfg.layer_aggregator and cfg.method == "ggnn"
             and cfg.compute_path == "fused"):
@@ -290,8 +304,8 @@ def kernel_problems(cfg, device) -> List[str]:
     CPU, where the wrappers run their plain versions at any width.  A GGNN
     whose readout width differs from its hidden width runs K1 with the
     plain readout (``models.packed.fused_form``), so only H is checked.
-    RelGCN, GIN, NFP and GGNN with a layer aggregator run no kernel, so
-    none of their widths is refused."""
+    RelGCN, GIN, NFP, GGNN with a layer aggregator and GGNN-GWM run no
+    kernel, so none of their widths is refused."""
     from gcnbmp_tpu_torch.models.packed import SET2SET_STEPS
     from gcnbmp_tpu_torch.ops import fused_ggnn, fused_mpnn, set2set_kernel
 
@@ -323,7 +337,9 @@ def kernel_problems(cfg, device) -> List[str]:
 def stage_chunk(stacked, labels, device):
     """Copy a chunk of S stacked wire batches and their labels to
     ``device`` in one transfer: the arrays (all 4-byte types: the int32
-    wire arrays, the f32 labels) laid side by side in one int32 buffer.
+    wire arrays, the f32 labels, GWM's f32 supernode table) laid side by
+    side in one int32 buffer, each f32 array by its bits (``view``, no
+    conversion).
     Returns (the wire arrays, the labels) as views of the copy, each with
     its leading (S,) axis."""
     parts = [np.ascontiguousarray(a) for a in stacked]
@@ -362,6 +378,9 @@ class Trainer:
     Initial weights come from ``convert.init_params(cfg, seed)``: seeded
     numpy draws from the flax initializers' distributions, so their
     values differ from a JAX run's (jax.random) with the same seed.
+    ``compute_path="packed"`` trains the same wire-compact COO predictor
+    as ``"coo"``; a GWM model's batches carry the supernode table of its
+    ``supernode_fn`` (``models.gwm.default_supernode_fn``).
     Each step runs the GGNN kernel path in the form
     ``models.packed.fused_form`` names (K2 and K2b by default; K1 and K1b,
     or K1m and K3 twice, with co-attention) or K5, K4, K4b and K5b (MPNN)
@@ -414,6 +433,7 @@ class Trainer:
         self.model = from_jax_params(
             init_params(kwargs, config.seed),
             make_packed_predictor(**kwargs)).to(self.device)
+        self.supernode_fn = getattr(self.model, "supernode_fn", None)
         self.steps_per_epoch = max(1, len(self.train_ds) // config.batch_size)
         if config.scan_steps > 1 and config.scan_steps > self.steps_per_epoch:
             raise ValueError(
@@ -523,6 +543,7 @@ class Trainer:
             batches = packed_coo_batch_iterator(
                 self.train_ds, cfg.batch_size, self.num_tiles,
                 self.edge_capacity, self.np_rng,
+                supernode_fn=self.supernode_fn,
                 pack_workers=cfg.pack_workers, pack_cache=pack_cache)
             if cfg.debug_checks:
                 batches = (b.validate() for b in batches)

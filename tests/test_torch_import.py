@@ -44,6 +44,7 @@ MODULES = [
     "gcnbmp_tpu_torch.models.nfp",
     "gcnbmp_tpu_torch.models.heads",
     "gcnbmp_tpu_torch.models.packed",
+    "gcnbmp_tpu_torch.models.gwm",
     "gcnbmp_tpu_torch.convert",
     "gcnbmp_tpu_torch.eval.evaluate",
     "gcnbmp_tpu_torch.cli.predict",

@@ -195,7 +195,9 @@ def test_config_problems_accept_the_quality_row_and_reject_fused_mpnn():
     # as the JAX package: the fused path is GGNN-only
     jax_cfg = JaxTrainConfig(**dict(QUALITY_ROW, compute_path="fused"))
     assert any("GGNN-only" in p for p in jloop.packed_config_problems(jax_cfg))
-    for path in ("fused", "packed", "padded"):
+    # MPNN trains on packed too (K5 and K4, on the compact-COO predictor)
+    assert loop.config_problems(TrainConfig(**dict(QUALITY_ROW, compute_path="packed"))) == []
+    for path in ("fused", "padded"):
         problems = loop.config_problems(TrainConfig(**dict(QUALITY_ROW, compute_path=path)))
         assert len(problems) == 1 and "compute_path" in problems[0]
         assert "ROADMAP queue 1, item" in problems[0]

@@ -181,7 +181,7 @@ def test_predict_cli_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("field,changes", [
-    ("method", {"method": "ggnn-gwm"}),
+    ("method", {"method": "weavenet"}),
     ("layer_aggregator", {"method": "relgcn", "layer_aggregator": "gru"}),
     ("layer_aggregator", {"layer_aggregator": "self-attn"}),
     ("concat_hidden", {"concat_hidden": True}),

@@ -258,13 +258,13 @@ def test_multilabel_metrics_match_sklearn():
 # what the port trains, the batch iterator, the CLI
 
 
-# the refusals that stay once RelGCN, GIN, NFP and the layer aggregator
-# train on coo: GWM, and the fused path for what its kernels do not
-# compute, which the JAX package refuses alike and ROADMAP names
+# the refusals that stay once every packed-family encoder trains on coo
+# and packed: the fused path for what its kernels do not compute (GWM
+# included), which the JAX package refuses alike, and what ROADMAP names
 @pytest.mark.parametrize("field,value,cites", [
-    ("compute_path", "packed", "ROADMAP queue 1, item"),
     ("compute_path", "padded", "ROADMAP queue 1, item"),
-    ("method", "ggnn-gwm", "ROADMAP queue 1, item 9"),
+    ("method", "ggnn-gwm", "as in the JAX package"),
+    ("attn", "para", "co-attention (use compute_path='coo')"),
     ("method", "gin", "as in the JAX package"),
     ("fp_batch_normalization", True, "ROADMAP queue 1, item"),
     ("layer_aggregator", "concat", "ROADMAP queue 2"),
@@ -285,7 +285,7 @@ def test_config_problems_name_their_roadmap_item(field, value, cites):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--method", "gin"], "method"), (["--compute-path", "packed"], "compute_path"),
+    (["--method", "gin"], "method"), (["--compute-path", "padded"], "compute_path"),
     (["--fixed-embeddings", "emb.csv"], "fixed-embeddings"),
     (["--platform", "cpu"], "platform"), (["--resume", "x"], "resume")])
 def test_train_cli_rejects_unported_options_before_any_work(tmp_path, flags,
