@@ -9,7 +9,7 @@ Each row runs the port's train CLI, then its evaluate CLI on the row's
 test split with ``--checkpoint best``, as two processes.  Every row keeps
 batch 2048, Adam lr 2e-3 with the x0.5-per-10-epochs schedule, early
 stopping on val loss with patience 10, ``--no-eval-train`` and
-``--compute-path coo`` (examples/ref_scale_battery.sh:29-38,
+``--compute-path coo`` but ``isc_padded`` (examples/ref_scale_battery.sh:29-38,
 scripts/quality_battery_r3.sh:13-30); the GGNN rows the flagship model
 (8 untied layers, H = D = 32, HolE, swap augmentation, up to 80 epochs).
 The JAX package's test AUROC / AUPRC (docs/QUALITY.md) beside each:
@@ -21,6 +21,10 @@ The JAX package's test AUROC / AUPRC (docs/QUALITY.md) beside each:
 - ``isc``: the flagship on isc35000, validated and tested on the
   stratified ``inter`` split (``ref_scale``; 0.9641 / 0.9483, four seeds
   0.9622 +- 0.0012);
+- ``isc_padded``: the same flagship on the padded layout
+  (``--compute-path padded``, the train CLI's default; scored by the
+  evaluate CLI through the padded ``PairEvaluator``; JAX 0.9641 as
+  ``isc``);
 - ``relgcn``, ``gin``: ``--method relgcn`` / ``gin`` on isc35000
   (0.9600 / 0.9417 and 0.8390 / 0.7289);
 - ``nfp``: ``--method nfp --conv-layers 4 --epochs 40`` (0.7923 /
@@ -94,6 +98,14 @@ COMMON = ["--compute-path", "coo", "--batch-size", "2048", "--lr", "2e-3",
 GGNN = ["--method", "ggnn", "--conv-layers", "8", "--fp-hidden-dim", "32",
         "--fp-out-dim", "32", "--weight-tying", "false"]
 FLAGS = GGNN + COMMON + ["--epochs", "80", "--augment"]
+
+
+def with_layout(flags, layout):
+    """A copy of ``flags`` whose ``--compute-path`` is ``layout``."""
+    i = flags.index("--compute-path")
+    return flags[:i + 1] + [layout] + flags[i + 2:]
+
+
 WIDTHS = ["--fp-hidden-dim", "32", "--fp-out-dim", "32"]
 GWM = ["--method", "ggnn-gwm", "--sim-method", "hole", "--conv-layers", "4",
        *WIDTHS, "--batch-size", "2048", "--lr", "2e-3", "--epochs", "30",
@@ -103,6 +115,7 @@ ROWS = {
     "drug": ("drug", FLAGS, []),
     "scaffold": ("scaffold", FLAGS, []),
     "isc": ("isc", FLAGS, []),
+    "isc_padded": ("isc", with_layout(FLAGS, "padded"), []),
     "relgcn": ("isc", FLAGS + ["--method", "relgcn"], []),
     "gin": ("isc", FLAGS + ["--method", "gin"], []),
     "nfp": ("isc", ["--method", "nfp", "--conv-layers", "4", *WIDTHS,

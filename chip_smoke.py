@@ -118,7 +118,9 @@ Phases, each fatal on failure:
    (``--method ggnn-gwm``, L=4 tied, H=D=32, 8 heads, 244 supernode
    features) served through the predict CLI with seeded weights (no
    kernel may launch; the card's logits and probs on the first 512 test
-   pairs against the CPU's, atol = rtol = 1e-4); trained 2 epochs
+   pairs against the CPU's, atol = rtol = 1e-4, on the padded
+   ``PairEvaluator`` and on the compact-COO ``PackedPairEvaluator``, and
+   the two layouts' logits against each other); trained 2 epochs
    through the train CLI at batch 256 on coo in scan mode (chunks of 4)
    and with ``--compute-path packed`` (no kernel; loss finite and
    falling; val metrics), each run served by predict ``--run`` and
@@ -131,7 +133,24 @@ Phases, each fatal on failure:
    through the train CLI as phases 5 and 7 check them (each backward
    kernel once per step, gradients against the plain stack).  The port
    trains ``packed`` on the wire-compact COO predictor, the adjacency
-   built on the card.
+   built on the card; the CLIs score GWM on the padded layout, as the
+   JAX CLIs do.
+14. The padded layout, the train CLI's default (no kernel in either
+   package): ``ggnn_hole_binary`` trained through the train CLI at batch
+   256 on the first 2048 train pairs with ``--compute-path padded`` (2
+   epochs, falling loss) and with no ``--compute-path`` (1 epoch); the
+   padded options ``--symmetric or``, ``--dropout 0.1``,
+   ``--concat-hidden``, ``--attn para --sim-method ntn`` and GWM (L=4
+   tied) two steps each; no kernel may launch, losses and val metrics
+   finite.  The flagship's ``best`` scored by the evaluate and predict
+   CLIs on the card and on the CPU, both through ``PairEvaluator`` (no
+   ``PackedPairEvaluator`` call): probs and logits within atol = rtol =
+   1e-4, AUROC and AUPRC within 1e-3.  The padded step timed (host clock
+   over 10 staged steps, then profiled) at batch 256 and 2048 beside the
+   K2/K2b step, with one padded batch's host build (``make_batch``) and
+   copy timed apart; padded and packed evaluators serving the 2048 test
+   pairs (pairs/s, logits within 1e-4 of each other); ``entry.entry()``
+   on the card against the CPU within 1e-5.
 
 Prints the kernels' JSON line (``launches`` from each kernel's main
 path; ``launches_packed`` from phase 13's packed runs; with each
@@ -1395,8 +1414,10 @@ GWM_SCAN = 4  # steps per scan chunk on coo: 16 steps of 256 per epoch
 
 def gwm_slice(df, dev, smi, reset_counts, read_counts):
     """Phase 13, GWM: served through the predict CLI with seeded weights
-    (no kernel may launch), the card's logits and probs against the
-    CPU's; trained 2 epochs through the train CLI on coo in scan mode and
+    (no kernel may launch; the padded ``PairEvaluator``, as the JAX CLI
+    serves GWM), the card's logits and probs against the CPU's, and the
+    compact-COO predictor's logits on the same weights against the CPU's
+    and the padded one's (``PackedPairEvaluator``); trained 2 epochs through the train CLI on coo in scan mode and
     with ``--compute-path packed`` (no kernel; loss finite and falling;
     val metrics), each run served by predict ``--run`` and
     ``--config/--params`` and scored by the evaluate CLI; the step timed
@@ -1408,9 +1429,12 @@ def gwm_slice(df, dev, smi, reset_counts, read_counts):
     from gcnbmp_tpu_torch.cli import evaluate as evaluate_cli
     from gcnbmp_tpu_torch.cli import predict
     from gcnbmp_tpu_torch.cli import train as train_cli
-    from gcnbmp_tpu_torch.convert import init_params, save_params_npz
+    from gcnbmp_tpu_torch.convert import (
+        from_jax_params, init_params, save_params_npz)
     from gcnbmp_tpu_torch.data import CSVPairParser
-    from gcnbmp_tpu_torch.eval.evaluate import PackedPairEvaluator
+    from gcnbmp_tpu_torch.eval.evaluate import (
+        PackedPairEvaluator, PairEvaluator)
+    from gcnbmp_tpu_torch.models.packed import make_packed_predictor
     from gcnbmp_tpu_torch.train import loop as train_loop
     from gcnbmp_tpu_torch.train.checkpoints import served_predictor
     from gcnbmp_tpu_torch.train.config import TrainConfig
@@ -1446,7 +1470,8 @@ def gwm_slice(df, dev, smi, reset_counts, read_counts):
         probs = pd.read_csv(out_path)["prob"].to_numpy()
         print(f"gwm slice: predict.main served {len(probs)} pairs in "
               f"{wall:.3f} s = {len(probs) / wall:.1f} pairs/s (CSV parse, "
-              f"supernode features, pack, device, first call) on {smi}; "
+              f"supernode features, padded batches, device, first call) on "
+              f"{smi}; "
               f"kernel launches {sum(launches.values())}")
         if rc != 0 or len(probs) != N_PAIRS or not np.all(np.isfinite(probs)) \
                 or probs.min() < 0 or probs.max() > 1:
@@ -1457,11 +1482,26 @@ def gwm_slice(df, dev, smi, reset_counts, read_counts):
         logits = {}
         for name, where in (("card", dev), ("cpu", "cpu")):
             model = served_predictor(config, tree).to(where)
-            logits[name] = PackedPairEvaluator(
+            logits[name] = PairEvaluator(
                 model, batch_size=SERVE_BATCH, device=where,
                 with_metrics=False).evaluate(check_ds).logits
         compare("gwm served logits (card vs CPU, same weights)",
                 torch.as_tensor(logits["card"]),
+                torch.as_tensor(logits["cpu"]), torch)
+        # the compact-COO predictor that coo and packed runs train and
+        # evaluate each epoch, on the same weights (one flax tree serves
+        # both layouts)
+        packed_logits = {}
+        for name, where in (("card", dev), ("cpu", "cpu")):
+            model = from_jax_params(tree, make_packed_predictor(**GWM_CFG))
+            packed_logits[name] = PackedPairEvaluator(
+                model, batch_size=SERVE_BATCH, device=where,
+                with_metrics=False).evaluate(check_ds).logits
+        compare("gwm packed COO logits (card vs CPU, same weights)",
+                torch.as_tensor(packed_logits["card"]),
+                torch.as_tensor(packed_logits["cpu"]), torch)
+        compare("gwm packed COO vs padded logits (CPU, same weights)",
+                torch.as_tensor(packed_logits["cpu"]),
                 torch.as_tensor(logits["cpu"]), torch)
         p_err = float(np.abs(probs[:N_CPU_CHECK] - 1.0 / (
             1.0 + np.exp(-logits["cpu"].ravel()))).max())
@@ -1556,6 +1596,308 @@ def gwm_slice(df, dev, smi, reset_counts, read_counts):
         for bs in (SERVE_BATCH, N_PAIRS):
             time_train_step("gwm", train_ds, dict(config), train_cfg, bs, 10,
                             dev, smi)
+
+
+# phase 14: the padded layout, the train CLI's default
+PADDED_OPTIONS = (("symmetric or", ["--symmetric", "or"]),
+                  ("dropout 0.1", ["--dropout", "0.1"]),
+                  ("concat_hidden", ["--concat-hidden"]),
+                  ("co-attention para + ntn", ["--attn", "para",
+                                               "--sim-method", "ntn"]))
+N_OPTION_PAIRS = 256  # 512 with augmentation: two steps of 256
+
+
+def time_padded_step(tag, train_ds, kwargs, train_cfg, bs, n_steps, dev,
+                     smi):
+    """The padded train step's time (host clock over ``n_steps`` steps on
+    batches staged on the card beforehand) and profile at batch ``bs``;
+    then the host build of one padded batch (``make_batch``) and its copy
+    to the card (``padded_args``), timed apart.  Returns ms per step."""
+    import numpy as np
+    import torch
+
+    from gcnbmp_tpu_torch.convert import from_jax_params, init_params
+    from gcnbmp_tpu_torch.data.dataset import (
+        bucket_size, make_batch, padded_args)
+    from gcnbmp_tpu_torch.models.predictor import set_up_predictor
+    from gcnbmp_tpu_torch.train import loop as train_loop
+
+    model = from_jax_params(init_params(kwargs, SEED, padded=True),
+                            set_up_predictor(**kwargs)).to(dev)
+    pad_to = bucket_size(train_ds.max_atoms())
+    order = np.random.default_rng(SEED).permutation(len(train_ds))
+    batches = [order[i:i + bs].tolist()
+               for i in range(0, len(order) - bs + 1, bs)][:8]
+    staged = [padded_args(make_batch(train_ds, idx, pad_to), dev)
+              for idx in batches]
+    opt, _ = train_loop.build_optimizer(train_cfg, 1000,
+                                        list(model.parameters()))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def step(i):
+        args, kw, labels = staged[i % len(staged)]
+        train_loop.train_step(model, opt, args, labels,
+                              deterministic=False, generator=gen, **kw)
+
+    for i in range(3):  # warm up
+        step(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        step(i)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    busy, top = profile_steps(step, n_steps)
+    host = make_batch(train_ds, batches[0], pad_to)
+    mb = sum(np.asarray(getattr(host, n)).nbytes for n in (
+        "atoms1", "adj1", "mask1", "atoms2", "adj2", "mask2", "labels")) / 1e6
+    parts = {"make_batch": lambda: make_batch(train_ds, batches[0], pad_to),
+             "copy": lambda: padded_args(host, dev)}
+    split = {}
+    for name, fn in parts.items():
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        split[name] = statistics.median(times[1:])
+    print(f"{tag} train step: batch={bs} N={pad_to}: {step_ms:.3f} ms per "
+          f"step, {bs * 1e3 / step_ms:.1f} pairs/s (host clock around "
+          f"{n_steps} back-to-back steps on staged batches) on {smi}")
+    print(f"  where it goes (torch.profiler over {n_steps} steps): {busy}; "
+          f"top kernels, device ms per step: {top}")
+    print(f"  one padded batch, {mb:.3f} MB: make_batch (host) "
+          f"{split['make_batch']:.3f} ms, copy to the card (six pageable "
+          f"tensors) {split['copy']:.3f} ms = {mb / split['copy']:.3f} GB/s "
+          f"(median of 5); {100 * split['make_batch'] / step_ms:.1f}% and "
+          f"{100 * split['copy'] / step_ms:.1f}% of the step")
+    return step_ms
+
+
+def padded_slice(df, dev, smi, reset_counts, read_counts, cfg):
+    """Phase 14, the padded layout: the flagship trained through the train
+    CLI with ``--compute-path padded`` (2 epochs, falling loss) and with
+    no ``--compute-path`` (1 epoch), each option and GWM for two steps,
+    no kernel launched; the flagship's ``best`` scored by the evaluate and
+    predict CLIs on the card and on the CPU, both through
+    ``PairEvaluator``; the padded step timed against the K2/K2b one;
+    padded and packed serving; the entry twin, card against CPU."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from gcnbmp_tpu_torch import entry
+    from gcnbmp_tpu_torch.cli import evaluate as evaluate_cli
+    from gcnbmp_tpu_torch.cli import predict
+    from gcnbmp_tpu_torch.cli import train as train_cli
+    from gcnbmp_tpu_torch.convert import from_jax_params, init_params
+    from gcnbmp_tpu_torch.data import CSVPairParser
+    from gcnbmp_tpu_torch.eval import evaluate as evaluate_module
+    from gcnbmp_tpu_torch.models.packed import make_packed_predictor
+    from gcnbmp_tpu_torch.models.predictor import (
+        padded_kwargs_from_config, set_up_predictor)
+    from gcnbmp_tpu_torch.train import loop as train_loop
+    from gcnbmp_tpu_torch.train.checkpoints import load_run
+    from gcnbmp_tpu_torch.train.config import PRESETS
+
+    preset = PRESETS["ggnn_hole_binary"]
+    flagship = ["--preset", "ggnn_hole_binary", "--lr", "2e-3"]
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        paths = {}
+        train_df = pd.read_csv(TRAIN_CSV).head(N_PAIRS)
+        val_df = pd.read_csv(VALID_CSV).head(N_VAL)
+        for name, frame in (("train", train_df), ("val", val_df),
+                            ("small", train_df.head(N_OPTION_PAIRS)),
+                            ("small_val", val_df.head(N_OPTION_PAIRS)),
+                            ("test", df)):
+            paths[name] = os.path.join(tmp, f"{name}.csv")
+            frame.to_csv(paths[name], index=False)
+
+        def train(tag, flags, train_csv, val_csv, epochs, n_pairs):
+            run = os.path.join(tmp, tag.replace(" ", "_").replace("+", ""))
+            step_losses = []
+            real_step = train_loop.train_step
+
+            def recording_step(*args, **kwargs):
+                loss = real_step(*args, **kwargs)
+                step_losses.append(loss)
+                return loss
+
+            train_loop.train_step = recording_step
+            try:
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rc = train_cli.main([
+                    "--train", paths[train_csv], "--val", paths[val_csv],
+                    *flags, "--batch-size", str(SERVE_BATCH), "--epochs",
+                    str(epochs), "--seed", str(SEED), "--device", "cuda",
+                    "--out", run])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = read_counts()
+            finally:
+                train_loop.train_step = real_step
+            losses = torch.stack(step_losses).cpu().numpy()
+            want_steps = epochs * (2 * n_pairs // SERVE_BATCH)
+            with open(os.path.join(run, "config.json")) as f:
+                path = json.load(f)["compute_path"]
+            with open(os.path.join(run, "log.json")) as f:
+                log = json.load(f)
+            print(f"padded train ({tag}): train.main ran {len(losses)} steps "
+                  f"of batch {SERVE_BATCH} on compute_path={path!r} in "
+                  f"{wall:.3f} s on {smi}; step losses {losses.tolist()[:3]} "
+                  f"... {losses.tolist()[-3:]}; kernel launches "
+                  f"{sum(launches.values())}")
+            if rc != 0 or len(losses) != want_steps or path != "padded":
+                raise AssertionError(f"padded {tag}: rc {rc}, {len(losses)} "
+                                     f"steps, compute_path {path!r}")
+            if any(launches.values()):
+                raise AssertionError(f"padded {tag}: kernels launched on a "
+                                     f"path that runs none: {launches}")
+            if not np.all(np.isfinite(losses)) or not all(
+                    np.isfinite(e["val/loss"]) and np.isfinite(e["val/roc_auc"])
+                    for e in log):
+                raise AssertionError(f"padded {tag}: loss or val metrics not "
+                                     "finite")
+            return run, losses
+
+        # a. the flagship on padded, explicit and by default
+        run, losses = train("flagship", flagship + ["--compute-path",
+                                                    "padded"],
+                            "train", "val", TRAIN_EPOCHS, N_PAIRS)
+        k = min(5, len(losses) // 3)
+        if not losses[-k:].mean() < losses[:k].mean():
+            raise AssertionError("padded flagship: training loss not falling")
+        train("flagship default path", flagship, "train", "val", 1, N_PAIRS)
+        # b. the options of the padded layout, and GWM, two steps each
+        for tag, flags in PADDED_OPTIONS:
+            train(tag, flagship + flags, "small", "small_val", 1,
+                  N_OPTION_PAIRS)
+        train("gwm", GWM_FLAGS, "small", "small_val", 1, N_OPTION_PAIRS)
+
+        # c. the flagship's best scored on the card and on the CPU, through
+        # the evaluate and predict CLIs, both on PairEvaluator
+        used = collections.Counter()
+        saved = {cls: cls.evaluate for cls in (
+            evaluate_module.PairEvaluator, evaluate_module.PackedPairEvaluator)}
+
+        def counting(cls):
+            def evaluate(self, ds):
+                used[cls.__name__] += 1
+                return saved[cls](self, ds)
+            return evaluate
+
+        scored, served = {}, {}
+        try:
+            for cls in saved:
+                cls.evaluate = counting(cls)
+            for where in ("cuda", "cpu"):
+                out = os.path.join(tmp, f"eval_{where}")
+                t0 = time.perf_counter()
+                rc = evaluate_cli.main(["--test", paths["test"], "--run", run,
+                                        "--batch-size", str(SERVE_BATCH),
+                                        "--out", out, "--device", where])
+                t_eval = time.perf_counter() - t0
+                with open(os.path.join(out, "eval_result.json")) as f:
+                    scored[where] = json.load(f)
+                scored[where]["y"] = pd.read_csv(
+                    os.path.join(out, "test_e_y.csv"))["y"].to_numpy()
+                pred = os.path.join(tmp, f"pred_{where}.csv")
+                t0 = time.perf_counter()
+                rc |= predict.main(["--input", paths["test"], "--run", run,
+                                    "--out", pred, "--batch-size",
+                                    str(SERVE_BATCH), "--device", where])
+                t_pred = time.perf_counter() - t0
+                served[where] = pd.read_csv(pred)["prob"].to_numpy()
+                print(f"padded scoring on {where}: evaluate CLI {t_eval:.3f} "
+                      f"s (roc_auc {scored[where]['roc_auc']:.6f}, prc_auc "
+                      f"{scored[where]['prc_auc']:.6f}), predict CLI "
+                      f"{t_pred:.3f} s, {N_PAIRS} pairs")
+                if rc != 0:
+                    raise AssertionError(f"padded scoring on {where} failed")
+        finally:
+            for cls, fn in saved.items():
+                cls.evaluate = fn
+        if used["PackedPairEvaluator"] or used["PairEvaluator"] != 4:
+            raise AssertionError(f"the CLIs scored a padded run with {used}")
+        for key in ("roc_auc", "prc_auc"):
+            d = abs(scored["cuda"][key] - scored["cpu"][key])
+            print(f"padded scoring: {key} card vs CPU |diff|={d:.3e}")
+            if d > 1e-3:
+                raise AssertionError(f"padded {key} differs card vs CPU")
+        for name, a, b in (("evaluate CLI probs", scored["cuda"]["y"],
+                            scored["cpu"]["y"]),
+                           ("predict CLI probs", served["cuda"],
+                            served["cpu"])):
+            compare(f"padded {name} (card vs CPU)", torch.as_tensor(a),
+                    torch.as_tensor(b), torch)
+        check_ds = CSVPairParser().parse(df.head(N_CPU_CHECK)).dataset
+        logits = {}
+        for where in ("cuda", "cpu"):
+            _, model = load_run(run, "best", where)
+            logits[where] = evaluate_module.PairEvaluator(
+                model, batch_size=SERVE_BATCH, device=where,
+                with_metrics=False).evaluate(check_ds).logits
+        compare("padded served logits (card vs CPU, same weights)",
+                torch.as_tensor(logits["cuda"]),
+                torch.as_tensor(logits["cpu"]), torch)
+
+    # d. the step, padded against the K2/K2b step, at 256 and 2048
+    train_ds = CSVPairParser().parse(train_df).dataset
+    config = dict(cfg, sim_method="hole", net_hidden_dims=[], class_num=1)
+    kwargs = padded_kwargs_from_config(config)
+    train_cfg = dataclasses.replace(preset, batch_size=SERVE_BATCH)
+    for bs in (SERVE_BATCH, N_PAIRS):
+        padded_ms = time_padded_step("flagship padded", train_ds, kwargs,
+                                     train_cfg, bs, 10, dev, smi)
+        k2_ms = time_train_step("flagship K2/K2b", train_ds, cfg, train_cfg,
+                                bs, 10, dev, smi)
+        print(f"padded vs K2/K2b step at batch {bs}: {padded_ms:.3f} / "
+              f"{k2_ms:.3f} ms = {padded_ms / k2_ms:.2f}x")
+
+    # e. serving: padded and packed evaluators on the 2048 test pairs
+    tree = init_params(cfg, SEED)
+    test_ds = CSVPairParser().parse(df).dataset
+    evaluators = {
+        "padded": evaluate_module.PairEvaluator(
+            from_jax_params(tree, set_up_predictor(**kwargs)),
+            batch_size=SERVE_BATCH, device=dev, with_metrics=False),
+        "packed": evaluate_module.PackedPairEvaluator(
+            from_jax_params(tree, make_packed_predictor(**cfg)),
+            batch_size=SERVE_BATCH, device=dev, with_metrics=False)}
+    served_logits = {}
+    for name, ev in evaluators.items():
+        ev.evaluate(test_ds)  # first-use costs stay untimed
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served_logits[name] = ev.evaluate(test_ds).logits
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        print(f"{name} serving: {len(test_ds)} pairs at batch {SERVE_BATCH} "
+              f"in {wall:.3f} s = {len(test_ds) / wall:.1f} pairs/s (host "
+              f"batching, copy and device, warm) on {smi}; K2 launches "
+              f"{launches['fused_ggnn_readout']}, all {sum(launches.values())}")
+        if (name == "padded") == bool(sum(launches.values())):
+            raise AssertionError(f"{name} serving launched {launches}")
+    compare("padded vs packed served logits (same weights)",
+            torch.as_tensor(served_logits["padded"]),
+            torch.as_tensor(served_logits["packed"]), torch)
+
+    # f. the entry twin, card against CPU
+    forward, args = entry.entry("cuda")
+    cpu_forward, cpu_args = entry.entry("cpu")
+    with torch.no_grad():
+        got, want = forward(*args).cpu(), cpu_forward(*cpu_args)
+    err = float((got - want).abs().max())
+    print(f"entry twin: logits {tuple(got.shape)} card vs CPU max_abs_err="
+          f"{err:.3e}")
+    if got.shape != (8, 1) or not err <= 1e-5:
+        raise AssertionError("entry twin: the card disagrees with the CPU")
 
 
 def crowd_rows(adj, torch):
@@ -1893,9 +2235,12 @@ def main() -> int:
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # 4. GGNN serving through the predict CLI
+    # a run of a packed layout: the CLIs score the others padded, as the
+    # JAX CLIs do (phase 14)
     ggnn_config = {"method": "ggnn", "sim_method": "hole", "conv_layers": L,
                    "fp_hidden_dim": H, "fp_out_dim": D, "weight_tying": False,
-                   "net_hidden_dims": [], "class_num": 1}
+                   "net_hidden_dims": [], "class_num": 1,
+                   "compute_path": "coo"}
     serve_ggnn = serve_slice("ggnn", ggnn_config, cfg, ds, df, dev, smi,
                              reset_counts, read_counts, ["fused_ggnn_readout"])
 
@@ -1913,7 +2258,8 @@ def main() -> int:
     mpnn_config = {"method": "mpnn", "sim_method": "hole",
                    "conv_layers": MPNN_CFG["conv_layers"], "fp_hidden_dim": H,
                    "fp_out_dim": D, "weight_tying": True,
-                   "net_hidden_dims": [], "class_num": 1}
+                   "net_hidden_dims": [], "class_num": 1,
+                   "compute_path": "coo"}
     serve_mpnn = serve_slice("mpnn", mpnn_config, MPNN_CFG, ds, df, dev, smi,
                              reset_counts, read_counts,
                              ["fused_mpnn", "fused_set2set"])
@@ -2047,6 +2393,12 @@ def main() -> int:
         read_counts)
     print(f"phase 13: {time.perf_counter() - t13:.1f} s")
     print(f"phase 13 done at {time.perf_counter() - t_start:.1f} s")
+
+    # 14. the padded layout, the train CLI's default
+    t14 = time.perf_counter()
+    padded_slice(df, dev, smi, reset_counts, read_counts, cfg)
+    print(f"phase 14: {time.perf_counter() - t14:.1f} s")
+    print(f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
 
     sources = {"fused_ggnn": "fused_ggnn.cu", "fused_ggnn_mid": "fused_ggnn.cu",
                "fused_ggnn_readout": "fused_ggnn.cu",

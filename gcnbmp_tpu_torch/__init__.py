@@ -5,7 +5,8 @@ reference every module here is tested against.  The port covers the
 serving, training and evaluation paths of the flagship model (packed
 GGNN encoder + HolE head) on the fused path, and on the coo path of the
 co-attention model, the MPNN family (EdgeNet messages, Set2Set readout),
-RelGCN, GIN, NFP and GGNN with a layer aggregator, with any head:
+RelGCN, GIN, NFP, GGNN with a layer aggregator and GGNN-GWM, with any
+head, and the padded layout (every encoder, the train CLI's default):
 
 - ``chem``, ``data``, ``native_lib``
                      the host layers (numpy): SMILES parsing and
@@ -26,8 +27,10 @@ RelGCN, GIN, NFP and GGNN with a layer aggregator, with any head:
 - ``train``          config and presets, schedules, numpy metrics,
                      losses, the optimizer chain, the train step, the
                      trainer and its checkpoints.
-- ``eval``, ``cli``  the packed pair evaluator; the predict, train,
-                     evaluate and data_generator CLIs.
+- ``eval``, ``cli``  the padded and packed pair evaluators; the predict,
+                     train, evaluate and data_generator CLIs.
+- ``entry``          the twin of ``__graft_entry__.entry()``: the padded
+                     flagship predictor and its example batch.
 
 The host layers are the port's own copies of the JAX package's
 (``chem/{mol,smiles,featurize,native}.py``,

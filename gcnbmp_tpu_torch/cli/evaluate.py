@@ -3,11 +3,13 @@
 
 Port of the JAX package's evaluate CLI (gcnbmp_tpu/cli/evaluate.py):
 loads ``<run>/config.json`` and ``<run>/<checkpoint>/params.npz``
-(``train.checkpoints.load_run``), runs the packed compact-COO predictor
-over the test CSV (a GWM run's with its supernode features: the JAX CLI
-scores GWM with the padded evaluator, gcnbmp_tpu/cli/evaluate.py:114-117,
-on the same parameter tree) and writes, under ``--out`` (default
-``<run>/eval``),
+(``train.checkpoints.load_run``) into the predictor of the layout the
+JAX CLI scores the run on (gcnbmp_tpu/cli/evaluate.py:114-124): the
+packed compact-COO predictor for a run trained on a packed layout with
+a configuration those layouts take, else the padded one (``PairEvaluator``
+over ``PairPredictor``, or ``GWMPairPredictor`` with its supernode
+features for every GWM run), runs it over the test CSV and writes,
+under ``--out`` (default ``<run>/eval``),
 ``eval_result.json`` (the metrics), ``<test>_e.csv``, ``<test>_e_y.csv``
 and ``drug_list_with_representation.csv``; on request
 ``similarity_<method>.csv`` and ``correlation.json``.  Prints the
@@ -18,8 +20,8 @@ metrics without ``per_class`` as one JSON line.
 
 The same flags and defaults as the JAX CLI, plus ``--device`` (``cuda``,
 the default, runs the CUDA kernels; ``cpu`` runs their plain versions).
-``--platform`` (a JAX platform) is refused, and so is ``--saliency``,
-which needs the padded layout (ROADMAP queue 1, item 10).  The
+``--platform`` (a JAX platform) is refused, and so is ``--saliency``
+(``eval/saliency.py``, ROADMAP queue 1, item 10).  The
 correlation's scatter plot needs matplotlib and is skipped.  On
 ``--device cuda`` a width the card's kernels are not built for is
 refused before any pair is parsed.
@@ -76,8 +78,8 @@ def main(argv=None):
         raise ValueError("--platform selects a JAX platform; the port runs "
                          "on --device cuda|cpu")
     if args.saliency:
-        raise ValueError("--saliency builds the padded relgcn model, which "
-                         "the port has not taken: ROADMAP queue 1, item 10")
+        raise ValueError("--saliency (eval/saliency.py) is not ported "
+                         "yet: ROADMAP queue 1, item 10")
     logging.basicConfig(level=logging.INFO)
 
     import numpy as np
@@ -125,6 +127,7 @@ def main(argv=None):
         predictor, ds, out_dir=out_dir, source_csv=args.test,
         batch_size=args.batch_size, class_num=class_num,
         is_successful=res.is_successful, class_names=classes, device=device,
+        train_cfg=config,
     )
     print(json.dumps(
         {k: v for k, v in result.metrics.items() if k != "per_class"}))

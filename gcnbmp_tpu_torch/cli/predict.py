@@ -1,20 +1,19 @@
 #!/usr/bin/env python
-"""Score drug-pair CSVs with the port's packed pair predictor.
+"""Score drug-pair CSVs with the port's pair predictors.
 
-Port of the JAX package's predict CLI (gcnbmp_tpu/cli/predict.py:74-136)
-for every packed encoder (GGNN with or without a layer aggregator, MPNN,
-RelGCN, GIN, NFP, GGNN-GWM) with any head, and any of them but MPNN and
-GWM with any co-attention variant (``method``, ``layer_aggregator``,
-``sim_method`` and
-``attn`` of the config; MPNN serves with the JAX evaluator's Set2Set table width of 64
-atoms, and a wider molecule turns its batch NaN; co-attention with the
-input's largest molecule rounded up to 8, which ``lt``'s weights must
-match; GWM with the supernode features of each SMILES, on its packed COO
-predictor where the JAX CLI takes the padded one, :106-109): reads a pair
-CSV (label column optional), writes it back with a ``prob`` column
-(``prob_class{c}`` for multi-label models).  A run trained on any
-layout (``coo``, ``fused``, ``packed``) serves through the compact-COO
-predictor: the parameter trees are the same.
+Port of the JAX package's predict CLI (gcnbmp_tpu/cli/predict.py:74-136):
+reads a pair CSV (label column optional), writes it back with a ``prob``
+column (``prob_class{c}`` for multi-label models).  The run is served
+in the layout the JAX CLI serves it on (:99-115): a run trained on a
+packed layout (``coo``, ``fused``, ``packed``) whose configuration those
+layouts take goes through the packed compact-COO predictor (every packed
+encoder with any head, and any of them but MPNN and GWM with any
+co-attention variant; MPNN with the JAX evaluator's Set2Set table width
+of 64 atoms, and a wider molecule turns its batch NaN; co-attention with
+the input's largest molecule rounded up to 8, which ``lt``'s weights
+must match); a padded run and every GWM run go through the padded
+``PairEvaluator`` (GWM with the supernode features of each SMILES), at
+the bucket of the input's largest molecule.
 
     python -m gcnbmp_tpu_torch.cli.predict --input pairs.csv \\
         --run results/run1 --checkpoint best --out preds.csv
@@ -37,7 +36,8 @@ import logging
 import os
 import sys
 
-from gcnbmp_tpu_torch.models.packed import model_kwargs_from_config
+# the packed layout's config reader, importable from this CLI as before
+from gcnbmp_tpu_torch.models.packed import model_kwargs_from_config  # noqa: F401
 
 
 def main(argv=None):
@@ -70,7 +70,7 @@ def main(argv=None):
 
     from gcnbmp_tpu_torch.data import CSVPairParser
     from gcnbmp_tpu_torch.convert import load_params_npz
-    from gcnbmp_tpu_torch.eval.evaluate import PackedPairEvaluator
+    from gcnbmp_tpu_torch.eval.evaluate import make_evaluator
     from gcnbmp_tpu_torch.train.checkpoints import load_run, served_predictor
     from gcnbmp_tpu_torch.train.loop import kernel_problems
 
@@ -78,7 +78,6 @@ def main(argv=None):
                    else args.config)
     with open(config_path) as f:
         config = json.load(f)
-    kwargs = model_kwargs_from_config(config)
     problems = kernel_problems(config, args.device)
     if problems:
         raise ValueError("configuration outside what the card's kernels "
@@ -101,9 +100,10 @@ def main(argv=None):
     # no metrics over the placeholder labels: the JAX CLI computes them
     # and so cannot serve a multi-label run (its labels lack the classes'
     # axis)
-    result = PackedPairEvaluator(
+    result = make_evaluator(
         predictor, batch_size=args.batch_size,
-        class_num=kwargs["class_num"], device=device, with_metrics=False,
+        class_num=int(config.get("class_num", 1)), device=device,
+        with_metrics=False,
     ).evaluate(res.dataset)
     probs = 1.0 / (1.0 + np.exp(-result.logits))
 

@@ -1,13 +1,19 @@
 #!/usr/bin/env python
-"""Train a packed pair predictor with the port: GGNN on the fused, coo
-or packed path, GGNN with a layer aggregator, MPNN (EdgeNet + Set2Set),
-RelGCN, GIN, NFP and GGNN-GWM on coo or packed, and on coo co-attention
-over any of them but MPNN and GWM, each with any of the six heads.
+"""Train a pair predictor with the port: on the padded layout (the
+default ``--compute-path padded``) every encoder (GGNN with or without a
+layer aggregator, RelGCN, GIN, NFP, MPNN, GGNN-GWM) with co-attention and
+the options only that layout has (``--symmetric``, ``--dropout``,
+``--concat-hidden``); GGNN on the fused, coo or packed path, GGNN with a
+layer aggregator, MPNN (EdgeNet + Set2Set), RelGCN, GIN, NFP and
+GGNN-GWM on coo or packed, and on coo co-attention over any of them but
+MPNN and GWM, each with any of the six heads.
 
 Port of the JAX package's train CLI (gcnbmp_tpu/cli/train.py:23-211):
 the same flags and override logic, plus ``--device`` (``cuda``, the
 default, runs the CUDA kernels; ``cpu`` runs their plain versions).
 
+    python -m gcnbmp_tpu_torch.cli.train --train train.csv --val val.csv \\
+        --preset ggnn_hole_binary --device cuda
     python -m gcnbmp_tpu_torch.cli.train --train train.csv --val val.csv \\
         --preset ggnn_hole_binary --compute-path fused --device cuda
     python -m gcnbmp_tpu_torch.cli.train --train train.csv --val val.csv \\
@@ -26,20 +32,23 @@ default, runs the CUDA kernels; ``cpu`` runs their plain versions).
         --fp-out-dim 32 --batch-size 2048 --lr 2e-3 --augment \\
         --compute-path coo --scan-steps 10 --device cuda
 
-The second line is the MPNN quality row's recipe; its kernels compute in
-f32 whatever ``--compute-dtype`` says.  The third trains the paper's
+The first line trains the flagship on the padded layout, as the JAX
+CLI does without ``--compute-path``: ``PairPredictor`` over padded
+batches, PyTorch ops and no kernel, as the JAX padded path runs XLA ops
+and no Pallas kernel; the second on the GGNN kernels.  The third line is
+the MPNN quality row's recipe; its kernels compute in
+f32 whatever ``--compute-dtype`` says.  The fourth trains the paper's
 co-attention model (NTN head, parallel co-attention); co-attention is
 refused on ``--compute-path fused``, as in the JAX package, and so are
 the fused path for any method but GGNN and a layer aggregator on it.  The
-fourth line trains RelGCN and the fifth GGNN with the JKNet ``gru``
+fifth line trains RelGCN and the sixth GGNN with the JKNet ``gru``
 aggregator on multi-label data; they, GIN and NFP run plain PyTorch ops
-(no kernel computes them, in either package).  The sixth trains
+(no kernel computes them, in either package).  The seventh trains
 GGNN-GWM, the supernode table on the wire, in scan mode (plain PyTorch
 ops too); GWM scan mode needs ``coo``, as in the JAX package.
-``--compute-path packed`` ships each batch's dense adjacency from the
-host instead of the compact edge list, for every method above (GGNN
-and MPNN through the same kernels; co-attention refused, as in the JAX
-package).  Writes
+``--compute-path packed`` trains the same compact-COO predictor as
+``coo`` for every method above (co-attention refused, as in the JAX
+package, whose ``packed`` path ships dense batches).  Writes
 ``config.json`` (the JAX run's format), ``log.json`` and the
 ``snapshot_epoch_*``, ``best`` and ``final`` checkpoints under
 ``--out``; ``final/params.npz`` serves

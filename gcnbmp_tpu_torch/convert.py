@@ -1,7 +1,11 @@
 """Weights carried between the JAX package and the port.
 
 A *tree* here is the flax param tree of the JAX package's
-``PackedPairPredictorCOOCompact`` as nested dicts of numpy arrays: for
+``PackedPairPredictorCOOCompact``, or of its padded ``PairPredictor``
+and ``GWMPairPredictor`` (the same names, plus ``encoder2`` when
+``siamese=False``, ``encoder/readout_{l}`` per layer with
+``concat_hidden``, ``encoder/readout_agg`` with a layer aggregator), as
+nested dicts of numpy arrays: for
 GGNN ``encoder/embed/embedding``, ``encoder/update_{l}/message/dense/
 {kernel,bias}``, ``encoder/gru/{W_z,U_z,W_r,U_r,W,U}/{kernel,bias}``,
 ``encoder/readout_0/{i,j}/dense/*``; for MPNN ``encoder/message_{l}/
@@ -155,17 +159,22 @@ def _truncated_normal(rng: np.random.Generator, shape, variance: float):
     return z * (np.sqrt(variance) / _TRUNC_STD)
 
 
-def init_params(cfg: dict, seed: int) -> dict:
+def init_params(cfg: dict, seed: int, padded: bool = False) -> dict:
     """Seeded numpy weights, in the flax layout, for the predictor that
-    ``models.packed.make_packed_predictor(**cfg)`` builds.  Drawn from the
-    flax initializers' distributions: lecun-normal kernels and raw
-    bilinear weights, orthogonal LSTM and GRU hidden kernels, glorot-normal ``lt``
-    projections, he-normal BiMPM perspectives, zero biases, Normal(1.0)
-    atom embedding.  Load with ``from_jax_params``."""
-    from gcnbmp_tpu_torch.models.packed import make_packed_predictor
+    ``models.packed.make_packed_predictor(**cfg)`` builds, or with
+    ``padded`` the padded one of ``models.predictor.set_up_predictor
+    (**cfg)``.  Drawn from the flax initializers' distributions:
+    lecun-normal kernels and raw bilinear weights, orthogonal LSTM and
+    GRU hidden kernels, glorot-normal ``lt`` projections, he-normal BiMPM
+    perspectives, zero biases, Normal(1.0) atom embedding.  Load with
+    ``from_jax_params``."""
+    if padded:
+        from gcnbmp_tpu_torch.models.predictor import set_up_predictor as make
+    else:
+        from gcnbmp_tpu_torch.models.packed import (
+            make_packed_predictor as make)
 
-    return init_module_params(make_packed_predictor(**cfg, device="meta"),
-                              seed)
+    return init_module_params(make(**cfg, device="meta"), seed)
 
 
 def init_module_params(module: nn.Module, seed: int) -> dict:

@@ -1,21 +1,101 @@
-"""Pair datasets (the port's copy of ``PairDataset`` from
-gcnbmp_tpu/data/dataset.py).
+"""Pair datasets and the padded batch (the port's copy of
+gcnbmp_tpu/data/dataset.py:27-290).
 
-The padded batching of that module (``PaddedPairBatch``, ``make_batch``,
-``batch_iterator``) feeds the padded layout, which the port has not taken
-yet (ROADMAP queue 1, item 7); the packed batches are built from these
-datasets by ``data.packing`` and ``data.native_pack``.
+- ``PairDataset``: the in-memory (graph, graph, label) triples;
+- ``DEFAULT_BUCKETS``, ``bucket_size``: the ladder of padded atom counts;
+- ``PaddedPairBatch``, ``pad_graphs``, ``make_batch``, ``batch_iterator``
+  and ``padded_args`` (a batch on the device):
+  the padded layout's batches, (B, N) atom ids, (B, 4, N, N) adjacencies
+  and (B, N) masks per side.  A short batch is filled to ``fill_batch_to``
+  rows with one-atom graphs of atom id 0 and label -1, which the loss and
+  the evaluators ignore; a GWM batch carries each side's supernode rows
+  (``supernode_fn`` of each SMILES, a zero row for a graph without one).
+
+The packed batches are built from these datasets by ``data.packing`` and
+``data.native_pack``.
 """
 
 from __future__ import annotations
 
 import pickle
 from dataclasses import dataclass, field
-from typing import Iterable, List, Tuple
+from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from gcnbmp_tpu_torch.chem.featurize import MolGraph
+from gcnbmp_tpu_torch.chem.featurize import NUM_EDGE_TYPES, MolGraph
+
+# Bucket ladder for per-batch padded atom counts.  Drug molecules are
+# under ~100 atoms; the top bucket handles outliers.
+DEFAULT_BUCKETS = (8, 16, 24, 32, 48, 64, 96, 128, 160, 256)
+
+
+def bucket_size(n: int) -> int:
+    """The smallest bucket holding ``n`` atoms; past the ladder, ``n``
+    rounded up to a multiple of 128."""
+    for b in DEFAULT_BUCKETS:
+        if n <= b:
+            return b
+    return int(np.ceil(n / 128) * 128)
+
+
+@dataclass
+class PaddedPairBatch:
+    """One padded minibatch of molecule pairs (numpy arrays).
+
+    Shapes: atoms (B, N) int32 (pad id 0), adj (B, 4, N, N) float32, mask
+    (B, N) float32, labels (B,) or (B, C); ``num_edges``, the directed
+    edges of both molecules from the graphs' metadata (summing the dense
+    adjacency costs tens of ms at B=2048); ``super1``/``super2`` (B, F_s)
+    are GWM's supernode features."""
+
+    atoms1: np.ndarray
+    adj1: np.ndarray
+    mask1: np.ndarray
+    atoms2: np.ndarray
+    adj2: np.ndarray
+    mask2: np.ndarray
+    labels: np.ndarray
+    num_edges: int
+    super1: Optional[np.ndarray] = None
+    super2: Optional[np.ndarray] = None
+
+    @property
+    def batch_size(self) -> int:
+        return int(self.atoms1.shape[0])
+
+
+def padded_args(batch: PaddedPairBatch, device,
+                uses_supernodes: bool = False):
+    """A padded batch on ``device``: the predictor's positional arguments
+    (atoms1, adj1, atoms2, adj2, mask1, mask2), the supernode kwargs of a
+    GWM predictor, and the labels."""
+    import torch  # the host layer imports no torch otherwise
+
+    put = lambda a: torch.as_tensor(np.asarray(a)).to(device)
+    args = [put(getattr(batch, n)) for n in
+            ("atoms1", "adj1", "atoms2", "adj2", "mask1", "mask2")]
+    kwargs = ({"super1": put(batch.super1), "super2": put(batch.super2)}
+              if uses_supernodes else {})
+    return args, kwargs, put(np.asarray(batch.labels, np.float32))
+
+
+def pad_graphs(graphs: Sequence[MolGraph], n: int
+               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pad ragged graphs to (B, n) atoms, (B, 4, n, n) adjacency and (B, n)
+    mask."""
+    b = len(graphs)
+    atoms = np.zeros((b, n), dtype=np.int32)
+    adj = np.zeros((b, NUM_EDGE_TYPES, n, n), dtype=np.float32)
+    mask = np.zeros((b, n), dtype=np.float32)
+    for i, g in enumerate(graphs):
+        k = g.num_atoms
+        if k > n:
+            raise ValueError(f"graph with {k} atoms does not fit pad size {n}")
+        atoms[i, :k] = g.atom_ids
+        adj[i, g.edge_type, g.edge_src, g.edge_dst] = 1.0
+        mask[i, :k] = 1.0
+    return atoms, adj, mask
 
 
 @dataclass
@@ -104,3 +184,82 @@ class PairDataset:
         if not isinstance(obj, PairDataset):
             raise TypeError(f"{path} does not contain a PairDataset")
         return obj
+
+
+def make_batch(
+    ds: PairDataset,
+    indices: Sequence[int],
+    pad_to: Optional[int] = None,
+    fill_batch_to: Optional[int] = None,
+    supernode_fn=None,
+) -> PaddedPairBatch:
+    """One padded batch of the pairs ``indices``, ``pad_to`` atoms wide
+    (default: the bucket of its largest molecule).  ``fill_batch_to``
+    fills a short batch with one-atom graphs of atom id 0 and label -1;
+    ``supernode_fn`` (SMILES -> features) fills ``super1``/``super2``,
+    with a zero row for a graph without SMILES (the fill rows)."""
+    g1 = [ds.graphs1[i] for i in indices]
+    g2 = [ds.graphs2[i] for i in indices]
+    label_rows = [np.atleast_1d(ds.labels[i]).astype(np.float32)
+                  for i in indices]
+    if fill_batch_to is not None and len(indices) < fill_batch_to:
+        n_fill = fill_batch_to - len(indices)
+        empty = MolGraph(
+            atom_ids=np.zeros((1,), dtype=np.int32),
+            edge_src=np.zeros((0,), dtype=np.int32),
+            edge_dst=np.zeros((0,), dtype=np.int32),
+            edge_type=np.zeros((0,), dtype=np.int32),
+        )
+        g1 = g1 + [empty] * n_fill
+        g2 = g2 + [empty] * n_fill
+        label_rows = label_rows + [np.full_like(label_rows[0], -1.0)] * n_fill
+    n = pad_to
+    if n is None:
+        raw = max(max(g.num_atoms for g in g1), max(g.num_atoms for g in g2))
+        n = bucket_size(raw)
+    a1, adj1, m1 = pad_graphs(g1, n)
+    a2, adj2, m2 = pad_graphs(g2, n)
+    labels = np.stack(label_rows)
+    if labels.shape[-1] == 1:
+        labels = labels[:, 0]
+    s1 = s2 = None
+    if supernode_fn is not None:
+        def snode(graphs):
+            rows = [np.asarray(supernode_fn(g.smiles), np.float32)
+                    if g.smiles else None for g in graphs]
+            dim = next(len(r) for r in rows if r is not None)
+            return np.stack([r if r is not None
+                             else np.zeros((dim,), np.float32) for r in rows])
+
+        s1, s2 = snode(g1), snode(g2)
+    return PaddedPairBatch(
+        atoms1=a1, adj1=adj1, mask1=m1,
+        atoms2=a2, adj2=adj2, mask2=m2,
+        labels=labels, super1=s1, super2=s2,
+        num_edges=int(sum(g.num_edges for g in g1)
+                      + sum(g.num_edges for g in g2)),
+    )
+
+
+def batch_iterator(
+    ds: PairDataset,
+    batch_size: int,
+    *,
+    shuffle: bool = True,
+    rng: Optional[np.random.Generator] = None,
+    pad_to: Optional[int] = None,
+    drop_remainder: bool = False,
+    supernode_fn=None,
+) -> Iterator[PaddedPairBatch]:
+    """One pass of padded batches over ``ds``, in order or shuffled by
+    ``rng``.  The last short batch is filled to ``batch_size`` with
+    ignore-label rows, or skipped (``drop_remainder``)."""
+    order = np.arange(len(ds))
+    if shuffle:
+        (rng or np.random.default_rng(0)).shuffle(order)
+    for start in range(0, len(ds), batch_size):
+        idx = order[start:start + batch_size]
+        if len(idx) < batch_size and drop_remainder:
+            continue
+        yield make_batch(ds, idx.tolist(), pad_to=pad_to,
+                         fill_batch_to=batch_size, supernode_fn=supernode_fn)

@@ -187,3 +187,20 @@ class Bilinear(nn.Module):
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         y = torch.einsum("...i,ijk,...j->...k", x1, self.W, x2)
         return y + self.V1(x1) + self.V2(x2) + self.b
+
+
+def dropout(x: torch.Tensor, rate: float, deterministic: bool = True,
+            generator=None) -> torch.Tensor:
+    """flax ``nn.Dropout``: identity when ``deterministic`` or ``rate`` is
+    0; else each element is kept with probability 1 - rate and scaled by
+    1 / (1 - rate).  The draw comes from ``generator``, a
+    ``torch.Generator`` on x's device, which training must pass."""
+    if deterministic or rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training draws from an explicit "
+                         "torch.Generator: pass generator=")
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=x.dtype) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))

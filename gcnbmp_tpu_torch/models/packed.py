@@ -740,8 +740,10 @@ class PackedCoattnPairPredictor(nn.Module):
 
 
 # Model fields of a run config and the values the port builds.
-# compute_path is not read: the packed and padded parameter trees are the
-# same, and the port always runs the compact-COO predictor.
+# compute_path is not read here: the packed and padded parameter trees are
+# the same, and every packed layout runs the compact-COO predictor
+# (``train.checkpoints.served_predictor`` picks the layout a run is
+# served on).
 # compute_dtype is a training knob (the trainer takes bfloat16 and
 # computes in f32); serving runs in f32, as the JAX packed evaluator
 # does.

@@ -107,24 +107,38 @@ def restore_checkpoint(path: str, state):
 
 def served_predictor(config: dict, tree: dict):
     """The predictor of run config ``config`` (a ``config.json`` dict)
-    holding the flax-layout weights ``tree``, built as serving builds it:
-    MPNN's Set2Set table the JAX evaluator's 64 atoms wide, a
-    co-attention model's atom table width left to the dataset, except
-    ``lt``'s, which its weights fix (``W1``; the evaluator refuses a
-    dataset that needs another)."""
-    from gcnbmp_tpu_torch.models.packed import (
-        make_packed_predictor, model_kwargs_from_config)
+    holding the flax-layout weights ``tree``, in the layout the JAX CLIs
+    score the run on: the packed one where ``_packed_eval_eligible``
+    holds, else the padded one (a padded run, every GWM run).  Packed, it
+    is built as serving builds it: MPNN's Set2Set table the JAX
+    evaluator's 64 atoms wide, a co-attention model's atom table width
+    left to the dataset, except ``lt``'s, which its weights fix (``W1``;
+    the evaluator refuses a dataset that needs another).  Padded, ``lt``'s
+    weights fix the pad size alike."""
+    from gcnbmp_tpu_torch.eval.evaluate import _packed_eval_eligible
 
-    kwargs = model_kwargs_from_config(config)
-    if kwargs["attn"] == "lt":
-        kwargs["coattn_n_max"] = tree["coattention"]["W1"].shape[0]
-    return from_jax_params(tree, make_packed_predictor(**kwargs))
+    lt_width = (tree["coattention"]["W1"].shape[0]
+                if config.get("attn") == "lt" else None)
+    if _packed_eval_eligible(config):
+        from gcnbmp_tpu_torch.models.packed import (
+            make_packed_predictor, model_kwargs_from_config)
+
+        kwargs = model_kwargs_from_config(config)
+        kwargs["coattn_n_max"] = lt_width
+        return from_jax_params(tree, make_packed_predictor(**kwargs))
+    from gcnbmp_tpu_torch.models.predictor import (
+        padded_kwargs_from_config, set_up_predictor)
+
+    kwargs = padded_kwargs_from_config(config)
+    kwargs["coattn_n_max"] = lt_width
+    return from_jax_params(tree, set_up_predictor(**kwargs))
 
 
 def load_run(run: str, checkpoint: str = "best", device="cuda"):
-    """The served predictor of a trained run: reads ``<run>/config.json``
-    (a JAX run's format, as the train CLI writes it) and
-    ``<run>/<checkpoint>/params.npz`` into ``served_predictor``.  No
+    """The served predictor of a trained run, in the layout the JAX CLIs
+    score it on: reads ``<run>/config.json`` (a JAX run's format, as the
+    train CLI writes it) and ``<run>/<checkpoint>/params.npz`` into
+    ``served_predictor``.  No
     optimizer state is read.  Returns (the config dict, the predictor on
     ``device``)."""
     with open(os.path.join(run, "config.json")) as f:

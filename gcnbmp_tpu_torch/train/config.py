@@ -98,6 +98,14 @@ class TrainConfig:
             d["net_hidden_dims"] = tuple(d["net_hidden_dims"])
         return TrainConfig(**d)
 
+    @staticmethod
+    def from_dict(d: dict) -> "TrainConfig":
+        """The config of a run config dict's fields (a ``config.json``, the
+        port's or a JAX run's), defaults where it omits one, keys that are
+        no field ignored."""
+        fields = {f.name for f in dataclasses.fields(TrainConfig)}
+        return TrainConfig(**{k: v for k, v in d.items() if k in fields})
+
 
 # The JAX package's presets, field for field.
 PRESETS = {

@@ -9,7 +9,10 @@ step and the Trainer (port of gcnbmp_tpu/train/loop.py).
   eps_root 0) at lr = schedule(count) taken before the count increments.
 - ``train_step``  <- ``make_packed_coo_train_step`` (:333-355); scan mode
   (``scan_steps`` S > 1) runs S of them back to back on one chunk, the
-  semantics of ``make_packed_scan_train_step`` (:358-390)
+  semantics of ``make_packed_scan_train_step`` (:358-390); on the padded
+  layout it is ``make_train_step`` (:210-248): the padded predictor with
+  ``deterministic=False`` and a fresh dropout draw per step from the
+  trainer's generator, GWM's supernode rows threaded through
 - ``Trainer``     <- :686-1408 for GGNN on ``compute_path="fused"``,
   ``"coo"`` or ``"packed"`` (one kernel path, :799-858), MPNN on ``"coo"``
   or ``"packed"`` (the Set2Set table width fitted to the data, :817-827;
@@ -21,15 +24,21 @@ step and the Trainer (port of gcnbmp_tpu/train/loop.py).
   kernel for them either), per step or in scan mode (the loop at
   :1185-1263, the guard at :739-745); resume (:786-790),
   ``profile_epoch`` (:1149-1157) and ``debug_checks`` (:1172-1173,
-  :183-207).  ``packed`` trains the wire-compact COO predictor, the
+  :183-207); and every encoder on the padded layout (``"padded"``, the
+  config's default: ``PairPredictor`` or ``GWMPairPredictor`` over
+  ``data.dataset.batch_iterator`` batches ``pad_to`` atoms wide, the
+  options only that layout has, :747-756, :1178-1183, :1292-1305; no
+  kernel, in either package).  ``packed`` trains the wire-compact COO predictor, the
   adjacency built on the card from the edges, where the JAX trainer
   ships each batch's dense (P, 4, T, T) adjacency from the host
   (``make_packed_train_step``, :251-286, :302-331): the same pairs in the
   same order, the same parameters and the same logits, without ~91 MB of
   host copy per 2048-pair batch.
-- ``config_problems`` <- ``packed_config_problems`` (:532-575), for what
-  the port trains; ``kernel_problems`` names the widths the card's
-  kernels are not built for.
+- ``packed_config_problems`` <- :532-575, verbatim: which configurations
+  the packed layouts take, and so which runs the evaluators score on them
+  (``eval.evaluate._packed_eval_eligible``); ``config_problems`` says what
+  the port trains, with its reasons; ``kernel_problems`` names the widths
+  the card's kernels are not built for.
 
 ``compute_dtype="bfloat16"`` is accepted and computed in f32, for GGNN as
 the JAX fused path computes it (``_fused_encoder_g_nodes`` ignores
@@ -56,6 +65,7 @@ import numpy as np
 import torch
 
 from gcnbmp_tpu_torch.models.packed import PORTED_METHODS, model_problems
+from gcnbmp_tpu_torch.models.predictor import padded_kwargs_from_config
 from gcnbmp_tpu_torch.train.config import TrainConfig
 from gcnbmp_tpu_torch.train.schedules import (
     cyclical_schedule,
@@ -221,15 +231,17 @@ def build_optimizer(config: TrainConfig, steps_per_epoch: int,
 
 def train_step(model, optimizer: ChainedAdam, args, labels,
                loss_fn: Callable = sigmoid_cross_entropy,
-               class_num: int = 1) -> torch.Tensor:
+               class_num: int = 1, **model_kwargs) -> torch.Tensor:
     """One step over a wire-compact batch: loss, backward (for GGNN K2b,
     K1b or K3 twice, by ``models.packed.FUSED_READOUT`` and
     ``ops.fused_ggnn.TWOPASS``; K4b and K5b for MPNN; on the card),
-    optimizer update.  Returns the loss as a device tensor; the caller
-    fetches losses once per epoch."""
+    optimizer update; or over a padded batch, ``args`` the predictor's
+    positional arguments and ``model_kwargs`` its supernode rows,
+    ``deterministic=False`` and the dropout ``generator``.  Returns the
+    loss as a device tensor; the caller fetches losses once per epoch."""
     for p in optimizer.params:
         p.grad = None
-    logits = model(*args)
+    logits = model(*args, **model_kwargs)
     if class_num == 1:
         logits = logits.reshape(labels.shape)
     loss = loss_fn(logits, labels)
@@ -241,61 +253,149 @@ def train_step(model, optimizer: ChainedAdam, args, labels,
 # ---------------------------------------------------------------------------
 # what the port trains
 
+LAYOUTS = ("padded", "fused", "coo", "packed")
+
+
+def packed_config_problems(cfg, allow_attn: bool = False) -> List[str]:
+    """The JAX package's ``packed_config_problems`` (loop.py:532-575),
+    case for case: what the packed layouts (``packed``, ``coo``,
+    ``fused``) refuse.  ``cfg`` is a ``TrainConfig`` or a config dict."""
+    if not dataclasses.is_dataclass(cfg):
+        cfg = TrainConfig.from_dict(cfg)
+    problems = []
+    if cfg.method == "ggnn-gwm":
+        if cfg.compute_path not in ("packed", "coo"):
+            problems.append("ggnn-gwm rides compute_path 'packed' or 'coo'")
+        if cfg.multi_device and cfg.compute_path != "coo":
+            problems.append("ggnn-gwm multi_device rides compute_path='coo' "
+                            "(owner-masked edgeshard)")
+        if cfg.scan_steps > 1 and cfg.compute_path != "coo":
+            problems.append("ggnn-gwm scan mode requires compute_path='coo'")
+    elif cfg.method not in PORTED_METHODS:
+        problems.append(f"method={cfg.method!r} (only "
+                        f"{'/'.join(PORTED_METHODS)}/ggnn-gwm)")
+    if cfg.compute_path == "fused" and cfg.method != "ggnn":
+        problems.append("fused Pallas kernel is GGNN-only")
+    if cfg.attn is not None and not allow_attn:
+        problems.append("co-attention (use compute_path='coo')")
+    if not cfg.siamese:
+        problems.append("siamese=False")
+    if cfg.symmetric is not None:
+        problems.append("symmetric")
+    if cfg.fp_dropout_rate > 0:
+        problems.append("dropout")
+    if cfg.fp_batch_normalization:
+        problems.append("batch normalization")
+    if cfg.concat_hidden:
+        problems.append("concat_hidden")
+    if cfg.layer_aggregator and cfg.method != "ggnn":
+        problems.append("layer_aggregator (packed GGNN only)")
+    if cfg.layer_aggregator and cfg.compute_path == "fused":
+        problems.append("layer_aggregator (not in the fused kernel)")
+    return problems
+
+
+def padded_model_problems(cfg: TrainConfig) -> List[str]:
+    """What the padded factory (``models.predictor.set_up_predictor``)
+    does not build for ``cfg``, each with its reason: what the JAX
+    factory refuses, the GGNN-dev encoders (ROADMAP queue 1, item 9), a
+    layer aggregator mode the JAX module raises on at its first call, and
+    co-attention over concatenated layer readouts (item 8)."""
+    from gcnbmp_tpu_torch.models import ENCODERS
+    from gcnbmp_tpu_torch.models.coattention import COATTENTION_REGISTRY
+    from gcnbmp_tpu_torch.models.heads import HEADS
+    from gcnbmp_tpu_torch.models.ggnn_extras import MODES
+
+    method = cfg.method
+    bad = []
+    if method != "ggnn-gwm" and method not in ENCODERS:
+        bad.append(f"method={method!r} (encoders: {sorted(ENCODERS)} and "
+                   "'ggnn-gwm')")
+    elif method.startswith("ggnn-dev"):
+        bad.append(f"method={method!r}: the GGNNDev encoders are ROADMAP "
+                   "queue 1, item 9")
+    if cfg.sim_method not in HEADS:
+        bad.append(f"sim_method={cfg.sim_method!r} (heads: {sorted(HEADS)})")
+    gwm = method == "ggnn-gwm"  # the JAX factory ignores attn for it
+    if cfg.attn is not None and not gwm:
+        if cfg.attn not in COATTENTION_REGISTRY:
+            bad.append(f"attn={cfg.attn!r} (variants: "
+                       f"{sorted(COATTENTION_REGISTRY)})")
+        elif cfg.concat_hidden and method != "relgcn":
+            bad.append(f"attn={cfg.attn!r} with concat_hidden: co-attention "
+                       "over the concatenated layer readouts is ROADMAP "
+                       "queue 1, item 8")
+    if (cfg.layer_aggregator and method == "ggnn"
+            and cfg.layer_aggregator not in MODES):
+        bad.append(f"layer_aggregator={cfg.layer_aggregator!r} (modes: "
+                   f"{', '.join(MODES)}; the reference's 'self-attn' is "
+                   "unfinished)")
+    return bad
+
 
 def config_problems(cfg: TrainConfig) -> List[str]:
     """Options of ``cfg`` the port does not train, each with its reason:
     the ROADMAP item that brings it, or the JAX package's own refusal
-    (``packed_config_problems``, gcnbmp_tpu/train/loop.py:532-575)."""
+    (``packed_config_problems``, gcnbmp_tpu/train/loop.py:532-575, on the
+    packed layouts).  The padded layout takes every option the JAX
+    trainer takes there but batch normalization, which the JAX trainer
+    cannot step (``models.ggnn.BN_REFUSAL``)."""
+    from gcnbmp_tpu_torch.models.ggnn import BN_REFUSAL
+
     problems = []
     path, method = cfg.compute_path, cfg.method
-    gwm = method == "ggnn-gwm"
-    if path not in ("fused", "coo", "packed"):
-        problems.append(f"compute_path={path!r}: the port trains on "
-                        "'fused', 'coo' and 'packed'; the padded layout is "
-                        "ROADMAP queue 1, item 7")
-    elif path == "fused" and (gwm or method in PORTED_METHODS) \
-            and method != "ggnn":
-        # as in the JAX package, the fused path is GGNN-only: the other
-        # encoders train on coo and packed (MPNN runs K5 and K4 there)
-        rides = ("ggnn-gwm rides compute_path 'packed' or 'coo', and "
-                 if gwm else "")
-        problems.append(
-            f"compute_path='fused' with method={method!r}: {rides}the fused "
-            "kernel path is GGNN-only, as in the JAX package; "
-            f"{method} trains on 'coo' or 'packed' (the padded layout is "
-            "ROADMAP queue 1, item 7)")
-    elif gwm and cfg.scan_steps > 1 and path != "coo":
-        problems.append(f"scan_steps={cfg.scan_steps} with method="
-                        "'ggnn-gwm' on compute_path='packed': ggnn-gwm scan "
-                        "mode requires compute_path='coo', as in the JAX "
-                        "package")
-    problems += model_problems(cfg.method, cfg.sim_method, cfg.attn,
-                               cfg.layer_aggregator)
-    if cfg.attn is not None and path in ("fused", "packed") and not gwm:
-        # the JAX package refuses it alike (packed_config_problems)
-        problems.append(f"attn={cfg.attn!r} on compute_path={path!r}: "
-                        "co-attention (use compute_path='coo')")
-    if (cfg.layer_aggregator and cfg.method == "ggnn"
-            and cfg.compute_path == "fused"):
-        # refused alike by the JAX package: the kernels keep no
-        # per-layer states
-        problems.append(
-            f"layer_aggregator={cfg.layer_aggregator!r} on "
-            "compute_path='fused': the fused kernels keep no per-layer "
-            "states, as in the JAX package (use compute_path='coo'; a "
-            'layer-range kernel forward is ROADMAP queue 2, "Open: JKNet")')
-    for flag, value in (("siamese", not cfg.siamese),
-                        ("symmetric", cfg.symmetric is not None),
-                        ("fp_dropout_rate", cfg.fp_dropout_rate > 0),
-                        ("fp_batch_normalization", cfg.fp_batch_normalization),
-                        ("concat_hidden", cfg.concat_hidden)):
-        if value:
-            problems.append(f"{flag}={getattr(cfg, flag)!r}: the packed "
-                            "layout has none; the padded layout is ROADMAP "
-                            "queue 1, item 7")
+    if cfg.fp_batch_normalization:
+        problems.append(f"fp_batch_normalization=True: {BN_REFUSAL}")
     if cfg.multi_device:
         problems.append("multi_device: ROADMAP queue 1, item 11")
+    if path not in LAYOUTS:
+        problems.append(f"compute_path={path!r}: the layouts are "
+                        f"{', '.join(map(repr, LAYOUTS))}")
+        return problems
+    if path == "padded":
+        return problems + padded_model_problems(cfg)
+    problems += model_problems(cfg.method, cfg.sim_method, cfg.attn,
+                               cfg.layer_aggregator)
+    by_field = {}
+    for entry in packed_config_problems(cfg, allow_attn=path == "coo"):
+        field, hint = (("method", None) if entry.startswith("method=")
+                       else _PACKED_REFUSALS[entry])
+        if hint is not None:
+            by_field.setdefault(field, []).append(
+                f"{entry}, as in the JAX package"
+                + hint.format(method=method))
+    for field, reasons in by_field.items():
+        problems.append(f"{field}={getattr(cfg, field)!r} on "
+                        f"compute_path={path!r}: {'; '.join(reasons)}")
     return problems
+
+
+# each refusal of ``packed_config_problems``: the TrainConfig field it
+# names and what the port adds to the JAX reason; a hint of None where
+# another check of ``config_problems`` names it already (batch
+# normalization on every layout, multi_device as ROADMAP's item,
+# ``model_problems`` the method and the layer aggregator's encoder)
+_TO_PADDED = "; use compute_path='padded'"
+_PACKED_REFUSALS = {
+    "ggnn-gwm rides compute_path 'packed' or 'coo'": ("method", ""),
+    "ggnn-gwm multi_device rides compute_path='coo' (owner-masked "
+    "edgeshard)": ("multi_device", None),
+    "ggnn-gwm scan mode requires compute_path='coo'": ("scan_steps", ""),
+    "fused Pallas kernel is GGNN-only":
+        ("method", "; {method} trains on 'coo', 'packed' or 'padded'"),
+    "co-attention (use compute_path='coo')": ("attn", ""),
+    "siamese=False": ("siamese", _TO_PADDED),
+    "symmetric": ("symmetric", _TO_PADDED),
+    "dropout": ("fp_dropout_rate", _TO_PADDED),
+    "batch normalization": ("fp_batch_normalization", None),
+    "concat_hidden": ("concat_hidden", _TO_PADDED),
+    "layer_aggregator (packed GGNN only)": ("layer_aggregator", None),
+    "layer_aggregator (not in the fused kernel)": (
+        "layer_aggregator",
+        ": the fused kernels keep no per-layer states (use "
+        "compute_path='coo'; a layer-range kernel forward is ROADMAP "
+        'queue 2, "Open: JKNet")'),
+}
 
 
 def kernel_problems(cfg, device) -> List[str]:
@@ -304,8 +404,9 @@ def kernel_problems(cfg, device) -> List[str]:
     CPU, where the wrappers run their plain versions at any width.  A GGNN
     whose readout width differs from its hidden width runs K1 with the
     plain readout (``models.packed.fused_form``), so only H is checked.
-    RelGCN, GIN, NFP, GGNN with a layer aggregator and GGNN-GWM run no
-    kernel, so none of their widths is refused."""
+    RelGCN, GIN, NFP, GGNN with a layer aggregator, GGNN-GWM and every
+    model on the padded layout run no kernel, so none of their widths is
+    refused."""
     from gcnbmp_tpu_torch.models.packed import SET2SET_STEPS
     from gcnbmp_tpu_torch.ops import fused_ggnn, fused_mpnn, set2set_kernel
 
@@ -313,6 +414,8 @@ def kernel_problems(cfg, device) -> List[str]:
         return []
     if dataclasses.is_dataclass(cfg):
         cfg = dataclasses.asdict(cfg)
+    if cfg.get("compute_path", TrainConfig.compute_path) == "padded":
+        return []
     method = cfg.get("method", "ggnn")
     hidden = int(cfg.get("fp_hidden_dim", TrainConfig.fp_hidden_dim))
     item = 'ROADMAP queue 2, "Open: hidden widths"'
@@ -391,17 +494,18 @@ class Trainer:
     of ``max(scan_steps, 1)``, one host-to-device copy per chunk
     (``stage_chunk``), and the chunk's steps run back to back on slices of
     it: the batches, order and updates of the JAX scan mode, whose tail
-    chunk is dropped likewise.  Epoch ends evaluate train and val through
-    ``PackedPairEvaluator``, stop early on val loss, and save
+    chunk is dropped likewise.  ``compute_path="padded"`` (the default)
+    trains the padded predictor of ``models.predictor.set_up_predictor``
+    on ``data.dataset`` batches ``pad_to`` atoms wide, one step per batch,
+    dropout drawn from ``dropout_gen`` (seeded ``seed + 1``); no kernel
+    runs there.  Epoch ends evaluate train and val through
+    ``PackedPairEvaluator`` (``PairEvaluator`` on the padded layout), stop
+    early on val loss, and save
     ``snapshot_epoch_*``, ``best`` and ``final`` checkpoints
     (``train.checkpoints``)."""
 
     def __init__(self, config: TrainConfig, train_ds, val_ds=None,
                  device="cuda"):
-        from gcnbmp_tpu_torch.convert import from_jax_params, init_params
-        from gcnbmp_tpu_torch.models.packed import (
-            make_packed_predictor, model_kwargs_from_config)
-
         problems = config_problems(config) + kernel_problems(config, device)
         if problems:
             raise ValueError("configuration outside the ported training "
@@ -416,24 +520,19 @@ class Trainer:
         self.train_ds = train_ds
         self.val_ds = val_ds
         self.np_rng = rng
-        kwargs = model_kwargs_from_config(dataclasses.asdict(config))
-        # the Set2Set (MPNN) and co-attention atom table widths: the
-        # largest molecule of the run's datasets, rounded up to 8
-        # (loop.py:817-827, :1089-1098)
-        from gcnbmp_tpu_torch.data.packing import max_atoms_lane_rounded
-
         dss = [train_ds] + ([val_ds] if val_ds is not None
                             and len(val_ds) else [])
+        self.padded = config.compute_path == "padded"
         self.coattn_n_max = None
-        if config.method == "mpnn":
-            kwargs["s2s_n_max"] = max_atoms_lane_rounded(dss)
-        if config.attn is not None:
-            self.coattn_n_max = kwargs["coattn_n_max"] = \
-                max_atoms_lane_rounded(dss)
-        self.model = from_jax_params(
-            init_params(kwargs, config.seed),
-            make_packed_predictor(**kwargs)).to(self.device)
+        if self.padded:
+            self.model = self._padded_model(config, dss)
+        else:
+            self.model = self._packed_model(config, dss)
         self.supernode_fn = getattr(self.model, "supernode_fn", None)
+        # the JAX trainer's dropout key is PRNGKey(seed + 1), split per
+        # step (loop.py:1141, :1314)
+        self.dropout_gen = torch.Generator(device=self.device)
+        self.dropout_gen.manual_seed(config.seed + 1)
         self.steps_per_epoch = max(1, len(self.train_ds) // config.batch_size)
         if config.scan_steps > 1 and config.scan_steps > self.steps_per_epoch:
             raise ValueError(
@@ -450,15 +549,85 @@ class Trainer:
                             if config.loss == "focal" else {}))
         self.log: List[Dict[str, Any]] = []
 
-    def _eval(self, ds):
-        from gcnbmp_tpu_torch.eval.evaluate import PackedPairEvaluator
+    def _packed_model(self, config, dss):
+        """The wire-compact predictor, with the Set2Set (MPNN) and
+        co-attention atom table widths of the largest molecule of the
+        run's datasets, rounded up to 8 (loop.py:817-827, :1089-1098)."""
+        from gcnbmp_tpu_torch.convert import from_jax_params, init_params
+        from gcnbmp_tpu_torch.data.packing import max_atoms_lane_rounded
+        from gcnbmp_tpu_torch.models.packed import (
+            make_packed_predictor, model_kwargs_from_config)
 
-        res = PackedPairEvaluator(self.model, batch_size=self.config.batch_size,
-                                  class_num=self.config.class_num,
-                                  device=self.device,
-                                  n_max=self.coattn_n_max).evaluate(ds)
+        kwargs = model_kwargs_from_config(dataclasses.asdict(config))
+        if config.method == "mpnn":
+            kwargs["s2s_n_max"] = max_atoms_lane_rounded(dss)
+        if config.attn is not None:
+            self.coattn_n_max = kwargs["coattn_n_max"] = \
+                max_atoms_lane_rounded(dss)
+        return from_jax_params(init_params(kwargs, config.seed),
+                               make_packed_predictor(**kwargs)).to(self.device)
+
+    def _padded_model(self, config, dss):
+        """The padded predictor of ``set_up_predictor``; the run's pad
+        size ``pad_to`` is ``max_pad``, or the bucket of the largest
+        molecule of the run's datasets (loop.py:747-756), which also sizes
+        the ``lt`` co-attention's weights."""
+        from gcnbmp_tpu_torch.convert import from_jax_params, init_params
+        from gcnbmp_tpu_torch.data.dataset import bucket_size
+        from gcnbmp_tpu_torch.models.predictor import set_up_predictor
+
+        self.pad_to = config.max_pad or bucket_size(
+            max(ds.max_atoms() for ds in dss))
+        kwargs = padded_kwargs_from_config(dataclasses.asdict(config))
+        if config.attn == "lt":
+            kwargs["coattn_n_max"] = self.pad_to
+        return from_jax_params(init_params(kwargs, config.seed, padded=True),
+                               set_up_predictor(**kwargs)).to(self.device)
+
+    def _eval(self, ds):
+        from gcnbmp_tpu_torch.eval.evaluate import (
+            PackedPairEvaluator, PairEvaluator)
+
+        if self.padded:
+            # the JAX trainer's collect_logits at the run's pad size
+            evaluator = PairEvaluator(
+                self.model, batch_size=self.config.batch_size,
+                pad_to=self.pad_to, class_num=self.config.class_num,
+                device=self.device)
+        else:
+            evaluator = PackedPairEvaluator(
+                self.model, batch_size=self.config.batch_size,
+                class_num=self.config.class_num, device=self.device,
+                n_max=self.coattn_n_max)
+        res = evaluator.evaluate(ds)
         self.model.train()
         return res
+
+    def _padded_epoch(self, epoch: int, state, epoch_losses: list) -> int:
+        """One epoch on the padded layout: shuffled batches ``pad_to``
+        atoms wide, the tail dropped (loop.py:1178-1183), one step each
+        with a fresh dropout draw; scan_steps groups nothing here, as in
+        the JAX trainer.  Returns the epoch's directed edges."""
+        from gcnbmp_tpu_torch.data.dataset import (
+            batch_iterator, padded_args)
+
+        cfg = self.config
+        edges = 0
+        for batch in batch_iterator(
+                self.train_ds, cfg.batch_size, shuffle=True, rng=self.np_rng,
+                pad_to=self.pad_to, drop_remainder=True,
+                supernode_fn=self.supernode_fn):
+            args, kwargs, labels = padded_args(
+                batch, self.device, self.supernode_fn is not None)
+            epoch_losses.append(train_step(
+                self.model, self.optimizer, args, labels, self.loss_fn,
+                cfg.class_num, deterministic=False,
+                generator=self.dropout_gen, **kwargs))
+            if cfg.debug_checks:
+                self._check_finite(epoch, state.step)
+            edges += batch.num_edges
+            state.step += 1
+        return edges
 
     def _start_profile(self, epoch: int):
         from torch.profiler import ProfilerActivity, profile
@@ -513,8 +682,9 @@ class Trainer:
         datasets = [self.train_ds]
         if self.val_ds is not None and len(self.val_ds):
             datasets.append(self.val_ds)
-        self.num_tiles, self.edge_capacity = estimate_coo_capacities(
-            datasets, cfg.batch_size)
+        if not self.padded:
+            self.num_tiles, self.edge_capacity = estimate_coo_capacities(
+                datasets, cfg.batch_size)
         pack_cache = [] if cfg.reuse_packs else None
         if cfg.prefetch > 0:
             logger.info("prefetch=%d: the port stages each batch on the step's "
@@ -523,11 +693,16 @@ class Trainer:
         if cfg.plot_reports:
             logger.info("plot_reports: the port writes no loss/accuracy PNGs "
                         "(ROADMAP queue 1, item 6); log.json holds the curves")
-        if cfg.method == "ggnn":
+        if self.padded:
+            logger.info("padded layout, %d atoms per molecule: no kernel "
+                        "(PyTorch ops, as the JAX padded path runs XLA ops)",
+                        self.pad_to)
+        elif cfg.method == "ggnn":
             logger.info("GGNN kernel path: %s",
                         fused_form(cfg.fp_hidden_dim, cfg.fp_out_dim, cfg.attn,
                                    cfg.layer_aggregator))
-        args_fn = self.model.wire_encoder(n_max=self.coattn_n_max)
+        args_fn = (None if self.padded
+                   else self.model.wire_encoder(n_max=self.coattn_n_max))
         steps_per_chunk = max(cfg.scan_steps, 1)
         os.makedirs(cfg.out_dir, exist_ok=True)
         max_epochs = max_epochs or cfg.epochs
@@ -540,15 +715,20 @@ class Trainer:
             epoch_losses: List[torch.Tensor] = []
             epoch_edges = 0
             epoch_t0 = time.time()
-            batches = packed_coo_batch_iterator(
-                self.train_ds, cfg.batch_size, self.num_tiles,
-                self.edge_capacity, self.np_rng,
-                supernode_fn=self.supernode_fn,
-                pack_workers=cfg.pack_workers, pack_cache=pack_cache)
-            if cfg.debug_checks:
-                batches = (b.validate() for b in batches)
-            for stacked, labels, edges in scan_chunk_iterator(
-                    batches, steps_per_chunk, args_fn):
+            if self.padded:
+                epoch_edges = self._padded_epoch(epoch, state, epoch_losses)
+                batches = ()
+            else:
+                batches = packed_coo_batch_iterator(
+                    self.train_ds, cfg.batch_size, self.num_tiles,
+                    self.edge_capacity, self.np_rng,
+                    supernode_fn=self.supernode_fn,
+                    pack_workers=cfg.pack_workers, pack_cache=pack_cache)
+                if cfg.debug_checks:
+                    batches = (b.validate() for b in batches)
+                batches = scan_chunk_iterator(batches, steps_per_chunk,
+                                              args_fn)
+            for stacked, labels, edges in batches:
                 args, labels = stage_chunk(stacked, labels, self.device)
                 for i in range(steps_per_chunk):
                     epoch_losses.append(train_step(

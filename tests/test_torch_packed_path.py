@@ -226,7 +226,19 @@ METHODS = ["ggnn", "mpnn", "relgcn", "gin", "nfp", "ggnn-gwm"]
 def _jax_refuses(cfg: JaxTrainConfig) -> bool:
     """The JAX trainer's refusal of a packed-family configuration: its
     ``packed_config_problems`` (co-attention allowed on coo only), then
-    its factory's, as the Trainer calls them (loop.py:773-832)."""
+    its factory's, as the Trainer calls them (loop.py:773-832); on the
+    padded layout only ``set_up_predictor``'s (loop.py:702-718)."""
+    if cfg.compute_path == "padded":
+        from gcnbmp_tpu.models import set_up_predictor
+
+        try:
+            set_up_predictor(
+                method=cfg.method, attn_model=cfg.attn,
+                layer_aggregator=cfg.layer_aggregator,
+                fp_dropout_rate=cfg.fp_dropout_rate)
+        except ValueError:
+            return True
+        return False
     coo = cfg.compute_path in ("coo", "fused")
     if jloop.packed_config_problems(
             cfg, allow_attn=cfg.compute_path == "coo"):
@@ -245,11 +257,10 @@ def _jax_refuses(cfg: JaxTrainConfig) -> bool:
 def test_config_problems_refuse_what_jax_refuses(method):
     """Every combination of layout, scan mode, co-attention, layer
     aggregator and dropout: the port refuses exactly what the JAX
-    trainer refuses, and besides only MPNN with co-attention (ROADMAP
-    queue 1, item 8) and the padded layout, which the JAX trainer takes
-    and the port leaves to item 7."""
+    trainer refuses, and besides only MPNN with co-attention on coo
+    (ROADMAP queue 1, item 8; the padded layout takes it)."""
     cases = 0
-    for path in ("fused", "coo", "packed"):
+    for path in ("fused", "coo", "packed", "padded"):
         for scan in (0, 4):
             for attn in (None, "para"):
                 for agg in (None, "gru"):
@@ -266,6 +277,5 @@ def test_config_problems_refuse_what_jax_refuses(method):
                         if unported:
                             assert any("item 8" in p for p in port)
                         cases += 1
-    assert cases == 48
-    padded = loop.config_problems(TrainConfig(method=method))
-    assert any("ROADMAP queue 1, item 7" in p for p in padded)
+    assert cases == 64
+    assert loop.config_problems(TrainConfig(method=method)) == []  # padded

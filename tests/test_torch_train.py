@@ -260,26 +260,47 @@ def test_multilabel_metrics_match_sklearn():
 
 # the refusals that stay once every packed-family encoder trains on coo
 # and packed: the fused path for what its kernels do not compute (GWM
-# included), which the JAX package refuses alike, and what ROADMAP names
+# included), which the JAX package refuses alike, what ROADMAP names, the
+# packed layouts' refusals of the options only the padded layout has (the
+# JAX reason, and the way to the padded layout) and batch normalization,
+# which the JAX trainer cannot step; the padded layout itself trains
 @pytest.mark.parametrize("field,value,cites", [
-    ("compute_path", "padded", "ROADMAP queue 1, item"),
+    pytest.param("compute_path", "padded", None,
+                 id="compute_path-padded-ROADMAP queue 1, item"),
     ("method", "ggnn-gwm", "as in the JAX package"),
     ("attn", "para", "co-attention (use compute_path='coo')"),
     ("method", "gin", "as in the JAX package"),
-    ("fp_batch_normalization", True, "ROADMAP queue 1, item"),
+    pytest.param("fp_batch_normalization", True, "ScopeCollectionNotFound",
+                 id="fp_batch_normalization-True-ROADMAP queue 1, item"),
     ("layer_aggregator", "concat", "ROADMAP queue 2"),
     ("multi_device", True, "ROADMAP queue 1, item"),
-    ("concat_hidden", True, "ROADMAP queue 1, item"),
-    ("siamese", False, "ROADMAP queue 1, item"),
-    ("fp_dropout_rate", 0.1, "ROADMAP queue 1, item"),
-    ("symmetric", "or", "ROADMAP queue 1, item")])
+    pytest.param("concat_hidden", True, "use compute_path='padded'",
+                 id="concat_hidden-True-ROADMAP queue 1, item"),
+    pytest.param("siamese", False, "use compute_path='padded'",
+                 id="siamese-False-ROADMAP queue 1, item"),
+    pytest.param("fp_dropout_rate", 0.1, "use compute_path='padded'",
+                 id="fp_dropout_rate-0.1-ROADMAP queue 1, item"),
+    pytest.param("symmetric", "or", "use compute_path='padded'",
+                 id="symmetric-or-ROADMAP queue 1, item")])
 def test_config_problems_name_their_roadmap_item(field, value, cites):
     base = TrainConfig(compute_path="fused")
     assert loop.config_problems(base) == []
     cfg = TrainConfig(**{**json.loads(base.to_json()), field: value})
     problems = loop.config_problems(cfg)
+    if cites is None:  # the padded layout trains the same configuration
+        assert problems == []
+        from gcnbmp_tpu_torch.models.predictor import PairPredictor
+
+        trainer = loop.Trainer(cfg, _dataset(4), device="cpu")
+        assert isinstance(trainer.model, PairPredictor)
+        return
     assert len(problems) == 1 and field in problems[0]
     assert cites in problems[0]
+    if cites == "use compute_path='padded'":
+        # the JAX package's own reason for the packed layouts
+        jax_cfg = JaxTrainConfig(**{**json.loads(cfg.to_json())})
+        reasons = jloop.packed_config_problems(jax_cfg)
+        assert len(reasons) == 1 and reasons[0] in problems[0]
     with pytest.raises(ValueError, match=field):
         loop.Trainer(cfg, _dataset(4), device="cpu")
 
@@ -290,17 +311,22 @@ def test_config_problems_name_their_roadmap_item(field, value, cites):
     (["--platform", "cpu"], "platform"), (["--resume", "x"], "resume")])
 def test_train_cli_rejects_unported_options_before_any_work(tmp_path, flags,
                                                             match):
-    """Unported options name their ROADMAP item; a resume path that holds
-    no checkpoint is named.  Both before any CSV is read."""
+    """Unported options name their ROADMAP item (the fused path's refusal
+    of GIN, the JAX package's reason); a resume path that holds no
+    checkpoint is named.  Both before any CSV is read.  The padded layout
+    passes the checks and reads its CSV."""
     argv = ["--train", str(tmp_path / "missing.csv"), "--compute-path", "fused",
             "--device", "cpu", "--out", str(tmp_path / "run"), *flags]
     resume = flags[0] == "--resume"
-    with pytest.raises(FileNotFoundError if resume else ValueError,
-                       match=match) as e:
+    padded = flags == ["--compute-path", "padded"]
+    with pytest.raises(FileNotFoundError if resume or padded else ValueError,
+                       match="missing.csv" if padded else match) as e:
         train_cli.main(argv)
     if resume:
         assert "--resume x: no params.npz" in str(e.value)
-    else:
+    elif flags[1] == "gin":
+        assert "GGNN-only, as in the JAX package" in str(e.value)
+    elif not padded:
         assert "ROADMAP queue 1, item" in str(e.value)
     assert not (tmp_path / "run").exists()
 

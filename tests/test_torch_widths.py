@@ -125,9 +125,11 @@ def test_train_cli_refuses_an_unbuilt_width_before_reading_csvs(tmp_path, flags_
 def test_predict_cli_refuses_an_unbuilt_width_before_reading_pairs(tmp_path,
                                                                    method):
     config = tmp_path / "config.json"
+    # a run of a packed layout: a padded run runs no kernel (and a config
+    # without compute_path is a padded run, TrainConfig's default)
     config.write_text(json.dumps({"method": method, "sim_method": "hole",
                                   "fp_hidden_dim": 64, "fp_out_dim": 64,
-                                  "conv_layers": 2}))
+                                  "conv_layers": 2, "compute_path": "coo"}))
     argv = ["--input", str(tmp_path / "missing.csv"), "--config", str(config),
             "--params", str(tmp_path / "missing.npz"), "--device", "cuda",
             "--out", str(tmp_path / "preds.csv")]
