@@ -151,6 +151,23 @@ Phases, each fatal on failure:
    copy timed apart; padded and packed evaluators serving the 2048 test
    pairs (pairs/s, logits within 1e-4 of each other); ``entry.entry()``
    on the card against the CPU within 1e-5.
+15. The analysis routes (no kernel in either package), each on the card
+   against the CPU: (a) the evaluate CLI with ``--saliency gradient``,
+   ``integrated`` and ``bayes`` on the first 64 test pairs, on phase 5's
+   flagship run (scored packed, K2 once per batch; saliency through the
+   padded predictor) and on a RelGCN run (``relgcn_binary``, one epoch
+   through the train CLI): each per-atom map within 1e-5 + 1e-4 |cpu|,
+   the SVGs' layouts equal and each atom's colour within one step of
+   255, ms per pair; (b) the train CLI's ``--fixed-embeddings`` over
+   synth546's mol2vec table (dim 100, radius 1) and over the flagship's
+   ``drug_list_with_representation.csv`` (the evaluate CLI's export of
+   all 546 drugs) on the drug split's 94,830 train pairs with ``--val``,
+   2 epochs, then the predict CLI on each run over the 2048 test pairs:
+   losses and probs within 1e-5, val AUROC within 1e-4, steps/s; (c)
+   ``train_gae`` on the 546-drug adjacency of the drug split's positive
+   train pairs, 200 epochs at dropout 0 (embeddings within 1e-4), then at
+   0.1 on the card (val/test AUROC and AP, ms per epoch).  No kernel may
+   launch but K2 for the flagship's metrics.
 
 Prints the kernels' JSON line (``launches`` from each kernel's main
 path; ``launches_packed`` from phase 13's packed runs; with each
@@ -1900,6 +1917,409 @@ def padded_slice(df, dev, smi, reset_counts, read_counts, cfg):
         raise AssertionError("entry twin: the card disagrees with the CPU")
 
 
+# phase 15: the analysis routes, card against CPU: atom saliency through
+# the evaluate CLI, fixed-embedding runs through the train and predict
+# CLIs, the graph auto-encoder
+SALIENCY_COUNT = 64
+SALIENCY_METHODS = ("gradient", "integrated", "bayes")
+SAL_ATOL, SAL_RTOL = 1e-5, 1e-4
+FIXED_EPOCHS = 2
+FIXED_TOL, FIXED_AUC_TOL = 1e-5, 1e-4
+# card and CPU train step for step alike on a prefix of the train split
+# (FIXED_PREFIX_STEPS steps of 128 per epoch); over the whole split the
+# head's f32 trajectory forks at rounding level: on the mol2vec table the
+# card and the CPU end 2 epochs with losses 8e-3, probs 0.2 and val AUROC
+# 2e-3 apart, and so does the card against itself from one kernel element
+# moved by 1e-7 of itself (``nudged_spread`` prints it each run; H100
+# 80GB HBM3 at 700 W).  The whole split is held to the same model
+# quality: val AUROC within 5x that spread
+FIXED_PREFIX_STEPS = 100
+FIXED_FULL_AUC_TOL = 0.01
+GAE_EPOCHS = 200
+GAE_TOL = 1e-4
+CARD = "cuda"  # the device phase 15 holds against the CPU
+DRUG_LIST = os.path.join(ROOT, "dataset", "synth546", "drug_list.csv")
+
+
+def sync(torch):
+    if CARD == "cuda":
+        torch.cuda.synchronize()
+
+
+def svg_fills(svg):
+    """An SVG's text with each fill taken out, and the fills as (r, g, b)."""
+    fills = re.findall(r'fill="#([0-9a-f]{6})"', svg)
+    return (re.sub(r'fill="#[0-9a-f]{6}"', "fill", svg),
+            [tuple(int(f[i:i + 2], 16) for i in (0, 2, 4)) for f in fills])
+
+
+@contextlib.contextmanager
+def recorded(module, name, torch, log):
+    """Wrap ``module.name`` so that each call appends (seconds, result) to
+    ``log``, the device synchronized around it."""
+    real = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        sync(torch)
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        sync(torch)
+        log.append((time.perf_counter() - t0, out))
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def no_launches(what, launches, allowed=None):
+    """Fail when a kernel launched beyond ``allowed`` (name -> count)."""
+    allowed = allowed or {}
+    extra = {k: v for k, v in launches.items() if v != allowed.get(k, 0)}
+    if extra:
+        raise AssertionError(f"{what}: kernel launches {extra}, expected "
+                             f"{allowed or 'none'}")
+
+
+def saliency_runs(tag, run, test_path, out_root, smi, reset_counts,
+                  read_counts, k2_batches):
+    """The evaluate CLI with each ``--saliency`` method on the card and
+    on the CPU: the per-atom maps (recorded from ``atom_saliency``) within
+    SAL_ATOL + SAL_RTOL |cpu|, the SVGs with the same layout and each
+    atom's colour within one step of 255; no kernel but K2 for the
+    metrics (``k2_batches`` per card call).  Returns ms per pair per
+    method on the card."""
+    import numpy as np
+    import torch
+
+    from gcnbmp_tpu_torch.cli import evaluate as evaluate_cli
+    from gcnbmp_tpu_torch.convert import load_params_npz
+    from gcnbmp_tpu_torch.data import CSVPairParser
+    from gcnbmp_tpu_torch.data.dataset import make_batch
+    from gcnbmp_tpu_torch.eval import saliency as saliency_module
+    from gcnbmp_tpu_torch.train.checkpoints import padded_predictor
+
+    # warm the card up: each method once on the run's padded predictor
+    with open(os.path.join(run, "config.json")) as f:
+        config = json.load(f)
+    model = padded_predictor(config, load_params_npz(
+        os.path.join(run, "best", "params.npz"))).to(CARD)
+    batch = make_batch(CSVPairParser().parse(test_path).dataset,
+                       list(range(SALIENCY_COUNT)))
+    for method in SALIENCY_METHODS:
+        saliency_module.atom_saliency(
+            model, batch.atoms1, batch.adj1, batch.atoms2, batch.adj2,
+            batch.mask1, batch.mask2, method=method)
+    k2 = ({"fused_ggnn_readout": k2_batches}
+          if k2_batches and CARD == "cuda" else {})
+    out = {}
+    for method in SALIENCY_METHODS:
+        maps, secs, dirs = {}, {}, {}
+        for device in (CARD, "cpu"):
+            log = []
+            dirs[device] = os.path.join(out_root, f"{method}_{device}")
+            reset_counts()
+            with recorded(saliency_module, "atom_saliency", torch, log):
+                rc = evaluate_cli.main([
+                    "--test", test_path, "--run", run, "--batch-size",
+                    str(SERVE_BATCH), "--saliency", method,
+                    "--saliency-count", str(SALIENCY_COUNT),
+                    "--out", dirs[device], "--device", device])
+            if rc != 0 or len(log) != 1:
+                raise AssertionError(f"{tag} --saliency {method} on {device}:"
+                                     f" rc {rc}, {len(log)} saliency calls")
+            no_launches(f"{tag} --saliency {method} on {device}",
+                        read_counts(), k2 if device == CARD else {})
+            secs[device], maps[device] = log[0]
+        err = 0.0
+        for side in ("mol1", "mol2"):
+            got, want = maps[CARD][side], maps["cpu"][side]
+            if got.shape != want.shape or got.shape[0] != SALIENCY_COUNT \
+                    or not np.all(np.isfinite(got)) or not np.any(got > 0):
+                raise AssertionError(f"{tag} {method} {side}: shape "
+                                     f"{got.shape}, finite and non-zero?")
+            bad = np.abs(got - want) > SAL_ATOL + SAL_RTOL * np.abs(want)
+            if bad.any():
+                raise AssertionError(
+                    f"{tag} {method} {side}: {int(bad.sum())} atoms off, max "
+                    f"abs err {np.abs(got - want).max():.3g}")
+            err = max(err, float(np.abs(got - want).max()))
+        names = sorted(os.listdir(os.path.join(dirs[CARD], "saliency")))
+        if names != sorted(os.listdir(os.path.join(dirs["cpu"], "saliency"))) \
+                or len(names) != 2 * SALIENCY_COUNT:
+            raise AssertionError(f"{tag} {method}: SVG files differ")
+        step = 0
+        for name in names:
+            texts = []
+            for device in (CARD, "cpu"):
+                with open(os.path.join(dirs[device], "saliency", name)) as f:
+                    texts.append(svg_fills(f.read()))
+            (a, fa), (b, fb) = texts
+            if a != b or len(fa) != len(fb):
+                raise AssertionError(f"{tag} {method} {name}: layouts differ")
+            step = max([step] + [abs(x - y) for p, q in zip(fa, fb)
+                                 for x, y in zip(p, q)])
+        if step > 1:
+            raise AssertionError(f"{tag} {method}: an atom's colour moved "
+                                 f"{step} steps of 255")
+        out[method] = secs[CARD] * 1e3 / SALIENCY_COUNT
+        print(f"phase 15 saliency {tag} {method}: {out[method]:.4f} ms per "
+              f"pair on the card, {secs['cpu'] * 1e3 / SALIENCY_COUNT:.4f} "
+              f"on the CPU ({SALIENCY_COUNT} pairs, padded predictor); maps "
+              f"max abs err {err:.3g}; {len(names)} SVGs, colours within "
+              f"{step} step; on {smi}")
+    return out
+
+
+def fixed_runs(tag, table, train_path, test_path, tmp, reset_counts,
+               read_counts):
+    """The train CLI's ``--fixed-embeddings`` over ``table`` on
+    ``train_path`` (validating on the drug split's valid pairs), then the
+    predict CLI on the run, on the card and on the CPU; no kernel may
+    launch.  Returns device -> (the training's result, the test probs,
+    steps/s of ``train_fixed_embedding_head``)."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from gcnbmp_tpu_torch.cli import predict
+    from gcnbmp_tpu_torch.cli import train as train_cli
+    from gcnbmp_tpu_torch.train import fixed as fixed_module
+
+    res = {}
+    steps = FIXED_EPOCHS * (len(pd.read_csv(train_path)) // 128)
+    for device in (CARD, "cpu"):
+        run = os.path.join(tmp, f"fixed_{tag.replace(' ', '_')}_{device}")
+        log = []
+        reset_counts()
+        with recorded(fixed_module, "train_fixed_embedding_head", torch, log):
+            rc = train_cli.main([
+                "--train", train_path, "--val", VALID_CSV,
+                "--fixed-embeddings", table, "--epochs", str(FIXED_EPOCHS),
+                "--out", run, "--device", device])
+        if rc != 0 or len(log) != 1:
+            raise AssertionError(f"fixed {tag} on {device}: rc {rc}")
+        secs, result = log[0]
+        preds = os.path.join(run, "preds.csv")
+        rc = predict.main(["--input", test_path, "--run", run, "--out", preds,
+                           "--device", device])
+        no_launches(f"fixed {tag} on {device}", read_counts())
+        probs = pd.read_csv(preds)["prob"].to_numpy()
+        if rc != 0 or len(probs) != N_PAIRS or not np.all(np.isfinite(probs)) \
+                or not np.all(np.isfinite(result["losses"])):
+            raise AssertionError(f"fixed {tag} on {device}: not finite")
+        res[device] = (result, probs, steps / secs)
+    return res
+
+
+def nudged_spread(tag, table, result, probs, test_path, smi):
+    """The card against itself: the whole split's fixed head trained again
+    from the CLI's initial tree with one kernel element moved by 1e-7 of
+    itself; prints how far its losses, test probs and val AUROC end from
+    ``result``'s (the f32 trajectory's own spread, which bounds what any
+    other device's rounding can be held to)."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from gcnbmp_tpu_torch.convert import flat_npz, init_module_params
+    from gcnbmp_tpu_torch.train import fixed as fixed_module
+
+    vectors = fixed_module.load_embedding_table(table)
+    e1, e2, y = fixed_module.pair_embeddings(TRAIN_CSV, vectors)
+    val = fixed_module.pair_embeddings(VALID_CSV, vectors)
+    tree = init_module_params(fixed_module.build_fixed_predictor(
+        "hole", 1, (32, 16), e1.shape[1], device="meta"), 2018)
+    node, leaf = tree, next(k for k in flat_npz(tree) if
+                            k.endswith("kernel")).split("/")
+    for key in leaf[:-1]:
+        node = node[key]
+    node[leaf[-1]][0, 0] *= np.float32(1 + 1e-7)
+    nudged = fixed_module.train_fixed_embedding_head(
+        e1, e2, y, val=val, epochs=FIXED_EPOCHS, device=CARD, params=tree)
+    test = pd.read_csv(test_path)
+    p1 = np.stack([vectors[str(d)] for d in test.drugbank_id_1])
+    p2 = np.stack([vectors[str(d)] for d in test.drugbank_id_2])
+    with torch.no_grad():
+        logits = nudged["predictor"](
+            torch.as_tensor(p1, device=CARD),
+            torch.as_tensor(p2, device=CARD)).cpu().numpy().ravel()
+    loss = np.max(np.abs(np.subtract(nudged["losses"], result["losses"])))
+    prob = np.max(np.abs(1 / (1 + np.exp(-logits)) - probs))
+    auc = abs(nudged["val_metrics"]["roc_auc"]
+              - result["val_metrics"]["roc_auc"])
+    print(f"phase 15 fixed {tag} full, the card against itself from "
+          f"{'/'.join(leaf)}[0, 0] moved by 1e-7 of itself: losses "
+          f"{loss:.3g}, probs {prob:.3g}, val AUROC {auc:.3g} apart; on "
+          f"{smi}")
+
+
+def analysis_slice(kept, df, smi, reset_counts, read_counts):
+    """Phase 15: (a) the evaluate CLI's ``--saliency`` on phase 5's
+    flagship run and on a RelGCN run trained one epoch; (b) the train
+    CLI's ``--fixed-embeddings`` over synth546's mol2vec table and over the
+    flagship's exported representations on the drug split's 94,830 train
+    pairs, then the predict CLI on each run; (c) ``train_gae`` on the
+    drug split's positive train pairs.  Each card against the CPU; no
+    kernel launched but K2 for the flagship's metrics."""
+    import pickle
+
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from gcnbmp_tpu_torch.chem import mol2vec_table
+    from gcnbmp_tpu_torch.cli import evaluate as evaluate_cli
+    from gcnbmp_tpu_torch.cli import train as train_cli
+    from gcnbmp_tpu_torch.models.gae import train_gae
+
+    drugs = pd.read_csv(DRUG_LIST)
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        # a. saliency: the flagship (a packed run; saliency through the
+        # padded predictor), then RelGCN
+        t0 = time.perf_counter()
+        test_path = os.path.join(tmp, "test.csv")
+        df.head(SALIENCY_COUNT).to_csv(test_path, index=False)
+        k2_batches = -(-SALIENCY_COUNT // SERVE_BATCH)
+        sal = {"flagship": saliency_runs(
+            "flagship", os.path.join(kept, "run"), test_path,
+            os.path.join(tmp, "sal_flagship"), smi, reset_counts,
+            read_counts, k2_batches)}
+        train_path = os.path.join(tmp, "train.csv")
+        val_path = os.path.join(tmp, "val.csv")
+        pd.read_csv(TRAIN_CSV).head(N_PAIRS).to_csv(train_path, index=False)
+        pd.read_csv(VALID_CSV).head(N_VAL).to_csv(val_path, index=False)
+        relgcn_run = os.path.join(tmp, "relgcn")
+        reset_counts()
+        rc = train_cli.main(["--train", train_path, "--val", val_path,
+                             "--preset", "relgcn_binary", "--compute-path",
+                             "coo", "--epochs", "1", "--batch-size",
+                             str(SERVE_BATCH), "--seed", str(SEED), "--out",
+                             relgcn_run, "--device", CARD])
+        if rc != 0:
+            raise AssertionError(f"relgcn train.main returned {rc}")
+        no_launches("relgcn training", read_counts())
+        sal["relgcn"] = saliency_runs(
+            "relgcn", relgcn_run, test_path, os.path.join(tmp, "sal_relgcn"),
+            smi, reset_counts, read_counts, 0)
+        t_sal = time.perf_counter() - t0
+
+        # b. fixed-embedding runs over two tables
+        t0 = time.perf_counter()
+        smiles_vec = mol2vec_table(list(drugs.smiles), dim=100, radius=1)
+        m2v = {db: smiles_vec[s] for db, s in zip(drugs.drugbank_id,
+                                                   drugs.smiles)
+               if s in smiles_vec}
+        m2v_path = os.path.join(tmp, "mol2vec.pkl")
+        with open(m2v_path, "wb") as f:
+            pickle.dump(m2v, f)
+        # every drug once on each side: the flagship's exported
+        # representations of all 546 drugs
+        n = len(drugs)
+        nxt = np.roll(np.arange(n), -1)
+        all_pairs = pd.DataFrame({
+            "drugbank_id_1": drugs.drugbank_id,
+            "drugbank_id_2": drugs.drugbank_id.to_numpy()[nxt],
+            "smiles_1": drugs.smiles, "smiles_2": drugs.smiles.to_numpy()[nxt],
+            "label": np.arange(n) % 2})
+        all_path = os.path.join(tmp, "all_drugs.csv")
+        all_pairs.to_csv(all_path, index=False)
+        export = os.path.join(tmp, "export")
+        reset_counts()
+        rc = evaluate_cli.main(["--test", all_path, "--run",
+                                os.path.join(kept, "run"), "--batch-size",
+                                str(SERVE_BATCH), "--out", export,
+                                "--device", CARD])
+        no_launches("flagship export", read_counts(),
+                    {"fused_ggnn_readout": -(-n // SERVE_BATCH)}
+                    if CARD == "cuda" else {})
+        flagship_path = os.path.join(export,
+                                     "drug_list_with_representation.csv")
+        if rc != 0 or len(pd.read_csv(flagship_path)) != n or len(m2v) != n:
+            raise AssertionError(f"tables: flagship export rc {rc}, mol2vec "
+                                 f"{len(m2v)} of {n} drugs")
+        test2048 = os.path.join(tmp, "test2048.csv")
+        df.to_csv(test2048, index=False)
+        prefix_path = os.path.join(tmp, "train_prefix.csv")
+        pd.read_csv(TRAIN_CSV).head(FIXED_PREFIX_STEPS * 128).to_csv(
+            prefix_path, index=False)
+        fixed = {}
+        for tag, table in (("mol2vec", m2v_path), ("flagship", flagship_path)):
+            for part, train_path in (("prefix", prefix_path),
+                                     ("full", TRAIN_CSV)):
+                res = fixed_runs(f"{tag} {part}", table, train_path,
+                                 test2048, tmp, reset_counts, read_counts)
+                (rc_, pc, sps), (rcpu, pcpu, sps_cpu) = res[CARD], res["cpu"]
+                loss_err = float(np.max(np.abs(np.subtract(
+                    rc_["losses"], rcpu["losses"]))))
+                prob_err = float(np.max(np.abs(pc - pcpu)))
+                auc = rc_["val_metrics"]["roc_auc"]
+                auc_err = abs(auc - rcpu["val_metrics"]["roc_auc"])
+                n_pairs = len(pd.read_csv(train_path))
+                steps = FIXED_EPOCHS * (n_pairs // 128)
+                print(f"phase 15 fixed {tag} {part}: {steps} steps of 128 "
+                      f"over {n_pairs} train pairs, {sps:.1f} steps/s on the "
+                      f"card, {sps_cpu:.1f} on the CPU; losses "
+                      f"{rc_['losses']}; val AUROC {auc:.6f} AUPRC "
+                      f"{rc_['val_metrics']['prc_auc']:.6f}; card vs CPU: "
+                      f"losses {loss_err:.3g}, probs {prob_err:.3g} over "
+                      f"{N_PAIRS} test pairs, val AUROC {auc_err:.3g}; on "
+                      f"{smi}")
+                if part == "prefix" and (loss_err > FIXED_TOL
+                                         or prob_err > FIXED_TOL
+                                         or auc_err > FIXED_AUC_TOL):
+                    raise AssertionError(f"fixed {tag} {part}: card and CPU "
+                                         "differ")
+                if part == "full" and (auc_err > FIXED_FULL_AUC_TOL
+                                       or not auc > 0.5):
+                    raise AssertionError(f"fixed {tag} {part}: val AUROC "
+                                         f"{auc:.6f}, card vs CPU {auc_err:.3g}")
+                if part == "full" and tag == "mol2vec":
+                    nudged_spread(tag, table, rc_, pc, test2048, smi)
+            fixed[tag] = (sps, auc)
+        t_fixed = time.perf_counter() - t0
+
+    # c. the GAE on the drug split's positive train pairs
+    t0 = time.perf_counter()
+    index = {db: i for i, db in enumerate(drugs.drugbank_id)}
+    train = pd.read_csv(TRAIN_CSV)
+    pos = train[train.label == 1]
+    i = pos.drugbank_id_1.map(index).to_numpy()
+    j = pos.drugbank_id_2.map(index).to_numpy()
+    adj = np.zeros((len(drugs), len(drugs)), np.float32)
+    adj[i, j] = adj[j, i] = 1.0
+    reset_counts()
+    runs = {}
+    for device in (CARD, "cpu"):
+        runs[device] = train_gae(adj, dropout=0.0, epochs=GAE_EPOCHS,
+                                 device=device)
+    err = float(np.max(np.abs(runs[CARD]["embeddings"]
+                              - runs["cpu"]["embeddings"])))
+    timed = {}
+    for epochs in (1, GAE_EPOCHS):
+        sync(torch)
+        t1 = time.perf_counter()
+        r = train_gae(adj, dropout=0.1, epochs=epochs, device=CARD)
+        sync(torch)
+        timed[epochs] = time.perf_counter() - t1
+    no_launches("gae", read_counts())
+    ms = (timed[GAE_EPOCHS] - timed[1]) * 1e3 / (GAE_EPOCHS - 1)
+    print(f"phase 15 gae: {len(drugs)} drugs, {int(adj.sum()) // 2} edges; "
+          f"card vs CPU embeddings at dropout 0 max abs err {err:.3g}; "
+          f"dropout 0.1 on the card: val AUROC {r['val']['roc_auc']:.6f} AP "
+          f"{r['val']['ap']:.6f}, test AUROC {r['test']['roc_auc']:.6f} AP "
+          f"{r['test']['ap']:.6f}, {ms:.4f} ms per epoch "
+          f"({timed[GAE_EPOCHS]:.3f} s for {GAE_EPOCHS} epochs with set-up, "
+          f"{timed[1]:.3f} s for 1); on {smi}")
+    if err > GAE_TOL or not np.isfinite(r["final_loss"]):
+        raise AssertionError("gae: card and CPU embeddings differ")
+    print(f"phase 15 parts: saliency {t_sal:.1f} s, fixed {t_fixed:.1f} s, "
+          f"gae {time.perf_counter() - t0:.1f} s")
+    return sal, fixed
+
+
 def crowd_rows(adj, torch):
     """``adj`` with ~5% of the columns of every other row set to 1: rows
     with more nonzeros than the kernels' NBR_CAP=16 neighbour slots (which
@@ -2360,11 +2780,8 @@ def main() -> int:
 
     # 11. evaluation and the trainer's modes on phase 5's run
     t11 = time.perf_counter()
-    try:
-        evaluate_ggnn = run_modes(kept.name, df, dev, smi, reset_counts,
-                                  read_counts)
-    finally:
-        kept.cleanup()
+    evaluate_ggnn = run_modes(kept.name, df, dev, smi, reset_counts,
+                              read_counts)
     print(f"phase 11: {time.perf_counter() - t11:.1f} s")
     print(f"phase 11 done at {time.perf_counter() - t_start:.1f} s")
 
@@ -2399,6 +2816,18 @@ def main() -> int:
     padded_slice(df, dev, smi, reset_counts, read_counts, cfg)
     print(f"phase 14: {time.perf_counter() - t14:.1f} s")
     print(f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
+
+    # 15. the analysis routes on the card against the CPU: saliency on
+    # phase 5's run and a RelGCN run, fixed-embedding runs, the GAE
+    t15 = time.perf_counter()
+    try:
+        analysis_slice(kept.name, df, smi, reset_counts, read_counts)
+    finally:
+        kept.cleanup()
+    t15 = time.perf_counter() - t15
+    print(f"phase 15: {t15:.1f} s, "
+          f"{100 * t15 / (time.perf_counter() - t_start):.1f}% of the script")
+    print(f"phase 15 done at {time.perf_counter() - t_start:.1f} s")
 
     sources = {"fused_ggnn": "fused_ggnn.cu", "fused_ggnn_mid": "fused_ggnn.cu",
                "fused_ggnn_readout": "fused_ggnn.cu",

@@ -7,9 +7,10 @@ of chainer_chemistry's GGNNPreprocessor, and the ``wl`` vocabulary mode).
 ``drugfp_atom_features`` (:198-215, with ``_one_hot``, ``DRUGFP_SYMBOLS``
 and ``DRUGFP_DEGREES``, :39-46) gives the 66 DrugFP values per atom that
 GWM's supernode features pool (``models.gwm.supernode_features``).  The
-DrugFP and Weave featurizers and the ``add_hs`` / ``kekulize`` options,
-which need ``chem/transforms.py``, feed encoders the port has not taken
-yet and stay in the JAX package.
+``add_hs`` / ``kekulize`` options (:122-123, :161-173) run
+``chem.transforms`` before featurizing, as the JAX featurizer does.  The
+DrugFP and Weave featurizers feed encoders the port has not taken yet
+and stay in the JAX package.
 """
 
 from __future__ import annotations
@@ -106,6 +107,8 @@ class GGNNFeaturizer:
     radius: int = 0
     max_atoms: int = -1
     out_size: int = -1
+    add_hs: bool = False     # materialize implicit H atoms (MolPreprocessor add_Hs)
+    kekulize: bool = False   # replace aromatic bonds by alternating S/D
     # WL vocabularies, built on the fly like the reference's defaultdicts.
     atom_vocab: Dict = field(default_factory=dict)
     fp_vocab: Dict = field(default_factory=dict)
@@ -143,6 +146,19 @@ class GGNNFeaturizer:
         return np.asarray(nodes, dtype=np.int32)
 
     def __call__(self, mol: Mol) -> MolGraph:
+        if self.add_hs or self.kekulize:
+            from gcnbmp_tpu_torch.chem.transforms import (
+                add_explicit_hydrogens,
+                kekulize as kekulize_fn,
+            )
+
+            if self.kekulize:
+                kek = kekulize_fn(mol)
+                if kek is None:
+                    raise FeaturizeError(f"cannot kekulize {mol.smiles!r}")
+                mol = kek
+            if self.add_hs:
+                mol = add_explicit_hydrogens(mol)
         n = mol.num_atoms
         if 0 <= self.max_atoms < n:
             raise FeaturizeError(

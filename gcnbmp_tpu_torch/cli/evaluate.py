@@ -12,17 +12,22 @@ features for every GWM run), runs it over the test CSV and writes,
 under ``--out`` (default ``<run>/eval``),
 ``eval_result.json`` (the metrics), ``<test>_e.csv``, ``<test>_e_y.csv``
 and ``drug_list_with_representation.csv``; on request
-``similarity_<method>.csv`` and ``correlation.json``.  Prints the
-metrics without ``per_class`` as one JSON line.
+``similarity_<method>.csv`` and ``correlation.json``, and with
+``--saliency gradient|integrated|bayes`` the atom saliency SVGs
+``saliency/pair{i}_{side}.svg`` of the first ``--saliency-count`` pairs
+(``eval.saliency``, through the padded predictor of the run's config
+and weights, whatever layout scored the metrics, as the JAX CLI takes
+its trainer's padded predictor; a GWM run is refused there as the JAX
+CLI refuses it, ``GWMPairPredictor`` having no supernode features).
+Prints the metrics without ``per_class`` as one JSON line.
 
     python -m gcnbmp_tpu_torch.cli.evaluate --test test.csv \\
         --run results/run1 --checkpoint best --device cuda
 
 The same flags and defaults as the JAX CLI, plus ``--device`` (``cuda``,
 the default, runs the CUDA kernels; ``cpu`` runs their plain versions).
-``--platform`` (a JAX platform) is refused, and so is ``--saliency``
-(``eval/saliency.py``, ROADMAP queue 1, item 10).  The
-correlation's scatter plot needs matplotlib and is skipped.  On
+``--platform`` (a JAX platform) is refused.  The correlation's scatter
+plot needs matplotlib and is skipped.  On
 ``--device cuda`` a width the card's kernels are not built for is
 refused before any pair is parsed.
 """
@@ -52,7 +57,7 @@ def parse_args(argv=None):
                    help="also write a drug-drug similarity matrix CSV")
     p.add_argument("--saliency", default=None,
                    choices=["gradient", "integrated", "bayes"],
-                   help="not ported (ROADMAP queue 1, item 10)")
+                   help="also render saliency SVGs for the first pairs")
     p.add_argument("--saliency-count", type=int, default=4)
     p.add_argument("--correlation-matrix", default=None,
                    help="known-DDI drug-drug matrix CSV (columns = cids); "
@@ -77,9 +82,6 @@ def main(argv=None):
     if args.platform:
         raise ValueError("--platform selects a JAX platform; the port runs "
                          "on --device cuda|cpu")
-    if args.saliency:
-        raise ValueError("--saliency (eval/saliency.py) is not ported "
-                         "yet: ROADMAP queue 1, item 10")
     logging.basicConfig(level=logging.INFO)
 
     import numpy as np
@@ -183,7 +185,43 @@ def main(argv=None):
                       indent=2)
         logging.info("correlation %.4f over %d drugs; the scatter plot is "
                      "skipped: the port has no matplotlib", corr, len(keep))
+
+    if args.saliency:
+        write_saliency(args, config, ds, out_dir, device)
     return 0
+
+
+def write_saliency(args, config, ds, out_dir, device) -> None:
+    """The saliency SVGs of the first ``--saliency-count`` pairs of ``ds``
+    (gcnbmp_tpu/cli/evaluate.py:184-210)."""
+    from gcnbmp_tpu_torch.chem import mol_from_smiles
+    from gcnbmp_tpu_torch.convert import load_params_npz
+    from gcnbmp_tpu_torch.data.dataset import make_batch
+    from gcnbmp_tpu_torch.eval.saliency import (
+        atom_saliency, render_molecule_svg)
+    from gcnbmp_tpu_torch.train.checkpoints import padded_predictor
+
+    k = min(args.saliency_count, len(ds))
+    batch = make_batch(ds, list(range(k)))
+    tree = load_params_npz(os.path.join(args.run, args.checkpoint,
+                                        "params.npz"))
+    predictor = padded_predictor(config, tree).to(device)
+    try:
+        sal = atom_saliency(
+            predictor, batch.atoms1, batch.adj1, batch.atoms2, batch.adj2,
+            batch.mask1, batch.mask2, method=args.saliency)
+    except NotImplementedError as e:
+        logging.warning("saliency skipped: %s", e)
+        return
+    os.makedirs(os.path.join(out_dir, "saliency"), exist_ok=True)
+    for i in range(k):
+        for side, key in (("mol1", 0), ("mol2", 1)):
+            mol = mol_from_smiles(ds.smiles_pairs[i][key])
+            svg = render_molecule_svg(mol, sal[side][i])
+            with open(os.path.join(out_dir, "saliency",
+                                   f"pair{i}_{side}.svg"), "w") as f:
+                f.write(svg)
+    logging.info("saliency SVGs written")
 
 
 if __name__ == "__main__":

@@ -26,6 +26,14 @@ Give a trained run (``--run``, with ``--checkpoint``, default ``best``:
 read, and on ``--device cuda`` a width the card's kernels are not built
 for is refused before any pair is parsed.  ``--params`` is a flat
 ``.npz`` of the flax param tree (``convert.save_params_npz``).
+
+A ``--run`` that is a fixed-embedding run (``config.json`` with
+``method: "fixed"``, written by the train CLI's ``--fixed-embeddings``)
+is scored from its own embedding table, with no SMILES parsed
+(gcnbmp_tpu/cli/predict.py:41-76): the id columns are ``--smiles-cols``
+with ``smiles`` read as ``drugbank_id``, rows with an id missing from
+the table are dropped, and a multi-class run gets ``prob_class{c}``
+columns.
 """
 
 from __future__ import annotations
@@ -67,6 +75,11 @@ def main(argv=None):
     import numpy as np
     import pandas as pd
     import torch
+
+    from gcnbmp_tpu_torch.train.fixed import is_fixed_run
+
+    if args.run is not None and is_fixed_run(args.run):
+        return _predict_fixed(args)
 
     from gcnbmp_tpu_torch.data import CSVPairParser
     from gcnbmp_tpu_torch.convert import load_params_npz
@@ -113,11 +126,47 @@ def main(argv=None):
     else:
         for c in range(probs.shape[1]):
             out[f"prob_class{c}"] = probs[:, c]
-    if args.out:
-        out.to_csv(args.out, index=False)
-        logging.info("wrote %s", args.out)
+    _write(out, args.out)
+    return 0
+
+
+def _write(out, path) -> None:
+    if path:
+        out.to_csv(path, index=False)
+        logging.info("wrote %s", path)
     else:
         out.to_csv(sys.stdout, index=False)
+
+
+def _predict_fixed(args) -> int:
+    """Score a fixed-embedding run's pairs straight from its table."""
+    import pandas as pd
+    import torch
+
+    from gcnbmp_tpu_torch.train.fixed import score_fixed_pairs
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda requested but CUDA is not available")
+    df = pd.read_csv(args.input)
+    id_cols = [c.replace("smiles", "drugbank_id")
+               for c in args.smiles_cols.split(",")]
+    for c in id_cols:
+        if c not in df.columns:
+            raise SystemExit(
+                f"fixed-embedding run needs id column {c!r} in --input")
+    probs, present = score_fixed_pairs(
+        args.run, df[id_cols[0]], df[id_cols[1]], batch_size=args.batch_size,
+        device=device)
+    logging.info("scoring %d pairs (%d ids missing from table)",
+                 int(present.sum()), int((~present).sum()))
+    out = df[present].reset_index(drop=True).copy()
+    if probs.ndim == 1:
+        out["prob"] = probs
+    else:
+        for c in range(probs.shape[1]):
+            out[f"prob_class{c}"] = probs[:, c]
+    _write(out, args.out)
     return 0
 
 

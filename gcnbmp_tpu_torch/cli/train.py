@@ -56,7 +56,19 @@ through ``gcnbmp_tpu_torch.cli.predict``, and ``--run <out>`` serves and
 evaluates (``gcnbmp_tpu_torch.cli.evaluate``) its ``best`` checkpoint.
 ``--resume <out>/snapshot_epoch_N`` continues a run from that
 checkpoint up to ``--epochs`` (``train.loop.Trainer``).  Prints the last
-log entry as JSON.  Options the port does not train yet, and on ``--device cuda``
+log entry as JSON.
+
+    python -m gcnbmp_tpu_torch.cli.train --train train.csv --val val.csv \
+        --fixed-embeddings drug_list_with_representation.csv \
+        --out results/fixed_run --device cuda
+
+``--fixed-embeddings`` (a pickled dict or a ``cid``/``entity`` CSV, the
+evaluate CLI's ``drug_list_with_representation.csv``) trains a head
+alone over the frozen per-drug vectors instead (``train.fixed``; pairs
+join on ``drugbank_id_1/2``), with the JAX CLI's defaults: ``hole``,
+``--net-hidden-dims 32,16``, lr 1e-3, 100 epochs, batch 128, seed 2018,
+``results/fixed_run``; it writes a fixed run that the predict CLI
+scores, and prints the train metrics and ``val/...`` as JSON.  Options the port does not train yet, and on ``--device cuda``
 widths the card's kernels are not built for, raise before any work,
 naming their ROADMAP item.
 """
@@ -138,7 +150,9 @@ def parse_args(argv=None):
                    help="autograd anomaly detection: fail at the op whose "
                         "backward produced a NaN (debug only, slow)")
     p.add_argument("--fixed-embeddings", dest="fixed_embeddings", default=None,
-                   help="head-only training over frozen per-drug vectors")
+                   help="id->vector table (pkl or CSV): train a scoring "
+                        "head over frozen per-drug embeddings instead of a "
+                        "graph encoder (pairs join on drugbank_id_1/2)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (plain versions, for tests)")
     return p.parse_args(argv)
@@ -163,12 +177,43 @@ def build_config(args):
     return dataclasses.replace(cfg, **overrides)
 
 
+def _main_fixed(args, device):
+    """--fixed-embeddings: head-only training over frozen per-drug vectors
+    (the JAX CLI's ``_main_fixed``, gcnbmp_tpu/cli/train.py:100-147),
+    writing a run the predict CLI scores (``is_fixed_run``)."""
+    from gcnbmp_tpu_torch.train.fixed import (
+        load_embedding_table, pair_embeddings, save_fixed_run,
+        train_fixed_embedding_head)
+
+    table = load_embedding_table(args.fixed_embeddings)
+    e1, e2, y = pair_embeddings(args.train, table)
+    logging.info("train: %d joined pairs over %d embeddings", len(y),
+                 len(table))
+    val = pair_embeddings(args.val, table) if args.val else None
+    sim_method = args.sim_method or "hole"
+    class_num = 1
+    hidden = (tuple(int(x) for x in args.net_hidden_dims.split(",") if x)
+              if args.net_hidden_dims else (32, 16))
+    result = train_fixed_embedding_head(
+        e1, e2, y, val=val, sim_method=sim_method, class_num=class_num,
+        net_hidden_dims=hidden,
+        learning_rate=(args.learning_rate
+                       if args.learning_rate is not None else 1e-3),
+        epochs=args.epochs if args.epochs is not None else 100,
+        batch_size=args.batch_size if args.batch_size is not None else 128,
+        device=device)
+    out_dir = args.out_dir or "results/fixed_run"
+    save_fixed_run(out_dir, result, sim_method=sim_method,
+                   class_num=class_num, net_hidden_dims=hidden, table=table)
+    final = dict(result["train_metrics"])
+    if "val_metrics" in result:
+        final.update({f"val/{k}": v for k, v in result["val_metrics"].items()})
+    print(json.dumps(final, default=float))
+    return 0
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.fixed_embeddings:
-        raise ValueError("--fixed-embeddings (head-only training over frozen "
-                         "embeddings) is not ported yet: ROADMAP queue 1, "
-                         "item 10")
     if args.platform:
         raise ValueError("--platform selects a JAX platform; the port runs "
                          "on --device cuda|cpu (ROADMAP queue 1, item 6)")
@@ -177,6 +222,13 @@ def main(argv=None):
         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
 
     import torch
+
+    if args.fixed_embeddings:
+        device = torch.device(args.device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("--device cuda requested but CUDA is not "
+                               "available")
+        return _main_fixed(args, device)
 
     from gcnbmp_tpu_torch.data import CSVPairParser, get_class_labels
     from gcnbmp_tpu_torch.train.loop import (

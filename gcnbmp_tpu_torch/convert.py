@@ -21,7 +21,8 @@ output_weight``, a layer aggregator's ``encoder/layer_aggregator/
 ``encoder/linear_for_concat_super``; the head's ``head/mlp/out/*``,
 ``head/bilinear/{W,V1/kernel,V2/kernel,b}`` (NTN), ``head/W_diag``...;
 and a co-attention model's ``coattention/...`` (``W_0``, ``energy/W``,
-``j/dense/*``...).  The port's modules use the same names, so a flax
+``j/dense/*``...); the ``FixedEmbeddingPredictor`` tree is ``head/...``
+alone, the GAE's ``encoder/{gc1,gc2}/kernel`` and ``relation_diag``.  The port's modules use the same names, so a flax
 path maps to a torch name by joining it with dots; flax ``kernel``
 (in, out) becomes the transposed ``nn.Linear.weight``, and every other
 leaf keeps its flax layout.

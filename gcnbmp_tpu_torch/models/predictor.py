@@ -17,8 +17,9 @@ aggregation is one XLA dot_general per layer), so the port runs it as
 PyTorch ops, on the card when the tensors are there.  Parameter names
 follow the flax tree (``encoder``, ``encoder2``, ``coattention``,
 ``head``), the same as the packed predictors', so one checkpoint serves
-both layouts.  The JAX package's ``ResearchPairPredictor`` and
-``FixedEmbeddingPredictor`` are ROADMAP queue 1, items 9 and 10.
+both layouts.  ``FixedEmbeddingPredictor`` (predictor.py:170-189) is a
+head over two precomputed drug vectors (``train.fixed``).  The JAX
+package's ``ResearchPairPredictor`` is ROADMAP queue 1, item 9.
 """
 
 from __future__ import annotations
@@ -83,6 +84,28 @@ class PairPredictor(nn.Module):
                       else torch.minimum(logits, rev))
         if return_aux:
             return logits, aux
+        return logits
+
+
+class FixedEmbeddingPredictor(nn.Module):
+    """A scoring head over fixed precomputed drug embeddings, the
+    reference's DDIPredictor for mol2vec / autoencoder / SSP features:
+    ``forward(e1, e2)`` -> ``head(e1, e2)``, with ``symmetric`` 'or'/'and'
+    the max/min over both orders.  The head is the flax tree's ``head``."""
+
+    def __init__(self, head: nn.Module, symmetric: Optional[str] = None):
+        super().__init__()
+        if symmetric not in (None, "or", "and"):
+            raise ValueError(f"symmetric={symmetric!r}")
+        self.head = head
+        self.symmetric = symmetric
+
+    def forward(self, e1: torch.Tensor, e2: torch.Tensor) -> torch.Tensor:
+        logits = self.head(e1, e2)
+        if self.symmetric is not None:
+            rev = self.head(e2, e1)
+            logits = (torch.maximum(logits, rev) if self.symmetric == "or"
+                      else torch.minimum(logits, rev))
         return logits
 
 

@@ -126,11 +126,21 @@ def served_predictor(config: dict, tree: dict):
         kwargs = model_kwargs_from_config(config)
         kwargs["coattn_n_max"] = lt_width
         return from_jax_params(tree, make_packed_predictor(**kwargs))
+    return padded_predictor(config, tree)
+
+
+def padded_predictor(config: dict, tree: dict):
+    """The padded predictor of run config ``config`` holding ``tree``,
+    whatever layout the run trained on (the two layouts' trees have the
+    same names): what the JAX ``Trainer`` builds as ``trainer.predictor``
+    for every compute path, and its evaluate CLI's saliency differentiates.
+    ``lt``'s weights fix its pad size (``W1``)."""
     from gcnbmp_tpu_torch.models.predictor import (
         padded_kwargs_from_config, set_up_predictor)
 
     kwargs = padded_kwargs_from_config(config)
-    kwargs["coattn_n_max"] = lt_width
+    kwargs["coattn_n_max"] = (tree["coattention"]["W1"].shape[0]
+                              if config.get("attn") == "lt" else None)
     return from_jax_params(tree, set_up_predictor(**kwargs))
 
 

@@ -10,6 +10,8 @@ so the metrics are computed here the way scikit-learn computes them:
 - PRC-AUC: ``auc(recall, precision)`` over ``precision_recall_curve``:
   one point per distinct score, reversed, ending at (recall 0,
   precision 1); precision is 0 where nothing is predicted positive.
+- Average precision (the GAE's edge metric): ``average_precision_score``,
+  the step sum over that curve.
 - F1, precision, recall of the thresholded probabilities, 0 where the
   denominator is 0 (``zero_division=0``).
 
@@ -48,15 +50,27 @@ def roc_auc(y: np.ndarray, score: np.ndarray) -> float:
     return float(np.trapezoid(tpr, fpr))
 
 
-def prc_auc(y: np.ndarray, score: np.ndarray) -> float:
+def _pr_curve(y: np.ndarray, score: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """``precision_recall_curve``'s (precision, recall), recall falling to
+    its final (recall 0, precision 1) point."""
     fps, tps = _clf_curve(y, score)
     ps = tps + fps
     precision = np.divide(tps, ps, out=np.zeros_like(tps), where=ps != 0)
     recall = tps / tps[-1]
-    precision = np.r_[precision[::-1], 1.0]
-    recall = np.r_[recall[::-1], 0.0]
+    return np.r_[precision[::-1], 1.0], np.r_[recall[::-1], 0.0]
+
+
+def prc_auc(y: np.ndarray, score: np.ndarray) -> float:
+    precision, recall = _pr_curve(y, score)
     # recall decreases along the curve: the area is the negated trapezoid
     return float(-np.trapezoid(precision, recall))
+
+
+def average_precision(y: np.ndarray, score: np.ndarray) -> float:
+    """scikit-learn's ``average_precision_score``: the step sum
+    -sum(diff(recall) * precision[:-1]) over ``prc_auc``'s curve."""
+    precision, recall = _pr_curve(y, score)
+    return float(-np.sum(np.diff(recall) * precision[:-1]))
 
 
 def _prf(y: np.ndarray, pred: np.ndarray) -> Tuple[float, float, float]:

@@ -17,6 +17,7 @@ on the whole file, repeated pairs included."""
 
 import json
 import os
+import re
 
 import numpy as np
 import pandas as pd
@@ -284,23 +285,97 @@ def test_evaluate_cli_correlation_matches_jax(tmp_path):
     assert np.isfinite(corr) and len(keep) == len(cids)
 
 
-@pytest.mark.parametrize("case", ["saliency", "platform", "no_labels_csv",
-                                  "class_count", "missing_checkpoint",
-                                  "unbuilt_width"])
-def test_evaluate_cli_refusals(tmp_path, case):
+def _jax_run(port_run, jax_run, cfg):
+    """The port's run as the JAX train CLI writes it: the same
+    config.json, and ``best`` as an orbax checkpoint of the JAX
+    ``Trainer``'s state holding the port's weights."""
+    import dataclasses
+
+    import jax
+    from gcnbmp_tpu.data.parsers import CSVPairParser as JCSVPairParser
+    from gcnbmp_tpu.train import Trainer as JaxTrainer
+    from gcnbmp_tpu.train.checkpoints import save_checkpoint
+
+    from gcnbmp_tpu_torch.convert import load_params_npz
+
+    os.makedirs(jax_run)
+    (jax_run / "config.json").write_text(cfg.to_json())
+    ds = JCSVPairParser().parse(SAMPLE).dataset
+    state = JaxTrainer(dataclasses.replace(cfg, scan_steps=1), ds,
+                       None)._init_state()
+    tree = load_params_npz(str(port_run / "best" / "params.npz"))
+    state = dataclasses.replace(
+        state, params=jax.tree_util.tree_map(jax.numpy.asarray, tree))
+    save_checkpoint(str(jax_run / "best"), state)
+
+
+def _svg_fills(svg):
+    """An SVG's text with each atom's fill taken out, and the fills as
+    (r, g, b) integers."""
+    fills = re.findall(r'fill="#([0-9a-f]{6})"', svg)
+    return (re.sub(r'fill="#[0-9a-f]{6}"', "fill", svg),
+            [tuple(int(f[i:i + 2], 16) for i in (0, 2, 4)) for f in fills])
+
+
+def _saliency_matches_the_jax_cli(tmp_path, cfg, run, sample_csv):
+    """``--saliency gradient`` and ``integrated`` of the port's CLI
+    against the JAX CLI on the same params: the same files, the same
+    layout, each atom's colour (its map quantized to 255 steps) within one
+    step.  (``bayes`` draws its noise from another generator in each
+    package; tests/test_torch_saliency.py holds it at the same points.)"""
+    from gcnbmp_tpu.cli import evaluate as jax_evaluate_cli
+
+    _jax_run(run, tmp_path / "jax_run", cfg)
+    for method in ("gradient", "integrated"):
+        out, jout = tmp_path / f"eval_{method}", tmp_path / f"jax_{method}"
+        flags = ["--test", sample_csv, "--saliency", method,
+                 "--saliency-count", "3"]
+        assert evaluate_cli.main(flags + ["--run", str(run), "--out",
+                                          str(out), "--device", "cpu"]) == 0
+        assert jax_evaluate_cli.main(flags + [
+            "--run", str(tmp_path / "jax_run"), "--out", str(jout)]) == 0
+        names = sorted(os.listdir(jout / "saliency"))
+        assert sorted(os.listdir(out / "saliency")) == names
+        assert len(names) == 6
+        n_red = 0
+        for name in names:
+            got, gf = _svg_fills((out / "saliency" / name).read_text())
+            want, wf = _svg_fills((jout / "saliency" / name).read_text())
+            assert got == want and len(gf) == len(wf)
+            assert max(abs(a - b) for x, y in zip(gf, wf)
+                       for a, b in zip(x, y)) <= 1
+            n_red += sum(g < 255 for _, g, _ in gf)
+        assert n_red > 0
+
+
+@pytest.mark.parametrize("case", ["saliency", "saliency_gwm", "platform",
+                                  "no_labels_csv", "class_count",
+                                  "missing_checkpoint", "unbuilt_width"])
+def test_evaluate_cli_refusals(tmp_path, case, sample):
+    """The CLI's refusals.  ``saliency``, refused until the port had
+    ``eval.saliency``, now writes the SVGs the JAX CLI writes on the same
+    params; ``saliency_gwm`` is refused after the metrics, as the JAX CLI
+    refuses it (``GWMPairPredictor`` without supernode features)."""
     multi = case in ("no_labels_csv", "class_count")
     width = 64 if case == "unbuilt_width" else 8
-    cfg = _config(method="ggnn", sim_method="hole",
-                  class_num=3 if multi else 1, fp_hidden_dim=width,
-                  fp_out_dim=width)
+    cfg = _config(method="ggnn-gwm" if case == "saliency_gwm" else "ggnn",
+                  sim_method="hole", class_num=3 if multi else 1,
+                  fp_hidden_dim=width, fp_out_dim=width)
     run = tmp_path / "run"
     _write_run(run, cfg)
     argv = ["--test", str(tmp_path / "absent.csv"), "--run", str(run),
             "--device", "cpu", "--out", str(tmp_path / "eval")]
     if case == "saliency":
-        with pytest.raises(ValueError, match="ROADMAP queue 1, item 10"):
-            evaluate_cli.main(argv + ["--saliency", "gradient"])
-    elif case == "platform":
+        _saliency_matches_the_jax_cli(tmp_path, cfg, run, sample)
+        return
+    if case == "saliency_gwm":
+        with pytest.raises(ValueError, match="supernode features"):
+            evaluate_cli.main(argv[:1] + [sample] + argv[2:]
+                              + ["--saliency", "integrated"])
+        assert (tmp_path / "eval" / "eval_result.json").exists()
+        assert not (tmp_path / "eval" / "saliency").exists()
+        return
+    if case == "platform":
         with pytest.raises(ValueError, match="--platform"):
             evaluate_cli.main(argv + ["--platform", "cpu"])
     elif case == "no_labels_csv":

@@ -61,6 +61,12 @@ MODULES = [
     "gcnbmp_tpu_torch.cli.train",
     "gcnbmp_tpu_torch.cli.evaluate",
     "gcnbmp_tpu_torch.cli.data_generator",
+    "gcnbmp_tpu_torch.chem.mol2vec",
+    "gcnbmp_tpu_torch.chem.transforms",
+    "gcnbmp_tpu_torch.models.gae",
+    "gcnbmp_tpu_torch.train.fixed",
+    "gcnbmp_tpu_torch.eval.saliency",
+    "gcnbmp_tpu_torch.eval.baselines",
 ]
 
 BLOCKER = """

@@ -314,11 +314,19 @@ def test_train_cli_rejects_unported_options_before_any_work(tmp_path, flags,
     """Unported options name their ROADMAP item (the fused path's refusal
     of GIN, the JAX package's reason); a resume path that holds no
     checkpoint is named.  Both before any CSV is read.  The padded layout
-    passes the checks and reads its CSV."""
+    passes the checks and reads its CSV, and so does the fixed-embedding
+    route (``--fixed-embeddings``, refused until the port had
+    ``train.fixed``; tests/test_torch_fixed.py trains it): it reads its
+    table, then its train CSV."""
     argv = ["--train", str(tmp_path / "missing.csv"), "--compute-path", "fused",
             "--device", "cpu", "--out", str(tmp_path / "run"), *flags]
     resume = flags[0] == "--resume"
-    padded = flags == ["--compute-path", "padded"]
+    fixed = flags[0] == "--fixed-embeddings"
+    if fixed:
+        pd.DataFrame({"cid": ["DB00001"], "entity": ["0.5 1.5"]}).to_csv(
+            tmp_path / flags[1], index=False)
+        argv[argv.index(flags[1])] = str(tmp_path / flags[1])
+    padded = flags == ["--compute-path", "padded"] or fixed
     with pytest.raises(FileNotFoundError if resume or padded else ValueError,
                        match="missing.csv" if padded else match) as e:
         train_cli.main(argv)
