@@ -168,9 +168,28 @@ Phases, each fatal on failure:
    train pairs, 200 epochs at dropout 0 (embeddings within 1e-4), then at
    0.1 on the card (val/test AUROC and AP, ms per epoch).  No kernel may
    launch but K2 for the flagship's metrics.
+16. GGNN's research options, GGNN-dev, the research predictor, MPNN's
+   ``ggnn`` forms and MPNN with co-attention: (a) MPNN + ``para`` + NTN
+   (the quality row's L=4 tied, H=D=32) trained 3 epochs through the
+   train CLI on coo at batch 2048 (K5b and K4b once per step, K5 and K4
+   at least once, no GGNN kernel; falling loss; gradients against the
+   plain stack; the step timed and profiled at 256 and 2048), scored by
+   the evaluate CLI on the card (K5 and K4 once per batch) and the CPU
+   (probs within 1e-4, AUROC and AUPRC within 1e-3), one batch's logits
+   and every gradient card against CPU; (b) the four ``ggnn-dev*``
+   methods (L=8 untied, H=D=32, HolE, padded) trained 3 epochs at batch
+   2048, served by the predict and evaluate CLIs, their logits card
+   against CPU held as a tensor (within 1e-4 of the largest: the ``gate``
+   rule's logits reach 6e4), the step timed and profiled at 2048 (the
+   first at 256 too); (c) GGNN with each research option, the research
+   predictor, MPNN with each ``ggnn`` form and ``para`` over
+   ``concat_hidden``, one padded batch of 2048 card against CPU (logits
+   within atol = rtol = 1e-4, every gradient as in phase 5).  No kernel
+   may launch in (b) and (c).
 
 Prints the kernels' JSON line (``launches`` from each kernel's main
-path; ``launches_packed`` from phase 13's packed runs; with each
+path; ``launches_packed`` from phase 13's packed runs;
+``launches_coattention`` from phases 9–10 (GGNN) and 16 (MPNN); with each
 kernel's bound: the larger of
 its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s, counted
 from this run's inputs, the sparse products by their nonzeros), the
@@ -2320,6 +2339,308 @@ def analysis_slice(kept, df, smi, reset_counts, read_counts):
     return sal, fixed
 
 
+# phase 16: GGNN's research options, GGNN-dev, the research predictor,
+# MPNN's ggnn forms, and MPNN with co-attention on coo
+MPNN_COATTN_FLAGS = (MPNN_FLAGS[:2] + ["--sim-method", "ntn"] + MPNN_FLAGS[4:]
+                     + ["--attn", "para"])
+MPNN_COATTN_CFG = dict(MPNN_CFG, s2s_n_max=24, sim_method="ntn", attn="para")
+DEV_METHODS = ("ggnn-dev", "ggnn-dev-fuse", "ggnn-dev-gate",
+               "ggnn-dev-self-loop")
+DEV_FLAGS = ["--conv-layers", str(L), "--weight-tying", "false",
+             "--fp-hidden-dim", str(H), "--fp-out-dim", str(D),
+             "--sim-method", "hole", "--lr", "2e-3", "--augment"]
+RESEARCH_EPOCHS = 3  # 2048 train pairs, 4096 augmented: 2 steps of 2048
+GGNN_KERNELS = ("fused_ggnn", "fused_ggnn_mid", "fused_ggnn_readout",
+                "fused_ggnn_bwd", "fused_ggnn_half_bwd",
+                "fused_ggnn_readout_bwd")
+
+
+def card_vs_cpu(tag, build, args, labels, dev, torch):
+    """One forward and backward of ``build()`` (a model on the CPU with its
+    weights) on the CPU and on ``dev`` on the same inputs: the logits
+    within atol = rtol = 1e-4 and every parameter's gradient of the
+    sigmoid cross-entropy within GRAD_RTOL * max|want| + GRAD_ATOL."""
+    from gcnbmp_tpu_torch.train.loop import sigmoid_cross_entropy
+
+    out = {}
+    for where in ("cpu", dev):
+        model = build().to(where)
+        logits = model(*(a.to(where) for a in args))
+        named = list(model.named_parameters())
+        grads = torch.autograd.grad(
+            sigmoid_cross_entropy(logits, labels.to(where)),
+            [p for _, p in named], allow_unused=True)
+        out[str(where)] = (logits.detach().cpu(), [
+            (n, (torch.zeros_like(p) if g is None else g).cpu())
+            for (n, p), g in zip(named, grads)])
+    card, cpu = out[str(dev)], out["cpu"]
+    compare(f"{tag} logits (card vs CPU)", card[0], cpu[0], torch)
+    compare_grads(f"{tag} gradients (card vs CPU)", card[1], cpu[1], torch)
+
+
+def research_models():
+    """Phase 16c's models, each (tag, build): GGNN (flagship widths) with
+    each research option, the research predictor, the padded MPNN
+    (quality row widths) with each ggnn form, co-attention over
+    concat_hidden; ``build()`` gives the model on the CPU with seeded
+    weights."""
+    from gcnbmp_tpu_torch.convert import from_jax_params, init_module_params
+    from gcnbmp_tpu_torch.models.coattention import build_coattention
+    from gcnbmp_tpu_torch.models.ggnn import GGNN
+    from gcnbmp_tpu_torch.models.ggnn_dev import GGNNDev
+    from gcnbmp_tpu_torch.models.heads import MLPHead, make_head
+    from gcnbmp_tpu_torch.models.mpnn import MPNN
+    from gcnbmp_tpu_torch.models.predictor import (
+        PairPredictor, ResearchPairPredictor, set_up_predictor)
+
+    def seeded(make):
+        def build():
+            model = make()
+            return from_jax_params(init_module_params(model, SEED), model)
+        return build
+
+    def pair(encoder):
+        return PairPredictor(encoder, make_head("hole", encoder.out_width, 1))
+
+    def research():
+        enc = GGNNDev(D, H, L, weight_tying=False, sum_pool_readout=False)
+        coattn = build_coattention("para", 2 * H, D)
+        left, right = ResearchPairPredictor.head_widths(enc, coattn, True,
+                                                        True, mlp=True)
+        return ResearchPairPredictor(enc, MLPHead(left, 1, (16,),
+                                                  right_dim=right), coattn,
+                                     use_s_lstm=True, use_i_lstm=True)
+
+    ggnn = dict(out_dim=D, hidden_dim=H, n_layers=L, weight_tying=False)
+    mpnn = dict(out_dim=D, hidden_dim=H, n_layers=MPNN_CFG["conv_layers"])
+    options = {"use_attention": dict(use_attention=True,
+                                     attention_tying=False),
+               "edge_network": dict(message_function="edge_network"),
+               "set2vec": dict(readout_function="set2vec"),
+               "context": dict(context=True)}
+    forms = {"ggnn message": dict(message_func="ggnn"),
+             "ggnn readout": dict(readout_func="ggnn"),
+             "ggnn message and readout": dict(message_func="ggnn",
+                                              readout_func="ggnn")}
+    models = [(f"GGNN {k}", seeded(lambda kw=kw: pair(GGNN(**ggnn, **kw))))
+              for k, kw in options.items()]
+    models.append(("research predictor (s and i LSTMs, para, MLP head)",
+                   seeded(research)))
+    models += [(f"MPNN {k}", seeded(lambda kw=kw: pair(MPNN(**mpnn, **kw))))
+               for k, kw in forms.items()]
+    models.append(("co-attention para over concat_hidden", seeded(
+        lambda: set_up_predictor(
+            method="ggnn", fp_hidden_dim=H, fp_out_dim=D, conv_layers=L,
+            concat_hidden=True, weight_tying=False, sim_method="ntn",
+            attn_model="para"))))
+    return models
+
+
+def research_slice(df, dev, smi, reset_counts, read_counts):
+    """Phase 16: (a) MPNN + para + NTN on coo through the train CLI (K5b
+    and K4b once per step), then the evaluate CLI on the card and the
+    CPU, and one batch's logits and gradients card against CPU; (b) the
+    four GGNN-dev methods through the train CLI on the padded layout, the
+    predict and evaluate CLIs, the served logits card against CPU, each
+    step timed at 2048 (the first method at 256 too); (c) the research
+    modules card against CPU at batch 2048.  No kernel may launch in (b)
+    and (c).  Returns (a)'s training
+    launch counts."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from gcnbmp_tpu_torch.cli import evaluate as evaluate_cli
+    from gcnbmp_tpu_torch.cli import predict
+    from gcnbmp_tpu_torch.cli import train as train_cli
+    from gcnbmp_tpu_torch.convert import from_jax_params, init_params
+    from gcnbmp_tpu_torch.data import CSVPairParser, estimate_coo_capacities
+    from gcnbmp_tpu_torch.data.dataset import (
+        bucket_size, make_batch, padded_args)
+    from gcnbmp_tpu_torch.data.wire import iter_coo_eval_batches
+    from gcnbmp_tpu_torch.eval.evaluate import PairEvaluator
+    from gcnbmp_tpu_torch.models.packed import make_packed_predictor
+    from gcnbmp_tpu_torch.models.predictor import padded_kwargs_from_config
+    from gcnbmp_tpu_torch.train import loop as train_loop
+    from gcnbmp_tpu_torch.train.checkpoints import load_run
+    from gcnbmp_tpu_torch.train.config import TrainConfig
+
+    times = {}
+    n_batches = -(-N_PAIRS // SERVE_BATCH)
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        test_path = os.path.join(tmp, "test.csv")
+        df.to_csv(test_path, index=False)
+
+        def scored(run, where, kernels=()):
+            """The evaluate CLI on ``run``'s best on ``where``: its probs and
+            metrics; on the card each of ``kernels`` once per batch and no
+            other kernel."""
+            out = os.path.join(tmp, f"eval_{os.path.basename(run)}_{where}")
+            reset_counts()
+            t0 = time.perf_counter()
+            rc = evaluate_cli.main(["--test", test_path, "--run", run,
+                                    "--batch-size", str(SERVE_BATCH),
+                                    "--out", out, "--device", where])
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            with open(os.path.join(out, "eval_result.json")) as f:
+                result = json.load(f)
+            probs = pd.read_csv(os.path.join(out, "test_e_y.csv"))["y"]
+            print(f"phase 16 evaluate CLI on {where} ({os.path.basename(run)}"
+                  f"): {wall:.3f} s, roc_auc {result['roc_auc']:.6f}, "
+                  f"prc_auc {result['prc_auc']:.6f}; launches "
+                  f"{ {k: v for k, v in launches.items() if v} }")
+            if rc != 0 or len(probs) != N_PAIRS or not np.isfinite(
+                    result["roc_auc"]):
+                raise AssertionError(f"evaluate CLI on {run} ({where})")
+            if where == "cuda" and {k: v for k, v in launches.items() if v} \
+                    != {k: n_batches for k in kernels}:
+                raise AssertionError(f"evaluate CLI launched {launches}, "
+                                     f"expected {kernels} once per batch")
+            return probs.to_numpy().copy(), result
+
+        def card_and_cpu_scores(tag, run, kernels=()):
+            (p_card, r_card), (p_cpu, r_cpu) = (
+                scored(run, "cuda", kernels), scored(run, "cpu"))
+            compare(f"{tag} evaluate CLI probs (card vs CPU)",
+                    torch.as_tensor(p_card), torch.as_tensor(p_cpu), torch)
+            for key in ("roc_auc", "prc_auc"):
+                if abs(r_card[key] - r_cpu[key]) > 1e-3:
+                    raise AssertionError(f"{tag}: {key} card vs CPU")
+
+        # a. MPNN + para + NTN on coo: K5, K5b, K4, K4b per step
+        t0 = time.perf_counter()
+        coattn_train = TrainConfig(
+            method="mpnn", sim_method="ntn", attn="para", conv_layers=4,
+            weight_tying=True, fp_hidden_dim=H, fp_out_dim=D,
+            learning_rate=2e-3, compute_path="coo",
+            compute_dtype="bfloat16", augment=True, batch_size=N_PAIRS)
+        kept = os.path.join(tmp, "mpnn_coattn")
+        os.makedirs(kept)
+        launches, train_ds = train_slice(
+            "mpnn co-attention (para, ntn)", MPNN_COATTN_FLAGS, N_PAIRS,
+            coattn_train, MPNN_COATTN_CFG,
+            {"fused_mpnn_bwd": 1, "fused_set2set_bwd": 1},
+            ["fused_mpnn", "fused_set2set"],
+            ((SERVE_BATCH, 10), (N_PAIRS, 10)), dev, smi, reset_counts,
+            read_counts, epochs=RESEARCH_EPOCHS, absent=GGNN_KERNELS,
+            keep_dir=kept)
+        card_and_cpu_scores("mpnn co-attention", os.path.join(kept, "run"),
+                            ("fused_mpnn", "fused_set2set"))
+        tree = init_params(MPNN_COATTN_CFG, SEED)
+        cpu_model = from_jax_params(tree, make_packed_predictor(
+            **MPNN_COATTN_CFG))
+        tiles, cap = estimate_coo_capacities([train_ds], SERVE_BATCH)
+        batch, _ = next(iter_coo_eval_batches(train_ds, SERVE_BATCH, tiles,
+                                              cap))
+        args = [torch.as_tensor(np.asarray(a))
+                for a in cpu_model.wire_encoder([train_ds])(batch)]
+        card_vs_cpu("mpnn co-attention batch 256 (kernels vs plain twins)",
+                    lambda: from_jax_params(tree, make_packed_predictor(
+                        **MPNN_COATTN_CFG)), args,
+                    torch.as_tensor(batch.labels), dev, torch)
+        times["a"] = time.perf_counter() - t0
+
+        # b. the GGNN-dev methods on the padded layout
+        t0 = time.perf_counter()
+        paths = {}
+        for name, frame in (("train", pd.read_csv(TRAIN_CSV).head(N_PAIRS)),
+                            ("val", pd.read_csv(VALID_CSV).head(N_VAL))):
+            paths[name] = os.path.join(tmp, f"{name}.csv")
+            frame.to_csv(paths[name], index=False)
+        dev_ds = CSVPairParser().parse(paths["train"]).dataset
+        test_ds = CSVPairParser().parse(df).dataset
+        for method in DEV_METHODS:
+            run = os.path.join(tmp, method)
+            step_losses = []
+            real_step = train_loop.train_step
+
+            def recording_step(*a, **kw):
+                loss = real_step(*a, **kw)
+                step_losses.append(loss)
+                return loss
+
+            train_loop.train_step = recording_step
+            try:
+                reset_counts()
+                t1 = time.perf_counter()
+                rc = train_cli.main([
+                    "--train", paths["train"], "--val", paths["val"],
+                    "--method", method, *DEV_FLAGS, "--batch-size",
+                    str(N_PAIRS), "--epochs", str(RESEARCH_EPOCHS), "--seed",
+                    str(SEED), "--device", "cuda", "--out", run])
+                wall = time.perf_counter() - t1
+                launches_b = read_counts()
+            finally:
+                train_loop.train_step = real_step
+            losses = torch.stack(step_losses).cpu().numpy()
+            k = len(losses) // 3
+            first, last = float(losses[:k].mean()), float(losses[-k:].mean())
+            print(f"{method} train: train.main ran {len(losses)} steps of "
+                  f"batch {N_PAIRS} (L={L} untied, H=D={H}, HolE, padded) in "
+                  f"{wall:.3f} s on {smi}; step loss mean first {k} "
+                  f"{first:.5f}, last {k} {last:.5f}; kernel launches "
+                  f"{sum(launches_b.values())}")
+            if rc != 0 or len(losses) != RESEARCH_EPOCHS * 2:
+                raise AssertionError(f"{method}: rc {rc}, {len(losses)} steps")
+            if any(launches_b.values()):
+                raise AssertionError(f"{method}: kernels launched on a path "
+                                     f"that runs none: {launches_b}")
+            if not np.all(np.isfinite(losses)) or not last < first:
+                raise AssertionError(f"{method}: training loss not finite or "
+                                     "not falling")
+            pred = os.path.join(tmp, f"{method}.csv")
+            reset_counts()
+            rc = predict.main(["--input", test_path, "--run", run, "--out",
+                               pred, "--batch-size", str(SERVE_BATCH),
+                               "--device", "cuda"])
+            probs = pd.read_csv(pred)["prob"].to_numpy()
+            if rc != 0 or any(read_counts().values()) or len(probs) != \
+                    N_PAIRS or not np.all((probs >= 0) & (probs <= 1)):
+                raise AssertionError(f"{method}: the predict CLI did not serve")
+            scored(run, "cuda")
+            # the served logits, card against CPU: GGNN-dev sums h over the
+            # atoms unscaled, so its logits reach 1e3-1e4 (gate), and f32
+            # rounding of such sums moves a logit near 0 by more than 1e-4
+            # of itself: held as a tensor, to 1e-4 of its largest logit
+            logits = {}
+            for where in ("cuda", "cpu"):
+                _, model = load_run(run, "best", where)
+                logits[where] = torch.as_tensor(PairEvaluator(
+                    model, batch_size=SERVE_BATCH, device=where,
+                    with_metrics=False).evaluate(test_ds).logits)
+            print(f"{method} served logits: max |logit| "
+                  f"{float(logits['cpu'].abs().max()):.1f}")
+            compare_grads(f"{method} served logits (card vs CPU, as a tensor)",
+                          [("logits", logits["cuda"])],
+                          [("logits", logits["cpu"])], torch)
+            with open(os.path.join(run, "config.json")) as f:
+                config = json.load(f)
+            train_cfg = TrainConfig.from_dict(config)
+            # both batches for the first method, batch 2048 for the others
+            for bs in (SERVE_BATCH, N_PAIRS)[method != DEV_METHODS[0]:]:
+                time_padded_step(method, dev_ds,
+                                 padded_kwargs_from_config(config),
+                                 train_cfg, bs, 5, dev, smi)
+        times["b"] = time.perf_counter() - t0
+
+        # c. the research modules, card against CPU at batch 2048
+        t0 = time.perf_counter()
+        batch = make_batch(dev_ds, list(range(N_PAIRS)),
+                           bucket_size(dev_ds.max_atoms()))
+        args, _, labels = padded_args(batch, "cpu")
+        reset_counts()
+        for tag, build in research_models():
+            card_vs_cpu(f"{tag}, padded batch {N_PAIRS}", build, args, labels,
+                        dev, torch)
+        if any(read_counts().values()):
+            raise AssertionError(f"phase 16c launched {read_counts()}")
+        times["c"] = time.perf_counter() - t0
+    print("phase 16 parts (s): " + json.dumps(
+        {k: round(v, 1) for k, v in times.items()}))
+    return launches
+
+
 def crowd_rows(adj, torch):
     """``adj`` with ~5% of the columns of every other row set to 1: rows
     with more nonzeros than the kernels' NBR_CAP=16 neighbour slots (which
@@ -2829,6 +3150,16 @@ def main() -> int:
           f"{100 * t15 / (time.perf_counter() - t_start):.1f}% of the script")
     print(f"phase 15 done at {time.perf_counter() - t_start:.1f} s")
 
+    # 16. GGNN's research options, GGNN-dev, the research predictor, MPNN's
+    # ggnn forms, and MPNN with co-attention on coo (K5/K5b, K4/K4b)
+    t16 = time.perf_counter()
+    train_mpnn_coattn = research_slice(df, dev, smi, reset_counts,
+                                       read_counts)
+    t16 = time.perf_counter() - t16
+    print(f"phase 16: {t16:.1f} s, "
+          f"{100 * t16 / (time.perf_counter() - t_start):.1f}% of the script")
+    print(f"phase 16 done at {time.perf_counter() - t_start:.1f} s")
+
     sources = {"fused_ggnn": "fused_ggnn.cu", "fused_ggnn_mid": "fused_ggnn.cu",
                "fused_ggnn_readout": "fused_ggnn.cu",
                "fused_ggnn_bwd": "fused_ggnn_bwd.cu",
@@ -2859,10 +3190,14 @@ def main() -> int:
                  "fused_set2set": train_mpnn, "fused_set2set_bwd": train_mpnn}
     serving = {"fused_ggnn_readout": serve_ggnn, "fused_mpnn": serve_mpnn,
                "fused_set2set": serve_mpnn}
-    # the co-attention path's own runs (phases 9 and 10)
+    # the co-attention path's own runs (phases 9 and 10; MPNN: phase 16)
     coattention = {"fused_ggnn": train_coattn, "fused_ggnn_bwd": train_coattn,
                    "fused_ggnn_mid": train_nie,
-                   "fused_ggnn_half_bwd": train_nie}
+                   "fused_ggnn_half_bwd": train_nie,
+                   "fused_mpnn": train_mpnn_coattn,
+                   "fused_mpnn_bwd": train_mpnn_coattn,
+                   "fused_set2set": train_mpnn_coattn,
+                   "fused_set2set_bwd": train_mpnn_coattn}
     # the runs with compute_path packed (phase 13)
     packed_path = {"fused_ggnn_readout": train_packed_ggnn,
                    "fused_ggnn_readout_bwd": train_packed_ggnn,

@@ -6,7 +6,8 @@ serving, training and evaluation paths of the flagship model (packed
 GGNN encoder + HolE head) on the fused path, and on the coo path of the
 co-attention model, the MPNN family (EdgeNet messages, Set2Set readout),
 RelGCN, GIN, NFP, GGNN with a layer aggregator and GGNN-GWM, with any
-head, and the padded layout (every encoder, the train CLI's default):
+head, and the padded layout (every encoder, GGNN's research options and
+GGNN-dev among them; the train CLI's default):
 
 - ``chem``, ``data``, ``native_lib``
                      the host layers (numpy): SMILES parsing and

@@ -7,8 +7,8 @@ column (``prob_class{c}`` for multi-label models).  The run is served
 in the layout the JAX CLI serves it on (:99-115): a run trained on a
 packed layout (``coo``, ``fused``, ``packed``) whose configuration those
 layouts take goes through the packed compact-COO predictor (every packed
-encoder with any head, and any of them but MPNN and GWM with any
-co-attention variant; MPNN with the JAX evaluator's Set2Set table width
+encoder with any head, and any of them but GWM with any co-attention
+variant; MPNN with the JAX evaluator's Set2Set table width
 of 64 atoms, and a wider molecule turns its batch NaN; co-attention with
 the input's largest molecule rounded up to 8, which ``lt``'s weights
 must match); a padded run and every GWM run go through the padded

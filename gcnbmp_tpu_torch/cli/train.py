@@ -1,12 +1,12 @@
 #!/usr/bin/env python
 """Train a pair predictor with the port: on the padded layout (the
 default ``--compute-path padded``) every encoder (GGNN with or without a
-layer aggregator, RelGCN, GIN, NFP, MPNN, GGNN-GWM) with co-attention and
-the options only that layout has (``--symmetric``, ``--dropout``,
-``--concat-hidden``); GGNN on the fused, coo or packed path, GGNN with a
-layer aggregator, MPNN (EdgeNet + Set2Set), RelGCN, GIN, NFP and
-GGNN-GWM on coo or packed, and on coo co-attention over any of them but
-MPNN and GWM, each with any of the six heads.
+layer aggregator, RelGCN, GIN, NFP, MPNN, the four GGNN-dev methods,
+GGNN-GWM) with co-attention and the options only that layout has
+(``--symmetric``, ``--dropout``, ``--concat-hidden``); GGNN on the fused,
+coo or packed path, GGNN with a layer aggregator, MPNN (EdgeNet +
+Set2Set), RelGCN, GIN, NFP and GGNN-GWM on coo or packed, and on coo
+co-attention over any of them but GWM, each with any of the six heads.
 
 Port of the JAX package's train CLI (gcnbmp_tpu/cli/train.py:23-211):
 the same flags and override logic, plus ``--device`` (``cuda``, the
@@ -23,6 +23,9 @@ default, runs the CUDA kernels; ``cpu`` runs their plain versions).
     python -m gcnbmp_tpu_torch.cli.train --train train.csv --val val.csv \\
         --preset ggnn_coattention --compute-path coo --device cuda
     python -m gcnbmp_tpu_torch.cli.train --train train.csv --val val.csv \\
+        --method mpnn --conv-layers 4 --fp-hidden-dim 32 --fp-out-dim 32 \\
+        --attn para --sim-method ntn --compute-path coo --device cuda
+    python -m gcnbmp_tpu_torch.cli.train --train train.csv --val val.csv \\
         --method relgcn --conv-layers 8 --compute-path coo --device cuda
     python -m gcnbmp_tpu_torch.cli.train --train train_multi.csv \\
         --val val_multi.csv --labels-csv labels.csv --conv-layers 8 \\
@@ -38,12 +41,14 @@ batches, PyTorch ops and no kernel, as the JAX padded path runs XLA ops
 and no Pallas kernel; the second on the GGNN kernels.  The third line is
 the MPNN quality row's recipe; its kernels compute in
 f32 whatever ``--compute-dtype`` says.  The fourth trains the paper's
-co-attention model (NTN head, parallel co-attention); co-attention is
+co-attention model (NTN head, parallel co-attention), the fifth MPNN
+with it (K5 and K4, K5b and K4b in the backward, K5's per-atom states
+read by both the Set2Set readout and the co-attention); co-attention is
 refused on ``--compute-path fused``, as in the JAX package, and so are
 the fused path for any method but GGNN and a layer aggregator on it.  The
-fifth line trains RelGCN and the sixth GGNN with the JKNet ``gru``
+sixth line trains RelGCN and the seventh GGNN with the JKNet ``gru``
 aggregator on multi-label data; they, GIN and NFP run plain PyTorch ops
-(no kernel computes them, in either package).  The seventh trains
+(no kernel computes them, in either package).  The eighth trains
 GGNN-GWM, the supernode table on the wire, in scan mode (plain PyTorch
 ops too); GWM scan mode needs ``coo``, as in the JAX package.
 ``--compute-path packed`` trains the same compact-COO predictor as
@@ -216,7 +221,7 @@ def main(argv=None):
     args = parse_args(argv)
     if args.platform:
         raise ValueError("--platform selects a JAX platform; the port runs "
-                         "on --device cuda|cpu (ROADMAP queue 1, item 6)")
+                         "on --device cuda|cpu")
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s")

@@ -18,7 +18,16 @@ output_weight``, a layer aggregator's ``encoder/layer_aggregator/
 {rnn_fwd,rnn_bwd,attn_dense}/...``, GWM's ``encoder/embed_super``,
 ``encoder/pre_update_{l}``, ``encoder/gwm_{l}/{super_query,...}``,
 ``encoder/gru_local``, ``encoder/gru_super`` and
-``encoder/linear_for_concat_super``; the head's ``head/mlp/out/*``,
+``encoder/linear_for_concat_super``; the research options of GGNN:
+``encoder/attention_{l}/{linear_transform,neural_network}/kernel``,
+``encoder/update_{l}/output/*`` (the edge network),
+``encoder/readout_{l}/{attention_w1,attention_w2,attention_v}`` with
+``lstm_block/{input,forget,cell,output}_gate`` and ``ff_output``
+(set2vec), and the context BiLSTM's two cells, which flax names
+``encoder/OptimizedLSTMCell_0`` and ``_1`` (the ``nn.RNN`` wrappers hold
+no parameters); GGNN-dev's ``encoder/fuse_{z,r,f}``, ``gate_{l}`` and
+``self_loop_{l}/dense``; the research predictor's ``s_lstm_{1,2}`` and
+``i_lstm``; the head's ``head/mlp/out/*``,
 ``head/bilinear/{W,V1/kernel,V2/kernel,b}`` (NTN), ``head/W_diag``...;
 and a co-attention model's ``coattention/...`` (``W_0``, ``energy/W``,
 ``j/dense/*``...); the ``FixedEmbeddingPredictor`` tree is ``head/...``
@@ -136,10 +145,11 @@ def _orthogonal(rng: np.random.Generator, rows: int, cols: int) -> np.ndarray:
 _ORTHOGONAL = {"hi", "hf", "hg", "ho", "hr", "hz", "hn"}
 # raw (non-Dense) leaves by their flax initializer: lecun-normal
 # (Bilinear, PairBilinear, the para gates, DistMult), glorot-normal (lt's
-# position projections), he-normal (BiMPM's perspectives), zeros (their
-# biases)
+# position projections), glorot-uniform (Set2Vec's attention), he-normal
+# (BiMPM's perspectives), zeros (their biases)
 _LECUN = re.compile(r"(W|V1|V2)(_\d+)?|W_diag")
 _GLOROT = re.compile(r"W[12]")
+_GLOROT_UNIFORM = re.compile(r"attention_(w1|w2|v)")
 _HE = re.compile(r"\w+_W")
 _ZEROS = re.compile(r"b(_\d+)?")
 
@@ -166,8 +176,8 @@ def init_params(cfg: dict, seed: int, padded: bool = False) -> dict:
     ``padded`` the padded one of ``models.predictor.set_up_predictor
     (**cfg)``.  Drawn from the flax initializers' distributions:
     lecun-normal kernels and raw bilinear weights, orthogonal LSTM and
-    GRU hidden kernels, glorot-normal ``lt`` projections, he-normal BiMPM
-    perspectives, zero biases, Normal(1.0) atom embedding.  Load with
+    GRU hidden kernels, glorot-normal ``lt`` projections, glorot-uniform
+    Set2Vec attention weights, he-normal BiMPM perspectives, zero biases, Normal(1.0) atom embedding.  Load with
     ``from_jax_params``."""
     if padded:
         from gcnbmp_tpu_torch.models.predictor import set_up_predictor as make
@@ -201,6 +211,9 @@ def init_module_params(module: nn.Module, seed: int) -> dict:
             arr = _truncated_normal(rng, shape, 1.0 / _fans(shape)[0])
         elif _GLOROT.fullmatch(leaf):
             arr = _truncated_normal(rng, shape, 2.0 / sum(_fans(shape)))
+        elif _GLOROT_UNIFORM.fullmatch(leaf):
+            limit = np.sqrt(6.0 / sum(_fans(shape)))
+            arr = rng.uniform(-limit, limit, shape)
         elif _HE.fullmatch(leaf):
             arr = _truncated_normal(rng, shape, 2.0 / _fans(shape)[0])
         else:

@@ -6,8 +6,15 @@ Every variant has the signature
     attn(atoms1 (B, N1, H), g1 (B, D), atoms2 (B, N2, H), g2 (B, D),
          mask1=None, mask2=None) -> (c1 (B, D'), c2 (B, D'))
 
-with D' = D, except ``bimpm`` (3 D).  Masks are 1 on real atoms; ``None``
-masks compute what the JAX module computes without them.  Parameter names
+with D' = D, except ``bimpm`` (3 D).  D is ``out_dim``, the width of the
+module's own projections; g may be another width (``g_dim``: L·D under
+``concat_hidden``, H under GGNN-dev's sum pool), which only ``para``
+reads into weights of its own shape.  ``alter`` and ``circ`` need g D
+wide, and the JAX modules raise at any other width (a flax
+ScopeParamShapeError, a broadcast error): ``build_coattention`` refuses
+such a width with those reasons, quoted.  The other variants read no g.
+Masks are 1 on real atoms; ``None`` masks compute what the JAX module
+computes without them.  Parameter names
 and layouts follow the flax tree of the JAX module under its
 predictor's ``coattention`` field: raw leaves (``W_0``, ``W``, ``V1``,
 ``b``, ``W1``, ``max_pooling_W``...) keep flax's shapes, Dense layers are
@@ -146,11 +153,13 @@ class ParallelCoattention(_Coattention):
     """Unnormalised tanh gate of a bilinear energy (atom, other mol's g)
     on each side (coattention.py:132-171)."""
 
-    def __init__(self, hidden_dim: int, out_dim: int, device=None):
+    def __init__(self, hidden_dim: int, out_dim: int,
+                 g_dim: Optional[int] = None, device=None):
         super().__init__(out_dim)
-        self.W_0 = _raw(hidden_dim, out_dim, PARA_HEAD, device=device)
+        g_dim = out_dim if g_dim is None else g_dim
+        self.W_0 = _raw(hidden_dim, g_dim, PARA_HEAD, device=device)
         self.V1_0 = _raw(hidden_dim, PARA_HEAD, device=device)
-        self.V2_0 = _raw(out_dim, PARA_HEAD, device=device)
+        self.V2_0 = _raw(g_dim, PARA_HEAD, device=device)
         self.b_0 = _raw(PARA_HEAD, device=device)
         self.j = GraphLinear(hidden_dim, out_dim, device=device)
 
@@ -446,18 +455,51 @@ class BiMPM(_Coattention):
                 _masked_sum(torch.cat(mv2, dim=-1), mask2))
 
 
+def g_width_problem(name: str, hidden_dim: int, out_dim: int,
+                    g_dim: int) -> Optional[str]:
+    """Why the JAX variant ``name`` raises on molecule embeddings ``g_dim``
+    wide (its error, quoted), or None when it takes them."""
+    if g_dim == out_dim:
+        return None
+    if name == "alter":
+        # the tied energy1_0 reads [g2 ‖ atom], then [c1 ‖ atom]
+        return (f"attn='alter' over molecule embeddings {g_dim} wide with "
+                f"out_dim={out_dim}: the JAX module raises flax's "
+                "ScopeParamShapeError 'For parameter \"kernel\" in "
+                "\"/coattention/energy1_0/dense\", the given initializer "
+                "is expected to generate shape "
+                f"({out_dim + hidden_dim}, {ALTER_HEAD}), "
+                "but the existing parameter it received has shape "
+                f"({g_dim + hidden_dim}, {ALTER_HEAD})'")
+    if name == "circ":
+        return (f"attn='circ' over molecule embeddings {g_dim} wide with "
+                f"out_dim={out_dim}: the JAX module raises 'ValueError: "
+                f"Incompatible shapes for broadcasting: (B, 1, {g_dim}) and "
+                f"requested shape (B, N, {out_dim})'")
+    return None
+
+
 def build_coattention(name: str, hidden_dim: int, out_dim: int,
-                      n_max: Optional[int] = None, device=None) -> nn.Module:
+                      n_max: Optional[int] = None,
+                      g_dim: Optional[int] = None, device=None) -> nn.Module:
     """The ``--attn`` variant ``name`` (coattention.py:541-550) over atoms
-    H = ``hidden_dim`` wide and molecule embeddings D = ``out_dim`` wide;
-    ``n_max``, the atom table width, sizes ``lt``'s weights."""
+    H = ``hidden_dim`` wide, molecule embeddings ``g_dim`` wide (default
+    ``out_dim``) and projections D = ``out_dim`` wide; ``n_max``, the atom
+    table width, sizes ``lt``'s weights.  A width the JAX module raises on
+    is refused with its reason (``g_width_problem``)."""
     if name not in COATTENTION_REGISTRY:
         raise ValueError(f"unknown co-attention {name!r}; available: "
                          f"{sorted(COATTENTION_REGISTRY)}")
     cls = COATTENTION_REGISTRY[name]
+    g_dim = out_dim if g_dim is None else g_dim
+    problem = g_width_problem(name, hidden_dim, out_dim, g_dim)
+    if problem:
+        raise ValueError(problem)
     if cls is LinearTransformFineCoattention:
         if n_max is None:
             raise ValueError("lt co-attention sizes its W1/W2 by the atom "
                              "table width: pass n_max")
         return cls(hidden_dim, out_dim, n_max, n_max, device=device)
+    if cls is ParallelCoattention:
+        return cls(hidden_dim, out_dim, g_dim, device=device)
     return cls(hidden_dim, out_dim, device=device)

@@ -1,16 +1,32 @@
-"""Jumping-knowledge layer aggregation for the packed GGNN (port of
-gcnbmp_tpu/models/ggnn_extras.py:160-241: ``_bi_rnn`` and
-``LayerAggregator``).
+"""GGNN's optional blocks (port of gcnbmp_tpu/models/ggnn_extras.py):
+masked self-attention, the edge-network message, the input-less LSTM and
+the set2vec readout over the padded layout, and the jumping-knowledge
+layer aggregation over the packed or padded one.
 
-The aggregator fuses the per-layer atom states h_1..h_L into one matrix
-for the readout, per atom, so it rides the packed tiles unchanged (pad
-slots are masked at the readout).  No kernel of the JAX package computes
-it: its trainer runs it as XLA ops on the ``coo`` path and refuses it on
-``fused``.  The port runs it as PyTorch ops on the card, the same design.
+- ``MaskedSelfAttention`` (:33): h -> W h; e_ij = leaky_relu(a([Wh_i ‖
+  Wh_j])), computed as a_1 . Wh_i + a_2 . Wh_j; softmax over j of e_ij
+  where atoms i and j share a bond, -9e15 elsewhere, so an atom with no
+  neighbour (an isolated atom, a pad atom) gets a uniform softmax over
+  every slot, as in the JAX module; h' = elu(attention @ Wh).
+- ``GGNNEdgeNetwork`` (:62): the 5 edge vectors (non-edge, 4 bond types)
+  through ``hidden_{i}`` and ``output`` to 5 H x H matrices; message_i =
+  sum_j M(e_ij) h_j, whose non-edge term M_0 sum_j h_j runs over every
+  padded slot (no mask, the reference's pad-size dependence, kept).
+- ``LSTMWithoutInput`` (:94): an LSTM whose gates read only the previous
+  output; the cell candidate passes through sigmoid and then tanh, the
+  reference's quirk, kept.
+- ``Set2Vec`` (:113): the raw ``attention_w1``/``attention_w2``/
+  ``attention_v``, the ``lstm_block`` loop of ``num_timesteps`` reads
+  (energies -9e15 off the mask, softmax, then times the mask), then the
+  ``ff_hidden_{i}`` layers and ``ff_output``.
+- ``_bi_rnn`` and ``LayerAggregator`` (:160-241).
 
-Parameter names follow the flax tree: ``rnn_fwd``/``rnn_bwd`` (flax's
-``OptimizedLSTMCell`` or ``GRUCell``, ``models.layers``) and
-``attn_dense`` (a Dense of L outputs).
+No kernel of the JAX package computes any of these: its trainer runs
+them as XLA ops (the aggregator on ``coo``; the rest on the padded
+layout).  The port runs them as PyTorch ops on the card, the same
+design.  Parameter names follow the flax trees: ``rnn_fwd``/``rnn_bwd``
+(flax's ``OptimizedLSTMCell`` or ``GRUCell``, ``models.layers``) and
+``attn_dense`` (a Dense of L outputs) for the aggregator.
 """
 
 from __future__ import annotations
@@ -18,9 +34,13 @@ from __future__ import annotations
 from typing import Callable, List
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from gcnbmp_tpu_torch.models.layers import GRUCell, OptimizedLSTMCell
+
+NEG_BIG = -9e15
+NUM_EDGE_TYPE = 4
 
 MODES = ("concat", "max-pool", "avg", "lstm", "gru", "lstm-attn", "gru-attn",
          "attn")
@@ -36,6 +56,121 @@ def aggregated_width(mode: str, hidden_dim: int, n_layers: int) -> int:
     if mode in RNN_MODES:
         return 2 * hidden_dim
     return hidden_dim
+
+
+class MaskedSelfAttention(nn.Module):
+    """GAT-style attention over the bonded neighbours of each atom:
+    ``forward(h (B, N, in_dim), adj (B, E, N, N))`` -> (B, N, hidden)."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, device=None):
+        super().__init__()
+        self.linear_transform = nn.Linear(in_dim, hidden_dim, bias=False,
+                                          device=device)
+        self.neural_network = nn.Linear(2 * hidden_dim, 1, bias=False,
+                                        device=device)
+
+    def forward(self, h: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
+        wh = self.linear_transform(h)
+        a_i, a_j = self.neural_network.weight[0].chunk(2)
+        e = F.leaky_relu((wh @ a_i)[:, :, None] + (wh @ a_j)[:, None, :],
+                         0.01)
+        e = torch.where(adj.sum(dim=1) > 0, e, torch.full_like(e, NEG_BIG))
+        return F.elu(torch.softmax(e, dim=2) @ wh)
+
+
+class GGNNEdgeNetwork(nn.Module):
+    """The ``edge_network`` message: ``forward(h (B, N, node_dim), adj
+    (B, E, N, N))`` -> (B, N, node_dim)."""
+
+    def __init__(self, node_dim: int, edge_hidden_dim: int = 16,
+                 n_hidden_layers: int = 0, device=None):
+        super().__init__()
+        self.node_dim = node_dim
+        self.n_hidden_layers = n_hidden_layers
+        width = NUM_EDGE_TYPE
+        for i in range(n_hidden_layers):
+            self.add_module(f"hidden_{i}", nn.Linear(width, edge_hidden_dim,
+                                                     device=device))
+            width = edge_hidden_dim
+        self.output = nn.Linear(width, node_dim * node_dim, device=device)
+
+    def forward(self, h: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
+        w = self.output.weight
+        z = torch.cat([w.new_zeros((1, NUM_EDGE_TYPE)),
+                       torch.eye(NUM_EDGE_TYPE, dtype=w.dtype,
+                                 device=w.device)])
+        for i in range(self.n_hidden_layers):
+            z = torch.relu(getattr(self, f"hidden_{i}")(z))
+        d = self.node_dim
+        mats = self.output(z).reshape(-1, d, d)
+        m0, m_types = mats[0], mats[1:]
+        hm = torch.einsum("tcd,bjd->btjc", m_types - m0, h)
+        h_m0 = torch.einsum("cd,bjd->bc", m0, h)
+        return torch.einsum("btij,btjc->bic", adj, hm) + h_m0[:, None, :]
+
+
+class LSTMWithoutInput(nn.Module):
+    """``forward(m_prev (B, in_dim), c_prev (B, node_dim))`` -> (m, c):
+    gates ``input_gate``, ``forget_gate``, ``cell_gate`` and
+    ``output_gate`` read m_prev alone; c = f c_prev + i tanh(sigmoid(
+    cell_gate(m_prev)))."""
+
+    def __init__(self, in_dim: int, node_dim: int, device=None):
+        super().__init__()
+        for gate in ("input_gate", "forget_gate", "cell_gate", "output_gate"):
+            self.add_module(gate, nn.Linear(in_dim, node_dim, device=device))
+
+    def forward(self, mprev: torch.Tensor, cprev: torch.Tensor):
+        i_g = torch.sigmoid(self.input_gate(mprev))
+        f_g = torch.sigmoid(self.forget_gate(mprev))
+        cprime = torch.sigmoid(self.cell_gate(mprev))
+        c = f_g * cprev + i_g * torch.tanh(cprime)
+        return torch.sigmoid(self.output_gate(mprev)) * torch.tanh(c), c
+
+
+class Set2Vec(nn.Module):
+    """The set2vec readout: ``forward(h (B, N, node_dim), mask=None)`` ->
+    (B, output_dim)."""
+
+    def __init__(self, node_dim: int, output_dim: int, num_timesteps: int = 3,
+                 num_output_hidden_layers: int = 0,
+                 output_hidden_dim: int = 16, device=None):
+        super().__init__()
+        d = node_dim
+        self.num_timesteps = num_timesteps
+        self.num_output_hidden_layers = num_output_hidden_layers
+        self.attention_w1 = nn.Parameter(torch.empty(d, d, device=device))
+        self.attention_w2 = nn.Parameter(torch.empty(d, d, device=device))
+        self.attention_v = nn.Parameter(torch.empty(d, 1, device=device))
+        self.lstm_block = LSTMWithoutInput(2 * d, d, device=device)
+        width = 2 * d
+        for i in range(num_output_hidden_layers):
+            self.add_module(f"ff_hidden_{i}", nn.Linear(
+                width, output_hidden_dim, device=device))
+            width = output_hidden_dim
+        self.ff_output = nn.Linear(width, output_dim, device=device)
+
+    def forward(self, h: torch.Tensor, mask=None) -> torch.Tensor:
+        b, _, d = h.shape
+        embedded = h @ self.attention_w1
+        m = h.new_zeros((b, 2 * d))
+        c = h.new_zeros((b, d))
+        for _ in range(self.num_timesteps):
+            m_out, c = self.lstm_block(m, c)
+            query = (m_out @ self.attention_w2)[:, None, :]
+            energies = (torch.tanh(query + embedded)
+                        @ self.attention_v)[..., 0]
+            if mask is not None:
+                energies = torch.where(mask > 0, energies,
+                                       torch.full_like(energies, NEG_BIG))
+            att = torch.softmax(energies, dim=1)
+            if mask is not None:
+                att = att * mask
+            m = torch.cat([m_out, (att[..., None] * embedded).sum(dim=1)],
+                          dim=1)
+        for i in range(self.num_output_hidden_layers):
+            m = torch.relu(getattr(self, f"ff_hidden_{i}")(m))
+        return self.ff_output(m)
 
 
 def _bi_rnn(cell_fwd, cell_bwd, seq: List[torch.Tensor],

@@ -8,7 +8,7 @@ flax trees (``mlp``, ``bilinear``, ``W_diag``, ``out``)."""
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -61,12 +61,15 @@ class DistMultHead(nn.Module):
 
 
 class MLPHead(nn.Module):
-    """concat(left, right) -> MLP (heads.py:69-80)."""
+    """concat(left, right) -> MLP (heads.py:69-80); ``right_dim``, right's
+    width when it is not left's (the research predictor's two sides)."""
 
     def __init__(self, in_dim: int, out_dim: int,
-                 hidden_dims: Sequence[int] = (32, 16), device=None):
+                 hidden_dims: Sequence[int] = (32, 16),
+                 right_dim: Optional[int] = None, device=None):
         super().__init__()
-        self.mlp = MLP(2 * in_dim, out_dim, hidden_dims, device=device)
+        width = in_dim + (in_dim if right_dim is None else right_dim)
+        self.mlp = MLP(width, out_dim, hidden_dims, device=device)
 
     def forward(self, left, right):
         return self.mlp(torch.cat([left, right], dim=-1))

@@ -2,7 +2,9 @@
 
 Ports gcnbmp_tpu/models/layers.py:34-176, and flax's
 ``OptimizedLSTMCell`` (the Set2Set readout, the ``lstm`` layer
-aggregators) and ``GRUCell`` (the ``gru`` layer aggregators).  Module and parameter names
+aggregators, GGNN's context BiLSTM and the research predictor's LSTMs,
+these two run along an axis by ``lstm_scan``, flax's ``nn.RNN``) and
+``GRUCell`` (the ``gru`` layer aggregators).  Module and parameter names
 follow the flax trees (``dense``, ``embedding``, ``W_z``...) so that
 ``convert.from_jax_params`` maps a flax path to a torch name by joining
 it with dots.  A flax ``Dense.kernel`` is (in, out); the ``nn.Linear``
@@ -121,6 +123,19 @@ class OptimizedLSTMCell(nn.Module):
         c = f * c + i * g
         h = o * torch.tanh(c)
         return (c, h), h
+
+
+def lstm_scan(cell: OptimizedLSTMCell, x: torch.Tensor,
+              reverse: bool = False) -> torch.Tensor:
+    """flax ``nn.RNN(cell)`` over axis 1 of x (B, N, C) from a zero carry:
+    the outputs (B, N, F); ``reverse`` runs from the last position to the
+    first and keeps the outputs in position order (``keep_order=True``)."""
+    n = x.shape[1]
+    carry = (x.new_zeros((x.shape[0], cell.hi.weight.shape[0])),) * 2
+    out = [None] * n
+    for t in (reversed(range(n)) if reverse else range(n)):
+        carry, out[t] = cell(carry, x[:, t])
+    return torch.stack(out, dim=1)
 
 
 class GRUCell(nn.Module):

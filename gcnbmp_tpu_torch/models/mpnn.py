@@ -12,11 +12,12 @@ The non-edge background M_0 sum_j h_j runs over the masked atoms, or with
 ``mask=None`` over every padded slot, which makes it depend on the pad
 size: the reference's behaviour, kept.
 
-``MPNN``: EdgeNet messages, one GRU per message function (``gru_{i}``;
+``MPNN``: EdgeNet messages (``message_func='ggnn'``: a ``GGNNMessage``,
+then the GRU reads [h ‖ m]), one GRU per message function (``gru_{i}``;
 tied layers share one, whose state chains across them), and the Set2Set
-readout (``models.readouts.MPNNReadout``, ``readout_{i}``).  The JAX
-module's other message (``ggnn``) and readout (``ggnn``) functions are
-ROADMAP queue 1, item 9.  The padded MPNN of the JAX package runs no
+readout (``models.readouts.MPNNReadout``, ``readout_{i}``), or with
+``readout_func='ggnn'`` a ``CommonGGNNReadout`` over [h ‖ h0], per layer
+under ``concat_hidden`` too.  The padded MPNN of the JAX package runs no
 Pallas kernel (K5 and K4 serve its packed layouts only), and neither does
 this one: the port runs it as PyTorch ops, on the card when the tensors
 are there.
@@ -27,10 +28,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from gcnbmp_tpu_torch.models.ggnn import NUM_EDGE_TYPE
+from gcnbmp_tpu_torch.models.ggnn import NUM_EDGE_TYPE, GGNNMessage
 from gcnbmp_tpu_torch.models.layers import (
     MAX_ATOMIC_NUM, ChainerGRUCell, EmbedAtomID)
-from gcnbmp_tpu_torch.models.readouts import MPNNReadout
+from gcnbmp_tpu_torch.models.readouts import CommonGGNNReadout, MPNNReadout
 
 
 class EdgeNet(nn.Module):
@@ -69,24 +70,34 @@ class MPNN(nn.Module):
                  message_func: str = "edgenet", readout_func: str = "set2set",
                  edge_hidden_dim: int = 16, device=None):
         super().__init__()
-        if message_func != "edgenet" or readout_func != "set2set":
-            raise ValueError(
-                f"MPNN message_func={message_func!r}, readout_func="
-                f"{readout_func!r}: the port has EdgeNet and Set2Set; the "
-                "'ggnn' forms are ROADMAP queue 1, item 9")
+        if message_func not in ("edgenet", "ggnn"):
+            raise ValueError(f"invalid message function {message_func!r}")
+        if readout_func not in ("set2set", "ggnn"):
+            raise ValueError(f"invalid readout function {readout_func!r}")
         self.n_layers = n_layers
         self.concat_hidden = concat_hidden
         self.weight_tying = weight_tying
+        self.message_func = message_func
+        self.readout_func = readout_func
         self.embed = EmbedAtomID(n_atom_types, hidden_dim, device=device)
         for i in range(1 if weight_tying else n_layers):
             self.add_module(f"message_{i}", EdgeNet(
-                hidden_dim, edge_hidden_dim, device=device))
+                hidden_dim, edge_hidden_dim, device=device)
+                if message_func == "edgenet" else
+                GGNNMessage(hidden_dim, device=device))
             self.add_module(f"gru_{i}", ChainerGRUCell(
                 2 * hidden_dim, hidden_dim, device=device))
         for i in range(n_layers if concat_hidden else 1):
             self.add_module(f"readout_{i}", MPNNReadout(
-                out_dim, hidden_dim, device=device))
+                out_dim, hidden_dim, device=device)
+                if readout_func == "set2set" else CommonGGNNReadout(
+                    2 * hidden_dim, out_dim, device=device))
         self.out_width = out_dim * (n_layers if concat_hidden else 1)
+
+    def _readout(self, i, h, h0, mask):
+        ro = getattr(self, f"readout_{i}")
+        return ro(h, mask) if self.readout_func == "set2set" else ro(h, h0,
+                                                                      mask)
 
     def forward(self, atoms, adj, mask=None, deterministic: bool = True,
                 generator=None):
@@ -97,12 +108,14 @@ class MPNN(nn.Module):
         g_list = []
         for step in range(self.n_layers):
             k = 0 if self.weight_tying else step
-            x = getattr(self, f"message_{k}")(h, adj, mask)
+            msg = getattr(self, f"message_{k}")
+            x = (msg(h, adj, mask) if self.message_func == "edgenet"
+                 else torch.cat([h, msg(h, adj)], dim=-1))
             states[k] = getattr(self, f"gru_{k}")(states[k], x)
             h = states[k]
             if self.concat_hidden:
-                g_list.append(getattr(self, f"readout_{step}")(h, mask))
+                g_list.append(self._readout(step, h, h0, mask))
         aux = {"atoms": h, "h0": h0, "h_list": [], "g_list": g_list}
         if self.concat_hidden:
             return torch.cat(g_list, dim=-1), aux
-        return self.readout_0(h, mask), aux
+        return self._readout(0, h, h0, mask), aux

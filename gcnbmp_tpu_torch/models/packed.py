@@ -19,9 +19,11 @@ Ported pieces:
 - ``_device_slot_table``            <- :433-455
 - ``PackedMPNNReadout``             <- :458-478
 - ``PackedEdgeNet``                 <- :531-613, the default ``dotgen`` form
-- ``PackedMPNN``                    <- :669-815, EdgeNet messages and the
-  Set2Set readout; its kernel path ``fused_forward`` is the JAX module's
-  fused branch (:717-774): K5 -> slot table -> K4 -> linear1, relu, linear2
+- ``PackedMPNN``                    <- :669-815, EdgeNet or ``ggnn``
+  messages, the Set2Set or ``ggnn`` readout; its kernel path
+  ``fused_forward`` is the JAX module's fused branch (:717-774): K5 ->
+  slot table -> K4 -> linear1, relu, linear2 (or K5 -> the common
+  readout -> segment sum), with K5's h for co-attention
 - ``decode_compact_wire``           <- :918-936
 - ``PackedPairPredictorCOOCompact`` <- :939-971: the encoder's ``encode``
   on the decoded edges -> left and right gather -> the head
@@ -30,7 +32,7 @@ Ported pieces:
 - ``make_packed_predictor``         <- :1235-1347, every packed encoder
   (GGNN with or without a layer aggregator, MPNN, RelGCN, GIN, NFP, and
   GGNN-GWM from ``models.gwm``) with every head, co-attention over every
-  encoder but MPNN and GWM; ``model_kwargs_from_config`` reads its
+  encoder but GWM; ``model_kwargs_from_config`` reads its
   arguments from a run config.
 
 Every encoder has ``encode(atom_ids, edges, mol_id, node_mask, num_mols,
@@ -555,71 +557,109 @@ class PackedEdgeNet(nn.Module):
 
 
 class PackedMPNN(nn.Module):
-    """MPNN encoder over packed tiles: EdgeNet messages, a GRU per layer
-    and the Set2Set readout.  Weight tying shares ONE message function and
-    ONE GRU, whose state carries across the layers; untied layers each
-    have their own and restart from a zero state, as in the JAX module.
-    ``forward`` is the plain layer stack (dense adjacency);
-    ``fused_forward``, the predictor's path, runs K5 and K4."""
+    """MPNN encoder over packed tiles: EdgeNet messages (``message_func=
+    'ggnn'``: a ``GGNNMessage``, the GRU reading [h ‖ m]), a GRU per layer
+    and the Set2Set readout (``readout_func='ggnn'``: a
+    ``PackedCommonReadout`` over [h ‖ h0], summed per molecule).  Weight
+    tying shares ONE message function and ONE GRU, whose state carries
+    across the layers; untied layers each have their own and restart from
+    a zero state, as in the JAX module.  The tree is the padded ``MPNN``'s,
+    so checkpoints swap between the layouts.  ``forward`` is the plain
+    layer stack (dense adjacency); ``fused_forward``, the predictors' path
+    for EdgeNet, runs K5, then K4 for the Set2Set readout."""
 
     def __init__(self, out_dim: int, hidden_dim: int = 16, n_layers: int = 4,
                  n_atom_types: int = MAX_ATOMIC_NUM, weight_tying: bool = True,
+                 message_func: str = "edgenet", readout_func: str = "set2set",
                  edge_hidden_dim: int = 16, s2s_n_max: int = 64, device=None):
         super().__init__()
+        if message_func not in ("edgenet", "ggnn"):
+            raise ValueError(f"invalid message function {message_func!r}")
+        if readout_func not in ("set2set", "ggnn"):
+            raise ValueError(f"invalid readout function {readout_func!r}")
         self.out_dim = out_dim
         self.hidden_dim = hidden_dim
         self.n_layers = n_layers
         self.weight_tying = weight_tying
+        self.message_func = message_func
+        self.readout_func = readout_func
         self.embed = EmbedAtomID(n_atom_types, hidden_dim, device=device)
         for i in range(1 if weight_tying else n_layers):
             self.add_module(f"message_{i}", PackedEdgeNet(
-                hidden_dim, edge_hidden_dim, device=device))
+                hidden_dim, edge_hidden_dim, device=device)
+                if message_func == "edgenet" else
+                GGNNMessage(hidden_dim, device=device))
             self.add_module(f"gru_{i}", ChainerGRUCell(
                 2 * hidden_dim, hidden_dim, device=device))
-        self.readout_0 = PackedMPNNReadout(out_dim, hidden_dim,
-                                           s2s_n_max=s2s_n_max, device=device)
+        self.readout_0 = (
+            PackedMPNNReadout(out_dim, hidden_dim, s2s_n_max=s2s_n_max,
+                              device=device)
+            if readout_func == "set2set" else
+            PackedCommonReadout(2 * hidden_dim, out_dim, device=device))
 
-    def message(self, layer: int) -> PackedEdgeNet:
+    def message(self, layer: int) -> nn.Module:
         return getattr(self, f"message_{0 if self.weight_tying else layer}")
 
     def gru(self, layer: int) -> ChainerGRUCell:
         return getattr(self, f"gru_{0 if self.weight_tying else layer}")
 
-    def forward(self, atom_ids, adj, mol_id, node_mask, num_mols: int):
+    def _readout(self, h, h0, mol_id, node_mask, num_mols: int,
+                 fused: bool) -> torch.Tensor:
+        """Per-molecule vectors: the Set2Set readout (K4 when ``fused``),
+        or the common readout's node values summed per molecule."""
+        if self.readout_func == "ggnn":
+            return _segment_mol_sum(self.readout_0(h, h0, node_mask), mol_id,
+                                    num_mols)
+        return self.readout_0(h, mol_id, node_mask, num_mols, fused)
+
+    def forward(self, atom_ids, adj, mol_id, node_mask, num_mols: int,
+                fused_readout: bool = False):
         h = self.embed(atom_ids)
         h0 = h
         states = {}
         for step in range(self.n_layers):
             k = 0 if self.weight_tying else step
-            x = self.message(step)(h, adj, mol_id, node_mask, num_mols)
+            msg = self.message(step)
+            x = (msg(h, adj, mol_id, node_mask, num_mols)
+                 if self.message_func == "edgenet"
+                 else torch.cat([h, msg(h, adj)], dim=-1))
             h = self.gru(step)(states.get(k, torch.zeros_like(h)), x)
             states[k] = h
-        g = self.readout_0(h, mol_id, node_mask, num_mols)
+        g = self._readout(h, h0, mol_id, node_mask, num_mols, fused_readout)
         return g, {"atoms": h, "h0": h0}
 
     def fused_forward(self, atom_ids, adj_flat, mol_id, node_mask,
-                      num_mols: int) -> torch.Tensor:
-        """Per-molecule embeddings (num_mols, D) through K5 and K4 (K5b
-        and K4b in the backward), from the flat (P, T, 4T) adjacency."""
+                      num_mols: int, return_atoms: bool = False):
+        """Per-molecule embeddings (num_mols, D) through K5 (K5b in the
+        backward), from the flat (P, T, 4T) adjacency, then the readout
+        (K4 and K4b for Set2Set).  ``return_atoms``: also return K5's
+        per-atom states h (P, T, H); h then feeds the readout and the
+        caller, and K5b takes the sum of both gradients."""
         h0 = self.embed(atom_ids)
         wt, m0t, gru = params_to_fused_mpnn(self)
         h = fused_mpnn(self.n_layers, self.weight_tying, h0, adj_flat,
                        mol_id.to(torch.int32).contiguous(), node_mask, wt,
                        m0t, gru)
-        return self.readout_0(h, mol_id, node_mask, num_mols, fused=True)
+        g = self._readout(h, h0, mol_id, node_mask, num_mols, fused=True)
+        return (g, h) if return_atoms else g
 
     def encode(self, atom_ids, edges, mol_id, node_mask, num_mols: int,
                return_atoms: bool = False):
         """The predictors' entry: ``fused_forward`` on the flat adjacency
-        built from ``edges``.  The kernel path returns no per-atom states
-        (co-attention over MPNN is refused, ``model_problems``)."""
-        if return_atoms:
-            raise ValueError("the MPNN kernel path returns no per-atom "
-                             "states (ROADMAP queue 1, item 8)")
+        built from ``edges``.  The kernel holds EdgeNet only, as JAX's
+        fused branch does (packed.py:717): the ``ggnn`` message runs the
+        plain stack on the dense adjacency, and its Set2Set readout K4, as
+        the JAX readout runs its Pallas kernel after either message."""
         p, t = atom_ids.shape
+        if self.message_func == "ggnn":
+            adj = adj_from_coo(*edges, num_tiles=p, tile=t)
+            g, aux = self(atom_ids, adj, mol_id, node_mask, num_mols,
+                          fused_readout=True)
+            return (g, aux["atoms"]) if return_atoms else g
         adj_flat = adj_from_coo_flat(*edges, num_tiles=p, tile=t)
         return self.fused_forward(atom_ids, adj_flat, mol_id, node_mask,
-                                  num_mols)
+                                  num_mols, return_atoms=return_atoms)
+
 
 def decode_compact_wire(nodes, e_packed, n_edges, num_mols: int):
     """Decode the wire-compact batch (``data.wire.compact_coo_arrays``)
@@ -678,15 +718,16 @@ class PackedPairPredictorCOOCompact(nn.Module):
 class PackedCoattnPairPredictor(nn.Module):
     """Co-attention pair predictor over the wire-compact batch (JAX
     :974-1033): the encoder's ``encode`` returns g and the last layer's
-    per-atom states h (GGNN's kernel path in its K1 form); each pair side's atoms are gathered out of the
-    tiles through its slot table (``data.wire.compact_coattn_arrays``,
+    per-atom states h (GGNN's kernel path in its K1 form, MPNN's K5
+    output); each pair side's atoms are gathered out of the tiles through
+    its slot table (``data.wire.compact_coattn_arrays``,
     gather-only backward), then co-attention and the head.  Takes the
     nine wire arrays; with ``return_g`` also the co-attention outputs."""
 
     def __init__(self, encoder: nn.Module, coattention: nn.Module,
                  head: nn.Module):
         super().__init__()
-        self.encoder = encoder  # any packed encoder but PackedMPNN
+        self.encoder = encoder  # any packed encoder but GWM
         self.coattention = coattention
         self.head = head
 
@@ -813,10 +854,6 @@ def model_problems(method: str, sim_method: str, attn: Optional[str],
         if attn not in COATTENTION_REGISTRY:
             bad.append(f"attn={attn!r} (variants: "
                        f"{sorted(COATTENTION_REGISTRY)})")
-        elif method == "mpnn":
-            bad.append(f"attn={attn!r} with method='mpnn': the MPNN kernel "
-                       "path returns no per-atom states; MPNN with "
-                       "co-attention is ROADMAP queue 1, item 8")
         elif method == "ggnn-gwm":
             # the JAX factory's refusal (packed.py:1266-1274)
             bad.append(f"attn={attn!r} with method='ggnn-gwm': ggnn-gwm "
@@ -881,9 +918,9 @@ def make_packed_predictor(
     """The wire-compact pair predictor of the JAX package's
     ``make_packed_predictor(..., compact=True)`` for every packed encoder
     (``PORTED_METHODS`` and ``'ggnn-gwm'``), and with ``attn`` its
-    co-attention predictor (:1327-1338) over any of them but MPNN and
-    GWM.  ``layer_aggregator`` rides GGNN
-    only, as in the JAX factory (:1262-1265).  ``s2s_n_max`` is the MPNN
+    co-attention predictor (:1327-1338) over any of them but GWM.
+    ``layer_aggregator`` rides GGNN only, as in the JAX factory
+    (:1262-1265).  ``s2s_n_max`` is the MPNN
     Set2Set table width: it must bound the largest molecule (the trainer
     fits it to its data); ``coattn_n_max``, the co-attention atom table
     width, sizes ``lt``'s weights."""

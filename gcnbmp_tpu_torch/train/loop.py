@@ -16,9 +16,9 @@ step and the Trainer (port of gcnbmp_tpu/train/loop.py).
 - ``Trainer``     <- :686-1408 for GGNN on ``compute_path="fused"``,
   ``"coo"`` or ``"packed"`` (one kernel path, :799-858), MPNN on ``"coo"``
   or ``"packed"`` (the Set2Set table width fitted to the data, :817-827;
-  K5 and K4), GGNN with co-attention on ``"coo"`` (the atom table width
-  fitted alike, :1089-1098), RelGCN, GIN, NFP and GGNN with a layer
-  aggregator on ``"coo"`` or ``"packed"``, and GGNN-GWM on ``"coo"``
+  K5 and K4), GGNN and MPNN with co-attention on ``"coo"`` (the atom
+  table width fitted alike, :1089-1098), RelGCN, GIN, NFP and GGNN with
+  a layer aggregator on ``"coo"`` or ``"packed"``, and GGNN-GWM on ``"coo"``
   (wire-compact, the supernode table on the wire, :731-737, :1087-1088)
   or ``"packed"`` (plain PyTorch ops for these: the JAX package has no
   kernel for them either), per step or in scan mode (the loop at
@@ -298,38 +298,44 @@ def packed_config_problems(cfg, allow_attn: bool = False) -> List[str]:
 def padded_model_problems(cfg: TrainConfig) -> List[str]:
     """What the padded factory (``models.predictor.set_up_predictor``)
     does not build for ``cfg``, each with its reason: what the JAX
-    factory refuses, the GGNN-dev encoders (ROADMAP queue 1, item 9), a
-    layer aggregator mode the JAX module raises on at its first call, and
-    co-attention over concatenated layer readouts (item 8)."""
+    factory refuses, a layer aggregator mode the JAX module raises on at
+    its first call, and a co-attention variant that the JAX module cannot
+    run over the encoder's molecule width (``g_width_problem``, the JAX
+    error quoted)."""
     from gcnbmp_tpu_torch.models import ENCODERS
-    from gcnbmp_tpu_torch.models.coattention import COATTENTION_REGISTRY
+    from gcnbmp_tpu_torch.models.coattention import (
+        COATTENTION_REGISTRY, g_width_problem)
     from gcnbmp_tpu_torch.models.heads import HEADS
     from gcnbmp_tpu_torch.models.ggnn_extras import MODES
 
     method = cfg.method
     bad = []
-    if method != "ggnn-gwm" and method not in ENCODERS:
+    known = method in ENCODERS
+    if method != "ggnn-gwm" and not known:
         bad.append(f"method={method!r} (encoders: {sorted(ENCODERS)} and "
                    "'ggnn-gwm')")
-    elif method.startswith("ggnn-dev"):
-        bad.append(f"method={method!r}: the GGNNDev encoders are ROADMAP "
-                   "queue 1, item 9")
     if cfg.sim_method not in HEADS:
         bad.append(f"sim_method={cfg.sim_method!r} (heads: {sorted(HEADS)})")
-    gwm = method == "ggnn-gwm"  # the JAX factory ignores attn for it
-    if cfg.attn is not None and not gwm:
-        if cfg.attn not in COATTENTION_REGISTRY:
-            bad.append(f"attn={cfg.attn!r} (variants: "
-                       f"{sorted(COATTENTION_REGISTRY)})")
-        elif cfg.concat_hidden and method != "relgcn":
-            bad.append(f"attn={cfg.attn!r} with concat_hidden: co-attention "
-                       "over the concatenated layer readouts is ROADMAP "
-                       "queue 1, item 8")
-    if (cfg.layer_aggregator and method == "ggnn"
-            and cfg.layer_aggregator not in MODES):
+    aggregator_ok = not (cfg.layer_aggregator and method == "ggnn"
+                         and cfg.layer_aggregator not in MODES)
+    if not aggregator_ok:
         bad.append(f"layer_aggregator={cfg.layer_aggregator!r} (modes: "
                    f"{', '.join(MODES)}; the reference's 'self-attn' is "
                    "unfinished)")
+    # the JAX factory ignores attn for ggnn-gwm
+    if cfg.attn is not None and method != "ggnn-gwm":
+        if cfg.attn not in COATTENTION_REGISTRY:
+            bad.append(f"attn={cfg.attn!r} (variants: "
+                       f"{sorted(COATTENTION_REGISTRY)})")
+        elif known and aggregator_ok:
+            width = ENCODERS[method](
+                cfg.fp_out_dim, cfg.fp_hidden_dim, cfg.conv_layers,
+                cfg.concat_hidden, cfg.layer_aggregator, 0.0, False,
+                cfg.weight_tying, device="meta").out_width
+            problem = g_width_problem(cfg.attn, cfg.fp_hidden_dim,
+                                      cfg.fp_out_dim, width)
+            if problem:
+                bad.append(problem)
     return bad
 
 

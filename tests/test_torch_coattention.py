@@ -2,6 +2,11 @@
 
 - each of the 15 variants against the JAX module, outputs and the
   gradients of every parameter and input, with masks and without;
+- each of the 15 variants in the padded predictor over molecule
+  embeddings of another width than ``fp_out_dim``: L·D (GGNN with
+  ``concat_hidden``) and H (GGNN-dev's sum pool), logits and every
+  gradient against the JAX predictor; ``alter`` and ``circ``, which the
+  JAX modules cannot run there, refused with the JAX error quoted;
 - the packed co-attention predictor (the GGNN kernel path's plain
   versions in the K1/K1b form and the two-pass K1m/K3 form, the slot
   table gather, co-attention, the head) against the JAX predictor on
@@ -31,10 +36,12 @@ import pytest
 import torch
 
 from gcnbmp_tpu.data import packing as jpacking
+from gcnbmp_tpu.data.dataset import make_batch as jmake_batch
 from gcnbmp_tpu.data.parsers import CSVPairParser
 from gcnbmp_tpu.eval.evaluate import PackedPairEvaluator as JaxEvaluator
 from gcnbmp_tpu.models import coattention as jcoattn
 from gcnbmp_tpu.models import packed as jpacked
+from gcnbmp_tpu.models import set_up_predictor as jset_up_predictor
 from gcnbmp_tpu.ops import slotgather as jslot
 from gcnbmp_tpu.train import loop as jloop
 from gcnbmp_tpu.train.config import TrainConfig as JaxTrainConfig
@@ -48,6 +55,7 @@ from gcnbmp_tpu_torch.data.wire import compact_coattn_arrays
 from gcnbmp_tpu_torch.eval.evaluate import PackedPairEvaluator
 from gcnbmp_tpu_torch.models import coattention as tcoattn
 from gcnbmp_tpu_torch.models import packed as tpacked
+from gcnbmp_tpu_torch.models.predictor import set_up_predictor
 from gcnbmp_tpu_torch.ops import fused_ggnn as tfg
 from gcnbmp_tpu_torch.ops.slotgather import side_mol_row
 from gcnbmp_tpu_torch.train import loop
@@ -163,6 +171,63 @@ def test_variant_matches_jax(name, masked):
     grads.update({n: None if t.grad is None else t.grad.numpy()
                   for n, t in zip(names, tin)})
     _assert_grads(grads, {**_flat(wgrads[0]), **dict(zip(names, wgrads[1:]))})
+
+
+WIDE = {"concat_hidden": dict(method="ggnn", concat_hidden=True),
+        "ggnn-dev": dict(method="ggnn-dev")}
+
+
+@pytest.mark.parametrize("wide", WIDE)
+@pytest.mark.parametrize("name", VARIANTS)
+def test_variant_over_wide_molecule_embeddings_matches_jax(name, wide):
+    """g is 2 * 6 = 12 wide under concat_hidden (L=2, D=6) and H = 8 under
+    GGNN-dev's sum pool: the port's co-attention reads g at its width, as
+    flax infers it.  ``alter`` and ``circ`` raise in the JAX package at
+    such a width; the port refuses them with that error, quoted."""
+    kw = dict(fp_hidden_dim=8, fp_out_dim=6, conv_layers=2, sim_method="ntn",
+              net_hidden_dims=(4,), attn_model=name, **WIDE[wide])
+    jb = jmake_batch(_dataset(4), list(range(4)))
+    names = ("atoms1", "adj1", "atoms2", "adj2", "mask1", "mask2")
+    jargs = [jnp.asarray(getattr(jb, n)) for n in names]
+    targs = [torch.as_tensor(getattr(jb, n)) for n in names]
+    jpred = jset_up_predictor(**kw)
+    n_max = jb.atoms1.shape[1]
+    if name in ("alter", "circ"):
+        with pytest.raises(Exception) as jerr:
+            jpred.init(jax.random.PRNGKey(0), *jargs)
+        with pytest.raises(ValueError) as err:
+            set_up_predictor(**kw)
+        g, b = (12 if wide == "concat_hidden" else 8), len(jb.labels)
+        if name == "alter":
+            frag = ("expected to generate shape (14, 8), but the existing "
+                    f"parameter it received has shape ({g + 8}, 8)")
+            port = frag
+        else:
+            frag = (f"Incompatible shapes for broadcasting: ({b}, 1, {g}) "
+                    f"and requested shape ({b}, {n_max}, 6)")
+            port = frag.replace(f"({b}, 1,", "(B, 1,").replace(
+                f"({b}, {n_max},", "(B, N,")
+        assert frag in str(jerr.value) and port in str(err.value)
+        assert loop.padded_model_problems(TrainConfig(
+            **{k: v for k, v in kw.items() if k != "attn_model"},
+            attn=name)) == [str(err.value)]
+        return
+    tree = init_params(dict(kw, coattn_n_max=n_max), seed=len(name),
+                       padded=True)
+    flax_tree = jpred.init(jax.random.PRNGKey(0), *jargs)["params"]
+    assert _shapes(tree) == _shapes(flax_tree)
+    params = jax.tree_util.tree_map(jnp.asarray, tree)
+    want = np.asarray(jpred.apply({"params": params}, *jargs))
+    w = np.random.default_rng(1).standard_normal(want.shape).astype(np.float32)
+    want_grads = jax.grad(lambda p: jnp.sum(
+        jpred.apply({"params": p}, *jargs) * w))(params)
+    model = from_jax_params(tree, set_up_predictor(**kw, coattn_n_max=n_max))
+    assert model.encoder.out_width == (12 if wide == "concat_hidden" else 8)
+    got = model(*targs)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=RTOL,
+                               atol=ATOL)
+    (got * torch.as_tensor(w)).sum().backward()
+    _assert_grads(_param_grads(model), _flat(want_grads))
 
 
 def test_lt_refuses_tables_of_another_width():
@@ -396,9 +461,9 @@ def test_config_problems_take_coattention_on_coo_only():
         jax_fused, allow_attn=jax_fused.compute_path == "coo"))
     with pytest.raises(ValueError, match="attn"):
         loop.Trainer(fused, _dataset(4), device="cpu")
+    # MPNN with co-attention trains on coo, through K5/K5b and K4/K4b
     mpnn = TrainConfig(compute_path="coo", attn="para", method="mpnn")
-    problems = loop.config_problems(mpnn)
-    assert len(problems) == 1 and "ROADMAP queue 1, item 8" in problems[0]
+    assert loop.config_problems(mpnn) == []
     for bad in (dict(attn="coattn"), dict(sim_method="transe")):
         assert len(loop.config_problems(TrainConfig(compute_path="coo",
                                                     **bad))) == 1
@@ -409,9 +474,14 @@ def test_config_problems_take_coattention_on_coo_only():
                                      "--compute-path", "coo"]])
 def test_train_cli_refuses_unported_coattention_before_any_work(tmp_path,
                                                                 flags_):
+    """Co-attention on ``fused`` is refused before any CSV is read, as in
+    the JAX package; MPNN with co-attention on ``coo``, refused until the
+    port had it, passes the checks and reads its CSV."""
     argv = ["--train", str(tmp_path / "missing.csv"), "--device", "cpu",
             "--out", str(tmp_path / "run"), *flags_]
-    with pytest.raises(ValueError, match="attn"):
+    mpnn = "mpnn" in flags_
+    with pytest.raises(FileNotFoundError if mpnn else ValueError,
+                       match="missing.csv" if mpnn else "attn"):
         train_cli.main(argv)
     assert not (tmp_path / "run").exists()
 

@@ -39,6 +39,7 @@ MODULES = [
     "gcnbmp_tpu_torch.models.layers",
     "gcnbmp_tpu_torch.models.ggnn",
     "gcnbmp_tpu_torch.models.ggnn_extras",
+    "gcnbmp_tpu_torch.models.ggnn_dev",
     "gcnbmp_tpu_torch.models.relgcn",
     "gcnbmp_tpu_torch.models.gin",
     "gcnbmp_tpu_torch.models.nfp",

@@ -2,9 +2,12 @@
 package on the CPU: the plain ``PackedMPNN`` encoder against the JAX
 module, the compact predictor (the kernels' plain versions) against the
 JAX one on its XLA path and on its fused Pallas path in interpret mode,
-outputs and every parameter gradient; the parameter tree and its
-initializers; the training configuration, the train CLI and the predict
-CLI."""
+outputs and every parameter gradient; MPNN with ``para`` co-attention on
+coo against the JAX ``PackedCoattnPairPredictor`` the same two ways (K5's
+h feeds both the Set2Set table and the co-attention's, and K5b takes the
+sum of both gradients) and one coo train step against the JAX step; the
+parameter tree and its initializers; the training configuration, the
+train CLI and the predict CLI."""
 
 import json
 import os
@@ -28,7 +31,7 @@ from gcnbmp_tpu_torch.cli import train as train_cli
 from gcnbmp_tpu_torch.convert import (
     from_jax_params, init_params, load_params_npz, named_to_tree,
     save_params_npz, to_jax_params)
-from gcnbmp_tpu_torch.data.wire import compact_coo_arrays
+from gcnbmp_tpu_torch.data.wire import compact_coattn_arrays, compact_coo_arrays
 from gcnbmp_tpu_torch.models.packed import make_packed_predictor
 from gcnbmp_tpu_torch.ops import fused_mpnn as tfm
 from gcnbmp_tpu_torch.ops import set2set_kernel as tsk
@@ -177,6 +180,103 @@ def test_slice_logits_and_grads_match_jax(tied, jax_path):
     np.testing.assert_allclose(loss.item(), float(want_loss), rtol=OUT_RTOL,
                                atol=OUT_ATOL)
     _assert_trees_close(_torch_grads(model), want, GRAD_RTOL, GRAD_ATOL)
+
+
+# ---------------------------------------------------------------------------
+# MPNN with co-attention on coo
+
+COATTN_GRAD_RTOL, COATTN_GRAD_ATOL = 1e-4, 1e-6
+
+
+def _coattn_cfg(tied):
+    return dict(_cfg(2, 8, tied), attn="para", sim_method="ntn",
+                net_hidden_dims=(8,))
+
+
+@pytest.mark.parametrize("jax_path", ["xla", "pallas"])
+@pytest.mark.parametrize("tied", [True, False])
+def test_coattention_logits_and_grads_match_jax(tied, jax_path):
+    """Logits within 1e-5 and every gradient within 1e-4 max|want| +
+    1e-6; the predictor's path runs each autograd function once, so
+    K5b's dh is the Set2Set and the co-attention gradients summed."""
+    cfg = _coattn_cfg(tied)
+    batch = pack_pair_dataset_coo(_dataset(12), list(range(12)))
+    wire = compact_coattn_arrays(batch, S2S_N_MAX)
+    labels = np.asarray(batch.labels, np.float32)
+    tree = init_params(dict(cfg, coattn_n_max=S2S_N_MAX), seed=9 + tied)
+    pred = jpacked.make_packed_predictor(**cfg, coo=True, compact=True,
+                                         s2s_n_max=S2S_N_MAX)
+
+    def jloss(params):
+        logits = pred.apply({"params": params}, *(jnp.asarray(a) for a in wire))
+        return jloop.sigmoid_cross_entropy(logits.reshape(labels.shape),
+                                           jnp.asarray(labels)), logits
+
+    fused = jax_path == "pallas"
+    saved = jpacked.MPNN_FUSED, jpacked.SET2SET_PALLAS
+    jpacked.MPNN_FUSED = jpacked.SET2SET_PALLAS = fused
+    try:
+        with pltpu.force_tpu_interpret_mode():
+            (want_loss, want_logits), want = jax.value_and_grad(
+                jloss, has_aux=True)(tree)
+    finally:
+        jpacked.MPNN_FUSED, jpacked.SET2SET_PALLAS = saved
+    model = from_jax_params(tree, make_packed_predictor(
+        **cfg, s2s_n_max=S2S_N_MAX, coattn_n_max=S2S_N_MAX))
+    before = (tfm.FusedMPNNFunction.backward_calls,
+              tsk.FusedSet2SetFunction.backward_calls)
+    logits = model(*(torch.as_tensor(np.asarray(a)) for a in wire))
+    loss = loop.sigmoid_cross_entropy(logits, torch.as_tensor(labels))
+    loss.backward()
+    assert (tfm.FusedMPNNFunction.backward_calls,
+            tsk.FusedSet2SetFunction.backward_calls) == (before[0] + 1,
+                                                         before[1] + 1)
+    np.testing.assert_allclose(logits.detach().numpy(),
+                               np.asarray(want_logits), rtol=OUT_RTOL,
+                               atol=OUT_ATOL)
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=OUT_RTOL,
+                               atol=OUT_ATOL)
+    got, want = _flat_tree(_torch_grads(model)), _flat_tree(want)
+    assert sorted(got) == sorted(want)
+    for key, w in want.items():
+        bound = COATTN_GRAD_RTOL * float(np.abs(w).max()) + COATTN_GRAD_ATOL
+        assert float(np.abs(got[key] - w).max()) <= bound, key
+
+
+def test_coattention_train_step_matches_the_jax_coo_step():
+    jcfg = JaxTrainConfig(method="mpnn", sim_method="ntn", attn="para",
+                          conv_layers=2, fp_hidden_dim=8, fp_out_dim=8,
+                          weight_tying=True, compute_path="coo",
+                          learning_rate=1e-2, batch_size=12)
+    batch = pack_pair_dataset_coo(_dataset(12), list(range(12)))
+    wire = compact_coattn_arrays(batch, S2S_N_MAX)
+    labels = np.asarray(batch.labels, np.float32)
+    kwargs = dict(predict.model_kwargs_from_config(json.loads(jcfg.to_json())),
+                  s2s_n_max=S2S_N_MAX)
+    tree = init_params(dict(kwargs, coattn_n_max=S2S_N_MAX), seed=5)
+    tx, _ = jloop.build_optimizer(jcfg, 1)
+    pred = jpacked.make_packed_predictor(**kwargs, coo=True, compact=True)
+    params = jax.tree_util.tree_map(jnp.asarray, tree)
+    step = jloop.make_packed_coo_train_step(pred, tx)
+    want_params, _, want_loss, _ = step(
+        params, tx.init(params), tuple(jnp.asarray(a) for a in wire),
+        jnp.asarray(labels))
+    model = from_jax_params(tree, make_packed_predictor(
+        **kwargs, coattn_n_max=S2S_N_MAX))
+    opt, _ = loop.build_optimizer(TrainConfig(**json.loads(jcfg.to_json())),
+                                  1, list(model.parameters()))
+    loss = loop.train_step(model, opt, [torch.as_tensor(np.asarray(a))
+                                        for a in wire],
+                           torch.as_tensor(labels))
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=OUT_RTOL,
+                               atol=OUT_ATOL)
+    got, want, start = (_flat_tree(t) for t in (to_jax_params(model),
+                                                want_params, tree))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        # one Adam step moves each weight by about lr: hold the moves
+        np.testing.assert_allclose(got[k] - start[k], want[k] - start[k],
+                                   rtol=1e-3, atol=1e-6, err_msg=k)
 
 
 # ---------------------------------------------------------------------------

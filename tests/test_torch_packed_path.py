@@ -257,8 +257,8 @@ def _jax_refuses(cfg: JaxTrainConfig) -> bool:
 def test_config_problems_refuse_what_jax_refuses(method):
     """Every combination of layout, scan mode, co-attention, layer
     aggregator and dropout: the port refuses exactly what the JAX
-    trainer refuses, and besides only MPNN with co-attention on coo
-    (ROADMAP queue 1, item 8; the padded layout takes it)."""
+    trainer refuses (MPNN with co-attention on coo included: it trains
+    through K5/K5b and K4/K4b)."""
     cases = 0
     for path in ("fused", "coo", "packed", "padded"):
         for scan in (0, 4):
@@ -270,12 +270,8 @@ def test_config_problems_refuse_what_jax_refuses(method):
                                   layer_aggregator=agg,
                                   fp_dropout_rate=dropout)
                         port = loop.config_problems(TrainConfig(**kw))
-                        unported = method == "mpnn" and attn is not None \
-                            and path == "coo"
-                        assert bool(port) == (unported or _jax_refuses(
-                            JaxTrainConfig(**kw))), (kw, port)
-                        if unported:
-                            assert any("item 8" in p for p in port)
+                        assert bool(port) == _jax_refuses(
+                            JaxTrainConfig(**kw)), (kw, port)
                         cases += 1
     assert cases == 64
     assert loop.config_problems(TrainConfig(method=method)) == []  # padded

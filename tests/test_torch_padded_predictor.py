@@ -155,8 +155,10 @@ def test_predict_proba_and_the_registry(batch):
     assert isinstance(model, PairPredictor) and model.siamese
     for method in ("ggnn-dev", "ggnn-dev-fuse", "ggnn-dev-gate",
                    "ggnn-dev-self-loop"):
-        with pytest.raises(ValueError, match="item 9"):
-            set_up_predictor(method=method)
+        dev_model = from_jax_params(
+            init_params(dict(BASE, method=method), seed=3, padded=True),
+            set_up_predictor(**dict(BASE, method=method)))
+        assert dev_model(*args).shape == (8, 1)
     with pytest.raises(ValueError, match="unknown encoder"):
         set_up_predictor(method="gcn")
     with pytest.raises(ValueError, match="supernode"):

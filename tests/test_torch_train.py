@@ -312,8 +312,9 @@ def test_config_problems_name_their_roadmap_item(field, value, cites):
 def test_train_cli_rejects_unported_options_before_any_work(tmp_path, flags,
                                                             match):
     """Unported options name their ROADMAP item (the fused path's refusal
-    of GIN, the JAX package's reason); a resume path that holds no
-    checkpoint is named.  Both before any CSV is read.  The padded layout
+    of GIN, the JAX package's reason); ``--platform``, a JAX-only flag
+    refused for good, is refused as the evaluate CLI refuses it; a resume
+    path that holds no checkpoint is named.  Both before any CSV is read.  The padded layout
     passes the checks and reads its CSV, and so does the fixed-embedding
     route (``--fixed-embeddings``, refused until the port had
     ``train.fixed``; tests/test_torch_fixed.py trains it): it reads its
@@ -334,6 +335,9 @@ def test_train_cli_rejects_unported_options_before_any_work(tmp_path, flags,
         assert "--resume x: no params.npz" in str(e.value)
     elif flags[1] == "gin":
         assert "GGNN-only, as in the JAX package" in str(e.value)
+    elif flags[0] == "--platform":
+        assert str(e.value) == ("--platform selects a JAX platform; the port "
+                                "runs on --device cuda|cpu")
     elif not padded:
         assert "ROADMAP queue 1, item" in str(e.value)
     assert not (tmp_path / "run").exists()
