@@ -186,10 +186,23 @@ Phases, each fatal on failure:
    ``concat_hidden``, one padded batch of 2048 card against CPU (logits
    within atol = rtol = 1e-4, every gradient as in phase 5).  No kernel
    may launch in (b) and (c).
+17. graph-sharded training (``--multi-device``) through the train CLI:
+   the flagship (K2/K2b), GGNN + ``para`` + NTN co-attention, pair-local
+   (K1/K1b), and the MPNN row (K5/K5b, K4/K4b), one epoch each of the
+   first 2048 train pairs (4096 augmented: 16 steps of 256), first
+   single-device, then with ``--multi-device`` over NCCL at one rank
+   (the one card): step losses within 1e-5 of the single-device run,
+   each backward kernel once per step, step times and profiles.  Then
+   all three over two gloo ranks on the one card, in one ``launch``:
+   both ranks' step losses and final parameters the same bits, each
+   rank's kernels once per step, the losses within 1e-5 of one device
+   (MPNN's sharded loss sums Set2Set rows of molecules a rank does not
+   hold, as the JAX package's does: its gap is printed).
 
 Prints the kernels' JSON line (``launches`` from each kernel's main
 path; ``launches_packed`` from phase 13's packed runs;
-``launches_coattention`` from phases 9–10 (GGNN) and 16 (MPNN); with each
+``launches_coattention`` from phases 9–10 (GGNN) and 16 (MPNN);
+``launches_multi_device`` from phase 17's NCCL runs; with each
 kernel's bound: the larger of
 its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s, counted
 from this run's inputs, the sparse products by their nonzeros), the
@@ -2641,6 +2654,262 @@ def research_slice(df, dev, smi, reset_counts, read_counts):
     return launches
 
 
+# phase 17: graph-sharded training (--multi-device) through the train CLI:
+# (tag, train CLI flags, kernels once per step, kernels at least once per
+# step, kernels that must not launch); batch 256 on phase 5's 2048 train
+# pairs (4096 with augmentation: 16 steps), one epoch
+MULTI_DEVICE_RUNS = [
+    ("flagship", ["--preset", "ggnn_hole_binary", "--compute-path", "coo"],
+     ["fused_ggnn_readout_bwd"], ["fused_ggnn_readout"],
+     ["fused_ggnn", "fused_ggnn_bwd"]),
+    ("co-attention (para, ntn, pair-local)",
+     ["--method", "ggnn", "--conv-layers", str(L), "--fp-hidden-dim", str(H),
+      "--fp-out-dim", str(D), "--weight-tying", "false", "--compute-path",
+      "coo", "--lr", "2e-3", "--augment", "--sim-method", "ntn", "--attn",
+      "para"],
+     ["fused_ggnn_bwd"], ["fused_ggnn"],
+     ["fused_ggnn_readout", "fused_ggnn_readout_bwd"]),
+    ("mpnn", MPNN_FLAGS, ["fused_mpnn_bwd", "fused_set2set_bwd"],
+     ["fused_mpnn", "fused_set2set"], []),
+]
+
+
+def record_train_cli(argv, reset_counts, read_counts):
+    """The train CLI in this process with each step's loss recorded and
+    timed (host clock between synchronizations around the step), and
+    steps 5-8 profiled: (losses, step ms, launch counts, "device busy
+    share, kernel launches per step")."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gcnbmp_tpu_torch.cli import train as train_cli
+    from gcnbmp_tpu_torch.train import loop as train_loop
+
+    losses, times, prof = [], [], {}
+    real_step = train_loop.train_step
+
+    def recording_step(*args, **kwargs):
+        if len(losses) == 4:
+            prof["p"] = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            prof["p"].start()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = real_step(*args, **kwargs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        if len(losses) == 8:
+            prof["p"].stop()
+            kernels = [e for e in prof["p"].key_averages()
+                       if getattr(e, "device_type", None) == DeviceType.CUDA]
+            dev_us = sum(getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0.0))
+                         for e in kernels)
+            prof["line"] = (f"device busy {dev_us / 10 / sum(times[4:8]):.1f}%"
+                            f", {sum(e.count for e in kernels) / 4:.0f} "
+                            "kernel launches per step (profiled, steps 5-8)")
+        return loss
+
+    train_loop.train_step = recording_step
+    try:
+        reset_counts()
+        rc = train_cli.main(argv)
+        launches = read_counts()
+    finally:
+        train_loop.train_step = real_step
+    if rc != 0:
+        raise AssertionError(f"train.main returned {rc}")
+    return losses, times, launches, prof.get("line", "not profiled")
+
+
+def kernel_wrappers():
+    """The ten kernel wrappers by name; each counts its launches in
+    ``launches``."""
+    from gcnbmp_tpu_torch.ops.fused_ggnn import (
+        fused_ggnn, fused_ggnn_bwd, fused_ggnn_half_bwd, fused_ggnn_mid,
+        fused_ggnn_readout, fused_ggnn_readout_bwd)
+    from gcnbmp_tpu_torch.ops.fused_mpnn import fused_mpnn, fused_mpnn_bwd
+    from gcnbmp_tpu_torch.ops.set2set_kernel import (
+        fused_set2set, fused_set2set_bwd)
+
+    return {"fused_ggnn": fused_ggnn, "fused_ggnn_mid": fused_ggnn_mid,
+            "fused_ggnn_readout": fused_ggnn_readout,
+            "fused_ggnn_bwd": fused_ggnn_bwd,
+            "fused_ggnn_half_bwd": fused_ggnn_half_bwd,
+            "fused_ggnn_readout_bwd": fused_ggnn_readout_bwd,
+            "fused_mpnn": fused_mpnn, "fused_mpnn_bwd": fused_mpnn_bwd,
+            "fused_set2set": fused_set2set,
+            "fused_set2set_bwd": fused_set2set_bwd}
+
+
+def _gloo_rank(runs, out_dir):
+    """One rank of phase 17's two gloo ranks on the one card: each
+    ``(tag, argv)`` of ``runs`` through the train CLI (the process group
+    set up by ``launch``); writes this rank's step losses, kernel
+    launches and a digest of its final parameters for each run to
+    ``out_dir/rank<r>.json``."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from gcnbmp_tpu_torch.cli import train as train_cli
+    from gcnbmp_tpu_torch.train import loop as train_loop
+
+    wrappers = kernel_wrappers()
+    real_step, real_fit = train_loop.train_step, train_loop.Trainer.fit
+    out = {}
+    for tag, argv in runs:
+        rec = {"losses": []}
+
+        def recording_step(*args, **kwargs):
+            loss = real_step(*args, **kwargs)
+            rec["losses"].append(float(loss))
+            return loss
+
+        def digest_fit(self, *args, **kwargs):
+            result = real_fit(self, *args, **kwargs)
+            h = hashlib.sha256()
+            for name, v in self.model.state_dict().items():
+                h.update(name.encode())
+                h.update(v.detach().cpu().numpy().tobytes())
+            rec["digest"] = h.hexdigest()
+            return result
+
+        for fn in wrappers.values():
+            fn.launches = 0
+        train_loop.train_step, train_loop.Trainer.fit = (recording_step,
+                                                         digest_fit)
+        try:
+            if train_cli.main(argv) != 0:
+                raise AssertionError(f"{tag}: train.main failed")
+        finally:
+            train_loop.train_step, train_loop.Trainer.fit = real_step, real_fit
+        rec["launches"] = {name: fn.launches for name, fn in wrappers.items()}
+        out[tag] = rec
+    with open(os.path.join(out_dir, f"rank{dist.get_rank()}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def check_launches(tag, launches, n, per_step, fwd, absent):
+    """Each kernel of ``per_step`` launched once per step of ``n``, each
+    of ``fwd`` at least once per step, none of ``absent``."""
+    for name in per_step:
+        if launches[name] != n:
+            raise AssertionError(f"{tag}: {name} launched {launches[name]} "
+                                 f"times in {n} steps")
+    for name in fwd:
+        if launches[name] < n:
+            raise AssertionError(f"{tag}: {name} launched fewer times than "
+                                 "steps")
+    for name in absent:
+        if launches[name]:
+            raise AssertionError(f"{tag}: {name} launched")
+
+
+def multi_device_slice(dev, smi, reset_counts, read_counts):
+    """Phase 17: each run of ``MULTI_DEVICE_RUNS`` through the train CLI
+    on the card single-device, then with ``--multi-device`` (NCCL, one
+    rank: the one card); the step losses equal within 1e-5, each kernel's
+    launches per step checked, each step's time.  Then every run over two
+    ranks on the one card with gloo, whose collectives (all-reduce and
+    broadcast, the only ones the COO and pair-local forms use) take CUDA
+    tensors: both ranks' step losses and final parameters the same bits,
+    each rank's kernels once per step, and the losses within 1e-5 of the
+    single-device run's, but MPNN's, whose sharded loss sums the Set2Set
+    rows of molecules a rank does not hold (as the JAX package's does):
+    its gap is printed.  Returns each kernel's launches in the NCCL
+    multi-device runs."""
+    import numpy as np
+    import pandas as pd
+
+    from gcnbmp_tpu_torch.parallel.mesh import launch
+
+    t_start = time.perf_counter()
+    multi_launches = collections.Counter()
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        train_path = os.path.join(tmp, "train.csv")
+        val_path = os.path.join(tmp, "val.csv")
+        pd.read_csv(TRAIN_CSV).head(N_PAIRS).to_csv(train_path, index=False)
+        pd.read_csv(VALID_CSV).head(N_VAL).to_csv(val_path, index=False)
+        single, gloo_runs = {}, []
+        for tag, flags, per_step, fwd, absent in MULTI_DEVICE_RUNS:
+            base = ["--train", train_path, "--val", val_path, *flags,
+                    "--batch-size", str(SERVE_BATCH), "--epochs", "1",
+                    "--seed", str(SEED), "--device", "cuda",
+                    "--no-eval-train"]
+            runs = {}
+            for mode, extra in (("single", []),
+                                ("multi", ["--multi-device"])):
+                argv = base + ["--out", os.path.join(tmp, f"{tag}-{mode}"),
+                               *extra]
+                runs[mode] = record_train_cli(argv, reset_counts, read_counts)
+            (s_loss, s_ms, s_l, s_prof), (m_loss, m_ms, m_l, m_prof) = (
+                runs["single"], runs["multi"])
+            n = len(m_loss)
+            if n != len(s_loss) or n != 2 * N_PAIRS // SERVE_BATCH:
+                raise AssertionError(f"{tag}: {n} multi-device steps, "
+                                     f"{len(s_loss)} single-device")
+            diff = float(np.max(np.abs(np.subtract(m_loss, s_loss))))
+            check_launches(tag, m_l, n, per_step, fwd, absent)
+            print(f"phase 17 {tag}: {n} steps of batch {SERVE_BATCH}; step "
+                  f"losses multi-device (NCCL, 1 rank) vs single-device max "
+                  f"|diff| {diff:.3e}; step ms median (host clock around "
+                  f"synchronized steps, steps 3..{n}) single "
+                  f"{statistics.median(s_ms[2:]):.3f} ({s_prof}), "
+                  f"multi-device {statistics.median(m_ms[2:]):.3f} "
+                  f"({m_prof}) on {smi}; kernel wrappers' launches single "
+                  f"{ {k: v for k, v in s_l.items() if v} } multi "
+                  f"{ {k: v for k, v in m_l.items() if v} }")
+            if diff > 1e-5:
+                raise AssertionError(f"{tag}: multi-device losses differ by "
+                                     f"{diff}")
+            multi_launches.update(m_l)
+            single[tag] = s_loss
+            gloo_runs.append((tag, base + [
+                "--out", os.path.join(tmp, f"{tag}-gloo"), "--multi-device"]))
+        t0 = time.perf_counter()
+        launch(_gloo_rank, 2, (gloo_runs, tmp), device_type="cuda",
+               backend="gloo", timeout=300)
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        for tag, _, per_step, fwd, absent in MULTI_DEVICE_RUNS:
+            r0, r1 = ranks[0][tag], ranks[1][tag]
+            n = len(single[tag])
+            if len(r0["losses"]) != n:
+                raise AssertionError(f"{tag}: {len(r0['losses'])} steps over "
+                                     f"2 gloo ranks, {n} single-device")
+            same = r0["losses"] == r1["losses"] and \
+                r0["digest"] == r1["digest"]
+            for r, rec in enumerate((r0, r1)):
+                check_launches(f"{tag}, gloo rank {r}", rec["launches"], n,
+                               per_step, fwd, absent)
+            diff = float(np.max(np.abs(np.subtract(r0["losses"],
+                                                   single[tag]))))
+            print(f"phase 17 {tag} over 2 gloo ranks on the one card: {n} "
+                  f"steps; step losses vs single-device max |diff| "
+                  f"{diff:.3e}"
+                  + (" (the sharded MPNN loss, ROADMAP queue 3)"
+                     if tag == "mpnn" else "")
+                  + f"; ranks' losses and parameters the same bits: {same}; "
+                  f"launches rank 0 "
+                  f"{ {k: v for k, v in r0['launches'].items() if v} } "
+                  f"rank 1 { {k: v for k, v in r1['launches'].items() if v} }")
+            if not same:
+                raise AssertionError(f"{tag}: the 2 gloo ranks' replicas "
+                                     "differ")
+            if tag != "mpnn" and diff > 1e-5:
+                raise AssertionError(f"{tag}: two gloo ranks disagree with "
+                                     f"one device by {diff}")
+        print(f"phase 17 gloo runs: {time.perf_counter() - t0:.1f} s with "
+              "the ranks' start")
+    print(f"phase 17: {time.perf_counter() - t_start:.1f} s")
+    return dict(multi_launches)
+
+
 def crowd_rows(adj, torch):
     """``adj`` with ~5% of the columns of every other row set to 1: rows
     with more nonzeros than the kernels' NBR_CAP=16 neighbour slots (which
@@ -2697,14 +2966,7 @@ def main() -> int:
         gather_slot_table, identity_mol_row)
     from gcnbmp_tpu_torch.train.config import PRESETS, TrainConfig
 
-    counters = {"fused_ggnn": fused_ggnn, "fused_ggnn_mid": fused_ggnn_mid,
-                "fused_ggnn_readout": fused_ggnn_readout,
-                "fused_ggnn_bwd": fused_ggnn_bwd,
-                "fused_ggnn_half_bwd": fused_ggnn_half_bwd,
-                "fused_ggnn_readout_bwd": fused_ggnn_readout_bwd,
-                "fused_mpnn": fused_mpnn, "fused_mpnn_bwd": fused_mpnn_bwd,
-                "fused_set2set": fused_set2set,
-                "fused_set2set_bwd": fused_set2set_bwd}
+    counters = kernel_wrappers()
 
     def reset_counts():
         for fn in counters.values():
@@ -3160,6 +3422,12 @@ def main() -> int:
           f"{100 * t16 / (time.perf_counter() - t_start):.1f}% of the script")
     print(f"phase 16 done at {time.perf_counter() - t_start:.1f} s")
 
+    # 17. graph-sharded training (--multi-device) through the train CLI:
+    # the flagship (K2/K2b), co-attention pair-local (K1/K1b), MPNN (K5/K5b,
+    # K4/K4b), each against its single-device run
+    multi_device = multi_device_slice(dev, smi, reset_counts, read_counts)
+    print(f"phase 17 done at {time.perf_counter() - t_start:.1f} s")
+
     sources = {"fused_ggnn": "fused_ggnn.cu", "fused_ggnn_mid": "fused_ggnn.cu",
                "fused_ggnn_readout": "fused_ggnn.cu",
                "fused_ggnn_bwd": "fused_ggnn_bwd.cu",
@@ -3224,6 +3492,8 @@ def main() -> int:
                if name == "fused_ggnn" else {}),
             **({"launches_packed": packed_path[name][name]}
                if name in packed_path else {}),
+            # phase 17's NCCL runs; K1m and K3 (TWOPASS) are not on them
+            "launches_multi_device": multi_device.get(name, 0),
             **{k: results[name][k] for k in
                ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                 "bound_by")},

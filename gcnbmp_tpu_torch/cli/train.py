@@ -64,6 +64,21 @@ checkpoint up to ``--epochs`` (``train.loop.Trainer``).  Prints the last
 log entry as JSON.
 
     python -m gcnbmp_tpu_torch.cli.train --train train.csv --val val.csv \
+        --preset ggnn_hole_binary --compute-path coo --multi-device
+    torchrun --nproc-per-node 4 -m gcnbmp_tpu_torch.cli.train \
+        --train train.csv --val val.csv --preset ggnn_hole_production \
+        --multi-device
+
+``--multi-device`` trains graph-sharded over every visible card, one
+process per card, which the CLI starts itself, or over torchrun's ranks
+(``parallel.edgeshard``; on ``coo`` every option, on ``packed`` binary
+sigmoid cross-entropy without scan mode, as in the JAX package); rank 0
+writes the run directory and prints.  Every rank still packs the whole
+global batch on the host and keeps its share, so on four H100s it trains
+no faster than one card (0.35-1.11 times its epoch throughput; ROADMAP
+queue 1, item 11).
+
+    python -m gcnbmp_tpu_torch.cli.train --train train.csv --val val.csv \
         --fixed-embeddings drug_list_with_representation.csv \
         --out results/fixed_run --device cuda
 
@@ -148,7 +163,12 @@ def parse_args(argv=None):
     p.add_argument("--platform", default=None,
                    help="JAX platform override; the port takes --device")
     p.add_argument("--multi-device", dest="multi_device", action="store_true",
-                   default=None)
+                   default=None,
+                   help="graph-sharded training over every visible card, "
+                        "one process per card (under torchrun, its ranks); "
+                        "requires --compute-path coo or packed; every rank "
+                        "packs the whole batch, so it is not yet faster "
+                        "than one card")
     p.add_argument("--debug-checks", dest="debug_checks", action="store_true",
                    default=None)
     p.add_argument("--debug-nans", action="store_true",
@@ -217,7 +237,40 @@ def _main_fixed(args, device):
     return 0
 
 
+def _rank_main(argv):
+    """One rank of a plain ``--multi-device`` run (``parallel.mesh.launch``
+    set up its process group)."""
+    rc = main(argv)
+    if rc:
+        raise SystemExit(rc)
+
+
+def _multi_device_group(argv, device) -> "tuple[bool, bool]":
+    """Set up the process group of a ``--multi-device`` run: torchrun's
+    ranks when its environment names them, else one rank per visible card
+    (on the CPU, one), more than one started as new processes here.
+    Returns (this process owns a group it must close, the ranks ran in
+    other processes)."""
+    import torch
+    import torch.distributed as dist
+
+    from gcnbmp_tpu_torch.parallel import mesh
+
+    if dist.is_initialized():
+        return False, False
+    n = torch.cuda.device_count() if device.type == "cuda" else 1
+    if "WORLD_SIZE" in os.environ or n == 1:
+        mesh.init_distributed(device)
+        return True, False
+    from gcnbmp_tpu_torch.ops import build
+
+    build.load_library()  # once, before the ranks start
+    mesh.launch(_rank_main, n, (argv,), device_type="cuda")
+    return False, True
+
+
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
     if args.platform:
         raise ValueError("--platform selects a JAX platform; the port runs "
@@ -235,9 +288,8 @@ def main(argv=None):
                                "available")
         return _main_fixed(args, device)
 
-    from gcnbmp_tpu_torch.data import CSVPairParser, get_class_labels
-    from gcnbmp_tpu_torch.train.loop import (
-        Trainer, config_problems, kernel_problems)
+    from gcnbmp_tpu_torch.data import get_class_labels
+    from gcnbmp_tpu_torch.train.loop import config_problems, kernel_problems
 
     classes = get_class_labels(args.labels_csv) if args.labels_csv else None
     cfg = build_config(args)
@@ -255,6 +307,30 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda requested but CUDA is not available")
     torch.autograd.set_detect_anomaly(args.debug_nans)
+    owns_group = False
+    if cfg.multi_device:
+        import torch.distributed as dist
+
+        from gcnbmp_tpu_torch.parallel.mesh import rank_device
+
+        owns_group, spawned = _multi_device_group(argv, device)
+        if spawned:
+            return 0
+        device = rank_device(device)
+        logging.info("multi_device: rank %d of %d on %s", dist.get_rank(),
+                     dist.get_world_size(), device)
+    try:
+        return _train(args, cfg, classes, device)
+    finally:
+        if owns_group:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, cfg, classes, device):
+    """Parse the CSVs and train; rank 0 writes ``config.json`` and prints
+    the last log entry."""
+    from gcnbmp_tpu_torch.data import CSVPairParser
+    from gcnbmp_tpu_torch.train.loop import Trainer
 
     parser = CSVPairParser(
         labels=tuple(args.label_cols.split(",")),
@@ -271,12 +347,14 @@ def main(argv=None):
         val_ds = val_res.dataset
 
     trainer = Trainer(cfg, train_res.dataset, val_ds, device=device)
-    os.makedirs(cfg.out_dir, exist_ok=True)
-    with open(os.path.join(cfg.out_dir, "config.json"), "w") as f:
-        f.write(cfg.to_json())
+    if trainer.rank == 0:
+        os.makedirs(cfg.out_dir, exist_ok=True)
+        with open(os.path.join(cfg.out_dir, "config.json"), "w") as f:
+            f.write(cfg.to_json())
     result = trainer.fit()
-    final = result["log"][-1] if result["log"] else {}
-    print(json.dumps(final))
+    if trainer.rank == 0:
+        final = result["log"][-1] if result["log"] else {}
+        print(json.dumps(final))
     return 0
 
 

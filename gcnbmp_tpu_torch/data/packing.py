@@ -14,8 +14,10 @@ The dense adjacency is built on the device from the edges
 (``ops.aggregate.adj_from_coo_flat``), also for the ``packed`` compute
 path.  A batch for GWM carries the per-molecule supernode table
 ``supers`` (num_mols, F) in packed-mol-id order (``attach_supers_coo``).
-The dense host-side batches and pair-local packing of the JAX module
-belong to the multi-device path, which the port has not taken yet.
+``pack_pair_dataset_coo_pairlocal`` packs the multi-device co-attention
+path's batches: each pair's two molecules in one rank's tiles.  The dense
+host-side batches of the JAX module are not ported: every layout builds
+its adjacency on the device.
 """
 
 from __future__ import annotations
@@ -346,3 +348,146 @@ def attach_supers_coo(batch, ds, indices: Sequence[int], supernode_fn):
     supers[batch.right_index[:n]] = right
     batch.supers = supers
     return batch
+
+
+@dataclass
+class PairLocalMeta:
+    """Static geometry of a pair-local packed batch (uniform across
+    batches, so every step sees the same shapes)."""
+
+    n_parts: int
+    tiles_per_part: int
+    pairs_per_part: int
+    edge_capacity_per_part: int
+
+
+def assign_pairs_balanced(costs: Sequence[int],
+                          n_parts: int) -> List[List[int]]:
+    """LPT-greedy assignment of pair positions to ``n_parts`` buckets
+    (gcnbmp_tpu/data/packing.py:522-539): equal pair counts (up to the
+    padding of the last) and near-equal total cost, deterministic given
+    the input order; each bucket keeps its pairs in input order."""
+    cap = -(-len(costs) // n_parts)
+    order = np.argsort(np.asarray(costs), kind="stable")[::-1]
+    buckets: List[List[int]] = [[] for _ in range(n_parts)]
+    load = np.zeros(n_parts, np.int64)
+    for pos in order:
+        open_b = [b for b in range(n_parts) if len(buckets[b]) < cap]
+        b = min(open_b, key=lambda i: (load[i], i))
+        buckets[b].append(int(pos))
+        load[b] += costs[pos]
+    for b in buckets:
+        b.sort()
+    return buckets
+
+
+def pack_pair_dataset_coo_pairlocal(
+    ds,
+    indices: Sequence[int],
+    n_parts: int,
+    tile: int = TILE,
+    tiles_per_part: Optional[int] = None,
+    edge_capacity_per_part: Optional[int] = None,
+    pack_fn=None,
+) -> Tuple[PackedCOOBatch, PairLocalMeta]:
+    """Pack pairs so that both molecules of every pair land in one part of
+    the contiguous tile split of ``parallel.edgeshard``
+    (gcnbmp_tpu/data/packing.py:542-660, the same arrays bit for bit).
+
+    The pairs are LPT-partitioned into ``n_parts`` buckets balanced by
+    edge count; each bucket is packed into its own group of
+    ``tiles_per_part`` tiles and ``edge_capacity_per_part`` edges; the
+    merged batch is part-major, and stays a valid single-device batch.
+    A bucket short of ``pairs_per_part`` pairs gets padding pairs with
+    distinct phantom molecule ids (no atoms, label -1), so that
+    ``num_mols == 2 * pairs_per_part * n_parts`` follows from the shapes
+    and each side index stays injective (``ops.slotgather.side_mol_row``).
+
+    ``pack_fn(idx, num_tiles, edge_capacity) -> PackedCOOBatch`` packs one
+    bucket (default: the Python packer; the trainer passes the native
+    one).  Returns (merged batch, PairLocalMeta)."""
+    indices = list(indices)
+    if len(indices) < n_parts:
+        raise ValueError(
+            f"pair-local packing needs at least one pair per part "
+            f"({len(indices)} pairs < {n_parts} parts); lower the "
+            "device count or raise the batch size")
+    if pack_fn is None:
+        def pack_fn(idx, num_tiles, edge_capacity):
+            return pack_pair_dataset_coo(ds, idx, tile=tile,
+                                         num_tiles=num_tiles,
+                                         edge_capacity=edge_capacity)
+
+    costs = [ds.graphs1[i].num_edges + ds.graphs2[i].num_edges
+             for i in indices]
+    buckets = assign_pairs_balanced(costs, n_parts)
+    parts = [pack_fn([indices[j] for j in b], tiles_per_part,
+                     edge_capacity_per_part) for b in buckets]
+
+    p_max = tiles_per_part or max(pt.num_tiles for pt in parts)
+    e_max = edge_capacity_per_part or max(pt.e_tile.shape[0] for pt in parts)
+    b_max = -(-len(indices) // n_parts)
+    num_mols_g = 2 * b_max * n_parts
+    label_tail = parts[0].labels.shape[1:]
+
+    atom_ids, mol_id, node_mask = [], [], []
+    e_tile, e_type, e_src, e_dst, e_mask = [], [], [], [], []
+    left, right, labels = [], [], []
+    for d, pt in enumerate(parts):
+        pad_t = p_max - pt.num_tiles
+        if pad_t < 0:
+            raise ValueError(f"tiles_per_part={p_max} < bucket need "
+                             f"{pt.num_tiles}")
+        aid = np.pad(pt.atom_ids, [(0, pad_t), (0, 0)])
+        nm = np.pad(pt.node_mask, [(0, pad_t), (0, 0)])
+        mid = np.pad(pt.mol_id, [(0, pad_t), (0, 0)],
+                     constant_values=pt.num_mols)
+        off = d * 2 * b_max
+        mid = np.where(nm > 0, mid + off, num_mols_g).astype(np.int32)
+        atom_ids.append(aid)
+        node_mask.append(nm)
+        mol_id.append(mid)
+
+        pad_e = e_max - pt.e_tile.shape[0]
+        if pad_e < 0:
+            raise ValueError(f"edge_capacity_per_part={e_max} < bucket "
+                             f"need {pt.e_tile.shape[0]}")
+        em = np.pad(pt.e_mask, (0, pad_e))
+        et_g = np.where(em > 0, np.pad(pt.e_tile, (0, pad_e)) + d * p_max, 0)
+        e_tile.append(et_g.astype(np.int32))
+        e_type.append(np.pad(pt.e_type, (0, pad_e)))
+        e_src.append(np.pad(pt.e_src, (0, pad_e)))
+        e_dst.append(np.pad(pt.e_dst, (0, pad_e)))
+        e_mask.append(em)
+
+        pad_b = b_max - len(pt.left_index)
+        l_g = pt.left_index + off
+        r_g = pt.right_index + off
+        lab = np.asarray(pt.labels, np.float32)
+        if pad_b:
+            ph = off + pt.num_mols + 2 * np.arange(pad_b, dtype=np.int32)
+            l_g = np.concatenate([l_g, ph])
+            r_g = np.concatenate([r_g, ph + 1])
+            lab = np.concatenate(
+                [lab, -np.ones((pad_b,) + label_tail, np.float32)])
+        left.append(l_g.astype(np.int32))
+        right.append(r_g.astype(np.int32))
+        labels.append(lab)
+
+    merged = PackedCOOBatch(
+        atom_ids=np.concatenate(atom_ids),
+        mol_id=np.concatenate(mol_id),
+        node_mask=np.concatenate(node_mask),
+        e_tile=np.concatenate(e_tile),
+        e_type=np.concatenate(e_type),
+        e_src=np.concatenate(e_src),
+        e_dst=np.concatenate(e_dst),
+        e_mask=np.concatenate(e_mask),
+        num_mols=num_mols_g,
+        left_index=np.concatenate(left),
+        right_index=np.concatenate(right),
+        labels=np.concatenate(labels),
+    )
+    meta = PairLocalMeta(n_parts=n_parts, tiles_per_part=p_max,
+                         pairs_per_part=b_max, edge_capacity_per_part=e_max)
+    return merged, meta

@@ -33,6 +33,7 @@ from gcnbmp_tpu_torch.data.packing import (
     check_side_index_injective,
     molecule_slot_table,
     pack_pair_dataset_coo,
+    pack_pair_dataset_coo_pairlocal,
     smallest_pair_index,
 )
 
@@ -130,12 +131,18 @@ def packed_coo_batch_iterator(ds, batch_size: int, num_tiles: int,
     yielded in a fresh random order without packing (``reuse_packs``), the
     supernode tables they hold with them.  ``supernode_fn`` attaches the
     per-molecule supernode table (GWM, ``attach_supers_coo``) to each
-    batch after packing.  Pair-local packing is refused: it belongs to
-    the multi-device path, and its per-part ordering would break
-    ``attach_supers_coo``."""
-    if pairlocal_parts:
-        raise NotImplementedError("pair-local packing is not ported yet "
-                                  "(ROADMAP queue 1, item 11)")
+    batch after packing.  ``pairlocal_parts``: pack each batch with
+    ``pack_pair_dataset_coo_pairlocal`` into that many parts of
+    ``num_tiles`` tiles and ``edge_capacity`` edges each (the
+    multi-device co-attention path).  A supernode table is refused
+    there: the pair-local batch holds padding pairs and reorders the
+    pairs by part, so ``attach_supers_coo``'s map from the dataset's
+    pairs to the batch's molecules does not hold (ROADMAP queue 3; the
+    JAX trainer never combines the two either, loop.py:507)."""
+    if pairlocal_parts and supernode_fn is not None:
+        raise ValueError("pair-local packing with a supernode table: the "
+                         "pair-local batch reorders and pads the pairs, "
+                         "which attach_supers_coo cannot follow")
     if pack_cache:
         for i in rng.permutation(len(pack_cache)):
             yield pack_cache[i]
@@ -146,6 +153,11 @@ def packed_coo_batch_iterator(ds, batch_size: int, num_tiles: int,
 
     def build(start):
         idx = order[start:start + batch_size].tolist()
+        if pairlocal_parts:
+            return pack_pair_dataset_coo_pairlocal(
+                ds, idx, pairlocal_parts, tiles_per_part=num_tiles,
+                edge_capacity_per_part=edge_capacity,
+                pack_fn=lambda i2, nt, ec: _pack(ds, cache, i2, nt, ec))[0]
         return _pack(ds, cache, idx, num_tiles, edge_capacity, supernode_fn)
 
     starts = range(0, len(ds) - batch_size + 1, batch_size)

@@ -28,7 +28,10 @@ step and the Trainer (port of gcnbmp_tpu/train/loop.py).
   config's default: ``PairPredictor`` or ``GWMPairPredictor`` over
   ``data.dataset.batch_iterator`` batches ``pad_to`` atoms wide, the
   options only that layout has, :747-756, :1178-1183, :1292-1305; no
-  kernel, in either package).  ``packed`` trains the wire-compact COO predictor, the
+  kernel, in either package); ``multi_device`` (:859-1037, :1106-1135,
+  :1187-1290) on ``coo`` and ``packed``: graph-sharded training over the
+  process group's ranks (``parallel.edgeshard``), every rank running the
+  same kernels on its shard.  ``packed`` trains the wire-compact COO predictor, the
   adjacency built on the card from the edges, where the JAX trainer
   ships each batch's dense (P, 4, T, T) adjacency from the host
   (``make_packed_train_step``, :251-286, :302-331): the same pairs in the
@@ -130,6 +133,13 @@ def sigmoid_focal_loss(logits, labels, gamma: float = 2.0,
                        alpha: float = 0.25):
     return _masked_mean(*focal_elements(gamma, alpha)(
         logits.reshape(labels.shape), labels))
+
+
+def _loss_kwargs(config) -> dict:
+    """The focal loss's parameters from a config; no other loss has any."""
+    if config.loss == "focal":
+        return {"gamma": config.focal_gamma, "alpha": config.focal_alpha}
+    return {}
 
 
 def make_loss(name: str, **kwargs) -> Callable:
@@ -237,8 +247,11 @@ def train_step(model, optimizer: ChainedAdam, args, labels,
     ``ops.fused_ggnn.TWOPASS``; K4b and K5b for MPNN; on the card),
     optimizer update; or over a padded batch, ``args`` the predictor's
     positional arguments and ``model_kwargs`` its supernode rows,
-    ``deterministic=False`` and the dropout ``generator``.  Returns the
-    loss as a device tensor; the caller fetches losses once per epoch."""
+    ``deterministic=False`` and the dropout ``generator``.  Under
+    multi-device training ``optimizer`` is a ``parallel.edgeshard.
+    SummedGradients``, which steps on the gradients summed over the ranks.
+    Returns the loss as a device tensor; the caller fetches losses once
+    per epoch."""
     for p in optimizer.params:
         p.grad = None
     logits = model(*args, **model_kwargs)
@@ -339,21 +352,40 @@ def padded_model_problems(cfg: TrainConfig) -> List[str]:
     return bad
 
 
+def multi_device_problems(cfg: TrainConfig) -> List[str]:
+    """The JAX trainer's refusals of ``multi_device`` (gcnbmp_tpu/train/
+    loop.py:800-802, :859-862, :1012-1017), its text: graph-sharded
+    training rides ``coo`` (every option) or ``packed`` (binary sigmoid
+    cross-entropy, no scan mode)."""
+    if not cfg.multi_device:
+        return []
+    if cfg.compute_path not in ("packed", "coo"):
+        return ["multi_device requires compute_path 'packed' or 'coo'"]
+    problems = []
+    if cfg.compute_path == "packed":
+        if cfg.scan_steps > 1:
+            problems.append("multi_device scan mode rides compute_path='coo'")
+        if cfg.class_num != 1 or cfg.loss != "sigmoid_ce":
+            problems.append("multi_device supports binary sigmoid-CE only")
+    return problems
+
+
 def config_problems(cfg: TrainConfig) -> List[str]:
     """Options of ``cfg`` the port does not train, each with its reason:
     the ROADMAP item that brings it, or the JAX package's own refusal
     (``packed_config_problems``, gcnbmp_tpu/train/loop.py:532-575, on the
-    packed layouts).  The padded layout takes every option the JAX
-    trainer takes there but batch normalization, which the JAX trainer
-    cannot step (``models.ggnn.BN_REFUSAL``)."""
+    packed layouts; ``multi_device_problems``).  The padded layout takes
+    every option the JAX trainer takes there but batch normalization,
+    which the JAX trainer cannot step (``models.ggnn.BN_REFUSAL``), and
+    multi-device training, which the JAX trainer refuses there too."""
     from gcnbmp_tpu_torch.models.ggnn import BN_REFUSAL
 
     problems = []
     path, method = cfg.compute_path, cfg.method
     if cfg.fp_batch_normalization:
         problems.append(f"fp_batch_normalization=True: {BN_REFUSAL}")
-    if cfg.multi_device:
-        problems.append("multi_device: ROADMAP queue 1, item 11")
+    problems += [f"multi_device=True on compute_path={path!r}: {p}, as in "
+                 "the JAX package" for p in multi_device_problems(cfg)]
     if path not in LAYOUTS:
         problems.append(f"compute_path={path!r}: the layouts are "
                         f"{', '.join(map(repr, LAYOUTS))}")
@@ -379,13 +411,13 @@ def config_problems(cfg: TrainConfig) -> List[str]:
 # each refusal of ``packed_config_problems``: the TrainConfig field it
 # names and what the port adds to the JAX reason; a hint of None where
 # another check of ``config_problems`` names it already (batch
-# normalization on every layout, multi_device as ROADMAP's item,
-# ``model_problems`` the method and the layer aggregator's encoder)
+# normalization on every layout, ``model_problems`` the method and the
+# layer aggregator's encoder)
 _TO_PADDED = "; use compute_path='padded'"
 _PACKED_REFUSALS = {
     "ggnn-gwm rides compute_path 'packed' or 'coo'": ("method", ""),
     "ggnn-gwm multi_device rides compute_path='coo' (owner-masked "
-    "edgeshard)": ("multi_device", None),
+    "edgeshard)": ("multi_device", ""),
     "ggnn-gwm scan mode requires compute_path='coo'": ("scan_steps", ""),
     "fused Pallas kernel is GGNN-only":
         ("method", "; {method} trains on 'coo', 'packed' or 'padded'"),
@@ -508,7 +540,15 @@ class Trainer:
     ``PackedPairEvaluator`` (``PairEvaluator`` on the padded layout), stop
     early on val loss, and save
     ``snapshot_epoch_*``, ``best`` and ``final`` checkpoints
-    (``train.checkpoints``)."""
+    (``train.checkpoints``).
+
+    ``multi_device``: one process per rank of a ``torch.distributed``
+    group (one is set up for a lone process), ``device`` the rank's card;
+    each rank packs the same batches, keeps its tiles and pairs of each
+    (co-attention packed pair-local), runs the step's kernels on them and
+    takes the same optimizer step on the gradients summed over the ranks,
+    so the replicas stay equal; rank 0 alone evaluates and writes the run
+    directory."""
 
     def __init__(self, config: TrainConfig, train_ds, val_ds=None,
                  device="cuda"):
@@ -518,6 +558,18 @@ class Trainer:
                              "path: " + "; ".join(problems))
         self.config = config
         self.device = torch.device(device)
+        self.rank, self.world, self.mesh = 0, 1, None
+        if config.multi_device:
+            from gcnbmp_tpu_torch.parallel.mesh import (
+                graph_mesh, init_distributed, rank_device)
+
+            self.rank, self.world = init_distributed(self.device)
+            self.device = rank_device(self.device)
+            self.mesh = graph_mesh(self.device.type)
+            if config.scan_steps > 1 and config.batch_size % self.world:
+                raise ValueError(
+                    "multi_device scan mode requires batch_size divisible "
+                    f"by the device count ({self.world})")
         rng = np.random.default_rng(config.seed)
         if config.augment:
             train_ds = train_ds.augment_swap()
@@ -549,10 +601,7 @@ class Trainer:
                 "lower scan_steps or batch_size")
         self.optimizer, self.schedule = build_optimizer(
             config, self.steps_per_epoch, list(self.model.parameters()))
-        self.loss_fn = make_loss(
-            config.loss, **({"gamma": config.focal_gamma,
-                             "alpha": config.focal_alpha}
-                            if config.loss == "focal" else {}))
+        self.loss_fn = make_loss(config.loss, **_loss_kwargs(config))
         self.log: List[Dict[str, Any]] = []
 
     def _packed_model(self, config, dss):
@@ -671,7 +720,64 @@ class Trainer:
             raise FloatingPointError(f"non-finite values in {what} at "
                                      f"epoch {epoch} step {step}")
 
+    def _multi_device_batches(self, datasets):
+        """(the batch iterator's arguments to change, the RankBatch maker) of
+        graph-sharded
+        training (gcnbmp_tpu/train/loop.py:863-1037, :1060-1079): each
+        rank packs the same global batches (the same generator), pads and
+        partitions them, and keeps its block as its wire.  Co-attention
+        packs pair-local (both molecules of each pair on one rank; the
+        parts' capacities are the worst ``batch_size / world``-pair
+        batch's); the other forms pad each shard's edges to the global
+        capacity rounded to 128, which no batch can exceed."""
+        from gcnbmp_tpu_torch.data import estimate_coo_capacities
+        from gcnbmp_tpu_torch.data.packing import PairLocalMeta
+        from gcnbmp_tpu_torch.parallel import edgeshard
+
+        cfg, n = self.config, self.world
+        cap = ((self.edge_capacity + 127) // 128) * 128
+        if cfg.attn is not None:
+            ppp = -(-cfg.batch_size // n)
+            tpp, ecpp = estimate_coo_capacities(datasets, ppp)
+            meta = PairLocalMeta(n_parts=n, tiles_per_part=tpp,
+                                 pairs_per_part=ppp,
+                                 edge_capacity_per_part=((ecpp + 127)
+                                                         // 128) * 128)
+            iterator = dict(num_tiles=tpp, edge_capacity=
+                            meta.edge_capacity_per_part, pairlocal_parts=n)
+            partition = lambda b: edgeshard.pad_partition_coattn_pairlocal(
+                b, meta, self.coattn_n_max)
+        else:
+            iterator = {}
+            pad = (edgeshard.pad_partition_gwm if self.supernode_fn
+                   else edgeshard.pad_partition_coo)
+            partition = lambda b: pad(b, n, edge_capacity_per_shard=cap)
+
+        def rank_batch(b):
+            wire, labels = edgeshard.local_wire(partition(b), self.rank, n)
+            return edgeshard.RankBatch(wire, labels, b.num_edges)
+
+        return iterator, rank_batch
+
+    def _shared(self, value: Optional[float]) -> Optional[float]:
+        """Rank 0's ``value`` on every rank (multi-device training: only
+        rank 0 evaluates, and every rank must take its early-stopping
+        decision)."""
+        if not self.config.multi_device:
+            return value
+        t = torch.tensor([np.nan if value is None else value],
+                         dtype=torch.float64, device=self.device)
+        torch.distributed.broadcast(t, src=0,
+                                    group=self.mesh.get_group("graph"))
+        return float(t.item())
+
     def fit(self, max_epochs: Optional[int] = None) -> Dict[str, Any]:
+        """Train to ``max_epochs`` (default ``config.epochs``).  Under
+        ``multi_device`` every rank trains its shard of each batch
+        (``parallel.edgeshard``) with the same parameters and steps; rank
+        0 alone evaluates, logs and writes the run directory, and
+        broadcasts the validation loss so that every rank stops early at
+        the same epoch."""
         from gcnbmp_tpu_torch.data import estimate_coo_capacities
         from gcnbmp_tpu_torch.data.wire import (
             packed_coo_batch_iterator, scan_chunk_iterator)
@@ -679,6 +785,7 @@ class Trainer:
         from gcnbmp_tpu_torch.train.checkpoints import save_checkpoint
 
         cfg = self.config
+        main = self.rank == 0
         state = TrainState(self.model, self.optimizer, 0, 0, float("inf"), 0)
         if cfg.resume:
             from gcnbmp_tpu_torch.train.checkpoints import restore_checkpoint
@@ -688,9 +795,12 @@ class Trainer:
         datasets = [self.train_ds]
         if self.val_ds is not None and len(self.val_ds):
             datasets.append(self.val_ds)
+        iterator = {}
         if not self.padded:
             self.num_tiles, self.edge_capacity = estimate_coo_capacities(
                 datasets, cfg.batch_size)
+            iterator = dict(num_tiles=self.num_tiles,
+                            edge_capacity=self.edge_capacity)
         pack_cache = [] if cfg.reuse_packs else None
         if cfg.prefetch > 0:
             logger.info("prefetch=%d: the port stages each batch on the step's "
@@ -709,14 +819,37 @@ class Trainer:
                                    cfg.layer_aggregator))
         args_fn = (None if self.padded
                    else self.model.wire_encoder(n_max=self.coattn_n_max))
+        forward, step_loss, optimizer = (self.model, self.loss_fn,
+                                         self.optimizer)
+        rank_batch = None
+        if cfg.multi_device:
+            from gcnbmp_tpu_torch.parallel import edgeshard
+
+            changed, rank_batch = self._multi_device_batches(datasets)
+            iterator.update(changed)
+            forward = edgeshard.edgeshard_forward(
+                self.model, self.mesh, pair_local=cfg.attn is not None)
+            step_loss = edgeshard.global_mean_loss(
+                self.mesh, elementwise_loss=edgeshard.elementwise_loss_for(
+                    cfg.loss, **_loss_kwargs(cfg)))
+            optimizer = edgeshard.SummedGradients(self.optimizer, self.mesh)
+            args_fn = lambda rb: rb.wire
+            logger.info("multi_device: graph-sharded training, rank %d of %d "
+                        "on %s (scan_steps=%d, loss=%s, attn=%s%s, gwm=%s)",
+                        self.rank, self.world, self.device, cfg.scan_steps,
+                        cfg.loss, cfg.attn,
+                        " pair-local" if cfg.attn else "",
+                        self.supernode_fn is not None)
         steps_per_chunk = max(cfg.scan_steps, 1)
-        os.makedirs(cfg.out_dir, exist_ok=True)
+        if main:
+            os.makedirs(cfg.out_dir, exist_ok=True)
         max_epochs = max_epochs or cfg.epochs
         self.model.train()
         t0 = time.time()
         for epoch in range(state.epoch, max_epochs):
             profiler = None
-            if cfg.profile_epoch is not None and epoch == cfg.profile_epoch:
+            if main and cfg.profile_epoch is not None \
+                    and epoch == cfg.profile_epoch:
                 profiler = self._start_profile(epoch)
             epoch_losses: List[torch.Tensor] = []
             epoch_edges = 0
@@ -726,20 +859,22 @@ class Trainer:
                 batches = ()
             else:
                 batches = packed_coo_batch_iterator(
-                    self.train_ds, cfg.batch_size, self.num_tiles,
-                    self.edge_capacity, self.np_rng,
+                    self.train_ds, cfg.batch_size, rng=self.np_rng,
                     supernode_fn=self.supernode_fn,
-                    pack_workers=cfg.pack_workers, pack_cache=pack_cache)
+                    pack_workers=cfg.pack_workers, pack_cache=pack_cache,
+                    **iterator)
                 if cfg.debug_checks:
                     batches = (b.validate() for b in batches)
+                if rank_batch is not None:
+                    batches = map(rank_batch, batches)
                 batches = scan_chunk_iterator(batches, steps_per_chunk,
                                               args_fn)
             for stacked, labels, edges in batches:
                 args, labels = stage_chunk(stacked, labels, self.device)
                 for i in range(steps_per_chunk):
                     epoch_losses.append(train_step(
-                        self.model, self.optimizer, [a[i] for a in args],
-                        labels[i], self.loss_fn, cfg.class_num))
+                        forward, optimizer, [a[i] for a in args],
+                        labels[i], step_loss, cfg.class_num))
                     if cfg.debug_checks:
                         self._check_finite(epoch, state.step + i)
                 epoch_edges += edges
@@ -754,43 +889,49 @@ class Trainer:
                                          f"epoch {epoch} step {bad}")
             epoch_dt = max(time.time() - epoch_t0, 1e-9)
             state.epoch = epoch + 1
-            entry: Dict[str, Any] = {
-                "epoch": state.epoch,
-                "main/loss": float(np.mean(losses)) if losses else None,
-                "lr": float(self.schedule(state.step)),
-                "elapsed_time": time.time() - t0,
-                "edges_per_s": epoch_edges / epoch_dt,
-            }
-            if cfg.eval_train:
-                for k, v in self._eval(self.train_ds).metrics.items():
-                    entry[f"train/{k}"] = v
             val_loss = None
+            if main:
+                entry: Dict[str, Any] = {
+                    "epoch": state.epoch,
+                    "main/loss": float(np.mean(losses)) if losses else None,
+                    "lr": float(self.schedule(state.step)),
+                    "elapsed_time": time.time() - t0,
+                    "edges_per_s": epoch_edges / epoch_dt,
+                }
+                if cfg.eval_train:
+                    for k, v in self._eval(self.train_ds).metrics.items():
+                        entry[f"train/{k}"] = v
+                if self.val_ds is not None and len(self.val_ds):
+                    va = self._eval(self.val_ds)
+                    val_loss = float(self.loss_fn(
+                        torch.as_tensor(va.logits.reshape(va.labels.shape)),
+                        torch.as_tensor(va.labels.astype(np.float32))))
+                    entry["val/loss"] = val_loss
+                    for k, v in va.metrics.items():
+                        entry[f"val/{k}"] = v
+                self.log.append(entry)
+                logger.info("%s", json.dumps(entry))
+                with open(os.path.join(cfg.out_dir, "log.json"), "w") as f:
+                    json.dump(self.log, f, indent=2)
+                if state.epoch % cfg.snapshot_interval == 0:
+                    save_checkpoint(os.path.join(
+                        cfg.out_dir, f"snapshot_epoch_{state.epoch}"), state)
             if self.val_ds is not None and len(self.val_ds):
-                va = self._eval(self.val_ds)
-                val_loss = float(self.loss_fn(
-                    torch.as_tensor(va.logits.reshape(va.labels.shape)),
-                    torch.as_tensor(va.labels.astype(np.float32))))
-                entry["val/loss"] = val_loss
-                for k, v in va.metrics.items():
-                    entry[f"val/{k}"] = v
-            self.log.append(entry)
-            logger.info("%s", json.dumps(entry))
-            with open(os.path.join(cfg.out_dir, "log.json"), "w") as f:
-                json.dump(self.log, f, indent=2)
-            if state.epoch % cfg.snapshot_interval == 0:
-                save_checkpoint(os.path.join(
-                    cfg.out_dir, f"snapshot_epoch_{state.epoch}"), state)
+                val_loss = self._shared(val_loss)
             # early stopping on val loss
             if val_loss is not None:
                 if val_loss < state.best_val_loss - 1e-12:
                     state.best_val_loss = val_loss
                     state.epochs_since_best = 0
-                    save_checkpoint(os.path.join(cfg.out_dir, "best"), state)
+                    if main:
+                        save_checkpoint(os.path.join(cfg.out_dir, "best"),
+                                        state)
                 else:
                     state.epochs_since_best += 1
                     if state.epochs_since_best >= cfg.early_stop_patience:
                         logger.info("early stop at epoch %d (best val loss "
                                     "%.5f)", state.epoch, state.best_val_loss)
                         break
-        save_checkpoint(os.path.join(cfg.out_dir, "final"), state)
+        if main:
+            save_checkpoint(os.path.join(cfg.out_dir, "final"), state)
         return {"state": state, "log": self.log}

@@ -11,7 +11,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "gcnbmp_tpu_torch")
 CHIP_SCRIPTS = [os.path.join(ROOT, name)
                 for name in ("chip_smoke.py", "chip_phases.py",
-                             "chip_quality.py")]
+                             "chip_quality.py", "chip_multi_device.py")]
 
 MODULES = [
     "gcnbmp_tpu_torch",
@@ -68,6 +68,13 @@ MODULES = [
     "gcnbmp_tpu_torch.train.fixed",
     "gcnbmp_tpu_torch.eval.saliency",
     "gcnbmp_tpu_torch.eval.baselines",
+    "gcnbmp_tpu_torch.parallel",
+    "gcnbmp_tpu_torch.parallel.mesh",
+    "gcnbmp_tpu_torch.parallel.collectives",
+    "gcnbmp_tpu_torch.parallel.dp",
+    "gcnbmp_tpu_torch.parallel.edgeshard",
+    "gcnbmp_tpu_torch.parallel.multihost",
+    "gcnbmp_tpu_torch.parallel.multihost_demo",
 ]
 
 BLOCKER = """

@@ -273,7 +273,11 @@ def test_multilabel_metrics_match_sklearn():
     pytest.param("fp_batch_normalization", True, "ScopeCollectionNotFound",
                  id="fp_batch_normalization-True-ROADMAP queue 1, item"),
     ("layer_aggregator", "concat", "ROADMAP queue 2"),
-    ("multi_device", True, "ROADMAP queue 1, item"),
+    # the fused path: the JAX package's refusal (multi-device training
+    # rides coo or packed; tests/test_torch_multi_device.py trains it)
+    pytest.param("multi_device", True,
+                 "multi_device requires compute_path 'packed' or 'coo'",
+                 id="multi_device-True-ROADMAP queue 1, item"),
     pytest.param("concat_hidden", True, "use compute_path='padded'",
                  id="concat_hidden-True-ROADMAP queue 1, item"),
     pytest.param("siamese", False, "use compute_path='padded'",
@@ -363,9 +367,21 @@ def test_batch_iterator_matches_the_jax_one():
                                            np.random.default_rng(4),
                                            pack_cache=cache))
     assert sorted(map(id, again)) == sorted(map(id, cache))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # pair-local packing (the multi-device co-attention path), the same
+    # batches as the JAX iterator's; with a supernode table it is refused
+    want = list(jloop.packed_coo_batch_iterator(
+        ds, 8, tiles, cap, np.random.default_rng(5), pairlocal_parts=2))
+    got = list(packed_coo_batch_iterator(ds, 8, tiles, cap,
+                                         np.random.default_rng(5),
+                                         pairlocal_parts=2))
+    assert len(got) == len(want) == 5
+    for a, b in zip(got, want):
+        for x, y in zip(compact_coo_arrays(a), compact_coo_arrays(b)):
+            np.testing.assert_array_equal(x, y)
+    with pytest.raises(ValueError, match="attach_supers_coo"):
         next(packed_coo_batch_iterator(ds, 8, tiles, cap,
                                        np.random.default_rng(0),
+                                       supernode_fn=lambda smiles: None,
                                        pairlocal_parts=2))
 
 
