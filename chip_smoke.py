@@ -198,6 +198,26 @@ Phases, each fatal on failure:
    rank's kernels once per step, the losses within 1e-5 of one device
    (MPNN's sharded loss sums Set2Set rows of molecules a rank does not
    hold, as the JAX package's does: its gap is printed).
+18. the prefetcher (``data.prefetch``; the trainer's default
+   ``prefetch=2``, which phases 5, 7, 8, 10, 11, 13, 14, 16 and 17 run
+   through the train CLI, so their launch and same-bits checks cover it):
+   the flagship on coo (K2/K2b), co-attention ``para`` + NTN (K1/K1b), the
+   MPNN row (K5/K5b, K4/K4b) and the padded flagship (no kernel), one
+   epoch each of phase 8's pairs at batch 2048 through the ``Trainer``
+   with ``prefetch=0`` and ``prefetch=2`` in turns (after a warm-up
+   epoch): three runs each as trained, step losses within 1e-4 (the
+   segment sums' ``index_add_`` adds in a varying order), then 0, 2, 0
+   under ``torch.use_deterministic_algorithms`` (warnings only), where
+   the step losses must be the same bits when the two ``prefetch=0``
+   runs are, else within twice the larger spread (printed); each kernel
+   once per step in every run; each setting's epoch seconds, edges/s and
+   device busy share (a profiled run), and the producer's host ms per
+   chunk.  Then the race check: ``PrefetchIterator(depth=2, workers=4)``
+   stages 80 chunks of batch 256 through the trainer's transfer and a
+   pinned ring of 7 slots while K2/K2b steps run on the compute stream;
+   every chunk read back after its step equals its host arrays bit for
+   bit, and every step's loss that of the same chunk staged on the step's
+   thread (1e-5).
 
 Prints the kernels' JSON line (``launches`` from each kernel's main
 path; ``launches_packed`` from phase 13's packed runs;
@@ -215,6 +235,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -2910,6 +2931,277 @@ def multi_device_slice(dev, smi, reset_counts, read_counts):
     return dict(multi_launches)
 
 
+# phase 18: (tag, TrainConfig fields over the preset's, kernels once per
+# step, kernels at least once per step, kernels never)
+PREFETCH_PATHS = [
+    ("flagship coo", dict(compute_path="coo"), ["fused_ggnn_readout_bwd"],
+     ["fused_ggnn_readout"], ["fused_ggnn", "fused_ggnn_bwd"]),
+    ("co-attention (para, ntn)", dict(compute_path="coo", attn="para",
+                                      sim_method="ntn", learning_rate=2e-3),
+     ["fused_ggnn_bwd"], ["fused_ggnn"],
+     ["fused_ggnn_readout", "fused_ggnn_readout_bwd"]),
+    ("mpnn", dict(method="mpnn", conv_layers=4, weight_tying=True,
+                  compute_path="coo", compute_dtype="bfloat16",
+                  learning_rate=2e-3),
+     ["fused_mpnn_bwd", "fused_set2set_bwd"], ["fused_mpnn", "fused_set2set"],
+     ["fused_ggnn_readout", "fused_ggnn_readout_bwd"]),
+    ("padded flagship", dict(compute_path="padded"), [], [],
+     None),  # None: no kernel at all
+]
+PREFETCH_RACE_CHUNKS = 64
+
+
+def prefetch_epoch(base, depth, train_ds, dev, out_dir, reset_counts,
+                   read_counts, profiled=False):
+    """One epoch of ``base`` (a TrainConfig) with ``prefetch=depth``
+    through the Trainer on the card, no evaluation: its step losses, the
+    epoch's seconds and edges/s (the trainer's log), the launch counts,
+    the prefetcher's log entry and, ``profiled``, the device's kernel and
+    copy ms over the epoch (torch.profiler, CUDA activity only)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gcnbmp_tpu_torch.train import loop as train_loop
+
+    cfg = dataclasses.replace(base, prefetch=depth, out_dir=out_dir)
+    trainer = train_loop.Trainer(cfg, train_ds, None, device=dev)
+    losses = []
+    real_step = train_loop.train_step
+
+    def recording_step(*args, **kwargs):
+        loss = real_step(*args, **kwargs)
+        losses.append(loss)
+        return loss
+
+    train_loop.train_step = recording_step
+    try:
+        reset_counts()
+        with (profile(activities=[ProfilerActivity.CUDA]) if profiled
+              else contextlib.nullcontext()) as prof:
+            trainer.fit()
+            torch.cuda.synchronize()
+        launches = read_counts()
+    finally:
+        train_loop.train_step = real_step
+    entry = trainer.log[-1]
+    out = dict(losses=torch.stack(losses).double().cpu().numpy(),
+               epoch_s=entry["elapsed_time"], edges_s=entry["edges_per_s"],
+               launches=launches,
+               prefetch=trainer.prefetch_log[-1] if depth else None)
+    if profiled:
+        us = {"kernel": 0.0, "copy": 0.0}
+        for e in prof.key_averages():
+            if getattr(e, "device_type", None) != DeviceType.CUDA:
+                continue
+            t = getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0))
+            us["copy" if e.key.startswith(("Memcpy", "Memset"))
+               else "kernel"] += t
+        out["kernel_ms"], out["copy_ms"] = us["kernel"] / 1e3, us["copy"] / 1e3
+    return out
+
+
+def prefetch_race(train_ds, dev, smi, reset_counts, read_counts, tmp):
+    """The prefetcher at depth 2 with 4 transfer threads stages
+    ``PREFETCH_RACE_CHUNKS`` and more chunks (batch 256 of the flagship's
+    wire, two shuffled passes) through the trainer's transfer and a
+    7-slot pinned ring while K2/K2b train steps (learning rate 0, so every
+    step sees the same weights) run on the compute stream; each staged
+    chunk is read back after its step and compared with its host arrays
+    bit for bit, and each step's loss with the loss of the same chunk
+    staged on the step's thread (``stage_chunk``)."""
+    import numpy as np
+    import torch
+
+    from gcnbmp_tpu_torch.data import estimate_coo_capacities
+    from gcnbmp_tpu_torch.data.prefetch import PinnedRing, PrefetchIterator
+    from gcnbmp_tpu_torch.data.wire import (
+        packed_coo_batch_iterator, scan_chunk_iterator)
+    from gcnbmp_tpu_torch.train import loop as train_loop
+    from gcnbmp_tpu_torch.train.config import PRESETS
+
+    t0 = time.perf_counter()
+    depth, workers = 2, 4
+    cfg = dataclasses.replace(
+        PRESETS["ggnn_hole_binary"], compute_path="coo",
+        batch_size=SERVE_BATCH, learning_rate=0.0, augment=False,
+        prefetch=depth, prefetch_workers=workers, seed=SEED,
+        out_dir=os.path.join(tmp, "race"))
+    trainer = train_loop.Trainer(cfg, train_ds, None, device=dev)
+    tiles, cap = estimate_coo_capacities([train_ds], SERVE_BATCH)
+    args_fn = trainer.model.wire_encoder()
+    rng = np.random.default_rng(SEED)
+    host = []
+    while len(host) < PREFETCH_RACE_CHUNKS:
+        host += list(scan_chunk_iterator(packed_coo_batch_iterator(
+            train_ds, SERVE_BATCH, tiles, cap, rng), 1, args_fn))
+    ring = PinnedRing(dev, depth + workers + 1)
+
+    def step(args, labels):
+        return train_loop.train_step(trainer.model, trainer.optimizer,
+                                     [a[0] for a in args], labels[0],
+                                     trainer.loss_fn)
+
+    losses, mismatched = [], []
+    reset_counts()
+    with PrefetchIterator(iter(host), depth=depth,
+                          transfer=trainer._transfer(ring), workers=workers,
+                          device=dev) as staged_chunks:
+        for i, staged in enumerate(staged_chunks):
+            args, labels, _ = staged.get()
+            losses.append(step(args, labels))
+            back = [t.cpu().numpy() for t in (*args, labels)]
+            want = train_loop.chunk_parts(*host[i][:2])
+            if not all(g.dtype == w.dtype and g.shape == w.shape
+                       and np.array_equal(g.view(np.int32), w.view(np.int32))
+                       for g, w in zip(back, want)):
+                mismatched.append(i)
+            del args, labels, staged
+    launches = read_counts()
+    ref = [step(*train_loop.stage_chunk(stacked, labels, dev))
+           for stacked, labels, _ in host]
+    diff = float((torch.stack(losses) - torch.stack(ref)).abs().max())
+    print(f"phase 18 race check: {len(losses)} chunks of batch {SERVE_BATCH} "
+          f"staged at depth {depth} by {workers} transfer threads through "
+          f"{depth + workers + 1} pinned slots (grown {ring.grown} times) "
+          f"while K2/K2b steps ran; chunks read back unequal to their host "
+          f"arrays: {mismatched}; step losses vs the same chunks staged on "
+          f"the step's thread max |diff| {diff:.3e}; K2b launches "
+          f"{launches['fused_ggnn_readout_bwd']}; "
+          f"{time.perf_counter() - t0:.1f} s on {smi}")
+    if len(losses) < PREFETCH_RACE_CHUNKS or mismatched:
+        raise AssertionError(f"race check: {len(losses)} chunks, unequal "
+                             f"read-backs {mismatched}")
+    if diff > 1e-5:
+        raise AssertionError(f"race check: staged losses differ by {diff}")
+    if launches["fused_ggnn_readout_bwd"] != len(losses):
+        raise AssertionError("race check: K2b not once per step")
+
+
+def loss_agreement(tag, mode, runs, tol=None):
+    """The step losses of ``runs`` ({depth: [losses per run]}), each run
+    against the first ``prefetch=0`` run: with ``tol``, within it; else
+    the same bits when the ``prefetch=0`` runs give the same bits, or
+    within twice the larger spread of two runs of one depth.  The spreads
+    are printed."""
+    import numpy as np
+
+    base = runs[0][0]
+    spread = {d: max(float(np.abs(r - rs[0]).max()) for r in rs)
+              for d, rs in runs.items()}
+    cross = max(float(np.abs(r - base).max()) for r in runs[2])
+    if tol is not None:
+        ok, rule = cross <= tol, f"within {tol:g}"
+    elif spread[0] == 0.0:
+        ok, rule = cross == 0.0, "the same bits"
+    else:
+        ok = cross <= 2 * max(spread.values())
+        rule = "within twice the larger spread"
+    print(f"phase 18 {tag}, {mode}: step losses of {len(runs[2])} "
+          f"prefetch=2 run(s) vs prefetch=0 max |diff| {cross:.3e}; spread "
+          f"of the {len(runs[0])} prefetch=0 runs {spread[0]:.3e}, of the "
+          f"prefetch=2 runs {spread[2]:.3e}; held to {rule}: {ok}")
+    if not ok:
+        raise AssertionError(f"{tag} ({mode}): prefetch=2 losses off "
+                             "prefetch=0's")
+
+
+def prefetch_slice(train_ds, dev, smi, reset_counts, read_counts):
+    """Phase 18: each path of ``PREFETCH_PATHS`` (the preset
+    ``ggnn_hole_binary`` but for its fields) one epoch of phase 8's pairs
+    (20,480 augmented: 10 steps of 2048) through the Trainer with
+    ``prefetch=0`` and ``prefetch=2`` in turns, after a warm-up epoch:
+    0, 2, 2, 0 timed, then 2 and 0 profiled (the step losses within 1e-4
+    of each other), then 0, 2, 0 under ``torch.use_deterministic_algorithms``
+    (warnings only: an operation without a deterministic form runs as it
+    is), where the step losses must be the same bits when the two
+    ``prefetch=0`` runs are (else within twice the larger spread); each
+    kernel once per step in every run; each setting's epoch seconds,
+    edges/s and device busy share, and the producer's host ms per chunk;
+    then ``prefetch_race``."""
+    import warnings
+
+    import torch
+
+    from gcnbmp_tpu_torch.train.config import PRESETS
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        counter = itertools.count()
+
+        def epoch(tag, base, depth, per_step, fwd, absent, profiled=False):
+            r = prefetch_epoch(base, depth, train_ds, dev,
+                               os.path.join(tmp, f"run{next(counter)}"),
+                               reset_counts, read_counts, profiled=profiled)
+            n = len(r["losses"])
+            if n != 2 * len(train_ds) // N_PAIRS:
+                raise AssertionError(f"phase 18 {tag}: {n} steps")
+            if absent is None:
+                no_launches(f"phase 18 {tag}", r["launches"])
+            else:
+                check_launches(f"phase 18 {tag}", r["launches"], n, per_step,
+                               fwd, absent)
+            return r
+
+        for tag, fields, per_step, fwd, absent in PREFETCH_PATHS:
+            base = dataclasses.replace(
+                PRESETS["ggnn_hole_binary"], batch_size=N_PAIRS, epochs=1,
+                eval_train=False, seed=SEED, **fields)
+            path = (tag, base, per_step, fwd, absent)
+            # a warm-up epoch (first-use costs of the path stay untimed),
+            # then the timed runs in turns and the profiled ones
+            warm = epoch(*path[:2], 0, *path[2:])
+            timed = {0: [], 2: []}
+            for d in (0, 2, 2, 0):
+                timed[d].append(epoch(*path[:2], d, *path[2:]))
+            profiled = {d: epoch(*path[:2], d, *path[2:], profiled=True)
+                        for d in (2, 0)}
+            loss_agreement(tag, "as trained", {
+                d: [r["losses"] for r in timed[d]] + [profiled[d]["losses"]]
+                + ([warm["losses"]] if d == 0 else []) for d in (0, 2)},
+                tol=ATOL)
+            det = {0: [], 2: []}
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    for d in (0, 2, 0):
+                        det[d].append(epoch(*path[:2], d,
+                                            *path[2:])["losses"])
+            finally:
+                torch.use_deterministic_algorithms(False)
+            loss_agreement(tag, "deterministic algorithms", det)
+            nondet = sorted({str(w.message).split("\n")[0][:120]
+                             for w in caught
+                             if "deterministic" in str(w.message)})
+            print(f"phase 18 {tag}: operations without a deterministic form "
+                  f"under torch.use_deterministic_algorithms: {nondet}")
+            for depth in (0, 2):
+                rs, p = timed[depth], profiled[depth]
+                pf = ""
+                if depth:  # the timed runs' prefetcher, per chunk
+                    per = {k: statistics.median(
+                        1e3 * r["prefetch"][f"{k}_s"] / r["prefetch"]["items"]
+                        for r in rs) for k in ("produce", "transfer", "wait")}
+                    pf = (f"; per chunk: producer host {per['produce']:.3f} "
+                          f"ms, transfer {per['transfer']:.3f} ms, step "
+                          f"thread waiting {per['wait']:.3f} ms")
+                walls = " / ".join(f"{r['epoch_s']:.3f}" for r in rs)
+                print(f"phase 18 {tag} prefetch={depth}: epoch "
+                      f"{statistics.median(r['epoch_s'] for r in rs):.3f} s "
+                      f"({walls}), "
+                      f"{statistics.median(r['edges_s'] for r in rs):.1f} "
+                      f"edges/s (the trainer's log, median of {len(rs)}); "
+                      f"profiled run "
+                      f"{p['epoch_s']:.3f} s, device busy "
+                      f"{100 * p['kernel_ms'] / 1e3 / p['epoch_s']:.1f}% "
+                      f"(kernels {p['kernel_ms']:.3f} ms, copies "
+                      f"{p['copy_ms']:.3f} ms){pf} on {smi}")
+        prefetch_race(train_ds, dev, smi, reset_counts, read_counts, tmp)
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s")
+
+
 def crowd_rows(adj, torch):
     """``adj`` with ~5% of the columns of every other row set to 1: rows
     with more nonzeros than the kernels' NBR_CAP=16 neighbour slots (which
@@ -3427,6 +3719,11 @@ def main() -> int:
     # K4/K4b), each against its single-device run
     multi_device = multi_device_slice(dev, smi, reset_counts, read_counts)
     print(f"phase 17 done at {time.perf_counter() - t_start:.1f} s")
+
+    # 18. the prefetcher: four paths with prefetch=0 and 2 through the
+    # Trainer on phase 8's pairs, then the race check
+    prefetch_slice(prod_ds, dev, smi, reset_counts, read_counts)
+    print(f"phase 18 done at {time.perf_counter() - t_start:.1f} s")
 
     sources = {"fused_ggnn": "fused_ggnn.cu", "fused_ggnn_mid": "fused_ggnn.cu",
                "fused_ggnn_readout": "fused_ggnn.cu",

@@ -1,8 +1,14 @@
 """Chemistry layer of the port: SMILES parsing, GGNN featurization, the
-molecule transforms and mol2vec, the port's own copy of what it takes
-from ``gcnbmp_tpu.chem`` (numpy only)."""
+dense Weave and DrugFP featurizers, the molecule transforms and mol2vec,
+the port's own copy of what it takes from ``gcnbmp_tpu.chem`` (numpy
+only)."""
 
-from gcnbmp_tpu_torch.chem.featurize import GGNNFeaturizer, MolGraph
+from gcnbmp_tpu_torch.chem.featurize import (
+    DrugFPFeaturizer,
+    GGNNFeaturizer,
+    MolGraph,
+    WeaveFeaturizer,
+)
 from gcnbmp_tpu_torch.chem.mol2vec import (
     Mol2VecFeaturizer,
     identifier_table_from_corpus,
@@ -16,8 +22,10 @@ __all__ = [
     "identifier_table_from_corpus",
     "mol2vec_table",
     "morgan_sentence",
+    "DrugFPFeaturizer",
     "GGNNFeaturizer",
     "MolGraph",
+    "WeaveFeaturizer",
     "SmilesError",
     "mol_from_smiles",
 ]

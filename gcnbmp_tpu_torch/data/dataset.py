@@ -4,12 +4,15 @@ gcnbmp_tpu/data/dataset.py:27-290).
 - ``PairDataset``: the in-memory (graph, graph, label) triples;
 - ``DEFAULT_BUCKETS``, ``bucket_size``: the ladder of padded atom counts;
 - ``PaddedPairBatch``, ``pad_graphs``, ``make_batch``, ``batch_iterator``
-  and ``padded_args`` (a batch on the device):
+  and ``padded_args`` (a batch on the device; ``padded_arrays`` its host
+  side, which the trainer's prefetcher stages from pinned memory):
   the padded layout's batches, (B, N) atom ids, (B, 4, N, N) adjacencies
-  and (B, N) masks per side.  A short batch is filled to ``fill_batch_to``
-  rows with one-atom graphs of atom id 0 and label -1, which the loss and
-  the evaluators ignore; a GWM batch carries each side's supernode rows
-  (``supernode_fn`` of each SMILES, a zero row for a graph without one).
+  and (B, N) masks per side, and (B, N, F) dense atom features when the
+  graphs carry them (``chem.WeaveFeaturizer``, ``chem.DrugFPFeaturizer``).
+  A short batch is filled to ``fill_batch_to`` rows with one-atom graphs
+  of atom id 0 and label -1, which the loss and the evaluators ignore; a
+  GWM batch carries each side's supernode rows (``supernode_fn`` of each
+  SMILES, a zero row for a graph without one).
 
 The packed batches are built from these datasets by ``data.packing`` and
 ``data.native_pack``.
@@ -46,8 +49,10 @@ class PaddedPairBatch:
     Shapes: atoms (B, N) int32 (pad id 0), adj (B, 4, N, N) float32, mask
     (B, N) float32, labels (B,) or (B, C); ``num_edges``, the directed
     edges of both molecules from the graphs' metadata (summing the dense
-    adjacency costs tens of ms at B=2048); ``super1``/``super2`` (B, F_s)
-    are GWM's supernode features."""
+    adjacency costs tens of ms at B=2048); ``atom_feats1``/``atom_feats2``
+    (B, N, F) float32 the dense per-atom features of a dense featurizer
+    (``WeaveFeaturizer``, ``DrugFPFeaturizer``), None for atom ids;
+    ``super1``/``super2`` (B, F_s) are GWM's supernode features."""
 
     atoms1: np.ndarray
     adj1: np.ndarray
@@ -57,6 +62,8 @@ class PaddedPairBatch:
     mask2: np.ndarray
     labels: np.ndarray
     num_edges: int
+    atom_feats1: Optional[np.ndarray] = None
+    atom_feats2: Optional[np.ndarray] = None
     super1: Optional[np.ndarray] = None
     super2: Optional[np.ndarray] = None
 
@@ -65,29 +72,52 @@ class PaddedPairBatch:
         return int(self.atoms1.shape[0])
 
 
+def padded_arrays(batch: PaddedPairBatch,
+                  uses_supernodes: bool = False) -> List[np.ndarray]:
+    """The host arrays of ``padded_args``, in its order: atoms1, adj1,
+    atoms2, adj2, mask1, mask2, then super1 and super2 for a GWM
+    predictor, then the labels as f32."""
+    names = ["atoms1", "adj1", "atoms2", "adj2", "mask1", "mask2"]
+    if uses_supernodes:
+        names += ["super1", "super2"]
+    return ([np.asarray(getattr(batch, n)) for n in names]
+            + [np.asarray(batch.labels, np.float32)])
+
+
+def padded_tensors(tensors: Sequence, uses_supernodes: bool = False):
+    """``padded_arrays`` on the device, as ``padded_args`` returns them."""
+    args, labels = list(tensors[:6]), tensors[-1]
+    kwargs = ({"super1": tensors[6], "super2": tensors[7]}
+              if uses_supernodes else {})
+    return args, kwargs, labels
+
+
 def padded_args(batch: PaddedPairBatch, device,
                 uses_supernodes: bool = False):
     """A padded batch on ``device``: the predictor's positional arguments
     (atoms1, adj1, atoms2, adj2, mask1, mask2), the supernode kwargs of a
-    GWM predictor, and the labels."""
+    GWM predictor, and the labels, one copy each."""
     import torch  # the host layer imports no torch otherwise
 
-    put = lambda a: torch.as_tensor(np.asarray(a)).to(device)
-    args = [put(getattr(batch, n)) for n in
-            ("atoms1", "adj1", "atoms2", "adj2", "mask1", "mask2")]
-    kwargs = ({"super1": put(batch.super1), "super2": put(batch.super2)}
-              if uses_supernodes else {})
-    return args, kwargs, put(np.asarray(batch.labels, np.float32))
+    return padded_tensors([torch.as_tensor(a).to(device) for a in
+                           padded_arrays(batch, uses_supernodes)],
+                          uses_supernodes)
 
 
 def pad_graphs(graphs: Sequence[MolGraph], n: int
-               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Pad ragged graphs to (B, n) atoms, (B, 4, n, n) adjacency and (B, n)
-    mask."""
+               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                          Optional[np.ndarray]]:
+    """Pad ragged graphs to (B, n) atoms, (B, 4, n, n) adjacency, (B, n)
+    mask and, when the first graph has dense atom features, (B, n, F)
+    features (else None)."""
     b = len(graphs)
     atoms = np.zeros((b, n), dtype=np.int32)
     adj = np.zeros((b, NUM_EDGE_TYPES, n, n), dtype=np.float32)
     mask = np.zeros((b, n), dtype=np.float32)
+    feats = None
+    if graphs and graphs[0].atom_feats is not None:
+        f = graphs[0].atom_feats.shape[-1]
+        feats = np.zeros((b, n, f), dtype=np.float32)
     for i, g in enumerate(graphs):
         k = g.num_atoms
         if k > n:
@@ -95,7 +125,27 @@ def pad_graphs(graphs: Sequence[MolGraph], n: int
         atoms[i, :k] = g.atom_ids
         adj[i, g.edge_type, g.edge_src, g.edge_dst] = 1.0
         mask[i, :k] = 1.0
-    return atoms, adj, mask
+        if feats is not None:
+            feats[i, :k] = g.atom_feats
+    return atoms, adj, mask, feats
+
+
+# what a dataset pickle may name: this package's and numpy's classes and
+# functions (numpy's array reconstructors), and plain builtin types
+_PICKLE_PACKAGES = ("gcnbmp_tpu_torch", "numpy")
+_PICKLE_BUILTINS = frozenset({
+    "bool", "bytearray", "bytes", "complex", "dict", "float", "frozenset",
+    "int", "list", "object", "range", "set", "slice", "str", "tuple"})
+
+
+class _PortUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module.split(".")[0] in _PICKLE_PACKAGES or (
+                module == "builtins" and name in _PICKLE_BUILTINS):
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"{module}.{name} is not a class of gcnbmp_tpu_torch, numpy or "
+            "builtins")
 
 
 @dataclass
@@ -179,8 +229,13 @@ class PairDataset:
 
     @staticmethod
     def load(path: str) -> "PairDataset":
+        """Unpickle a dataset ``save`` wrote.  Only classes of this
+        package, numpy's and plain builtin types are taken: a pickle that
+        names any other (the JAX package's ``PairDataset`` among them,
+        which would import that package) raises ``pickle.UnpicklingError``
+        before anything is imported."""
         with open(path, "rb") as f:
-            obj = pickle.load(f)
+            obj = _PortUnpickler(f).load()
         if not isinstance(obj, PairDataset):
             raise TypeError(f"{path} does not contain a PairDataset")
         return obj
@@ -217,8 +272,8 @@ def make_batch(
     if n is None:
         raw = max(max(g.num_atoms for g in g1), max(g.num_atoms for g in g2))
         n = bucket_size(raw)
-    a1, adj1, m1 = pad_graphs(g1, n)
-    a2, adj2, m2 = pad_graphs(g2, n)
+    a1, adj1, m1, f1 = pad_graphs(g1, n)
+    a2, adj2, m2, f2 = pad_graphs(g2, n)
     labels = np.stack(label_rows)
     if labels.shape[-1] == 1:
         labels = labels[:, 0]
@@ -235,7 +290,7 @@ def make_batch(
     return PaddedPairBatch(
         atoms1=a1, adj1=adj1, mask1=m1,
         atoms2=a2, adj2=adj2, mask2=m2,
-        labels=labels, super1=s1, super2=s2,
+        labels=labels, atom_feats1=f1, atom_feats2=f2, super1=s1, super2=s2,
         num_edges=int(sum(g.num_edges for g in g1)
                       + sum(g.num_edges for g in g2)),
     )

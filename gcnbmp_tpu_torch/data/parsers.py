@@ -1,5 +1,6 @@
-"""CSV pair parsers (the port's copy of gcnbmp_tpu/data/parsers.py's
-``CSVPairParser`` and ``get_class_labels``).
+"""CSV pair parsers (the port's copy of gcnbmp_tpu/data/parsers.py:
+``CSVPairParser``, ``parse_pair_csv``, ``CachedPairDataset`` and
+``get_class_labels``).
 
 Read a CSV of SMILES pairs + label column(s), featurize both molecules,
 skip unparseable rows with a fail count.  Multi-label mode accepts
@@ -12,6 +13,8 @@ pure-Python parser gives the same graphs otherwise.
 from __future__ import annotations
 
 import logging
+import os
+import pickle
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence
 
@@ -143,6 +146,80 @@ class CSVPairParser:
         return ParseResult(
             dataset=ds, is_successful=ok, fail_count=fail, total_count=len(df)
         )
+
+
+def parse_pair_csv(
+    path: str,
+    featurizer: Optional[Callable] = None,
+    labels: Sequence[str] = ("label",),
+    smiles_cols: Sequence[str] = ("smiles_1", "smiles_2"),
+    multi_label_classes: Optional[Sequence[str]] = None,
+) -> PairDataset:
+    """The PairDataset of a pair CSV (``CSVPairParser(...).parse``)."""
+    parser = CSVPairParser(
+        featurizer=featurizer,
+        labels=labels,
+        smiles_cols=smiles_cols,
+        multi_label_classes=multi_label_classes,
+    )
+    return parser.parse(path).dataset
+
+
+class CachedPairDataset:
+    """Parse-once, pickle-cached dataset wrapper (reference BinaryDDI,
+    data_pipeline.py:20-100): the first load parses the CSV and writes
+    ``<csv>.cache.pkl`` and its ``.meta`` fingerprint; later loads read
+    the cache while the fingerprint holds.  A cache the port cannot take
+    (one the JAX package wrote names that package's classes, and
+    ``PairDataset.load`` refuses it before importing anything) is
+    re-parsed and rewritten, as a stale one is."""
+
+    def __init__(self, csv_path: str, cache_path: Optional[str] = None,
+                 parser: Optional[CSVPairParser] = None):
+        self.csv_path = csv_path
+        self.cache_path = cache_path or csv_path + ".cache.pkl"
+        self.parser = parser or CSVPairParser()
+        fingerprint = self._fingerprint()
+        meta_path = self.cache_path + ".meta"
+        cached_fp = None
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                cached_fp = f.read().strip()
+        self.dataset = None
+        if os.path.exists(self.cache_path):
+            if cached_fp != fingerprint:
+                logger.info("cache stale (CSV mtime or parser config "
+                            "changed); re-parsing %s", csv_path)
+            else:
+                try:
+                    self.dataset = PairDataset.load(self.cache_path)
+                except (pickle.UnpicklingError, TypeError) as e:
+                    logger.info("cache %s not the port's (%s); re-parsing "
+                                "%s", self.cache_path, e, csv_path)
+        self.from_cache = self.dataset is not None
+        if not self.from_cache:
+            self.dataset = self.parser.parse(csv_path).dataset
+            self.dataset.save(self.cache_path)
+            with open(meta_path, "w") as f:
+                f.write(fingerprint)
+
+    def _fingerprint(self) -> str:
+        """CSV mtime+size plus the parser configuration — a stale or
+        differently-parsed cache is re-built instead of silently
+        reused."""
+        st = os.stat(self.csv_path)
+        p = self.parser
+        cfg = (tuple(p.labels), tuple(p.smiles_cols),
+               tuple(p.multi_label_classes) if p.multi_label_classes else None,
+               p.label_delimiter, p._default_featurizer)
+        return f"{st.st_mtime_ns}:{st.st_size}:{cfg!r}"
+
+    @property
+    def data_list(self):  # reference-compatible accessor
+        return self.dataset
+
+    def __len__(self):
+        return len(self.dataset)
 
 
 def get_class_labels(labels_csv: str, column: str = "label") -> List[str]:

@@ -22,7 +22,9 @@ step and the Trainer (port of gcnbmp_tpu/train/loop.py).
   (wire-compact, the supernode table on the wire, :731-737, :1087-1088)
   or ``"packed"`` (plain PyTorch ops for these: the JAX package has no
   kernel for them either), per step or in scan mode (the loop at
-  :1185-1263, the guard at :739-745); resume (:786-790),
+  :1185-1263, the guard at :739-745), the batches staged ahead by the
+  prefetcher on every layout (``prefetch``, :1207-1247;
+  ``data.prefetch``); resume (:786-790),
   ``profile_epoch`` (:1149-1157) and ``debug_checks`` (:1172-1173,
   :183-207); and every encoder on the padded layout (``"padded"``, the
   config's default: ``PairPredictor`` or ``GWMPairPredictor`` over
@@ -67,6 +69,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from gcnbmp_tpu_torch.data.prefetch import four_byte_parts, split_views
 from gcnbmp_tpu_torch.models.packed import PORTED_METHODS, model_problems
 from gcnbmp_tpu_torch.models.predictor import padded_kwargs_from_config
 from gcnbmp_tpu_torch.train.config import TrainConfig
@@ -475,26 +478,24 @@ def kernel_problems(cfg, device) -> List[str]:
     return problems
 
 
+def chunk_parts(stacked, labels) -> List[np.ndarray]:
+    """The arrays of a chunk as ``stage_chunk`` lays them out: the stacked
+    wire arrays (all 4-byte types: the int32 wire arrays, GWM's f32
+    supernode table), then the labels as f32."""
+    return four_byte_parts([*stacked, np.asarray(labels, np.float32)])
+
+
 def stage_chunk(stacked, labels, device):
     """Copy a chunk of S stacked wire batches and their labels to
-    ``device`` in one transfer: the arrays (all 4-byte types: the int32
-    wire arrays, the f32 labels, GWM's f32 supernode table) laid side by
+    ``device`` in one transfer: the arrays of ``chunk_parts`` laid side by
     side in one int32 buffer, each f32 array by its bits (``view``, no
     conversion).
     Returns (the wire arrays, the labels) as views of the copy, each with
     its leading (S,) axis."""
-    parts = [np.ascontiguousarray(a) for a in stacked]
-    parts.append(np.ascontiguousarray(labels, np.float32))
-    if any(p.dtype.itemsize != 4 for p in parts):
-        raise TypeError("stage_chunk takes 4-byte arrays, got "
-                        f"{[str(p.dtype) for p in parts]}")
+    parts = chunk_parts(stacked, labels)
     flat = torch.from_numpy(np.concatenate(
         [p.view(np.int32).reshape(-1) for p in parts])).to(device)
-    views, start = [], 0
-    for p in parts:
-        dtype = torch.from_numpy(p[:0].reshape(-1)).dtype
-        views.append(flat[start:start + p.size].view(dtype).view(p.shape))
-        start += p.size
+    views = split_views(flat, parts)
     return views[:-1], views[-1]
 
 
@@ -532,11 +533,17 @@ class Trainer:
     of ``max(scan_steps, 1)``, one host-to-device copy per chunk
     (``stage_chunk``), and the chunk's steps run back to back on slices of
     it: the batches, order and updates of the JAX scan mode, whose tail
-    chunk is dropped likewise.  ``compute_path="padded"`` (the default)
-    trains the padded predictor of ``models.predictor.set_up_predictor``
-    on ``data.dataset`` batches ``pad_to`` atoms wide, one step per batch,
-    dropout drawn from ``dropout_gen`` (seeded ``seed + 1``); no kernel
-    runs there.  Epoch ends evaluate train and val through
+    chunk is dropped likewise.  With ``prefetch`` > 0 (the default, 2) a
+    ``data.prefetch.PrefetchIterator`` packs, encodes and stages the
+    chunks (padded: builds the batches) that many ahead on threads of its
+    own, ``prefetch_workers`` transfers at once (padded: one), through a
+    pinned ring and a side stream on the card (loop.py:1207-1247): the
+    same batches in the same order, the same device layout, so the same
+    losses as ``prefetch=0``, which stages on the step's thread.
+    ``compute_path="padded"`` (the default) trains the padded predictor
+    of ``models.predictor.set_up_predictor`` on ``data.dataset`` batches
+    ``pad_to`` atoms wide, one step per batch, dropout drawn from
+    ``dropout_gen`` (seeded ``seed + 1``); no kernel runs there.  Epoch ends evaluate train and val through
     ``PackedPairEvaluator`` (``PairEvaluator`` on the padded layout), stop
     early on val loss, and save
     ``snapshot_epoch_*``, ``best`` and ``final`` checkpoints
@@ -603,6 +610,10 @@ class Trainer:
             config, self.steps_per_epoch, list(self.model.parameters()))
         self.loss_fn = make_loss(config.loss, **_loss_kwargs(config))
         self.log: List[Dict[str, Any]] = []
+        # per epoch with the prefetcher: items, the producer's, the
+        # transfers' and the step thread's waiting seconds
+        self.prefetch_log: List[Dict[str, Any]] = []
+        self._ring = None  # the prefetcher's pinned ring, on the card
 
     def _packed_model(self, config, dss):
         """The wire-compact predictor, with the Set2Set (MPNN) and
@@ -658,31 +669,121 @@ class Trainer:
         self.model.train()
         return res
 
+    def _stage(self, item):
+        """One host item on the device, on the calling thread: a padded
+        batch's (args, supernode kwargs, labels, edges) through
+        ``padded_args``, or a chunk's (wire arrays, labels, edges) through
+        ``stage_chunk``, one pageable copy each."""
+        from gcnbmp_tpu_torch.data.dataset import padded_args
+
+        if self.padded:
+            return (*padded_args(item, self.device,
+                                 self.supernode_fn is not None),
+                    item.num_edges)
+        stacked, labels, edges = item
+        return (*stage_chunk(stacked, labels, self.device), edges)
+
+    def _prefetch_workers(self) -> int:
+        """The prefetcher's transfer threads: ``prefetch_workers`` on the
+        packed layouts, one on the padded layout (loop.py:1246)."""
+        return 1 if self.padded else self.config.prefetch_workers
+
     def _padded_epoch(self, epoch: int, state, epoch_losses: list) -> int:
         """One epoch on the padded layout: shuffled batches ``pad_to``
         atoms wide, the tail dropped (loop.py:1178-1183), one step each
         with a fresh dropout draw; scan_steps groups nothing here, as in
         the JAX trainer.  Returns the epoch's directed edges."""
-        from gcnbmp_tpu_torch.data.dataset import (
-            batch_iterator, padded_args)
+        from gcnbmp_tpu_torch.data.dataset import batch_iterator
+
+        return self._epoch(epoch, state, epoch_losses, batch_iterator(
+            self.train_ds, self.config.batch_size, shuffle=True,
+            rng=self.np_rng, pad_to=self.pad_to, drop_remainder=True,
+            supernode_fn=self.supernode_fn))
+
+    def _epoch(self, epoch: int, state, epoch_losses: list, batches,
+               packed_step=None) -> int:
+        """The steps of one epoch over ``batches``, the host items (padded
+        batches, or chunks of ``max(scan_steps, 1)`` wire batches, whose
+        steps run ``packed_step``: the forward, the optimizer and the
+        loss), each staged on the step's thread (``prefetch=0``) or ahead
+        of it by the prefetcher, which is stopped and joined before this
+        returns or raises.  Appends each step's loss to ``epoch_losses``;
+        returns the epoch's directed edges."""
+        from gcnbmp_tpu_torch.data.prefetch import PinnedRing, PrefetchIterator
 
         cfg = self.config
+        prefetcher = None
+        if cfg.prefetch > 0:
+            workers = self._prefetch_workers()
+            if self._ring is None and self.device.type == "cuda":
+                # allocated once; its slots grow to the run's item size
+                self._ring = PinnedRing(self.device,
+                                        cfg.prefetch + workers + 1)
+            batches = prefetcher = PrefetchIterator(
+                batches, depth=cfg.prefetch,
+                transfer=self._transfer(self._ring), workers=workers,
+                device=self.device)
+        steps_per_chunk = max(cfg.scan_steps, 1)
         edges = 0
-        for batch in batch_iterator(
-                self.train_ds, cfg.batch_size, shuffle=True, rng=self.np_rng,
-                pad_to=self.pad_to, drop_remainder=True,
-                supernode_fn=self.supernode_fn):
-            args, kwargs, labels = padded_args(
-                batch, self.device, self.supernode_fn is not None)
-            epoch_losses.append(train_step(
-                self.model, self.optimizer, args, labels, self.loss_fn,
-                cfg.class_num, deterministic=False,
-                generator=self.dropout_gen, **kwargs))
-            if cfg.debug_checks:
-                self._check_finite(epoch, state.step)
-            edges += batch.num_edges
-            state.step += 1
+        try:
+            for item in batches:
+                staged = (item.get() if prefetcher is not None
+                          else self._stage(item))
+                edges += staged[-1]
+                if self.padded:
+                    args, kwargs, labels, _ = staged
+                    epoch_losses.append(train_step(
+                        self.model, self.optimizer, args, labels,
+                        self.loss_fn, cfg.class_num, deterministic=False,
+                        generator=self.dropout_gen, **kwargs))
+                    if cfg.debug_checks:
+                        self._check_finite(epoch, state.step)
+                    state.step += 1
+                    continue
+                forward, optimizer, step_loss = packed_step
+                args, labels, _ = staged
+                for i in range(steps_per_chunk):
+                    epoch_losses.append(train_step(
+                        forward, optimizer, [a[i] for a in args], labels[i],
+                        step_loss, cfg.class_num))
+                    if cfg.debug_checks:
+                        self._check_finite(epoch, state.step + i)
+                state.step += steps_per_chunk
+        finally:
+            if prefetcher is not None:
+                prefetcher.close()
+        if prefetcher is not None:
+            self.prefetch_log.append(dict(
+                epoch=epoch + 1, items=prefetcher.count,
+                produce_s=prefetcher.produce_s,
+                transfer_s=prefetcher.transfer_s, wait_s=prefetcher.wait_s))
         return edges
+
+    def _transfer(self, ring):
+        """The prefetcher's transfer: ``_stage``'s result, with the same
+        device layout (one buffer per chunk, one tensor per padded array),
+        copied from ``ring``'s pinned slots on its side stream (on the
+        CPU, ``_stage`` itself)."""
+        from gcnbmp_tpu_torch.data.dataset import (
+            padded_arrays, padded_tensors)
+        from gcnbmp_tpu_torch.data.prefetch import Staged
+
+        if ring is None:
+            return lambda item: Staged(self._stage(item))
+        supers = self.supernode_fn is not None
+
+        def transfer(item):
+            if self.padded:
+                parts = four_byte_parts(padded_arrays(item, supers))
+                tensors, event = ring.copy(parts, one_buffer=False)
+                value = (*padded_tensors(tensors, supers), item.num_edges)
+            else:
+                stacked, labels, edges = item
+                tensors, event = ring.copy(chunk_parts(stacked, labels))
+                value = (tensors[:-1], tensors[-1], edges)
+            return Staged(value, event, ring.consumer)
+
+        return transfer
 
     def _start_profile(self, epoch: int):
         from torch.profiler import ProfilerActivity, profile
@@ -803,9 +904,12 @@ class Trainer:
                             edge_capacity=self.edge_capacity)
         pack_cache = [] if cfg.reuse_packs else None
         if cfg.prefetch > 0:
-            logger.info("prefetch=%d: the port stages each batch on the step's "
-                        "thread; the pinned-memory prefetcher is ROADMAP "
-                        "queue 1, item 1", cfg.prefetch)
+            logger.info("prefetch=%d: each %s staged ahead on a producer "
+                        "thread, %d transfer thread(s)%s", cfg.prefetch,
+                        "batch" if self.padded else "chunk",
+                        self._prefetch_workers(),
+                        ", a pinned ring and side-stream copies"
+                        if self.device.type == "cuda" else "")
         if cfg.plot_reports:
             logger.info("plot_reports: the port writes no loss/accuracy PNGs "
                         "(ROADMAP queue 1, item 6); log.json holds the curves")
@@ -852,11 +956,9 @@ class Trainer:
                     and epoch == cfg.profile_epoch:
                 profiler = self._start_profile(epoch)
             epoch_losses: List[torch.Tensor] = []
-            epoch_edges = 0
             epoch_t0 = time.time()
             if self.padded:
                 epoch_edges = self._padded_epoch(epoch, state, epoch_losses)
-                batches = ()
             else:
                 batches = packed_coo_batch_iterator(
                     self.train_ds, cfg.batch_size, rng=self.np_rng,
@@ -869,16 +971,8 @@ class Trainer:
                     batches = map(rank_batch, batches)
                 batches = scan_chunk_iterator(batches, steps_per_chunk,
                                               args_fn)
-            for stacked, labels, edges in batches:
-                args, labels = stage_chunk(stacked, labels, self.device)
-                for i in range(steps_per_chunk):
-                    epoch_losses.append(train_step(
-                        forward, optimizer, [a[i] for a in args],
-                        labels[i], step_loss, cfg.class_num))
-                    if cfg.debug_checks:
-                        self._check_finite(epoch, state.step + i)
-                epoch_edges += edges
-                state.step += steps_per_chunk
+                epoch_edges = self._epoch(epoch, state, epoch_losses, batches,
+                                          (forward, optimizer, step_loss))
             losses = (torch.stack(epoch_losses).double().cpu().numpy().tolist()
                       if epoch_losses else [])
             if profiler is not None:

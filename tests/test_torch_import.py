@@ -27,6 +27,7 @@ MODULES = [
     "gcnbmp_tpu_torch.data.packing",
     "gcnbmp_tpu_torch.data.native_pack",
     "gcnbmp_tpu_torch.data.wire",
+    "gcnbmp_tpu_torch.data.prefetch",
     "gcnbmp_tpu_torch.data.splits",
     "gcnbmp_tpu_torch.data.synth",
     "gcnbmp_tpu_torch.ops.aggregate",

@@ -199,3 +199,36 @@ def cli_runs(spec_path, out_dir):
         results[name] = rec
         dist.barrier()
     _dump(out_dir, results)
+
+
+def prefetch_runs(spec_path, out_dir):
+    """Each ``(name, csv path, TrainConfig kwargs)`` of the spec through
+    the port's ``Trainer`` with ``multi_device`` on this process group
+    (its ``out_dir`` under ``out_dir``): this rank's step losses."""
+    from gcnbmp_tpu_torch.data import CSVPairParser
+    from gcnbmp_tpu_torch.train import loop
+    from gcnbmp_tpu_torch.train.config import TrainConfig
+
+    with open(spec_path, "rb") as f:
+        runs = pickle.load(f)
+    results = {}
+    real_step = loop.train_step
+    for name, csv_path, kw in runs:
+        losses = []
+
+        def step(*args, **kwargs):
+            loss = real_step(*args, **kwargs)
+            losses.append(float(loss))
+            return loss
+
+        ds = CSVPairParser().parse(csv_path).dataset
+        cfg = TrainConfig(**kw, multi_device=True,
+                          out_dir=os.path.join(out_dir, name))
+        loop.train_step = step
+        try:
+            loop.Trainer(cfg, ds, ds, device="cpu").fit()
+        finally:
+            loop.train_step = real_step
+        results[name] = losses
+        dist.barrier()
+    _dump(out_dir, results)
