@@ -9,9 +9,10 @@ Each row runs the port's train CLI, then its evaluate CLI on the row's
 test split with ``--checkpoint best``, as two processes.  Every row keeps
 batch 2048, Adam lr 2e-3 with the x0.5-per-10-epochs schedule, early
 stopping on val loss with patience 10, ``--no-eval-train`` and
-``--compute-path coo`` but ``isc_padded`` (examples/ref_scale_battery.sh:29-38,
-scripts/quality_battery_r3.sh:13-30); the GGNN rows the flagship model
-(8 untied layers, H = D = 32, HolE, swap augmentation, up to 80 epochs).
+``--compute-path coo`` but ``isc_padded`` and ``fused64``
+(examples/ref_scale_battery.sh:29-38, scripts/quality_battery_r3.sh:13-30);
+the GGNN rows the flagship model (8 untied layers, H = D = 32, HolE, swap
+augmentation, up to 80 epochs), ``fused64`` at H = D = 64.
 The JAX package's test AUROC / AUPRC (docs/QUALITY.md) beside each:
 
 - ``drug``: dataset/synth546/drug (``ref_scale_drugsplit``; 0.9621 /
@@ -47,7 +48,11 @@ The JAX package's test AUROC / AUPRC (docs/QUALITY.md) beside each:
   dense adjacency from the host and validated on ``inter_valid_4k.csv``,
   examples/ref_scale_battery.sh:63-80; the port trains ``packed`` on the
   wire-compact COO predictor and validates on the full valid split, as
-  ``gwm`` does).
+  ``gwm`` does);
+- ``fused64``: the ``ref_scale_fused64`` row, H = D = 64 on
+  ``--compute-path fused --scan-steps 10`` (scripts/quality_battery_r3.sh:
+  33-44; 0.9596 / 0.9393, docs/QUALITY.md:77), through the H=64 bodies
+  of K2/K2b.
 
 The ``inter``, ``kaist`` and isc35000 splits are gitignored: when one is
 missing, ``build_synth546`` makes the whole synth546 tree with the port's
@@ -110,6 +115,12 @@ WIDTHS = ["--fp-hidden-dim", "32", "--fp-out-dim", "32"]
 GWM = ["--method", "ggnn-gwm", "--sim-method", "hole", "--conv-layers", "4",
        *WIDTHS, "--batch-size", "2048", "--lr", "2e-3", "--epochs", "30",
        "--patience", "10", "--augment", "--no-eval-train"]
+# ref_scale_fused64 (scripts/quality_battery_r3.sh:33-44): H = D = 64 on the
+# fused path in scan mode, through the H=64 kernel bodies
+FUSED64 = ["--method", "ggnn", "--conv-layers", "8", "--fp-hidden-dim", "64",
+           "--fp-out-dim", "64", "--weight-tying", "false", "--compute-path",
+           "fused", "--scan-steps", "10", "--batch-size", "2048", "--lr", "2e-3",
+           "--epochs", "80", "--patience", "10", "--augment", "--no-eval-train"]
 # row -> (split, train CLI flags, evaluate CLI flags)
 ROWS = {
     "drug": ("drug", FLAGS, []),
@@ -131,6 +142,7 @@ ROWS = {
     "production": ("isc", ["--preset", "ggnn_hole_production", *FLAGS], []),
     "gwm": ("isc", GWM + ["--compute-path", "coo", "--scan-steps", "10"], []),
     "gwm_packed": ("isc", GWM + ["--compute-path", "packed"], []),
+    "fused64": ("isc", FUSED64, []),
 }
 # the files build_synth546 makes beside the committed drug_list.csv and
 # rule_stats.json (and the drug and scaffold splits, which it can remake)

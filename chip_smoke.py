@@ -8,8 +8,10 @@ Phases, each fatal on failure:
 2. build: compile the CUDA kernels from ``gcnbmp_tpu_torch/ops/csrc``,
    one nvcc per source, all at once; print ptxas's registers and spills,
    and those of each instance of the forward and backward bodies (K1,
-   K1m, K2, the GGNN reverse body, K5, K5b, K4, K4b's two kernels); an
-   instance of the GGNN or MPNN bodies or of K4 that spills fails.
+   K1m, K2, the GGNN reverse body, each also at H=64, K5, K5b, K4, K4b's
+   two kernels); an instance of the GGNN or MPNN bodies or of K4 that
+   spills fails, and so does a build log without the five H=64 GGNN
+   instances.
 3. kernels vs plain, at the shapes of real packed batches (the first 2048
    pairs of dataset/synth546's drug test split at batch 256 and 2048);
    errors, median CUDA-event times of kernel and plain version per call
@@ -22,9 +24,12 @@ Phases, each fatal on failure:
       (``fused_ggnn_readout_bwd``) at the flagship L=8, H=32, D=32, one
       H=16 case, one batch-256 case whose adjacency has rows with more
       than the kernels' 16 neighbour slots, and one L=3 case (the odd
-      split); K1m's h must equal K1's bit for bit, K3's two halves summed
-      must equal K1b within the gradient bound, and two K2 runs, and two
-      K2b runs, on the same inputs must give the same bits;
+      split); then the same four at H=D=64 (the bodies of
+      ``csrc/fused_ggnn64.cuh``, the ``ref_scale_fused64`` model, L=8
+      untied) at batch 256 and 2048 (P=75 and 387), crowded and L=3; K1m's
+      h must equal K1's bit for bit, K3's two halves summed must equal
+      K1b within the gradient bound, and two K2 runs, and two K2b runs, on
+      the same inputs must give the same bits;
    b. MPNN: K5 (``fused_mpnn``), K5b (``fused_mpnn_bwd``), K4
       (``fused_set2set``) and K4b (``fused_set2set_bwd``) at the quality
       row's model (L=4 tied, H=32; Set2Set tables 24 and 64 atoms wide),
@@ -218,9 +223,23 @@ Phases, each fatal on failure:
    every chunk read back after its step equals its host arrays bit for
    bit, and every step's loss that of the same chunk staged on the step's
    thread (1e-5).
+19. the ``ref_scale_fused64`` row's model and flags (scripts/
+   quality_battery_r3.sh:33-44: ``--method ggnn --conv-layers 8
+   --fp-hidden-dim 64 --fp-out-dim 64 --weight-tying false --compute-path
+   fused --scan-steps 10 --batch-size 2048 --lr 2e-3 --augment``) through
+   the train CLI on phase 8's pairs (one scan chunk of 10 steps per
+   epoch, 2 epochs: phase 5's 2048 pairs make 2 steps, fewer than a
+   chunk) in each of the three forms: K2/K2b (K2b once per step), K1 and
+   the plain readout (K1b once per step), K1m/K3 (K1m once and K3 twice
+   per step), each with the others' kernels never launched, a falling
+   loss, val metrics, one batch's gradients against the plain layer
+   stack and the batch-2048 step timed and profiled; then the K2/K2b
+   run's ``final/params.npz`` served through the predict CLI at batch
+   256 (K2 once per request, logits against the plain stack).
 
 Prints the kernels' JSON line (``launches`` from each kernel's main
-path; ``launches_packed`` from phase 13's packed runs;
+path; the H=64 kernels (``*_h64``) from phase 19's runs and their times
+and bounds at P=75 (``ms``) and P=387 (``ms_p387``) from phase 3a; ``launches_packed`` from phase 13's packed runs;
 ``launches_coattention`` from phases 9–10 (GGNN) and 16 (MPNN);
 ``launches_multi_device`` from phase 17's NCCL runs; with each
 kernel's bound: the larger of
@@ -348,6 +367,11 @@ BODIES = (
     (r"fused_mpnn_kernelILi(\d+)E", lambda m: f"fused_mpnn_kernel<{m[1]}> (K5)"),
     (r"fused_ggnn_bwd_kernelILi(\d+)ELb([01])E",
      lambda m: f"fused_ggnn_bwd_kernel<{m[1]}, {'true' if m[2] == '1' else 'false'}>"),
+    (r"fused_ggnn_kernel64ILb([01])ELb([01])E",
+     lambda m: f"fused_ggnn_kernel64 "
+               f"({'K2' if m[1] == '1' else 'K1m' if m[2] == '1' else 'K1'})"),
+    (r"fused_ggnn_bwd_kernel64ILb([01])E",
+     lambda m: f"fused_ggnn_bwd_kernel64<{'true' if m[1] == '1' else 'false'}>"),
     (r"fused_mpnn_bwd_kernelILi(\d+)E",
      lambda m: f"fused_mpnn_bwd_kernel<{m[1]}>"),
     (r"set2set_fwd_kernelILi(\d+)ELi(\d+)E",
@@ -659,11 +683,11 @@ def plain_logits(model, args, torch):
 
 
 def serve_slice(tag, config, cfg, ds, df, dev, smi, reset_counts, read_counts,
-                kernels, absent=()):
-    """Serve the pairs through predict.main with seeded weights; each of
-    ``kernels`` must launch once per request and each of ``absent``
-    never; the logits must match the plain layer stack.  Returns the
-    launch counts."""
+                kernels, absent=(), tree=None):
+    """Serve the pairs through predict.main with seeded weights (or the
+    parameter tree ``tree``); each of ``kernels`` must launch once per
+    request and each of ``absent`` never; the logits must match the plain
+    layer stack.  Returns the launch counts."""
     import numpy as np
     import pandas as pd
     import torch
@@ -683,7 +707,9 @@ def serve_slice(tag, config, cfg, ds, df, dev, smi, reset_counts, read_counts,
         out_path = os.path.join(tmp, "preds.csv")
         with open(cfg_path, "w") as f:
             json.dump(config, f)
-        save_params_npz(params_path, init_params(cfg, SEED))
+        if tree is None:
+            tree = init_params(cfg, SEED)
+        save_params_npz(params_path, tree)
         df.to_csv(in_path, index=False)
         argv = ["--input", in_path, "--config", cfg_path,
                 "--params", params_path, "--out", out_path,
@@ -715,8 +741,7 @@ def serve_slice(tag, config, cfg, ds, df, dev, smi, reset_counts, read_counts,
             raise AssertionError("probs not finite in [0, 1] for every pair")
 
     # the same batches: kernel path vs the plain layer stack on the card
-    model = from_jax_params(init_params(cfg, SEED),
-                            make_packed_predictor(**cfg)).to(dev).eval()
+    model = from_jax_params(tree, make_packed_predictor(**cfg)).to(dev).eval()
     tiles, cap = estimate_coo_capacities([ds], SERVE_BATCH)
     args_fn = model.wire_encoder([ds])
     got_l, want_l = [], []
@@ -3202,6 +3227,62 @@ def prefetch_slice(train_ds, dev, smi, reset_counts, read_counts):
     print(f"phase 18: {time.perf_counter() - t0:.1f} s")
 
 
+# phase 19: the ref_scale_fused64 row (scripts/quality_battery_r3.sh:33-44;
+# docs/QUALITY.md:77) through the train CLI in each kernel form: (form,
+# FUSED_READOUT, TWOPASS, kernels per step, forward kernels at least once
+# per step, kernels never)
+FUSED64_CFG = dict(fp_hidden_dim=64, fp_out_dim=64, conv_layers=8,
+                   weight_tying=False)
+FUSED64_FLAGS = ["--method", "ggnn", "--conv-layers", "8", "--fp-hidden-dim",
+                 "64", "--fp-out-dim", "64", "--weight-tying", "false",
+                 "--compute-path", "fused", "--scan-steps", "10", "--lr",
+                 "2e-3", "--augment"]
+_K2 = ["fused_ggnn_readout", "fused_ggnn_readout_bwd"]
+FUSED64_FORMS = (
+    ("K2/K2b", True, False, {"fused_ggnn_readout_bwd": 1},
+     ["fused_ggnn_readout"],
+     ["fused_ggnn", "fused_ggnn_mid", "fused_ggnn_bwd", "fused_ggnn_half_bwd"]),
+    ("K1/K1b", False, False, {"fused_ggnn_bwd": 1}, ["fused_ggnn"],
+     _K2 + ["fused_ggnn_mid", "fused_ggnn_half_bwd"]),
+    # the epoch-end evaluations take K1 (no input needs a gradient)
+    ("K1m/K3", False, True, {"fused_ggnn_mid": 1, "fused_ggnn_half_bwd": 2},
+     [], _K2 + ["fused_ggnn_bwd"]))
+
+
+def fused64_slice(ds, df, dev, smi, reset_counts, read_counts, set_form):
+    """Phase 19: the ref_scale_fused64 flags through the train CLI on phase
+    8's pairs in each form (``set_form(fused_readout, twopass)``), then the
+    K2/K2b run's ``final/params.npz`` served through the predict CLI.
+    Returns ({form: launch counts}, the serving launch counts)."""
+    from gcnbmp_tpu_torch.convert import load_params_npz
+    from gcnbmp_tpu_torch.train.config import TrainConfig
+
+    t0 = time.perf_counter()
+    train_cfg = TrainConfig(method="ggnn", compute_path="fused", scan_steps=10,
+                            batch_size=N_PAIRS, learning_rate=2e-3,
+                            augment=True, **FUSED64_CFG)
+    runs = {}
+    with tempfile.TemporaryDirectory(dir=ROOT) as kept:
+        for form, fused_readout, twopass, per_step, fwd, absent in FUSED64_FORMS:
+            set_form(fused_readout, twopass)
+            runs[form], _ = train_slice(
+                f"fused64 {form}", FUSED64_FLAGS, N_PAIRS, train_cfg,
+                FUSED64_CFG, per_step, fwd, ((N_PAIRS, 10),), dev, smi,
+                reset_counts, read_counts, n_train=N_PROD_TRAIN, absent=absent,
+                keep_dir=kept if form == "K2/K2b" else None)
+        set_form(True, False)
+        run = os.path.join(kept, "run")
+        with open(os.path.join(run, "config.json")) as f:
+            config = json.load(f)
+        serve = serve_slice(
+            "fused64 final/params.npz", config, FUSED64_CFG, ds, df, dev, smi,
+            reset_counts, read_counts, ["fused_ggnn_readout"],
+            absent=["fused_ggnn", "fused_ggnn_mid"],
+            tree=load_params_npz(os.path.join(run, "final", "params.npz")))
+    print(f"phase 19: {time.perf_counter() - t0:.1f} s")
+    return runs, serve
+
+
 def crowd_rows(adj, torch):
     """``adj`` with ~5% of the columns of every other row set to 1: rows
     with more nonzeros than the kernels' NBR_CAP=16 neighbour slots (which
@@ -3294,6 +3375,14 @@ def main() -> int:
             spilling.append(f"{body}: {use}")
     if spilling:
         raise AssertionError("instances that spill registers: " + "; ".join(spilling))
+    # the H=64 bodies (K1, K1m, K2; the reverse body with and without the
+    # readout) whenever this process built the GGNN sources
+    if "fused_ggnn_bwd.cu" in (build.last_build_log or ""):
+        h64 = {body for body, _ in body_registers(build.last_build_log)
+               if "kernel64" in body}
+        if len(h64) != 5:
+            raise AssertionError(f"H=64 GGNN instances in the build log: "
+                                 f"{sorted(h64)}, expected 5")
 
     # 3. kernels vs plain at real batch shapes
     df = pd.read_csv(DATA).head(N_PAIRS)
@@ -3323,26 +3412,33 @@ def main() -> int:
     results = {name: {} for name in counters}
 
     def record(name, tag, err, k_med, p_med, dev_ms, got, headline, flops,
-               inputs):
+               inputs, key=None, suffix=""):
         """Print the case's bound (from its inputs and the kernel's
         outputs); keep the worst error over the cases, and the headline
-        case's times and bound."""
+        case's times and bound (under ``key``, by default the kernel's
+        name, with ``suffix`` after each time's name)."""
         b_ms, b_by = bound(flops, nbytes(inputs, got))
         print(f"  bound {name} [{tag}]: {b_ms:.4f} ms, by {b_by} "
               f"({flops / 1e9:.3f} GFLOP, {nbytes(inputs, got) / 1e6:.1f} MB)")
-        r = results[name]
+        r = results.setdefault(key or name, {})
         r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
         if headline:
-            r["ms"], r["plain_ms"], r["device_ms"] = k_med, p_med, dev_ms
-            r["bound_ms"], r["bound_by"] = b_ms, b_by
+            r["ms" + suffix], r["plain_ms" + suffix] = k_med, p_med
+            r["device_ms" + suffix] = dev_ms
+            r["bound_ms" + suffix], r["bound_by" + suffix] = b_ms, b_by
 
     # 3a. GGNN
     cfg = dict(fp_hidden_dim=H, fp_out_dim=D, conv_layers=L,
                weight_tying=False)
+    # H=64: the ref_scale_fused64 model (csrc/fused_ggnn64.cuh's bodies)
+    cfg64 = dict(cfg, fp_hidden_dim=64, fp_out_dim=64)
     cases = [(SERVE_BATCH, cfg, False), (N_PAIRS, cfg, False),
              (SERVE_BATCH, dict(cfg, fp_hidden_dim=16, fp_out_dim=16), False),
              (SERVE_BATCH, cfg, True),
-             (SERVE_BATCH, dict(cfg, conv_layers=3), False)]
+             (SERVE_BATCH, dict(cfg, conv_layers=3), False),
+             (SERVE_BATCH, cfg64, False), (N_PAIRS, cfg64, False),
+             (SERVE_BATCH, cfg64, True),
+             (SERVE_BATCH, dict(cfg64, conv_layers=3), False)]
     with torch.no_grad():
         for bs, c, crowd in cases:
             model = model_of(c)
@@ -3377,6 +3473,12 @@ def main() -> int:
 
             headline = bs == SERVE_BATCH and c is cfg and not crowd
             reps = REPS if headline else REPS_OTHER
+            # the H=64 kernels' entries: P=75 as ``ms``, P=387 as ``ms_p387``
+            wide = hidden == 64
+            if wide:
+                headline = c is cfg64 and not crowd
+            width_key = (lambda n: f"{n}_h64") if wide else (lambda n: n)
+            suffix = "_p387" if wide and bs == N_PAIRS else ""
             # the L=3 case is there for K1m's and K3's odd split
             odd = n_layers % 2 == 1
             # (name, range tag, kernel, plain, gradient names, headline,
@@ -3421,7 +3523,7 @@ def main() -> int:
                 record(name, tag + rng_tag,
                        *check_pair(name, tag + rng_tag, kern, plain, grads,
                                    GRU_KEYS, smi, torch, reps),
-                       head, ops, inputs)
+                       head, ops, inputs, key=width_key(name), suffix=suffix)
             # K1m is K1 with one more store: the same h, bit for bit
             if not torch.equal(fused_ggnn_mid(*k1_args)[0], fused_ggnn(*k1_args)):
                 raise AssertionError(f"K1m's h differs from K1's [{tag}]")
@@ -3725,6 +3827,15 @@ def main() -> int:
     prefetch_slice(prod_ds, dev, smi, reset_counts, read_counts)
     print(f"phase 18 done at {time.perf_counter() - t_start:.1f} s")
 
+    # 19. the ref_scale_fused64 row (H = D = 64) through the train CLI in
+    # the three forms, then its final parameters served
+    try:
+        fused64, serve64 = fused64_slice(ds, df, dev, smi, reset_counts,
+                                         read_counts, set_form)
+    finally:
+        set_form(*saved_form)
+    print(f"phase 19 done at {time.perf_counter() - t_start:.1f} s")
+
     sources = {"fused_ggnn": "fused_ggnn.cu", "fused_ggnn_mid": "fused_ggnn.cu",
                "fused_ggnn_readout": "fused_ggnn.cu",
                "fused_ggnn_bwd": "fused_ggnn_bwd.cu",
@@ -3796,6 +3907,25 @@ def main() -> int:
                 "bound_by")},
             # no single PyTorch call computes any of these functions
             "library_ms": None})
+    # the H=64 bodies: launches from phase 19's run of each form, times and
+    # bounds from phase 3a (P=75, and P=387 under the _p387 keys)
+    form_of = {"fused_ggnn": "K1/K1b", "fused_ggnn_bwd": "K1/K1b",
+               "fused_ggnn_mid": "K1m/K3", "fused_ggnn_half_bwd": "K1m/K3",
+               "fused_ggnn_readout": "K2/K2b", "fused_ggnn_readout_bwd": "K2/K2b"}
+    for name, form in form_of.items():
+        launches = fused64[form][name]
+        if launches == 0:
+            raise AssertionError(f"{name} at H=64 never launched in phase 19")
+        r = results[f"{name}_h64"]
+        kernels.append({
+            "name": f"{name}_h64", "route": "cuda",
+            "source": f"gcnbmp_tpu_torch/ops/csrc/{sources[name]}",
+            "replaces": replaces[name], "launches": launches,
+            **({"launches_serving": serve64[name]}
+               if name == "fused_ggnn_readout" else {}),
+            **{k + p: r[k + p] for p in ("", "_p387") for k in
+               ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+            "max_abs_err": r["max_abs_err"], "library_ms": None})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

@@ -22,7 +22,7 @@ from typing import Dict, Optional
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD_DIR = os.path.join(HERE, "build")
-HEADERS = ("fused_ggnn_common.cuh",)
+HEADERS = ("fused_ggnn_common.cuh", "fused_ggnn64.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -62,8 +62,14 @@
 // the backward recomputes.
 // Later work: tensor cores (wgmma) for the dense products, and more CTAs
 // per SM by shrinking the shared-memory plan.
+//
+// At H = 64 (fused_ggnn_kernel64) the plan above would take 442 KB, so
+// that width has a body of its own (fused_ggnn64.cuh): the weights stream
+// from L2 through two staged 17 KB panels, the messages go one edge type
+// at a time through one T x H buffer, the GRU one half of the tile at a
+// time; 148,224 bytes of shared memory, the same arithmetic in plain f32.
 
-#include "fused_ggnn_common.cuh"
+#include "fused_ggnn64.cuh"
 
 namespace {
 
@@ -177,6 +183,92 @@ cudaError_t launch(const float* h0, const float* adj, const Weights& w,
   return cudaGetLastError();
 }
 
+// The forward body at H = 64 (fused_ggnn64.cuh): the weights pass through
+// two staged panels, the message step takes one edge type at a time and
+// the GRU one half of the tile at a time; the same steps as the reverse
+// body's recompute.
+template <bool READOUT, bool MID>
+__global__ void __launch_bounds__(THREADS, 1)
+fused_ggnn_kernel64(const float* __restrict__ h0, const float* __restrict__ adj,
+                    Weights w, Readout ro, float* __restrict__ out,
+                    float* __restrict__ mid, int n_layers, int split) {
+  using namespace h64;
+  using S = Plan<false>;
+  extern __shared__ float smem[];
+  const Tile t = {adj + size_t(blockIdx.x) * TILE * ROW_LEN,
+                  smem + S::HIN, smem + S::MS, smem + S::WORK, smem + S::B_MSG,
+                  smem + S::BZ, smem + S::BR, smem + S::BN,
+                  reinterpret_cast<const Idx*>(smem + S::NK), smem + S::NV,
+                  reinterpret_cast<const int*>(smem + S::NC)};
+  float* s_bi = smem + S::BI;
+  float* s_bj = smem + S::BJ;
+  const int tid = threadIdx.x;
+  const size_t tile = blockIdx.x;
+  const float* h0_t = h0 + tile * TH;
+
+  Panels p;
+  panels_start(p, smem + S::PANELS, msg_panel(w, 0, 0), tid);
+  for (int i = tid; i < H; i += THREADS) {
+    smem[S::BZ + i] = w.bz[i]; smem[S::BR + i] = w.br[i]; smem[S::BN + i] = w.bn[i];
+    if (READOUT) { s_bi[i] = ro.bi[i]; s_bj[i] = ro.bj[i]; }
+  }
+  for (int i = tid; i < TH; i += THREADS) t.h[i] = h0_t[i];
+  scan_rows(t.adj_t, reinterpret_cast<Idx*>(smem + S::NK), smem + S::NV,
+            reinterpret_cast<int*>(smem + S::NC), tid);
+  __syncthreads();
+
+#pragma unroll 1
+  for (int l = 0; l < n_layers; ++l) {
+    if constexpr (MID) {  // K1m: layer split's input
+      if (l == split) {
+        float* mid_t = mid + tile * TH;
+        for (int i = tid; i < TH; i += THREADS) mid_t[i] = t.h[i];
+      }
+    }
+    const float* next = l + 1 < n_layers ? msg_panel(w, l + 1, 0)
+                        : READOUT ? ro.wi : nullptr;
+    layer_forward(t, w, l, p, next, tid);
+  }
+
+  float* out_t = out + tile * TH;
+  if constexpr (!READOUT) {
+    for (int i = tid; i < TH; i += THREADS) out_t[i] = t.h[i];
+  } else {  // D = H
+    float* s_h0 = t.m;
+    for (int i = tid; i < TH; i += THREADS) s_h0[i] = h0_t[i];
+    readout_gate(t.h, s_h0, ro, s_bi, t.work, p, tid);
+    const float* wj = panels_next(p, ro.wj, nullptr, tid);
+    const float* mask_t = ro.mask + tile * TILE;
+    const int col = tid % H, r0 = tid / H;
+#pragma unroll 1
+    for (int hf = 0; hf < 2; ++hf) {
+      float gj[RPH];
+#pragma unroll
+      for (int k = 0; k < RPH; ++k) gj[k] = s_bj[col];
+      xw<RPH>(t.h + hf * HALF * H, wj, col, r0, gj);
+#pragma unroll
+      for (int k = 0; k < RPH; ++k) {
+        const int i = hf * HALF + r0 + RS * k;
+        out_t[i * H + col] = t.work[i * H + col] * gj[k] * mask_t[i];
+      }
+    }
+  }
+}
+
+template <bool READOUT, bool MID = false>
+cudaError_t launch64(const float* h0, const float* adj, const Weights& w,
+                     const Readout& ro, float* out, int n_tiles, int n_layers,
+                     cudaStream_t stream, float* mid = nullptr, int split = 0) {
+  if (!h64::panels_aligned(w, READOUT ? &ro : nullptr)) return cudaErrorInvalidValue;
+  constexpr size_t bytes = h64::Plan<false>::BYTES;
+  static bool opted_in[MAX_DEVICES] = {};
+  cudaError_t err = opt_in_smem(fused_ggnn_kernel64<READOUT, MID>, bytes, opted_in);
+  if (err != cudaSuccess) return err;
+  fused_ggnn_kernel64<READOUT, MID><<<n_tiles, THREADS, bytes, stream>>>(
+      h0, adj, w, ro, out, mid, n_layers, split);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // K1: h (P, T, H) after n_layers GGNN layers.  Returns a cudaError_t.
@@ -193,6 +285,7 @@ extern "C" int fused_ggnn_fwd(
   switch (hidden) {
     case 16: return int(launch<16, false>(h0, adj, w, ro, out, n_tiles, n_layers, st));
     case 32: return int(launch<32, false>(h0, adj, w, ro, out, n_tiles, n_layers, st));
+    case 64: return int(launch64<false>(h0, adj, w, ro, out, n_tiles, n_layers, st));
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -213,6 +306,7 @@ extern "C" int fused_ggnn_mid_fwd(
   switch (hidden) {
     case 16: return int(launch<16, false, true>(h0, adj, w, ro, out, n_tiles, n_layers, st, mid, split));
     case 32: return int(launch<32, false, true>(h0, adj, w, ro, out, n_tiles, n_layers, st, mid, split));
+    case 64: return int(launch64<false, true>(h0, adj, w, ro, out, n_tiles, n_layers, st, mid, split));
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -235,6 +329,7 @@ extern "C" int fused_ggnn_readout_fwd(
   switch (hidden) {
     case 16: return int(launch<16, true>(h0, adj, w, ro, out, n_tiles, n_layers, st));
     case 32: return int(launch<32, true>(h0, adj, w, ro, out, n_tiles, n_layers, st));
+    case 64: return int(launch64<true>(h0, adj, w, ro, out, n_tiles, n_layers, st));
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -93,8 +93,17 @@
 // - Later work: tensor cores for the dense products (3xTF32 to hold the
 //   f32 bounds), more CTAs per tile at small P (75 tiles fill 75 of 132
 //   SMs), fewer passes over the partial buffer.
+//
+// At H = 64 (fused_ggnn_bwd_kernel64) the plan above would take 493 KB:
+// that width has a reverse body of its own on fused_ggnn64.cuh's steps
+// (weights through two staged panels, the messages and their reverse one
+// edge type at a time, the GRU and its reverse one half of the tile at a
+// time, every intermediate in shared memory with the thread that owns
+// it), 228,672 bytes of shared memory.  Its per-tile partial row is
+// 170,176 words at L = 8 (182,592 with the readout's): 263 MB (283 MB) at
+// P = 387, summed by the same sum_tiles_kernel.
 
-#include "fused_ggnn_common.cuh"
+#include "fused_ggnn64.cuh"
 
 namespace {
 
@@ -395,6 +404,329 @@ cudaError_t launch_bwd(const float* hin, const float* adj, const Weights& w,
   return cudaGetLastError();
 }
 
+// The reverse of one GRU half of layer l at H = 64 (rows [hf HALF, hf HALF
+// + HALF)), after `gates` left n in registers and r*s, z, r in rs, dz, dr:
+// d{z,r,n}' (HALF x H each, in dz, dr, dn), dh = dh_in + ds into s_dh
+// (dh_in alone at layer 0; the state's term ds is carried there until
+// then), the half's GRU weight gradients (`acc_gru`: added to the tile's
+// row), then dm into s_m, which the gradients have read.  Every
+// intermediate lives in shared memory with the thread that owns the
+// entry, so each step keeps one set of 8 accumulators in registers.
+// Panels Un, Uz, Ur, Wz[:H], Wr[:H], Wn[:H], Wz[H:], Wr[H:], Wn[H:], then
+// `next`.
+__device__ __forceinline__ void gru_reverse64(
+    const h64::Tile& t, const Weights& w, float* s_dh, float* gru_part,
+    bool zero_state, bool acc_gru, int hf, h64::Panels& p, const float* next,
+    const float (&n)[h64::RPH], int tid) {
+  using namespace h64;
+  using G = GradLayout<H>;
+  const int col = tid % H, r0 = tid / H;
+  float* h = t.h + hf * HALF * H;
+  float* m = t.m + hf * HALF * H;
+  float* dh = s_dh + hf * HALF * H;  // dh, then ds, then the new dh
+  float* rs = t.work;
+  float* dz = rs + HALF * H;
+  float* dr = dz + HALF * H;
+  float* dn = dr + HALF * H;
+#pragma unroll
+  for (int k = 0; k < RPH; ++k) {
+    const int i = (r0 + RS * k) * H + col;
+    const float s = zero_state ? 0.0f : h[i];
+    const float dhv = dh[i];
+    const float z = dz[i];
+    dh[i] = dhv * (1.0f - z);
+    dn[i] = dhv * z * (1.0f - n[k] * n[k]);
+    dz[i] = dhv * (n[k] - s) * z * (1.0f - z);
+  }
+  {  // drs = dn' Un^T
+    float drs[RPH] = {};
+    xwt<RPH, RS>(dn, panels_next(p, w.un, w.uz, tid), col, r0, drs);
+#pragma unroll
+    for (int k = 0; k < RPH; ++k) {
+      const int i = (r0 + RS * k) * H + col;
+      const float s = zero_state ? 0.0f : h[i];
+      const float r = dr[i];
+      dh[i] = fmaf(drs[k], r, dh[i]);
+      dr[i] = drs[k] * s * r * (1.0f - r);
+    }
+  }
+  // ds += d{z,r}' U{z,r}^T, then dh_in = d{z,r,n}' W{z,r,n}[:H]^T and
+  // dh = dh_in + ds, as the narrower widths take them
+  const float* wz1 = w.wz + H * H;
+  const float* wr1 = w.wr + H * H;
+  const float* wn1 = w.wn + H * H;
+  {
+    float dsu[RPH] = {};
+    const float* uz = panels_next(p, w.uz, w.ur, tid);
+    if (!zero_state) xwt<RPH, RS>(dz, uz, col, r0, dsu);
+    const float* ur = panels_next(p, w.ur, w.wz, tid);
+    if (!zero_state) xwt<RPH, RS>(dr, ur, col, r0, dsu);
+#pragma unroll
+    for (int k = 0; k < RPH; ++k) dh[(r0 + RS * k) * H + col] += dsu[k];
+  }
+  {
+    float dhn[RPH] = {};
+    xwt<RPH, RS>(dz, panels_next(p, w.wz, w.wr, tid), col, r0, dhn);
+    xwt<RPH, RS>(dr, panels_next(p, w.wr, w.wn, tid), col, r0, dhn);
+    xwt<RPH, RS>(dn, panels_next(p, w.wn, wz1, tid), col, r0, dhn);
+#pragma unroll
+    for (int k = 0; k < RPH; ++k) {
+      const int i = (r0 + RS * k) * H + col;
+      dh[i] = zero_state ? dhn[k] : dhn[k] + dh[i];
+    }
+  }
+
+  // the GRU's weight gradients over the half's rows, in four passes: h^T
+  // dz' is dWz's top half and dUz alike (likewise dr'; the state is h,
+  // zero at layer 0); (r s)^T dn' is dUn (r s is stored as zero at layer 0)
+  float* o = gru_part;
+  const GradPass<2, 0> g1 = {{h, h}, {dz, dr}, {o + G::WZ, o + G::WR},
+                             {o + G::UZ, o + G::UR}, {nullptr}, {nullptr}};
+  h64::grad_pass<2, 0, 0>(g1, HALF, acc_gru, !zero_state, tid);
+  const GradPass<2, 0> g2 = {{h, m}, {dn, dz}, {o + G::WN, o + G::WZ + H * H},
+                             {nullptr, nullptr}, {nullptr}, {nullptr}};
+  h64::grad_pass<2, 0, 0>(g2, HALF, acc_gru, false, tid);
+  const GradPass<2, 0> g3 = {{m, m}, {dr, dn}, {o + G::WR + H * H, o + G::WN + H * H},
+                             {nullptr, nullptr}, {nullptr}, {nullptr}};
+  h64::grad_pass<2, 0, 0>(g3, HALF, acc_gru, false, tid);
+  const GradPass<1, 3> g4 = {{rs}, {dn}, {o + G::UN}, {nullptr},
+                             {dz, dr, dn}, {o + G::BZ, o + G::BR, o + G::BN}};
+  h64::grad_pass<1, 3, 256>(g4, HALF, acc_gru, false, tid);
+
+  // dm = d{z,r,n}' W{z,r,n}[H:]^T into m, once every thread has read m
+  // (the first panel's barrier), carried there between the panels
+  const float* wp[3] = {wz1, wr1, wn1};
+  const float* dx[3] = {dz, dr, dn};
+#pragma unroll
+  for (int g = 0; g < 3; ++g) {
+    const float* wg = panels_next(p, wp[g], g < 2 ? wp[g + 1] : next, tid);
+    float acc[RPH];
+#pragma unroll
+    for (int k = 0; k < RPH; ++k) acc[k] = g == 0 ? 0.0f : m[(r0 + RS * k) * H + col];
+    xwt<RPH, RS>(dx[g], wg, col, r0, acc);
+#pragma unroll
+    for (int k = 0; k < RPH; ++k) m[(r0 + RS * k) * H + col] = acc[k];
+  }
+}
+
+// The reverse body at H = 64 (fused_ggnn64.cuh): the steps of the body
+// above, with the weights through two staged panels, the message step one
+// edge type at a time and the GRU one half of the tile at a time; its
+// forward is the forward body's own layer step.
+template <bool READOUT>
+__global__ void __launch_bounds__(THREADS, 1)
+fused_ggnn_bwd_kernel64(const float* __restrict__ hin, const float* __restrict__ adj,
+                        Weights w, Readout ro, const float* __restrict__ dout,
+                        float* dh_bot, float* partial, float* hs, int lo, int hi,
+                        int n_grad) {
+  using namespace h64;
+  using S = Plan<true>;
+  using G = GradLayout<H>;
+  constexpr int HALF_CTA = THREADS / 2;
+  extern __shared__ float smem[];
+  const Tile t = {adj + size_t(blockIdx.x) * TILE * ROW_LEN,
+                  smem + S::HIN, smem + S::MS, smem + S::WORK, smem + S::B_MSG,
+                  smem + S::BZ, smem + S::BR, smem + S::BN,
+                  reinterpret_cast<const Idx*>(smem + S::NK), smem + S::NV,
+                  reinterpret_cast<const int*>(smem + S::NC)};
+  float* s_dh = smem + S::DH;
+  float* s_bi = smem + S::BI;
+  float* s_bj = smem + S::BJ;
+  int* s_cs = reinterpret_cast<int*>(smem + S::CS);
+  Idx* s_cr = reinterpret_cast<Idx*>(smem + S::CR);
+  float* s_cv = smem + S::CV;
+  int* s_ov = reinterpret_cast<int*>(smem + S::OV);
+  int* s_ovn = reinterpret_cast<int*>(smem + S::OVN);
+
+  const int tid = threadIdx.x;
+  const int col = tid % H, r0 = tid / H;
+  const size_t tile = blockIdx.x;
+  const int n_range = hi - lo;
+  const float* h0_t = hin + tile * TH;  // h0 when lo == 0, else h_mid
+  // the tile's rows of the global buffers, kept in shared memory and read
+  // where used, so that no register holds them across the body
+  float** s_ptrs = reinterpret_cast<float**>(smem + S::PTRS);
+  if (tid == 0) {
+    s_ptrs[0] = hs + tile * size_t(n_range) * TH;
+    s_ptrs[1] = dh_bot + tile * TH;
+    s_ptrs[2] = partial + tile * size_t(n_grad);
+  }
+  auto hs_t = [&] { return s_ptrs[0]; };
+  auto dh0_t = [&] { return s_ptrs[1]; };
+  auto part = [&] { return s_ptrs[2]; };
+  auto gru_part = [&] { return s_ptrs[2] + G::gru0(n_range); };
+
+  // 1. the row and column lists (trap (a)), then the forward over the
+  // range, keeping each layer's input in hs
+  Panels p;
+  panels_start(p, smem + S::PANELS, msg_panel(w, lo, 0), tid);
+  for (int i = tid; i < H; i += THREADS) {
+    smem[S::BZ + i] = w.bz[i]; smem[S::BR + i] = w.br[i]; smem[S::BN + i] = w.bn[i];
+    if (READOUT) { s_bi[i] = ro.bi[i]; s_bj[i] = ro.bj[i]; }
+  }
+  for (int i = tid; i < TH; i += THREADS) t.h[i] = h0_t[i];
+  scan_rows(t.adj_t, reinterpret_cast<Idx*>(smem + S::NK), smem + S::NV,
+            reinterpret_cast<int*>(smem + S::NC), tid);
+  __syncthreads();
+  count_columns(t.nk, t.nv, t.nc, s_cs, s_cr, s_cv, s_ov, s_ovn,
+                reinterpret_cast<unsigned*>(t.work), tid);
+  const int n_ov = *s_ovn;
+  const float* first_back = msg_panel(w, hi - 1, 0);
+#pragma unroll 1
+  for (int l = lo; l < hi; ++l) {
+    for (int i = tid; i < TH; i += THREADS) hs_t()[size_t(l - lo) * TH + i] = t.h[i];
+    const float* next = l + 1 < hi ? msg_panel(w, l + 1, 0)
+                        : READOUT ? ro.wi : first_back;
+    layer_forward(t, w, l, p, next, tid);
+  }
+
+  // 2. seed dh: the readout's backward (K2b) or dh_final (K1b)
+  if constexpr (READOUT) {
+    float* s_h0 = t.m;
+    float* s_dpi = t.work;        // (T, D) the gate, then d(pre-gate)
+    float* s_doj = t.work + TH;   // (T, D) d(h Wj + bj)
+    for (int i = tid; i < TH; i += THREADS) s_h0[i] = h0_t[i];
+    readout_gate(t.h, s_h0, ro, s_bi, s_dpi, p, tid);
+    {
+      const float* wj = panels_next(p, ro.wj, ro.wi, tid);
+      const float* mask_t = ro.mask + tile * TILE;
+      const float* dg_t = dout + tile * TH;
+#pragma unroll 1
+      for (int hf = 0; hf < 2; ++hf) {
+        float gj[RPH];
+#pragma unroll
+        for (int k = 0; k < RPH; ++k) gj[k] = s_bj[col];
+        xw<RPH>(t.h + hf * HALF * H, wj, col, r0, gj);
+#pragma unroll
+        for (int k = 0; k < RPH; ++k) {
+          const int i = (hf * HALF + r0 + RS * k) * H + col;
+          const float gate = s_dpi[i];
+          const float dgv = dg_t[i] * mask_t[i / H];
+          s_dpi[i] = dgv * gj[k] * gate * (1.0f - gate);
+          s_doj[i] = dgv * gate;
+        }
+      }
+    }
+    __syncthreads();
+    float* ro_part = gru_part() + G::GRU_WORDS;
+    const GradPass<2, 0> r1 = {
+        {t.h, s_h0}, {s_dpi, s_dpi}, {ro_part + G::WI, ro_part + G::WI + H * H},
+        {nullptr, nullptr}, {nullptr}, {nullptr}};
+    h64::grad_pass<2, 0, 0>(r1, TILE, false, false, tid);
+    const GradPass<1, 2> r2 = {{t.h}, {s_doj}, {ro_part + G::WJ}, {nullptr},
+                               {s_dpi, s_doj}, {ro_part + G::BI, ro_part + G::BJ}};
+    h64::grad_pass<1, 2, 256>(r2, TILE, false, false, tid);
+    // dh = dpi Wi[:H]^T + doj Wj^T, carried in s_dh between the panels;
+    // h0's direct term dpi Wi[H:]^T goes to dh0 now and is added to the
+    // reverse's result at the end
+    const float* wi0 = panels_next(p, ro.wi, ro.wj, tid);
+#pragma unroll 1
+    for (int hf = 0; hf < 2; ++hf) {
+      float acc[RPH] = {};
+      xwt<RPH, RS>(s_dpi + hf * HALF * H, wi0, col, r0, acc);
+#pragma unroll
+      for (int k = 0; k < RPH; ++k) s_dh[(hf * HALF + r0 + RS * k) * H + col] = acc[k];
+    }
+    const float* wj = panels_next(p, ro.wj, ro.wi + H * H, tid);
+#pragma unroll 1
+    for (int hf = 0; hf < 2; ++hf) {
+      float* dh = s_dh + hf * HALF * H;
+      float acc[RPH];
+#pragma unroll
+      for (int k = 0; k < RPH; ++k) acc[k] = dh[(r0 + RS * k) * H + col];
+      xwt<RPH, RS>(s_doj + hf * HALF * H, wj, col, r0, acc);
+#pragma unroll
+      for (int k = 0; k < RPH; ++k) dh[(r0 + RS * k) * H + col] = acc[k];
+    }
+    const float* wi1 = panels_next(p, ro.wi + H * H, first_back, tid);
+#pragma unroll 1
+    for (int hf = 0; hf < 2; ++hf) {
+      float acc[RPH] = {};
+      xwt<RPH, RS>(s_dpi + hf * HALF * H, wi1, col, r0, acc);
+#pragma unroll
+      for (int k = 0; k < RPH; ++k) dh0_t()[(hf * HALF + r0 + RS * k) * H + col] = acc[k];
+    }
+  } else {
+    const float* dh_t = dout + tile * TH;
+    for (int i = tid; i < TH; i += THREADS) s_dh[i] = dh_t[i];
+  }
+
+  // 3. reverse the range's layers
+#pragma unroll 1
+  for (int l = hi - 1; l >= lo; --l) {
+    const bool zero_state = (l == 0);  // trap (b): ds survives at l == lo > 0
+    __syncthreads();  // the last readers of h and the message biases are done
+    for (int i = tid; i < TH; i += THREADS) t.h[i] = hs_t()[size_t(l - lo) * TH + i];
+    for (int i = tid; i < NE * H; i += THREADS) t.bmsg[i] = w.msg_b[size_t(l) * NE * H + i];
+    messages(t, w, l, p, w.wz, tid);
+#pragma unroll 1
+    for (int hf = 0; hf < 2; ++hf) {
+      float n[RPH];
+      gates(t, w, zero_state, hf, true, p, w.un, n, tid);
+      gru_reverse64(t, w, s_dh, gru_part(), zero_state, l != hi - 1 || hf != 0, hf, p,
+                    hf == 0 ? w.wz : msg_panel(w, l, 0), n, tid);
+    }
+    // message backward, one edge type at a time: dhw_e = A_e^T dm, then
+    // layer l's message gradients (threads [0, 256) their product, [256,
+    // 320) their biases) beside dh += dhw_e W_e^T (threads [256, 512))
+#pragma unroll 1
+    for (int e = 0; e < NE; ++e) {
+      const float* next = e + 1 < NE ? msg_panel(w, l, e + 1)
+                          : l > lo ? msg_panel(w, l - 1, 0) : nullptr;
+      const float* we = panels_next(p, msg_panel(w, l, e), next, tid);
+      column_gather_edge(t.adj_t, e, t.m, s_cs, s_cr, s_cv, s_ov, n_ov, t.work, tid);
+      __syncthreads();
+      float* mw = part() + (size_t(l - lo) * NE + e) * H * H;
+      float* mb = part() + G::msg_b0(n_range) + (size_t(l - lo) * NE + e) * H;
+      const GradPass<1, 1> mp = {{t.h}, {t.work}, {mw}, {nullptr}, {t.work}, {mb}};
+      h64::grad_pass<1, 1, 64>(mp, TILE, false, false, tid);
+      if (tid >= HALF_CTA) {  // 8 of the thread's 32 rows at a time
+        constexpr int HS = HALF_CTA / H;  // 4: row stride of the half CTA
+        constexpr int QR = TILE / 4;      // rows of a quarter of the tile
+        const int hc = (tid - HALF_CTA) % H, hr0 = (tid - HALF_CTA) / H;
+#pragma unroll 1
+        for (int q = 0; q < 4; ++q) {
+          float* dh = s_dh + q * QR * H;
+          float acc[QR / HS];
+#pragma unroll
+          for (int k = 0; k < QR / HS; ++k) acc[k] = dh[(hr0 + HS * k) * H + hc];
+          xwt<QR / HS, HS>(t.work + q * QR * H, we, hc, hr0, acc);
+#pragma unroll
+          for (int k = 0; k < QR / HS; ++k) dh[(hr0 + HS * k) * H + hc] = acc[k];
+        }
+      }
+    }
+  }
+
+  // 4. dh at the bottom of the range: dh0, or dh_mid for the top half
+  // (+ the readout's direct h0 term, written to dh0 in step 2)
+  __syncthreads();
+  float* dh0 = dh0_t();
+  for (int i = tid; i < TH; i += THREADS)
+    dh0[i] = READOUT ? s_dh[i] + dh0[i] : s_dh[i];
+}
+
+template <bool READOUT>
+cudaError_t launch_bwd64(const float* hin, const float* adj, const Weights& w,
+                         const Readout& ro, const float* dout, float* dh_bot,
+                         float* partial, float* grads, float* hs, int n_tiles,
+                         int lo, int hi, cudaStream_t stream) {
+  if (!h64::panels_aligned(w, READOUT ? &ro : nullptr)) return cudaErrorInvalidValue;
+  constexpr size_t bytes = h64::Plan<true>::BYTES;
+  static bool opted_in[MAX_DEVICES] = {};
+  cudaError_t err = opt_in_smem(fused_ggnn_bwd_kernel64<READOUT>, bytes, opted_in);
+  if (err != cudaSuccess) return err;
+  const int n_grad = int(GradLayout<64>::words(hi - lo, READOUT));
+  fused_ggnn_bwd_kernel64<READOUT><<<n_tiles, THREADS, bytes, stream>>>(
+      hin, adj, w, ro, dout, dh_bot, partial, hs, lo, hi, n_grad);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  constexpr int SUM_THREADS = 256;
+  sum_tiles_kernel<<<(n_grad + SUM_THREADS - 1) / SUM_THREADS, SUM_THREADS, 0,
+                     stream>>>(partial, grads, n_tiles, n_grad);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // K1b over [0, n_layers) and each half of K3: the backward over layers
@@ -418,6 +750,7 @@ extern "C" int fused_ggnn_range_bwd(
   switch (hidden) {
     case 16: return int(launch_bwd<16, false>(hin, adj, w, ro, dh_top, dh_bot, partial, grads, hs, n_tiles, lo, hi, st));
     case 32: return int(launch_bwd<32, false>(hin, adj, w, ro, dh_top, dh_bot, partial, grads, hs, n_tiles, lo, hi, st));
+    case 64: return int(launch_bwd64<false>(hin, adj, w, ro, dh_top, dh_bot, partial, grads, hs, n_tiles, lo, hi, st));
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -441,6 +774,7 @@ extern "C" int fused_ggnn_readout_bwd(
   switch (hidden) {
     case 16: return int(launch_bwd<16, true>(h0, adj, w, ro, dg, dh0, partial, grads, hs, n_tiles, 0, n_layers, st));
     case 32: return int(launch_bwd<32, true>(h0, adj, w, ro, dg, dh0, partial, grads, hs, n_tiles, 0, n_layers, st));
+    case 64: return int(launch_bwd64<true>(h0, adj, w, ro, dg, dh0, partial, grads, hs, n_tiles, 0, n_layers, st));
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -45,6 +45,9 @@ has no two-pass form, as in JAX.
 Each wrapper takes its plain PyTorch version (``*_reference``) for a
 tensor on the CPU; for a CUDA tensor it launches the hand-written Hopper
 kernel (``csrc/fused_ggnn.cu``, ``csrc/fused_ggnn_bwd.cu``) or raises.
+The kernels are built for H in ``KERNEL_HIDDEN`` (16, 32, 64); at H=64
+they run bodies of their own (``csrc/fused_ggnn64.cuh``), which copy the
+weights in 16-byte pieces, so those must start on 16-byte boundaries.
 Each counts its kernel launches in the ``launches`` attribute of
 ``fused_ggnn``, ``fused_ggnn_mid``, ``fused_ggnn_readout``,
 ``fused_ggnn_bwd``, ``fused_ggnn_half_bwd`` and
@@ -72,7 +75,10 @@ TILE = 128
 NUM_EDGE_TYPE = 4
 # widths the kernels' shared-memory plans are instantiated for; the
 # readout width D equals H
-KERNEL_HIDDEN = (16, 32)
+KERNEL_HIDDEN = (16, 32, 64)
+# widths whose bodies stream the weights through staged panels
+# (csrc/fused_ggnn64.cuh) instead of holding them in shared memory
+PANEL_HIDDEN = (64,)
 GRU_KEYS = ("wz", "uz", "bz", "wr", "ur", "br", "wn", "un", "bn")
 # the two-pass backward (K1m + K3); FusedGGNNFunction reads it per call
 TWOPASS = os.environ.get("GCNBMP_FUSED_TWOPASS") == "1"
@@ -283,7 +289,17 @@ def _check_common(n_layers, h0, adj, msg_w, msg_b, gru):
     _check("msg_b", msg_b, (n_layers, NUM_EDGE_TYPE, hidden), dev)
     for k in GRU_KEYS:
         _check(f"gru[{k!r}]", gru[k], gru_shape(k, hidden), dev)
+    if hidden in PANEL_HIDDEN:
+        _check_aligned(msg_w=msg_w, **{k: gru[k] for k in GRU_KEYS if k[0] != "b"})
     return p, hidden
+
+
+def _check_aligned(**weights) -> None:
+    """The H=64 bodies copy their weight blocks with 16-byte cp.async."""
+    for name, x in weights.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary at "
+                             f"hidden width {PANEL_HIDDEN}")
 
 
 def _check_readout(p, hidden, node_mask, ro_wi, ro_bi, ro_wj, ro_bj, dev):
@@ -296,6 +312,8 @@ def _check_readout(p, hidden, node_mask, ro_wi, ro_bi, ro_wj, ro_bj, dev):
     _check("ro_bi", ro_bi, (d,), dev)
     _check("ro_wj", ro_wj, (hidden, d), dev)
     _check("ro_bj", ro_bj, (d,), dev)
+    if hidden in PANEL_HIDDEN:
+        _check_aligned(ro_wi=ro_wi, ro_wj=ro_wj)
     return d
 
 

@@ -19,10 +19,12 @@ from gcnbmp_tpu_torch.ops import fused_ggnn as fg
 
 T = fg.TILE
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6  # chip_smoke.py's gradient bound
-# (tiles, layers, hidden, crowded rows): the flagship widths, H=16, and rows
-# with more nonzeros than the kernel's 16 neighbour slots
+# (tiles, layers, hidden, crowded rows): the flagship widths, H=16, rows
+# with more nonzeros than the kernel's 16 neighbour slots, and H=64 (the
+# reverse body of its own, fused_ggnn64.cuh)
 CASES = {"h32": (2, 3, 32, False), "h16": (2, 2, 16, False),
-         "crowded": (1, 3, 32, True)}
+         "crowded": (1, 3, 32, True), "h64": (1, 2, 64, False),
+         "h64_crowded": (1, 2, 64, True)}
 
 
 @pytest.fixture(scope="module")

@@ -357,7 +357,8 @@ def test_evaluate_cli_refusals(tmp_path, case, sample):
     params; ``saliency_gwm`` is refused after the metrics, as the JAX CLI
     refuses it (``GWMPairPredictor`` without supernode features)."""
     multi = case in ("no_labels_csv", "class_count")
-    width = 64 if case == "unbuilt_width" else 8
+    # GGNN's kernels are built for 16, 32 and 64: 48 is a width they refuse
+    width = 48 if case == "unbuilt_width" else 8
     cfg = _config(method="ggnn-gwm" if case == "saliency_gwm" else "ggnn",
                   sim_method="hole", class_num=3 if multi else 1,
                   fp_hidden_dim=width, fp_out_dim=width)
@@ -386,7 +387,7 @@ def test_evaluate_cli_refusals(tmp_path, case, sample):
             evaluate_cli.main(argv + ["--labels-csv", CLASSES])
     elif case == "unbuilt_width":
         # on the card, before the CUDA check and any weight is read
-        with pytest.raises(ValueError, match="fp_hidden_dim=64"):
+        with pytest.raises(ValueError, match="fp_hidden_dim=48"):
             evaluate_cli.main([a if a != "cpu" else "cuda" for a in argv])
     else:
         os.makedirs(run / "final")

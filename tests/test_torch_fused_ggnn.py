@@ -60,7 +60,7 @@ def _torch(x):
             else torch.as_tensor(x))
 
 
-CASES = [(16, True), (16, False), (32, True), (32, False)]
+CASES = [(16, True), (16, False), (32, True), (32, False), (64, True), (64, False)]
 
 
 @pytest.mark.parametrize("hidden,tied", CASES)

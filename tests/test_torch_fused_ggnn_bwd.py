@@ -20,7 +20,7 @@ torch.set_num_threads(1)
 RTOL, ATOL = 2e-3, 2e-5  # the JAX suite's gradient bound (test_fused_ggnn.py:87)
 L = 3
 T = 128
-CASES = [(16, True), (16, False), (32, True), (32, False)]
+CASES = [(16, True), (16, False), (32, True), (32, False), (64, True), (64, False)]
 
 
 def _inputs(hidden, tied, p=2, seed=0):

@@ -4,7 +4,8 @@
 ``fused_mpnn.cu``'s K5 are compiled with g++ against the CPU stand-in for
 the CUDA runtime (``tests/cuda_emu``) and run on one or two packed tiles
 at L=3: GGNN at H=32 and 16 and on a tile whose rows exceed the kernels'
-16 neighbour slots, K5 tied and untied at C=32, at C=16 and on a crowded
+16 neighbour slots (and the H=64 body, ``fused_ggnn64.cuh``, at L=2 on a
+plain and a crowded tile), K5 tied and untied at C=32, at C=16 and on a crowded
 asymmetric tile.  Each output is held against its plain PyTorch version
 at chip_smoke.py's bound (atol = rtol = 1e-4: f32 sums in another
 order); K1m's h must equal K1's bit for bit, and a second run must give
@@ -29,8 +30,11 @@ T = fg.TILE
 CAP, ROW_LEN = 16, 4 * T  # the kernels' NBR_CAP, and columns of the flat adjacency
 ATOL = RTOL = 1e-4  # chip_smoke.py's bound for the forward kernels
 LAYERS = 3
-# GGNN: (tiles, hidden, crowded rows)
-GGNN_CASES = {"h32": (2, 32, False), "h16": (2, 16, False), "crowded": (1, 32, True)}
+# GGNN: (tiles, hidden, crowded rows, layers); H=64 runs the forward body of
+# its own (fused_ggnn64.cuh)
+GGNN_CASES = {"h32": (2, 32, False, LAYERS), "h16": (2, 16, False, LAYERS),
+              "crowded": (1, 32, True, LAYERS), "h64": (1, 64, False, 2),
+              "h64_crowded": (1, 64, True, 2)}
 # K5: (tiles, channels, tied, crowded asymmetric tile)
 MPNN_CASES = {"c32_untied": (2, 32, False, False), "c32_tied": (2, 32, True, False),
               "c16": (2, 16, True, False), "crowded": (1, 32, True, True)}
@@ -60,7 +64,7 @@ def _assert_close(got, want, what):
     assert bool(((got - want).abs() <= ATOL + RTOL * want.abs()).all()), what
 
 
-def _ggnn_inputs(p, hidden, crowd, seed):
+def _ggnn_inputs(p, hidden, crowd, layers, seed):
     rng = np.random.default_rng(seed)
     f32 = lambda *s, scale=1.0: torch.as_tensor(
         (rng.standard_normal(s) * scale).astype(np.float32))
@@ -76,9 +80,9 @@ def _ggnn_inputs(p, hidden, crowd, seed):
     mask = torch.as_tensor((rng.random((p, T)) < 0.8).astype(np.float32))
     readout = (mask, f32(2 * hidden, hidden, scale=0.2), f32(hidden, scale=0.1),
                f32(hidden, hidden, scale=0.2), f32(hidden, scale=0.1))
-    args = (LAYERS, f32(p, T, hidden), torch.as_tensor(adj),
-            f32(LAYERS, 4, hidden, hidden, scale=hidden ** -0.5),
-            f32(LAYERS, 4, hidden, scale=0.1), gru)
+    args = (layers, f32(p, T, hidden), torch.as_tensor(adj),
+            f32(layers, 4, hidden, hidden, scale=hidden ** -0.5),
+            f32(layers, 4, hidden, scale=0.1), gru)
     return args, readout
 
 
@@ -110,7 +114,7 @@ def test_emulated_k1_k1m_match_plain_and_k1m_h_is_k1s(ggnn_lib, case):
     args, _ = _ggnn_inputs(*GGNN_CASES[case], seed=len(case))
     h = _k1(ggnn_lib, *args)
     _assert_close(h, fg.fused_ggnn_reference(*args), "K1")
-    h_m, mid = _k1(ggnn_lib, *args, split=LAYERS // 2)
+    h_m, mid = _k1(ggnn_lib, *args, split=args[0] // 2)
     want_h, want_mid = fg.fused_ggnn_mid_reference(*args)
     _assert_close(h_m, want_h, "K1m h")
     _assert_close(mid, want_mid, "K1m h_mid")

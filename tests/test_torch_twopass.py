@@ -101,7 +101,7 @@ def flags():
 
 
 @pytest.mark.parametrize("layers", [2, 3, 4])
-@pytest.mark.parametrize("hidden", [16, 32])
+@pytest.mark.parametrize("hidden", [16, 32, 64])
 def test_k1m_plain_matches_jax_mid_forward(layers, hidden, flags):
     args, _ = _inputs(layers, hidden, tied=False, seed=layers)
     flags(True, False)

@@ -2,8 +2,9 @@
 default form.
 
 - ``kernel_problems`` names a hidden width the card's kernels are not
-  built for when the device is CUDA, and nothing on the CPU (it reads only
-  the config, so it runs here without a card);
+  built for when the device is CUDA (GGNN at 48, MPNN at 64), and nothing
+  on the CPU (it reads only the config, so it runs here without a card);
+  it takes GGNN at 64 on every kernel path;
 - the train and predict CLIs refuse such a width on ``--device cuda``
   before they open any CSV: the check comes before the CLIs ask whether
   CUDA is available, so nothing is patched;
@@ -11,6 +12,7 @@ default form.
   with the plain readout under the default flags, and its logits and
   gradients match the JAX packed predictor's default form."""
 
+import dataclasses
 import json
 import os
 
@@ -44,6 +46,9 @@ SAMPLE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))
 FWD_RTOL, FWD_ATOL = 1e-4, 1e-5    # the JAX suite's forward bound (test_fused_ggnn.py:139)
 GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-5  # its gradient bound (test_fused_ggnn.py:87)
 ITEM = 'ROADMAP queue 2, "Open: hidden widths"'
+# a width each method's kernels are not built for: GGNN's run 16, 32 and
+# 64, MPNN's (K5, K4) 16 and 32
+UNBUILT = {"ggnn": 48, "mpnn": 64}
 
 
 @pytest.fixture
@@ -79,18 +84,34 @@ def _flat_tree(tree, prefix=""):
 @pytest.mark.parametrize("method,path", [("ggnn", "fused"), ("mpnn", "coo")])
 @pytest.mark.parametrize("as_dict", [False, True])
 def test_kernel_problems_name_unbuilt_widths_on_cuda_only(method, path, as_dict):
-    cfg = TrainConfig(method=method, compute_path=path, fp_hidden_dim=64,
-                      fp_out_dim=64)
+    width = UNBUILT[method]
+    cfg = TrainConfig(method=method, compute_path=path, fp_hidden_dim=width,
+                      fp_out_dim=width)
     assert loop.config_problems(cfg) == []
     arg = json.loads(cfg.to_json()) if as_dict else cfg
     problems = loop.kernel_problems(arg, "cuda")
     assert len(problems) == 1
-    assert "fp_hidden_dim=64" in problems[0] and ITEM in problems[0]
+    assert f"fp_hidden_dim={width}" in problems[0] and ITEM in problems[0]
     assert loop.kernel_problems(arg, torch.device("cuda", 0)) == problems
     assert loop.kernel_problems(arg, "cpu") == []
-    for hidden in (16, 32):
+    for hidden in (16, 32, 64) if method == "ggnn" else (16, 32):
         ok = dict(json.loads(cfg.to_json()), fp_hidden_dim=hidden)
         assert loop.kernel_problems(ok, "cuda") == []
+
+
+@pytest.mark.parametrize("path", ["coo", "fused", "packed"])
+def test_kernel_problems_take_ggnn_at_64_on_each_kernel_path(path):
+    """GGNN at H=64 runs the forward and reverse bodies of that width
+    (fused_ggnn64.cuh) on every path that launches them; MPNN at 64 is
+    still refused (K5, K5b, K4, K4b are built for 16 and 32)."""
+    cfg = TrainConfig(compute_path=path, fp_hidden_dim=64, fp_out_dim=64)
+    assert loop.config_problems(cfg) == []
+    assert loop.kernel_problems(cfg, "cuda") == []
+    assert loop.kernel_problems(dataclasses.replace(cfg, fp_out_dim=32), "cuda") == []
+    if path != "fused":
+        mpnn = dataclasses.replace(cfg, method="mpnn")
+        problems = loop.kernel_problems(mpnn, "cuda")
+        assert len(problems) == 1 and "fp_hidden_dim=64" in problems[0]
 
 
 def test_kernel_problems_take_d_other_than_h():
@@ -100,15 +121,15 @@ def test_kernel_problems_take_d_other_than_h():
 
 
 def test_trainer_refuses_an_unbuilt_width_on_cuda_before_any_work():
-    cfg = TrainConfig(compute_path="fused", fp_hidden_dim=64, fp_out_dim=64)
+    cfg = TrainConfig(compute_path="fused", fp_hidden_dim=48, fp_out_dim=48)
     ds = CSVPairParser().parse(pd.read_csv(SAMPLE).head(4)).dataset
-    with pytest.raises(ValueError, match="fp_hidden_dim=64"):
+    with pytest.raises(ValueError, match="fp_hidden_dim=48"):
         loop.Trainer(cfg, ds, device="cuda")
     # the plain versions take any width
-    assert loop.Trainer(cfg, ds, device="cpu").model.encoder.hidden_dim == 64
+    assert loop.Trainer(cfg, ds, device="cpu").model.encoder.hidden_dim == 48
 
 
-@pytest.mark.parametrize("flags_", [["--fp-hidden-dim", "64"],
+@pytest.mark.parametrize("flags_", [["--fp-hidden-dim", "48"],
                                     ["--method", "mpnn", "--compute-path", "coo",
                                      "--fp-hidden-dim", "8"]])
 def test_train_cli_refuses_an_unbuilt_width_before_reading_csvs(tmp_path, flags_):
@@ -127,13 +148,14 @@ def test_predict_cli_refuses_an_unbuilt_width_before_reading_pairs(tmp_path,
     config = tmp_path / "config.json"
     # a run of a packed layout: a padded run runs no kernel (and a config
     # without compute_path is a padded run, TrainConfig's default)
+    width = UNBUILT[method]
     config.write_text(json.dumps({"method": method, "sim_method": "hole",
-                                  "fp_hidden_dim": 64, "fp_out_dim": 64,
+                                  "fp_hidden_dim": width, "fp_out_dim": width,
                                   "conv_layers": 2, "compute_path": "coo"}))
     argv = ["--input", str(tmp_path / "missing.csv"), "--config", str(config),
             "--params", str(tmp_path / "missing.npz"), "--device", "cuda",
             "--out", str(tmp_path / "preds.csv")]
-    with pytest.raises(ValueError, match="fp_hidden_dim=64") as e:
+    with pytest.raises(ValueError, match=f"fp_hidden_dim={width}") as e:
         predict.main(argv)
     assert ITEM in str(e.value)
     assert not (tmp_path / "preds.csv").exists()
@@ -153,6 +175,13 @@ def test_fused_form_takes_the_widths(flags):
     assert tpacked.fused_form(32, 16).startswith("K1m/K3")
     flags(False, False, False)
     assert tpacked.fused_form(16, 16).startswith("K1/K1b")
+    # H=64: D = 64 takes K2/K2b, any other D K1 and the plain readout
+    flags(False, True, False)
+    assert tpacked.fused_form(64, 64).startswith("K2/K2b")
+    assert tpacked.readout_in_kernel(64, 64)
+    for d in (16, 32, 128):
+        assert tpacked.fused_form(64, d).startswith("K1/K1b")
+        assert not tpacked.readout_in_kernel(64, d)
 
 
 @pytest.mark.parametrize("twopass", [False, True])
