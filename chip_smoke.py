@@ -26,7 +26,9 @@ Phases, each fatal on failure:
       than the kernels' 16 neighbour slots, and one L=3 case (the odd
       split); then the same four at H=D=64 (the bodies of
       ``csrc/fused_ggnn64.cuh``, the ``ref_scale_fused64`` model, L=8
-      untied) at batch 256 and 2048 (P=75 and 387), crowded and L=3; K1m's
+      untied; the reverse body, K1b, K3 and K2b, takes every dense product
+      on the tensor cores in 3xTF32, the forward K1, K1m and K2 in f32
+      FMAs) at batch 256 and 2048 (P=75 and 387), crowded and L=3; K1m's
       h must equal K1's bit for bit, K3's two halves summed must equal
       K1b within the gradient bound, and two K2 runs, and two K2b runs, on
       the same inputs must give the same bits;
@@ -244,7 +246,11 @@ and bounds at P=75 (``ms``) and P=387 (``ms_p387``) from phase 3a; ``launches_pa
 ``launches_multi_device`` from phase 17's NCCL runs; with each
 kernel's bound: the larger of
 its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s, counted
-from this run's inputs, the sparse products by their nonzeros), the
+from this run's inputs, the sparse products by their nonzeros; the H=64
+reverse kernels also carry ``bound_tc_ms``, the bound on the route they
+take: the larger of the bytes over 3.35 TB/s and three times their dense
+operations over the 495 TFLOP/s of dense TF32 plus their sparse ones over
+67 TFLOP/s), the
 nvidia-smi line, and last the device JSON line.  Exits non-zero when
 CUDA is unavailable or the port's package is not beside this script.
 """
@@ -296,9 +302,11 @@ S2S_STEPS = 3
 # 10 steps of 2048 per epoch
 N_PROD_TRAIN = 10240
 TILE = 128
-# NVIDIA's H100 SXM data sheet: HBM bytes/s, and f32 FLOP/s outside the
-# tensor cores, the arithmetic every kernel here does
-PEAK_BYTES_S, PEAK_F32_FLOPS = 3.35e12, 67e12
+# NVIDIA's H100 SXM data sheet: HBM bytes/s, f32 FLOP/s outside the tensor
+# cores (every kernel's arithmetic but the H=64 reverse body's dense
+# products), and the dense TF32 tensor-core FLOP/s, on which the H=64
+# reverse body (K1b, K3, K2b) takes each dense product three times (3xTF32)
+PEAK_BYTES_S, PEAK_F32_FLOPS, PEAK_TF32_FLOPS = 3.35e12, 67e12, 495e12
 
 
 def nbytes(*xs) -> int:
@@ -323,23 +331,35 @@ def bound(flops, n_bytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def ggnn_flops(p, hidden, nnz, lo, hi, readout=False, backward=False):
-    """f32 operations of GGNN layers [lo, hi) over p tiles.  Per layer and
-    tile: the message product 8TH^2, the GRU's input products 12TH^2 and
-    state products 6TH^2 (none at layer 0, whose state is zero), the
-    aggregation 2H per adjacency nonzero; the readout 6TH^2 (D = H).  A
-    backward rebuilds the forward once (the kernels save only inputs)
-    and takes two products for each dense product (input and weight
-    gradients) and one for the aggregation (the adjacency gets none)."""
+def ggnn_terms(p, hidden, nnz, lo, hi, readout=False, backward=False):
+    """(dense, sparse) f32 operations of GGNN layers [lo, hi) over p tiles.
+    Per layer and tile: the message product 8TH^2, the GRU's input
+    products 12TH^2 and state products 6TH^2 (none at layer 0, whose state
+    is zero), the aggregation 2H per adjacency nonzero; the readout 6TH^2
+    (D = H).  A backward rebuilds the forward once (the kernels save only
+    inputs) and takes two products for each dense product (input and
+    weight gradients) and one for the aggregation (the adjacency gets
+    none)."""
     dense = p * TILE * hidden ** 2 * (26 * (hi - lo) - (6 if lo == 0 else 0)
                                      + (6 if readout else 0))
     sparse = 2 * nnz * hidden * (hi - lo)
-    return 3 * dense + 2 * sparse if backward else dense + sparse
+    return (3 * dense, 2 * sparse) if backward else (dense, sparse)
+
+
+def bound_tc(dense, sparse, n_bytes):
+    """``bound`` for a kernel whose dense products run on the tensor cores
+    in 3xTF32 (three TF32 products for each) and whose sparse ones run in
+    f32: the larger of the bytes over 3.35 TB/s and 3 dense / 495 TFLOP/s
+    + sparse / 67 TFLOP/s."""
+    t_ops = 3 * dense / PEAK_TF32_FLOPS + sparse / PEAK_F32_FLOPS
+    t_bytes = n_bytes / PEAK_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def mpnn_flops(p, hidden, n_layers, carry_state, nnz, mol_pairs,
                backward=False):
-    """As ``ggnn_flops`` for EdgeNet layers: per layer and tile the
+    """As ``ggnn_terms``, summed, for EdgeNet layers: per layer and tile the
     edge-type products 8TC^2, the molecule-sum product 2TC^2 and the
     GRU's 12TC^2, plus its state products 6TC^2 where the state is carried
     and not zero; the out and in aggregations 4C per adjacency nonzero,
@@ -3412,16 +3432,25 @@ def main() -> int:
     results = {name: {} for name in counters}
 
     def record(name, tag, err, k_med, p_med, dev_ms, got, headline, flops,
-               inputs, key=None, suffix=""):
+               inputs, key=None, suffix="", tc_terms=None):
         """Print the case's bound (from its inputs and the kernel's
-        outputs); keep the worst error over the cases, and the headline
-        case's times and bound (under ``key``, by default the kernel's
-        name, with ``suffix`` after each time's name)."""
+        outputs) and, for a kernel on the tensor cores, its ``bound_tc``
+        from ``tc_terms`` (dense, sparse); keep the worst error over the
+        cases, and the headline case's times and bounds (under ``key``, by
+        default the kernel's name, with ``suffix`` after each time's
+        name)."""
         b_ms, b_by = bound(flops, nbytes(inputs, got))
         print(f"  bound {name} [{tag}]: {b_ms:.4f} ms, by {b_by} "
               f"({flops / 1e9:.3f} GFLOP, {nbytes(inputs, got) / 1e6:.1f} MB)")
         r = results.setdefault(key or name, {})
         r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+        if tc_terms is not None:
+            tc_ms, tc_by = bound_tc(*tc_terms, nbytes(inputs, got))
+            print(f"  bound_tc {name} [{tag}]: {tc_ms:.4f} ms, by {tc_by} "
+                  f"(3 x {tc_terms[0] / 1e9:.3f} dense GFLOP in TF32, "
+                  f"{tc_terms[1] / 1e9:.3f} sparse GFLOP in f32)")
+            if headline:
+                r["bound_tc_ms" + suffix] = tc_ms
         if headline:
             r["ms" + suffix], r["plain_ms" + suffix] = k_med, p_med
             r["device_ms" + suffix] = dev_ms
@@ -3468,8 +3497,8 @@ def main() -> int:
             bottom = (0, split, h0, adj, msg_w, msg_b, gru, dout)
             nnz = int(torch.count_nonzero(adj))
 
-            def flops(lo, hi, **kw):
-                return ggnn_flops(p_tiles, hidden, nnz, lo, hi, **kw)
+            def flops(lo, hi, **kw):  # (dense, sparse)
+                return ggnn_terms(p_tiles, hidden, nnz, lo, hi, **kw)
 
             headline = bs == SERVE_BATCH and c is cfg and not crowd
             reps = REPS if headline else REPS_OTHER
@@ -3520,10 +3549,13 @@ def main() -> int:
             for name, rng_tag, kern, plain, grads, head, ops, inputs in pairs:
                 if odd and name not in ("fused_ggnn_mid", "fused_ggnn_half_bwd"):
                     continue
+                # the H=64 reverse body runs on the tensor cores
+                on_tc = wide and grads is not None
                 record(name, tag + rng_tag,
                        *check_pair(name, tag + rng_tag, kern, plain, grads,
                                    GRU_KEYS, smi, torch, reps),
-                       head, ops, inputs, key=width_key(name), suffix=suffix)
+                       head, sum(ops), inputs, key=width_key(name),
+                       suffix=suffix, tc_terms=ops if on_tc else None)
             # K1m is K1 with one more store: the same h, bit for bit
             if not torch.equal(fused_ggnn_mid(*k1_args)[0], fused_ggnn(*k1_args)):
                 raise AssertionError(f"K1m's h differs from K1's [{tag}]")
@@ -3925,6 +3957,9 @@ def main() -> int:
                if name == "fused_ggnn_readout" else {}),
             **{k + p: r[k + p] for p in ("", "_p387") for k in
                ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+            # the reverse body's bound on the route it takes (3xTF32)
+            **{k + p: r[k + p] for p in ("", "_p387") for k in ("bound_tc_ms",)
+               if k + p in r},
             "max_abs_err": r["max_abs_err"], "library_ms": None})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

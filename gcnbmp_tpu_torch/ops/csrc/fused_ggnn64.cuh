@@ -2,7 +2,7 @@
 // (fused_ggnn.cu: K1, K1m, K2) and the reverse body (fused_ggnn_bwd.cu:
 // K1b, K3, K2b) at that width: the shared-memory plan, the weight panels,
 // the message step one edge type at a time, the GRU gates by halves of the
-// tile, the readout's pre-activations and the blocked products.
+// tile, the readout's pre-activations and the products.
 //
 // Why H = 64 has a design of its own: GgnnPlan (fused_ggnn_common.cuh)
 // keeps every weight, h, m and the 4T x H hw stack in shared memory.  At
@@ -10,31 +10,46 @@
 // CTA; the weights alone (the GRU and one layer's messages, rows padded)
 // take 226 KB.  So at this width:
 // - The weights stay in global memory (L2) and pass through two staged
-//   panels of one (64, 64) block each (rows padded to HP = 68 words):
-//   while the CTA multiplies by block j, cp.async brings block j + 1 into
-//   the other panel (panels_next).  Every product is split into products
-//   by (64, 64) blocks: the message weight W_e, the GRU's Wz, Wr, Wn by
-//   their h and m halves, Uz, Ur, Un, the readout's Wi by halves and Wj.
+//   panels of one (64, 64) block each: while the CTA multiplies by block
+//   j, cp.async brings block j + 1 into the other panel (panels_next).
+//   Every product is split into products by (64, 64) blocks: the message
+//   weight W_e, the GRU's Wz, Wr, Wn by their h and m halves, Uz, Ur, Un,
+//   the readout's Wi by halves and Wj.
 // - The message step takes one edge type at a time: hw_e = h W_e + b_e
 //   (T x H) into one buffer, then m += A_e hw_e, each row's sum running on
 //   in ascending column order across e, so m adds the same terms in the
 //   same order as the 4T x H stack of the narrower widths.  The reverse
 //   gathers dhw_e = A_e^T dm one edge type at a time the same way.
 // - The GRU runs on the tile's rows in two halves of 64 (its gates are
-//   row-local): each thread then owns one column of 8 rows, as at H = 32,
-//   and the reverse's r*s, dz', dr', dn' take 64 rows each (64 KB
-//   together) instead of 128.  The gates are taken one at a time, z and r
-//   parked in shared memory, so one set of accumulators is live.
-// - Every product keeps at most 8 rows a thread in registers: the
-//   message and readout products also go by halves of the tile, and the
-//   weight gradients by 4 x 4 blocks; the bodies then fit 128 registers
-//   a thread without spilling.
+//   row-local), and the reverse's r*s, dz', dr', dn' take 64 rows each
+//   (64 KB together) instead of 128.  The gates are taken one at a time,
+//   z and r parked in shared memory, so one set of accumulators is live.
+// - Every product keeps 8 outputs a thread in registers (16 for a weight
+//   gradient): the message and readout products also go by halves of the
+//   tile; the bodies then fit 128 registers a thread without spilling.
 // - Index lists are 16-bit (columns < 512, rows < 128).
 // The plan comes to 148,224 bytes forward and 228,672 backward (Plan).
-// Arithmetic is plain f32 FMAs, as at the narrower widths.
 //
-// Thread layout of the row-wise products: thread `tid` owns column
-// col = tid % 64 of the rows r0 + 8k (r0 = tid / 64) of its row set.
+// The products are a compile-time choice P of the layer steps, which also
+// fixes the layout of the T x H buffers and of the panels and which thread
+// owns which entry of a product's output:
+// - Fma (the forward body): plain f32 FMAs from shared memory, as at the
+//   narrower widths.  Rows of H words (panels: HP = 68, padded); thread
+//   `tid` owns column tid % 64 of the rows tid / 64 + 8k of a half tile.
+// - Tc (the reverse body): the tensor cores in 3xTF32.  Each operand is
+//   split into a TF32 high part and a TF32 remainder (cvt.rna), and each
+//   8-deep step of a product issues three m16n8k8 mma.sync (lo*hi, hi*lo,
+//   hi*hi; lo*lo is dropped) into f32 accumulators: about 2^-21 of each
+//   term, the f32 bounds the kernels are held to.  Rows of H words whose
+//   4-word column groups are XORed by the row (swz), so that every
+//   fragment load, in each orientation the body reads (x W, x W^T, a^T b),
+//   puts the 32 lanes on 32 banks; the panels take the same layout.  An
+//   operand read along its rows comes by ldmatrix, the others by single
+//   loads.
+//   Ownership is the mma accumulator's: warp w of a (64, 64) product owns
+//   the 16 x 16 block at rows 16 (w / 4), columns 16 (w % 4), and lane
+//   (g, q) = (lane / 4, lane % 4) its rows g and g + 8, columns 2q, 2q + 1
+//   of each 8-column half; an elementwise step works on those entries.
 
 #pragma once
 
@@ -44,11 +59,11 @@ namespace ggnn {
 namespace h64 {
 
 constexpr int H = 64;
-constexpr int HP = H + 4;             // padded row of a weight panel
+constexpr int HP = H + 4;             // padded row of an Fma weight panel
 constexpr int TH = TILE * H;
 constexpr int HALF = TILE / 2;        // rows of half the tile
-constexpr int RS = THREADS / H;       // 8: stride of a thread's rows
-constexpr int RPH = HALF / RS;        // 8 rows per thread over a half
+constexpr int RS = THREADS / H;       // 8: stride of an Fma thread's rows
+constexpr int RPH = HALF / RS;        // 8 outputs per thread over a half
 constexpr int PANEL = H * HP;         // words of one staged (64, 64) block
 using Idx = unsigned short;           // row- and column-list indices
 
@@ -94,70 +109,7 @@ __device__ __forceinline__ void ld4(const float* p, float* v) {
 }
 
 // ---------------------------------------------------------------------------
-// weight panels
-
-// Two staged (64, 64) weight blocks; block j of a kernel's sequence sits in
-// buf + (j & 1) PANEL.  Each call of panels_next names the block it hands
-// out and the one to load behind it, so the sequence is written out where
-// the blocks are used.
-struct Panels {
-  float* buf;
-  int j;
-#ifndef __CUDACC__
-  const float* src[2];  // the CPU stand-in checks the names against the loads
-#endif
-};
-
-// One (64, 64) block (rows of 64 contiguous floats, 16-byte aligned) into
-// a panel with rows of HP, by cp.async: 1,024 16-byte copies, 2 a thread.
-__device__ __forceinline__ void panel_load(const float* __restrict__ src,
-                                           float* dst, int tid) {
-  static_assert(H * H / 4 == 2 * THREADS, "two copies a thread");
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const int q = tid + s * THREADS;
-    const int row = q / (H / 4), c = (q % (H / 4)) * 4;
-    __pipeline_memcpy_async(dst + row * HP + c, src + row * H + c, 16);
-  }
-}
-
-__device__ __forceinline__ void panels_start(Panels& p, float* buf,
-                                             const float* first, int tid) {
-  p.buf = buf;
-  p.j = 0;
-#ifndef __CUDACC__
-  p.src[0] = first;
-  p.src[1] = nullptr;
-#endif
-  panel_load(first, buf, tid);
-  __pipeline_commit();
-}
-
-// Wait for block j (loaded from `cur`) and synchronise the CTA: every
-// thread is then done with block j - 1 and with whatever it wrote before
-// the call.  Then start loading `next` (nullptr: nothing) into block j - 1's
-// panel, and return block j.
-__device__ __forceinline__ const float* panels_next(Panels& p, const float* cur,
-                                                    const float* next, int tid) {
-  __pipeline_wait_prior(0);
-  __syncthreads();
-  float* here = p.buf + (p.j & 1) * PANEL;
-#ifndef __CUDACC__
-  if (p.src[p.j & 1] != cur) __builtin_trap();
-  p.src[(p.j + 1) & 1] = next;
-#endif
-  if (next != nullptr) panel_load(next, p.buf + ((p.j + 1) & 1) * PANEL, tid);
-  __pipeline_commit();
-  ++p.j;
-  return here;
-}
-
-__device__ __forceinline__ const float* msg_panel(const Weights& w, int l, int e) {
-  return w.msg_w + size_t(l * NE + e) * H * H;
-}
-
-// ---------------------------------------------------------------------------
-// products
+// the f32 FMA product (Fma)
 
 // acc[k] += sum_d x[i_k, d] w[d, col] for the rows i_k = r0 + RS k of x
 // (row stride H; w a panel): per chunk of four d, four entries of w's rows
@@ -180,71 +132,237 @@ __device__ __forceinline__ void xw(const float* x, const float* w, int col,
   }
 }
 
-// acc[k] += sum_j x[i_k, j] w[c, j] for the rows i_k = r0 + STRIDE k (x W^T,
-// w a panel): per chunk of four j, one 16-byte load of w's row c (the
-// padding puts the rows of a quarter warp in distinct banks) and one
-// broadcast of each row.
-template <int N, int STRIDE>
-__device__ __forceinline__ void xwt(const float* x, const float* w, int c,
-                                    int r0, float (&acc)[N]) {
-#pragma unroll 1
-  for (int j0 = 0; j0 < H; j0 += 4) {
-    float wv[4];
-    ld4(w + c * HP + j0, wv);
+struct Fma {
+  __device__ static int at(int row, int col) { return row * H + col; }
+  __device__ static int panel_at(int row, int col) { return row * HP + col; }
+  __device__ static int panel_tid(int tid) { return tid; }
+  struct Own {  // column tid % 64 of the rows tid / 64 + 8k
+    int c, r0;
+    __device__ explicit Own(int tid) : c(tid % H), r0(tid / H) {}
+    __device__ int row(int k) const { return r0 + RS * k; }
+    __device__ int col(int) const { return c; }
+    __device__ int at(int k) const { return Fma::at(row(k), col(k)); }
+  };
+  // acc += x w over a half tile (x: 64 rows, w: a panel)
+  __device__ static void product(const float* x, const float* w, const Own& o,
+                                 float (&acc)[RPH]) {
+    xw<RPH>(x, w, o.c, o.r0, acc);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// the 3xTF32 tensor-core products (Tc)
+
+// threadIdx.x read anew where it is called: what a caller computes from it
+// is then computed there, and no register holds it across the body.
+#ifdef __CUDACC__
+__device__ __forceinline__ int fresh_tid() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
+}
+#else
+inline int fresh_tid() { return threadIdx.x; }
+#endif
+
+// The XOR of row `row`'s 4-word column groups: the groups of rows 8j ..
+// 8j + 7 are permuted so that both the lanes' rows g (fragment rows, 8 of
+// them) and their rows q, q + 4 (fragment depths, 4 and 2 groups) fall on
+// distinct banks.
+__device__ __forceinline__ int swz(int row) {
+  return (((row & 3) << 1) | ((row >> 2) & 1)) << 2;
+}
+
+// v rounded to TF32 (10 mantissa bits), to nearest, ties away from zero:
+// half an ulp of TF32 added to the magnitude's bits, then the 13 low bits
+// cleared.  The same bits as cvt.rna.tf32.f32 for every finite v, in two
+// integer instructions that an H100 issues faster than the conversion
+// (chip_tc64.py times the body both ways).
+__device__ __forceinline__ float tf32_rna(float v) {
+  return __uint_as_float((__float_as_uint(v) + 0x1000u) & 0xffffe000u);
+}
+
+#ifdef __CUDACC__
+// d += a b for the warp's m16n8k8 fragments (TF32 in, f32 accumulators):
+// a the (16, 8) A rows g, g + 8 at depths q, q + 4 (a0 a1 a2 a3), b the
+// (8, 8) B depths q, q + 4 at column g, d the rows g, g + 8 at columns
+// 2q, 2q + 1 (d0 d1 d2 d3), with (g, q) = (lane / 4, lane % 4).
+__device__ __forceinline__ void mma_tf32(float* d, const float* a, const float* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])),
+        "r"(__float_as_uint(a[2])), "r"(__float_as_uint(a[3])),
+        "r"(__float_as_uint(b[0])), "r"(__float_as_uint(b[1])));
+}
+
+// ldmatrix.x4 of 32-bit words: four 8 x 4 blocks, lane 8j + r giving the
+// address of row r of block j (16 bytes, aligned); r[j] of lane (g, q) is
+// block j's word (g, q), the place of an m16n8k8 TF32 fragment's entry.
+__device__ __forceinline__ void ldsm_x4(float (&r)[4], const float* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  unsigned x0, x1, x2, x3;
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(x0), "=r"(x1), "=r"(x2), "=r"(x3) : "r"(s));
+  r[0] = __uint_as_float(x0); r[1] = __uint_as_float(x1);
+  r[2] = __uint_as_float(x2); r[3] = __uint_as_float(x3);
+}
+#endif
+
+// v = hi + lo, each a TF32 value; v - hi is exact in f32.
+__device__ __forceinline__ void split_tf32(float v, float& hi, float& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - hi);
+}
+
+// acc += A B in 3xTF32 over the depth [0, depth) for the warp's block of
+// NM x NN tiles (16 x 8) at rows R, columns C, every operand a buffer of
+// H-word rows in the Tc layout: A[r][k] = a[k][r] if TA else a[r][k],
+// B[k][c] = b[c][k] if TB else b[k][c].  acc holds tile (mi, nj)'s d0..d3
+// at 4 (mi NN + nj).  R and C are multiples of 16 and 8, so each lane's
+// swizzle is one of four constants.  An operand read along its rows (A
+// without TA, B with TB) comes by ldmatrix, four 8 x 4 blocks a load;
+// the transposed ones by single loads.
+template <bool TA, bool TB, int NM, int NN>
+__device__ __forceinline__ void tc_mma(const float* a, const float* b, int depth,
+                                       int R, int C, int g, int q, float* acc) {
+  static_assert(!TB || NN == 2, "ldmatrix brings two n-tiles of B");
+  const int sg = swz(g), sq0 = swz(q), sq1 = swz(q + 4);
+  // ldmatrix: lane 8j + r gives row r of block j
+  const int lr = (4 * g + q) & 7, lj = (4 * g + q) >> 3, slr = swz(lr);
+#pragma unroll 2
+  for (int k0 = 0; k0 < depth; k0 += 8) {
+    float ah[NM][4], al[NM][4];
 #pragma unroll
-    for (int k = 0; k < N; ++k) {
-      float xv[4];
-      ld4(x + (r0 + STRIDE * k) * H + j0, xv);
+    for (int mi = 0; mi < NM; ++mi) {
+      float v[4];
+      if constexpr (TA) {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[k] = fmaf(xv[q], wv[q], acc[k]);
+        for (int i = 0; i < 4; ++i) {
+          const int r = R + 16 * mi + g + 8 * (i & 1);
+          v[i] = a[(k0 + q + 4 * (i >> 1)) * H + (r ^ (i >> 1 ? sq1 : sq0))];
+        }
+      } else {  // blocks: rows +0 / +8 (j & 1), depths +0 / +4 (j >> 1)
+        ldsm_x4(v, a + (R + 16 * mi + lr + 8 * (lj & 1)) * H + ((k0 + 4 * (lj >> 1)) ^ slr));
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(v[i], ah[mi][i], al[mi][i]);
+    }
+    float bt[4];  // with TB: blocks depths +0 / +4 (j & 1) of n-tiles j >> 1
+    if constexpr (TB)
+      ldsm_x4(bt, b + (C + lr + 8 * (lj >> 1)) * H + ((k0 + 4 * (lj & 1)) ^ slr));
+#pragma unroll
+    for (int nj = 0; nj < NN; ++nj) {
+      float bh[2], bl[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int c = C + 8 * nj + g;
+        split_tf32(TB ? bt[2 * nj + i] : b[(k0 + q + 4 * i) * H + (c ^ (i ? sq1 : sq0))],
+                   bh[i], bl[i]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < NM; ++mi) {
+        float* d = acc + 4 * (mi * NN + nj);
+        mma_tf32(d, al[mi], bh);
+        mma_tf32(d, ah[mi], bl);
+        mma_tf32(d, ah[mi], bh);
+      }
     }
   }
 }
 
-// Weight gradients over `rows` rows, as grad_pass of the narrower widths:
-//   out_p (H, H) (+)= a_p^T b_p for p < NP (out2_p, where set, takes the
-//   same product, or zeros without `add2`), s_out_q (H) (+)= column sums
-//   of s_q for q < NS.
-// A product takes 256 threads, each owning a 4 x 4 block of outputs: per
-// row, one 16-byte load of a_p's row and one of b_p's, and 16 FMAs (the
-// rows not unrolled, so the reverse body stays within its registers).
-// Threads [256 NP, 256 NP + NSUM) own columns of the sums.  Each output
-// belongs to one thread and sums the rows in order.
+struct Tc {
+  __device__ static int at(int row, int col) { return row * H + (col ^ swz(row)); }
+  __device__ static int panel_at(int row, int col) { return at(row, col); }
+  // the panel loads' addresses, recomputed at each load (kept across the
+  // reverse body, they cost it its last registers and spill)
+  __device__ static int panel_tid(int) { return fresh_tid(); }
+  // warp v of a product's 16 owns rows 16 (v / 4), columns 16 (v % 4) of
+  // its (64, 64) output; entry k of lane (g, q) is d[k % 4] of n-tile k / 4
+  struct Own {
+    int R, C, g, q;
+    __device__ Own(int v, int lane)
+        : R(16 * (v >> 2)), C(16 * (v & 3)), g(lane >> 2), q(lane & 3) {}
+    __device__ explicit Own(int tid) : Own(tid >> 5, tid & 31) {}
+    __device__ int row(int k) const { return R + g + 8 * ((k >> 1) & 1); }
+    __device__ int col(int k) const { return C + 8 * (k >> 2) + 2 * q + (k & 1); }
+    // Tc::at(row(k), col(k)): rows g and g + 8 share one swizzle, and a
+    // column's low bit lies outside it, so two bases and immediates
+    __device__ int at(int k) const {
+      return (R + g + 8 * ((k >> 1) & 1)) * H + ((C + 8 * (k >> 2) + 2 * q) ^ swz(g)) +
+             (k & 1);
+    }
+  };
+  // acc += x w over a half tile (x: 64 rows, w: a panel)
+  __device__ static void product(const float* x, const float* w, const Own& o,
+                                 float (&acc)[RPH]) {
+    tc_mma<false, false, 1, 2>(x, w, H, o.R, o.C, o.g, o.q, acc);
+  }
+};
+
+// acc += x w^T for the rows of x at o's block (w a panel: the product
+// against the transposed weight)
+__device__ __forceinline__ void tc_xwt(const float* x, const float* w,
+                                       const Tc::Own& o, float (&acc)[RPH]) {
+  tc_mma<false, true, 1, 2>(x, w, H, o.R, o.C, o.g, o.q, acc);
+}
+
+// o[f[j]], o[f[j] + 1] (+)= v[2j], v[2j + 1] (zeros without `take`) for
+// j < N / 2: every old value loaded before the first store, so the loads
+// go out together (o could alias other outputs, as far as the compiler
+// knows, which would order each load after the store before it).
+template <int N>
+__device__ __forceinline__ void store_pairs(float* o, const int (&f)[N / 2],
+                                            const float (&v)[N], bool accumulate,
+                                            bool take) {
+  float2 old[N / 2];
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j)
+    old[j] = accumulate ? *reinterpret_cast<const float2*>(o + f[j]) : float2{0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j) {
+    const float x = take ? v[2 * j] : 0.0f, y = take ? v[2 * j + 1] : 0.0f;
+    *reinterpret_cast<float2*>(o + f[j]) =
+        accumulate ? float2{old[j].x + x, old[j].y + y} : float2{x, y};
+  }
+}
+
+// ptrs[p] for a thread-dependent p < N, by selects (an index into the
+// array would put it in local memory)
+template <int N, class T>
+__device__ __forceinline__ T pick(T const (&ptrs)[N], int p) {
+  T r = ptrs[0];
+#pragma unroll
+  for (int i = 1; i < N; ++i) r = p == i ? ptrs[i] : r;
+  return r;
+}
+
+// Weight gradients over `rows` rows (64 or 128, buffers in the Tc layout),
+// as grad_pass of the narrower widths: out_p (H, H) (+)= a_p^T b_p for
+// p < NP (out2_p, where set, takes the same product, or zeros without
+// `add2`), s_out_q (H) (+)= column sums of s_q for q < NS.  A product
+// takes 8 warps, warp v the 32 x 16 block at rows 32 (v / 4), columns 16
+// (v % 4); threads [256 NP, 256 NP + NSUM) own columns of the sums.  Each
+// output belongs to one thread and sums the rows in the same order in
+// every call.
 template <int NP, int NS, int NSUM>
-__device__ __forceinline__ void grad_pass(const GradPass<NP, NS>& gp, int rows,
-                                          bool accumulate, bool add2, int tid) {
-  constexpr int B = 4;                   // rows and columns of a thread's block
-  constexpr int TPP = (H / B) * (H / B);  // threads of a product
+__device__ __forceinline__ void tc_grad_pass(const GradPass<NP, NS>& gp, int rows,
+                                             bool accumulate, bool add2, int tid) {
+  constexpr int TPP = 256;  // threads of a product
   static_assert(NP * TPP + NSUM <= THREADS, "threads of a gradient pass");
   if (tid < NP * TPP) {
-    const int p = tid / TPP, ta = (tid % TPP) / (H / B), tc = tid % (H / B);
-    float acc[B][B] = {};
-    const float* a = gp.a[p] + ta * B;
-    const float* b = gp.b[p] + tc * B;
-#pragma unroll 1
-    for (int i = 0; i < rows; ++i) {
-      float av[B], bv[B];
-      ld4(a + i * H, av);
-      ld4(b + i * H, bv);
+    const int p = tid / TPP, v = (tid % TPP) >> 5, lane = tid & 31;
+    const int R = 32 * (v >> 2), C = 16 * (v & 3), g = lane >> 2, q = lane & 3;
+    float acc[16] = {};
+    tc_mma<true, false, 2, 2>(pick(gp.a, p), pick(gp.b, p), rows, R, C, g, q, acc);
+    // by pairs of adjacent columns, pair j holding acc[2j], acc[2j + 1]
+    int f[8];
 #pragma unroll
-      for (int x = 0; x < B; ++x)
-#pragma unroll
-        for (int y = 0; y < B; ++y) acc[x][y] = fmaf(av[x], bv[y], acc[x][y]);
-    }
-    float* out = gp.out[p] + (ta * B) * H + tc * B;
-    float* out2 = gp.out2[p];
-#pragma unroll
-    for (int x = 0; x < B; ++x)
-#pragma unroll
-      for (int y = 0; y < B; ++y) {
-        float* o = out + x * H + y;
-        *o = accumulate ? *o + acc[x][y] : acc[x][y];
-        if (out2 != nullptr) {
-          float* o2 = out2 + (ta * B + x) * H + tc * B + y;
-          const float v = add2 ? acc[x][y] : 0.0f;
-          *o2 = accumulate ? *o2 + v : v;
-        }
-      }
+    for (int j = 0; j < 8; ++j)
+      f[j] = (R + 16 * (j >> 2) + g + 8 * (j & 1)) * H + C + 8 * ((j >> 1) & 1) + 2 * q;
+    float* out2 = pick(gp.out2, p);
+    store_pairs(pick(gp.out, p), f, acc, accumulate, true);
+    if (out2 != nullptr) store_pairs(out2, f, acc, accumulate, add2);
   } else if constexpr (NS > 0) {
     if (tid >= NP * TPP + NSUM) return;
     constexpr int COLS = NS * H;
@@ -258,17 +376,83 @@ __device__ __forceinline__ void grad_pass(const GradPass<NP, NS>& gp, int rows,
 #pragma unroll
       for (int q = 0; q < PER; ++q) {
         const int f = j + q * NSUM;
-        if (f < COLS) acc[q] += gp.s[f / H][i * H + f % H];
+        if (f < COLS) acc[q] += pick(gp.s, f / H)[Tc::at(i, f % H)];
       }
 #pragma unroll
     for (int q = 0; q < PER; ++q) {
       const int f = j + q * NSUM;
       if (f < COLS) {
-        float* o = gp.s_out[f / H] + f % H;
+        float* o = pick(gp.s_out, f / H) + f % H;
         *o = accumulate ? *o + acc[q] : acc[q];
       }
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// weight panels
+
+// Two staged (64, 64) weight blocks; block j of a kernel's sequence sits in
+// buf + (j & 1) PANEL, in P's panel layout.  Each call of panels_next names
+// the block it hands out and the one to load behind it, so the sequence is
+// written out where the blocks are used.
+struct Panels {
+  float* buf;
+  int j;
+#ifndef __CUDACC__
+  const float* src[2];  // the CPU stand-in checks the names against the loads
+#endif
+};
+
+// One (64, 64) block (rows of 64 contiguous floats, 16-byte aligned) into
+// a panel, by cp.async: 1,024 16-byte copies, 2 a thread.
+template <class P>
+__device__ __forceinline__ void panel_load(const float* __restrict__ src,
+                                           float* dst, int tid) {
+  static_assert(H * H / 4 == 2 * THREADS, "two copies a thread");
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int q = P::panel_tid(tid) + s * THREADS;
+    const int row = q / (H / 4), c = (q % (H / 4)) * 4;
+    __pipeline_memcpy_async(dst + P::panel_at(row, c), src + row * H + c, 16);
+  }
+}
+
+template <class P = Fma>
+__device__ __forceinline__ void panels_start(Panels& p, float* buf,
+                                             const float* first, int tid) {
+  p.buf = buf;
+  p.j = 0;
+#ifndef __CUDACC__
+  p.src[0] = first;
+  p.src[1] = nullptr;
+#endif
+  panel_load<P>(first, buf, tid);
+  __pipeline_commit();
+}
+
+// Wait for block j (loaded from `cur`) and synchronise the CTA: every
+// thread is then done with block j - 1 and with whatever it wrote before
+// the call.  Then start loading `next` (nullptr: nothing) into block j - 1's
+// panel, and return block j.
+template <class P = Fma>
+__device__ __forceinline__ const float* panels_next(Panels& p, const float* cur,
+                                                    const float* next, int tid) {
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  float* here = p.buf + (p.j & 1) * PANEL;
+#ifndef __CUDACC__
+  if (p.src[p.j & 1] != cur) __builtin_trap();
+  p.src[(p.j + 1) & 1] = next;
+#endif
+  if (next != nullptr) panel_load<P>(next, p.buf + ((p.j + 1) & 1) * PANEL, tid);
+  __pipeline_commit();
+  ++p.j;
+  return here;
+}
+
+__device__ __forceinline__ const float* msg_panel(const Weights& w, int l, int e) {
+  return w.msg_w + size_t(l * NE + e) * H * H;
 }
 
 // ---------------------------------------------------------------------------
@@ -279,6 +463,7 @@ __device__ __forceinline__ void grad_pass(const GradPass<NP, NS>& gp, int rows,
 // [eT, eT + T), or a crowded row's dense columns there, in ascending
 // order; m starts at zero for e = 0 and carries on for e > 0, so each row
 // sums its terms in ascending column order of A_flat.
+template <class P = Fma>
 __device__ __forceinline__ void aggregate_edge(const float* adj_t, int e,
                                                const float* s_hw, float* s_m,
                                                const Idx* s_nk, const float* s_nv,
@@ -287,8 +472,8 @@ __device__ __forceinline__ void aggregate_edge(const float* adj_t, int e,
   const int warp = tid >> 5;
   const int lo = e * TILE;
   for (int i = warp; i < TILE; i += WARPS) {
-    float a0 = e == 0 ? 0.0f : s_m[i * H + lane];
-    float a1 = e == 0 ? 0.0f : s_m[i * H + lane + 32];
+    float a0 = e == 0 ? 0.0f : s_m[P::at(i, lane)];
+    float a1 = e == 0 ? 0.0f : s_m[P::at(i, lane + 32)];
     const int cnt = s_nc[i];
     if (cnt > NBR_CAP) {
       const float* arow = adj_t + size_t(i) * ROW_LEN + lo;
@@ -303,9 +488,9 @@ __device__ __forceinline__ void aggregate_edge(const float* adj_t, int e,
           const int b = __ffs(nz) - 1;
           nz &= nz - 1;
           const float v = __shfl_sync(0xffffffffu, a, b);
-          const float* src = s_hw + (q * 32 + b) * H;
-          a0 = fmaf(v, src[lane], a0);
-          a1 = fmaf(v, src[lane + 32], a1);
+          const int k = q * 32 + b;
+          a0 = fmaf(v, s_hw[P::at(k, lane)], a0);
+          a1 = fmaf(v, s_hw[P::at(k, lane + 32)], a1);
         }
       }
     } else {
@@ -313,18 +498,19 @@ __device__ __forceinline__ void aggregate_edge(const float* adj_t, int e,
         const int k = int(s_nk[i * NBR_CAP + n]) - lo;
         if (k < 0 || k >= TILE) continue;
         const float v = s_nv[i * NBR_CAP + n];
-        a0 = fmaf(v, s_hw[k * H + lane], a0);
-        a1 = fmaf(v, s_hw[k * H + lane + 32], a1);
+        a0 = fmaf(v, s_hw[P::at(k, lane)], a0);
+        a1 = fmaf(v, s_hw[P::at(k, lane + 32)], a1);
       }
     }
-    s_m[i * H + lane] = a0;
-    s_m[i * H + lane + 32] = a1;
+    s_m[P::at(i, lane)] = a0;
+    s_m[P::at(i, lane + 32)] = a1;
   }
 }
 
 // dhw_e (T x H) = A_e^T dm for edge type e: thread owns column c of the
 // rows k of dhw_e, column eT + k of A_flat: its column list in ascending
 // row order, then the crowded rows in ascending order, as column_gather.
+template <class P>
 __device__ __forceinline__ void column_gather_edge(const float* adj_t, int e,
                                                    const float* s_dm,
                                                    const int* s_cs, const Idx* s_cr,
@@ -336,13 +522,13 @@ __device__ __forceinline__ void column_gather_edge(const float* adj_t, int e,
     float acc = 0.0f;
     const int end = s_cs[kk + 1];
     for (int q = s_cs[kk]; q < end; ++q)
-      acc = fmaf(s_cv[q], s_dm[int(s_cr[q]) * H + c], acc);
+      acc = fmaf(s_cv[q], s_dm[P::at(int(s_cr[q]), c)], acc);
     for (int o = 0; o < n_ov; ++o) {
       const int i = s_ov[o];
       const float a = __ldg(adj_t + size_t(i) * ROW_LEN + kk);
-      if (a != 0.0f) acc = fmaf(a, s_dm[i * H + c], acc);
+      if (a != 0.0f) acc = fmaf(a, s_dm[P::at(i, c)], acc);
     }
-    s_dhw[k * H + c] = acc;
+    s_dhw[P::at(k, c)] = acc;
   }
 }
 
@@ -358,32 +544,33 @@ struct Tile {
 };
 
 // m = A_flat [h W_e + b_e]_e, one edge type at a time (panels W_0..W_3 of
-// layer l, then `next`); hw_e by halves of the tile (8 rows a thread).
+// layer l, then `next`); hw_e by halves of the tile (8 outputs a thread).
 // The caller synchronises before m is read.
+template <class P = Fma>
 __device__ __forceinline__ void messages(const Tile& t, const Weights& w, int l,
                                          Panels& p, const float* next, int tid) {
-  const int col = tid % H, r0 = tid / H;
+  const typename P::Own o(tid);
 #pragma unroll 1
   for (int e = 0; e < NE; ++e) {
-    const float* we = panels_next(
+    const float* we = panels_next<P>(
         p, msg_panel(w, l, e), e + 1 < NE ? msg_panel(w, l, e + 1) : next, tid);
 #pragma unroll 1
     for (int hf = 0; hf < 2; ++hf) {
       float acc[RPH];
 #pragma unroll
-      for (int k = 0; k < RPH; ++k) acc[k] = t.bmsg[e * H + col];
-      xw<RPH>(t.h + hf * HALF * H, we, col, r0, acc);
+      for (int k = 0; k < RPH; ++k) acc[k] = t.bmsg[e * H + o.col(k)];
+      P::product(t.h + hf * HALF * H, we, o, acc);
       float* hw = t.work + hf * HALF * H;
 #pragma unroll
-      for (int k = 0; k < RPH; ++k) hw[(r0 + RS * k) * H + col] = acc[k];
+      for (int k = 0; k < RPH; ++k) hw[o.at(k)] = acc[k];
     }
     __syncthreads();
-    aggregate_edge(t.adj_t, e, t.work, t.m, t.nk, t.nv, t.nc, tid);
+    aggregate_edge<P>(t.adj_t, e, t.work, t.m, t.nk, t.nv, t.nc, tid);
   }
 }
 
 // The GRU gates of the rows [hf HALF, hf HALF + HALF), x = [h, m], state
-// s = h (zero at layer 0, `zero_state`), for the thread's 8 rows:
+// s = h (zero at layer 0, `zero_state`), for the thread's 8 entries:
 //   z = sigmoid(x Wz + s Uz + bz), r = sigmoid(x Wr + s Ur + br),
 //   n = tanh(x Wn + (r*s) Un + bn),
 // through the panels Wz[:H], Uz, Wz[H:], Wr[:H], Ur, Wr[H:], Wn[:H],
@@ -392,10 +579,11 @@ __device__ __forceinline__ void messages(const Tile& t, const Weights& w, int l,
 // live: z goes to t.work + HALF H, r*s to t.work, r to t.work + 2 HALF H
 // when `keep_r` (the reverse's), each (HALF x H) entry by the thread that
 // owns it; n stays in registers.
+template <class P = Fma>
 __device__ __forceinline__ void gates(const Tile& t, const Weights& w, bool zero_state,
                                       int hf, bool keep_r, Panels& p,
                                       const float* next, float (&n)[RPH], int tid) {
-  const int col = tid % H, r0 = tid / H;
+  const typename P::Own o(tid);
   const float* h = t.h + hf * HALF * H;
   const float* m = t.m + hf * HALF * H;
   float* s_rs = t.work;
@@ -407,36 +595,36 @@ __device__ __forceinline__ void gates(const Tile& t, const Weights& w, bool zero
   {
     float z[RPH];
 #pragma unroll
-    for (int k = 0; k < RPH; ++k) z[k] = t.bz[col];
-    xw<RPH>(h, panels_next(p, w.wz, w.uz, tid), col, r0, z);
-    const float* uz = panels_next(p, w.uz, wz1, tid);
-    if (!zero_state) xw<RPH>(h, uz, col, r0, z);
-    xw<RPH>(m, panels_next(p, wz1, w.wr, tid), col, r0, z);
+    for (int k = 0; k < RPH; ++k) z[k] = t.bz[o.col(k)];
+    P::product(h, panels_next<P>(p, w.wz, w.uz, tid), o, z);
+    const float* uz = panels_next<P>(p, w.uz, wz1, tid);
+    if (!zero_state) P::product(h, uz, o, z);
+    P::product(m, panels_next<P>(p, wz1, w.wr, tid), o, z);
 #pragma unroll
-    for (int k = 0; k < RPH; ++k) s_z[(r0 + RS * k) * H + col] = sigmoidf(z[k]);
+    for (int k = 0; k < RPH; ++k) s_z[o.at(k)] = sigmoidf(z[k]);
   }
   {
     float r[RPH];
 #pragma unroll
-    for (int k = 0; k < RPH; ++k) r[k] = t.br[col];
-    xw<RPH>(h, panels_next(p, w.wr, w.ur, tid), col, r0, r);
-    const float* ur = panels_next(p, w.ur, wr1, tid);
-    if (!zero_state) xw<RPH>(h, ur, col, r0, r);
-    xw<RPH>(m, panels_next(p, wr1, w.wn, tid), col, r0, r);
+    for (int k = 0; k < RPH; ++k) r[k] = t.br[o.col(k)];
+    P::product(h, panels_next<P>(p, w.wr, w.ur, tid), o, r);
+    const float* ur = panels_next<P>(p, w.ur, wr1, tid);
+    if (!zero_state) P::product(h, ur, o, r);
+    P::product(m, panels_next<P>(p, wr1, w.wn, tid), o, r);
 #pragma unroll
     for (int k = 0; k < RPH; ++k) {
-      const int i = (r0 + RS * k) * H + col;
+      const int i = o.at(k);
       const float rk = sigmoidf(r[k]);
       s_rs[i] = zero_state ? 0.0f : rk * h[i];
       if (keep_r) s_r[i] = rk;
     }
   }
 #pragma unroll
-  for (int k = 0; k < RPH; ++k) n[k] = t.bn[col];
-  xw<RPH>(h, panels_next(p, w.wn, wn1, tid), col, r0, n);
-  xw<RPH>(m, panels_next(p, wn1, w.un, tid), col, r0, n);
-  const float* un = panels_next(p, w.un, next, tid);  // r*s visible after its sync
-  if (!zero_state) xw<RPH>(s_rs, un, col, r0, n);
+  for (int k = 0; k < RPH; ++k) n[k] = t.bn[o.col(k)];
+  P::product(h, panels_next<P>(p, w.wn, wn1, tid), o, n);
+  P::product(m, panels_next<P>(p, wn1, w.un, tid), o, n);
+  const float* un = panels_next<P>(p, w.un, next, tid);  // r*s visible after its sync
+  if (!zero_state) P::product(s_rs, un, o, n);
 #pragma unroll
   for (int k = 0; k < RPH; ++k) n[k] = tanhf(n[k]);
 }
@@ -444,23 +632,24 @@ __device__ __forceinline__ void gates(const Tile& t, const Weights& w, bool zero
 // One GGNN layer l on the tile, h updated in place: the message step, then
 // each GRU half, h' = z n + (1 - z) s.  Ends synchronised; `next` is the
 // block after the layer's last.
+template <class P = Fma>
 __device__ __forceinline__ void layer_forward(const Tile& t, const Weights& w, int l,
                                               Panels& p, const float* next, int tid) {
-  const int col = tid % H, r0 = tid / H;
+  const typename P::Own o(tid);
   const bool zero_state = (l == 0);
   // the previous layer's readers of the biases are past its last barrier
   for (int i = tid; i < NE * H; i += THREADS) t.bmsg[i] = w.msg_b[size_t(l) * NE * H + i];
-  messages(t, w, l, p, w.wz, tid);
+  messages<P>(t, w, l, p, w.wz, tid);
 #pragma unroll 1
   for (int hf = 0; hf < 2; ++hf) {
     float n[RPH];
-    gates(t, w, zero_state, hf, false, p, hf == 0 ? w.wz : next, n, tid);
+    gates<P>(t, w, zero_state, hf, false, p, hf == 0 ? w.wz : next, n, tid);
     // no thread reads this half's h after the last panel's barrier
     float* h = t.h + hf * HALF * H;
     const float* s_z = t.work + HALF * H;
 #pragma unroll
     for (int k = 0; k < RPH; ++k) {
-      const int i = (r0 + RS * k) * H + col;
+      const int i = o.at(k);
       const float z = s_z[i];
       const float s = zero_state ? 0.0f : h[i];
       h[i] = z * n[k] + (1.0f - z) * s;
@@ -473,31 +662,32 @@ __device__ __forceinline__ void layer_forward(const Tile& t, const Weights& w, i
 // through the panels Wi[:H], Wi[H:], then Wj (the caller's next panel):
 // the pre-activation by halves of the tile, carried in s_gate between the
 // two panels by the thread that owns each entry.
+template <class P = Fma>
 __device__ __forceinline__ void readout_gate(const float* s_h, const float* s_h0,
                                              const Readout& ro, const float* s_bi,
                                              float* s_gate, Panels& p, int tid) {
-  const int col = tid % H, r0 = tid / H;
-  const float* wi0 = panels_next(p, ro.wi, ro.wi + H * H, tid);
+  const typename P::Own o(tid);
+  const float* wi0 = panels_next<P>(p, ro.wi, ro.wi + H * H, tid);
 #pragma unroll 1
   for (int hf = 0; hf < 2; ++hf) {
     float acc[RPH];
 #pragma unroll
-    for (int k = 0; k < RPH; ++k) acc[k] = s_bi[col];
-    xw<RPH>(s_h + hf * HALF * H, wi0, col, r0, acc);
+    for (int k = 0; k < RPH; ++k) acc[k] = s_bi[o.col(k)];
+    P::product(s_h + hf * HALF * H, wi0, o, acc);
     float* g = s_gate + hf * HALF * H;
 #pragma unroll
-    for (int k = 0; k < RPH; ++k) g[(r0 + RS * k) * H + col] = acc[k];
+    for (int k = 0; k < RPH; ++k) g[o.at(k)] = acc[k];
   }
-  const float* wi1 = panels_next(p, ro.wi + H * H, ro.wj, tid);
+  const float* wi1 = panels_next<P>(p, ro.wi + H * H, ro.wj, tid);
 #pragma unroll 1
   for (int hf = 0; hf < 2; ++hf) {
     float* g = s_gate + hf * HALF * H;
     float acc[RPH];
 #pragma unroll
-    for (int k = 0; k < RPH; ++k) acc[k] = g[(r0 + RS * k) * H + col];
-    xw<RPH>(s_h0 + hf * HALF * H, wi1, col, r0, acc);
+    for (int k = 0; k < RPH; ++k) acc[k] = g[o.at(k)];
+    P::product(s_h0 + hf * HALF * H, wi1, o, acc);
 #pragma unroll
-    for (int k = 0; k < RPH; ++k) g[(r0 + RS * k) * H + col] = sigmoidf(acc[k]);
+    for (int k = 0; k < RPH; ++k) g[o.at(k)] = sigmoidf(acc[k]);
   }
 }
 

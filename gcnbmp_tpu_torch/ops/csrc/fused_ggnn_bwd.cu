@@ -90,9 +90,10 @@
 //     broadcast 16-byte load of each row (0.19-0.375).
 //   The message gradients and the message dh run side by side on the two
 //   halves of the CTA, as do the readout's gradients and its dh.
-// - Later work: tensor cores for the dense products (3xTF32 to hold the
-//   f32 bounds), more CTAs per tile at small P (75 tiles fill 75 of 132
-//   SMs), fewer passes over the partial buffer.
+// - Later work: tensor cores for the dense products at these widths
+//   (3xTF32 to hold the f32 bounds, as at H = 64 below), more CTAs per
+//   tile at small P (75 tiles fill 75 of 132 SMs), fewer passes over the
+//   partial buffer.
 //
 // At H = 64 (fused_ggnn_bwd_kernel64) the plan above would take 493 KB:
 // that width has a reverse body of its own on fused_ggnn64.cuh's steps
@@ -102,6 +103,34 @@
 // it), 228,672 bytes of shared memory.  Its per-tile partial row is
 // 170,176 words at L = 8 (182,592 with the readout's): 263 MB (283 MB) at
 // P = 387, summed by the same sum_tiles_kernel.
+// - Every dense product of that body runs on the tensor cores (h64::Tc):
+//   the recompute's h W_e, x W{z,r,n}, s U{z,r}, (r s) Un and the
+//   readout's [h, h0] Wi, h Wj; the products against transposed weights
+//   (drs, ds, dh_in, dm, the message and readout dh, dh0's term); the
+//   weight gradients a^T b.  Each in 3xTF32: both operands split into a
+//   TF32 high part and a TF32 remainder, three m16n8k8 mma.sync per
+//   8-deep step (lo*hi, hi*lo, hi*hi) into f32 accumulators, within
+//   about 2^-21 of each term.  A warp owns a 16 x 16 block of a half-tile
+//   product (32 x 16 of a weight gradient), and the elementwise steps
+//   work on the entries the accumulators hand each lane.  The T x H
+//   buffers and the panels swizzle their 4-word column groups by the row
+//   (h64::swz), so the fragment loads of all three orientations are free
+//   of bank conflicts without padding rows (which the plan has no room
+//   for).
+// - What bounds it, on an H100 (chip_tc64.py: the instruction rates
+//   alone, and K2b's phases by clock64): neither the tensor pipe, whose
+//   TF32 work K2b issues at about a fifth of the rate mma.sync reaches
+//   alone, nor shared memory, whose fragment loads are conflict-free.
+//   Each 8-deep step of a warp issues some fifty instructions for its six
+//   mma (the fragment loads, five to split each operand value), with four
+//   warps per scheduler to cover the latency of its chain; the phases
+//   made of products (the forward recomputed twice, the GRU's reverse and
+//   its weight gradients, the message gradients) take most of the time,
+//   the column gathers about 4%.
+// - Later work at H = 64: wgmma with TMA (its TF32 form reads both
+//   operands K-major from shared memory, so W, W^T and a^T b would need
+//   copies the plan has no room for), dropping the recompute of the
+//   forward (half of the products), more CTAs per tile at small P.
 
 #include "fused_ggnn64.cuh"
 
@@ -409,18 +438,18 @@ cudaError_t launch_bwd(const float* hin, const float* adj, const Weights& w,
 // d{z,r,n}' (HALF x H each, in dz, dr, dn), dh = dh_in + ds into s_dh
 // (dh_in alone at layer 0; the state's term ds is carried there until
 // then), the half's GRU weight gradients (`acc_gru`: added to the tile's
-// row), then dm into s_m, which the gradients have read.  Every
-// intermediate lives in shared memory with the thread that owns the
-// entry, so each step keeps one set of 8 accumulators in registers.
-// Panels Un, Uz, Ur, Wz[:H], Wr[:H], Wn[:H], Wz[H:], Wr[H:], Wn[H:], then
-// `next`.
+// row), then dm into s_m, which the gradients have read.  Every product
+// runs on the tensor cores (h64::Tc), and every intermediate lives in
+// shared memory at the entries of the thread that owns it, so each step
+// keeps one set of 8 accumulators in registers.  Panels Un, Uz, Ur,
+// Wz[:H], Wr[:H], Wn[:H], Wz[H:], Wr[H:], Wn[H:], then `next`.
 __device__ __forceinline__ void gru_reverse64(
     const h64::Tile& t, const Weights& w, float* s_dh, float* gru_part,
     bool zero_state, bool acc_gru, int hf, h64::Panels& p, const float* next,
     const float (&n)[h64::RPH], int tid) {
   using namespace h64;
   using G = GradLayout<H>;
-  const int col = tid % H, r0 = tid / H;
+  const Tc::Own o(tid);
   float* h = t.h + hf * HALF * H;
   float* m = t.m + hf * HALF * H;
   float* dh = s_dh + hf * HALF * H;  // dh, then ds, then the new dh
@@ -430,7 +459,7 @@ __device__ __forceinline__ void gru_reverse64(
   float* dn = dr + HALF * H;
 #pragma unroll
   for (int k = 0; k < RPH; ++k) {
-    const int i = (r0 + RS * k) * H + col;
+    const int i = o.at(k);
     const float s = zero_state ? 0.0f : h[i];
     const float dhv = dh[i];
     const float z = dz[i];
@@ -440,10 +469,10 @@ __device__ __forceinline__ void gru_reverse64(
   }
   {  // drs = dn' Un^T
     float drs[RPH] = {};
-    xwt<RPH, RS>(dn, panels_next(p, w.un, w.uz, tid), col, r0, drs);
+    tc_xwt(dn, panels_next<Tc>(p, w.un, w.uz, tid), o, drs);
 #pragma unroll
     for (int k = 0; k < RPH; ++k) {
-      const int i = (r0 + RS * k) * H + col;
+      const int i = o.at(k);
       const float s = zero_state ? 0.0f : h[i];
       const float r = dr[i];
       dh[i] = fmaf(drs[k], r, dh[i]);
@@ -457,21 +486,21 @@ __device__ __forceinline__ void gru_reverse64(
   const float* wn1 = w.wn + H * H;
   {
     float dsu[RPH] = {};
-    const float* uz = panels_next(p, w.uz, w.ur, tid);
-    if (!zero_state) xwt<RPH, RS>(dz, uz, col, r0, dsu);
-    const float* ur = panels_next(p, w.ur, w.wz, tid);
-    if (!zero_state) xwt<RPH, RS>(dr, ur, col, r0, dsu);
+    const float* uz = panels_next<Tc>(p, w.uz, w.ur, tid);
+    if (!zero_state) tc_xwt(dz, uz, o, dsu);
+    const float* ur = panels_next<Tc>(p, w.ur, w.wz, tid);
+    if (!zero_state) tc_xwt(dr, ur, o, dsu);
 #pragma unroll
-    for (int k = 0; k < RPH; ++k) dh[(r0 + RS * k) * H + col] += dsu[k];
+    for (int k = 0; k < RPH; ++k) dh[o.at(k)] += dsu[k];
   }
   {
     float dhn[RPH] = {};
-    xwt<RPH, RS>(dz, panels_next(p, w.wz, w.wr, tid), col, r0, dhn);
-    xwt<RPH, RS>(dr, panels_next(p, w.wr, w.wn, tid), col, r0, dhn);
-    xwt<RPH, RS>(dn, panels_next(p, w.wn, wz1, tid), col, r0, dhn);
+    tc_xwt(dz, panels_next<Tc>(p, w.wz, w.wr, tid), o, dhn);
+    tc_xwt(dr, panels_next<Tc>(p, w.wr, w.wn, tid), o, dhn);
+    tc_xwt(dn, panels_next<Tc>(p, w.wn, wz1, tid), o, dhn);
 #pragma unroll
     for (int k = 0; k < RPH; ++k) {
-      const int i = (r0 + RS * k) * H + col;
+      const int i = o.at(k);
       dh[i] = zero_state ? dhn[k] : dhn[k] + dh[i];
     }
   }
@@ -479,40 +508,41 @@ __device__ __forceinline__ void gru_reverse64(
   // the GRU's weight gradients over the half's rows, in four passes: h^T
   // dz' is dWz's top half and dUz alike (likewise dr'; the state is h,
   // zero at layer 0); (r s)^T dn' is dUn (r s is stored as zero at layer 0)
-  float* o = gru_part;
-  const GradPass<2, 0> g1 = {{h, h}, {dz, dr}, {o + G::WZ, o + G::WR},
-                             {o + G::UZ, o + G::UR}, {nullptr}, {nullptr}};
-  h64::grad_pass<2, 0, 0>(g1, HALF, acc_gru, !zero_state, tid);
-  const GradPass<2, 0> g2 = {{h, m}, {dn, dz}, {o + G::WN, o + G::WZ + H * H},
+  float* g = gru_part;
+  const GradPass<2, 0> g1 = {{h, h}, {dz, dr}, {g + G::WZ, g + G::WR},
+                             {g + G::UZ, g + G::UR}, {nullptr}, {nullptr}};
+  tc_grad_pass<2, 0, 0>(g1, HALF, acc_gru, !zero_state, tid);
+  const GradPass<2, 0> g2 = {{h, m}, {dn, dz}, {g + G::WN, g + G::WZ + H * H},
                              {nullptr, nullptr}, {nullptr}, {nullptr}};
-  h64::grad_pass<2, 0, 0>(g2, HALF, acc_gru, false, tid);
-  const GradPass<2, 0> g3 = {{m, m}, {dr, dn}, {o + G::WR + H * H, o + G::WN + H * H},
+  tc_grad_pass<2, 0, 0>(g2, HALF, acc_gru, false, tid);
+  const GradPass<2, 0> g3 = {{m, m}, {dr, dn}, {g + G::WR + H * H, g + G::WN + H * H},
                              {nullptr, nullptr}, {nullptr}, {nullptr}};
-  h64::grad_pass<2, 0, 0>(g3, HALF, acc_gru, false, tid);
-  const GradPass<1, 3> g4 = {{rs}, {dn}, {o + G::UN}, {nullptr},
-                             {dz, dr, dn}, {o + G::BZ, o + G::BR, o + G::BN}};
-  h64::grad_pass<1, 3, 256>(g4, HALF, acc_gru, false, tid);
+  tc_grad_pass<2, 0, 0>(g3, HALF, acc_gru, false, tid);
+  const GradPass<1, 3> g4 = {{rs}, {dn}, {g + G::UN}, {nullptr},
+                             {dz, dr, dn}, {g + G::BZ, g + G::BR, g + G::BN}};
+  tc_grad_pass<1, 3, 256>(g4, HALF, acc_gru, false, tid);
 
   // dm = d{z,r,n}' W{z,r,n}[H:]^T into m, once every thread has read m
   // (the first panel's barrier), carried there between the panels
   const float* wp[3] = {wz1, wr1, wn1};
   const float* dx[3] = {dz, dr, dn};
 #pragma unroll
-  for (int g = 0; g < 3; ++g) {
-    const float* wg = panels_next(p, wp[g], g < 2 ? wp[g + 1] : next, tid);
+  for (int gi = 0; gi < 3; ++gi) {
+    const float* wg = panels_next<Tc>(p, wp[gi], gi < 2 ? wp[gi + 1] : next, tid);
     float acc[RPH];
 #pragma unroll
-    for (int k = 0; k < RPH; ++k) acc[k] = g == 0 ? 0.0f : m[(r0 + RS * k) * H + col];
-    xwt<RPH, RS>(dx[g], wg, col, r0, acc);
+    for (int k = 0; k < RPH; ++k) acc[k] = gi == 0 ? 0.0f : m[o.at(k)];
+    tc_xwt(dx[gi], wg, o, acc);
 #pragma unroll
-    for (int k = 0; k < RPH; ++k) m[(r0 + RS * k) * H + col] = acc[k];
+    for (int k = 0; k < RPH; ++k) m[o.at(k)] = acc[k];
   }
 }
 
 // The reverse body at H = 64 (fused_ggnn64.cuh): the steps of the body
 // above, with the weights through two staged panels, the message step one
 // edge type at a time and the GRU one half of the tile at a time; its
-// forward is the forward body's own layer step.
+// forward is the forward body's layer step on the tensor-core products
+// (h64::Tc), and every T x H buffer, hs included, is in Tc's layout.
 template <bool READOUT>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_ggnn_bwd_kernel64(const float* __restrict__ hin, const float* __restrict__ adj,
@@ -539,7 +569,6 @@ fused_ggnn_bwd_kernel64(const float* __restrict__ hin, const float* __restrict__
   int* s_ovn = reinterpret_cast<int*>(smem + S::OVN);
 
   const int tid = threadIdx.x;
-  const int col = tid % H, r0 = tid / H;
   const size_t tile = blockIdx.x;
   const int n_range = hi - lo;
   const float* h0_t = hin + tile * TH;  // h0 when lo == 0, else h_mid
@@ -559,12 +588,12 @@ fused_ggnn_bwd_kernel64(const float* __restrict__ hin, const float* __restrict__
   // 1. the row and column lists (trap (a)), then the forward over the
   // range, keeping each layer's input in hs
   Panels p;
-  panels_start(p, smem + S::PANELS, msg_panel(w, lo, 0), tid);
+  panels_start<Tc>(p, smem + S::PANELS, msg_panel(w, lo, 0), tid);
   for (int i = tid; i < H; i += THREADS) {
     smem[S::BZ + i] = w.bz[i]; smem[S::BR + i] = w.br[i]; smem[S::BN + i] = w.bn[i];
     if (READOUT) { s_bi[i] = ro.bi[i]; s_bj[i] = ro.bj[i]; }
   }
-  for (int i = tid; i < TH; i += THREADS) t.h[i] = h0_t[i];
+  for (int i = tid; i < TH; i += THREADS) t.h[Tc::at(i / H, i % H)] = h0_t[i];
   scan_rows(t.adj_t, reinterpret_cast<Idx*>(smem + S::NK), smem + S::NV,
             reinterpret_cast<int*>(smem + S::NC), tid);
   __syncthreads();
@@ -577,7 +606,7 @@ fused_ggnn_bwd_kernel64(const float* __restrict__ hin, const float* __restrict__
     for (int i = tid; i < TH; i += THREADS) hs_t()[size_t(l - lo) * TH + i] = t.h[i];
     const float* next = l + 1 < hi ? msg_panel(w, l + 1, 0)
                         : READOUT ? ro.wi : first_back;
-    layer_forward(t, w, l, p, next, tid);
+    layer_forward<Tc>(t, w, l, p, next, tid);
   }
 
   // 2. seed dh: the readout's backward (K2b) or dh_final (K1b)
@@ -585,23 +614,25 @@ fused_ggnn_bwd_kernel64(const float* __restrict__ hin, const float* __restrict__
     float* s_h0 = t.m;
     float* s_dpi = t.work;        // (T, D) the gate, then d(pre-gate)
     float* s_doj = t.work + TH;   // (T, D) d(h Wj + bj)
-    for (int i = tid; i < TH; i += THREADS) s_h0[i] = h0_t[i];
-    readout_gate(t.h, s_h0, ro, s_bi, s_dpi, p, tid);
+    for (int i = tid; i < TH; i += THREADS) s_h0[Tc::at(i / H, i % H)] = h0_t[i];
+    readout_gate<Tc>(t.h, s_h0, ro, s_bi, s_dpi, p, tid);
+    const Tc::Own o(tid);
     {
-      const float* wj = panels_next(p, ro.wj, ro.wi, tid);
+      const float* wj = panels_next<Tc>(p, ro.wj, ro.wi, tid);
       const float* mask_t = ro.mask + tile * TILE;
       const float* dg_t = dout + tile * TH;
 #pragma unroll 1
       for (int hf = 0; hf < 2; ++hf) {
         float gj[RPH];
 #pragma unroll
-        for (int k = 0; k < RPH; ++k) gj[k] = s_bj[col];
-        xw<RPH>(t.h + hf * HALF * H, wj, col, r0, gj);
+        for (int k = 0; k < RPH; ++k) gj[k] = s_bj[o.col(k)];
+        Tc::product(t.h + hf * HALF * H, wj, o, gj);
 #pragma unroll
         for (int k = 0; k < RPH; ++k) {
-          const int i = (hf * HALF + r0 + RS * k) * H + col;
+          const int row = hf * HALF + o.row(k), col = o.col(k);
+          const int i = hf * HALF * H + o.at(k);
           const float gate = s_dpi[i];
-          const float dgv = dg_t[i] * mask_t[i / H];
+          const float dgv = dg_t[row * H + col] * mask_t[row];
           s_dpi[i] = dgv * gj[k] * gate * (1.0f - gate);
           s_doj[i] = dgv * gate;
         }
@@ -612,43 +643,45 @@ fused_ggnn_bwd_kernel64(const float* __restrict__ hin, const float* __restrict__
     const GradPass<2, 0> r1 = {
         {t.h, s_h0}, {s_dpi, s_dpi}, {ro_part + G::WI, ro_part + G::WI + H * H},
         {nullptr, nullptr}, {nullptr}, {nullptr}};
-    h64::grad_pass<2, 0, 0>(r1, TILE, false, false, tid);
+    tc_grad_pass<2, 0, 0>(r1, TILE, false, false, tid);
     const GradPass<1, 2> r2 = {{t.h}, {s_doj}, {ro_part + G::WJ}, {nullptr},
                                {s_dpi, s_doj}, {ro_part + G::BI, ro_part + G::BJ}};
-    h64::grad_pass<1, 2, 256>(r2, TILE, false, false, tid);
+    tc_grad_pass<1, 2, 256>(r2, TILE, false, false, tid);
     // dh = dpi Wi[:H]^T + doj Wj^T, carried in s_dh between the panels;
     // h0's direct term dpi Wi[H:]^T goes to dh0 now and is added to the
     // reverse's result at the end
-    const float* wi0 = panels_next(p, ro.wi, ro.wj, tid);
+    const float* wi0 = panels_next<Tc>(p, ro.wi, ro.wj, tid);
 #pragma unroll 1
     for (int hf = 0; hf < 2; ++hf) {
       float acc[RPH] = {};
-      xwt<RPH, RS>(s_dpi + hf * HALF * H, wi0, col, r0, acc);
+      tc_xwt(s_dpi + hf * HALF * H, wi0, o, acc);
 #pragma unroll
-      for (int k = 0; k < RPH; ++k) s_dh[(hf * HALF + r0 + RS * k) * H + col] = acc[k];
+      for (int k = 0; k < RPH; ++k)
+        s_dh[hf * HALF * H + o.at(k)] = acc[k];
     }
-    const float* wj = panels_next(p, ro.wj, ro.wi + H * H, tid);
+    const float* wj = panels_next<Tc>(p, ro.wj, ro.wi + H * H, tid);
 #pragma unroll 1
     for (int hf = 0; hf < 2; ++hf) {
       float* dh = s_dh + hf * HALF * H;
       float acc[RPH];
 #pragma unroll
-      for (int k = 0; k < RPH; ++k) acc[k] = dh[(r0 + RS * k) * H + col];
-      xwt<RPH, RS>(s_doj + hf * HALF * H, wj, col, r0, acc);
+      for (int k = 0; k < RPH; ++k) acc[k] = dh[o.at(k)];
+      tc_xwt(s_doj + hf * HALF * H, wj, o, acc);
 #pragma unroll
-      for (int k = 0; k < RPH; ++k) dh[(r0 + RS * k) * H + col] = acc[k];
+      for (int k = 0; k < RPH; ++k) dh[o.at(k)] = acc[k];
     }
-    const float* wi1 = panels_next(p, ro.wi + H * H, first_back, tid);
+    const float* wi1 = panels_next<Tc>(p, ro.wi + H * H, first_back, tid);
 #pragma unroll 1
     for (int hf = 0; hf < 2; ++hf) {
       float acc[RPH] = {};
-      xwt<RPH, RS>(s_dpi + hf * HALF * H, wi1, col, r0, acc);
+      tc_xwt(s_dpi + hf * HALF * H, wi1, o, acc);
 #pragma unroll
-      for (int k = 0; k < RPH; ++k) dh0_t()[(hf * HALF + r0 + RS * k) * H + col] = acc[k];
+      for (int k = 0; k < RPH; ++k)
+        dh0_t()[(hf * HALF + o.row(k)) * H + o.col(k)] = acc[k];
     }
   } else {
     const float* dh_t = dout + tile * TH;
-    for (int i = tid; i < TH; i += THREADS) s_dh[i] = dh_t[i];
+    for (int i = tid; i < TH; i += THREADS) s_dh[Tc::at(i / H, i % H)] = dh_t[i];
   }
 
   // 3. reverse the range's layers
@@ -658,41 +691,41 @@ fused_ggnn_bwd_kernel64(const float* __restrict__ hin, const float* __restrict__
     __syncthreads();  // the last readers of h and the message biases are done
     for (int i = tid; i < TH; i += THREADS) t.h[i] = hs_t()[size_t(l - lo) * TH + i];
     for (int i = tid; i < NE * H; i += THREADS) t.bmsg[i] = w.msg_b[size_t(l) * NE * H + i];
-    messages(t, w, l, p, w.wz, tid);
+    messages<Tc>(t, w, l, p, w.wz, tid);
 #pragma unroll 1
     for (int hf = 0; hf < 2; ++hf) {
       float n[RPH];
-      gates(t, w, zero_state, hf, true, p, w.un, n, tid);
+      gates<Tc>(t, w, zero_state, hf, true, p, w.un, n, tid);
       gru_reverse64(t, w, s_dh, gru_part(), zero_state, l != hi - 1 || hf != 0, hf, p,
                     hf == 0 ? w.wz : msg_panel(w, l, 0), n, tid);
     }
     // message backward, one edge type at a time: dhw_e = A_e^T dm, then
-    // layer l's message gradients (threads [0, 256) their product, [256,
-    // 320) their biases) beside dh += dhw_e W_e^T (threads [256, 512))
+    // layer l's message gradients (warps 0-7 their product, threads [256,
+    // 320) their biases) beside dh += dhw_e W_e^T (warps 8-15, by quarters
+    // of the tile: warp 8 + v owns Tc::Own(v)'s 16 x 16 block of each)
 #pragma unroll 1
     for (int e = 0; e < NE; ++e) {
       const float* next = e + 1 < NE ? msg_panel(w, l, e + 1)
                           : l > lo ? msg_panel(w, l - 1, 0) : nullptr;
-      const float* we = panels_next(p, msg_panel(w, l, e), next, tid);
-      column_gather_edge(t.adj_t, e, t.m, s_cs, s_cr, s_cv, s_ov, n_ov, t.work, tid);
+      const float* we = panels_next<Tc>(p, msg_panel(w, l, e), next, tid);
+      column_gather_edge<Tc>(t.adj_t, e, t.m, s_cs, s_cr, s_cv, s_ov, n_ov, t.work, tid);
       __syncthreads();
       float* mw = part() + (size_t(l - lo) * NE + e) * H * H;
       float* mb = part() + G::msg_b0(n_range) + (size_t(l - lo) * NE + e) * H;
       const GradPass<1, 1> mp = {{t.h}, {t.work}, {mw}, {nullptr}, {t.work}, {mb}};
-      h64::grad_pass<1, 1, 64>(mp, TILE, false, false, tid);
-      if (tid >= HALF_CTA) {  // 8 of the thread's 32 rows at a time
-        constexpr int HS = HALF_CTA / H;  // 4: row stride of the half CTA
-        constexpr int QR = TILE / 4;      // rows of a quarter of the tile
-        const int hc = (tid - HALF_CTA) % H, hr0 = (tid - HALF_CTA) / H;
+      tc_grad_pass<1, 1, 64>(mp, TILE, false, false, tid);
+      if (tid >= HALF_CTA) {
+        constexpr int QR = TILE / 4;  // rows of a quarter of the tile
+        const Tc::Own o((tid - HALF_CTA) >> 5, tid & 31);
 #pragma unroll 1
         for (int q = 0; q < 4; ++q) {
           float* dh = s_dh + q * QR * H;
-          float acc[QR / HS];
+          float acc[RPH];
 #pragma unroll
-          for (int k = 0; k < QR / HS; ++k) acc[k] = dh[(hr0 + HS * k) * H + hc];
-          xwt<QR / HS, HS>(t.work + q * QR * H, we, hc, hr0, acc);
+          for (int k = 0; k < RPH; ++k) acc[k] = dh[o.at(k)];
+          tc_xwt(t.work + q * QR * H, we, o, acc);
 #pragma unroll
-          for (int k = 0; k < QR / HS; ++k) dh[(hr0 + HS * k) * H + hc] = acc[k];
+          for (int k = 0; k < RPH; ++k) dh[o.at(k)] = acc[k];
         }
       }
     }
@@ -702,8 +735,10 @@ fused_ggnn_bwd_kernel64(const float* __restrict__ hin, const float* __restrict__
   // (+ the readout's direct h0 term, written to dh0 in step 2)
   __syncthreads();
   float* dh0 = dh0_t();
-  for (int i = tid; i < TH; i += THREADS)
-    dh0[i] = READOUT ? s_dh[i] + dh0[i] : s_dh[i];
+  for (int i = tid; i < TH; i += THREADS) {
+    const float v = s_dh[Tc::at(i / H, i % H)];
+    dh0[i] = READOUT ? v + dh0[i] : v;
+  }
 }
 
 template <bool READOUT>

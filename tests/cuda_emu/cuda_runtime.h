@@ -11,10 +11,13 @@
 // has EMU_SMS multiprocessors, each holding one block.  emulate.py
 // rewrites `extern __shared__` and `<<<...>>>` launches into calls of this
 // header before compiling.  The PTX wrappers of set2set.cu (named
-// barriers, mbarriers, bulk copies) are defined here for the CPU.
+// barriers, mbarriers, bulk copies) and of fused_ggnn64.cuh (the warp's
+// m16n8k8 TF32 product and its ldmatrix loads) are defined here for the
+// CPU.
 #pragma once
 
 #include <algorithm>
+#include <array>
 #include <atomic>
 #include <barrier>
 #include <cmath>
@@ -89,6 +92,13 @@ inline float* smem = nullptr;
 inline std::unique_ptr<std::barrier<>> block_barrier;
 inline std::vector<std::unique_ptr<std::barrier<>>> warp_barriers;
 inline std::vector<uint64_t> lanes;  // one exchange slot per thread
+// the warp products' fragments (a0..a3, b0, b1), one slot per thread in
+// each of two sets used in turns, so one barrier per product suffices
+inline std::vector<std::array<float, 6>> frags[2];
+inline thread_local unsigned frag_set = 0;
+// the row addresses of the warps' ldmatrix loads, likewise
+inline std::vector<const float*> ldsm_rows[2];
+inline thread_local unsigned ldsm_set = 0;
 // named barriers of the running block, made at first use with the
 // thread count their first caller gives
 inline std::mutex named_mu;
@@ -163,6 +173,57 @@ inline T __shfl_xor_sync(unsigned mask, T v, int lane_mask) {
   return __shfl_sync(mask, v, (threadIdx.x % 32) ^ lane_mask);
 }
 
+// the bits of a float as an unsigned int, and back
+inline unsigned __float_as_uint(float v) {
+  unsigned u;
+  std::memcpy(&u, &v, 4);
+  return u;
+}
+inline float __uint_as_float(unsigned u) {
+  float v;
+  std::memcpy(&v, &u, 4);
+  return v;
+}
+
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, d += a b, with the
+// PTX fragment layouts: lane (g, q) = (lane / 4, lane % 4) holds A's rows
+// g, g + 8 at depths q, q + 4 (a0: g q, a1: g + 8 q, a2: g q + 4, a3:
+// g + 8 q + 4), B's depths q, q + 4 at column g (b0, b1) and D's rows g,
+// g + 8 at columns 2q, 2q + 1 (d0 d1 d2 d3).  Every lane posts its
+// fragments, the warp meets at its barrier, and each lane sums its four
+// outputs over the depth in f32 from the posted fragments (the products
+// of TF32 values are exact in f32).
+inline void mma_tf32(float* d, const float* a, const float* b) {
+  const int t = threadIdx.x, w = t / 32, lane = t % 32;
+  auto& set = emu::frags[emu::frag_set];
+  emu::frag_set ^= 1u;
+  set[t] = {a[0], a[1], a[2], a[3], b[0], b[1]};
+  emu::warp_barriers[w]->arrive_and_wait();
+  const int g = lane / 4, q = lane % 4;
+  for (int i = 0; i < 4; ++i) {
+    const int r = g + 8 * (i >> 1), c = 2 * q + (i & 1);
+    float s = d[i];
+    for (int k = 0; k < 8; ++k) {
+      const float av = set[w * 32 + (r % 8) * 4 + k % 4][(r / 8) + 2 * (k / 4)];
+      const float bv = set[w * 32 + c * 4 + k % 4][4 + k / 4];
+      s += av * bv;
+    }
+    d[i] = s;
+  }
+}
+
+// ldmatrix.sync.aligned.m8n8.x4.shared.b16 of 32-bit words: lane 8j + r
+// posts the address of row r of block j (four words); lane (g, q) =
+// (lane / 4, lane % 4) reads word q of row g of each block j into r[j].
+inline void ldsm_x4(float (&r)[4], const float* p) {
+  const int t = threadIdx.x, w = t / 32, lane = t % 32;
+  auto& rows = emu::ldsm_rows[emu::ldsm_set];
+  emu::ldsm_set ^= 1u;
+  rows[t] = p;
+  emu::warp_barriers[w]->arrive_and_wait();
+  for (int j = 0; j < 4; ++j) r[j] = rows[w * 32 + 8 * j + lane / 4][lane % 4];
+}
+
 // bar.sync id, threads
 inline void named_sync(int id, int threads) {
   std::barrier<>* b;
@@ -216,6 +277,8 @@ void emu_launch(K kernel, int grid, int threads, size_t smem_bytes,
     for (int w = 0; w < (threads + 31) / 32; ++w)
       emu::warp_barriers.push_back(std::make_unique<std::barrier<>>(32));
     emu::lanes.assign(threads, 0);
+    for (auto& f : emu::frags) f.assign(threads, {});
+    for (auto& r : emu::ldsm_rows) r.assign(threads, nullptr);
     for (auto& nb : emu::named) nb.reset();
     emu::mbars.clear();
     std::vector<std::thread> pool;

@@ -6,9 +6,16 @@ compiled with g++ against a CPU stand-in for the CUDA runtime
 for ``__syncthreads`` and the warp collectives), and its two C entry
 points run on small packed batches.  Their gradients are held against the
 plain PyTorch versions at chip_smoke.py's gradient bound, K3's halves
-summed against K1b, and two K2b runs must give the same bits.  This checks
-the body's indexing, synchronisation and arithmetic here; its speed, and
-what nvcc makes of it, only the card can show (chip_smoke.py)."""
+summed against K1b, and two K2b runs must give the same bits.  At H=64
+the body takes every dense product on the tensor cores in 3xTF32; the
+stand-in emulates the TF32 rounding and the warp's m16n8k8 product, and
+``tests/cuda_emu/tc_harness.cu`` holds the three products the body uses
+against float64.  This checks the body's indexing, synchronisation and
+arithmetic here; its speed, and what nvcc makes of it, only the card can
+show (chip_smoke.py)."""
+
+import ctypes
+import os
 
 import numpy as np
 import pytest
@@ -21,10 +28,12 @@ T = fg.TILE
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6  # chip_smoke.py's gradient bound
 # (tiles, layers, hidden, crowded rows): the flagship widths, H=16, rows
 # with more nonzeros than the kernel's 16 neighbour slots, and H=64 (the
-# reverse body of its own, fused_ggnn64.cuh)
+# reverse body of its own, fused_ggnn64.cuh), also at L=3: K3's odd split,
+# whose top half starts at lo = 1 > 0 (the range's trap (b))
 CASES = {"h32": (2, 3, 32, False), "h16": (2, 2, 16, False),
          "crowded": (1, 3, 32, True), "h64": (1, 2, 64, False),
-         "h64_crowded": (1, 2, 64, True)}
+         "h64_crowded": (1, 2, 64, True), "h64_l3": (1, 3, 64, False)}
+HERE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_emu")
 
 
 @pytest.fixture(scope="module")
@@ -32,6 +41,14 @@ def lib(tmp_path_factory):
     """The backward source built with g++ against the CPU stand-in."""
     return build_emulated("fused_ggnn_bwd.cu",
                           str(tmp_path_factory.mktemp("emulated_bwd")))
+
+
+@pytest.fixture(scope="module")
+def tc_lib(tmp_path_factory):
+    """The 3xTF32 product harness built with g++ against the CPU stand-in."""
+    return build_emulated("tc_harness.cu", str(tmp_path_factory.mktemp("emu_tc")),
+                          entries={"tc_products": [ctypes.c_void_p] * 5},
+                          src_dir=HERE)
 
 
 def _inputs(p, layers, hidden, crowd, seed):
@@ -138,3 +155,33 @@ def test_emulated_k2b_matches_plain_and_repeats_bit_for_bit(lib, case):
         layers, h0, adj, msg_w, msg_b, gru, *readout, dg))
     again = _readout_bwd(lib, layers, h0, adj, msg_w, msg_b, gru, readout, dg)
     assert all(torch.equal(a, b) for a, b in zip(_flat(got), _flat(again)))
+
+
+@pytest.mark.parametrize("orientation", ["x W", "x W^T", "a^T b"])
+def test_emulated_3xtf32_products_match_float64(tc_lib, orientation):
+    """Each product the H=64 reverse body takes on the tensor cores, on
+    random (64, 64) operands of mixed magnitudes, within 1e-6 of the sum of
+    |a||b| over each output's terms of the float64 product (TF32 alone
+    keeps about 2^-11 of each term; 3xTF32 drops lo*lo and rounds lo)."""
+    rng = np.random.default_rng(len(orientation))
+    a, b = (np.ascontiguousarray(rng.standard_normal((64, 64)) *
+                                 np.exp(rng.uniform(-3, 3, (64, 64))),
+                                 dtype=np.float32) for _ in range(2))
+    outs = [np.full((64, 64), np.nan, np.float32) for _ in range(3)]
+    assert tc_lib.tc_products(*(x.ctypes.data for x in (a, b, *outs))) == 0
+    got = outs[["x W", "x W^T", "a^T b"].index(orientation)]
+    x, y = {"x W": (a, b), "x W^T": (a, b.T), "a^T b": (a.T, b)}[orientation]
+    x, y = x.astype(np.float64), y.astype(np.float64)
+    want, scale = x @ y, np.abs(x) @ np.abs(y)
+    assert np.isfinite(got).all()
+    assert (np.abs(got - want) <= 1e-6 * scale).all()
+    # plain TF32 (one product per step) would not hold that bound
+    assert np.abs(got - want).max() < 1e-2 * np.abs(
+        _tf32(x) @ _tf32(y) - want).max()
+
+
+def _tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 rounds (ties away from zero)."""
+    u = x.astype(np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32).astype(
+        np.float64)

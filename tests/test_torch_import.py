@@ -11,7 +11,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "gcnbmp_tpu_torch")
 CHIP_SCRIPTS = [os.path.join(ROOT, name)
                 for name in ("chip_smoke.py", "chip_phases.py",
-                             "chip_quality.py", "chip_multi_device.py")]
+                             "chip_quality.py", "chip_multi_device.py",
+                             "chip_tc64.py")]
 
 MODULES = [
     "gcnbmp_tpu_torch",
