@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Where the H=64 GGNN reverse body's time goes, on one NVIDIA GPU: the
-rates of the instructions its 3xTF32 products are made of, and its phases
-timed inside the kernel.
+"""Where the H=64 GGNN bodies' time goes, on one NVIDIA GPU: the rates of
+the instructions their 3xTF32 products are made of, the reverse body's and
+the forward body's phases timed inside the kernel, and the forward's
+variants timed in turns.
 
-    python3 chip_tc64.py
+    python3 chip_tc64.py [--fma-src DIR] [--forward-only]
 
 1. mma.sync.m16n8k8 TF32 alone: one CTA of 512 threads per SM (16 warps,
-   as the reverse body runs), each warp issuing 1, 2, 4 or 8 independent
+   as the bodies run), each warp issuing 1, 2, 4 or 8 independent
    accumulator chains: products per microsecond per SM and TFLOP/s.
 2. The split's rounding to TF32 (10 mantissa bits, ties away from zero),
    cvt.rna.tf32.f32 against the same rounding in two integer instructions
@@ -25,16 +26,44 @@ timed inside the kernel.
 4. The same K2b built with cvt.rna.tf32.f32 in ``tf32_rna`` in place of
    its two integer instructions: its time in turns with the unchanged
    source's, and whether the two give the same bits.
+5. The forward body (``fused_ggnn.cu``'s ``fused_ggnn_kernel64``: K2 and
+   K1) on chip_smoke.py phase 3a's inputs at H = D = 64, L = 8 (the first
+   packed batches of 256 and 2048 of those pairs, P = 75 and 387), built
+   in variants by string edits of copies of the sources, all timed in
+   turns (CUDA events, median of 14 runs of 5 calls): ``tile_hs`` the
+   source as it is (every product in 3xTF32 over the whole tile, h read
+   from the TF32 parts its writers keep); ``tile`` every operand split
+   where it is loaded; ``halves`` that, with the layer step and the readout
+   by halves of the tile (the reverse body's steps: the body as it first
+   ran on the tensor cores); ``tile_w`` the weight panels split once when
+   staged (a float4 of a B fragment's high and low parts at both depths)
+   and h split at load; ``tile_hs_u1`` and ``tile_hs_u4`` the source with
+   the split-h product's 8-deep steps unrolled 1 and 4 times (2 as it is);
+   ``agg_rows4`` the forward's aggregation with four rows of a warp in
+   flight (its loads before its adds, the same terms in the same order);
+   and, with ``--fma-src``, ``fma`` the f32 FMA body from that directory (a
+   copy of ``gcnbmp_tpu_torch/ops/csrc`` from before the forward took the
+   tensor cores: ``git archive 04b42f0 gcnbmp_tpu_torch/ops/csrc``).  Each
+   variant's ptxas registers and spills, and whether its K2 and K1 give
+   the source's bits.
+6. K2 at P = 387 from copies of the forward source (and of ``--fma-src``'s)
+   with clock64 markers, as in 3: set-up, the messages' products h W_e,
+   the aggregation m += A_e hw_e, the GRU gates' products, the update
+   h' = z n + (1 - z) s, the readout.  Every marker follows a barrier, all
+   but the messages' first put in for it.
 
 Builds into ``results/tc64/`` with nvcc (all at once).  Fails if an anchor
 of the source is not found (the source changed) or there is no card.
+``--forward-only`` runs phases 5 and 6 alone.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
 import shutil
+import re
 import subprocess
 import sys
 import time
@@ -176,8 +205,381 @@ def instrumented(text: str) -> str:
         raise RuntimeError("namespace anchor not found")
     return head.replace(ns, ns + PROF) + body + READ
 
+# -- the forward body (phases 5 and 6) --------------------------------------
+
+# The forward body's variants: name -> [(file, anchor, replacement, count)],
+# each anchor found `count` times (the replacement put in for each)
+HEADER, SOURCE = "fused_ggnn64.cuh", "fused_ggnn.cu"
+# the h parts kept beside h (split_store) written by no one, for the
+# variants whose products do not read them
+NO_SPLIT_STORE = (HEADER,
+                  "void split_store(float* hs, int i, float v) {\n"
+                  "  split_tf32(v, hs[i], hs[TH + i]);\n}",
+                  "void split_store(float*, int, float) {}", 1)
+# every product of h split where it is loaded
+SPLIT_AT_LOAD = [(HEADER, "product_h(t, ", "Tc::product_tile(t.h, ", 6),
+                 (SOURCE, "product_h(t, ", "Tc::product_tile(t.h, ", 2), NO_SPLIT_STORE]
+SPLIT_A_UNROLL = "  const float* arow = xs + (R + lr + 8 * (lj & 1)) * H;\n#pragma unroll 2\n"
+READOUT_TILE = """    for (int i = tid; i < TH; i += THREADS) s_h0[Tc::at(i / H, i % H)] = h0_t[i];
+    const Tc::Own o(tid);
+    float gi[2 * RPH], gj[2 * RPH];
+    fill_cols(gi, s_bi, o);
+    product_h(t, panels_next<Tc>(p, ro.wi, ro.wi + H * H, tid), o, gi);
+    Tc::product_tile(s_h0, panels_next<Tc>(p, ro.wi + H * H, ro.wj, tid), o, gi);
+    fill_cols(gj, s_bj, o);
+    product_h(t, panels_next<Tc>(p, ro.wj, nullptr, tid), o, gj);
+    const float* mask_t = ro.mask + tile * TILE;
+#pragma unroll
+    for (int j = 0; j < 2 * RPH; ++j) {
+      const int row = (j / RPH) * HALF + o.row(j % RPH);
+      out_t[row * H + o.col(j % RPH)] = sigmoidf(gi[j]) * gj[j] * mask_t[row];
+    }
+"""
+# halves: the body as its step 1 first ran, the reverse body's layer step
+# and readout by halves of the tile, every operand split at load
+READOUT_HALVES = """    for (int i = tid; i < TH; i += THREADS) s_h0[Tc::at(i / H, i % H)] = h0_t[i];
+    readout_gate<Tc>(t.h, s_h0, ro, s_bi, t.work, p, tid);
+    const float* wj = panels_next<Tc>(p, ro.wj, nullptr, tid);
+    const float* mask_t = ro.mask + tile * TILE;
+    const Tc::Own o(tid);
+#pragma unroll 1
+    for (int hf = 0; hf < 2; ++hf) {
+      float gj[RPH];
+#pragma unroll
+      for (int k = 0; k < RPH; ++k) gj[k] = s_bj[o.col(k)];
+      Tc::product(t.h + hf * HALF * H, wj, o, gj);
+      const float* gate = t.work + hf * HALF * H;
+#pragma unroll
+      for (int k = 0; k < RPH; ++k) {
+        const int row = hf * HALF + o.row(k);
+        out_t[row * H + o.col(k)] = gate[o.at(k)] * gj[k] * mask_t[row];
+      }
+    }
+"""
+# tile_w: the weight panels split once when staged (TcW), their float4
+# holding a B fragment's high and low parts at both depths, h split at load
+TCW = r"""
+// acc += x w over the tile for the warp's 16 x 16 blocks at rows R and
+// R + HALF, columns C (x: rows in the Tc layout, w: a TcW panel), in 3xTF32
+// as tc_mma<false, false, 2, 2, HALF> takes it, term for term: the same
+// split values in the same mma order, the same bits.  A lane's B fragments
+// of 8-deep step kb and n-tile nj are one float4 (TcW::b_at).
+__device__ __forceinline__ void tc_mma_w(const float* a, const float* w, int R, int C,
+                                         int g, int q, float* acc) {
+  const int lr = (4 * g + q) & 7, lj = (4 * g + q) >> 3, slr = swz(lr);
+  const float* arow = a + (R + lr + 8 * (lj & 1)) * H;
+  const float4* w4 = reinterpret_cast<const float4*>(w) + q * H + C;
+  const int b0 = g ^ (2 * q) ^ ((C >> 3) & 3), b1 = 8 + (g ^ (2 * q) ^ (((C >> 3) + 1) & 3));
+#pragma unroll 2
+  for (int k0 = 0; k0 < H; k0 += 8) {
+    float ah[2][4], al[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      float v[4];
+      ldsm_x4(v, arow + mi * HALF * H + ((k0 + 4 * (lj >> 1)) ^ slr));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(v[i], ah[mi][i], al[mi][i]);
+    }
+#pragma unroll
+    for (int nj = 0; nj < 2; ++nj) {
+      const float4 b = w4[(k0 / 2) * H + (nj ? b1 : b0)];
+      const float bh[2] = {b.x, b.z}, bl[2] = {b.y, b.w};
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        float* d = acc + 4 * (2 * mi + nj);
+        mma_tf32(d, al[mi], bh);
+        mma_tf32(d, ah[mi], bl);
+        mma_tf32(d, ah[mi], bh);
+      }
+    }
+  }
+}
+
+// The forward's weight panels split once, when staged.  Depth k = 8 kb +
+// q + 4 u (q < 4, u < 2) of column c sits in float4 (4 kb + q) H + (c ^ 2q
+// ^ (c / 8 % 4)) as (hi, lo of u = 0, hi, lo of u = 1): a lane's B fragment
+// of an 8-deep step in both parts.  The XORs put the eight lanes of each
+// quarter warp on eight distinct 16-byte bank groups, for the products'
+// loads and for the split's.  Thread t stages the four columns 4 (t % 16)
+// .. + 3 of depths 8 kb + q and 8 kb + q + 4, (kb, q) = (t / 64, t / 16 %
+// 4): four float4 in a row, slot(t) .. + 3, in an order XORed by flip(t);
+// cp.async lands the two f32 rows in two of them, and panel_split (before
+// the barrier that hands the panel out) puts the four split columns in
+// place.
+struct TcW : Tc {
+  static constexpr bool SPLIT = true;
+  static constexpr int PANEL_WORDS = 2 * PANEL;
+  // the float4 of column c at depth rows 8 (kq / 4) + kq % 4 (+ 4)
+  __device__ static int b_at(int kq, int c) {
+    return kq * H + (c ^ (2 * (kq & 3)) ^ ((c >> 3) & 3));
+  }
+  __device__ static int slot(int t) { return b_at(t >> 4, 4 * (t & 15)) & ~3; }
+  __device__ static int flip(int t) { return (2 * ((t >> 4) & 1)) ^ ((t >> 1) & 3); }
+  __device__ static int order(int t) { return (t >> 1) & 3; }
+  __device__ static void panel_load(const float* __restrict__ src, float* dst) {
+    const int t = fresh_tid();
+    const int r = 8 * (t >> 6) + ((t >> 4) & 3), c = 4 * (t & 15);
+    float4* s = reinterpret_cast<float4*>(dst) + slot(t);
+    __pipeline_memcpy_async(s + order(t), src + r * H + c, 16);
+    __pipeline_memcpy_async(s + (order(t) ^ 1), src + (r + 4) * H + c, 16);
+  }
+  // this thread's columns of a panel whose cp.async have completed
+  __device__ static void panel_split(float* panel) {
+    const int t = fresh_tid();
+    float4* s = reinterpret_cast<float4*>(panel) + slot(t);
+    const float4 x0 = s[order(t)], x1 = s[order(t) ^ 1];
+    const float r0[4] = {x0.x, x0.y, x0.z, x0.w}, r1[4] = {x1.x, x1.y, x1.z, x1.w};
+    const int f = flip(t);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float4 v;
+      split_tf32(r0[i], v.x, v.y);
+      split_tf32(r1[i], v.z, v.w);
+      s[i ^ f] = v;
+    }
+  }
+  __device__ static void product_tile(const float* x, const float* w, const Own& o,
+                                      float (&acc)[2 * RPH]) {
+    tc_mma_w(x, w, o.R, o.C, o.g, o.q, acc);
+  }
+};
+"""
+PANEL_LOAD = """#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int q = P::panel_tid(tid) + s * THREADS;
+    const int row = q / (H / 4), c = (q % (H / 4)) * 4;
+    __pipeline_memcpy_async(dst + P::panel_at(row, c), src + row * H + c, 16);
+  }
+}"""
+PANEL_WAIT = """  __pipeline_wait_prior(0);
+  __syncthreads();
+  float* here = p.buf + (p.j & 1) * PANEL;
+"""
+PANEL_NEXT = "  if (next != nullptr) panel_load<P>(next, p.buf + ((p.j + 1) & 1) * PANEL, tid);\n"
+TILE_W = [
+    (HEADER, "#pragma once\n", "#pragma once\n#include <type_traits>\n", 1),
+    (HEADER, "// acc += x w^T for the rows of x at o's block (w a panel: the product",
+     TCW + "\n// acc += x w^T for the rows of x at o's block (w a panel: the product", 1),
+    (HEADER, "  static constexpr int PANELS = HS + (BWD ? 0 : 2) * TH; // 2 PANEL\n"
+             "  static constexpr int B_MSG = PANELS + 2 * PANEL;",
+     "  static constexpr int PANELS = HS;\n"
+     "  static constexpr int B_MSG = PANELS + (BWD ? 2 : 4) * PANEL;", 1),
+    (HEADER, PANEL_LOAD, "  if constexpr (std::is_same_v<P, TcW>) {\n    TcW::panel_load(src, dst);\n"
+                         "    return;\n  }\n" + PANEL_LOAD, 1),
+    (HEADER, PANEL_WAIT,
+     "  __pipeline_wait_prior(0);\n"
+     "  constexpr int words = std::is_same_v<P, TcW> ? 2 * PANEL : PANEL;\n"
+     "  if constexpr (std::is_same_v<P, TcW>) TcW::panel_split(p.buf + (p.j & 1) * words);\n"
+     "  __syncthreads();\n  float* here = p.buf + (p.j & 1) * words;\n", 1),
+    (HEADER, PANEL_NEXT, PANEL_NEXT.replace("* PANEL", "* words"), 1),
+    (HEADER, "product_h(t, ", "TcW::product_tile(t.h, ", 6),
+    (HEADER, "Tc::product_tile(t.", "TcW::product_tile(t.", 4),
+    (HEADER, "panels_next<Tc>(", "panels_next<TcW>(", 10),
+    (SOURCE, "product_h(t, ", "TcW::product_tile(t.h, ", 2),
+    (SOURCE, "Tc::product_tile(s_h0", "TcW::product_tile(s_h0", 1),
+    (SOURCE, "panels_next<Tc>(", "panels_next<TcW>(", 3),
+    (SOURCE, "panels_start<Tc>(", "panels_start<TcW>(", 1),
+    NO_SPLIT_STORE]
+# agg_rows4: the aggregation with four rows of a warp in flight (the
+# forward's messages only), the same terms in the same order
+PRODUCT_H = "// acc += h w over the tile, h from its TF32 parts"
+AGG_ROWS4 = r"""// m (+)= A_e hw_e (hw_e in t.work) as aggregate_edge takes it, each row
+// summing the same terms in the same order, with RW rows of a warp in
+// flight at once: each step loads the rows' n-th list entries and the hw
+// rows they select (clamped into the tile, the product kept only for an
+// entry of e's columns) before it adds them, so the loads' latencies
+// overlap; a crowded row then takes aggregate_edge's dense path.
+__device__ __forceinline__ void aggregate_tile(const Tile& t, int e, int tid) {
+  constexpr int RW = 4;
+  const int lane = tid & 31, warp = tid >> 5, lo = e * TILE;
+#pragma unroll 1
+  for (int i0 = warp; i0 < TILE; i0 += RW * WARPS) {
+    float a0[RW], a1[RW];
+    int cnt[RW], most = 0;
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+      const int i = i0 + r * WARPS;
+      a0[r] = e == 0 ? 0.0f : t.m[Tc::at(i, lane)];
+      a1[r] = e == 0 ? 0.0f : t.m[Tc::at(i, lane + 32)];
+      cnt[r] = t.nc[i];
+      if (cnt[r] <= NBR_CAP) most = max(most, cnt[r]);
+    }
+#pragma unroll 1
+    for (int n = 0; n < most; ++n) {
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        const int i = i0 + r * WARPS;
+        const int k = int(t.nk[i * NBR_CAP + n]) - lo;
+        const float v = t.nv[i * NBR_CAP + n];
+        const bool take = n < cnt[r] && cnt[r] <= NBR_CAP && k >= 0 && k < TILE;
+        const int kc = min(max(k, 0), TILE - 1);
+        const float x0 = t.work[Tc::at(kc, lane)], x1 = t.work[Tc::at(kc, lane + 32)];
+        a0[r] = take ? fmaf(v, x0, a0[r]) : a0[r];
+        a1[r] = take ? fmaf(v, x1, a1[r]) : a1[r];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+      const int i = i0 + r * WARPS;
+      if (cnt[r] > NBR_CAP) {
+        const float* arow = t.adj_t + size_t(i) * ROW_LEN + lo;
+        float av[TILE / 32];
+#pragma unroll
+        for (int q = 0; q < TILE / 32; ++q) av[q] = __ldg(arow + q * 32 + lane);
+#pragma unroll
+        for (int q = 0; q < TILE / 32; ++q) {
+          unsigned nz = __ballot_sync(0xffffffffu, av[q] != 0.0f);
+          while (nz) {
+            const int b = __ffs(nz) - 1;
+            nz &= nz - 1;
+            const float v = __shfl_sync(0xffffffffu, av[q], b);
+            const int k = q * 32 + b;
+            a0[r] = fmaf(v, t.work[Tc::at(k, lane)], a0[r]);
+            a1[r] = fmaf(v, t.work[Tc::at(k, lane + 32)], a1[r]);
+          }
+        }
+      }
+      t.m[Tc::at(i, lane)] = a0[r];
+      t.m[Tc::at(i, lane + 32)] = a1[r];
+    }
+  }
+}
+
+"""
+FWD_VARIANTS = {
+    "tile_hs": [],
+    "tile": SPLIT_AT_LOAD,
+    "halves": [(SOURCE, "    layer_forward_tile(t, w, l, p, next, tid);\n",
+                "    layer_forward<Tc>(t, w, l, p, next, tid);\n", 1),
+               (SOURCE, READOUT_TILE, READOUT_HALVES, 1), NO_SPLIT_STORE],
+    "tile_w": TILE_W,
+    "agg_rows4": [(HEADER, PRODUCT_H, AGG_ROWS4 + PRODUCT_H, 1),
+                  (HEADER, "    aggregate_edge<Tc>(t.adj_t, e, t.work, t.m, t.nk, t.nv, t.nc, tid);\n",
+                   "    aggregate_tile(t, e, tid);\n", 1)],
+    "tile_hs_u1": [(HEADER, SPLIT_A_UNROLL, SPLIT_A_UNROLL.replace("unroll 2", "unroll 1"), 1)],
+    "tile_hs_u4": [(HEADER, SPLIT_A_UNROLL, SPLIT_A_UNROLL.replace("unroll 2", "unroll 4"), 1)],
+}
+
+# phase 6: thread 0 of each CTA adds the cycles since its last marker (its
+# last reading kept in global memory by block)
+FWD_PROF = r"""
+__device__ unsigned long long g_phase_cycles[16];
+__device__ long long g_phase_last[4096];
+__device__ __forceinline__ void phase_end(int i) {
+  if (threadIdx.x == 0) {
+    const long long t = clock64();
+    if (i >= 0)
+      atomicAdd(&g_phase_cycles[i], (unsigned long long)(t - g_phase_last[blockIdx.x]));
+    g_phase_last[blockIdx.x] = t;
+  }
+}
+"""
+FWD_READ = r"""
+extern "C" int phase_cycles(unsigned long long* out, int reset) {
+  if (reset) {
+    unsigned long long z[16] = {};
+    return int(cudaMemcpyToSymbol(ggnn::h64::g_phase_cycles, z, sizeof(z)));
+  }
+  return int(cudaMemcpyFromSymbol(out, ggnn::h64::g_phase_cycles,
+                                  16 * sizeof(unsigned long long)));
+}
+"""
+FWD_PHASES = ["set-up: h0, biases, row lists", "messages: h W_e (panel waits)",
+              "messages: m += A_e hw_e", "GRU: the gates' products",
+              "GRU: h' = z n + (1 - z) s", "readout: [h, h0] Wi, h Wj, store"]
+# (file, anchor, text put after it) of each body's markers: the FMA body's
+# layer step by halves of the tile, the tensor-core body's over the tile
+FWD_MARKS = {
+    "fma": [
+        (SOURCE, "  const float* h0_t = h0 + tile * TH;\n", "  phase_end(-1);\n"),
+        (HEADER, "    __syncthreads();\n    aggregate_edge<P>(t.adj_t, e, t.work, t.m, t.nk, t.nv, t.nc, tid);\n",
+         "    __syncthreads();\n    phase_end(2);\n"),
+        (HEADER, "    gates<P>(t, w, zero_state, hf, false, p, hf == 0 ? w.wz : next, n, tid);\n",
+         "    __syncthreads();\n    phase_end(3);\n"),
+        (HEADER, "      h[i] = z * n[k] + (1.0f - z) * s;\n    }\n",
+         "    __syncthreads();\n    phase_end(4);\n")],
+    "tile": [
+        (SOURCE, "  const float* h0_t = h0 + tile * TH;\n", "  phase_end(-1);\n"),
+        (HEADER, "    __syncthreads();\n    aggregate_edge<Tc>(t.adj_t, e, t.work, t.m, t.nk, t.nv, t.nc, tid);\n",
+         "    __syncthreads();\n    phase_end(2);\n"),
+        (HEADER, "  gates_tile(t, w, zero_state, p, next, z, n, tid);\n",
+         "  __syncthreads();\n  phase_end(3);\n"),
+        (HEADER, "    split_store(t.hs, i, v);\n  }\n",
+         "  __syncthreads();\n  phase_end(4);\n")],
+}
+# the messages' products end at the barrier before the aggregation
+MSG_BARRIER = {"fma": ("    __syncthreads();\n    aggregate_edge<P>(",
+                       "    __syncthreads();\n    phase_end(1);\n    aggregate_edge<P>("),
+               "tile": ("    __syncthreads();\n    aggregate_edge<Tc>(",
+                        "    __syncthreads();\n    phase_end(1);\n    aggregate_edge<Tc>(")}
+LAYER_LOOP = ("#pragma unroll 1\n  for (int l = 0; l < n_layers; ++l) {\n"
+              "    if constexpr (MID) {  // K1m: layer split's input\n")
+KERNEL_END = "\n}\n\ntemplate <bool READOUT, bool MID = false>\ncudaError_t launch64("
+
+
+def edited(text: str, edits, what: str) -> str:
+    """text with each (anchor, replacement[, count]) applied; each anchor must
+    occur `count` times (once by default)."""
+    for anchor, replacement, *count in edits:
+        n = count[0] if count else 1
+        if text.count(anchor) != n:
+            raise RuntimeError(f"anchor not found {n} times in {what}: {anchor!r}")
+        text = text.replace(anchor, replacement)
+    return text
+
+
+def fwd_instrumented(src: str, header: str, body: str):
+    """(fused_ggnn.cu, fused_ggnn64.cuh) with phase 6's markers."""
+    h_edits, s_edits = [("namespace h64 {\n", "namespace h64 {\n" + FWD_PROF)], []
+    for name, anchor, mark in FWD_MARKS[body]:
+        (h_edits if name == HEADER else s_edits).append((anchor, anchor + mark))
+    s_edits += [(LAYER_LOOP, "  phase_end(0);\n" + LAYER_LOOP),
+                (KERNEL_END, "\n  __syncthreads();\n  phase_end(5);" + KERNEL_END)]
+    header = edited(header, h_edits + [MSG_BARRIER[body]], HEADER)
+    return edited(src, s_edits, SOURCE) + FWD_READ, header
+
+
+def write_tree(directory: str, src_dir: str, edits=(), instrument=None):
+    """Copy fused_ggnn.cu and the headers from src_dir into directory, with
+    edits (file, anchor, replacement) or phase 6's markers for the body
+    ``instrument`` ("fma" or "tile")."""
+    os.makedirs(directory)
+    texts = {}
+    for name in (SOURCE, "fused_ggnn_common.cuh", HEADER):
+        with open(os.path.join(src_dir, name)) as f:
+            texts[name] = f.read()
+    for name, anchor, replacement, count in edits:
+        texts[name] = edited(texts[name], [(anchor, replacement, count)], name)
+    if instrument:
+        texts[SOURCE], texts[HEADER] = fwd_instrumented(texts[SOURCE], texts[HEADER],
+                                                        instrument)
+    for name, text in texts.items():
+        with open(os.path.join(directory, name), "w") as f:
+            f.write(text)
+    return os.path.join(directory, SOURCE)
+
+
+def kernel64_registers(log: str) -> list[str]:
+    """ptxas's registers and spills of each fused_ggnn_kernel64 instance."""
+    out, body = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"fused_ggnn_kernel64ILb([01])ELb([01])E", m.group(1))
+            body = (None if k is None else
+                    "K2" if k[1] == "1" else "K1m" if k[2] == "1" else "K1")
+        elif body and ("spill" in line or "registers" in line):
+            out.append(f"{body}: {line.split(':', 1)[-1].strip()}")
+    return out
+
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--fma-src", help="a directory holding the f32 FMA forward "
+                    "body's fused_ggnn.cu and headers (phases 5 and 6)")
+    ap.add_argument("--forward-only", action="store_true",
+                    help="phases 5 and 6 alone")
+    args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -197,39 +599,51 @@ def main() -> int:
 
     shutil.rmtree(OUT, ignore_errors=True)
     os.makedirs(OUT)
-    with open(os.path.join(build.CSRC, "fused_ggnn_bwd.cu")) as f:
-        source = f.read()
-    for name, text in (("bench.cu", BENCH), ("bwd_phases.cu", instrumented(source)),
-                       ("bwd.cu", source)):
-        with open(os.path.join(OUT, name), "w") as f:
-            f.write(text)
-    # the cvt variant: its own copy of the sources, so its header is found first
-    cvt_dir = os.path.join(OUT, "cvt")
-    os.makedirs(cvt_dir)
-    for name in ("fused_ggnn_bwd.cu", *build.HEADERS):
-        with open(os.path.join(build.CSRC, name)) as f:
-            text = f.read()
-        if name == "fused_ggnn64.cuh":
-            if text.count(INT_RNA) != 1:
-                raise RuntimeError("tf32_rna's rounding not found in fused_ggnn64.cuh")
-            text = text.replace(INT_RNA, CVT_RNA)
-        with open(os.path.join(cvt_dir, name), "w") as f:
-            f.write(text)
     flags = [f for f in build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    # name -> (source, nvcc flags): the reverse phases' with the headers of
+    # ops/csrc; every forward tree its own copies, its ptxas report kept
+    sources = {}
+    if not args.forward_only:
+        with open(os.path.join(build.CSRC, "fused_ggnn_bwd.cu")) as f:
+            source = f.read()
+        for name, text in (("bench.cu", BENCH), ("bwd_phases.cu", instrumented(source)),
+                           ("bwd.cu", source)):
+            with open(os.path.join(OUT, name), "w") as f:
+                f.write(text)
+        # the cvt variant: its own copy of the sources, so its header is found first
+        cvt_dir = os.path.join(OUT, "cvt")
+        os.makedirs(cvt_dir)
+        for name in ("fused_ggnn_bwd.cu", *build.HEADERS):
+            with open(os.path.join(build.CSRC, name)) as f:
+                text = f.read()
+            if name == "fused_ggnn64.cuh":
+                if text.count(INT_RNA) != 1:
+                    raise RuntimeError("tf32_rna's rounding not found in fused_ggnn64.cuh")
+                text = text.replace(INT_RNA, CVT_RNA)
+            with open(os.path.join(cvt_dir, name), "w") as f:
+                f.write(text)
+        for name in ("bench", "bwd_phases", "bwd"):
+            sources[name] = (os.path.join(OUT, f"{name}.cu"), [*flags, "-I", build.CSRC])
+        sources["bwd_cvt"] = (os.path.join(cvt_dir, "fused_ggnn_bwd.cu"), flags)
+    trees = {f"fwd_{name}": (build.CSRC, edits, None)
+             for name, edits in FWD_VARIANTS.items()}
+    trees["fwdp_tile_hs"] = (build.CSRC, (), "tile")
+    if args.fma_src:
+        trees["fwd_fma"] = (args.fma_src, (), None)
+        trees["fwdp_fma"] = (args.fma_src, (), "fma")
+    for name, (src_dir, edits, instrument) in trees.items():
+        path = write_tree(os.path.join(OUT, name), src_dir, edits, instrument)
+        sources[name] = (path, build.NVCC_FLAGS)
     t0 = time.perf_counter()
-    sources = {"bench": os.path.join(OUT, "bench.cu"),
-               "bwd_phases": os.path.join(OUT, "bwd_phases.cu"),
-               "bwd": os.path.join(OUT, "bwd.cu"),
-               "bwd_cvt": os.path.join(cvt_dir, "fused_ggnn_bwd.cu")}
     procs = {name: subprocess.Popen(
-        [build._nvcc(), *flags, *([] if name == "bwd_cvt" else ["-I", build.CSRC]),
-         "-o", os.path.join(OUT, f"lib{name}.so"), path],
-        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
-        for name, path in sources.items()}
+        [build._nvcc(), *f, "-o", os.path.join(OUT, f"lib{name}.so"), path],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, (path, f) in sources.items()}
+    logs = {}
     for name, p in procs.items():
-        _, err = p.communicate()
+        logs[name], _ = p.communicate()
         if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{err}")
+            raise RuntimeError(f"nvcc failed for {name}:\n{logs[name]}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -245,6 +659,59 @@ def main() -> int:
         b.synchronize()
         return a.elapsed_time(b) / n
 
+    def in_turns(fns, rounds=7, n=5):
+        """Median ms per call of each of fns, 7 rounds of the order and its
+        reverse, 5 calls a run."""
+        times = {name: [] for name in fns}
+        for fn in fns.values():
+            fn()
+        order = list(fns)
+        for _ in range(rounds):
+            for name in order + order[::-1]:
+                times[name].append(event_ms(fns[name], n))
+        return {name: sorted(t)[len(t) // 2] for name, t in times.items()}
+
+    # the ref_scale_fused64 model and the first packed batches of 256 and
+    # 2048 pairs (chip_smoke.py phase 3a's inputs)
+    df = pd.read_csv(os.path.join(ROOT, "dataset", "synth546", "drug",
+                                  "ddi_drug_test.csv")).head(2048)
+    ds = CSVPairParser().parse(df).dataset
+    cfg = dict(fp_hidden_dim=64, fp_out_dim=64, conv_layers=8, weight_tying=False)
+    with torch.no_grad():
+        enc = from_jax_params(init_params(cfg, 2018),
+                              make_packed_predictor(**cfg)).to(dev).encoder
+        msg_w, msg_b, gru = fg.params_to_fused(enc)
+    n_layers = enc.n_layers
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def batch(bs):
+        tiles, cap = estimate_coo_capacities([ds], bs)
+        b, _ = next(iter_coo_eval_batches(ds, bs, tiles, cap))
+        nodes, e_packed, n_edges, left, _ = [
+            torch.as_tensor(np.asarray(a)).to(dev) for a in compact_coo_arrays(b)]
+        atom_ids, _, mask, *edges = decode_compact_wire(nodes, e_packed, n_edges,
+                                                        2 * left.shape[0])
+        p, t = atom_ids.shape
+        with torch.no_grad():
+            h0 = enc.embed(atom_ids).contiguous()
+            ro = enc.readout_0
+            readout = (mask, ro.i.dense.weight.T.contiguous(),
+                       ro.i.dense.bias.contiguous(),
+                       ro.j.dense.weight.T.contiguous(), ro.j.dense.bias.contiguous())
+        return p, h0, adj_from_coo_flat(*edges, num_tiles=p, tile=t), readout
+
+    batches = {bs: batch(bs) for bs in (256, 2048)}
+    if not args.forward_only:
+        reverse_phases(torch, np, fg, build, dev, stream, n_layers, msg_w, msg_b,
+                       gru, batches[2048], event_ms)
+    forward_phases(torch, fg, build, stream, n_layers, msg_w, msg_b, gru, batches,
+                   logs, in_turns, smi, bool(args.fma_src))
+    return 0
+
+
+def reverse_phases(torch, np, fg, build, dev, stream, n_layers, msg_w, msg_b, gru,
+                   batch, event_ms):
+    """Phases 1 to 4 (the instruction rates, K2b's phases and its cvt form)."""
     # 1. and 2.
     bench = ctypes.CDLL(os.path.join(OUT, "libbench.so"))
     for fn in (bench.run_mma, bench.run_round):
@@ -269,31 +736,10 @@ def main() -> int:
               f"{sms * 8 * 256 * iters * 8 / (ms * 1e6) / sms:.1f} elements per ns per SM")
 
     # 3. K2b's phases
-    df = pd.read_csv(os.path.join(ROOT, "dataset", "synth546", "drug",
-                                  "ddi_drug_test.csv")).head(2048)
-    ds = CSVPairParser().parse(df).dataset
-    tiles, cap = estimate_coo_capacities([ds], 2048)
-    batch, _ = next(iter_coo_eval_batches(ds, 2048, tiles, cap))
-    nodes, e_packed, n_edges, left, _ = [
-        torch.as_tensor(np.asarray(a)).to(dev) for a in compact_coo_arrays(batch)]
-    atom_ids, _, mask, *edges = decode_compact_wire(nodes, e_packed, n_edges,
-                                                    2 * left.shape[0])
-    p, t = atom_ids.shape
-    adj = adj_from_coo_flat(*edges, num_tiles=p, tile=t)
-    cfg = dict(fp_hidden_dim=64, fp_out_dim=64, conv_layers=8, weight_tying=False)
-    with torch.no_grad():
-        enc = from_jax_params(init_params(cfg, 2018),
-                              make_packed_predictor(**cfg)).to(dev).encoder
-        msg_w, msg_b, gru = fg.params_to_fused(enc)
-        h0 = enc.embed(atom_ids).contiguous()
-        ro = enc.readout_0
-        readout = (mask, ro.i.dense.weight.T.contiguous(), ro.i.dense.bias.contiguous(),
-                   ro.j.dense.weight.T.contiguous(), ro.j.dense.bias.contiguous())
-        dg = torch.as_tensor(np.random.default_rng(2018).standard_normal(
-            (p, t, 64)).astype(np.float32)).to(dev)
-    n_layers = enc.n_layers
+    p, h0, adj, readout = batch
+    dg = torch.as_tensor(np.random.default_rng(2018).standard_normal(
+        (p, 128, 64)).astype(np.float32)).to(dev)
     bufs = fg._bwd_buffers(p, n_layers, 64, 64, dev)[:4]
-    stream = torch.cuda.current_stream().cuda_stream
     libs = {}
     for name in ("bwd", "bwd_phases", "bwd_cvt"):
         handle = ctypes.CDLL(os.path.join(OUT, f"lib{name}.so"))
@@ -345,7 +791,76 @@ def main() -> int:
         print(f"  {name:40s} {float(counts[i]) / p:12.0f} cycles per CTA "
               f"{100 * float(counts[i]) / total:6.1f}%")
     print(f"  {'all phases':40s} {total / p:12.0f} cycles per CTA")
-    return 0
+
+
+def forward_phases(torch, fg, build, stream, n_layers, msg_w, msg_b, gru, batches,
+                   logs, in_turns, smi, with_fma):
+    """Phases 5 and 6: the forward body's variants in turns, K2's phases."""
+    import numpy as np
+
+    names = [f"fwd_{v}" for v in FWD_VARIANTS] + (["fwd_fma"] if with_fma else [])
+    libs = {}
+    for name in names + ["fwdp_tile_hs"] + (["fwdp_fma"] if with_fma else []):
+        handle = ctypes.CDLL(os.path.join(OUT, f"lib{name}.so"))
+        for entry, argtypes in build.SOURCES["fused_ggnn.cu"].items():
+            getattr(handle, entry).argtypes = argtypes
+        libs[name] = handle
+    for name in names:
+        print(f"ptxas {name}: " + "; ".join(kernel64_registers(logs[name])))
+    out = {bs: torch.empty_like(b[1]) for bs, b in batches.items()}
+
+    def k2(name, bs):
+        p, h0, adj, readout = batches[bs]
+        err = libs[name].fused_ggnn_readout_fwd(
+            h0.data_ptr(), adj.data_ptr(), *fg._weight_ptrs(msg_w, msg_b, gru),
+            *(x.data_ptr() for x in readout), out[bs].data_ptr(), p, n_layers, 64,
+            64, stream)
+        if err != 0:
+            raise RuntimeError(f"K2 {name} launch failed: {err}")
+
+    def k1(name, bs):
+        p, h0, adj, _ = batches[bs]
+        err = libs[name].fused_ggnn_fwd(
+            h0.data_ptr(), adj.data_ptr(), *fg._weight_ptrs(msg_w, msg_b, gru),
+            out[bs].data_ptr(), p, n_layers, 64, stream)
+        if err != 0:
+            raise RuntimeError(f"K1 {name} launch failed: {err}")
+
+    # 5. the variants: bits against the source's, then times in turns
+    for bs, (p, *_rest) in batches.items():
+        for label, run in (("K2", k2), ("K1", k1)):
+            got = {}
+            for name in names:
+                run(name, bs)
+                torch.cuda.synchronize()
+                got[name] = out[bs].clone()
+            same = [n[4:] for n in names if torch.equal(got[n], got["fwd_tile_hs"])]
+            ms = in_turns({n: (lambda n=n: run(n, bs)) for n in names})
+            print(f"{label} H=64 P={p} L={n_layers} ({smi}): " + ", ".join(
+                f"{n[4:]} {ms[n]:.4f} ms" for n in names)
+                + f"; the source's bits: {', '.join(same)}")
+
+    # 6. K2's phases at P=387
+    p = batches[2048][0]
+    for body in ("tile_hs", "fma") if with_fma else ("tile_hs",):
+        plain, marked = f"fwd_{body}", f"fwdp_{body}"
+        ms = in_turns({plain: lambda: k2(plain, 2048), marked: lambda: k2(marked, 2048)})
+        counts = np.zeros(16, np.uint64)
+        phases = libs[marked].phase_cycles
+        phases.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        if phases(counts.ctypes.data, 1) != 0:
+            raise RuntimeError("phase counters not reset")
+        k2(marked, 2048)
+        torch.cuda.synchronize()
+        if phases(counts.ctypes.data, 0) != 0:
+            raise RuntimeError("phase counters not read")
+        total = float(counts[:len(FWD_PHASES)].sum())
+        print(f"K2 H=64 P={p} L={n_layers}, {body} body: {ms[plain]:.4f} ms per call, "
+              f"{ms[marked]:.4f} ms with the phase markers")
+        for i, name in enumerate(FWD_PHASES):
+            print(f"  {name:40s} {float(counts[i]) / p:12.0f} cycles per CTA "
+                  f"{100 * float(counts[i]) / total:6.1f}%")
+        print(f"  {'all phases':40s} {total / p:12.0f} cycles per CTA")
 
 
 if __name__ == "__main__":

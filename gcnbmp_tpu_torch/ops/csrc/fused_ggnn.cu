@@ -65,9 +65,16 @@
 //
 // At H = 64 (fused_ggnn_kernel64) the plan above would take 442 KB, so
 // that width has a body of its own (fused_ggnn64.cuh): the weights stream
-// from L2 through two staged 17 KB panels, the messages go one edge type
-// at a time through one T x H buffer, the GRU one half of the tile at a
-// time; 148,224 bytes of shared memory, the same arithmetic in plain f32.
+// from L2 through two staged panels, the messages go one edge type at a
+// time through one T x H buffer; 211,712 bytes of shared memory.  There
+// every dense product (the messages h W_e, the GRU's x W{z,r,n}, s U{z,r},
+// (r s) Un, the readout's [h, h0] Wi and h Wj) runs on the tensor cores in
+// 3xTF32, as the reverse body's do (fused_ggnn_bwd.cu): about 2^-21 of each
+// term is dropped (lo*lo), within the f32 bounds.  Each product covers the
+// whole tile, so the two halves share each staged panel and each B
+// fragment, and the products of h read it from the TF32 parts the threads
+// that write h keep beside it, so that no h value is split more than once.
+// The aggregation m += A_e hw_e stays in f32.
 
 #include "fused_ggnn64.cuh"
 
@@ -184,9 +191,11 @@ cudaError_t launch(const float* h0, const float* adj, const Weights& w,
 }
 
 // The forward body at H = 64 (fused_ggnn64.cuh): the weights pass through
-// two staged panels, the message step takes one edge type at a time and
-// the GRU one half of the tile at a time; the same steps as the reverse
-// body's recompute.
+// two staged panels, the message step takes one edge type at a time, and
+// every product covers the whole tile (the reverse body's recompute takes
+// the same terms by halves).  Every dense product runs on the tensor cores
+// in 3xTF32 (h64::Tc, the T x H buffers in its layout), h read from the
+// TF32 parts its writers keep (t.hs).
 template <bool READOUT, bool MID>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_ggnn_kernel64(const float* __restrict__ h0, const float* __restrict__ adj,
@@ -199,7 +208,7 @@ fused_ggnn_kernel64(const float* __restrict__ h0, const float* __restrict__ adj,
                   smem + S::HIN, smem + S::MS, smem + S::WORK, smem + S::B_MSG,
                   smem + S::BZ, smem + S::BR, smem + S::BN,
                   reinterpret_cast<const Idx*>(smem + S::NK), smem + S::NV,
-                  reinterpret_cast<const int*>(smem + S::NC)};
+                  reinterpret_cast<const int*>(smem + S::NC), smem + S::HS};
   float* s_bi = smem + S::BI;
   float* s_bj = smem + S::BJ;
   const int tid = threadIdx.x;
@@ -207,12 +216,16 @@ fused_ggnn_kernel64(const float* __restrict__ h0, const float* __restrict__ adj,
   const float* h0_t = h0 + tile * TH;
 
   Panels p;
-  panels_start(p, smem + S::PANELS, msg_panel(w, 0, 0), tid);
+  panels_start<Tc>(p, smem + S::PANELS, msg_panel(w, 0, 0), tid);
   for (int i = tid; i < H; i += THREADS) {
     smem[S::BZ + i] = w.bz[i]; smem[S::BR + i] = w.br[i]; smem[S::BN + i] = w.bn[i];
     if (READOUT) { s_bi[i] = ro.bi[i]; s_bj[i] = ro.bj[i]; }
   }
-  for (int i = tid; i < TH; i += THREADS) t.h[i] = h0_t[i];
+  for (int i = tid; i < TH; i += THREADS) {
+    const int at = Tc::at(i / H, i % H);
+    t.h[at] = h0_t[i];
+    split_store(t.hs, at, h0_t[i]);
+  }
   scan_rows(t.adj_t, reinterpret_cast<Idx*>(smem + S::NK), smem + S::NV,
             reinterpret_cast<int*>(smem + S::NC), tid);
   __syncthreads();
@@ -222,35 +235,33 @@ fused_ggnn_kernel64(const float* __restrict__ h0, const float* __restrict__ adj,
     if constexpr (MID) {  // K1m: layer split's input
       if (l == split) {
         float* mid_t = mid + tile * TH;
-        for (int i = tid; i < TH; i += THREADS) mid_t[i] = t.h[i];
+        for (int i = tid; i < TH; i += THREADS) mid_t[i] = t.h[Tc::at(i / H, i % H)];
       }
     }
     const float* next = l + 1 < n_layers ? msg_panel(w, l + 1, 0)
                         : READOUT ? ro.wi : nullptr;
-    layer_forward(t, w, l, p, next, tid);
+    layer_forward_tile(t, w, l, p, next, tid);
   }
 
   float* out_t = out + tile * TH;
   if constexpr (!READOUT) {
-    for (int i = tid; i < TH; i += THREADS) out_t[i] = t.h[i];
+    for (int i = tid; i < TH; i += THREADS) out_t[i] = t.h[Tc::at(i / H, i % H)];
   } else {  // D = H
+    // g = sigmoid([h, h0] Wi + bi) * (h Wj + bj) * mask, in registers
     float* s_h0 = t.m;
-    for (int i = tid; i < TH; i += THREADS) s_h0[i] = h0_t[i];
-    readout_gate(t.h, s_h0, ro, s_bi, t.work, p, tid);
-    const float* wj = panels_next(p, ro.wj, nullptr, tid);
+    for (int i = tid; i < TH; i += THREADS) s_h0[Tc::at(i / H, i % H)] = h0_t[i];
+    const Tc::Own o(tid);
+    float gi[2 * RPH], gj[2 * RPH];
+    fill_cols(gi, s_bi, o);
+    product_h(t, panels_next<Tc>(p, ro.wi, ro.wi + H * H, tid), o, gi);
+    Tc::product_tile(s_h0, panels_next<Tc>(p, ro.wi + H * H, ro.wj, tid), o, gi);
+    fill_cols(gj, s_bj, o);
+    product_h(t, panels_next<Tc>(p, ro.wj, nullptr, tid), o, gj);
     const float* mask_t = ro.mask + tile * TILE;
-    const int col = tid % H, r0 = tid / H;
-#pragma unroll 1
-    for (int hf = 0; hf < 2; ++hf) {
-      float gj[RPH];
 #pragma unroll
-      for (int k = 0; k < RPH; ++k) gj[k] = s_bj[col];
-      xw<RPH>(t.h + hf * HALF * H, wj, col, r0, gj);
-#pragma unroll
-      for (int k = 0; k < RPH; ++k) {
-        const int i = hf * HALF + r0 + RS * k;
-        out_t[i * H + col] = t.work[i * H + col] * gj[k] * mask_t[i];
-      }
+    for (int j = 0; j < 2 * RPH; ++j) {
+      const int row = (j / RPH) * HALF + o.row(j % RPH);
+      out_t[row * H + o.col(j % RPH)] = sigmoidf(gi[j]) * gj[j] * mask_t[row];
     }
   }
 }

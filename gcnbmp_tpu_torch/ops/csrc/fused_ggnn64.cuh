@@ -1,8 +1,9 @@
 // The GGNN kernels' layer steps at H = 64, shared by the forward body
 // (fused_ggnn.cu: K1, K1m, K2) and the reverse body (fused_ggnn_bwd.cu:
 // K1b, K3, K2b) at that width: the shared-memory plan, the weight panels,
-// the message step one edge type at a time, the GRU gates by halves of the
-// tile, the readout's pre-activations and the products.
+// the message step one edge type at a time, the GRU gates (by halves of
+// the tile in the reverse, over the tile in the forward), the readout's
+// pre-activations and the products.
 //
 // Why H = 64 has a design of its own: GgnnPlan (fused_ggnn_common.cuh)
 // keeps every weight, h, m and the 4T x H hw stack in shared memory.  At
@@ -20,36 +21,44 @@
 //   in ascending column order across e, so m adds the same terms in the
 //   same order as the 4T x H stack of the narrower widths.  The reverse
 //   gathers dhw_e = A_e^T dm one edge type at a time the same way.
-// - The GRU runs on the tile's rows in two halves of 64 (its gates are
-//   row-local), and the reverse's r*s, dz', dr', dn' take 64 rows each
+// - The reverse runs the GRU on the tile's rows in two halves of 64 (its
+//   gates are row-local), so that its r*s, dz', dr', dn' take 64 rows each
 //   (64 KB together) instead of 128.  The gates are taken one at a time,
 //   z and r parked in shared memory, so one set of accumulators is live.
-// - Every product keeps 8 outputs a thread in registers (16 for a weight
-//   gradient): the message and readout products also go by halves of the
-//   tile; the bodies then fit 128 registers a thread without spilling.
+// - The reverse body keeps 8 outputs of a product a thread in registers (16
+//   for a weight gradient): its message and readout products also go by
+//   halves of the tile, and it fits 128 registers a thread without
+//   spilling.  The forward body, which has registers to spare, takes every
+//   product over the whole tile instead (layer_forward_tile): the two
+//   halves share each staged panel, so its GRU stages 9 panels a layer,
+//   not 18, and each B fragment feeds both halves.
 // - Index lists are 16-bit (columns < 512, rows < 128).
-// The plan comes to 148,224 bytes forward and 228,672 backward (Plan).
+// The plan comes to 211,712 bytes forward and 226,624 backward (Plan).
 //
-// The products are a compile-time choice P of the layer steps, which also
-// fixes the layout of the T x H buffers and of the panels and which thread
-// owns which entry of a product's output:
-// - Fma (the forward body): plain f32 FMAs from shared memory, as at the
-//   narrower widths.  Rows of H words (panels: HP = 68, padded); thread
-//   `tid` owns column tid % 64 of the rows tid / 64 + 8k of a half tile.
-// - Tc (the reverse body): the tensor cores in 3xTF32.  Each operand is
-//   split into a TF32 high part and a TF32 remainder (cvt.rna), and each
-//   8-deep step of a product issues three m16n8k8 mma.sync (lo*hi, hi*lo,
-//   hi*hi; lo*lo is dropped) into f32 accumulators: about 2^-21 of each
-//   term, the f32 bounds the kernels are held to.  Rows of H words whose
-//   4-word column groups are XORed by the row (swz), so that every
-//   fragment load, in each orientation the body reads (x W, x W^T, a^T b),
-//   puts the 32 lanes on 32 banks; the panels take the same layout.  An
-//   operand read along its rows comes by ldmatrix, the others by single
-//   loads.
-//   Ownership is the mma accumulator's: warp w of a (64, 64) product owns
-//   the 16 x 16 block at rows 16 (w / 4), columns 16 (w % 4), and lane
-//   (g, q) = (lane / 4, lane % 4) its rows g and g + 8, columns 2q, 2q + 1
-//   of each 8-column half; an elementwise step works on those entries.
+// Every dense product runs on the tensor cores in 3xTF32 (Tc).  Each
+// operand is split into a TF32 high part and a TF32 remainder (split_tf32),
+// and each 8-deep step of a product issues three m16n8k8 mma.sync (lo*hi,
+// hi*lo, hi*hi; lo*lo is dropped) into f32 accumulators: about 2^-21 of
+// each term, the f32 bounds the kernels are held to.  The T x H buffers and
+// the panels are rows of H words whose 4-word column groups are XORed by
+// the row (swz), so that every fragment load, in each orientation the
+// bodies read (x W, x W^T, a^T b), puts the 32 lanes on 32 banks.  An
+// operand read along its rows comes by ldmatrix, the others by single
+// loads.  Ownership is the mma accumulator's: warp w of a (64, 64) product
+// owns the 16 x 16 block at rows 16 (w / 4), columns 16 (w % 4) (over the
+// tile: that block of each half), and lane (g, q) = (lane / 4, lane % 4)
+// its rows g and g + 8, columns 2q, 2q + 1 of each 8-column half; an
+// elementwise step works on those entries.
+// Splitting a value where it is loaded takes five instructions, some twenty
+// of the fifty an 8-deep step of a warp issues.  The forward splits h, the
+// A operand of most of its products (the messages, five of the GRU's nine,
+// two of the readout's three), once: the thread that writes an entry of h
+// also writes its two TF32 parts (split_store, 64 KB the reverse's plan has
+// no room for), and those products load both parts by ldmatrix
+// (tc_mma_split_a).  Weight panels split once when staged (a float4 of hi,
+// lo at the two depths of a B fragment) were tried, and ran slower than
+// the split at load (chip_tc64.py, phase 5: the split pass sits between
+// every panel's arrival and its barrier).
 
 #pragma once
 
@@ -59,96 +68,12 @@ namespace ggnn {
 namespace h64 {
 
 constexpr int H = 64;
-constexpr int HP = H + 4;             // padded row of an Fma weight panel
 constexpr int TH = TILE * H;
 constexpr int HALF = TILE / 2;        // rows of half the tile
-constexpr int RS = THREADS / H;       // 8: stride of an Fma thread's rows
-constexpr int RPH = HALF / RS;        // 8 outputs per thread over a half
-constexpr int PANEL = H * HP;         // words of one staged (64, 64) block
+constexpr int RS = THREADS / H;       // 8: stride of a column gather's rows
+constexpr int RPH = HALF * H / THREADS;  // 8 outputs per thread over a half
+constexpr int PANEL = H * H;          // words of one (64, 64) weight block
 using Idx = unsigned short;           // row- and column-list indices
-
-// Shared-memory plan in 4-byte words; BWD adds dh, a second T x H of work
-// space and the column lists.  WORK holds hw_e / dhw_e (T x H); in a GRU
-// half r*s and z (64 x H each), in the reverse's also r, then r*s, dz',
-// dr', dn' (z and r where dz' and dr' go); the readout's gate (T x D) and
-// in K2b's seed d(pre-gate) and d(h Wj + bj) (T x H each); the column
-// build's row masks.
-template <bool BWD>
-struct Plan {
-  static constexpr int HIN = 0;                          // T H: h
-  static constexpr int MS = HIN + TH;                    // T H: m, then dm; h0 (readout)
-  static constexpr int DH = MS + TH;                     // T H: dh (BWD)
-  static constexpr int WORK = DH + (BWD ? TH : 0);
-  static constexpr int PANELS = WORK + (BWD ? 2 : 1) * TH;  // 2 PANEL
-  static constexpr int B_MSG = PANELS + 2 * PANEL;       // 4 H: layer l's b_e
-  static constexpr int BZ = B_MSG + NE * H;              // H each
-  static constexpr int BR = BZ + H;
-  static constexpr int BN = BR + H;
-  static constexpr int BI = BN + H;                      // readout biases
-  static constexpr int BJ = BI + H;
-  static constexpr int NV = BJ + H;                      // T NBR_CAP row-list values
-  static constexpr int NK = NV + TILE * NBR_CAP;         // T NBR_CAP row-list columns (16-bit)
-  static constexpr int NC = NK + TILE * NBR_CAP / 2;     // T row nonzero counts
-  static constexpr int CS = NC + TILE;                   // 4T + 1 column starts
-  static constexpr int CR = CS + ROW_LEN + 4;            // T NBR_CAP column-list rows (16-bit)
-  static constexpr int CV = CR + TILE * NBR_CAP / 2;     // T NBR_CAP column-list values
-  static constexpr int OV = CV + TILE * NBR_CAP;         // T crowded rows
-  static constexpr int OVN = OV + TILE;                  // their count
-  static constexpr int PTRS = OVN + 4;                   // 4 global pointers (BWD)
-  static constexpr int WORDS = BWD ? PTRS + 8 : CS;
-  static constexpr size_t BYTES = size_t(WORDS) * 4;
-  static_assert(PANELS % 4 == 0 && B_MSG % 4 == 0 && HP % 4 == 0 && WORK % 4 == 0,
-                "16-byte aligned rows");
-  static_assert(!BWD || 2 * TH >= COLUMN_MASK_WORDS, "row masks fit in WORK");
-  static_assert(BYTES <= 232448, "shared-memory plan exceeds 227 KB");
-};
-
-__device__ __forceinline__ void ld4(const float* p, float* v) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
-
-// ---------------------------------------------------------------------------
-// the f32 FMA product (Fma)
-
-// acc[k] += sum_d x[i_k, d] w[d, col] for the rows i_k = r0 + RS k of x
-// (row stride H; w a panel): per chunk of four d, four entries of w's rows
-// (consecutive columns over a warp) and one 16-byte broadcast of each row.
-template <int N>
-__device__ __forceinline__ void xw(const float* x, const float* w, int col,
-                                   int r0, float (&acc)[N]) {
-#pragma unroll 1
-  for (int d0 = 0; d0 < H; d0 += 4) {
-    float wv[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) wv[q] = w[(d0 + q) * HP + col];
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      float xv[4];
-      ld4(x + (r0 + RS * k) * H + d0, xv);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[k] = fmaf(xv[q], wv[q], acc[k]);
-    }
-  }
-}
-
-struct Fma {
-  __device__ static int at(int row, int col) { return row * H + col; }
-  __device__ static int panel_at(int row, int col) { return row * HP + col; }
-  __device__ static int panel_tid(int tid) { return tid; }
-  struct Own {  // column tid % 64 of the rows tid / 64 + 8k
-    int c, r0;
-    __device__ explicit Own(int tid) : c(tid % H), r0(tid / H) {}
-    __device__ int row(int k) const { return r0 + RS * k; }
-    __device__ int col(int) const { return c; }
-    __device__ int at(int k) const { return Fma::at(row(k), col(k)); }
-  };
-  // acc += x w over a half tile (x: 64 rows, w: a panel)
-  __device__ static void product(const float* x, const float* w, const Own& o,
-                                 float (&acc)[RPH]) {
-    xw<RPH>(x, w, o.c, o.r0, acc);
-  }
-};
 
 // ---------------------------------------------------------------------------
 // the 3xTF32 tensor-core products (Tc)
@@ -216,14 +141,14 @@ __device__ __forceinline__ void split_tf32(float v, float& hi, float& lo) {
 }
 
 // acc += A B in 3xTF32 over the depth [0, depth) for the warp's block of
-// NM x NN tiles (16 x 8) at rows R, columns C, every operand a buffer of
-// H-word rows in the Tc layout: A[r][k] = a[k][r] if TA else a[r][k],
-// B[k][c] = b[c][k] if TB else b[k][c].  acc holds tile (mi, nj)'s d0..d3
-// at 4 (mi NN + nj).  R and C are multiples of 16 and 8, so each lane's
-// swizzle is one of four constants.  An operand read along its rows (A
-// without TA, B with TB) comes by ldmatrix, four 8 x 4 blocks a load;
-// the transposed ones by single loads.
-template <bool TA, bool TB, int NM, int NN>
+// NM x NN tiles (16 x 8) at rows R + MS mi, columns C + 8 nj, every
+// operand a buffer of H-word rows in the Tc layout: A[r][k] = a[k][r] if
+// TA else a[r][k], B[k][c] = b[c][k] if TB else b[k][c].  acc holds tile
+// (mi, nj)'s d0..d3 at 4 (mi NN + nj).  R and C are multiples of 16 and 8,
+// so each lane's swizzle is one of four constants.  An operand read along
+// its rows (A without TA, B with TB) comes by ldmatrix, four 8 x 4 blocks
+// a load; the transposed ones by single loads.
+template <bool TA, bool TB, int NM, int NN, int MS = 16>
 __device__ __forceinline__ void tc_mma(const float* a, const float* b, int depth,
                                        int R, int C, int g, int q, float* acc) {
   static_assert(!TB || NN == 2, "ldmatrix brings two n-tiles of B");
@@ -239,11 +164,11 @@ __device__ __forceinline__ void tc_mma(const float* a, const float* b, int depth
       if constexpr (TA) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const int r = R + 16 * mi + g + 8 * (i & 1);
+          const int r = R + MS * mi + g + 8 * (i & 1);
           v[i] = a[(k0 + q + 4 * (i >> 1)) * H + (r ^ (i >> 1 ? sq1 : sq0))];
         }
       } else {  // blocks: rows +0 / +8 (j & 1), depths +0 / +4 (j >> 1)
-        ldsm_x4(v, a + (R + 16 * mi + lr + 8 * (lj & 1)) * H + ((k0 + 4 * (lj >> 1)) ^ slr));
+        ldsm_x4(v, a + (R + MS * mi + lr + 8 * (lj & 1)) * H + ((k0 + 4 * (lj >> 1)) ^ slr));
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) split_tf32(v[i], ah[mi][i], al[mi][i]);
@@ -298,7 +223,56 @@ struct Tc {
                                  float (&acc)[RPH]) {
     tc_mma<false, false, 1, 2>(x, w, H, o.R, o.C, o.g, o.q, acc);
   }
+  // acc += x w over the tile (x: 128 rows), o's block of each half: half
+  // hf's entry k at acc[RPH hf + k]; one B fragment feeds both halves
+  __device__ static void product_tile(const float* x, const float* w, const Own& o,
+                                      float (&acc)[2 * RPH]) {
+    tc_mma<false, false, 2, 2, HALF>(x, w, H, o.R, o.C, o.g, o.q, acc);
+  }
 };
+
+// h's TF32 parts, as the forward keeps them: hs[i] = hi, hs[TH + i] = lo
+// of h[i] (split_tf32), written by the thread that writes h[i]
+__device__ __forceinline__ void split_store(float* hs, int i, float v) {
+  split_tf32(v, hs[i], hs[TH + i]);
+}
+
+// acc += x w over the tile for the warp's 16 x 16 blocks at rows R and
+// R + HALF, columns C, with x given by its TF32 parts (split_store), w a
+// panel split at load: tc_mma<false, false, 2, 2, HALF> term for term (the
+// same split values in the same mma order, the same bits), each A
+// fragment two ldmatrix and no split.
+__device__ __forceinline__ void tc_mma_split_a(const float* xs, const float* b, int R,
+                                               int C, int g, int q, float* acc) {
+  const int sq0 = swz(q), sq1 = swz(q + 4);
+  const int lr = (4 * g + q) & 7, lj = (4 * g + q) >> 3, slr = swz(lr);
+  const float* arow = xs + (R + lr + 8 * (lj & 1)) * H;
+#pragma unroll 2
+  for (int k0 = 0; k0 < H; k0 += 8) {
+    float ah[2][4], al[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const float* a = arow + mi * HALF * H + ((k0 + 4 * (lj >> 1)) ^ slr);
+      ldsm_x4(ah[mi], a);
+      ldsm_x4(al[mi], a + TH);
+    }
+#pragma unroll
+    for (int nj = 0; nj < 2; ++nj) {
+      float bh[2], bl[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        split_tf32(b[(k0 + q + 4 * i) * H + ((C + 8 * nj + g) ^ (i ? sq1 : sq0))],
+                   bh[i], bl[i]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        float* d = acc + 4 * (2 * mi + nj);
+        mma_tf32(d, al[mi], bh);
+        mma_tf32(d, ah[mi], bl);
+        mma_tf32(d, ah[mi], bh);
+      }
+    }
+  }
+}
 
 // acc += x w^T for the rows of x at o's block (w a panel: the product
 // against the transposed weight)
@@ -389,6 +363,43 @@ __device__ __forceinline__ void tc_grad_pass(const GradPass<NP, NS>& gp, int row
   }
 }
 
+// Shared-memory plan in 4-byte words; BWD adds dh, a second T x H of work
+// space and the column lists, the forward h's TF32 parts (HS).  WORK holds hw_e
+// / dhw_e (T x H); the forward's r*s (T x H); in a GRU half of the reverse
+// r*s, z and r, then r*s, dz', dr', dn' (z and r where dz' and dr' go), in
+// K2b's seed the gate, d(pre-gate) and d(h Wj + bj) (T x H each); the
+// column build's row masks.
+template <bool BWD>
+struct Plan {
+  static constexpr int HIN = 0;                          // T H: h
+  static constexpr int MS = HIN + TH;                    // T H: m, then dm; h0 (readout)
+  static constexpr int DH = MS + TH;                     // T H: dh (BWD)
+  static constexpr int WORK = DH + (BWD ? TH : 0);
+  static constexpr int HS = WORK + (BWD ? 2 : 1) * TH;   // 2 T H: h's TF32 parts (forward)
+  static constexpr int PANELS = HS + (BWD ? 0 : 2) * TH; // 2 PANEL
+  static constexpr int B_MSG = PANELS + 2 * PANEL;       // 4 H: layer l's b_e
+  static constexpr int BZ = B_MSG + NE * H;              // H each
+  static constexpr int BR = BZ + H;
+  static constexpr int BN = BR + H;
+  static constexpr int BI = BN + H;                      // readout biases
+  static constexpr int BJ = BI + H;
+  static constexpr int NV = BJ + H;                      // T NBR_CAP row-list values
+  static constexpr int NK = NV + TILE * NBR_CAP;         // T NBR_CAP row-list columns (16-bit)
+  static constexpr int NC = NK + TILE * NBR_CAP / 2;     // T row nonzero counts
+  static constexpr int CS = NC + TILE;                   // 4T + 1 column starts
+  static constexpr int CR = CS + ROW_LEN + 4;            // T NBR_CAP column-list rows (16-bit)
+  static constexpr int CV = CR + TILE * NBR_CAP / 2;     // T NBR_CAP column-list values
+  static constexpr int OV = CV + TILE * NBR_CAP;         // T crowded rows
+  static constexpr int OVN = OV + TILE;                  // their count
+  static constexpr int PTRS = OVN + 4;                   // 4 global pointers (BWD)
+  static constexpr int WORDS = BWD ? PTRS + 8 : CS;
+  static constexpr size_t BYTES = size_t(WORDS) * 4;
+  static_assert(PANELS % 4 == 0 && B_MSG % 4 == 0 && WORK % 4 == 0 && HS % 4 == 0,
+                "16-byte aligned rows");
+  static_assert(!BWD || 2 * TH >= COLUMN_MASK_WORDS, "row masks fit in WORK");
+  static_assert(BYTES <= 232448, "shared-memory plan exceeds 227 KB");
+};
+
 // ---------------------------------------------------------------------------
 // weight panels
 
@@ -418,7 +429,7 @@ __device__ __forceinline__ void panel_load(const float* __restrict__ src,
   }
 }
 
-template <class P = Fma>
+template <class P>
 __device__ __forceinline__ void panels_start(Panels& p, float* buf,
                                              const float* first, int tid) {
   p.buf = buf;
@@ -435,7 +446,7 @@ __device__ __forceinline__ void panels_start(Panels& p, float* buf,
 // thread is then done with block j - 1 and with whatever it wrote before
 // the call.  Then start loading `next` (nullptr: nothing) into block j - 1's
 // panel, and return block j.
-template <class P = Fma>
+template <class P>
 __device__ __forceinline__ const float* panels_next(Panels& p, const float* cur,
                                                     const float* next, int tid) {
   __pipeline_wait_prior(0);
@@ -463,7 +474,7 @@ __device__ __forceinline__ const float* msg_panel(const Weights& w, int l, int e
 // [eT, eT + T), or a crowded row's dense columns there, in ascending
 // order; m starts at zero for e = 0 and carries on for e > 0, so each row
 // sums its terms in ascending column order of A_flat.
-template <class P = Fma>
+template <class P>
 __device__ __forceinline__ void aggregate_edge(const float* adj_t, int e,
                                                const float* s_hw, float* s_m,
                                                const Idx* s_nk, const float* s_nv,
@@ -541,12 +552,13 @@ struct Tile {
   float* bmsg;         // 4 H: layer l's message biases
   const float* bz; const float* br; const float* bn;
   const Idx* nk; const float* nv; const int* nc;
+  float* hs;           // forward: h's TF32 parts (split_store), 2 T x H
 };
 
 // m = A_flat [h W_e + b_e]_e, one edge type at a time (panels W_0..W_3 of
 // layer l, then `next`); hw_e by halves of the tile (8 outputs a thread).
 // The caller synchronises before m is read.
-template <class P = Fma>
+template <class P>
 __device__ __forceinline__ void messages(const Tile& t, const Weights& w, int l,
                                          Panels& p, const float* next, int tid) {
   const typename P::Own o(tid);
@@ -579,7 +591,7 @@ __device__ __forceinline__ void messages(const Tile& t, const Weights& w, int l,
 // live: z goes to t.work + HALF H, r*s to t.work, r to t.work + 2 HALF H
 // when `keep_r` (the reverse's), each (HALF x H) entry by the thread that
 // owns it; n stays in registers.
-template <class P = Fma>
+template <class P>
 __device__ __forceinline__ void gates(const Tile& t, const Weights& w, bool zero_state,
                                       int hf, bool keep_r, Panels& p,
                                       const float* next, float (&n)[RPH], int tid) {
@@ -632,7 +644,7 @@ __device__ __forceinline__ void gates(const Tile& t, const Weights& w, bool zero
 // One GGNN layer l on the tile, h updated in place: the message step, then
 // each GRU half, h' = z n + (1 - z) s.  Ends synchronised; `next` is the
 // block after the layer's last.
-template <class P = Fma>
+template <class P>
 __device__ __forceinline__ void layer_forward(const Tile& t, const Weights& w, int l,
                                               Panels& p, const float* next, int tid) {
   const typename P::Own o(tid);
@@ -662,7 +674,7 @@ __device__ __forceinline__ void layer_forward(const Tile& t, const Weights& w, i
 // through the panels Wi[:H], Wi[H:], then Wj (the caller's next panel):
 // the pre-activation by halves of the tile, carried in s_gate between the
 // two panels by the thread that owns each entry.
-template <class P = Fma>
+template <class P>
 __device__ __forceinline__ void readout_gate(const float* s_h, const float* s_h0,
                                              const Readout& ro, const float* s_bi,
                                              float* s_gate, Panels& p, int tid) {
@@ -689,6 +701,117 @@ __device__ __forceinline__ void readout_gate(const float* s_h, const float* s_h0
 #pragma unroll
     for (int k = 0; k < RPH; ++k) g[o.at(k)] = sigmoidf(acc[k]);
   }
+}
+
+// ---------------------------------------------------------------------------
+// the forward body's layer step: every product over the whole tile, the two
+// halves sharing each staged panel and each B fragment, and the products
+// whose A operand is h reading it split (t.hs), as the thread that writes
+// an entry of h keeps it.  The forward keeps z and n in registers, 16
+// entries a thread each, where the reverse has no registers to spare and
+// takes the halves one at a time.
+
+// acc[RPH hf + k] = b[o.col(k)] for both halves
+__device__ __forceinline__ void fill_cols(float (&acc)[2 * RPH], const float* b,
+                                          const Tc::Own& o) {
+#pragma unroll
+  for (int j = 0; j < 2 * RPH; ++j) acc[j] = b[o.col(j % RPH)];
+}
+
+// the entry of acc[j] in a T x H buffer of the Tc layout
+__device__ __forceinline__ int tile_at(const Tc::Own& o, int j) {
+  return (j / RPH) * HALF * H + o.at(j % RPH);
+}
+
+// acc += h w over the tile, h from its TF32 parts
+__device__ __forceinline__ void product_h(const Tile& t, const float* w, const Tc::Own& o,
+                                          float (&acc)[2 * RPH]) {
+  tc_mma_split_a(t.hs, w, o.R, o.C, o.g, o.q, acc);
+}
+
+// m = A_flat [h W_e + b_e]_e, one edge type at a time (panels W_0..W_3 of
+// layer l, then `next`): hw_e over the tile into t.work, then the
+// aggregation.  The caller synchronises before m is read.
+__device__ __forceinline__ void messages_tile(const Tile& t, const Weights& w, int l,
+                                              Panels& p, const float* next, int tid) {
+  const Tc::Own o(tid);
+#pragma unroll 1
+  for (int e = 0; e < NE; ++e) {
+    const float* we = panels_next<Tc>(
+        p, msg_panel(w, l, e), e + 1 < NE ? msg_panel(w, l, e + 1) : next, tid);
+    float acc[2 * RPH];
+    fill_cols(acc, t.bmsg + e * H, o);
+    product_h(t, we, o, acc);
+#pragma unroll
+    for (int j = 0; j < 2 * RPH; ++j) t.work[tile_at(o, j)] = acc[j];
+    __syncthreads();
+    aggregate_edge<Tc>(t.adj_t, e, t.work, t.m, t.nk, t.nv, t.nc, tid);
+  }
+}
+
+// The GRU gates of the tile, x = [h, m], state s = h (zero at layer 0,
+// `zero_state`), for the thread's 16 entries, through the panels Wz[:H],
+// Uz, Wz[H:], Wr[:H], Ur, Wr[H:], Wn[:H], Wn[H:], Un, then `next`: z and n
+// in registers, r*s into t.work (T x H), the A operand of the last product.
+// The same terms in the same order as `gates`, entry for entry.
+__device__ __forceinline__ void gates_tile(const Tile& t, const Weights& w, bool zero_state,
+                                           Panels& p, const float* next,
+                                           float (&z)[2 * RPH], float (&n)[2 * RPH],
+                                           int tid) {
+  const Tc::Own o(tid);
+  const float* wz1 = w.wz + H * H;
+  const float* wr1 = w.wr + H * H;
+  const float* wn1 = w.wn + H * H;
+  fill_cols(z, t.bz, o);
+  product_h(t, panels_next<Tc>(p, w.wz, w.uz, tid), o, z);
+  const float* uz = panels_next<Tc>(p, w.uz, wz1, tid);
+  if (!zero_state) product_h(t, uz, o, z);
+  Tc::product_tile(t.m, panels_next<Tc>(p, wz1, w.wr, tid), o, z);
+#pragma unroll
+  for (int j = 0; j < 2 * RPH; ++j) z[j] = sigmoidf(z[j]);
+  {
+    float r[2 * RPH];
+    fill_cols(r, t.br, o);
+    product_h(t, panels_next<Tc>(p, w.wr, w.ur, tid), o, r);
+    const float* ur = panels_next<Tc>(p, w.ur, wr1, tid);
+    if (!zero_state) product_h(t, ur, o, r);
+    Tc::product_tile(t.m, panels_next<Tc>(p, wr1, w.wn, tid), o, r);
+#pragma unroll
+    for (int j = 0; j < 2 * RPH; ++j) {
+      const int i = tile_at(o, j);
+      t.work[i] = zero_state ? 0.0f : sigmoidf(r[j]) * t.h[i];
+    }
+  }
+  fill_cols(n, t.bn, o);
+  product_h(t, panels_next<Tc>(p, w.wn, wn1, tid), o, n);
+  Tc::product_tile(t.m, panels_next<Tc>(p, wn1, w.un, tid), o, n);
+  const float* un = panels_next<Tc>(p, w.un, next, tid);  // r*s visible after its sync
+  if (!zero_state) Tc::product_tile(t.work, un, o, n);
+#pragma unroll
+  for (int j = 0; j < 2 * RPH; ++j) n[j] = tanhf(n[j]);
+}
+
+// One GGNN layer l on the tile, h (and its TF32 parts) updated in place:
+// the message step, the gates, h' = z n + (1 - z) s.  Ends synchronised;
+// `next` is the block after the layer's last.
+__device__ __forceinline__ void layer_forward_tile(const Tile& t, const Weights& w, int l,
+                                                   Panels& p, const float* next, int tid) {
+  const Tc::Own o(tid);
+  const bool zero_state = (l == 0);
+  // the previous layer's readers of the biases are past its last barrier
+  for (int i = tid; i < NE * H; i += THREADS) t.bmsg[i] = w.msg_b[size_t(l) * NE * H + i];
+  messages_tile(t, w, l, p, w.wz, tid);
+  float z[2 * RPH], n[2 * RPH];
+  gates_tile(t, w, zero_state, p, next, z, n, tid);
+  // no thread reads h after the last panel's barrier
+#pragma unroll
+  for (int j = 0; j < 2 * RPH; ++j) {
+    const int i = tile_at(o, j);
+    const float v = z[j] * n[j] + (1.0f - z[j]) * (zero_state ? 0.0f : t.h[i]);
+    t.h[i] = v;
+    split_store(t.hs, i, v);
+  }
+  __syncthreads();
 }
 
 // True when every weight block the panels load is 16-byte aligned (cp.async).

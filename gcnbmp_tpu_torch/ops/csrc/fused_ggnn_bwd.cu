@@ -100,7 +100,7 @@
 // (weights through two staged panels, the messages and their reverse one
 // edge type at a time, the GRU and its reverse one half of the tile at a
 // time, every intermediate in shared memory with the thread that owns
-// it), 228,672 bytes of shared memory.  Its per-tile partial row is
+// it), 226,624 bytes of shared memory.  Its per-tile partial row is
 // 170,176 words at L = 8 (182,592 with the readout's): 263 MB (283 MB) at
 // P = 387, summed by the same sum_tiles_kernel.
 // - Every dense product of that body runs on the tensor cores (h64::Tc):

@@ -1,9 +1,13 @@
 // A test harness for the 3xTF32 tensor-core products of fused_ggnn64.cuh
-// (h64::Tc): one CTA loads two (64, 64) operands a and b from global memory
-// into shared memory in the Tc layout (b also through the weight panels,
-// as the reverse body stages its weights), takes the three products the
-// reverse body uses and writes them back row-major, so that
-// tests/test_torch_bwd_emulated.py can hold them against float64 products.
+// (h64::Tc): one CTA loads two (64, 64) operands a and b from global
+// memory into shared memory in the Tc layout (b also through the weight
+// panels, as the bodies stage their weights, and [a; b] as a tile of 128
+// rows with its TF32 parts beside it, as the forward keeps h), takes the
+// three products the reverse body uses and the forward's product over the
+// tile from the operand split at load and from its kept parts, and writes
+// them back row-major, so that tests/test_torch_bwd_emulated64.py can hold
+// them against float64 products and the two tile products against each
+// other, bit for bit.
 // Built only by tests/cuda_emu/emulate.py, against the CPU stand-in.
 
 #include "fused_ggnn64.cuh"
@@ -13,16 +17,26 @@ namespace {
 using namespace ggnn;
 using namespace ggnn::h64;
 
-// shared-memory plan in words: a, b (Tc layout), two panels
-constexpr int A = 0, B = A + H * H, PANELS = B + H * H, WORDS = PANELS + 2 * PANEL;
+// shared-memory plan in words: a, b (Tc layout; together the tile [a; b]),
+// two panels, the tile's TF32 parts (2 TH)
+constexpr int A = 0, B = A + H * H, PANELS = B + H * H, XS = PANELS + 2 * PANEL;
+constexpr int WORDS = XS + 2 * TH;
+
+// the tile product's entries (both halves) into a (128, 64) row-major output
+__device__ void store_tile(float* out, const Tc::Own& o, const float (&acc)[2 * RPH]) {
+  for (int j = 0; j < 2 * RPH; ++j)
+    out[((j / RPH) * HALF + o.row(j % RPH)) * H + o.col(j % RPH)] = acc[j];
+}
 
 __global__ void tc_kernel(const float* a, const float* b, float* xw, float* xwt,
-                          float* atb) {
+                          float* atb, float* tile_tc, float* tile_split) {
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
   for (int i = tid; i < H * H; i += THREADS) {
     smem[A + Tc::at(i / H, i % H)] = a[i];
     smem[B + Tc::at(i / H, i % H)] = b[i];
+    split_store(smem + XS, Tc::at(i / H, i % H), a[i]);
+    split_store(smem + XS, Tc::at(HALF + i / H, i % H), b[i]);
   }
   Panels p;
   panels_start<Tc>(p, smem + PANELS, b, tid);
@@ -37,6 +51,14 @@ __global__ void tc_kernel(const float* a, const float* b, float* xw, float* xwt,
   tc_xwt(smem + A, w, o, acc);  // a b^T
 #pragma unroll
   for (int k = 0; k < RPH; ++k) xwt[o.row(k) * H + o.col(k)] = acc[k];
+  // [a; b] b over the tile, [a; b] split at load and from its kept parts
+  float tacc[2 * RPH] = {};
+  Tc::product_tile(smem + A, w, o, tacc);
+  store_tile(tile_tc, o, tacc);
+#pragma unroll
+  for (int j = 0; j < 2 * RPH; ++j) tacc[j] = 0.0f;
+  tc_mma_split_a(smem + XS, w, o.R, o.C, o.g, o.q, tacc);
+  store_tile(tile_split, o, tacc);
   // a^T b over 64 rows, by warps 0-7
   const GradPass<1, 0> gp = {{smem + A}, {smem + B}, {atb}, {nullptr}, {nullptr}, {nullptr}};
   tc_grad_pass<1, 0, 0>(gp, H, false, false, tid);
@@ -45,9 +67,12 @@ __global__ void tc_kernel(const float* a, const float* b, float* xw, float* xwt,
 }  // namespace
 
 // The products a b, a b^T and a^T b of two (64, 64) row-major operands,
-// each into a (64, 64) row-major output.  Returns a cudaError_t.
+// each into a (64, 64) row-major output, and [a; b] b (128, 64) with
+// [a; b] split at load (tile_tc) and from its kept TF32 parts (tile_split).
+// Returns a cudaError_t.
 extern "C" int tc_products(const float* a, const float* b, float* xw, float* xwt,
-                           float* atb) {
-  tc_kernel<<<1, THREADS, size_t(WORDS) * 4, nullptr>>>(a, b, xw, xwt, atb);
+                           float* atb, float* tile_tc, float* tile_split) {
+  tc_kernel<<<1, THREADS, size_t(WORDS) * 4, nullptr>>>(a, b, xw, xwt, atb, tile_tc,
+                                                         tile_split);
   return int(cudaGetLastError());
 }

@@ -5,9 +5,9 @@ the JAX ``Trainer`` on the same flags (its fused kernels in interpret
 mode) from the same initial tree, in each of the port's three kernel
 forms (K2/K2b, K1 + the plain readout with K1b, K1m with K3 twice).  On
 the CPU the wrappers run their plain versions; the H=64 kernel bodies
-themselves are held against those in tests/test_torch_fwd_emulated.py,
-tests/test_torch_bwd_emulated.py and on the card (chip_smoke.py phases 3a
-and 19)."""
+themselves are held against those in tests/test_torch_fwd_emulated64.py,
+tests/test_torch_bwd_emulated64{,_k3,_k2b}.py and on the card (chip_smoke.py
+phases 3a and 19)."""
 
 import json
 
