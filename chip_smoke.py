@@ -8,10 +8,10 @@ Phases, each fatal on failure:
 2. build: compile the CUDA kernels from ``gcnbmp_tpu_torch/ops/csrc``,
    one nvcc per source, all at once; print ptxas's registers and spills,
    and those of each instance of the forward and backward bodies (K1,
-   K1m, K2, the GGNN reverse body, each also at H=64, K5, K5b, K4, K4b's
-   two kernels); an instance of the GGNN or MPNN bodies or of K4 that
-   spills fails, and so does a build log without the five H=64 GGNN
-   instances.
+   K1m, K2, the GGNN reverse body, each also at H=64, K1, K1m and K2 at
+   H=128, K5, K5b, K4, K4b's two kernels); an instance of the GGNN or MPNN
+   bodies or of K4 that spills fails, and so does a build log without the
+   five H=64 and the three H=128 GGNN instances.
 3. kernels vs plain, at the shapes of real packed batches (the first 2048
    pairs of dataset/synth546's drug test split at batch 256 and 2048);
    errors, median CUDA-event times of kernel and plain version per call
@@ -28,7 +28,10 @@ Phases, each fatal on failure:
       ``csrc/fused_ggnn64.cuh``, the ``ref_scale_fused64`` model, L=8
       untied; both bodies, the forward K1, K1m, K2 and the reverse K1b,
       K3, K2b, take every dense product on the tensor cores in 3xTF32) at
-      batch 256 and 2048 (P=75 and 387), crowded and L=3; each forward's
+      batch 256 and 2048 (P=75 and 387), crowded and L=3, and the forward
+      kernels K1, K1m and K2 at H=D=128 (``csrc/fused_ggnn128.cuh``, the
+      h=128 model of bench.py, L=8 untied; its reverse body is not built)
+      in the same four cases; each forward's
       error is printed with its closest approach to the bound; K1m's
       h must equal K1's bit for bit, K3's two halves summed must equal
       K1b within the gradient bound, and two K2 runs, and two K2b runs, on
@@ -239,19 +242,30 @@ Phases, each fatal on failure:
    stack and the batch-2048 step timed and profiled; then the K2/K2b
    run's ``final/params.npz`` served through the predict CLI at batch
    256 (K2 once per request, logits against the plain stack).
+20. the h=128 fused model (bench.py:65, 137 with
+   ``GCNBMP_BENCH_HIDDEN=128``: GGNN, L=8 untied, H=D=128, a HolE head;
+   seeded weights) served through the predict CLI at batch 256 on the
+   2048 test pairs, K2 once per request, then under
+   ``GCNBMP_FUSED_READOUT=0`` K1 and the plain readout, K1 once per
+   request, logits against the plain stack on the card (1e-4); then
+   scored through the evaluate CLI (K2 once per batch, AUROC and AUPRC
+   within 1e-3 of the plain stack's).  Its reverse kernels are not built,
+   so it is not trained.
 
 Prints the kernels' JSON line (``launches`` from each kernel's main
-path; the H=64 kernels (``*_h64``) from phase 19's runs and their times
-and bounds at P=75 (``ms``) and P=387 (``ms_p387``) from phase 3a; ``launches_packed`` from phase 13's packed runs;
+path; the H=64 kernels (``*_h64``) from phase 19's runs, the H=128 ones
+(``*_h128``: K1 and K2 from phase 20's serving, K1m on no path yet), and
+their times and bounds at P=75 (``ms``) and P=387 (``ms_p387``) from phase
+3a; ``launches_packed`` from phase 13's packed runs;
 ``launches_coattention`` from phases 9–10 (GGNN) and 16 (MPNN);
 ``launches_multi_device`` from phase 17's NCCL runs; with each
 kernel's bound: the larger of
 its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s, counted
-from this run's inputs, the sparse products by their nonzeros; the H=64
-kernels also carry ``bound_tc_ms``, the bound on the route they
-take: the larger of the bytes over 3.35 TB/s and three times their dense
-operations over the 495 TFLOP/s of dense TF32 plus their sparse ones over
-67 TFLOP/s), the
+from this run's inputs, the sparse products by their nonzeros; for the
+H=64 and H=128 kernels the bound on the route they take, the larger of
+the bytes over 3.35 TB/s and three times their dense operations over the
+495 TFLOP/s of dense TF32 plus their sparse ones over 67 TFLOP/s, with
+the f32 one as ``bound_f32_ms``), the
 nvidia-smi line, and last the device JSON line.  Exits non-zero when
 CUDA is unavailable or the port's package is not beside this script.
 """
@@ -390,6 +404,9 @@ BODIES = (
      lambda m: f"fused_ggnn_bwd_kernel<{m[1]}, {'true' if m[2] == '1' else 'false'}>"),
     (r"fused_ggnn_kernel64ILb([01])ELb([01])E",
      lambda m: f"fused_ggnn_kernel64 "
+               f"({'K2' if m[1] == '1' else 'K1m' if m[2] == '1' else 'K1'})"),
+    (r"fused_ggnn_kernel128ILb([01])ELb([01])E",
+     lambda m: f"fused_ggnn_kernel128 "
                f"({'K2' if m[1] == '1' else 'K1m' if m[2] == '1' else 'K1'})"),
     (r"fused_ggnn_bwd_kernel64ILb([01])E",
      lambda m: f"fused_ggnn_bwd_kernel64<{'true' if m[1] == '1' else 'false'}>"),
@@ -1068,53 +1085,38 @@ def multilabel_csv(src, dst, classes):
     df.to_csv(dst, index=False)
 
 
-def run_modes(kept, df, dev, smi, reset_counts, read_counts):
-    """Phase 11 on phase 5's kept run: the evaluate CLI, predict --run,
-    resume, profile_epoch, debug_checks and multi-label, each on the
-    card.  Returns the evaluate CLI's launch counts."""
+def score_run(tag, run, test_path, eval_dir, extra, dev, smi, reset_counts,
+              read_counts):
+    """The evaluate CLI (flags ``extra`` besides) on ``run``'s ``best`` and
+    the pairs of ``test_path``, on the card: K2 must launch once per batch,
+    eval_result.json must hold the metrics' keys, and its AUROC and AUPRC
+    must come within 1e-3 of the plain layer stack's on the same
+    parameters.  Returns (the launch counts, the plain stack's logits, the
+    CLI's seconds)."""
     import numpy as np
-    import pandas as pd
     import torch
 
     from gcnbmp_tpu_torch.cli import evaluate as evaluate_cli
-    from gcnbmp_tpu_torch.cli import predict
-    from gcnbmp_tpu_torch.cli import train as train_cli
-    from gcnbmp_tpu_torch.convert import flat_npz, load_params_npz, named_to_tree
-    from gcnbmp_tpu_torch.data import (
-        CSVPairParser, estimate_coo_capacities, get_class_labels)
-    from gcnbmp_tpu_torch.data import wire
+    from gcnbmp_tpu_torch.data import CSVPairParser, estimate_coo_capacities
     from gcnbmp_tpu_torch.data.wire import iter_coo_eval_batches
-    from gcnbmp_tpu_torch.train import loop as train_loop
-    from gcnbmp_tpu_torch.train.checkpoints import (
-        load_run, restore_checkpoint, served_predictor)
-    from gcnbmp_tpu_torch.train.config import PRESETS, TrainConfig
+    from gcnbmp_tpu_torch.train.checkpoints import load_run
     from gcnbmp_tpu_torch.train.metrics import compute_metrics
 
-    run = os.path.join(kept, "run")
-    test_path = os.path.join(kept, "test.csv")
-    df.to_csv(test_path, index=False)
     n_batches = -(-N_PAIRS // SERVE_BATCH)
-    times = {}
-
-    def timed(label, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        times[label] = time.perf_counter() - t0
-        return out
-
-    # a. the evaluate CLI on best
-    eval_dir = os.path.join(kept, "eval")
     reset_counts()
-    rc = timed("evaluate", lambda: evaluate_cli.main([
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = evaluate_cli.main([
         "--test", test_path, "--run", run, "--checkpoint", "best",
-        "--batch-size", str(SERVE_BATCH), "--similarity", "cosine",
-        "--out", eval_dir, "--device", "cuda"]))
+        "--batch-size", str(SERVE_BATCH), *extra, "--out", eval_dir,
+        "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
     launches = read_counts()
-    print(f"run modes: evaluate CLI scored {N_PAIRS} pairs in {n_batches} "
-          f"batches of {SERVE_BATCH} in {times['evaluate']:.3f} s (CSV parse, "
-          f"pack, device, exports, similarity) on {smi}; launches {launches}")
+    print(f"{tag}: evaluate CLI scored {N_PAIRS} pairs in {n_batches} "
+          f"batches of {SERVE_BATCH} in {seconds:.3f} s (CSV parse, "
+          f"pack, device, exports{', similarity' if extra else ''}) on {smi}; "
+          f"launches {launches}")
     if rc != 0:
         raise AssertionError(f"evaluate.main returned {rc}")
     if launches["fused_ggnn_readout"] != n_batches:
@@ -1140,17 +1142,58 @@ def run_modes(kept, df, dev, smi, reset_counts, read_counts):
             want_l.append(plain_logits(model, args, torch)[:valid])
             labels.append(np.asarray(batch.labels)[:valid])
     got, want = torch.cat(got_l).ravel(), torch.cat(want_l).ravel()
-    compare("run modes: best's logits (kernel path vs plain layer stack)",
+    compare(f"{tag}: best's logits (kernel path vs plain layer stack)",
             got, want, torch)
     want_np = want.cpu().numpy()
     plain = compute_metrics(want_np, np.concatenate(labels))
     for key in ("roc_auc", "prc_auc"):
         err = abs(metrics[key] - plain[key])
-        print(f"run modes: evaluate CLI {key} {metrics[key]:.6f}, plain "
+        print(f"{tag}: evaluate CLI {key} {metrics[key]:.6f}, plain "
               f"stack {plain[key]:.6f}, |diff| {err:.2e}")
         if err > 1e-3:
             raise AssertionError(f"evaluate CLI {key} disagrees with the "
                                  "plain stack's")
+    return launches, want_np, seconds
+
+
+def run_modes(kept, df, dev, smi, reset_counts, read_counts):
+    """Phase 11 on phase 5's kept run: the evaluate CLI, predict --run,
+    resume, profile_epoch, debug_checks and multi-label, each on the
+    card.  Returns the evaluate CLI's launch counts."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from gcnbmp_tpu_torch.cli import evaluate as evaluate_cli
+    from gcnbmp_tpu_torch.cli import predict
+    from gcnbmp_tpu_torch.cli import train as train_cli
+    from gcnbmp_tpu_torch.convert import flat_npz, load_params_npz, named_to_tree
+    from gcnbmp_tpu_torch.data import CSVPairParser, get_class_labels
+    from gcnbmp_tpu_torch.data import wire
+    from gcnbmp_tpu_torch.train import loop as train_loop
+    from gcnbmp_tpu_torch.train.checkpoints import (
+        load_run, restore_checkpoint, served_predictor)
+    from gcnbmp_tpu_torch.train.config import PRESETS, TrainConfig
+
+    run = os.path.join(kept, "run")
+    test_path = os.path.join(kept, "test.csv")
+    df.to_csv(test_path, index=False)
+    n_batches = -(-N_PAIRS // SERVE_BATCH)
+    times = {}
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[label] = time.perf_counter() - t0
+        return out
+
+    # a. the evaluate CLI on best
+    eval_dir = os.path.join(kept, "eval")
+    launches, want_np, times["evaluate"] = score_run(
+        "run modes", run, test_path, eval_dir, ["--similarity", "cosine"],
+        dev, smi, reset_counts, read_counts)
     stem = os.path.join(eval_dir, "test")
     exports = {s: pd.read_csv(f"{stem}{s}.csv") for s in ("_e", "_e_y")}
     if any(len(e) != N_PAIRS for e in exports.values()):
@@ -1177,6 +1220,7 @@ def run_modes(kept, df, dev, smi, reset_counts, read_counts):
     # index_add_ adds in an order that varies from run to run on the card)
     with open(os.path.join(run, "config.json")) as f:
         run_config = json.load(f)
+    _, model = load_run(run, "best", dev)
     config_form = served_predictor(
         run_config, load_params_npz(os.path.join(run, "best", "params.npz")))
     for (name, a), b in zip(model.state_dict().items(),
@@ -3307,6 +3351,55 @@ def fused64_slice(ds, df, dev, smi, reset_counts, read_counts, set_form):
     return runs, serve
 
 
+# phase 20: the h=128 fused model (bench.py:65, 137: GCNBMP_BENCH_HIDDEN=128,
+# GGNN with 8 untied layers, H = D = 128, a HolE head), served and scored
+FUSED128_CFG = dict(fp_hidden_dim=128, fp_out_dim=128, conv_layers=8,
+                    weight_tying=False)
+FUSED128_CONFIG = {"method": "ggnn", "sim_method": "hole", "conv_layers": 8,
+                   "fp_hidden_dim": 128, "fp_out_dim": 128,
+                   "weight_tying": False, "net_hidden_dims": [],
+                   "class_num": 1, "compute_path": "fused"}
+_BWD = ["fused_ggnn_bwd", "fused_ggnn_half_bwd", "fused_ggnn_readout_bwd"]
+
+
+def fused128_slice(ds, df, dev, smi, reset_counts, read_counts, set_form):
+    """Phase 20: the h=128 model with seeded weights through the predict
+    CLI in the K2 form and in the K1 form (``set_form(fused_readout,
+    twopass)``), then through the evaluate CLI.  Returns the launch counts
+    of the K2 and K1 serving runs and of the evaluate CLI."""
+    from gcnbmp_tpu_torch.convert import init_params, save_params_npz
+
+    t0 = time.perf_counter()
+    set_form(True, False)
+    serve_k2 = serve_slice(
+        "fused128 K2", FUSED128_CONFIG, FUSED128_CFG, ds, df, dev, smi,
+        reset_counts, read_counts, ["fused_ggnn_readout"],
+        absent=["fused_ggnn", "fused_ggnn_mid", *_BWD])
+    set_form(False, False)
+    serve_k1 = serve_slice(
+        "fused128 K1 + plain readout", FUSED128_CONFIG, FUSED128_CFG, ds, df,
+        dev, smi, reset_counts, read_counts, ["fused_ggnn"],
+        absent=["fused_ggnn_readout", "fused_ggnn_mid", *_BWD])
+    set_form(True, False)
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        run = os.path.join(tmp, "run")
+        os.makedirs(os.path.join(run, "best"))
+        with open(os.path.join(run, "config.json"), "w") as f:
+            json.dump(FUSED128_CONFIG, f)
+        save_params_npz(os.path.join(run, "best", "params.npz"),
+                        init_params(FUSED128_CFG, SEED))
+        test_path = os.path.join(tmp, "test.csv")
+        df.to_csv(test_path, index=False)
+        evaluate, _, _ = score_run("fused128", run, test_path,
+                                   os.path.join(tmp, "eval"), [], dev, smi,
+                                   reset_counts, read_counts)
+    for name in ["fused_ggnn", "fused_ggnn_mid", *_BWD]:
+        if evaluate[name]:
+            raise AssertionError(f"fused128 evaluate CLI launched {name}")
+    print(f"phase 20: {time.perf_counter() - t0:.1f} s")
+    return serve_k2, serve_k1, evaluate
+
+
 def crowd_rows(adj, torch):
     """``adj`` with ~5% of the columns of every other row set to 1: rows
     with more nonzeros than the kernels' NBR_CAP=16 neighbour slots (which
@@ -3400,13 +3493,15 @@ def main() -> int:
     if spilling:
         raise AssertionError("instances that spill registers: " + "; ".join(spilling))
     # the H=64 bodies (K1, K1m, K2; the reverse body with and without the
-    # readout) whenever this process built the GGNN sources
+    # readout) and the H=128 forward (K1, K1m, K2) whenever this process
+    # built the GGNN sources
     if "fused_ggnn_bwd.cu" in (build.last_build_log or ""):
-        h64 = {body for body, _ in body_registers(build.last_build_log)
-               if "kernel64" in body}
-        if len(h64) != 5:
-            raise AssertionError(f"H=64 GGNN instances in the build log: "
-                                 f"{sorted(h64)}, expected 5")
+        for width, n in (("kernel64", 5), ("kernel128", 3)):
+            found = {body for body, _ in body_registers(build.last_build_log)
+                     if width in body}
+            if len(found) != n:
+                raise AssertionError(f"{width} GGNN instances in the build "
+                                     f"log: {sorted(found)}, expected {n}")
 
     # 3. kernels vs plain at real batch shapes
     df = pd.read_csv(DATA).head(N_PAIRS)
@@ -3442,7 +3537,9 @@ def main() -> int:
         from ``tc_terms`` (dense, sparse); keep the worst error over the
         cases, and the headline case's times and bounds (under ``key``, by
         default the kernel's name, with ``suffix`` after each time's
-        name)."""
+        name).  A kernel on the tensor cores keeps ``bound_tc`` as its
+        bound, the bound of the route it takes, and the f32 one beside it
+        as ``bound_f32_ms``."""
         b_ms, b_by = bound(flops, nbytes(inputs, got))
         print(f"  bound {name} [{tag}]: {b_ms:.4f} ms, by {b_by} "
               f"({flops / 1e9:.3f} GFLOP, {nbytes(inputs, got) / 1e6:.1f} MB)")
@@ -3454,7 +3551,8 @@ def main() -> int:
                   f"(3 x {tc_terms[0] / 1e9:.3f} dense GFLOP in TF32, "
                   f"{tc_terms[1] / 1e9:.3f} sparse GFLOP in f32)")
             if headline:
-                r["bound_tc_ms" + suffix] = tc_ms
+                r["bound_f32_ms" + suffix] = b_ms
+            b_ms, b_by = tc_ms, tc_by
         if headline:
             r["ms" + suffix], r["plain_ms" + suffix] = k_med, p_med
             r["device_ms" + suffix] = dev_ms
@@ -3465,13 +3563,19 @@ def main() -> int:
                weight_tying=False)
     # H=64: the ref_scale_fused64 model (csrc/fused_ggnn64.cuh's bodies)
     cfg64 = dict(cfg, fp_hidden_dim=64, fp_out_dim=64)
+    # H=128: the forward body of csrc/fused_ggnn128.cuh (bench.py's h=128
+    # model); its reverse body is not built, so the backward pairs skip it
+    cfg128 = dict(cfg, fp_hidden_dim=128, fp_out_dim=128)
     cases = [(SERVE_BATCH, cfg, False), (N_PAIRS, cfg, False),
              (SERVE_BATCH, dict(cfg, fp_hidden_dim=16, fp_out_dim=16), False),
              (SERVE_BATCH, cfg, True),
              (SERVE_BATCH, dict(cfg, conv_layers=3), False),
              (SERVE_BATCH, cfg64, False), (N_PAIRS, cfg64, False),
              (SERVE_BATCH, cfg64, True),
-             (SERVE_BATCH, dict(cfg64, conv_layers=3), False)]
+             (SERVE_BATCH, dict(cfg64, conv_layers=3), False),
+             (SERVE_BATCH, cfg128, False), (N_PAIRS, cfg128, False),
+             (SERVE_BATCH, cfg128, True),
+             (SERVE_BATCH, dict(cfg128, conv_layers=3), False)]
     with torch.no_grad():
         for bs, c, crowd in cases:
             model = model_of(c)
@@ -3506,11 +3610,15 @@ def main() -> int:
 
             headline = bs == SERVE_BATCH and c is cfg and not crowd
             reps = REPS if headline else REPS_OTHER
-            # the H=64 kernels' entries: P=75 as ``ms``, P=387 as ``ms_p387``
-            wide = hidden == 64
+            # the H=64 and H=128 kernels' entries: P=75 as ``ms``, P=387 as
+            # ``ms_p387``
+            wide = hidden in (64, 128)
             if wide:
-                headline = c is cfg64 and not crowd
-            width_key = (lambda n: f"{n}_h64") if wide else (lambda n: n)
+                headline = c in (cfg64, cfg128) and not crowd
+            width_key = ((lambda n: f"{n}_h{hidden}") if wide
+                         else (lambda n: n))
+            # H=128: the forward kernels alone
+            reverse = hidden in fused_ggnn_module.REVERSE_HIDDEN
             suffix = "_p387" if wide and bs == N_PAIRS else ""
             # the L=3 case is there for K1m's and K3's odd split
             odd = n_layers % 2 == 1
@@ -3553,7 +3661,9 @@ def main() -> int:
             for name, rng_tag, kern, plain, grads, head, ops, inputs in pairs:
                 if odd and name not in ("fused_ggnn_mid", "fused_ggnn_half_bwd"):
                     continue
-                # both H=64 bodies run on the tensor cores
+                if grads is not None and not reverse:
+                    continue
+                # the H=64 and H=128 bodies run on the tensor cores
                 record(name, tag + rng_tag,
                        *check_pair(name, tag + rng_tag, kern, plain, grads,
                                    GRU_KEYS, smi, torch, reps),
@@ -3565,6 +3675,9 @@ def main() -> int:
             if not odd:
                 repeat_bits("K2", tag, lambda: fused_ggnn_readout(
                     *k1_args, *readout), torch)
+            if not reverse:
+                continue
+            if not odd:
                 repeat_bits("K2b", tag, lambda: fused_ggnn_readout_bwd(
                     *k1_args, *readout, dout), torch)
             # the two-pass backward (K1m's h_mid, K3 twice) against K1b
@@ -3871,6 +3984,15 @@ def main() -> int:
         set_form(*saved_form)
     print(f"phase 19 done at {time.perf_counter() - t_start:.1f} s")
 
+    # 20. the h=128 fused model (H = D = 128) served through the predict CLI
+    # in the K2 and K1 forms and scored through the evaluate CLI
+    try:
+        serve128, serve128_k1, evaluate128 = fused128_slice(
+            ds, df, dev, smi, reset_counts, read_counts, set_form)
+    finally:
+        set_form(*saved_form)
+    print(f"phase 20 done at {time.perf_counter() - t_start:.1f} s")
+
     sources = {"fused_ggnn": "fused_ggnn.cu", "fused_ggnn_mid": "fused_ggnn.cu",
                "fused_ggnn_readout": "fused_ggnn.cu",
                "fused_ggnn_bwd": "fused_ggnn_bwd.cu",
@@ -3960,8 +4082,32 @@ def main() -> int:
                if name == "fused_ggnn_readout" else {}),
             **{k + p: r[k + p] for p in ("", "_p387") for k in
                ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
-            # the bound on the route both bodies take (3xTF32)
-            **{"bound_tc_ms" + p: r["bound_tc_ms" + p] for p in ("", "_p387")},
+            # the bound with every operation in f32 (``bound_ms`` is the
+            # one on the route both bodies take, 3xTF32)
+            **{"bound_f32_ms" + p: r["bound_f32_ms" + p] for p in ("", "_p387")},
+            "max_abs_err": r["max_abs_err"], "library_ms": None})
+    # the H=128 forward body: launches from phase 20's serving (K1m's path,
+    # two-pass training, waits for the H=128 reverse body), times and
+    # bounds from phase 3a
+    served128 = {"fused_ggnn": serve128_k1["fused_ggnn"],
+                 "fused_ggnn_mid": 0,
+                 "fused_ggnn_readout": serve128["fused_ggnn_readout"]}
+    for name, launches in served128.items():
+        if launches == 0 and name != "fused_ggnn_mid":
+            raise AssertionError(f"{name} at H=128 never launched in phase 20")
+        r = results[f"{name}_h128"]
+        kernels.append({
+            "name": f"{name}_h128", "route": "cuda",
+            "source": "gcnbmp_tpu_torch/ops/csrc/fused_ggnn.cu",
+            "replaces": replaces[name], "launches": launches,
+            **({"launches_evaluate": evaluate128[name]}
+               if name == "fused_ggnn_readout" else {}),
+            **({"main_path": "two-pass training at H=128, whose reverse "
+                             "body is not built yet"}
+               if name == "fused_ggnn_mid" else {}),
+            **{k + p: r[k + p] for p in ("", "_p387") for k in
+               ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+            **{"bound_f32_ms" + p: r["bound_f32_ms" + p] for p in ("", "_p387")},
             "max_abs_err": r["max_abs_err"], "library_ms": None})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

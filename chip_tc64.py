@@ -25,7 +25,11 @@ variants timed in turns.
    turns) gives what the markers cost.
 4. The same K2b built with cvt.rna.tf32.f32 in ``tf32_rna`` in place of
    its two integer instructions: its time in turns with the unchanged
-   source's, and whether the two give the same bits.
+   source's, and whether the two give the same bits.  Then the reverse
+   body built with ``tc_mma``'s SEP in every product (the correction terms
+   in an accumulator of their own, as the forward bodies take them): its
+   ptxas registers and spills beside the source's, and K2b's time in
+   turns with the source's.
 5. The forward body (``fused_ggnn.cu``'s ``fused_ggnn_kernel64``: K2 and
    K1) on chip_smoke.py phase 3a's inputs at H = D = 64, L = 8 (the first
    packed batches of 256 and 2048 of those pairs, P = 75 and 387), built
@@ -52,9 +56,22 @@ variants timed in turns.
    h' = z n + (1 - z) s, the readout.  Every marker follows a barrier, all
    but the messages' first put in for it.
 
+7. The forward bodies at H = D = 64 (``fused_ggnn64.cuh``, the
+   ref_scale_fused64 model) and 128 (``fused_ggnn128.cuh``, the h=128
+   model of bench.py), K2 and K1 at L = 8 with seeded weights, on the same
+   pairs (P = 75 and 387), in variants timed in turns as in 5: ``sep`` the
+   source as it is (every product's two correction terms, lo*hi and
+   hi*lo, summed in an accumulator of their own and added at the end,
+   ``tc_mma``'s SEP), ``nosep`` all three terms into one accumulator (the
+   reverse body's form), and at 128 ``sep_gru`` SEP in the GRU's products
+   only; each variant's registers and spills, and its K1 on chip_smoke.py
+   phase 3a's crowded batch (P = 75, every other row with ~5% of its
+   columns set) against the plain f32 version and a float64 one: the entry
+   closest to the bound (atol = rtol = 1e-4) as a fraction of it.
+
 Builds into ``results/tc64/`` with nvcc (all at once).  Fails if an anchor
 of the source is not found (the source changed) or there is no card.
-``--forward-only`` runs phases 5 and 6 alone.
+``--forward-only`` runs phases 5 to 7 alone, ``--sep-only`` phase 7.
 """
 
 from __future__ import annotations
@@ -348,14 +365,14 @@ PANEL_LOAD = """#pragma unroll
   for (int s = 0; s < 2; ++s) {
     const int q = P::panel_tid(tid) + s * THREADS;
     const int row = q / (H / 4), c = (q % (H / 4)) * 4;
-    __pipeline_memcpy_async(dst + P::panel_at(row, c), src + row * H + c, 16);
+    __pipeline_memcpy_async(dst + P::panel_at(row, c), src + row * LD + c, 16);
   }
 }"""
 PANEL_WAIT = """  __pipeline_wait_prior(0);
   __syncthreads();
   float* here = p.buf + (p.j & 1) * PANEL;
 """
-PANEL_NEXT = "  if (next != nullptr) panel_load<P>(next, p.buf + ((p.j + 1) & 1) * PANEL, tid);\n"
+PANEL_NEXT = "  if (next != nullptr) panel_load<P, LD>(next, p.buf + ((p.j + 1) & 1) * PANEL, tid);\n"
 TILE_W = [
     (HEADER, "#pragma once\n", "#pragma once\n#include <type_traits>\n", 1),
     (HEADER, "// acc += x w^T for the rows of x at o's block (w a panel: the product",
@@ -460,6 +477,27 @@ FWD_VARIANTS = {
     "tile_hs_u4": [(HEADER, SPLIT_A_UNROLL, SPLIT_A_UNROLL.replace("unroll 2", "unroll 4"), 1)],
 }
 
+# phase 7: the forward bodies' variants by width (file, anchor,
+# replacement, count): the source (SEP in every product), SEP in none, and
+# at H=128 SEP in the GRU's products (over a half of the tile) only
+H128 = "fused_ggnn128.cuh"
+_SEP_TILE = "h64::tc_mma<false, false, 2, 2, HALF, H, true>("
+_SEP_HALF = "h64::tc_mma<false, false, 1, 2, 16, H, true>("
+_SEP_TILE64 = "tc_mma<false, false, 2, 2, HALF, H, true>(x, w, H,"
+_SEP_SPLIT = "        float* e = cor + 4 * (2 * mi + nj);\n"
+SEP_VARIANTS = {
+    64: {"sep": [],
+         "nosep": [(HEADER, _SEP_TILE64, _SEP_TILE64.replace(", H, true>", ">"), 1),
+                   (HEADER, _SEP_SPLIT, "        float* e = d;\n", 1)]},
+    128: {"sep": [],
+          "nosep": [(H128, _SEP_TILE, _SEP_TILE.replace(", true>", ">"), 1),
+                    (H128, _SEP_HALF, _SEP_HALF.replace(", true>", ">"), 1)],
+          "sep_gru": [(H128, _SEP_TILE, _SEP_TILE.replace(", true>", ">"), 1)]},
+}
+# phase 4: tc_mma's SEP on by default, so in every product of the reverse body
+SEP_OFF = "int LDA = H, bool SEP = false>"
+SEP_ON = "int LDA = H, bool SEP = true>"
+
 # phase 6: thread 0 of each CTA adds the cycles since its last marker (its
 # last reading kept in global memory by block)
 FWD_PROF = r"""
@@ -539,15 +577,19 @@ def fwd_instrumented(src: str, header: str, body: str):
     return edited(src, s_edits, SOURCE) + FWD_READ, header
 
 
-def write_tree(directory: str, src_dir: str, edits=(), instrument=None):
-    """Copy fused_ggnn.cu and the headers from src_dir into directory, with
-    edits (file, anchor, replacement) or phase 6's markers for the body
-    ``instrument`` ("fma" or "tile")."""
+def write_tree(directory: str, src_dir: str, edits=(), instrument=None,
+               source: str = SOURCE):
+    """Copy ``source`` (fused_ggnn.cu unless given) and the headers src_dir
+    holds into directory, with edits (file, anchor, replacement) or phase
+    6's markers for the body ``instrument`` ("fma" or "tile")."""
+    from gcnbmp_tpu_torch.ops import build
+
     os.makedirs(directory)
     texts = {}
-    for name in (SOURCE, "fused_ggnn_common.cuh", HEADER):
-        with open(os.path.join(src_dir, name)) as f:
-            texts[name] = f.read()
+    for name in (source, *build.HEADERS):
+        if name == source or os.path.exists(os.path.join(src_dir, name)):
+            with open(os.path.join(src_dir, name)) as f:
+                texts[name] = f.read()
     for name, anchor, replacement, count in edits:
         texts[name] = edited(texts[name], [(anchor, replacement, count)], name)
     if instrument:
@@ -556,16 +598,21 @@ def write_tree(directory: str, src_dir: str, edits=(), instrument=None):
     for name, text in texts.items():
         with open(os.path.join(directory, name), "w") as f:
             f.write(text)
-    return os.path.join(directory, SOURCE)
+    return os.path.join(directory, source)
 
 
-def kernel64_registers(log: str) -> list[str]:
-    """ptxas's registers and spills of each fused_ggnn_kernel64 instance."""
+def kernel_registers(log: str, width: int = 64, reverse: bool = False) -> list[str]:
+    """ptxas's registers and spills of each fused_ggnn_kernel<width>
+    instance (64 or 128), or with ``reverse`` of each
+    fused_ggnn_bwd_kernel64 instance (K2b with the readout, else K1b/K3)."""
     out, body = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            k = re.search(r"fused_ggnn_kernel64ILb([01])ELb([01])E", m.group(1))
+        if m and reverse:
+            k = re.search(r"fused_ggnn_bwd_kernel64ILb([01])E", m.group(1))
+            body = None if k is None else "K2b" if k[1] == "1" else "K1b/K3"
+        elif m:
+            k = re.search(rf"fused_ggnn_kernel{width}ILb([01])ELb([01])E", m.group(1))
             body = (None if k is None else
                     "K2" if k[1] == "1" else "K1m" if k[2] == "1" else "K1")
         elif body and ("spill" in line or "registers" in line):
@@ -578,7 +625,8 @@ def main() -> int:
     ap.add_argument("--fma-src", help="a directory holding the f32 FMA forward "
                     "body's fused_ggnn.cu and headers (phases 5 and 6)")
     ap.add_argument("--forward-only", action="store_true",
-                    help="phases 5 and 6 alone")
+                    help="phases 5 to 7 alone")
+    ap.add_argument("--sep-only", action="store_true", help="phase 7 alone")
     args = ap.parse_args()
     import torch
 
@@ -603,34 +651,36 @@ def main() -> int:
     # name -> (source, nvcc flags): the reverse phases' with the headers of
     # ops/csrc; every forward tree its own copies, its ptxas report kept
     sources = {}
-    if not args.forward_only:
+    if not (args.forward_only or args.sep_only):
         with open(os.path.join(build.CSRC, "fused_ggnn_bwd.cu")) as f:
             source = f.read()
         for name, text in (("bench.cu", BENCH), ("bwd_phases.cu", instrumented(source)),
                            ("bwd.cu", source)):
             with open(os.path.join(OUT, name), "w") as f:
                 f.write(text)
-        # the cvt variant: its own copy of the sources, so its header is found first
-        cvt_dir = os.path.join(OUT, "cvt")
-        os.makedirs(cvt_dir)
-        for name in ("fused_ggnn_bwd.cu", *build.HEADERS):
-            with open(os.path.join(build.CSRC, name)) as f:
-                text = f.read()
-            if name == "fused_ggnn64.cuh":
-                if text.count(INT_RNA) != 1:
-                    raise RuntimeError("tf32_rna's rounding not found in fused_ggnn64.cuh")
-                text = text.replace(INT_RNA, CVT_RNA)
-            with open(os.path.join(cvt_dir, name), "w") as f:
-                f.write(text)
-        for name in ("bench", "bwd_phases", "bwd"):
+        for name in ("bench", "bwd_phases"):
             sources[name] = (os.path.join(OUT, f"{name}.cu"), [*flags, "-I", build.CSRC])
-        sources["bwd_cvt"] = (os.path.join(cvt_dir, "fused_ggnn_bwd.cu"), flags)
-    trees = {f"fwd_{name}": (build.CSRC, edits, None)
-             for name, edits in FWD_VARIANTS.items()}
-    trees["fwdp_tile_hs"] = (build.CSRC, (), "tile")
-    if args.fma_src:
-        trees["fwd_fma"] = (args.fma_src, (), None)
-        trees["fwdp_fma"] = (args.fma_src, (), "fma")
+        # the source's and the SEP variant's ptxas reports kept
+        sources["bwd"] = (os.path.join(OUT, "bwd.cu"), [*build.NVCC_FLAGS, "-I", build.CSRC])
+        # the cvt and SEP variants: each its own copy of the sources, so that
+        # its header is found first
+        for variant, anchor, replacement, f in (("cvt", INT_RNA, CVT_RNA, flags),
+                                                ("sep", SEP_OFF, SEP_ON, build.NVCC_FLAGS)):
+            path = write_tree(os.path.join(OUT, variant), build.CSRC,
+                              [(HEADER, anchor, replacement, 1)],
+                              source="fused_ggnn_bwd.cu")
+            sources[f"bwd_{variant}"] = (path, f)
+    trees = {}
+    if not args.sep_only:
+        trees.update({f"fwd_{name}": (build.CSRC, edits, None)
+                      for name, edits in FWD_VARIANTS.items()})
+        trees["fwdp_tile_hs"] = (build.CSRC, (), "tile")
+        if args.fma_src:
+            trees["fwd_fma"] = (args.fma_src, (), None)
+            trees["fwdp_fma"] = (args.fma_src, (), "fma")
+    trees.update({f"fwd{width}_{name}": (build.CSRC, edits, None)
+                  for width, variants in SEP_VARIANTS.items()
+                  for name, edits in variants.items()})
     for name, (src_dir, edits, instrument) in trees.items():
         path = write_tree(os.path.join(OUT, name), src_dir, edits, instrument)
         sources[name] = (path, build.NVCC_FLAGS)
@@ -671,20 +721,23 @@ def main() -> int:
                 times[name].append(event_ms(fns[name], n))
         return {name: sorted(t)[len(t) // 2] for name, t in times.items()}
 
-    # the ref_scale_fused64 model and the first packed batches of 256 and
-    # 2048 pairs (chip_smoke.py phase 3a's inputs)
+    # the ref_scale_fused64 model (and bench.py's h=128 one) and the first
+    # packed batches of 256 and 2048 pairs (chip_smoke.py phase 3a's inputs)
     df = pd.read_csv(os.path.join(ROOT, "dataset", "synth546", "drug",
                                   "ddi_drug_test.csv")).head(2048)
     ds = CSVPairParser().parse(df).dataset
-    cfg = dict(fp_hidden_dim=64, fp_out_dim=64, conv_layers=8, weight_tying=False)
-    with torch.no_grad():
-        enc = from_jax_params(init_params(cfg, 2018),
-                              make_packed_predictor(**cfg)).to(dev).encoder
-        msg_w, msg_b, gru = fg.params_to_fused(enc)
-    n_layers = enc.n_layers
     stream = torch.cuda.current_stream().cuda_stream
+    torch.backends.cuda.matmul.allow_tf32 = False
 
-    def batch(bs):
+    def model(hidden):
+        cfg = dict(fp_hidden_dim=hidden, fp_out_dim=hidden, conv_layers=8,
+                   weight_tying=False)
+        with torch.no_grad():
+            enc = from_jax_params(init_params(cfg, 2018),
+                                  make_packed_predictor(**cfg)).to(dev).encoder
+            return enc, fg.params_to_fused(enc)
+
+    def batch(enc, bs):
         tiles, cap = estimate_coo_capacities([ds], bs)
         b, _ = next(iter_coo_eval_batches(ds, bs, tiles, cap))
         nodes, e_packed, n_edges, left, _ = [
@@ -700,18 +753,27 @@ def main() -> int:
                        ro.j.dense.weight.T.contiguous(), ro.j.dense.bias.contiguous())
         return p, h0, adj_from_coo_flat(*edges, num_tiles=p, tile=t), readout
 
-    batches = {bs: batch(bs) for bs in (256, 2048)}
-    if not args.forward_only:
-        reverse_phases(torch, np, fg, build, dev, stream, n_layers, msg_w, msg_b,
-                       gru, batches[2048], event_ms)
-    forward_phases(torch, fg, build, stream, n_layers, msg_w, msg_b, gru, batches,
-                   logs, in_turns, smi, bool(args.fma_src))
+    enc, (msg_w, msg_b, gru) = model(64)
+    n_layers = enc.n_layers
+    batches = {bs: batch(enc, bs) for bs in (256, 2048)}
+    if not (args.forward_only or args.sep_only):
+        reverse_phases(torch, np, fg, build, dev, stream, n_layers, msg_w,
+                       msg_b, gru, batches[2048], event_ms, logs)
+    if not args.sep_only:
+        forward_phases(torch, fg, build, stream, n_layers, msg_w, msg_b, gru,
+                       batches, logs, in_turns, smi, bool(args.fma_src))
+    sep_phase(torch, np, fg, build, stream, 64, n_layers, msg_w, msg_b, gru,
+              batches, logs, in_turns, smi)
+    enc, weights = model(128)
+    sep_phase(torch, np, fg, build, stream, 128, enc.n_layers, *weights,
+              {bs: batch(enc, bs) for bs in (256, 2048)}, logs, in_turns, smi)
     return 0
 
 
 def reverse_phases(torch, np, fg, build, dev, stream, n_layers, msg_w, msg_b, gru,
-                   batch, event_ms):
-    """Phases 1 to 4 (the instruction rates, K2b's phases and its cvt form)."""
+                   batch, event_ms, logs):
+    """Phases 1 to 4 (the instruction rates, K2b's phases, its cvt and SEP
+    forms)."""
     # 1. and 2.
     bench = ctypes.CDLL(os.path.join(OUT, "libbench.so"))
     for fn in (bench.run_mma, bench.run_round):
@@ -741,7 +803,7 @@ def reverse_phases(torch, np, fg, build, dev, stream, n_layers, msg_w, msg_b, gr
         (p, 128, 64)).astype(np.float32)).to(dev)
     bufs = fg._bwd_buffers(p, n_layers, 64, 64, dev)[:4]
     libs = {}
-    for name in ("bwd", "bwd_phases", "bwd_cvt"):
+    for name in ("bwd", "bwd_phases", "bwd_cvt", "bwd_sep"):
         handle = ctypes.CDLL(os.path.join(OUT, f"lib{name}.so"))
         handle.fused_ggnn_readout_bwd.argtypes = \
             build.SOURCES["fused_ggnn_bwd.cu"]["fused_ggnn_readout_bwd"]
@@ -778,6 +840,11 @@ def reverse_phases(torch, np, fg, build, dev, stream, n_layers, msg_w, msg_b, gr
     int_ms, cvt_ms = timed_in_turns("bwd", "bwd_cvt")
     print(f"K2b with tf32_rna as two integer instructions: {int_ms:.4f} ms, as "
           f"cvt.rna.tf32.f32: {cvt_ms:.4f} ms per call; the same bits: {same}")
+    for name in ("bwd", "bwd_sep"):
+        print(f"ptxas {name}: " + "; ".join(kernel_registers(logs[name], reverse=True)))
+    src_ms, sep_ms = timed_in_turns("bwd", "bwd_sep")
+    print(f"K2b H=64 P={p}: {src_ms:.4f} ms as the source, {sep_ms:.4f} ms with SEP "
+          f"in every product")
     counts = np.zeros(16, np.uint64)
     phases = libs["bwd_phases"].phase_cycles
     if phases(counts.ctypes.data, 1) != 0:
@@ -806,7 +873,7 @@ def forward_phases(torch, fg, build, stream, n_layers, msg_w, msg_b, gru, batche
             getattr(handle, entry).argtypes = argtypes
         libs[name] = handle
     for name in names:
-        print(f"ptxas {name}: " + "; ".join(kernel64_registers(logs[name])))
+        print(f"ptxas {name}: " + "; ".join(kernel_registers(logs[name])))
     out = {bs: torch.empty_like(b[1]) for bs, b in batches.items()}
 
     def k2(name, bs):
@@ -861,6 +928,69 @@ def forward_phases(torch, fg, build, stream, n_layers, msg_w, msg_b, gru, batche
             print(f"  {name:40s} {float(counts[i]) / p:12.0f} cycles per CTA "
                   f"{100 * float(counts[i]) / total:6.1f}%")
         print(f"  {'all phases':40s} {total / p:12.0f} cycles per CTA")
+
+
+def sep_phase(torch, np, fg, build, stream, width, n_layers, msg_w, msg_b, gru,
+              batches, logs, in_turns, smi):
+    """Phase 7 at one width: the forward body's variants in turns, and each
+    one's K1 error on phase 3a's crowded batch."""
+    names = [f"fwd{width}_{v}" for v in SEP_VARIANTS[width]]
+    cut = len(f"fwd{width}_")
+    libs = {}
+    for name in names:
+        handle = ctypes.CDLL(os.path.join(OUT, f"lib{name}.so"))
+        for entry, argtypes in build.SOURCES["fused_ggnn.cu"].items():
+            getattr(handle, entry).argtypes = argtypes
+        libs[name] = handle
+        print(f"ptxas {name}: " + "; ".join(kernel_registers(logs[name], width)))
+    out = {bs: torch.empty_like(b[1]) for bs, b in batches.items()}
+
+    def k2(name, bs):
+        p, h0, adj, readout = batches[bs]
+        err = libs[name].fused_ggnn_readout_fwd(
+            h0.data_ptr(), adj.data_ptr(), *fg._weight_ptrs(msg_w, msg_b, gru),
+            *(x.data_ptr() for x in readout), out[bs].data_ptr(), p, n_layers, width,
+            width, stream)
+        if err != 0:
+            raise RuntimeError(f"K2 {name} launch failed: {err}")
+
+    def k1(name, p, h0, adj, dst):
+        err = libs[name].fused_ggnn_fwd(
+            h0.data_ptr(), adj.data_ptr(), *fg._weight_ptrs(msg_w, msg_b, gru),
+            dst.data_ptr(), p, n_layers, width, stream)
+        if err != 0:
+            raise RuntimeError(f"K1 {name} launch failed: {err}")
+
+    for bs, (p, h0, adj, _) in batches.items():
+        for label, run in (("K2", lambda n, bs=bs: k2(n, bs)),
+                           ("K1", lambda n, b=batches[bs], bs=bs: k1(n, *b[:3], out[bs]))):
+            ms = in_turns({n: (lambda n=n: run(n)) for n in names})
+            print(f"{label} H={width} P={p} L={n_layers} ({smi}): " + ", ".join(
+                f"{n[cut:]} {ms[n]:.4f} ms" for n in names))
+    # chip_smoke.py phase 3a's crowded batch (crowd_rows)
+    p, h0, adj, _ = batches[256]
+    extra = torch.as_tensor(np.random.default_rng(2018).random(tuple(adj.shape))
+                            < 0.05).to(adj.device)
+    extra[:, 1::2, :] = False
+    adj = torch.where(extra, torch.ones_like(adj), adj).contiguous()
+    with torch.no_grad():
+        plain = fg.fused_ggnn_reference(n_layers, h0, adj, msg_w, msg_b, gru)
+        f64 = fg.fused_ggnn_reference(
+            n_layers, h0.double(), adj.double(), msg_w.double(), msg_b.double(),
+            {k: v.double() for k, v in gru.items()})
+
+    def closest(x, ref):
+        return float(((x.double() - ref).abs() / (1e-4 + 1e-4 * ref.abs())).max())
+
+    print(f"K1 H={width} crowded P={p}: plain f32 against float64, closest to the "
+          f"bound {closest(plain, f64.float()):.3f} of it")
+    for name in names:
+        got = torch.empty_like(h0)
+        k1(name, p, h0, adj, got)
+        torch.cuda.synchronize()
+        print(f"K1 H={width} crowded P={p}, {name[cut:]}: against plain f32 "
+              f"{closest(got, plain):.3f}, against float64 {closest(got, f64):.3f} "
+              f"of the bound; max abs err vs plain {float((got - plain).abs().max()):.3e}")
 
 
 if __name__ == "__main__":

@@ -107,7 +107,7 @@ def main(argv=None):
             "this run is multi-label (class_num>1); pass the same "
             "--labels-csv used for training so test labels binarize "
             "identically")
-    problems = kernel_problems(config, args.device)
+    problems = kernel_problems(config, args.device, serving=True)
     if problems:
         raise ValueError("configuration outside what the card's kernels "
                          "serve: " + "; ".join(problems))

@@ -70,13 +70,23 @@
 // every dense product (the messages h W_e, the GRU's x W{z,r,n}, s U{z,r},
 // (r s) Un, the readout's [h, h0] Wi and h Wj) runs on the tensor cores in
 // 3xTF32, as the reverse body's do (fused_ggnn_bwd.cu): about 2^-21 of each
-// term is dropped (lo*lo), within the f32 bounds.  Each product covers the
+// term is dropped (lo*lo), within the f32 bounds, and the correction terms
+// sum in accumulators of their own (h64::tc_mma's SEP), which halves the
+// crowded batch's K1 error against plain f32 for 1.5-2.3% of the time
+// (chip_tc64.py phase 7, NVIDIA H100 80GB HBM3 at 700 W; 122-128
+// registers a thread, no spill).  Each product covers the
 // whole tile, so the two halves share each staged panel and each B
 // fragment, and the products of h read it from the TF32 parts the threads
 // that write h keep beside it, so that no h value is split more than once.
 // The aggregation m += A_e hw_e stays in f32.
+//
+// At H = 128 (fused_ggnn_kernel128) one T x H buffer is 64 KB, and h, m and
+// one hw_e beside the panels already exceed the CTA's 227 KB, so that width
+// has a body of its own again (fused_ggnn128.cuh): the same panels and
+// 3xTF32 products with SEP, hw_e by column halves, the GRU by row halves of the tile with r*s of a
+// half in the work buffer; 214,016 bytes of shared memory.
 
-#include "fused_ggnn64.cuh"
+#include "fused_ggnn128.cuh"
 
 namespace {
 
@@ -280,6 +290,75 @@ cudaError_t launch64(const float* h0, const float* adj, const Weights& w,
   return cudaGetLastError();
 }
 
+// The forward body at H = 128 (fused_ggnn128.cuh): the weights pass through
+// the two staged panels in one sequence (h128::block), the message step by
+// column halves over the tile, the GRU by row halves.
+template <bool READOUT, bool MID>
+__global__ void __launch_bounds__(THREADS, 1)
+fused_ggnn_kernel128(const float* __restrict__ h0, const float* __restrict__ adj,
+                     Weights w, Readout ro, float* __restrict__ out,
+                     float* __restrict__ mid, int n_layers, int split) {
+  using namespace h128;
+  using S = Plan;
+  extern __shared__ float smem[];
+  const Tile t = {adj + size_t(blockIdx.x) * TILE * ROW_LEN,
+                  smem + S::HIN, smem + S::MS, smem + S::WORK, smem + S::B_MSG,
+                  smem + S::BZ, smem + S::BR, smem + S::BN,
+                  reinterpret_cast<const Idx*>(smem + S::NK), smem + S::NV,
+                  reinterpret_cast<const int*>(smem + S::NC)};
+  float* s_bi = smem + S::BI;
+  float* s_bj = smem + S::BJ;
+  const int tid = threadIdx.x;
+  const size_t tile = blockIdx.x;
+  const float* h0_t = h0 + TH * tile;
+
+  Seq seq = {w, ro, n_layers, n_layers * LAYER_BLOCKS + (READOUT ? READOUT_BLOCKS : 0), 0};
+  Panels p;
+  h64::panels_start<Tc, H>(p, smem + S::PANELS, block(w, ro, n_layers, 0), tid);
+  for (int i = tid; i < H; i += THREADS) {
+    smem[S::BZ + i] = w.bz[i]; smem[S::BR + i] = w.br[i]; smem[S::BN + i] = w.bn[i];
+    if (READOUT) { s_bi[i] = ro.bi[i]; s_bj[i] = ro.bj[i]; }
+  }
+  for (int i = tid; i < TH; i += THREADS) t.h[at(i / H, i % H)] = h0_t[i];
+  scan_rows(t.adj_t, reinterpret_cast<Idx*>(smem + S::NK), smem + S::NV,
+            reinterpret_cast<int*>(smem + S::NC), tid);
+  __syncthreads();
+
+#pragma unroll 1
+  for (int l = 0; l < n_layers; ++l) {
+    if constexpr (MID) {  // K1m: h_mid, the input of layer split
+      if (l == split) {
+        float* mid_t = mid + tile * TH;
+        for (int i = tid; i < TH; i += THREADS) mid_t[i] = t.h[at(i / H, i % H)];
+      }
+    }
+    layer_forward(t, w, l, seq, p, tid);
+  }
+
+  float* out_t = out + tile * TH;
+  if constexpr (!READOUT) {
+    for (int i = tid; i < TH; i += THREADS) out_t[i] = t.h[at(i / H, i % H)];
+  } else {  // D = H; h0 where m was, read after the first block's barrier
+    float* s_h0 = t.m;
+    for (int i = tid; i < TH; i += THREADS) s_h0[at(i / H, i % H)] = h0_t[i];
+    readout(t, s_h0, s_bi, s_bj, ro.mask + tile * TILE, out_t, seq, p, tid);
+  }
+}
+
+template <bool READOUT, bool MID = false>
+cudaError_t launch128(const float* h0, const float* adj, const Weights& w,
+                      const Readout& ro, float* out, int n_tiles, int n_layers,
+                      cudaStream_t stream, float* mid = nullptr, int split = 0) {
+  if (!h64::panels_aligned(w, READOUT ? &ro : nullptr)) return cudaErrorInvalidValue;
+  constexpr size_t bytes = h128::Plan::BYTES;
+  static bool opted_in[MAX_DEVICES] = {};
+  cudaError_t err = opt_in_smem(fused_ggnn_kernel128<READOUT, MID>, bytes, opted_in);
+  if (err != cudaSuccess) return err;
+  fused_ggnn_kernel128<READOUT, MID><<<n_tiles, THREADS, bytes, stream>>>(
+      h0, adj, w, ro, out, mid, n_layers, split);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // K1: h (P, T, H) after n_layers GGNN layers.  Returns a cudaError_t.
@@ -297,6 +376,7 @@ extern "C" int fused_ggnn_fwd(
     case 16: return int(launch<16, false>(h0, adj, w, ro, out, n_tiles, n_layers, st));
     case 32: return int(launch<32, false>(h0, adj, w, ro, out, n_tiles, n_layers, st));
     case 64: return int(launch64<false>(h0, adj, w, ro, out, n_tiles, n_layers, st));
+    case 128: return int(launch128<false>(h0, adj, w, ro, out, n_tiles, n_layers, st));
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -318,6 +398,7 @@ extern "C" int fused_ggnn_mid_fwd(
     case 16: return int(launch<16, false, true>(h0, adj, w, ro, out, n_tiles, n_layers, st, mid, split));
     case 32: return int(launch<32, false, true>(h0, adj, w, ro, out, n_tiles, n_layers, st, mid, split));
     case 64: return int(launch64<false, true>(h0, adj, w, ro, out, n_tiles, n_layers, st, mid, split));
+    case 128: return int(launch128<false, true>(h0, adj, w, ro, out, n_tiles, n_layers, st, mid, split));
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -341,6 +422,7 @@ extern "C" int fused_ggnn_readout_fwd(
     case 16: return int(launch<16, true>(h0, adj, w, ro, out, n_tiles, n_layers, st));
     case 32: return int(launch<32, true>(h0, adj, w, ro, out, n_tiles, n_layers, st));
     case 64: return int(launch64<true>(h0, adj, w, ro, out, n_tiles, n_layers, st));
+    case 128: return int(launch128<true>(h0, adj, w, ro, out, n_tiles, n_layers, st));
     default: return int(cudaErrorInvalidValue);
   }
 }

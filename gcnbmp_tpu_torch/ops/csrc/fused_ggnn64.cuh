@@ -39,7 +39,9 @@
 // operand is split into a TF32 high part and a TF32 remainder (split_tf32),
 // and each 8-deep step of a product issues three m16n8k8 mma.sync (lo*hi,
 // hi*lo, hi*hi; lo*lo is dropped) into f32 accumulators: about 2^-21 of
-// each term, the f32 bounds the kernels are held to.  The T x H buffers and
+// each term, the f32 bounds the kernels are held to.  The forward sums the
+// correction terms in accumulators of their own (tc_mma's SEP), the
+// reverse, which has no registers for them, with hi*hi.  The T x H buffers and
 // the panels are rows of H words whose 4-word column groups are XORed by
 // the row (swz), so that every fragment load, in each orientation the
 // bodies read (x W, x W^T, a^T b), puts the 32 lanes on 32 banks.  An
@@ -142,16 +144,26 @@ __device__ __forceinline__ void split_tf32(float v, float& hi, float& lo) {
 
 // acc += A B in 3xTF32 over the depth [0, depth) for the warp's block of
 // NM x NN tiles (16 x 8) at rows R + MS mi, columns C + 8 nj, every
-// operand a buffer of H-word rows in the Tc layout: A[r][k] = a[k][r] if
-// TA else a[r][k], B[k][c] = b[c][k] if TB else b[k][c].  acc holds tile
+// operand a buffer of H-word rows in the Tc layout (A without TA: rows of
+// LDA words, whose swizzle is the same for any multiple of 32): A[r][k] =
+// a[k][r] if TA else a[r][k], B[k][c] = b[c][k] if TB else b[k][c].  acc holds tile
 // (mi, nj)'s d0..d3 at 4 (mi NN + nj).  R and C are multiples of 16 and 8,
 // so each lane's swizzle is one of four constants.  An operand read along
 // its rows (A without TA, B with TB) comes by ldmatrix, four 8 x 4 blocks
-// a load; the transposed ones by single loads.
-template <bool TA, bool TB, int NM, int NN, int MS = 16>
+// a load; the transposed ones by single loads.  With SEP the two
+// correction products (lo*hi, hi*lo) go to an accumulator of their own,
+// added to acc at the end: the tensor cores truncate each mma's sum to the
+// magnitude of its accumulator, so acc then takes one truncation per
+// 8-deep step instead of three.  The forward bodies (H = 64, 128) take
+// every product with SEP; the reverse body without, since the 4 NM NN
+// more registers make it spill (chip_tc64.py phase 4).
+template <bool TA, bool TB, int NM, int NN, int MS = 16, int LDA = H, bool SEP = false>
 __device__ __forceinline__ void tc_mma(const float* a, const float* b, int depth,
                                        int R, int C, int g, int q, float* acc) {
   static_assert(!TB || NN == 2, "ldmatrix brings two n-tiles of B");
+  float cor[SEP ? 4 * NM * NN : 1];
+#pragma unroll
+  for (int i = 0; i < (SEP ? 4 * NM * NN : 1); ++i) cor[i] = 0.0f;
   const int sg = swz(g), sq0 = swz(q), sq1 = swz(q + 4);
   // ldmatrix: lane 8j + r gives row r of block j
   const int lr = (4 * g + q) & 7, lj = (4 * g + q) >> 3, slr = swz(lr);
@@ -168,7 +180,7 @@ __device__ __forceinline__ void tc_mma(const float* a, const float* b, int depth
           v[i] = a[(k0 + q + 4 * (i >> 1)) * H + (r ^ (i >> 1 ? sq1 : sq0))];
         }
       } else {  // blocks: rows +0 / +8 (j & 1), depths +0 / +4 (j >> 1)
-        ldsm_x4(v, a + (R + MS * mi + lr + 8 * (lj & 1)) * H + ((k0 + 4 * (lj >> 1)) ^ slr));
+        ldsm_x4(v, a + (R + MS * mi + lr + 8 * (lj & 1)) * LDA + ((k0 + 4 * (lj >> 1)) ^ slr));
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) split_tf32(v[i], ah[mi][i], al[mi][i]);
@@ -188,11 +200,16 @@ __device__ __forceinline__ void tc_mma(const float* a, const float* b, int depth
 #pragma unroll
       for (int mi = 0; mi < NM; ++mi) {
         float* d = acc + 4 * (mi * NN + nj);
-        mma_tf32(d, al[mi], bh);
-        mma_tf32(d, ah[mi], bl);
+        float* e = SEP ? cor + 4 * (mi * NN + nj) : d;
+        mma_tf32(e, al[mi], bh);
+        mma_tf32(e, ah[mi], bl);
         mma_tf32(d, ah[mi], bh);
       }
     }
+  }
+  if constexpr (SEP) {
+#pragma unroll
+    for (int i = 0; i < 4 * NM * NN; ++i) acc[i] += cor[i];
   }
 }
 
@@ -224,10 +241,11 @@ struct Tc {
     tc_mma<false, false, 1, 2>(x, w, H, o.R, o.C, o.g, o.q, acc);
   }
   // acc += x w over the tile (x: 128 rows), o's block of each half: half
-  // hf's entry k at acc[RPH hf + k]; one B fragment feeds both halves
+  // hf's entry k at acc[RPH hf + k]; one B fragment feeds both halves (the
+  // forward's product, with SEP)
   __device__ static void product_tile(const float* x, const float* w, const Own& o,
                                       float (&acc)[2 * RPH]) {
-    tc_mma<false, false, 2, 2, HALF>(x, w, H, o.R, o.C, o.g, o.q, acc);
+    tc_mma<false, false, 2, 2, HALF, H, true>(x, w, H, o.R, o.C, o.g, o.q, acc);
   }
 };
 
@@ -239,11 +257,14 @@ __device__ __forceinline__ void split_store(float* hs, int i, float v) {
 
 // acc += x w over the tile for the warp's 16 x 16 blocks at rows R and
 // R + HALF, columns C, with x given by its TF32 parts (split_store), w a
-// panel split at load: tc_mma<false, false, 2, 2, HALF> term for term (the
-// same split values in the same mma order, the same bits), each A
-// fragment two ldmatrix and no split.
+// panel split at load: Tc::product_tile term for term (the same split
+// values in the same mma order, the correction terms apart as with SEP, the
+// same bits), each A fragment two ldmatrix and no split.
 __device__ __forceinline__ void tc_mma_split_a(const float* xs, const float* b, int R,
                                                int C, int g, int q, float* acc) {
+  float cor[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) cor[i] = 0.0f;
   const int sq0 = swz(q), sq1 = swz(q + 4);
   const int lr = (4 * g + q) & 7, lj = (4 * g + q) >> 3, slr = swz(lr);
   const float* arow = xs + (R + lr + 8 * (lj & 1)) * H;
@@ -266,12 +287,15 @@ __device__ __forceinline__ void tc_mma_split_a(const float* xs, const float* b, 
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
         float* d = acc + 4 * (2 * mi + nj);
-        mma_tf32(d, al[mi], bh);
-        mma_tf32(d, ah[mi], bl);
+        float* e = cor + 4 * (2 * mi + nj);
+        mma_tf32(e, al[mi], bh);
+        mma_tf32(e, ah[mi], bl);
         mma_tf32(d, ah[mi], bh);
       }
     }
   }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] += cor[i];
 }
 
 // acc += x w^T for the rows of x at o's block (w a panel: the product
@@ -415,9 +439,9 @@ struct Panels {
 #endif
 };
 
-// One (64, 64) block (rows of 64 contiguous floats, 16-byte aligned) into
-// a panel, by cp.async: 1,024 16-byte copies, 2 a thread.
-template <class P>
+// One (64, 64) block (rows of 64 contiguous floats LD apart, 16-byte
+// aligned) into a panel, by cp.async: 1,024 16-byte copies, 2 a thread.
+template <class P, int LD = H>
 __device__ __forceinline__ void panel_load(const float* __restrict__ src,
                                            float* dst, int tid) {
   static_assert(H * H / 4 == 2 * THREADS, "two copies a thread");
@@ -425,11 +449,11 @@ __device__ __forceinline__ void panel_load(const float* __restrict__ src,
   for (int s = 0; s < 2; ++s) {
     const int q = P::panel_tid(tid) + s * THREADS;
     const int row = q / (H / 4), c = (q % (H / 4)) * 4;
-    __pipeline_memcpy_async(dst + P::panel_at(row, c), src + row * H + c, 16);
+    __pipeline_memcpy_async(dst + P::panel_at(row, c), src + row * LD + c, 16);
   }
 }
 
-template <class P>
+template <class P, int LD = H>
 __device__ __forceinline__ void panels_start(Panels& p, float* buf,
                                              const float* first, int tid) {
   p.buf = buf;
@@ -438,15 +462,15 @@ __device__ __forceinline__ void panels_start(Panels& p, float* buf,
   p.src[0] = first;
   p.src[1] = nullptr;
 #endif
-  panel_load<P>(first, buf, tid);
+  panel_load<P, LD>(first, buf, tid);
   __pipeline_commit();
 }
 
 // Wait for block j (loaded from `cur`) and synchronise the CTA: every
 // thread is then done with block j - 1 and with whatever it wrote before
 // the call.  Then start loading `next` (nullptr: nothing) into block j - 1's
-// panel, and return block j.
-template <class P>
+// panel, and return block j.  LD: the row stride of the blocks' matrices.
+template <class P, int LD = H>
 __device__ __forceinline__ const float* panels_next(Panels& p, const float* cur,
                                                     const float* next, int tid) {
   __pipeline_wait_prior(0);
@@ -456,7 +480,7 @@ __device__ __forceinline__ const float* panels_next(Panels& p, const float* cur,
   if (p.src[p.j & 1] != cur) __builtin_trap();
   p.src[(p.j + 1) & 1] = next;
 #endif
-  if (next != nullptr) panel_load<P>(next, p.buf + ((p.j + 1) & 1) * PANEL, tid);
+  if (next != nullptr) panel_load<P, LD>(next, p.buf + ((p.j + 1) & 1) * PANEL, tid);
   __pipeline_commit();
   ++p.j;
   return here;
@@ -473,8 +497,10 @@ __device__ __forceinline__ const float* msg_panel(const Weights& w, int l, int e
 // lane c owns columns c and c + 32.  The row-list entries of e's columns
 // [eT, eT + T), or a crowded row's dense columns there, in ascending
 // order; m starts at zero for e = 0 and carries on for e > 0, so each row
-// sums its terms in ascending column order of A_flat.
-template <class P>
+// sums its terms in ascending column order of A_flat.  m is in PM's layout
+// (P's unless given: the H = 128 body's m is a column half of a wider
+// buffer).
+template <class P, class PM = P>
 __device__ __forceinline__ void aggregate_edge(const float* adj_t, int e,
                                                const float* s_hw, float* s_m,
                                                const Idx* s_nk, const float* s_nv,
@@ -483,8 +509,8 @@ __device__ __forceinline__ void aggregate_edge(const float* adj_t, int e,
   const int warp = tid >> 5;
   const int lo = e * TILE;
   for (int i = warp; i < TILE; i += WARPS) {
-    float a0 = e == 0 ? 0.0f : s_m[P::at(i, lane)];
-    float a1 = e == 0 ? 0.0f : s_m[P::at(i, lane + 32)];
+    float a0 = e == 0 ? 0.0f : s_m[PM::at(i, lane)];
+    float a1 = e == 0 ? 0.0f : s_m[PM::at(i, lane + 32)];
     const int cnt = s_nc[i];
     if (cnt > NBR_CAP) {
       const float* arow = adj_t + size_t(i) * ROW_LEN + lo;
@@ -513,8 +539,8 @@ __device__ __forceinline__ void aggregate_edge(const float* adj_t, int e,
         a1 = fmaf(v, s_hw[P::at(k, lane + 32)], a1);
       }
     }
-    s_m[P::at(i, lane)] = a0;
-    s_m[P::at(i, lane + 32)] = a1;
+    s_m[PM::at(i, lane)] = a0;
+    s_m[PM::at(i, lane + 32)] = a1;
   }
 }
 

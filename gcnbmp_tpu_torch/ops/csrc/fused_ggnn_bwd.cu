@@ -110,7 +110,9 @@
 //   weight gradients a^T b.  Each in 3xTF32: both operands split into a
 //   TF32 high part and a TF32 remainder, three m16n8k8 mma.sync per
 //   8-deep step (lo*hi, hi*lo, hi*hi) into f32 accumulators, within
-//   about 2^-21 of each term.  A warp owns a 16 x 16 block of a half-tile
+//   about 2^-21 of each term.  All three terms go into one accumulator
+//   (not the forward's SEP, which needs 8 or 16 more registers a product:
+//   with it the body spills 20-24 bytes, chip_tc64.py phase 4).  A warp owns a 16 x 16 block of a half-tile
 //   product (32 x 16 of a weight gradient), and the elementwise steps
 //   work on the entries the accumulators hand each lane.  The T x H
 //   buffers and the panels swizzle their 4-word column groups by the row

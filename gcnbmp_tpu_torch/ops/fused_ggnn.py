@@ -45,9 +45,13 @@ has no two-pass form, as in JAX.
 Each wrapper takes its plain PyTorch version (``*_reference``) for a
 tensor on the CPU; for a CUDA tensor it launches the hand-written Hopper
 kernel (``csrc/fused_ggnn.cu``, ``csrc/fused_ggnn_bwd.cu``) or raises.
-The kernels are built for H in ``KERNEL_HIDDEN`` (16, 32, 64); at H=64
-they run bodies of their own (``csrc/fused_ggnn64.cuh``), which copy the
-weights in 16-byte pieces, so those must start on 16-byte boundaries.
+The forward kernels (K1, K1m, K2) are built for H in ``KERNEL_HIDDEN``
+(16, 32, 64, 128), the reverse ones (K1b, K3, K2b) for H in
+``REVERSE_HIDDEN`` (16, 32, 64): at H=128 the wrappers of the reverse
+kernels raise before any launch.  At H=64 and 128 the kernels run bodies
+of their own (``csrc/fused_ggnn64.cuh``, ``csrc/fused_ggnn128.cuh``),
+which copy the weights in 16-byte pieces, so those must start on 16-byte
+boundaries.
 Each counts its kernel launches in the ``launches`` attribute of
 ``fused_ggnn``, ``fused_ggnn_mid``, ``fused_ggnn_readout``,
 ``fused_ggnn_bwd``, ``fused_ggnn_half_bwd`` and
@@ -73,12 +77,16 @@ from gcnbmp_tpu_torch.ops.build import load_library
 
 TILE = 128
 NUM_EDGE_TYPE = 4
-# widths the kernels' shared-memory plans are instantiated for; the
-# readout width D equals H
-KERNEL_HIDDEN = (16, 32, 64)
+# widths the forward kernels' shared-memory plans are instantiated for;
+# the readout width D equals H
+KERNEL_HIDDEN = (16, 32, 64, 128)
+# widths the reverse kernels (K1b, K3, K2b) are built for: H=128's reverse
+# body is ROADMAP queue 2, "Open: hidden widths"
+REVERSE_HIDDEN = (16, 32, 64)
 # widths whose bodies stream the weights through staged panels
-# (csrc/fused_ggnn64.cuh) instead of holding them in shared memory
-PANEL_HIDDEN = (64,)
+# (csrc/fused_ggnn64.cuh, csrc/fused_ggnn128.cuh) instead of holding them
+# in shared memory
+PANEL_HIDDEN = (64, 128)
 GRU_KEYS = ("wz", "uz", "bz", "wr", "ur", "br", "wn", "un", "bn")
 # the two-pass backward (K1m + K3); FusedGGNNFunction reads it per call
 TWOPASS = os.environ.get("GCNBMP_FUSED_TWOPASS") == "1"
@@ -269,16 +277,26 @@ def _check(name: str, x: torch.Tensor, shape: Tuple[int, ...],
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_common(n_layers, h0, adj, msg_w, msg_b, gru):
+def check_width(hidden: int, reverse: bool = False) -> None:
+    """Raise unless the forward kernels (the reverse ones with
+    ``reverse``) are built for hidden width ``hidden``."""
+    if hidden not in KERNEL_HIDDEN:
+        raise ValueError(f"hidden width {hidden} is not one the kernel's "
+                         f"shared-memory plan holds {KERNEL_HIDDEN}")
+    if reverse and hidden not in REVERSE_HIDDEN:
+        raise ValueError(f"hidden width {hidden}: the reverse kernels (K1b, "
+                         f"K3, K2b) are built for {REVERSE_HIDDEN}; H={hidden}'s "
+                         f'is ROADMAP queue 2, "Open: hidden widths"')
+
+
+def _check_common(n_layers, h0, adj, msg_w, msg_b, gru, reverse=False):
     if h0.device.type != "cuda":
         raise RuntimeError(f"fused GGNN kernels run on CUDA or CPU tensors, "
                            f"got {h0.device}")
     p, t, hidden = h0.shape
     if t != TILE:
         raise ValueError(f"tiles must hold {TILE} atoms, got {t}")
-    if hidden not in KERNEL_HIDDEN:
-        raise ValueError(f"hidden width {hidden} is not one the kernel's "
-                         f"shared-memory plan holds {KERNEL_HIDDEN}")
+    check_width(hidden, reverse)
     if n_layers < 1 or msg_w.shape[0] != n_layers:
         raise ValueError(f"n_layers={n_layers} but msg_w has "
                          f"{msg_w.shape[0]} layers")
@@ -295,7 +313,7 @@ def _check_common(n_layers, h0, adj, msg_w, msg_b, gru):
 
 
 def _check_aligned(**weights) -> None:
-    """The H=64 bodies copy their weight blocks with 16-byte cp.async."""
+    """The panel bodies copy their weight blocks with 16-byte cp.async."""
     for name, x in weights.items():
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary at "
@@ -443,7 +461,8 @@ def _range_bwd(lo: int, hi: int, hin, adj, msg_w, msg_b, gru, dh_top):
     msg_w.shape[0]-layer stack on CUDA tensors (K1b for [0, L), each half
     of K3 otherwise): (dh_bot, the range's dmsg_w and dmsg_b, dgru)."""
     n_layers = msg_w.shape[0]
-    p, hidden = _check_common(n_layers, hin, adj, msg_w, msg_b, gru)
+    p, hidden = _check_common(n_layers, hin, adj, msg_w, msg_b, gru,
+                              reverse=True)
     if not 0 <= lo < hi <= n_layers:
         raise ValueError(f"layer range [{lo}, {hi}) outside [0, {n_layers})")
     dev = hin.device
@@ -510,7 +529,8 @@ def fused_ggnn_readout_bwd(n_layers: int, h0, adj, msg_w, msg_b, gru,
         return fused_ggnn_readout_bwd_reference(
             n_layers, h0, adj, msg_w, msg_b, gru, node_mask,
             ro_wi, ro_bi, ro_wj, ro_bj, dg)
-    p, hidden = _check_common(n_layers, h0, adj, msg_w, msg_b, gru)
+    p, hidden = _check_common(n_layers, h0, adj, msg_w, msg_b, gru,
+                              reverse=True)
     dev = h0.device
     d = _check_readout(p, hidden, node_mask, ro_wi, ro_bi, ro_wj, ro_bj, dev)
     _check("dg", dg, (p, TILE, d), dev)

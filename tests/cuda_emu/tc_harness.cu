@@ -3,11 +3,13 @@
 // memory into shared memory in the Tc layout (b also through the weight
 // panels, as the bodies stage their weights, and [a; b] as a tile of 128
 // rows with its TF32 parts beside it, as the forward keeps h), takes the
-// three products the reverse body uses and the forward's product over the
-// tile from the operand split at load and from its kept parts, and writes
-// them back row-major, so that tests/test_torch_bwd_emulated64.py can hold
-// them against float64 products and the two tile products against each
-// other, bit for bit.
+// three products the reverse body uses, the forward's product over the
+// tile from the operand split at load and from its kept parts, and a b
+// over 64 rows with the correction terms apart (tc_mma's SEP, the
+// forward's form), and writes them back row-major, so that
+// tests/test_torch_bwd_emulated64.py can hold them against float64
+// products and the tile products against each other and against the
+// SEP product, bit for bit.
 // Built only by tests/cuda_emu/emulate.py, against the CPU stand-in.
 
 #include "fused_ggnn64.cuh"
@@ -29,7 +31,7 @@ __device__ void store_tile(float* out, const Tc::Own& o, const float (&acc)[2 * 
 }
 
 __global__ void tc_kernel(const float* a, const float* b, float* xw, float* xwt,
-                          float* atb, float* tile_tc, float* tile_split) {
+                          float* atb, float* tile_tc, float* tile_split, float* xw_sep) {
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
   for (int i = tid; i < H * H; i += THREADS) {
@@ -59,6 +61,12 @@ __global__ void tc_kernel(const float* a, const float* b, float* xw, float* xwt,
   for (int j = 0; j < 2 * RPH; ++j) tacc[j] = 0.0f;
   tc_mma_split_a(smem + XS, w, o.R, o.C, o.g, o.q, tacc);
   store_tile(tile_split, o, tacc);
+  // a b with SEP, over the rows the tile's first half holds
+#pragma unroll
+  for (int k = 0; k < RPH; ++k) acc[k] = 0.0f;
+  tc_mma<false, false, 1, 2, 16, H, true>(smem + A, w, H, o.R, o.C, o.g, o.q, acc);
+#pragma unroll
+  for (int k = 0; k < RPH; ++k) xw_sep[o.row(k) * H + o.col(k)] = acc[k];
   // a^T b over 64 rows, by warps 0-7
   const GradPass<1, 0> gp = {{smem + A}, {smem + B}, {atb}, {nullptr}, {nullptr}, {nullptr}};
   tc_grad_pass<1, 0, 0>(gp, H, false, false, tid);
@@ -67,12 +75,12 @@ __global__ void tc_kernel(const float* a, const float* b, float* xw, float* xwt,
 }  // namespace
 
 // The products a b, a b^T and a^T b of two (64, 64) row-major operands,
-// each into a (64, 64) row-major output, and [a; b] b (128, 64) with
-// [a; b] split at load (tile_tc) and from its kept TF32 parts (tile_split).
-// Returns a cudaError_t.
+// each into a (64, 64) row-major output, [a; b] b (128, 64) with [a; b]
+// split at load (tile_tc) and from its kept TF32 parts (tile_split), and
+// a b with SEP (xw_sep, (64, 64)).  Returns a cudaError_t.
 extern "C" int tc_products(const float* a, const float* b, float* xw, float* xwt,
-                           float* atb, float* tile_tc, float* tile_split) {
+                           float* atb, float* tile_tc, float* tile_split, float* xw_sep) {
   tc_kernel<<<1, THREADS, size_t(WORDS) * 4, nullptr>>>(a, b, xw, xwt, atb, tile_tc,
-                                                         tile_split);
+                                                         tile_split, xw_sep);
   return int(cudaGetLastError());
 }

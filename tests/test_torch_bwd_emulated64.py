@@ -12,8 +12,9 @@ K2b's H=64 cases are ``test_torch_bwd_emulated64_k3.py``'s and
 ``test_torch_bwd_emulated64_k2b.py``'s.  ``tests/cuda_emu/tc_harness.cu``
 holds the three product orientations the bodies use against float64, and
 the forward's product from an operand split once and kept (h and its
-TF32 parts, ``split_store``) against the product split at load, bit for
-bit.  These
+TF32 parts, ``split_store``) against the product split at load and
+against the half-tile product with the correction terms apart (SEP, the
+forward's form), bit for bit.  These
 cases have files of their own, apart from ``test_torch_bwd_emulated.py``,
 so that pytest-xdist's ``--dist loadfile`` can run them on other
 workers."""
@@ -44,7 +45,7 @@ def lib(tmp_path_factory):
 def tc_lib(tmp_path_factory):
     """The 3xTF32 product harness built with g++ against the CPU stand-in."""
     return build_emulated("tc_harness.cu", str(tmp_path_factory.mktemp("emu_tc")),
-                          entries={"tc_products": [ctypes.c_void_p] * 7},
+                          entries={"tc_products": [ctypes.c_void_p] * 8},
                           src_dir=HERE)
 
 
@@ -55,14 +56,14 @@ def test_emulated_k1b_matches_plain(lib, case):
 
 def _products(tc_lib, seed):
     """a, b (64, 64) of mixed magnitudes and the harness's products: a b,
-    a b^T, a^T b, and [a; b] b with [a; b] split at load and from its kept
-    TF32 parts."""
+    a b^T, a^T b, [a; b] b with [a; b] split at load and from its kept
+    TF32 parts, and a b with SEP."""
     rng = np.random.default_rng(seed)
     a, b = (np.ascontiguousarray(rng.standard_normal((64, 64)) *
                                  np.exp(rng.uniform(-3, 3, (64, 64))),
                                  dtype=np.float32) for _ in range(2))
     outs = [np.full(shape, np.nan, np.float32)
-            for shape in [(64, 64)] * 3 + [(128, 64)] * 2]
+            for shape in [(64, 64)] * 3 + [(128, 64)] * 2 + [(64, 64)]]
     assert tc_lib.tc_products(*(x.ctypes.data for x in (a, b, *outs))) == 0
     return a, b, outs
 
@@ -98,8 +99,12 @@ def test_emulated_presplit_product_equals_split_at_load(tc_lib, seed):
     TF32 parts kept beside it (``tc_mma_split_a``, as the forward reads h)
     gives the bits of the same product splitting x where it loads it
     (``Tc::product_tile``), and its first half the bits of the half-tile
-    product the reverse body takes."""
-    _, _, (xw, _, _, tile_tc, tile_split) = _products(tc_lib, 10 + seed)
+    product with the correction terms apart (``tc_mma``'s SEP, which the
+    forward takes and the reverse body, short of registers, does not),
+    which holds the float64 bound of the reverse body's products."""
+    a, b, (_, _, _, tile_tc, tile_split, xw_sep) = _products(tc_lib, 10 + seed)
     assert np.isfinite(tile_split).all()
     assert np.array_equal(tile_split.view(np.uint32), tile_tc.view(np.uint32))
-    assert np.array_equal(tile_split[:64].view(np.uint32), xw.view(np.uint32))
+    assert np.array_equal(tile_split[:64].view(np.uint32), xw_sep.view(np.uint32))
+    x, y = a.astype(np.float64), b.astype(np.float64)
+    assert (np.abs(xw_sep - x @ y) <= 1e-6 * (np.abs(x) @ np.abs(y))).all()

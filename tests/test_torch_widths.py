@@ -4,7 +4,9 @@ default form.
 - ``kernel_problems`` names a hidden width the card's kernels are not
   built for when the device is CUDA (GGNN at 48, MPNN at 64), and nothing
   on the CPU (it reads only the config, so it runs here without a card);
-  it takes GGNN at 64 on every kernel path;
+  it takes GGNN at 64 on every kernel path, and GGNN at 128 from a caller
+  that only serves (``serving``: the predict and evaluate CLIs) but not
+  from a trainer, since H=128's reverse kernels are not built;
 - the train and predict CLIs refuse such a width on ``--device cuda``
   before they open any CSV: the check comes before the CLIs ask whether
   CUDA is available, so nothing is patched;
@@ -159,6 +161,114 @@ def test_predict_cli_refuses_an_unbuilt_width_before_reading_pairs(tmp_path,
         predict.main(argv)
     assert ITEM in str(e.value)
     assert not (tmp_path / "preds.csv").exists()
+
+
+# ---------------------------------------------------------------------------
+# H=128: the forward body is built, the reverse one is not, so the card
+# serves GGNN at 128 and refuses to train it
+
+
+@pytest.mark.parametrize("path", ["coo", "fused", "packed"])
+@pytest.mark.parametrize("as_dict", [False, True])
+def test_kernel_problems_serve_ggnn_at_128_and_refuse_to_train_it(path, as_dict):
+    cfg = TrainConfig(compute_path=path, fp_hidden_dim=128, fp_out_dim=128)
+    assert loop.config_problems(cfg) == []
+    arg = json.loads(cfg.to_json()) if as_dict else cfg
+    assert loop.kernel_problems(arg, "cuda", serving=True) == []
+    # D != H serves through K1 and the plain readout
+    assert loop.kernel_problems(dataclasses.replace(cfg, fp_out_dim=64), "cuda",
+                                serving=True) == []
+    problems = loop.kernel_problems(arg, "cuda")
+    assert len(problems) == 1
+    assert "fp_hidden_dim=128" in problems[0] and ITEM in problems[0]
+    assert "built for [16, 32, 64]" in problems[0]
+    assert "reverse kernels K1b, K3, K2b are not built" in problems[0]
+    assert loop.kernel_problems(arg, "cpu") == []
+    assert loop.kernel_problems(arg, "cpu", serving=True) == []
+
+
+@pytest.mark.parametrize("serving", [False, True])
+@pytest.mark.parametrize("method,width,path", [("ggnn", 48, "fused"),
+                                               ("mpnn", 64, "coo"),
+                                               ("mpnn", 128, "coo")])
+def test_kernel_problems_refuse_unbuilt_widths_to_servers_too(serving, method,
+                                                              width, path):
+    cfg = TrainConfig(method=method, compute_path=path, fp_hidden_dim=width,
+                      fp_out_dim=width)
+    problems = loop.kernel_problems(cfg, "cuda", serving=serving)
+    assert len(problems) == 1
+    assert f"fp_hidden_dim={width}" in problems[0] and ITEM in problems[0]
+    assert "built for" in problems[0]
+
+
+def test_trainer_refuses_to_train_h128_on_cuda_before_any_work():
+    cfg = TrainConfig(compute_path="fused", fp_hidden_dim=128, fp_out_dim=128)
+    ds = CSVPairParser().parse(pd.read_csv(SAMPLE).head(4)).dataset
+    with pytest.raises(ValueError, match="fp_hidden_dim=128") as e:
+        loop.Trainer(cfg, ds, device="cuda")
+    assert ITEM in str(e.value)
+
+
+@pytest.mark.parametrize("path", ["coo", "fused", "packed"])
+def test_train_cli_refuses_h128_on_cuda_before_reading_csvs(tmp_path, path):
+    argv = ["--train", str(tmp_path / "missing.csv"),
+            "--val", str(tmp_path / "missing_val.csv"), "--compute-path", path,
+            "--fp-hidden-dim", "128", "--fp-out-dim", "128", "--device", "cuda",
+            "--out", str(tmp_path / "run")]
+    with pytest.raises(ValueError, match="fp_hidden_dim=128") as e:
+        train_cli.main(argv)
+    assert ITEM in str(e.value) and "reverse kernels" in str(e.value)
+    assert not (tmp_path / "run").exists()
+
+
+@pytest.mark.parametrize("cli", ["predict", "evaluate"])
+@pytest.mark.parametrize("path", ["coo", "fused", "packed"])
+def test_serving_clis_take_h128_on_cuda(tmp_path, monkeypatch, cli, path):
+    """The predict and evaluate CLIs pass GGNN at 128 on ``--device cuda``:
+    the check after the width's is the card's presence (taken away here,
+    so the test runs the same with a card), and at 48 the width's check
+    refuses first."""
+    from gcnbmp_tpu_torch.cli import evaluate as evaluate_cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for width, error, match in ((128, RuntimeError, "CUDA is not available"),
+                                (48, ValueError, "fp_hidden_dim=48")):
+        run = tmp_path / f"run{width}"
+        run.mkdir()
+        (run / "config.json").write_text(json.dumps({
+            "method": "ggnn", "sim_method": "hole", "fp_hidden_dim": width,
+            "fp_out_dim": width, "conv_layers": 2, "compute_path": path}))
+        if cli == "predict":
+            argv = ["--input", str(tmp_path / "missing.csv"), "--config",
+                    str(run / "config.json"), "--params",
+                    str(tmp_path / "missing.npz"), "--device", "cuda",
+                    "--out", str(tmp_path / "preds.csv")]
+            main = predict.main
+        else:
+            argv = ["--test", str(tmp_path / "missing.csv"), "--run", str(run),
+                    "--device", "cuda"]
+            main = evaluate_cli.main
+        with pytest.raises(error, match=match):
+            main(argv)
+        assert not (tmp_path / "preds.csv").exists()
+        assert not (run / "eval").exists()
+
+
+def test_reverse_kernels_refuse_h128_before_any_launch():
+    """The wrappers of K1b, K3 and K2b check the width against the reverse
+    body's before any launch; the forward ones take 128."""
+    for hidden in tfg.KERNEL_HIDDEN:
+        tfg.check_width(hidden)
+    for hidden in tfg.REVERSE_HIDDEN:
+        tfg.check_width(hidden, reverse=True)
+    assert 128 in tfg.KERNEL_HIDDEN and 128 not in tfg.REVERSE_HIDDEN
+    assert 128 in tfg.PANEL_HIDDEN
+    with pytest.raises(ValueError, match="reverse kernels") as e:
+        tfg.check_width(128, reverse=True)
+    assert ITEM in str(e.value)
+    for reverse in (False, True):
+        with pytest.raises(ValueError, match="hidden width 48"):
+            tfg.check_width(48, reverse)
 
 
 # ---------------------------------------------------------------------------
