@@ -8,10 +8,11 @@ Phases, each fatal on failure:
 2. build: compile the CUDA kernels from ``gcnbmp_tpu_torch/ops/csrc``,
    one nvcc per source, all at once; print ptxas's registers and spills,
    and those of each instance of the forward and backward bodies (K1,
-   K1m, K2, the GGNN reverse body, each also at H=64, K1, K1m and K2 at
-   H=128, K5, K5b, K4, K4b's two kernels); an instance of the GGNN or MPNN
-   bodies or of K4 that spills fails, and so does a build log without the
-   five H=64 and the three H=128 GGNN instances.
+   K1m, K2, the GGNN reverse body, each also at H=64 and H=128, K5, K5b,
+   K4, K4b's two kernels); an instance of the GGNN or MPNN bodies or of K4
+   that spills fails, and so does a build log without the five H=64 and
+   the six H=128 GGNN instances (K1, K1m, K2; the reverse body's three
+   launches: K1b and K3's, K2b's two).
 3. kernels vs plain, at the shapes of real packed batches (the first 2048
    pairs of dataset/synth546's drug test split at batch 256 and 2048);
    errors, median CUDA-event times of kernel and plain version per call
@@ -28,10 +29,11 @@ Phases, each fatal on failure:
       ``csrc/fused_ggnn64.cuh``, the ``ref_scale_fused64`` model, L=8
       untied; both bodies, the forward K1, K1m, K2 and the reverse K1b,
       K3, K2b, take every dense product on the tensor cores in 3xTF32) at
-      batch 256 and 2048 (P=75 and 387), crowded and L=3, and the forward
-      kernels K1, K1m and K2 at H=D=128 (``csrc/fused_ggnn128.cuh``, the
-      h=128 model of bench.py, L=8 untied; its reverse body is not built)
-      in the same four cases; each forward's
+      batch 256 and 2048 (P=75 and 387), crowded and L=3, and the same
+      six kernels at H=D=128 (``csrc/fused_ggnn128.cuh``, the forward,
+      and ``csrc/fused_ggnn128_bwd.cuh``, the reverse, with dh in global
+      memory; the h=128 model of bench.py, L=8 untied) in the same four
+      cases; each forward's
       error is printed with its closest approach to the bound; K1m's
       h must equal K1's bit for bit, K3's two halves summed must equal
       K1b within the gradient bound, and two K2 runs, and two K2b runs, on
@@ -249,12 +251,20 @@ Phases, each fatal on failure:
    ``GCNBMP_FUSED_READOUT=0`` K1 and the plain readout, K1 once per
    request, logits against the plain stack on the card (1e-4); then
    scored through the evaluate CLI (K2 once per batch, AUROC and AUPRC
-   within 1e-3 of the plain stack's).  Its reverse kernels are not built,
-   so it is not trained.
+   within 1e-3 of the plain stack's).
+21. the h=128 model trained: phase 19's flags at H=D=128 (``--method
+   ggnn --conv-layers 8 --fp-hidden-dim 128 --fp-out-dim 128
+   --weight-tying false --compute-path fused --scan-steps 10 --batch-size
+   2048 --lr 2e-3 --augment``) through the train CLI on phase 8's pairs
+   in each of the three forms, as phase 19: K2b once per step, K1b once
+   per step, K1m once and K3 twice per step, the others' kernels never
+   launched, a falling loss, one batch's gradients against the plain
+   layer stack, the batch-2048 step timed and profiled, and the K2/K2b
+   run's ``final/params.npz`` served through the predict CLI.
 
 Prints the kernels' JSON line (``launches`` from each kernel's main
 path; the H=64 kernels (``*_h64``) from phase 19's runs, the H=128 ones
-(``*_h128``: K1 and K2 from phase 20's serving, K1m on no path yet), and
+(``*_h128``) from phase 21's, with phase 20's serving beside them, and
 their times and bounds at P=75 (``ms``) and P=387 (``ms_p387``) from phase
 3a; ``launches_packed`` from phase 13's packed runs;
 ``launches_coattention`` from phases 9–10 (GGNN) and 16 (MPNN);
@@ -410,6 +420,9 @@ BODIES = (
                f"({'K2' if m[1] == '1' else 'K1m' if m[2] == '1' else 'K1'})"),
     (r"fused_ggnn_bwd_kernel64ILb([01])E",
      lambda m: f"fused_ggnn_bwd_kernel64<{'true' if m[1] == '1' else 'false'}>"),
+    (r"fused_ggnn_bwd_kernel128ILi([012])E",
+     lambda m: f"fused_ggnn_bwd_kernel128<{m[1]}> "
+               f"({['K1b, K3', 'K2b: forward, readout', 'K2b: reverse'][int(m[1])]})"),
     (r"fused_mpnn_bwd_kernelILi(\d+)E",
      lambda m: f"fused_mpnn_bwd_kernel<{m[1]}>"),
     (r"set2set_fwd_kernelILi(\d+)ELi(\d+)E",
@@ -530,9 +543,11 @@ def time_pair(name, tag, kern, plain, smi, torch, labels=("kernel", "plain"),
 
 
 # the hand-written kernels each wrapper launches, as their names appear in
-# the profiler's keys, with their launches per call
+# the profiler's keys, with their launches per call (K2b at H=128: the
+# reverse body's two launches, ``csrc/fused_ggnn128_bwd.cuh``)
 BWD_SUM = {"fused_ggnn_bwd_kernel": 1, "sum_tiles_kernel": 1}
 WRAPPER_KERNELS = {
+    "fused_ggnn_readout_bwd_h128": {"fused_ggnn_bwd_kernel": 2, "sum_tiles_kernel": 1},
     "fused_ggnn": {"fused_ggnn_kernel": 1},
     "fused_ggnn_mid": {"fused_ggnn_kernel": 1},
     "fused_ggnn_readout": {"fused_ggnn_kernel": 1},
@@ -604,10 +619,11 @@ def device_ms(fn, name, torch) -> float:
 
 
 def check_pair(name, tag, kern, plain, grad_names, gru_keys, smi, torch,
-               reps=REPS):
-    """Hold a kernel against its plain version, then time both.  Returns
-    (max abs error, kernel ms, plain ms, kernel device ms, the kernel's
-    output)."""
+               reps=REPS, profile_key=None):
+    """Hold a kernel against its plain version, then time both; the
+    device time counts the kernels of WRAPPER_KERNELS[profile_key or
+    name].  Returns (max abs error, kernel ms, plain ms, kernel device ms,
+    the kernel's output)."""
     got = kern()
     if grad_names is not None:
         err = compare_grads(f"{name} [{tag}]",
@@ -619,7 +635,7 @@ def check_pair(name, tag, kern, plain, grad_names, gru_keys, smi, torch,
     else:
         err = compare(f"{name} [{tag}]", got, plain(), torch)
     times = time_pair(name, tag, kern, plain, smi, torch, reps=reps)
-    dev_ms = device_ms(kern, name, torch)
+    dev_ms = device_ms(kern, profile_key or name, torch)
     print(f"  device {name} [{tag}]: {dev_ms:.4f} ms per call (its kernels' "
           f"device time, torch.profiler over {BACK_TO_BACK} calls)")
     return (err, *times, dev_ms, got)
@@ -3295,18 +3311,22 @@ def prefetch_slice(train_ds, dev, smi, reset_counts, read_counts):
     print(f"phase 18: {time.perf_counter() - t0:.1f} s")
 
 
-# phase 19: the ref_scale_fused64 row (scripts/quality_battery_r3.sh:33-44;
-# docs/QUALITY.md:77) through the train CLI in each kernel form: (form,
-# FUSED_READOUT, TWOPASS, kernels per step, forward kernels at least once
-# per step, kernels never)
+# phases 19 and 21: the ref_scale_fused64 row's flags
+# (scripts/quality_battery_r3.sh:33-44; docs/QUALITY.md:77) at H = D = 64
+# and at the h=128 model's H = D = 128, through the train CLI in each
+# kernel form: (form, FUSED_READOUT, TWOPASS, kernels per step, forward
+# kernels at least once per step, kernels never)
+def fused_flags(width):
+    return ["--method", "ggnn", "--conv-layers", "8", "--fp-hidden-dim",
+            str(width), "--fp-out-dim", str(width), "--weight-tying", "false",
+            "--compute-path", "fused", "--scan-steps", "10", "--lr", "2e-3",
+            "--augment"]
+
+
 FUSED64_CFG = dict(fp_hidden_dim=64, fp_out_dim=64, conv_layers=8,
                    weight_tying=False)
-FUSED64_FLAGS = ["--method", "ggnn", "--conv-layers", "8", "--fp-hidden-dim",
-                 "64", "--fp-out-dim", "64", "--weight-tying", "false",
-                 "--compute-path", "fused", "--scan-steps", "10", "--lr",
-                 "2e-3", "--augment"]
 _K2 = ["fused_ggnn_readout", "fused_ggnn_readout_bwd"]
-FUSED64_FORMS = (
+FUSED_FORMS = (
     ("K2/K2b", True, False, {"fused_ggnn_readout_bwd": 1},
      ["fused_ggnn_readout"],
      ["fused_ggnn", "fused_ggnn_mid", "fused_ggnn_bwd", "fused_ggnn_half_bwd"]),
@@ -3317,42 +3337,46 @@ FUSED64_FORMS = (
      [], _K2 + ["fused_ggnn_bwd"]))
 
 
-def fused64_slice(ds, df, dev, smi, reset_counts, read_counts, set_form):
-    """Phase 19: the ref_scale_fused64 flags through the train CLI on phase
-    8's pairs in each form (``set_form(fused_readout, twopass)``), then the
-    K2/K2b run's ``final/params.npz`` served through the predict CLI.
-    Returns ({form: launch counts}, the serving launch counts)."""
+def fused_train_slice(phase, tag, model_cfg, ds, df, dev, smi, reset_counts,
+                      read_counts, set_form):
+    """Phases 19 and 21: ``fused_flags`` at ``model_cfg``'s width through
+    the train CLI on phase 8's pairs in each form (``set_form(fused_readout,
+    twopass)``), then the K2/K2b run's ``final/params.npz`` served through
+    the predict CLI.  Returns ({form: launch counts}, the serving launch
+    counts)."""
     from gcnbmp_tpu_torch.convert import load_params_npz
     from gcnbmp_tpu_torch.train.config import TrainConfig
 
     t0 = time.perf_counter()
     train_cfg = TrainConfig(method="ggnn", compute_path="fused", scan_steps=10,
                             batch_size=N_PAIRS, learning_rate=2e-3,
-                            augment=True, **FUSED64_CFG)
+                            augment=True, **model_cfg)
+    flags = fused_flags(model_cfg["fp_hidden_dim"])
     runs = {}
     with tempfile.TemporaryDirectory(dir=ROOT) as kept:
-        for form, fused_readout, twopass, per_step, fwd, absent in FUSED64_FORMS:
+        for form, fused_readout, twopass, per_step, fwd, absent in FUSED_FORMS:
             set_form(fused_readout, twopass)
             runs[form], _ = train_slice(
-                f"fused64 {form}", FUSED64_FLAGS, N_PAIRS, train_cfg,
-                FUSED64_CFG, per_step, fwd, ((N_PAIRS, 10),), dev, smi,
-                reset_counts, read_counts, n_train=N_PROD_TRAIN, absent=absent,
+                f"{tag} {form}", flags, N_PAIRS, train_cfg, model_cfg,
+                per_step, fwd, ((N_PAIRS, 10),), dev, smi, reset_counts,
+                read_counts, n_train=N_PROD_TRAIN, absent=absent,
                 keep_dir=kept if form == "K2/K2b" else None)
         set_form(True, False)
         run = os.path.join(kept, "run")
         with open(os.path.join(run, "config.json")) as f:
             config = json.load(f)
         serve = serve_slice(
-            "fused64 final/params.npz", config, FUSED64_CFG, ds, df, dev, smi,
+            f"{tag} final/params.npz", config, model_cfg, ds, df, dev, smi,
             reset_counts, read_counts, ["fused_ggnn_readout"],
             absent=["fused_ggnn", "fused_ggnn_mid"],
             tree=load_params_npz(os.path.join(run, "final", "params.npz")))
-    print(f"phase 19: {time.perf_counter() - t0:.1f} s")
+    print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
     return runs, serve
 
 
-# phase 20: the h=128 fused model (bench.py:65, 137: GCNBMP_BENCH_HIDDEN=128,
-# GGNN with 8 untied layers, H = D = 128, a HolE head), served and scored
+# phases 20 and 21: the h=128 fused model (bench.py:65, 137:
+# GCNBMP_BENCH_HIDDEN=128, GGNN with 8 untied layers, H = D = 128, a HolE
+# head), served and scored, then trained
 FUSED128_CFG = dict(fp_hidden_dim=128, fp_out_dim=128, conv_layers=8,
                     weight_tying=False)
 FUSED128_CONFIG = {"method": "ggnn", "sim_method": "hole", "conv_layers": 8,
@@ -3493,10 +3517,10 @@ def main() -> int:
     if spilling:
         raise AssertionError("instances that spill registers: " + "; ".join(spilling))
     # the H=64 bodies (K1, K1m, K2; the reverse body with and without the
-    # readout) and the H=128 forward (K1, K1m, K2) whenever this process
-    # built the GGNN sources
+    # readout) and the H=128 ones (K1, K1m, K2; the reverse body's three
+    # launches) whenever this process built the GGNN sources
     if "fused_ggnn_bwd.cu" in (build.last_build_log or ""):
-        for width, n in (("kernel64", 5), ("kernel128", 3)):
+        for width, n in (("kernel64", 5), ("kernel128", 6)):
             found = {body for body, _ in body_registers(build.last_build_log)
                      if width in body}
             if len(found) != n:
@@ -3563,8 +3587,8 @@ def main() -> int:
                weight_tying=False)
     # H=64: the ref_scale_fused64 model (csrc/fused_ggnn64.cuh's bodies)
     cfg64 = dict(cfg, fp_hidden_dim=64, fp_out_dim=64)
-    # H=128: the forward body of csrc/fused_ggnn128.cuh (bench.py's h=128
-    # model); its reverse body is not built, so the backward pairs skip it
+    # H=128: the bodies of csrc/fused_ggnn128.cuh and fused_ggnn128_bwd.cuh
+    # (bench.py's h=128 model)
     cfg128 = dict(cfg, fp_hidden_dim=128, fp_out_dim=128)
     cases = [(SERVE_BATCH, cfg, False), (N_PAIRS, cfg, False),
              (SERVE_BATCH, dict(cfg, fp_hidden_dim=16, fp_out_dim=16), False),
@@ -3617,8 +3641,6 @@ def main() -> int:
                 headline = c in (cfg64, cfg128) and not crowd
             width_key = ((lambda n: f"{n}_h{hidden}") if wide
                          else (lambda n: n))
-            # H=128: the forward kernels alone
-            reverse = hidden in fused_ggnn_module.REVERSE_HIDDEN
             suffix = "_p387" if wide and bs == N_PAIRS else ""
             # the L=3 case is there for K1m's and K3's odd split
             odd = n_layers % 2 == 1
@@ -3661,12 +3683,12 @@ def main() -> int:
             for name, rng_tag, kern, plain, grads, head, ops, inputs in pairs:
                 if odd and name not in ("fused_ggnn_mid", "fused_ggnn_half_bwd"):
                     continue
-                if grads is not None and not reverse:
-                    continue
                 # the H=64 and H=128 bodies run on the tensor cores
                 record(name, tag + rng_tag,
                        *check_pair(name, tag + rng_tag, kern, plain, grads,
-                                   GRU_KEYS, smi, torch, reps),
+                                   GRU_KEYS, smi, torch, reps,
+                                   width_key(name) if width_key(name)
+                                   in WRAPPER_KERNELS else None),
                        head, sum(ops), inputs, key=width_key(name),
                        suffix=suffix, tc_terms=ops if wide else None)
             # K1m is K1 with one more store: the same h, bit for bit
@@ -3675,8 +3697,6 @@ def main() -> int:
             if not odd:
                 repeat_bits("K2", tag, lambda: fused_ggnn_readout(
                     *k1_args, *readout), torch)
-            if not reverse:
-                continue
             if not odd:
                 repeat_bits("K2b", tag, lambda: fused_ggnn_readout_bwd(
                     *k1_args, *readout, dout), torch)
@@ -3978,8 +3998,9 @@ def main() -> int:
     # 19. the ref_scale_fused64 row (H = D = 64) through the train CLI in
     # the three forms, then its final parameters served
     try:
-        fused64, serve64 = fused64_slice(ds, df, dev, smi, reset_counts,
-                                         read_counts, set_form)
+        fused64, serve64 = fused_train_slice(
+            19, "fused64", FUSED64_CFG, ds, df, dev, smi, reset_counts,
+            read_counts, set_form)
     finally:
         set_form(*saved_form)
     print(f"phase 19 done at {time.perf_counter() - t_start:.1f} s")
@@ -3992,6 +4013,16 @@ def main() -> int:
     finally:
         set_form(*saved_form)
     print(f"phase 20 done at {time.perf_counter() - t_start:.1f} s")
+
+    # 21. the h=128 model (H = D = 128) trained through the train CLI in the
+    # three forms, then its final parameters served
+    try:
+        fused128, _ = fused_train_slice(
+            21, "fused128", FUSED128_CFG, ds, df, dev, smi, reset_counts,
+            read_counts, set_form)
+    finally:
+        set_form(*saved_form)
+    print(f"phase 21 done at {time.perf_counter() - t_start:.1f} s")
 
     sources = {"fused_ggnn": "fused_ggnn.cu", "fused_ggnn_mid": "fused_ggnn.cu",
                "fused_ggnn_readout": "fused_ggnn.cu",
@@ -4064,51 +4095,38 @@ def main() -> int:
                 "bound_by")},
             # no single PyTorch call computes any of these functions
             "library_ms": None})
-    # the H=64 bodies: launches from phase 19's run of each form, times and
-    # bounds from phase 3a (P=75, and P=387 under the _p387 keys)
+    # the H=64 and H=128 bodies: launches from phase 19's (H=64) and phase
+    # 21's (H=128) run of each form, times and bounds from phase 3a (P=75,
+    # and P=387 under the _p387 keys); serving beside them (phase 19's
+    # final parameters at H=64; phase 20's seeded model at H=128, K2 and K1
+    # forms and the evaluate CLI)
     form_of = {"fused_ggnn": "K1/K1b", "fused_ggnn_bwd": "K1/K1b",
                "fused_ggnn_mid": "K1m/K3", "fused_ggnn_half_bwd": "K1m/K3",
                "fused_ggnn_readout": "K2/K2b", "fused_ggnn_readout_bwd": "K2/K2b"}
-    for name, form in form_of.items():
-        launches = fused64[form][name]
-        if launches == 0:
-            raise AssertionError(f"{name} at H=64 never launched in phase 19")
-        r = results[f"{name}_h64"]
-        kernels.append({
-            "name": f"{name}_h64", "route": "cuda",
-            "source": f"gcnbmp_tpu_torch/ops/csrc/{sources[name]}",
-            "replaces": replaces[name], "launches": launches,
-            **({"launches_serving": serve64[name]}
-               if name == "fused_ggnn_readout" else {}),
-            **{k + p: r[k + p] for p in ("", "_p387") for k in
-               ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
-            # the bound with every operation in f32 (``bound_ms`` is the
-            # one on the route both bodies take, 3xTF32)
-            **{"bound_f32_ms" + p: r["bound_f32_ms" + p] for p in ("", "_p387")},
-            "max_abs_err": r["max_abs_err"], "library_ms": None})
-    # the H=128 forward body: launches from phase 20's serving (K1m's path,
-    # two-pass training, waits for the H=128 reverse body), times and
-    # bounds from phase 3a
-    served128 = {"fused_ggnn": serve128_k1["fused_ggnn"],
-                 "fused_ggnn_mid": 0,
-                 "fused_ggnn_readout": serve128["fused_ggnn_readout"]}
-    for name, launches in served128.items():
-        if launches == 0 and name != "fused_ggnn_mid":
-            raise AssertionError(f"{name} at H=128 never launched in phase 20")
-        r = results[f"{name}_h128"]
-        kernels.append({
-            "name": f"{name}_h128", "route": "cuda",
-            "source": "gcnbmp_tpu_torch/ops/csrc/fused_ggnn.cu",
-            "replaces": replaces[name], "launches": launches,
-            **({"launches_evaluate": evaluate128[name]}
-               if name == "fused_ggnn_readout" else {}),
-            **({"main_path": "two-pass training at H=128, whose reverse "
-                             "body is not built yet"}
-               if name == "fused_ggnn_mid" else {}),
-            **{k + p: r[k + p] for p in ("", "_p387") for k in
-               ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
-            **{"bound_f32_ms" + p: r["bound_f32_ms" + p] for p in ("", "_p387")},
-            "max_abs_err": r["max_abs_err"], "library_ms": None})
+    beside = {64: {"fused_ggnn_readout": {"launches_serving": serve64}},
+              128: {"fused_ggnn_readout": {"launches_serving": serve128,
+                                           "launches_evaluate": evaluate128},
+                    "fused_ggnn": {"launches_serving": serve128_k1}}}
+    for width, (phase, runs) in ((64, (19, fused64)), (128, (21, fused128))):
+        for name, form in form_of.items():
+            launches = runs[form][name]
+            if launches == 0:
+                raise AssertionError(f"{name} at H={width} never launched in "
+                                     f"phase {phase}")
+            r = results[f"{name}_h{width}"]
+            kernels.append({
+                "name": f"{name}_h{width}", "route": "cuda",
+                "source": f"gcnbmp_tpu_torch/ops/csrc/{sources[name]}",
+                "replaces": replaces[name], "launches": launches,
+                **{key: counts[name] for key, counts in
+                   beside[width].get(name, {}).items()},
+                **{k + p: r[k + p] for p in ("", "_p387") for k in
+                   ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+                # the bound with every operation in f32 (``bound_ms`` is the
+                # one on the route the bodies take, 3xTF32)
+                **{"bound_f32_ms" + p: r["bound_f32_ms" + p]
+                   for p in ("", "_p387")},
+                "max_abs_err": r["max_abs_err"], "library_ms": None})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

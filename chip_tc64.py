@@ -495,8 +495,8 @@ SEP_VARIANTS = {
           "sep_gru": [(H128, _SEP_TILE, _SEP_TILE.replace(", true>", ">"), 1)]},
 }
 # phase 4: tc_mma's SEP on by default, so in every product of the reverse body
-SEP_OFF = "int LDA = H, bool SEP = false>"
-SEP_ON = "int LDA = H, bool SEP = true>"
+SEP_OFF = "int LDA = H, bool SEP = false,"
+SEP_ON = "int LDA = H, bool SEP = true,"
 
 # phase 6: thread 0 of each CTA adds the cycles since its last marker (its
 # last reading kept in global memory by block)

@@ -91,7 +91,7 @@ def main(argv=None):
                    else args.config)
     with open(config_path) as f:
         config = json.load(f)
-    problems = kernel_problems(config, args.device, serving=True)
+    problems = kernel_problems(config, args.device)
     if problems:
         raise ValueError("configuration outside what the card's kernels "
                          "serve: " + "; ".join(problems))

@@ -34,6 +34,10 @@ default, runs the CUDA kernels; ``cpu`` runs their plain versions).
         --method ggnn-gwm --conv-layers 4 --fp-hidden-dim 32 \\
         --fp-out-dim 32 --batch-size 2048 --lr 2e-3 --augment \\
         --compute-path coo --scan-steps 10 --device cuda
+    python -m gcnbmp_tpu_torch.cli.train --train train.csv --val val.csv \\
+        --method ggnn --conv-layers 8 --weight-tying false \\
+        --fp-hidden-dim 128 --fp-out-dim 128 --compute-path fused \\
+        --scan-steps 10 --batch-size 2048 --lr 2e-3 --augment --device cuda
 
 The first line trains the flagship on the padded layout, as the JAX
 CLI does without ``--compute-path``: ``PairPredictor`` over padded
@@ -50,7 +54,10 @@ sixth line trains RelGCN and the seventh GGNN with the JKNet ``gru``
 aggregator on multi-label data; they, GIN and NFP run plain PyTorch ops
 (no kernel computes them, in either package).  The eighth trains
 GGNN-GWM, the supernode table on the wire, in scan mode (plain PyTorch
-ops too); GWM scan mode needs ``coo``, as in the JAX package.
+ops too); GWM scan mode needs ``coo``, as in the JAX package.  The ninth
+trains bench.py's h=128 model (H = D = 128, 8 untied layers) on the GGNN
+kernels at that width, K2 and K2b (``GCNBMP_FUSED_READOUT=0``: K1 and
+K1b; with ``GCNBMP_FUSED_TWOPASS=1`` too: K1m and K3).
 ``--compute-path packed`` trains the same compact-COO predictor as
 ``coo`` for every method above (co-attention refused, as in the JAX
 package, whose ``packed`` path ships dense batches).  Writes

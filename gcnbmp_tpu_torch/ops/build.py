@@ -22,7 +22,8 @@ from typing import Dict, Optional
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD_DIR = os.path.join(HERE, "build")
-HEADERS = ("fused_ggnn_common.cuh", "fused_ggnn64.cuh", "fused_ggnn128.cuh")
+HEADERS = ("fused_ggnn_common.cuh", "fused_ggnn64.cuh", "fused_ggnn128.cuh",
+           "fused_ggnn128_bwd.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

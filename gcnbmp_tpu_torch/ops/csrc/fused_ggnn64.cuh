@@ -144,8 +144,9 @@ __device__ __forceinline__ void split_tf32(float v, float& hi, float& lo) {
 
 // acc += A B in 3xTF32 over the depth [0, depth) for the warp's block of
 // NM x NN tiles (16 x 8) at rows R + MS mi, columns C + 8 nj, every
-// operand a buffer of H-word rows in the Tc layout (A without TA: rows of
-// LDA words, whose swizzle is the same for any multiple of 32): A[r][k] =
+// operand a buffer in the Tc layout, a of LDA-word rows, b of H-word rows
+// with TB (a panel), else of LDB (the swizzle of a row is the same for any
+// multiple of 32 words): A[r][k] =
 // a[k][r] if TA else a[r][k], B[k][c] = b[c][k] if TB else b[k][c].  acc holds tile
 // (mi, nj)'s d0..d3 at 4 (mi NN + nj).  R and C are multiples of 16 and 8,
 // so each lane's swizzle is one of four constants.  An operand read along
@@ -155,9 +156,12 @@ __device__ __forceinline__ void split_tf32(float v, float& hi, float& lo) {
 // added to acc at the end: the tensor cores truncate each mma's sum to the
 // magnitude of its accumulator, so acc then takes one truncation per
 // 8-deep step instead of three.  The forward bodies (H = 64, 128) take
-// every product with SEP; the reverse body without, since the 4 NM NN
-// more registers make it spill (chip_tc64.py phase 4).
-template <bool TA, bool TB, int NM, int NN, int MS = 16, int LDA = H, bool SEP = false>
+// every product with SEP; the reverse bodies without, since the 4 NM NN
+// more registers make them spill (chip_tc64.py phase 4; at H = 128,
+// fused_ggnn128_bwd.cuh).  UNROLL: the depth loop's unrolling (the H = 128
+// reverse body takes 1, for registers).
+template <bool TA, bool TB, int NM, int NN, int MS = 16, int LDA = H, bool SEP = false,
+          int LDB = H, int UNROLL = 2>
 __device__ __forceinline__ void tc_mma(const float* a, const float* b, int depth,
                                        int R, int C, int g, int q, float* acc) {
   static_assert(!TB || NN == 2, "ldmatrix brings two n-tiles of B");
@@ -167,7 +171,7 @@ __device__ __forceinline__ void tc_mma(const float* a, const float* b, int depth
   const int sg = swz(g), sq0 = swz(q), sq1 = swz(q + 4);
   // ldmatrix: lane 8j + r gives row r of block j
   const int lr = (4 * g + q) & 7, lj = (4 * g + q) >> 3, slr = swz(lr);
-#pragma unroll 2
+#pragma unroll (UNROLL)
   for (int k0 = 0; k0 < depth; k0 += 8) {
     float ah[NM][4], al[NM][4];
 #pragma unroll
@@ -177,7 +181,7 @@ __device__ __forceinline__ void tc_mma(const float* a, const float* b, int depth
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int r = R + MS * mi + g + 8 * (i & 1);
-          v[i] = a[(k0 + q + 4 * (i >> 1)) * H + (r ^ (i >> 1 ? sq1 : sq0))];
+          v[i] = a[(k0 + q + 4 * (i >> 1)) * LDA + (r ^ (i >> 1 ? sq1 : sq0))];
         }
       } else {  // blocks: rows +0 / +8 (j & 1), depths +0 / +4 (j >> 1)
         ldsm_x4(v, a + (R + MS * mi + lr + 8 * (lj & 1)) * LDA + ((k0 + 4 * (lj >> 1)) ^ slr));
@@ -194,7 +198,7 @@ __device__ __forceinline__ void tc_mma(const float* a, const float* b, int depth
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int c = C + 8 * nj + g;
-        split_tf32(TB ? bt[2 * nj + i] : b[(k0 + q + 4 * i) * H + (c ^ (i ? sq1 : sq0))],
+        split_tf32(TB ? bt[2 * nj + i] : b[(k0 + q + 4 * i) * LDB + (c ^ (i ? sq1 : sq0))],
                    bh[i], bl[i]);
       }
 #pragma unroll
@@ -547,7 +551,9 @@ __device__ __forceinline__ void aggregate_edge(const float* adj_t, int e,
 // dhw_e (T x H) = A_e^T dm for edge type e: thread owns column c of the
 // rows k of dhw_e, column eT + k of A_flat: its column list in ascending
 // row order, then the crowded rows in ascending order, as column_gather.
-template <class P>
+// dhw_e is in P's layout, dm in PM's (P's unless given: the H = 128 body's
+// dm is a column half of a wider buffer).
+template <class P, class PM = P>
 __device__ __forceinline__ void column_gather_edge(const float* adj_t, int e,
                                                    const float* s_dm,
                                                    const int* s_cs, const Idx* s_cr,
@@ -559,11 +565,11 @@ __device__ __forceinline__ void column_gather_edge(const float* adj_t, int e,
     float acc = 0.0f;
     const int end = s_cs[kk + 1];
     for (int q = s_cs[kk]; q < end; ++q)
-      acc = fmaf(s_cv[q], s_dm[P::at(int(s_cr[q]), c)], acc);
+      acc = fmaf(s_cv[q], s_dm[PM::at(int(s_cr[q]), c)], acc);
     for (int o = 0; o < n_ov; ++o) {
       const int i = s_ov[o];
       const float a = __ldg(adj_t + size_t(i) * ROW_LEN + kk);
-      if (a != 0.0f) acc = fmaf(a, s_dm[P::at(i, c)], acc);
+      if (a != 0.0f) acc = fmaf(a, s_dm[PM::at(i, c)], acc);
     }
     s_dhw[P::at(k, c)] = acc;
   }

@@ -133,8 +133,23 @@
 //   operands K-major from shared memory, so W, W^T and a^T b would need
 //   copies the plan has no room for), dropping the recompute of the
 //   forward (half of the products), more CTAs per tile at small P.
+//
+// At H = 128 (fused_ggnn_bwd_kernel128) the H = 64 plan's five T x H
+// buffers alone would take 320 KB: that width's reverse body runs on the
+// H = 128 forward's plan (fused_ggnn128.cuh: the weights through the two
+// panels in one sequence, the recompute with the forward's terms in its
+// order) plus the column lists, 228,976 bytes, with dh in global memory
+// (the output dh_bot, each entry owned by one thread), the GRU's reverse by
+// row halves in the work buffer and the other half's rows of h and m, and
+// the message backward by column halves (fused_ggnn128_bwd.cuh has the
+// plan and why); K2b takes two launches of it, the forward with the
+// readout's backward, then the reverse (registers; h128::rev_block).  Its
+// per-tile partial row is 676,224 words at L = 8 (725,632 with the
+// readout's): 1.05 GB (1.12 GB) at P = 387, summed by the same
+// sum_tiles_kernel; the first NE H H words of the row are the body's
+// global scratch until it writes them last.
 
-#include "fused_ggnn64.cuh"
+#include "fused_ggnn128_bwd.cuh"
 
 namespace {
 
@@ -764,6 +779,403 @@ cudaError_t launch_bwd64(const float* hin, const float* adj, const Weights& w,
   return cudaGetLastError();
 }
 
+// The reverse of one GRU half of layer l at H = 128 (rows [hf HALF, hf HALF
+// + HALF)), after the message step left m, whose other half's rows are
+// parked in global memory: the gates recomputed as the forward takes them
+// (h128::gate_blocks: r, z, n by column halves), then d{z,r,n}', dh = dh_in
+// + ds in place in global memory (dh_in alone at layer 0; the state's term
+// ds is carried there until then), the half's GRU weight gradients
+// (`acc_gru`: added to the tile's row) and dm into the half's rows of m.
+// The 64 x H buffers: r*s, then dr', in the work buffer; z, then dz', in
+// the other half's rows of m; dn' in the other half's rows of h; r in
+// global memory (Scratch::R), each entry read back by the thread that wrote
+// it.  Each product runs in a loop over its blocks.
+template <class S>
+__device__ __forceinline__ void gru_reverse128(const h128::Tile& t, const h128::Globals& g,
+                                               bool zero_state, bool acc_gru, int hf, S& seq,
+                                               h64::Panels& p, int tid) {
+  using namespace h128;
+  using G = GradLayout<H>;
+  const Tc::Own o(h64::fresh_tid());
+  const float* h = t.h + hf * HALF * H;
+  const float* m = t.m + hf * HALF * H;
+  float* rs = t.work;
+  float* dz = t.m + (1 - hf) * HALF * H;
+  float* dn = t.h + (1 - hf) * HALF * H;
+  // o's k-th output of column half c in dh (row-major), and r
+  auto dh_at = [&](int k, int c) {
+    return g.dh() + (hf * HALF + o.row(k)) * H + c * HB + o.col(k);
+  };
+  auto rg = [&] { return g.part() + Scratch::R; };
+#pragma unroll 1
+  for (int gc = 0; gc < 6; ++gc) {  // r, z, n by column halves
+    const int gate = gc >> 1, c = gc & 1;
+    float acc[RPH];
+    fill_half(acc, (gate == 0 ? t.br : gate == 1 ? t.bz : t.bn) + c * HB, o);
+    gate_blocks(t, hf, zero_state, gate, seq, p, o, acc, tid);
+#pragma unroll
+    for (int k = 0; k < RPH; ++k) {
+      const int i = own_at(o, k, 0, c);
+      if (gate == 0) {
+        const float rv = sigmoidf(acc[k]);
+        rs[i] = zero_state ? 0.0f : rv * h[i];
+        rg()[i] = rv;
+      } else if (gate == 1) {
+        dz[i] = sigmoidf(acc[k]);
+      } else {  // the reverse's elementwise step on these columns
+        float* d = dh_at(k, c);
+        const float s = zero_state ? 0.0f : h[i];
+        const float z = dz[i], nv = tanhf(acc[k]), dhv = *d;
+        *d = dhv * (1.0f - z);
+        dn[i] = dhv * z * (1.0f - nv * nv);
+        dz[i] = dhv * (nv - s) * z * (1.0f - z);
+      }
+    }
+  }
+  __syncthreads();
+
+  // the gradients of dz' and dn': h^T dz' is dWz's top half and dUz alike
+  // (the state is h, zero at layer 0), m^T dz' its bottom half, likewise
+  // dn' and dWn; (r s)^T dn' is dUn (r s is stored as zero at layer 0)
+  {
+    float* o1 = g.gru();
+    const GradPass128<5> g1 = {
+        {h, h, m, m, rs}, {dz, dn, dz, dn, dn},
+        {o1 + G::WZ, o1 + G::WN, o1 + G::WZ + H * H, o1 + G::WN + H * H, o1 + G::UN},
+        {o1 + G::UZ, nullptr, nullptr, nullptr, nullptr}};
+    grad_pass128(g1, HALF, acc_gru, !zero_state, tid);
+  }
+  col_sums<2, H, H>({dz, dn}, {g.gru() + G::BZ, g.gru() + G::BN}, HALF, acc_gru, tid);
+
+  // drs = dn' Un^T by column halves; ds += drs r, and dr' = drs s r (1 - r)
+  // where r*s was (dUn read it before the first block's barrier)
+#pragma unroll 1
+  for (int kb = 0; kb < 2; ++kb) {
+    float a[RPH] = {};
+#pragma unroll 1
+    for (int cb = 0; cb < 2; ++cb) xwt<H>(dn + cb * HB, seq.take(p, tid), o, a);
+#pragma unroll
+    for (int k = 0; k < RPH; ++k) {
+      const int i = own_at(o, k, 0, kb);
+      float* d = dh_at(k, kb);
+      const float s = zero_state ? 0.0f : h[i], rv = rg()[i];
+      *d = fmaf(a[k], rv, *d);
+      rs[i] = a[k] * s * rv * (1.0f - rv);
+    }
+  }
+  __syncthreads();
+  {
+    float* o2 = g.gru();
+    const GradPass128<2> g2 = {{h, m}, {rs, rs}, {o2 + G::WR, o2 + G::WR + H * H},
+                               {o2 + G::UR, nullptr}};
+    grad_pass128(g2, HALF, acc_gru, !zero_state, tid);
+  }
+  col_sums<1, H, H>({rs}, {g.gru() + G::BR}, HALF, acc_gru, tid);
+
+  // per output column half kb: ds += d{z,r}' U{z,r}^T, then dh = d{z,r,n}'
+  // W{z,r,n}[:H]^T + ds, as the narrower widths take them; then dm =
+  // d{z,r,n}' W{z,r,n}[H:]^T into the half's rows of m, which the
+  // gradients read before the first block's barrier.  Blocks u of a pass:
+  // Uz, Ur (the dh pass only), Wz, Wr, Wn, by the operand's column halves.
+#pragma unroll 1
+  for (int pk = 0; pk < 4; ++pk) {
+    const bool to_m = pk >= 2;
+    const int kb = pk & 1;
+    float a[RPH] = {};
+#pragma unroll 1
+    for (int u = to_m ? 4 : 0; u < 10; ++u) {
+      if (u == 4 && !to_m) {  // ds += d{z,r}' U{z,r}^T is complete
+#pragma unroll
+        for (int k = 0; k < RPH; ++k) {
+          *dh_at(k, kb) += a[k];
+          a[k] = 0.0f;
+        }
+      }
+      const float* x = (u >= 8 ? dn : (u & 2) ? rs : dz) + (u & 1) * HB;
+      const float* wb = seq.take(p, tid);
+      if (u >= 4 || !zero_state) xwt<H>(x, wb, o, a);
+    }
+#pragma unroll
+    for (int k = 0; k < RPH; ++k) {
+      if (to_m) {
+        t.m[own_at(o, k, hf, kb)] = a[k];
+      } else {
+        float* d = dh_at(k, kb);
+        *d = zero_state ? a[k] : a[k] + *d;
+      }
+    }
+  }
+}
+
+// K2b's seed at H = 128: the gated readout's backward from dg (T x D, D =
+// H) by column halves c of D, h the stack's output in t.h and h0 loaded
+// into t.m (the products by row halves, as the forward's readout takes
+// them over the tile).  Its weight gradients go to the tile's row, dh = dpi Wi[:H]^T
+// + doj Wj^T to dh and h0's direct term dpi Wi[H:]^T to Scratch::DIRECT
+// (both row-major in global memory); the gate, then dpi, of a column half
+// in the work buffer, doj in global memory (Scratch::R, the owner's
+// entries) until dpi is done.
+template <class S>
+__device__ __forceinline__ void readout_bwd128(const h128::Tile& t, const h128::Globals& g,
+                                               const float* s_bi, const float* s_bj, S& seq,
+                                               h64::Panels& p, int tid) {
+  using namespace h128;
+  using G = GradLayout<H>;
+  float* s_h0 = t.m;  // read after the first block's barrier
+  for (int i = tid; i < TH; i += THREADS) s_h0[at(i / H, i % H)] = g.hin()[i];
+  const Tc::Own o(h64::fresh_tid());
+  auto doj = [&] { return g.part() + Scratch::R; };
+#pragma unroll 1
+  for (int c = 0; c < 2; ++c) {
+    // by row halves: the gate sigmoid([h, h0] Wi + bi) into the work
+    // buffer, then h Wj + bj, as the forward's readout takes them; then dpi
+    // and doj
+#pragma unroll 1
+    for (int hf = 0; hf < 2; ++hf) {
+      float acc[RPH];
+#pragma unroll 1
+      for (int k = 0; k < 6; ++k) {
+        if (k == 4) {
+#pragma unroll
+          for (int j = 0; j < RPH; ++j)
+            t.work[hf * HALF * HB + o.at(j)] = sigmoidf(acc[j]);
+        }
+        if (k == 0 || k == 4) fill_half(acc, (k == 0 ? s_bi : s_bj) + c * HB, o);
+        product_half1(k == 2 || k == 3 ? s_h0 : t.h, hf, k & 1, seq.take(p, tid), o, acc);
+      }
+#pragma unroll
+      for (int j = 0; j < RPH; ++j) {
+        const int row = hf * HALF + o.row(j), col = c * HB + o.col(j);
+        const int i = hf * HALF * HB + o.at(j);
+        const float gate = t.work[i];
+        const float dgv = g.dout()[row * H + col] * g.mask()[row];
+        t.work[i] = dgv * acc[j] * gate * (1.0f - gate);
+        doj()[i] = dgv * gate;
+      }
+    }
+    __syncthreads();
+    // dWi[:, c] = [h, h0]^T dpi (blocks ib and ib + 2 on each half of the
+    // CTA) and dbi; dh (+)= dpi Wi[:H]^T, h0's direct term (+)= dpi Wi[H:]^T
+#pragma unroll 1
+    for (int ib = tid >> 8; ib < 4; ib += 2)  // blocks ib, ib + 2 on this half of the CTA
+      grad_block<H, HB>((ib < 2 ? t.h : s_h0) + (ib & 1) * HB, t.work,
+                        g.ro() + G::WI + ib * HB * H + c * HB, nullptr, TILE, false,
+                        false);
+    col_sums<1, HB, HB>({t.work}, {g.ro() + G::BI + c * HB}, TILE, false, tid);
+#pragma unroll 1
+    for (int u = 0; u < 4; ++u)
+      xwt_tile_global(t.work, seq.take(p, tid),
+                      (u < 2 ? g.dh() : g.part() + Scratch::DIRECT) + (u & 1) * HB, c > 0);
+    // doj into the work buffer once every thread is done with dpi;
+    // dWj[:, c] = h^T doj and dbj; dh += doj Wj^T
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 2 * RPH; ++j) t.work[h64::tile_at(o, j)] = doj()[h64::tile_at(o, j)];
+    __syncthreads();
+    const int ia = tid >> 8;
+    grad_block<H, HB>(t.h + ia * HB, t.work, g.ro() + G::WJ + ia * HB * H + c * HB,
+                      nullptr, TILE, false, false);
+    col_sums<1, HB, HB>({t.work}, {g.ro() + G::BJ + c * HB}, TILE, false, tid);
+#pragma unroll 1
+    for (int kb = 0; kb < 2; ++kb)
+      xwt_tile_global(t.work, seq.take(p, tid), g.dh() + kb * HB, true);
+  }
+}
+
+// The reverse body at H = 128 (fused_ggnn128_bwd.cuh), in the launches of
+// MODE (h128::rev_block): the forward over the range (the H = 128
+// forward's layer step, each product in a loop), K2b's readout backward,
+// the reverse with dh in global memory (dh_bot), the GRU by row halves and
+// the message backward by edge types and column halves, every weight block
+// through the panels in one sequence per launch.
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, 1)
+fused_ggnn_bwd_kernel128(const float* __restrict__ hin, const float* __restrict__ adj,
+                         Weights w, Readout ro, const float* __restrict__ dout,
+                         float* dh_bot, float* partial, float* hs, int lo, int hi,
+                         int n_grad) {
+  using namespace h128;
+  using S = RPlan;
+  using G = GradLayout<H>;
+  constexpr bool FORWARD = MODE != 2, REVERSE = MODE != 1;
+  extern __shared__ float smem[];
+  // the adjacency is read through g (Globals), not t
+  const Tile t = {nullptr, smem + S::HIN, smem + S::MS, smem + S::WORK, smem + S::B_MSG,
+                  smem + S::BZ, smem + S::BR, smem + S::BN,
+                  reinterpret_cast<const Idx*>(smem + S::NK), smem + S::NV,
+                  reinterpret_cast<const int*>(smem + S::NC)};
+  int* s_cs = reinterpret_cast<int*>(smem + S::CS);
+  Idx* s_cr = reinterpret_cast<Idx*>(smem + S::CR);
+  float* s_cv = smem + S::CV;
+  int* s_ov = reinterpret_cast<int*>(smem + S::OV);
+  int* s_ovn = reinterpret_cast<int*>(smem + S::OVN);
+
+  const int tid = threadIdx.x;
+  const size_t tile = blockIdx.x;
+  const float* adj_t = adj + tile * TILE * ROW_LEN;
+  float** s_ptrs = reinterpret_cast<float**>(smem + S::PTRS);
+  if (tid == 0) {
+    const int n_range = hi - lo;
+    float* part = partial + tile * size_t(n_grad);
+    const float* rows[] = {adj_t,
+                           hs + tile * size_t(n_range) * TH,
+                           dh_bot + tile * TH,
+                           part,
+                           part + G::msg_b0(n_range),
+                           part + G::gru0(n_range),
+                           part + G::gru0(n_range) + G::GRU_WORDS,
+                           hin + tile * TH,
+                           dout + tile * TH,
+                           MODE == 1 ? ro.mask + tile * TILE : nullptr};
+    for (int i = 0; i < 10; ++i) s_ptrs[i] = const_cast<float*>(rows[i]);
+  }
+  const Globals g = {s_ptrs};
+
+  // 1. the row lists, the column lists for a reverse (trap (a)), then the
+  // forward over the range, keeping each layer's input in hs
+  Panels p;
+  h64::panels_start<Tc, H>(p, smem + S::PANELS,
+                           rev_block<MODE, FORWARD ? 0 : 2>(w, ro, lo, hi, 0), tid);
+  for (int i = tid; i < H; i += THREADS) {
+    smem[S::BZ + i] = w.bz[i]; smem[S::BR + i] = w.br[i]; smem[S::BN + i] = w.bn[i];
+    if (MODE == 1) { smem[S::BI + i] = ro.bi[i]; smem[S::BJ + i] = ro.bj[i]; }
+  }
+  if (FORWARD) {
+    const float* h0_t = hin + tile * TH;  // h0 when lo == 0, else h_mid
+    for (int i = tid; i < TH; i += THREADS) t.h[at(i / H, i % H)] = h0_t[i];
+  }
+  scan_rows(adj_t, reinterpret_cast<Idx*>(smem + S::NK), smem + S::NV,
+            reinterpret_cast<int*>(smem + S::NC), tid);
+  __syncthreads();
+  if (REVERSE)
+    count_columns(t.nk, t.nv, t.nc, s_cs, s_cr, s_cv, s_ov, s_ovn,
+                  reinterpret_cast<unsigned*>(t.work), tid);
+  if constexpr (FORWARD) {
+    RSeq<MODE, 0> fwd_seq = {w, ro, lo, hi};
+#pragma unroll 1
+    for (int l = lo; l < hi; ++l) {
+      for (int i = tid; i < TH; i += THREADS) g.hs(l - lo)[i] = t.h[i];
+      // the previous layer's readers of the biases are past its last barrier
+      for (int i = tid; i < NE * H; i += THREADS) t.bmsg[i] = w.msg_b[size_t(l) * NE * H + i];
+      messages_looped(t, g, fwd_seq, p, tid);
+#pragma unroll 1
+      for (int hf = 0; hf < 2; ++hf)
+        gru_half_looped(t, l == 0, hf, g.part() + Scratch::PARK, g.part() + Scratch::R,
+                        fwd_seq, p, tid);
+      __syncthreads();
+    }
+  }
+
+  // 2. seed dh: the readout's backward (K2b's first launch, which ends
+  // there) or dh_top (K1b, K3; K2b's second launch finds the seed in dh)
+  if constexpr (MODE == 1) {
+    RSeq<MODE, 1> ro_seq = {w, ro, lo, hi};
+    readout_bwd128(t, g, smem + S::BI, smem + S::BJ, ro_seq, p, tid);
+    return;
+  }
+  if (MODE == 0)
+    for (int i = tid; i < TH; i += THREADS) g.dh()[i] = g.dout()[i];
+
+  // 3. reverse the range's layers
+  RSeq<MODE, 2> rev_seq = {w, ro, lo, hi};
+#pragma unroll 1
+  for (int l = hi - 1; l >= lo; --l) {
+    const bool zero_state = (l == 0);  // trap (b): ds survives at l == lo > 0
+    __syncthreads();  // the last readers of h, m and the message biases are done
+    for (int i = tid; i < TH; i += THREADS) t.h[i] = g.hs(l - lo)[i];
+    for (int i = tid; i < NE * H; i += THREADS) t.bmsg[i] = w.msg_b[size_t(l) * NE * H + i];
+    messages_looped(t, g, rev_seq, p, tid);
+    // the GRU by row halves, each borrowing the other half's rows of h
+    // (reloaded from hs after) and of m (parked in global memory meanwhile:
+    // m's, then the first half's dm)
+#pragma unroll 1
+    for (int hf = 0; hf < 2; ++hf) {
+      __syncthreads();
+      for (int i = tid; i < HALF * H; i += THREADS) {
+        float* park = g.part() + Scratch::PARK;
+        if (hf == 1) {
+          t.m[HALF * H + i] = park[i];
+          t.h[HALF * H + i] = g.hs(l - lo)[HALF * H + i];
+        }
+        park[i] = t.m[hf == 0 ? HALF * H + i : i];
+      }
+      gru_reverse128(t, g, zero_state, l != hi - 1 || hf != 0, hf, rev_seq, p, tid);
+    }
+    __syncthreads();
+    for (int i = tid; i < HALF * H; i += THREADS) {
+      t.m[i] = g.part()[Scratch::PARK + i];
+      t.h[i] = g.hs(l - lo)[i];
+    }
+    if (MODE == 2 && l == 0) {  // dh0's direct term, once layer 0's GRU has consumed dh
+      for (int i = tid; i < TH; i += THREADS) g.dh()[i] += g.part()[Scratch::DIRECT + i];
+    }
+    // message backward, by edge types and column halves: dhw_e[:, c] =
+    // A_e^T dm[:, c] into the work buffer, then layer l's message
+    // gradients of those columns (two blocks, one on each half of the
+    // CTA) and dh += dhw_e[:, c] W_e[:, c]^T.  The scratch above is dead
+    // before layer lo's gradients overwrite it (the first block's barrier).
+#pragma unroll 1
+    for (int ec = 0; ec < 2 * NE; ++ec) {
+      const int e = ec >> 1, c = ec & 1;
+      const float* w0 = rev_seq.take(p, tid);
+      h64::column_gather_edge<Tc, Wide>(g.adj(), e, t.m + c * HB, s_cs, s_cr, s_cv, s_ov,
+                                        *s_ovn, t.work, tid);
+      __syncthreads();
+      const size_t le = size_t(l - lo) * NE + e;
+      const int ia = tid >> 8;
+      grad_block<H, HB>(t.h + ia * HB, t.work, g.part() + le * H * H + ia * HB * H + c * HB,
+                        nullptr, TILE, false, false);
+      col_sums<1, HB, HB>({t.work}, {g.msg_b() + le * H + c * HB}, TILE, false, tid);
+#pragma unroll 1
+      for (int kb = 0; kb < 2; ++kb)
+        xwt_tile_global(t.work, kb == 0 ? w0 : rev_seq.take(p, tid), g.dh() + kb * HB, true);
+    }
+  }
+  // 4. dh_bot holds dh at the bottom of the range: dh0 (with the readout's
+  // direct term), or dh_mid for the top half
+}
+
+template <int MODE>
+cudaError_t launch_body128(const float* hin, const float* adj, const Weights& w,
+                           const Readout& ro, const float* dout, float* dh_bot,
+                           float* partial, float* hs, int n_tiles, int lo, int hi,
+                           int n_grad, cudaStream_t stream) {
+  constexpr size_t bytes = h128::RPlan::BYTES;
+  static bool opted_in[MAX_DEVICES] = {};
+  cudaError_t err = opt_in_smem(fused_ggnn_bwd_kernel128<MODE>, bytes, opted_in);
+  if (err != cudaSuccess) return err;
+  fused_ggnn_bwd_kernel128<MODE><<<n_tiles, THREADS, bytes, stream>>>(
+      hin, adj, w, ro, dout, dh_bot, partial, hs, lo, hi, n_grad);
+  return cudaGetLastError();
+}
+
+// K1b and K3's halves in one launch of the body, K2b in two (rev_block),
+// then the in-order sum of the tiles' gradient rows
+template <bool READOUT>
+cudaError_t launch_bwd128(const float* hin, const float* adj, const Weights& w,
+                          const Readout& ro, const float* dout, float* dh_bot,
+                          float* partial, float* grads, float* hs, int n_tiles,
+                          int lo, int hi, cudaStream_t stream) {
+  if (!h64::panels_aligned(w, READOUT ? &ro : nullptr)) return cudaErrorInvalidValue;
+  const int n_grad = int(GradLayout<128>::words(hi - lo, READOUT));
+  cudaError_t err;
+  if constexpr (READOUT) {
+    err = launch_body128<1>(hin, adj, w, ro, dout, dh_bot, partial, hs, n_tiles, lo, hi,
+                            n_grad, stream);
+    if (err != cudaSuccess) return err;
+    err = launch_body128<2>(hin, adj, w, ro, dout, dh_bot, partial, hs, n_tiles, lo, hi,
+                            n_grad, stream);
+  } else {
+    err = launch_body128<0>(hin, adj, w, ro, dout, dh_bot, partial, hs, n_tiles, lo, hi,
+                            n_grad, stream);
+  }
+  if (err != cudaSuccess) return err;
+  constexpr int SUM_THREADS = 256;
+  sum_tiles_kernel<<<(n_grad + SUM_THREADS - 1) / SUM_THREADS, SUM_THREADS, 0,
+                     stream>>>(partial, grads, n_tiles, n_grad);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // K1b over [0, n_layers) and each half of K3: the backward over layers
@@ -788,6 +1200,7 @@ extern "C" int fused_ggnn_range_bwd(
     case 16: return int(launch_bwd<16, false>(hin, adj, w, ro, dh_top, dh_bot, partial, grads, hs, n_tiles, lo, hi, st));
     case 32: return int(launch_bwd<32, false>(hin, adj, w, ro, dh_top, dh_bot, partial, grads, hs, n_tiles, lo, hi, st));
     case 64: return int(launch_bwd64<false>(hin, adj, w, ro, dh_top, dh_bot, partial, grads, hs, n_tiles, lo, hi, st));
+    case 128: return int(launch_bwd128<false>(hin, adj, w, ro, dh_top, dh_bot, partial, grads, hs, n_tiles, lo, hi, st));
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -812,6 +1225,7 @@ extern "C" int fused_ggnn_readout_bwd(
     case 16: return int(launch_bwd<16, true>(h0, adj, w, ro, dg, dh0, partial, grads, hs, n_tiles, 0, n_layers, st));
     case 32: return int(launch_bwd<32, true>(h0, adj, w, ro, dg, dh0, partial, grads, hs, n_tiles, 0, n_layers, st));
     case 64: return int(launch_bwd64<true>(h0, adj, w, ro, dg, dh0, partial, grads, hs, n_tiles, 0, n_layers, st));
+    case 128: return int(launch_bwd128<true>(h0, adj, w, ro, dg, dh0, partial, grads, hs, n_tiles, 0, n_layers, st));
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -45,13 +45,11 @@ has no two-pass form, as in JAX.
 Each wrapper takes its plain PyTorch version (``*_reference``) for a
 tensor on the CPU; for a CUDA tensor it launches the hand-written Hopper
 kernel (``csrc/fused_ggnn.cu``, ``csrc/fused_ggnn_bwd.cu``) or raises.
-The forward kernels (K1, K1m, K2) are built for H in ``KERNEL_HIDDEN``
-(16, 32, 64, 128), the reverse ones (K1b, K3, K2b) for H in
-``REVERSE_HIDDEN`` (16, 32, 64): at H=128 the wrappers of the reverse
-kernels raise before any launch.  At H=64 and 128 the kernels run bodies
-of their own (``csrc/fused_ggnn64.cuh``, ``csrc/fused_ggnn128.cuh``),
-which copy the weights in 16-byte pieces, so those must start on 16-byte
-boundaries.
+The kernels, forward (K1, K1m, K2) and reverse (K1b, K3, K2b), are built
+for H in ``KERNEL_HIDDEN`` (16, 32, 64, 128).  At H=64 and 128 they run
+bodies of their own (``csrc/fused_ggnn64.cuh``, ``csrc/fused_ggnn128.cuh``
+and, reverse, ``csrc/fused_ggnn128_bwd.cuh``), which copy the weights in
+16-byte pieces, so those must start on 16-byte boundaries.
 Each counts its kernel launches in the ``launches`` attribute of
 ``fused_ggnn``, ``fused_ggnn_mid``, ``fused_ggnn_readout``,
 ``fused_ggnn_bwd``, ``fused_ggnn_half_bwd`` and
@@ -77,12 +75,9 @@ from gcnbmp_tpu_torch.ops.build import load_library
 
 TILE = 128
 NUM_EDGE_TYPE = 4
-# widths the forward kernels' shared-memory plans are instantiated for;
-# the readout width D equals H
+# widths the kernels' shared-memory plans, forward and reverse, are
+# instantiated for; the readout width D equals H
 KERNEL_HIDDEN = (16, 32, 64, 128)
-# widths the reverse kernels (K1b, K3, K2b) are built for: H=128's reverse
-# body is ROADMAP queue 2, "Open: hidden widths"
-REVERSE_HIDDEN = (16, 32, 64)
 # widths whose bodies stream the weights through staged panels
 # (csrc/fused_ggnn64.cuh, csrc/fused_ggnn128.cuh) instead of holding them
 # in shared memory
@@ -277,26 +272,22 @@ def _check(name: str, x: torch.Tensor, shape: Tuple[int, ...],
         raise ValueError(f"{name} must be contiguous")
 
 
-def check_width(hidden: int, reverse: bool = False) -> None:
-    """Raise unless the forward kernels (the reverse ones with
-    ``reverse``) are built for hidden width ``hidden``."""
+def check_width(hidden: int) -> None:
+    """Raise unless the kernels are built for hidden width ``hidden``."""
     if hidden not in KERNEL_HIDDEN:
         raise ValueError(f"hidden width {hidden} is not one the kernel's "
-                         f"shared-memory plan holds {KERNEL_HIDDEN}")
-    if reverse and hidden not in REVERSE_HIDDEN:
-        raise ValueError(f"hidden width {hidden}: the reverse kernels (K1b, "
-                         f"K3, K2b) are built for {REVERSE_HIDDEN}; H={hidden}'s "
-                         f'is ROADMAP queue 2, "Open: hidden widths"')
+                         f"shared-memory plan holds {KERNEL_HIDDEN}; other "
+                         f'widths are ROADMAP queue 2, "Open: hidden widths"')
 
 
-def _check_common(n_layers, h0, adj, msg_w, msg_b, gru, reverse=False):
+def _check_common(n_layers, h0, adj, msg_w, msg_b, gru):
     if h0.device.type != "cuda":
         raise RuntimeError(f"fused GGNN kernels run on CUDA or CPU tensors, "
                            f"got {h0.device}")
     p, t, hidden = h0.shape
     if t != TILE:
         raise ValueError(f"tiles must hold {TILE} atoms, got {t}")
-    check_width(hidden, reverse)
+    check_width(hidden)
     if n_layers < 1 or msg_w.shape[0] != n_layers:
         raise ValueError(f"n_layers={n_layers} but msg_w has "
                          f"{msg_w.shape[0]} layers")
@@ -461,8 +452,7 @@ def _range_bwd(lo: int, hi: int, hin, adj, msg_w, msg_b, gru, dh_top):
     msg_w.shape[0]-layer stack on CUDA tensors (K1b for [0, L), each half
     of K3 otherwise): (dh_bot, the range's dmsg_w and dmsg_b, dgru)."""
     n_layers = msg_w.shape[0]
-    p, hidden = _check_common(n_layers, hin, adj, msg_w, msg_b, gru,
-                              reverse=True)
+    p, hidden = _check_common(n_layers, hin, adj, msg_w, msg_b, gru)
     if not 0 <= lo < hi <= n_layers:
         raise ValueError(f"layer range [{lo}, {hi}) outside [0, {n_layers})")
     dev = hin.device
@@ -529,8 +519,7 @@ def fused_ggnn_readout_bwd(n_layers: int, h0, adj, msg_w, msg_b, gru,
         return fused_ggnn_readout_bwd_reference(
             n_layers, h0, adj, msg_w, msg_b, gru, node_mask,
             ro_wi, ro_bi, ro_wj, ro_bj, dg)
-    p, hidden = _check_common(n_layers, h0, adj, msg_w, msg_b, gru,
-                              reverse=True)
+    p, hidden = _check_common(n_layers, h0, adj, msg_w, msg_b, gru)
     dev = h0.device
     d = _check_readout(p, hidden, node_mask, ro_wi, ro_bi, ro_wj, ro_bj, dev)
     _check("dg", dg, (p, TILE, d), dev)

@@ -439,18 +439,16 @@ _PACKED_REFUSALS = {
 }
 
 
-def kernel_problems(cfg, device, serving: bool = False) -> List[str]:
+def kernel_problems(cfg, device) -> List[str]:
     """Widths of ``cfg`` (a ``TrainConfig`` or a run config dict) that the
     card's kernels are not built for, when ``device`` is CUDA; none on the
-    CPU, where the wrappers run their plain versions at any width.  A
-    caller that only serves (``serving``: the predict and evaluate CLIs)
-    runs the forward kernels alone, so a GGNN width whose reverse kernels
-    are not built yet (H=128) passes there and is refused to a trainer.  A
-    GGNN whose readout width differs from its hidden width runs K1 with the
-    plain readout (``models.packed.fused_form``), so only H is checked.
-    RelGCN, GIN, NFP, GGNN with a layer aggregator, GGNN-GWM and every
-    model on the padded layout run no kernel, so none of their widths is
-    refused."""
+    CPU, where the wrappers run their plain versions at any width.  The
+    train, predict and evaluate CLIs ask alike: every width built has its
+    forward and its reverse kernels.  A GGNN whose readout width differs
+    from its hidden width runs K1 with the plain readout
+    (``models.packed.fused_form``), so only H is checked.  RelGCN, GIN,
+    NFP, GGNN with a layer aggregator, GGNN-GWM and every model on the
+    padded layout run no kernel, so none of their widths is refused."""
     from gcnbmp_tpu_torch.models.packed import SET2SET_STEPS
     from gcnbmp_tpu_torch.ops import fused_ggnn, fused_mpnn, set2set_kernel
 
@@ -463,23 +461,17 @@ def kernel_problems(cfg, device, serving: bool = False) -> List[str]:
     method = cfg.get("method", "ggnn")
     hidden = int(cfg.get("fp_hidden_dim", TrainConfig.fp_hidden_dim))
     item = 'ROADMAP queue 2, "Open: hidden widths"'
-    # MPNN runs K5 and K4 (Set2Set over H channels); a GGNN trainer also
-    # runs the reverse kernels
-    served = {"ggnn": fused_ggnn.KERNEL_HIDDEN,
-              "mpnn": [h for h in fused_mpnn.KERNEL_HIDDEN
-                       if h in set2set_kernel.KERNEL_HIDDEN]}.get(method, [])
-    trained = fused_ggnn.REVERSE_HIDDEN if method == "ggnn" else served
-    held = served if serving else trained
+    # MPNN runs K5 and K4 (Set2Set over H channels)
+    held = {"ggnn": fused_ggnn.KERNEL_HIDDEN,
+            "mpnn": [h for h in fused_mpnn.KERNEL_HIDDEN
+                     if h in set2set_kernel.KERNEL_HIDDEN]}.get(method, [])
     if cfg.get("layer_aggregator"):
         held = []
     problems = []
     if held and hidden not in held:
-        problem = (f"fp_hidden_dim={hidden} with method={method!r}: the card's "
-                   f"kernels are built for {list(held)}; other widths are {item}")
-        if hidden in served:
-            problem += (" (at this width the forward kernels serve, the "
-                        "reverse kernels K1b, K3, K2b are not built)")
-        problems.append(problem)
+        problems.append(
+            f"fp_hidden_dim={hidden} with method={method!r}: the card's "
+            f"kernels are built for {list(held)}; other widths are {item}")
     if method == "mpnn" and SET2SET_STEPS > set2set_kernel.KERNEL_MAX_STEPS:
         problems.append(f"{SET2SET_STEPS} Set2Set steps: the card's kernel "
                         f"takes at most {set2set_kernel.KERNEL_MAX_STEPS}; "

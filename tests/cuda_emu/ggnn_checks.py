@@ -1,9 +1,10 @@
 """The checks of the GGNN kernels' CUDA sources run on the CPU (built by
 ``emulate.build_emulated``), shared by the test files that split their
 cases so that pytest-xdist's ``--dist loadfile`` can spread the slow H=64
-ones over workers: ``tests/test_torch_fwd_emulated{,64}.py`` (K1, K1m,
-K2) and ``tests/test_torch_bwd_emulated{,64,64_k3,64_k2b}.py`` (K1b, K3,
-K2b).
+and H=128 ones over workers: ``tests/test_torch_fwd_emulated{,64,128,128_k2}.py``
+(K1, K1m, K2) and
+``tests/test_torch_bwd_emulated{,64,64_k3,64_k2b,128,128_k3,128_k2b}.py``
+(K1b, K3, K2b).
 
 Forward outputs are held against their plain PyTorch versions at
 chip_smoke.py's bound (atol = rtol = 1e-4: f32 sums in another order);

@@ -3,10 +3,14 @@ with H = D = 128) on the CPU, cut to L=2 and a few dozen pairs of
 dataset/synth546's drug test split, against the JAX package:
 
 - the plain versions of K1, K1m and K2 (what the port's wrappers run on
-  the CPU, and what chip_smoke.py holds the H=128 CUDA body against on the
-  card) against the JAX ``fused_ggnn``, its TWOPASS form (``_fused_ggnn_fwd``
+  the CPU, and what chip_smoke.py holds the H=128 CUDA bodies against on
+  the card) against the JAX ``fused_ggnn``, its TWOPASS form (``_fused_ggnn_fwd``
   and its h_mid) and ``fused_ggnn_readout`` in interpret mode, on one
   packed batch of the split with the model's weights;
+- the plain reverse kernels on the same batch against ``jax.vjp`` of
+  those: K1b against ``fused_ggnn``'s, K3's two halves summed against
+  its TWOPASS form's, K2b against ``fused_ggnn_readout``'s, dh0 and every
+  weight gradient within chip_smoke.py's gradient bound;
 - the predict CLI (``--config/--params``) against the JAX
   ``PackedPairEvaluator`` on the same weights, carried across by
   ``convert``, in the port's K2 form and under ``GCNBMP_FUSED_READOUT=0``
@@ -16,13 +20,16 @@ dataset/synth546's drug test split, against the JAX package:
   same run, on pairs without repeats (a repeated pair is a tie in one
   package and not in the other; tests/test_torch_evaluate.py).
 
-The H=128 CUDA forward body itself runs on the CPU stand-in in
-tests/test_torch_fwd_emulated128.py and on the card in chip_smoke.py
-(phases 3a and 20)."""
+The H=128 CUDA bodies themselves run on the CPU stand-in
+(tests/test_torch_fwd_emulated128{,_k2}.py, the forward;
+tests/test_torch_bwd_emulated128{,_k3,_k2b}.py, the reverse) and on the
+card in chip_smoke.py (phases 3a, 20 and 21); the train CLI at H=128 is
+held against the JAX trainer in tests/test_torch_fused128_train.py."""
 
 import json
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pandas as pd
@@ -51,6 +58,10 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TEST_CSV = os.path.join(ROOT, "dataset", "synth546", "drug", "ddi_drug_test.csv")
 TOL = 1e-5
+# the gradients, per tensor: |got - want| <= GRAD_RTOL max|want| + GRAD_ATOL
+# (chip_smoke.py's gradient bound; sums over the batch's rows in another
+# order than the Pallas kernels')
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
 N_PAIRS = 48
 BATCH = 16
 # the bench model (bench.py:137) at H = D = 128, cut to L=2
@@ -149,6 +160,77 @@ def test_k2_plain_matches_jax_at_h128(tree, pairs):
     with torch.no_grad():
         got = tfg.fused_ggnn_readout(*args, *readout)
     _close(got, want, "K2")
+
+
+def _flat(grads):
+    """Backward results as a flat list of numpy arrays, the GRU dict in
+    GRU_KEYS order."""
+    out = []
+    for g in grads:
+        out += [g[k] for k in tfg.GRU_KEYS] if isinstance(g, dict) else [g]
+    return [np.asarray(g.numpy() if isinstance(g, torch.Tensor) else g)
+            for g in out]
+
+
+def _grads_close(got, want, what):
+    got, want = _flat(got), _flat(want)
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        w = w.reshape(g.shape)
+        bound = GRAD_RTOL * float(np.abs(w).max()) + GRAD_ATOL
+        assert float(np.abs(g - w).max()) <= bound, f"{what} tensor {i}"
+
+
+def _jax_vjp(fn, args, upstream):
+    """``jax.vjp`` of ``fn(h0, msg_w, msg_b, gru, *extra)`` at the torch
+    ``args`` (in interpret mode) applied to ``upstream``."""
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(fn, *(_jax(a) for a in args))
+        return vjp(jnp.asarray(upstream.numpy()))
+
+
+def _upstream(shape, seed):
+    return torch.as_tensor(np.random.default_rng(seed).standard_normal(
+        shape).astype(np.float32))
+
+
+def test_k1b_plain_matches_jax_vjp_at_h128(tree, pairs, forms):
+    (n, h0, adj, msg_w, msg_b, gru), _ = _kernel_inputs(tree, pairs)
+    dh = _upstream(tuple(h0.shape), 1)
+    jfg.TWOPASS = False
+    want = _jax_vjp(lambda h, w, b, g: jfg.fused_ggnn(n, h, _jax(adj), w, b, g),
+                    (h0, msg_w, msg_b, gru), dh)
+    got = tfg.fused_ggnn_bwd_reference(n, h0, adj, msg_w, msg_b, gru, dh)
+    _grads_close(got, want, "K1b")
+
+
+def test_k3_halves_plain_sum_to_jax_twopass_vjp_at_h128(tree, pairs, forms):
+    (n, h0, adj, msg_w, msg_b, gru), _ = _kernel_inputs(tree, pairs)
+    dh = _upstream(tuple(h0.shape), 2)
+    jfg.TWOPASS = True
+    want = _jax_vjp(lambda h, w, b, g: jfg.fused_ggnn(n, h, _jax(adj), w, b, g),
+                    (h0, msg_w, msg_b, gru), dh)
+    split = n // 2
+    h_mid = tfg.fused_ggnn_mid_reference(n, h0, adj, msg_w, msg_b, gru)[1]
+    top = tfg.fused_ggnn_half_bwd_reference(split, n, h_mid, adj, msg_w, msg_b,
+                                            gru, dh)
+    bottom = tfg.fused_ggnn_half_bwd_reference(0, split, h0, adj, msg_w, msg_b,
+                                               gru, top[0])
+    got = (bottom[0], top[1] + bottom[1], top[2] + bottom[2],
+           {k: top[3][k] + bottom[3][k] for k in tfg.GRU_KEYS})
+    _grads_close(got, want, "K3 top + bottom")
+
+
+def test_k2b_plain_matches_jax_vjp_at_h128(tree, pairs):
+    (n, h0, adj, msg_w, msg_b, gru), (mask, *ro) = _kernel_inputs(tree, pairs)
+    dg = _upstream(tuple(h0.shape), 3)
+    want = _jax_vjp(
+        lambda h, w, b, g, wi, bi, wj, bj: jfg.fused_ggnn_readout(
+            n, h, _jax(adj), w, b, g, _jax(mask), wi, bi, wj, bj),
+        (h0, msg_w, msg_b, gru, *ro), dg)
+    got = tfg.fused_ggnn_readout_bwd_reference(n, h0, adj, msg_w, msg_b, gru,
+                                               mask, *ro, dg)
+    _grads_close(got, want, "K2b")
 
 
 # ---------------------------------------------------------------------------

@@ -4,12 +4,13 @@ default form.
 - ``kernel_problems`` names a hidden width the card's kernels are not
   built for when the device is CUDA (GGNN at 48, MPNN at 64), and nothing
   on the CPU (it reads only the config, so it runs here without a card);
-  it takes GGNN at 64 on every kernel path, and GGNN at 128 from a caller
-  that only serves (``serving``: the predict and evaluate CLIs) but not
-  from a trainer, since H=128's reverse kernels are not built;
+  it takes GGNN at 64 and 128 on every kernel path, from the trainer and
+  the serving CLIs alike, since both widths have their forward and their
+  reverse kernels;
 - the train and predict CLIs refuse such a width on ``--device cuda``
   before they open any CSV: the check comes before the CLIs ask whether
-  CUDA is available, so nothing is patched;
+  CUDA is available, so nothing is patched; at 128 they get past it to
+  that question (the card's presence taken away);
 - a GGNN whose readout width D differs from its hidden width H runs K1
   with the plain readout under the default flags, and its logits and
   gradients match the JAX packed predictor's default form."""
@@ -48,8 +49,8 @@ SAMPLE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))
 FWD_RTOL, FWD_ATOL = 1e-4, 1e-5    # the JAX suite's forward bound (test_fused_ggnn.py:139)
 GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-5  # its gradient bound (test_fused_ggnn.py:87)
 ITEM = 'ROADMAP queue 2, "Open: hidden widths"'
-# a width each method's kernels are not built for: GGNN's run 16, 32 and
-# 64, MPNN's (K5, K4) 16 and 32
+# a width each method's kernels are not built for: GGNN's run 16, 32, 64
+# and 128, MPNN's (K5, K4) 16 and 32
 UNBUILT = {"ggnn": 48, "mpnn": 64}
 
 
@@ -164,61 +165,87 @@ def test_predict_cli_refuses_an_unbuilt_width_before_reading_pairs(tmp_path,
 
 
 # ---------------------------------------------------------------------------
-# H=128: the forward body is built, the reverse one is not, so the card
-# serves GGNN at 128 and refuses to train it
+# H=128: both bodies are built, so the card serves and trains GGNN at 128,
+# and a width with no body (48) is refused to every caller alike
 
 
 @pytest.mark.parametrize("path", ["coo", "fused", "packed"])
 @pytest.mark.parametrize("as_dict", [False, True])
 def test_kernel_problems_serve_ggnn_at_128_and_refuse_to_train_it(path, as_dict):
+    """GGNN at 128 passes ``kernel_problems`` on CUDA (its forward and
+    reverse kernels are built), for a trainer's ``TrainConfig`` and a
+    run's config dict alike, D != H too (K1 and the plain readout); 48 is
+    refused on CUDA and passes on the CPU."""
     cfg = TrainConfig(compute_path=path, fp_hidden_dim=128, fp_out_dim=128)
     assert loop.config_problems(cfg) == []
-    arg = json.loads(cfg.to_json()) if as_dict else cfg
-    assert loop.kernel_problems(arg, "cuda", serving=True) == []
-    # D != H serves through K1 and the plain readout
-    assert loop.kernel_problems(dataclasses.replace(cfg, fp_out_dim=64), "cuda",
-                                serving=True) == []
-    problems = loop.kernel_problems(arg, "cuda")
+    as_arg = lambda c: json.loads(c.to_json()) if as_dict else c
+    assert loop.kernel_problems(as_arg(cfg), "cuda") == []
+    assert loop.kernel_problems(as_arg(dataclasses.replace(cfg, fp_out_dim=64)),
+                                "cuda") == []
+    unbuilt = as_arg(dataclasses.replace(cfg, fp_hidden_dim=48, fp_out_dim=48))
+    problems = loop.kernel_problems(unbuilt, "cuda")
     assert len(problems) == 1
-    assert "fp_hidden_dim=128" in problems[0] and ITEM in problems[0]
-    assert "built for [16, 32, 64]" in problems[0]
-    assert "reverse kernels K1b, K3, K2b are not built" in problems[0]
-    assert loop.kernel_problems(arg, "cpu") == []
-    assert loop.kernel_problems(arg, "cpu", serving=True) == []
+    assert "fp_hidden_dim=48" in problems[0] and ITEM in problems[0]
+    assert "built for [16, 32, 64, 128]" in problems[0]
+    assert loop.kernel_problems(as_arg(cfg), "cpu") == []
+    assert loop.kernel_problems(unbuilt, "cpu") == []
 
 
-@pytest.mark.parametrize("serving", [False, True])
+@pytest.mark.parametrize("as_dict", [False, True])
 @pytest.mark.parametrize("method,width,path", [("ggnn", 48, "fused"),
                                                ("mpnn", 64, "coo"),
                                                ("mpnn", 128, "coo")])
-def test_kernel_problems_refuse_unbuilt_widths_to_servers_too(serving, method,
+def test_kernel_problems_refuse_unbuilt_widths_to_servers_too(as_dict, method,
                                                               width, path):
+    """A width a method's kernels are not built for is refused to a
+    trainer (its ``TrainConfig``) and to the serving CLIs (a run's config
+    dict) alike."""
     cfg = TrainConfig(method=method, compute_path=path, fp_hidden_dim=width,
                       fp_out_dim=width)
-    problems = loop.kernel_problems(cfg, "cuda", serving=serving)
+    problems = loop.kernel_problems(json.loads(cfg.to_json()) if as_dict
+                                    else cfg, "cuda")
     assert len(problems) == 1
     assert f"fp_hidden_dim={width}" in problems[0] and ITEM in problems[0]
     assert "built for" in problems[0]
 
 
-def test_trainer_refuses_to_train_h128_on_cuda_before_any_work():
-    cfg = TrainConfig(compute_path="fused", fp_hidden_dim=128, fp_out_dim=128)
+def test_trainer_refuses_to_train_h128_on_cuda_before_any_work(monkeypatch):
+    """The ``Trainer`` on CUDA refuses an unbuilt width (48) before any
+    work, and takes 128 past its width check on to building its model
+    (stopped there, so the test runs the same with a card)."""
     ds = CSVPairParser().parse(pd.read_csv(SAMPLE).head(4)).dataset
-    with pytest.raises(ValueError, match="fp_hidden_dim=128") as e:
+    cfg = TrainConfig(compute_path="fused", fp_hidden_dim=48, fp_out_dim=48)
+    with pytest.raises(ValueError, match="fp_hidden_dim=48") as e:
         loop.Trainer(cfg, ds, device="cuda")
     assert ITEM in str(e.value)
 
+    def stop(self, config, dss):
+        raise RuntimeError(f"building the H={config.fp_hidden_dim} model")
+
+    monkeypatch.setattr(loop.Trainer, "_packed_model", stop)
+    with pytest.raises(RuntimeError, match="building the H=128 model"):
+        loop.Trainer(dataclasses.replace(cfg, fp_hidden_dim=128, fp_out_dim=128),
+                     ds, device="cuda")
+
 
 @pytest.mark.parametrize("path", ["coo", "fused", "packed"])
-def test_train_cli_refuses_h128_on_cuda_before_reading_csvs(tmp_path, path):
-    argv = ["--train", str(tmp_path / "missing.csv"),
-            "--val", str(tmp_path / "missing_val.csv"), "--compute-path", path,
-            "--fp-hidden-dim", "128", "--fp-out-dim", "128", "--device", "cuda",
-            "--out", str(tmp_path / "run")]
-    with pytest.raises(ValueError, match="fp_hidden_dim=128") as e:
-        train_cli.main(argv)
-    assert ITEM in str(e.value) and "reverse kernels" in str(e.value)
-    assert not (tmp_path / "run").exists()
+def test_train_cli_refuses_h128_on_cuda_before_reading_csvs(tmp_path, monkeypatch,
+                                                            path):
+    """The train CLI on ``--device cuda`` takes GGNN at 128 past the width
+    check to the card's presence (taken away here, so the test runs the
+    same with a card) and refuses 48 at the width check, both before it
+    reads a CSV."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for width, error, match in ((128, RuntimeError, "CUDA is not available"),
+                                (48, ValueError, "fp_hidden_dim=48")):
+        argv = ["--train", str(tmp_path / "missing.csv"),
+                "--val", str(tmp_path / "missing_val.csv"), "--compute-path", path,
+                "--fp-hidden-dim", str(width), "--fp-out-dim", str(width),
+                "--device", "cuda", "--out", str(tmp_path / "run")]
+        with pytest.raises(error, match=match) as e:
+            train_cli.main(argv)
+        assert width == 128 or ITEM in str(e.value)
+        assert not (tmp_path / "run").exists()
 
 
 @pytest.mark.parametrize("cli", ["predict", "evaluate"])
@@ -255,20 +282,16 @@ def test_serving_clis_take_h128_on_cuda(tmp_path, monkeypatch, cli, path):
 
 
 def test_reverse_kernels_refuse_h128_before_any_launch():
-    """The wrappers of K1b, K3 and K2b check the width against the reverse
-    body's before any launch; the forward ones take 128."""
+    """The wrappers' width check before any launch (``check_width``, the
+    same for the forward and the reverse kernels) takes every built width,
+    128 among them, and refuses 48, naming the ROADMAP heading."""
     for hidden in tfg.KERNEL_HIDDEN:
         tfg.check_width(hidden)
-    for hidden in tfg.REVERSE_HIDDEN:
-        tfg.check_width(hidden, reverse=True)
-    assert 128 in tfg.KERNEL_HIDDEN and 128 not in tfg.REVERSE_HIDDEN
-    assert 128 in tfg.PANEL_HIDDEN
-    with pytest.raises(ValueError, match="reverse kernels") as e:
-        tfg.check_width(128, reverse=True)
+    assert 128 in tfg.KERNEL_HIDDEN and 128 in tfg.PANEL_HIDDEN
+    assert not hasattr(tfg, "REVERSE_HIDDEN")
+    with pytest.raises(ValueError, match="hidden width 48") as e:
+        tfg.check_width(48)
     assert ITEM in str(e.value)
-    for reverse in (False, True):
-        with pytest.raises(ValueError, match="hidden width 48"):
-            tfg.check_width(48, reverse)
 
 
 # ---------------------------------------------------------------------------
