@@ -11,8 +11,9 @@ Phases, each fatal on failure:
    K1m, K2, the GGNN reverse body, each also at H=64 and H=128, K5, K5b,
    K4, K4b's two kernels); an instance of the GGNN or MPNN bodies or of K4
    that spills fails, and so does a build log without the five H=64 and
-   the six H=128 GGNN instances (K1, K1m, K2; the reverse body's three
-   launches: K1b and K3's, K2b's two).
+   the six H=128 GGNN instances (K1, K1m, K2; the reverse body's three:
+   F, the forward over the range storing its activations, without and
+   with K2b's readout backward, and R, the reverse of every form).
 3. kernels vs plain, at the shapes of real packed batches (the first 2048
    pairs of dataset/synth546's drug test split at batch 256 and 2048);
    errors, median CUDA-event times of kernel and plain version per call
@@ -32,8 +33,10 @@ Phases, each fatal on failure:
       batch 256 and 2048 (P=75 and 387), crowded and L=3, and the same
       six kernels at H=D=128 (``csrc/fused_ggnn128.cuh``, the forward,
       and ``csrc/fused_ggnn128_bwd.cuh``, the reverse, with dh in global
-      memory; the h=128 model of bench.py, L=8 untied) in the same four
-      cases; each forward's
+      memory, two launches in every form: F stores each layer's input and
+      its m, r, z and n, R reads them; the h=128 model of bench.py, L=8
+      untied) in the same four cases, with the bytes of that stored
+      scratch (``acts``) per call at P=387; each forward's
       error is printed with its closest approach to the bound; K1m's
       h must equal K1's bit for bit, K3's two halves summed must equal
       K1b within the gradient bound, and two K2 runs, and two K2b runs, on
@@ -403,6 +406,9 @@ def set2set_flops(steps, m, hidden, n_atoms, backward=False):
     return 3 * f if backward else f
 
 
+# the H=128 reverse body's instances (``csrc/fused_ggnn128_bwd.cuh``, MODE):
+# every form launches an F, then R
+BWD128_LAUNCHES = ("F: K1b, K3", "F: K2b, with the readout backward", "R: K1b, K3, K2b")
 # the bodies whose registers and spills phase 2 reports: the pattern of an
 # instance's mangled name, and its name from the match
 BODIES = (
@@ -421,8 +427,7 @@ BODIES = (
     (r"fused_ggnn_bwd_kernel64ILb([01])E",
      lambda m: f"fused_ggnn_bwd_kernel64<{'true' if m[1] == '1' else 'false'}>"),
     (r"fused_ggnn_bwd_kernel128ILi([012])E",
-     lambda m: f"fused_ggnn_bwd_kernel128<{m[1]}> "
-               f"({['K1b, K3', 'K2b: forward, readout', 'K2b: reverse'][int(m[1])]})"),
+     lambda m: f"fused_ggnn_bwd_kernel128<{m[1]}> ({BWD128_LAUNCHES[int(m[1])]})"),
     (r"fused_mpnn_bwd_kernelILi(\d+)E",
      lambda m: f"fused_mpnn_bwd_kernel<{m[1]}>"),
     (r"set2set_fwd_kernelILi(\d+)ELi(\d+)E",
@@ -543,11 +548,15 @@ def time_pair(name, tag, kern, plain, smi, torch, labels=("kernel", "plain"),
 
 
 # the hand-written kernels each wrapper launches, as their names appear in
-# the profiler's keys, with their launches per call (K2b at H=128: the
-# reverse body's two launches, ``csrc/fused_ggnn128_bwd.cuh``)
+# the profiler's keys, with their launches per call (K1b, each K3 half and
+# K2b at H=128: the reverse body's two launches, F and R,
+# ``csrc/fused_ggnn128_bwd.cuh``)
 BWD_SUM = {"fused_ggnn_bwd_kernel": 1, "sum_tiles_kernel": 1}
+BWD128 = {"fused_ggnn_bwd_kernel": 2, "sum_tiles_kernel": 1}
 WRAPPER_KERNELS = {
-    "fused_ggnn_readout_bwd_h128": {"fused_ggnn_bwd_kernel": 2, "sum_tiles_kernel": 1},
+    "fused_ggnn_bwd_h128": BWD128,
+    "fused_ggnn_half_bwd_h128": BWD128,
+    "fused_ggnn_readout_bwd_h128": BWD128,
     "fused_ggnn": {"fused_ggnn_kernel": 1},
     "fused_ggnn_mid": {"fused_ggnn_kernel": 1},
     "fused_ggnn_readout": {"fused_ggnn_kernel": 1},
@@ -3517,8 +3526,9 @@ def main() -> int:
     if spilling:
         raise AssertionError("instances that spill registers: " + "; ".join(spilling))
     # the H=64 bodies (K1, K1m, K2; the reverse body with and without the
-    # readout) and the H=128 ones (K1, K1m, K2; the reverse body's three
-    # launches) whenever this process built the GGNN sources
+    # readout) and the H=128 ones (K1, K1m, K2; the reverse body's F without
+    # and with the readout, and R) whenever this process built the GGNN
+    # sources
     if "fused_ggnn_bwd.cu" in (build.last_build_log or ""):
         for width, n in (("kernel64", 5), ("kernel128", 6)):
             found = {body for body, _ in body_registers(build.last_build_log)
@@ -3526,6 +3536,13 @@ def main() -> int:
             if len(found) != n:
                 raise AssertionError(f"{width} GGNN instances in the build "
                                      f"log: {sorted(found)}, expected {n}")
+        bwd128 = [body for body, _ in body_registers(build.last_build_log)
+                  if "bwd_kernel128" in body]
+        missing = [name for name in BWD128_LAUNCHES
+                   if not any(name in body for body in bwd128)]
+        if missing:
+            raise AssertionError(f"H=128 reverse instances missing from the "
+                                 f"build log: {missing}")
 
     # 3. kernels vs plain at real batch shapes
     df = pd.read_csv(DATA).head(N_PAIRS)
@@ -3628,6 +3645,13 @@ def main() -> int:
             top = (split, n_layers, h_mid, adj, msg_w, msg_b, gru, dout)
             bottom = (0, split, h0, adj, msg_w, msg_b, gru, dout)
             nnz = int(torch.count_nonzero(adj))
+            if hidden == 128 and bs == N_PAIRS:
+                # the H=128 reverse's stored activations, (P, layers, 4, T,
+                # H) f32, beside the gradient rows and hs of the same call
+                acts = p_tiles * 4 * TILE * hidden * 4
+                print(f"acts [{tag}]: {acts * n_layers} bytes per K1b or K2b "
+                      f"call, {acts * (n_layers - split)} / {acts * split} per "
+                      f"K3 half (top / bottom)")
 
             def flops(lo, hi, **kw):  # (dense, sparse)
                 return ggnn_terms(p_tiles, hidden, nnz, lo, hi, **kw)

@@ -4,7 +4,8 @@ the instructions their 3xTF32 products are made of, the reverse body's and
 the forward body's phases timed inside the kernel, and the forward's
 variants timed in turns.
 
-    python3 chip_tc64.py [--fma-src DIR] [--forward-only]
+    python3 chip_tc64.py [--fma-src DIR] [--forward-only] [--sep-only]
+                         [--parent-src DIR] [--bwd128-only]
 
 1. mma.sync.m16n8k8 TF32 alone: one CTA of 512 threads per SM (16 warps,
    as the bodies run), each warp issuing 1, 2, 4 or 8 independent
@@ -69,9 +70,37 @@ variants timed in turns.
    columns set) against the plain f32 version and a float64 one: the entry
    closest to the bound (atol = rtol = 1e-4) as a fraction of it.
 
+8. The reverse body at H = D = 128 (``fused_ggnn128_bwd.cuh``; bench.py's
+   h=128 model, L = 8 untied, seeded weights) on the same pairs (P = 75
+   and 387), from the tree's ``fused_ggnn_bwd.cu`` and, with
+   ``--parent-src``, from a directory holding an earlier one and its
+   headers (``git archive 3c1b68b gcnbmp_tpu_torch/ops/csrc``: the body
+   that rebuilt the forward in every reversed layer): each body's ptxas
+   registers and spills; the tree's body as it is and in variants by the
+   constants of its products (``with_constants``: ``step1`` no SEP and
+   nothing unrolled, the arithmetic and the unrolling of the parent's
+   reverse, the forward's m, r, z and n stored and read back in place of
+   its rebuild; ``fu``, ``ru``, ``sep`` the tree's FWD_UNROLL, REV_UNROLL
+   and REV_SEP each flipped alone; ``loops`` R's reloads of h and m by
+   thread loops and barriers, as the parent took them, in place of bulk
+   copies on an mbarrier), each against the parent's bits for
+   K1b, each K3 half (the top from h_mid) and K2b, and its K1b on chip_smoke.py
+   phase 3a's crowded batch (P = 75) against the plain version (the
+   tensor closest to the gradient bound, as a fraction of it); K2b (both
+   launches) and K1b of each timed in turns (CUDA events, median of 14
+   runs of 5 calls); and at P = 387 each body's phases by
+   clock64 as in 3 (markers each after a barrier, most of them put in
+   for it; K2b's cycles summed over its launches): set-up, the forward
+   over the range, the readout's backward, the per-layer rebuild of the
+   messages and of the gates (the parent's), the GRU reverse's products,
+   its weight gradients, the message backward's column gathers and its
+   products, and the reloads of h and m with the parking.  Each line
+   carries the card's name and power limit.
+
 Builds into ``results/tc64/`` with nvcc (all at once).  Fails if an anchor
 of the source is not found (the source changed) or there is no card.
-``--forward-only`` runs phases 5 to 7 alone, ``--sep-only`` phase 7.
+``--forward-only`` runs phases 5 to 7 alone, ``--sep-only`` phase 7,
+``--bwd128-only`` phase 8.
 """
 
 from __future__ import annotations
@@ -627,7 +656,11 @@ def main() -> int:
     ap.add_argument("--forward-only", action="store_true",
                     help="phases 5 to 7 alone")
     ap.add_argument("--sep-only", action="store_true", help="phase 7 alone")
+    ap.add_argument("--parent-src", help="a directory holding an earlier "
+                    "fused_ggnn_bwd.cu and its headers (phase 8)")
+    ap.add_argument("--bwd128-only", action="store_true", help="phase 8 alone")
     args = ap.parse_args()
+    only = args.forward_only or args.sep_only or args.bwd128_only
     import torch
 
     if not torch.cuda.is_available():
@@ -651,7 +684,7 @@ def main() -> int:
     # name -> (source, nvcc flags): the reverse phases' with the headers of
     # ops/csrc; every forward tree its own copies, its ptxas report kept
     sources = {}
-    if not (args.forward_only or args.sep_only):
+    if not only:
         with open(os.path.join(build.CSRC, "fused_ggnn_bwd.cu")) as f:
             source = f.read()
         for name, text in (("bench.cu", BENCH), ("bwd_phases.cu", instrumented(source)),
@@ -671,19 +704,24 @@ def main() -> int:
                               source="fused_ggnn_bwd.cu")
             sources[f"bwd_{variant}"] = (path, f)
     trees = {}
-    if not args.sep_only:
+    if not (args.sep_only or args.bwd128_only):
         trees.update({f"fwd_{name}": (build.CSRC, edits, None)
                       for name, edits in FWD_VARIANTS.items()})
         trees["fwdp_tile_hs"] = (build.CSRC, (), "tile")
         if args.fma_src:
             trees["fwd_fma"] = (args.fma_src, (), None)
             trees["fwdp_fma"] = (args.fma_src, (), "fma")
-    trees.update({f"fwd{width}_{name}": (build.CSRC, edits, None)
-                  for width, variants in SEP_VARIANTS.items()
-                  for name, edits in variants.items()})
+    if not args.bwd128_only:
+        trees.update({f"fwd{width}_{name}": (build.CSRC, edits, None)
+                      for width, variants in SEP_VARIANTS.items()
+                      for name, edits in variants.items()})
     for name, (src_dir, edits, instrument) in trees.items():
         path = write_tree(os.path.join(OUT, name), src_dir, edits, instrument)
         sources[name] = (path, build.NVCC_FLAGS)
+    rev128 = {}
+    if args.bwd128_only or not (args.forward_only or args.sep_only):
+        rev128 = reverse128_sources(args.parent_src)
+        sources.update({name: spec[:2] for name, spec in rev128.items()})
     t0 = time.perf_counter()
     procs = {name: subprocess.Popen(
         [build._nvcc(), *f, "-o", os.path.join(OUT, f"lib{name}.so"), path],
@@ -753,10 +791,16 @@ def main() -> int:
                        ro.j.dense.weight.T.contiguous(), ro.j.dense.bias.contiguous())
         return p, h0, adj_from_coo_flat(*edges, num_tiles=p, tile=t), readout
 
+    if args.bwd128_only:
+        enc, weights = model(128)
+        reverse128_phase(torch, np, fg, stream, enc.n_layers, *weights,
+                         {bs: batch(enc, bs) for bs in (256, 2048)}, rev128, logs,
+                         in_turns, smi)
+        return 0
     enc, (msg_w, msg_b, gru) = model(64)
     n_layers = enc.n_layers
     batches = {bs: batch(enc, bs) for bs in (256, 2048)}
-    if not (args.forward_only or args.sep_only):
+    if not only:
         reverse_phases(torch, np, fg, build, dev, stream, n_layers, msg_w,
                        msg_b, gru, batches[2048], event_ms, logs)
     if not args.sep_only:
@@ -765,8 +809,12 @@ def main() -> int:
     sep_phase(torch, np, fg, build, stream, 64, n_layers, msg_w, msg_b, gru,
               batches, logs, in_turns, smi)
     enc, weights = model(128)
+    batches = {bs: batch(enc, bs) for bs in (256, 2048)}
     sep_phase(torch, np, fg, build, stream, 128, enc.n_layers, *weights,
-              {bs: batch(enc, bs) for bs in (256, 2048)}, logs, in_turns, smi)
+              batches, logs, in_turns, smi)
+    if rev128:
+        reverse128_phase(torch, np, fg, stream, enc.n_layers, *weights, batches, rev128,
+                         logs, in_turns, smi)
     return 0
 
 
@@ -801,7 +849,7 @@ def reverse_phases(torch, np, fg, build, dev, stream, n_layers, msg_w, msg_b, gr
     p, h0, adj, readout = batch
     dg = torch.as_tensor(np.random.default_rng(2018).standard_normal(
         (p, 128, 64)).astype(np.float32)).to(dev)
-    bufs = fg._bwd_buffers(p, n_layers, 64, 64, dev)[:4]
+    bufs = fg._bwd_buffers(p, n_layers, 64, 64, dev)[:5]  # dh0 .. hs, acts (None)
     libs = {}
     for name in ("bwd", "bwd_phases", "bwd_cvt", "bwd_sep"):
         handle = ctypes.CDLL(os.path.join(OUT, f"lib{name}.so"))
@@ -814,7 +862,7 @@ def reverse_phases(torch, np, fg, build, dev, stream, n_layers, msg_w, msg_b, gr
         err = handle.fused_ggnn_readout_bwd(
             h0.data_ptr(), adj.data_ptr(), *fg._weight_ptrs(msg_w, msg_b, gru),
             *(x.data_ptr() for x in readout), dg.data_ptr(),
-            *(b.data_ptr() for b in bufs), p, n_layers, 64, 64, stream)
+            *(fg._ptr(b) for b in bufs), p, n_layers, 64, 64, stream)
         if err != 0:
             raise RuntimeError(f"K2b launch failed: {err}")
 
@@ -992,6 +1040,352 @@ def sep_phase(torch, np, fg, build, stream, width, n_layers, msg_w, msg_b, gru,
               f"{closest(got, plain):.3f}, against float64 {closest(got, f64):.3f} "
               f"of the bound; max abs err vs plain {float((got - plain).abs().max()):.3e}")
 
+# -- phase 8: the H=128 reverse body -----------------------------------------
+
+BWD_SOURCE, BWD128_HEADER = "fused_ggnn_bwd.cu", "fused_ggnn128_bwd.cuh"
+# thread 0 of each CTA adds the cycles since its last marker, kept in global
+# memory by block, so that a launch's first marker (-1) starts its count
+PROF128 = r"""
+__device__ unsigned long long g_phase_cycles[16];
+__device__ long long g_phase_last[4096];
+__device__ __forceinline__ void phase_end(int i) {
+  if (threadIdx.x == 0) {
+    const long long t = clock64();
+    if (i >= 0)
+      atomicAdd(&g_phase_cycles[i], (unsigned long long)(t - g_phase_last[blockIdx.x]));
+    g_phase_last[blockIdx.x] = t;
+  }
+}
+"""
+PHASES128 = ["set-up: pointers, row and column lists", "forward over the range",
+             "readout backward (K2b)", "rebuild: messages (parent)",
+             "rebuild: gates (parent); dz', dn'",
+             "GRU reverse: drs, ds, dh_in, dm products", "GRU weight gradients",
+             "message backward: column gathers",
+             "message backward: gradients, dh += dhw W^T", "reloads: h, m, parking, dh"]
+
+
+def _mark(i, indent="  ", sync=True):
+    return (f"{indent}__syncthreads();\n" if sync else "") + f"{indent}phase_end({i});\n"
+
+
+# (anchor in the H=128 part of fused_ggnn_bwd.cu, text put after it): the
+# GRU reverse's and the message backward's, in both bodies
+_GRU_MARKS = [
+    ("  col_sums<2, H, H>({dz, dn}, {g.gru() + G::BZ, g.gru() + G::BN}, HALF, acc_gru, tid);\n",
+     _mark(6)),
+    ("  col_sums<1, H, H>({rs}, {g.gru() + G::BR}, HALF, acc_gru, tid);\n", _mark(6)),
+    ("  const Globals g = {s_ptrs};\n", _mark(-1, sync=False)),
+]
+# the parent's (3c1b68b): one launch of K1b and K3 (MODE 0), the reverse
+# rebuilding the forward in every layer
+PARENT_MARKS128 = _GRU_MARKS + [
+    ("    count_columns(t.nk, t.nv, t.nc, s_cs, s_cr, s_cv, s_ov, s_ovn,\n"
+     "                  reinterpret_cast<unsigned*>(t.work), tid);\n", _mark(0)),
+    ("                        fwd_seq, p, tid);\n      __syncthreads();\n    }\n  }\n",
+     _mark(1, sync=False)),
+    ("    readout_bwd128(t, g, smem + S::BI, smem + S::BJ, ro_seq, p, tid);\n",
+     _mark(2, "    ")),
+    ("    for (int i = tid; i < TH; i += THREADS) g.dh()[i] = g.dout()[i];\n", _mark(9)),
+    ("    for (int i = tid; i < TH; i += THREADS) t.h[i] = g.hs(l - lo)[i];\n",
+     _mark(9, "    ")),
+    ("    for (int i = tid; i < NE * H; i += THREADS) t.bmsg[i] = w.msg_b[size_t(l) * NE * H + i];\n"
+     "    messages_looped(t, g, rev_seq, p, tid);\n", _mark(3, "    ")),
+    ("        park[i] = t.m[hf == 0 ? HALF * H + i : i];\n      }\n", _mark(9, "      ")),
+    ("        dz[i] = dhv * (nv - s) * z * (1.0f - z);\n      }\n    }\n  }\n"
+     "  __syncthreads();\n", _mark(4, sync=False)),
+    ("      rs[i] = a[k] * s * rv * (1.0f - rv);\n    }\n  }\n  __syncthreads();\n",
+     _mark(5, sync=False)),
+    ("        *d = zero_state ? a[k] : a[k] + *d;\n      }\n    }\n  }\n", _mark(5)),
+    ("      for (int i = tid; i < TH; i += THREADS) g.dh()[i] += g.part()[Scratch::DIRECT + i];\n"
+     "    }\n", _mark(9, "    ")),
+    ("                                        *s_ovn, t.work, tid);\n      __syncthreads();\n",
+     _mark(7, "      ", sync=False)),
+    ("rev_seq.take(p, tid), g.dh() + kb * HB, true);\n", _mark(8, "      ")),
+]
+# the tree's: F (the forward storing hs and acts, then the seed) and R (the
+# reloads' phase is the wait for each bulk copy, with the parked dm's loop)
+MARKS128 = _GRU_MARKS + [
+    ("    __syncthreads();\n    RSeq<MODE, 0> fwd_seq = {w, ro, lo, hi};\n",
+     _mark(0, "    ", sync=False)),
+    ("                        g.act(l - lo, ACT_N), fwd_seq, p, tid);\n      __syncthreads();\n"
+     "    }\n", _mark(1, "    ", sync=False)),
+    ("      readout_bwd128(t, g, smem + S::BI, smem + S::BJ, ro_seq, p, tid);\n",
+     _mark(2, "      ")),
+    ("      for (int i = tid; i < TH; i += THREADS) g.dh()[i] = g.dout()[i];\n",
+     _mark(9, "      ")),
+    ("    RSeq<MODE, 0> rev_seq = {w, ro, lo, hi};\n", _mark(0, "    ")),
+    ("      rl.wait(3 * j);  // the layer's h and m\n", _mark(9, "      ")),
+    ("          rl.wait(3 * j + 1);\n", _mark(9, "          ")),
+    ("      dz[i] = dhv[k] * (nv[k] - s) * z * (1.0f - z);\n    }\n  }\n  __syncthreads();\n",
+     _mark(4, sync=False)),
+    ("      rs[i] = a[k] * s * rv[k] * (1.0f - rv[k]);\n    }\n  }\n  __syncthreads();\n",
+     _mark(5, sync=False)),
+    ("      for (int k = 0; k < RPH; ++k) *dh_at(k, kb) = zero_state ? a[k] : a[k] + dhv[k];\n"
+     "    }\n  }\n", _mark(5)),
+    ("      rl.wait(3 * j + 2);\n", _mark(9, "      ")),
+    ("                                          *s_ovn, t.work, tid);\n        __syncthreads();\n",
+     _mark(7, "        ", sync=False)),
+    ("          xwt_tile_global(t.work, wb, g.dh() + kb * HB, true);\n        }\n",
+     _mark(8, "        ")),
+]
+# the tree's reloads by thread loops, as the parent's (a barrier in place
+# of the mbarrier's wait): (anchor in fused_ggnn128_bwd.cuh, replacement)
+LOOP_RELOADS = [
+    ("    if (tid == 0) mbar_expect_tx(bar, unsigned(words) * 4);\n", ""),
+    ("    if (tid == 0) {\n      fence_proxy_async();\n      bulk_copy(dst, src, unsigned(words) * 4, bar);\n"
+     "    }\n", "    for (int i = tid; i < words; i += THREADS) dst[i] = src[i];\n"),
+    ("  __device__ void wait(int phase) const { mbar_wait(bar, unsigned(phase) & 1u); }",
+     "  __device__ void wait(int) const { __syncthreads(); }"),
+]
+
+
+def instrumented128(text: str, marks) -> str:
+    """fused_ggnn_bwd.cu with phase 8's markers in its H=128 reverse body."""
+    cut = text.index("// The reverse of one GRU half of layer l at H = 128")
+    head, body = text[:cut], text[cut:]
+    body = edited(body, [(anchor, anchor + mark) for anchor, mark in marks], BWD_SOURCE)
+    ns = "namespace {\n\nusing namespace ggnn;\n"
+    if head.count(ns) != 1:
+        raise RuntimeError("namespace anchor not found")
+    return head.replace(ns, ns + PROF128) + body + READ
+
+
+def with_constants(text: str, **values) -> str:
+    """fused_ggnn128_bwd.cuh with its constexpr FWD_UNROLL, REV_UNROLL and
+    REV_SEP set to ``values``."""
+    for name, value in values.items():
+        text, n = re.subn(rf"constexpr (int|bool) {name} = [^;]+;",
+                          rf"constexpr \g<1> {name} = {value};", text)
+        if n != 1:
+            raise RuntimeError(f"{name} not found once in {BWD128_HEADER}")
+    return text
+
+
+def constants_of(text: str) -> dict:
+    return {name: re.search(rf"constexpr (?:int|bool) {name} = ([^;]+);", text)[1]
+            for name in ("FWD_UNROLL", "REV_UNROLL", "REV_SEP")}
+
+
+# the parent's C entry points (no acts scratch), as build.SOURCES had them
+PARENT_ENTRIES = {"fused_ggnn_range_bwd": [ctypes.c_void_p] * 18 + [ctypes.c_int] * 4
+                  + [ctypes.c_void_p],
+                  "fused_ggnn_readout_bwd": [ctypes.c_void_p] * 23 + [ctypes.c_int] * 4
+                  + [ctypes.c_void_p]}
+
+
+def reverse128_sources(parent_dir: str | None):
+    """Phase 8's libraries: name -> (source path, nvcc flags, C entry
+    points).  The tree's body, plain and marked, and its variants by
+    tc_mma's unrolling and SEP (``with_constants``): step 1's (no SEP,
+    nothing unrolled: the parent's arithmetic) and each constant of the
+    tree's flipped; with ``parent_dir`` the parent's body, plain and
+    marked.  Where the tree holds the parent's body, that one alone."""
+    from gcnbmp_tpu_torch.ops import build
+
+    def read(directory, name):
+        with open(os.path.join(directory, name)) as f:
+            return f.read()
+
+    tree = read(build.CSRC, BWD_SOURCE)
+    parent = read(parent_dir, BWD_SOURCE) if parent_dir else None
+    out = {}
+
+    def add(name, src_dir, text, entries, header=None):
+        path = write_tree(os.path.join(OUT, name), src_dir, source=BWD_SOURCE)
+        with open(path, "w") as f:
+            f.write(text)
+        if header is not None:
+            with open(os.path.join(OUT, name, BWD128_HEADER), "w") as f:
+                f.write(header)
+        out[name] = (path, build.NVCC_FLAGS, entries)
+
+    if parent is not None and parent != tree:
+        add("b128_parent", parent_dir, parent, PARENT_ENTRIES)
+        add("b128_parent_p", parent_dir,
+            instrumented128(parent, PARENT_MARKS128), PARENT_ENTRIES)
+    entries = build.SOURCES[BWD_SOURCE]
+    if "messages_looped(t, g, rev_seq" in tree:  # the parent's body
+        add("b128", build.CSRC, tree, entries)
+        add("b128_p", build.CSRC, instrumented128(tree, PARENT_MARKS128), entries)
+        return out
+    add("b128", build.CSRC, tree, entries)
+    add("b128_p", build.CSRC, instrumented128(tree, MARKS128), entries)
+    header = read(build.CSRC, BWD128_HEADER)
+    now = constants_of(header)
+    variants = {"step1": dict(FWD_UNROLL=1, REV_UNROLL=1, REV_SEP="false"),
+                "fu": dict(FWD_UNROLL=3 - int(now["FWD_UNROLL"])),
+                "ru": dict(REV_UNROLL=3 - int(now["REV_UNROLL"])),
+                "sep": dict(REV_SEP="false" if now["REV_SEP"] == "true" else "true")}
+    for name, values in variants.items():
+        add(f"b128_{name}", build.CSRC, tree, entries, with_constants(header, **values))
+    add("b128_loops", build.CSRC, tree, entries, edited(header, LOOP_RELOADS, BWD128_HEADER))
+    return out
+
+
+def bwd128_registers(log: str) -> list[str]:
+    """ptxas's registers and spills of each fused_ggnn_bwd_kernel128 instance."""
+    out, body = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"fused_ggnn_bwd_kernel128ILi(\d+)E", m.group(1))
+            body = None if k is None else f"<{k[1]}>"
+        elif body and ("spill" in line or "registers" in line):
+            out.append(f"{body}: {line.split(':', 1)[-1].strip()}")
+    return out
+
+
+def reverse128_phase(torch, np, fg, stream, n_layers, msg_w, msg_b, gru, batches, libs_spec,
+                     logs, in_turns, smi):
+    """Phase 8: the H=128 reverse body's variants (registers, the parent's
+    bits, the crowded K1b's error against the plain version, times in
+    turns: K2b and K1b at P=75 and 387) and each body's phases by clock64
+    (K2b's two launches and K1b at P=387)."""
+    hidden, split = 128, n_layers // 2
+    libs = {}
+    for name, (path, _, entries) in libs_spec.items():
+        handle = ctypes.CDLL(os.path.join(OUT, f"lib{name}.so"))
+        for entry, argtypes in entries.items():
+            getattr(handle, entry).argtypes = argtypes
+        # a body with the acts scratch takes one pointer more
+        libs[name] = (handle, len(entries["fused_ggnn_range_bwd"])
+                      > len(PARENT_ENTRIES["fused_ggnn_range_bwd"]))
+        if not name.endswith("_p"):
+            with open(os.path.join(os.path.dirname(path), BWD128_HEADER)) as f:
+                header = f.read()
+            consts = constants_of(header) if "REV_SEP" in header else "the parent's"
+            print(f"ptxas {name} ({consts}): " + "; ".join(bwd128_registers(logs[name])))
+    f32 = dict(dtype=torch.float32, device=msg_w.device)
+
+    def buffers(p):
+        n_grad = sum(int(np.prod(s)) for s in fg._grad_shapes(n_layers, hidden, hidden))
+        return (torch.empty((p, 128, hidden), **f32), torch.empty((p, n_grad), **f32),
+                torch.empty((n_grad,), **f32), torch.empty((p, n_layers, 128, hidden), **f32),
+                torch.empty((p, n_layers, 4, 128, hidden), **f32))
+
+    cases = {}
+    for bs, (p, h0, adj, readout) in batches.items():
+        dout = torch.as_tensor(np.random.default_rng(2018 + bs).standard_normal(
+            (p, 128, hidden)).astype(np.float32)).to(msg_w.device)
+        with torch.no_grad():
+            h_mid = fg.fused_ggnn_mid_reference(n_layers, h0, adj, msg_w, msg_b, gru)[1]
+        cases[bs] = (p, h0, adj, readout, dout, h_mid, buffers(p))
+        bufs = cases[bs][-1]
+        print(f"phase 8 P={p}: acts {bufs[4].numel() * 4} bytes, hs "
+              f"{bufs[3].numel() * 4}, partial rows {bufs[1].numel() * 4}")
+    wptrs = fg._weight_ptrs(msg_w, msg_b, gru)
+
+    def scratch(name, bufs):
+        return [b.data_ptr() for b in bufs[1:4]] + ([bufs[4].data_ptr()] if libs[name][1] else [])
+
+    def k2b(name, case):
+        p, h0, adj, readout, dout, _, bufs = case
+        err = libs[name][0].fused_ggnn_readout_bwd(
+            h0.data_ptr(), adj.data_ptr(), *wptrs, *(x.data_ptr() for x in readout),
+            dout.data_ptr(), bufs[0].data_ptr(), *scratch(name, bufs), p, n_layers, hidden,
+            hidden, stream)
+        if err != 0:
+            raise RuntimeError(f"K2b {name} launch failed: {err}")
+
+    def rng(name, case, lo, hi):
+        p, h0, adj, _, dout, h_mid, bufs = case
+        hin = h_mid if lo > 0 else h0
+        err = libs[name][0].fused_ggnn_range_bwd(
+            hin.data_ptr(), adj.data_ptr(), *wptrs, dout.data_ptr(), bufs[0].data_ptr(),
+            *scratch(name, bufs), p, lo, hi, hidden, stream)
+        if err != 0:
+            raise RuntimeError(f"range [{lo}, {hi}) {name} launch failed: {err}")
+
+    ranges = {"K2b": (0, n_layers), "K1b": (0, n_layers), "K3 top": (split, n_layers),
+              "K3 bottom": (0, split)}
+    kernels = {"K2b": k2b,
+               **{label: (lambda n, c, r=r: rng(n, c, *r)) for label, r in ranges.items()
+                  if label != "K2b"}}
+    plain = [n for n in libs if not n.endswith("_p")]
+
+    def results(name, label, case):
+        """dh_bot and the summed gradients of one run."""
+        lo, hi = ranges[label]
+        n_grad = sum(int(np.prod(s)) for s in fg._grad_shapes(
+            hi - lo, hidden, hidden if label == "K2b" else None))
+        kernels[label](name, case)
+        torch.cuda.synchronize()
+        return case[-1][0].clone(), case[-1][2][:n_grad].clone()
+
+    # each variant's bits against the parent's, and its forward's (the
+    # layer inputs hs)
+    if "b128_parent" in libs:
+        for bs, case in cases.items():
+            for label in kernels:
+                want = results("b128_parent", label, case)
+                want_hs = case[-1][3].clone()
+                same, same_hs = [], []
+                for n in plain:
+                    if n == "b128_parent":
+                        continue
+                    tag = n[5:] or "tree"
+                    if all(torch.equal(a, b) for a, b in zip(results(n, label, case), want)):
+                        same.append(tag)
+                    if torch.equal(case[-1][3], want_hs):
+                        same_hs.append(tag)
+                print(f"{label} H=128 P={case[0]}: the parent's bits from "
+                      f"{', '.join(same) or 'none'}; its forward's (hs) from "
+                      f"{', '.join(same_hs) or 'none'}")
+
+    # the crowded K1b (chip_smoke.py phase 3a's adjacency at P=75) against
+    # the plain version: the tensor closest to the gradient bound
+    p, h0, adj, readout, dout, h_mid, bufs = cases[min(cases)]
+    extra = torch.as_tensor(np.random.default_rng(2018).random(tuple(adj.shape))
+                            < 0.05).to(adj.device)
+    extra[:, 1::2, :] = False
+    crowded = (p, h0, torch.where(extra, torch.ones_like(adj), adj).contiguous(), readout,
+               dout, h_mid, bufs)
+    with torch.no_grad():
+        want = fg.fused_ggnn_bwd_reference(n_layers, h0, crowded[2], msg_w, msg_b, gru, dout)
+    flat = [*want[:3], *(want[3][k] for k in fg.GRU_KEYS)]
+    bound = [1e-4 * float(w.abs().max()) + 1e-6 for w in flat]
+    shapes = fg._grad_shapes(n_layers, hidden)
+    sizes = [int(np.prod(s)) for s in shapes]
+    for name in plain:
+        dh, grads = results(name, "K1b", crowded)
+        dmsg_w, dmsg_b, dgru, _ = fg._split_grads(grads, shapes, sizes)
+        got = [dh, dmsg_w, dmsg_b, *(dgru[k] for k in fg.GRU_KEYS)]
+        worst = max(float((g - w).abs().max()) / b for g, w, b in zip(got, flat, bound))
+        print(f"K1b H=128 crowded P={p}, {name}: closest to the gradient bound "
+              f"{worst:.3f} of it")
+
+    # the bodies in turns
+    for bs, case in cases.items():
+        for label in ("K2b", "K1b"):
+            ms = in_turns({n: (lambda n=n: kernels[label](n, case)) for n in plain})
+            print(f"{label} H=128 P={case[0]} L={n_layers} ({smi}): " + ", ".join(
+                f"{n} {ms[n]:.4f} ms" for n in plain))
+
+    # the phases at P=387, of each body
+    case = cases[max(cases)]
+    p = case[0]
+    for name in [n for n in plain if n + "_p" in libs]:
+        marked = name + "_p"
+        phases = libs[marked][0].phase_cycles
+        phases.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        for label in ("K2b", "K1b"):
+            ms = in_turns({name: lambda: kernels[label](name, case),
+                           marked: lambda: kernels[label](marked, case)})
+            counts = np.zeros(16, np.uint64)
+            if phases(counts.ctypes.data, 1) != 0:
+                raise RuntimeError("phase counters not reset")
+            kernels[label](marked, case)
+            torch.cuda.synchronize()
+            if phases(counts.ctypes.data, 0) != 0:
+                raise RuntimeError("phase counters not read")
+            total = float(counts[:len(PHASES128)].sum())
+            print(f"{label} H=128 P={p} L={n_layers}, {name}: {ms[name]:.4f} ms per call, "
+                  f"{ms[marked]:.4f} ms with the phase markers ({smi})")
+            for i, phase in enumerate(PHASES128):
+                print(f"  {phase:44s} {float(counts[i]) / p:12.0f} cycles per CTA "
+                      f"{100 * float(counts[i]) / total:6.1f}%")
+            print(f"  {'all phases':44s} {total / p:12.0f} cycles per CTA")
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -37,8 +37,8 @@ SOURCES = {
         "fused_ggnn_readout_fwd": [_P] * 19 + [_I] * 4 + [_P],
     },
     "fused_ggnn_bwd.cu": {
-        "fused_ggnn_range_bwd": [_P] * 18 + [_I] * 4 + [_P],
-        "fused_ggnn_readout_bwd": [_P] * 23 + [_I] * 4 + [_P],
+        "fused_ggnn_range_bwd": [_P] * 19 + [_I] * 4 + [_P],
+        "fused_ggnn_readout_bwd": [_P] * 24 + [_I] * 4 + [_P],
     },
     "fused_mpnn.cu": {
         "fused_mpnn_fwd": [_P] * 16 + [_I] * 4 + [_P],

@@ -137,17 +137,18 @@
 // At H = 128 (fused_ggnn_bwd_kernel128) the H = 64 plan's five T x H
 // buffers alone would take 320 KB: that width's reverse body runs on the
 // H = 128 forward's plan (fused_ggnn128.cuh: the weights through the two
-// panels in one sequence, the recompute with the forward's terms in its
-// order) plus the column lists, 228,976 bytes, with dh in global memory
-// (the output dh_bot, each entry owned by one thread), the GRU's reverse by
-// row halves in the work buffer and the other half's rows of h and m, and
-// the message backward by column halves (fused_ggnn128_bwd.cuh has the
-// plan and why); K2b takes two launches of it, the forward with the
-// readout's backward, then the reverse (registers; h128::rev_block).  Its
-// per-tile partial row is 676,224 words at L = 8 (725,632 with the
-// readout's): 1.05 GB (1.12 GB) at P = 387, summed by the same
-// sum_tiles_kernel; the first NE H H words of the row are the body's
-// global scratch until it writes them last.
+// panels in one sequence, the forward with its terms in its order) plus
+// the column lists, 228,992 bytes, with dh in global memory (the output
+// dh_bot, each entry owned by one thread), the GRU's reverse by row halves
+// in the work buffer and the other half's rows of h and m, and the message
+// backward by column halves (fused_ggnn128_bwd.cuh has the plan and why).
+// Every form takes two launches of it: F, the forward over the range, which
+// stores each layer's input (hs) and its m, r, z and n (acts) and seeds dh
+// (K2b's F by the readout's backward), then R, the reverse, which reads
+// them and rebuilds nothing (h128::rev_block).  Its per-tile partial row is
+// 676,224 words at L = 8 (725,632 with the readout's): 1.05 GB (1.12 GB)
+// at P = 387, summed by the same sum_tiles_kernel; the first NE H H words
+// of the row are R's global scratch until it writes them last.
 
 #include "fused_ggnn128_bwd.cuh"
 
@@ -780,20 +781,23 @@ cudaError_t launch_bwd64(const float* hin, const float* adj, const Weights& w,
 }
 
 // The reverse of one GRU half of layer l at H = 128 (rows [hf HALF, hf HALF
-// + HALF)), after the message step left m, whose other half's rows are
-// parked in global memory: the gates recomputed as the forward takes them
-// (h128::gate_blocks: r, z, n by column halves), then d{z,r,n}', dh = dh_in
-// + ds in place in global memory (dh_in alone at layer 0; the state's term
-// ds is carried there until then), the half's GRU weight gradients
-// (`acc_gru`: added to the tile's row) and dm into the half's rows of m.
-// The 64 x H buffers: r*s, then dr', in the work buffer; z, then dz', in
-// the other half's rows of m; dn' in the other half's rows of h; r in
-// global memory (Scratch::R), each entry read back by the thread that wrote
-// it.  Each product runs in a loop over its blocks.
+// + HALF)), h and m of the layer in shared memory: from r, z and n as the
+// forward stored them (acts, `rzn` r's rows of the half, z's and n's TH and
+// 2 TH after; each entry read by the thread that wrote it), d{z,r,n}', dh =
+// dh_in + ds in place in global memory (dh_in alone at layer 0; the state's
+// term ds is carried there until then), the half's GRU weight gradients
+// (`acc_gru`: added to the tile's row) and dm: the second half's into its
+// rows of m, the first half's into global memory (Scratch::PARK), since the
+// second half's dz' takes its rows.  The 64 x H buffers: r*s, then dr', in
+// the work buffer; dz' in the other half's rows of m; dn' in the other
+// half's rows of h.  Each product runs in a loop over its blocks.  Each
+// step loads its global values (r, z, n, dh) before its first store, which
+// could alias them as far as the compiler knows, so the loads go out
+// together.
 template <class S>
 __device__ __forceinline__ void gru_reverse128(const h128::Tile& t, const h128::Globals& g,
-                                               bool zero_state, bool acc_gru, int hf, S& seq,
-                                               h64::Panels& p, int tid) {
+                                               const float* rzn, bool zero_state, bool acc_gru,
+                                               int hf, S& seq, h64::Panels& p, int tid) {
   using namespace h128;
   using G = GradLayout<H>;
   const Tc::Own o(h64::fresh_tid());
@@ -802,34 +806,29 @@ __device__ __forceinline__ void gru_reverse128(const h128::Tile& t, const h128::
   float* rs = t.work;
   float* dz = t.m + (1 - hf) * HALF * H;
   float* dn = t.h + (1 - hf) * HALF * H;
-  // o's k-th output of column half c in dh (row-major), and r
+  // o's k-th output of column half c in dh (row-major)
   auto dh_at = [&](int k, int c) {
     return g.dh() + (hf * HALF + o.row(k)) * H + c * HB + o.col(k);
   };
-  auto rg = [&] { return g.part() + Scratch::R; };
 #pragma unroll 1
-  for (int gc = 0; gc < 6; ++gc) {  // r, z, n by column halves
-    const int gate = gc >> 1, c = gc & 1;
-    float acc[RPH];
-    fill_half(acc, (gate == 0 ? t.br : gate == 1 ? t.bz : t.bn) + c * HB, o);
-    gate_blocks(t, hf, zero_state, gate, seq, p, o, acc, tid);
+  for (int c = 0; c < 2; ++c) {
+    float rv[RPH], zv[RPH], nv[RPH], dhv[RPH];
 #pragma unroll
     for (int k = 0; k < RPH; ++k) {
       const int i = own_at(o, k, 0, c);
-      if (gate == 0) {
-        const float rv = sigmoidf(acc[k]);
-        rs[i] = zero_state ? 0.0f : rv * h[i];
-        rg()[i] = rv;
-      } else if (gate == 1) {
-        dz[i] = sigmoidf(acc[k]);
-      } else {  // the reverse's elementwise step on these columns
-        float* d = dh_at(k, c);
-        const float s = zero_state ? 0.0f : h[i];
-        const float z = dz[i], nv = tanhf(acc[k]), dhv = *d;
-        *d = dhv * (1.0f - z);
-        dn[i] = dhv * z * (1.0f - nv * nv);
-        dz[i] = dhv * (nv - s) * z * (1.0f - z);
-      }
+      rv[k] = rzn[i];
+      zv[k] = rzn[TH + i];
+      nv[k] = rzn[2 * TH + i];
+      dhv[k] = *dh_at(k, c);
+    }
+#pragma unroll
+    for (int k = 0; k < RPH; ++k) {
+      const int i = own_at(o, k, 0, c);
+      const float s = zero_state ? 0.0f : h[i], z = zv[k];
+      rs[i] = zero_state ? 0.0f : rv[k] * h[i];
+      *dh_at(k, c) = dhv[k] * (1.0f - z);
+      dn[i] = dhv[k] * z * (1.0f - nv[k] * nv[k]);
+      dz[i] = dhv[k] * (nv[k] - s) * z * (1.0f - z);
     }
   }
   __syncthreads();
@@ -854,13 +853,18 @@ __device__ __forceinline__ void gru_reverse128(const h128::Tile& t, const h128::
     float a[RPH] = {};
 #pragma unroll 1
     for (int cb = 0; cb < 2; ++cb) xwt<H>(dn + cb * HB, seq.take(p, tid), o, a);
+    float rv[RPH], dhv[RPH];
+#pragma unroll
+    for (int k = 0; k < RPH; ++k) {
+      rv[k] = rzn[own_at(o, k, 0, kb)];
+      dhv[k] = *dh_at(k, kb);
+    }
 #pragma unroll
     for (int k = 0; k < RPH; ++k) {
       const int i = own_at(o, k, 0, kb);
-      float* d = dh_at(k, kb);
-      const float s = zero_state ? 0.0f : h[i], rv = rg()[i];
-      *d = fmaf(a[k], rv, *d);
-      rs[i] = a[k] * s * rv * (1.0f - rv);
+      const float s = zero_state ? 0.0f : h[i];
+      *dh_at(k, kb) = fmaf(a[k], rv[k], dhv[k]);
+      rs[i] = a[k] * s * rv[k] * (1.0f - rv[k]);
     }
   }
   __syncthreads();
@@ -874,9 +878,11 @@ __device__ __forceinline__ void gru_reverse128(const h128::Tile& t, const h128::
 
   // per output column half kb: ds += d{z,r}' U{z,r}^T, then dh = d{z,r,n}'
   // W{z,r,n}[:H]^T + ds, as the narrower widths take them; then dm =
-  // d{z,r,n}' W{z,r,n}[H:]^T into the half's rows of m, which the
-  // gradients read before the first block's barrier.  Blocks u of a pass:
-  // Uz, Ur (the dh pass only), Wz, Wr, Wn, by the operand's column halves.
+  // d{z,r,n}' W{z,r,n}[H:]^T (the second half's into its rows of m, which
+  // the gradients read before the first block's barrier).  Blocks u of a
+  // pass: Uz, Ur (the dh pass only), Wz, Wr, Wn, by the operand's column
+  // halves.
+  float* dm = hf == 0 ? g.part() + Scratch::PARK : t.m + HALF * H;
 #pragma unroll 1
   for (int pk = 0; pk < 4; ++pk) {
     const bool to_m = pk >= 2;
@@ -885,9 +891,12 @@ __device__ __forceinline__ void gru_reverse128(const h128::Tile& t, const h128::
 #pragma unroll 1
     for (int u = to_m ? 4 : 0; u < 10; ++u) {
       if (u == 4 && !to_m) {  // ds += d{z,r}' U{z,r}^T is complete
+        float dhv[RPH];
+#pragma unroll
+        for (int k = 0; k < RPH; ++k) dhv[k] = *dh_at(k, kb);
 #pragma unroll
         for (int k = 0; k < RPH; ++k) {
-          *dh_at(k, kb) += a[k];
+          *dh_at(k, kb) = dhv[k] + a[k];
           a[k] = 0.0f;
         }
       }
@@ -895,14 +904,15 @@ __device__ __forceinline__ void gru_reverse128(const h128::Tile& t, const h128::
       const float* wb = seq.take(p, tid);
       if (u >= 4 || !zero_state) xwt<H>(x, wb, o, a);
     }
+    if (to_m) {
 #pragma unroll
-    for (int k = 0; k < RPH; ++k) {
-      if (to_m) {
-        t.m[own_at(o, k, hf, kb)] = a[k];
-      } else {
-        float* d = dh_at(k, kb);
-        *d = zero_state ? a[k] : a[k] + *d;
-      }
+      for (int k = 0; k < RPH; ++k) dm[own_at(o, k, 0, kb)] = a[k];
+    } else {
+      float dhv[RPH];
+#pragma unroll
+      for (int k = 0; k < RPH; ++k) dhv[k] = zero_state ? 0.0f : *dh_at(k, kb);
+#pragma unroll
+      for (int k = 0; k < RPH; ++k) *dh_at(k, kb) = zero_state ? a[k] : a[k] + dhv[k];
     }
   }
 }
@@ -913,7 +923,7 @@ __device__ __forceinline__ void gru_reverse128(const h128::Tile& t, const h128::
 // them over the tile).  Its weight gradients go to the tile's row, dh = dpi Wi[:H]^T
 // + doj Wj^T to dh and h0's direct term dpi Wi[H:]^T to Scratch::DIRECT
 // (both row-major in global memory); the gate, then dpi, of a column half
-// in the work buffer, doj in global memory (Scratch::R, the owner's
+// in the work buffer, doj in global memory (Scratch::DOJ, the owner's
 // entries) until dpi is done.
 template <class S>
 __device__ __forceinline__ void readout_bwd128(const h128::Tile& t, const h128::Globals& g,
@@ -924,7 +934,7 @@ __device__ __forceinline__ void readout_bwd128(const h128::Tile& t, const h128::
   float* s_h0 = t.m;  // read after the first block's barrier
   for (int i = tid; i < TH; i += THREADS) s_h0[at(i / H, i % H)] = g.hin()[i];
   const Tc::Own o(h64::fresh_tid());
-  auto doj = [&] { return g.part() + Scratch::R; };
+  auto doj = [&] { return g.part() + Scratch::DOJ; };
 #pragma unroll 1
   for (int c = 0; c < 2; ++c) {
     // by row halves: the gate sigmoid([h, h0] Wi + bi) into the work
@@ -983,33 +993,29 @@ __device__ __forceinline__ void readout_bwd128(const h128::Tile& t, const h128::
 }
 
 // The reverse body at H = 128 (fused_ggnn128_bwd.cuh), in the launches of
-// MODE (h128::rev_block): the forward over the range (the H = 128
-// forward's layer step, each product in a loop), K2b's readout backward,
-// the reverse with dh in global memory (dh_bot), the GRU by row halves and
-// the message backward by edge types and column halves, every weight block
-// through the panels in one sequence per launch.
+// MODE (h128::rev_block).  F (modes 0 and 1): the forward over the range
+// (the H = 128 forward's layer step, each product in a loop), storing each
+// layer's input in hs and its m, r, z and n in acts, then dh = dh_top (mode
+// 0) or K2b's readout backward (mode 1).  R (mode 2): the reverse from hs,
+// acts and dh (dh_bot, in global memory), the GRU by row halves and the
+// message backward by edge types and column halves, nothing of the forward
+// rebuilt.  Every weight block passes through the panels in one sequence
+// per launch.
 template <int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_ggnn_bwd_kernel128(const float* __restrict__ hin, const float* __restrict__ adj,
                          Weights w, Readout ro, const float* __restrict__ dout,
-                         float* dh_bot, float* partial, float* hs, int lo, int hi,
-                         int n_grad) {
+                         float* dh_bot, float* partial, float* hs, float* acts, int lo,
+                         int hi, int n_grad) {
   using namespace h128;
   using S = RPlan;
   using G = GradLayout<H>;
-  constexpr bool FORWARD = MODE != 2, REVERSE = MODE != 1;
   extern __shared__ float smem[];
   // the adjacency is read through g (Globals), not t
   const Tile t = {nullptr, smem + S::HIN, smem + S::MS, smem + S::WORK, smem + S::B_MSG,
                   smem + S::BZ, smem + S::BR, smem + S::BN,
                   reinterpret_cast<const Idx*>(smem + S::NK), smem + S::NV,
                   reinterpret_cast<const int*>(smem + S::NC)};
-  int* s_cs = reinterpret_cast<int*>(smem + S::CS);
-  Idx* s_cr = reinterpret_cast<Idx*>(smem + S::CR);
-  float* s_cv = smem + S::CV;
-  int* s_ov = reinterpret_cast<int*>(smem + S::OV);
-  int* s_ovn = reinterpret_cast<int*>(smem + S::OVN);
-
   const int tid = threadIdx.x;
   const size_t tile = blockIdx.x;
   const float* adj_t = adj + tile * TILE * ROW_LEN;
@@ -1026,31 +1032,25 @@ fused_ggnn_bwd_kernel128(const float* __restrict__ hin, const float* __restrict_
                            part + G::gru0(n_range) + G::GRU_WORDS,
                            hin + tile * TH,
                            dout + tile * TH,
-                           MODE == 1 ? ro.mask + tile * TILE : nullptr};
-    for (int i = 0; i < 10; ++i) s_ptrs[i] = const_cast<float*>(rows[i]);
+                           MODE == 1 ? ro.mask + tile * TILE : nullptr,
+                           acts + tile * size_t(n_range) * ACTS * TH};
+    for (int i = 0; i < 11; ++i) s_ptrs[i] = const_cast<float*>(rows[i]);
   }
   const Globals g = {s_ptrs};
-
-  // 1. the row lists, the column lists for a reverse (trap (a)), then the
-  // forward over the range, keeping each layer's input in hs
   Panels p;
-  h64::panels_start<Tc, H>(p, smem + S::PANELS,
-                           rev_block<MODE, FORWARD ? 0 : 2>(w, ro, lo, hi, 0), tid);
-  for (int i = tid; i < H; i += THREADS) {
-    smem[S::BZ + i] = w.bz[i]; smem[S::BR + i] = w.br[i]; smem[S::BN + i] = w.bn[i];
-    if (MODE == 1) { smem[S::BI + i] = ro.bi[i]; smem[S::BJ + i] = ro.bj[i]; }
-  }
-  if (FORWARD) {
+  h64::panels_start<Tc, H>(p, smem + S::PANELS, rev_block<MODE, 0>(w, ro, lo, hi, 0), tid);
+
+  if constexpr (MODE != R_MODE) {
+    // F: the row lists, then the forward over the range
+    for (int i = tid; i < H; i += THREADS) {
+      smem[S::BZ + i] = w.bz[i]; smem[S::BR + i] = w.br[i]; smem[S::BN + i] = w.bn[i];
+      if (MODE == 1) { smem[S::BI + i] = ro.bi[i]; smem[S::BJ + i] = ro.bj[i]; }
+    }
     const float* h0_t = hin + tile * TH;  // h0 when lo == 0, else h_mid
     for (int i = tid; i < TH; i += THREADS) t.h[at(i / H, i % H)] = h0_t[i];
-  }
-  scan_rows(adj_t, reinterpret_cast<Idx*>(smem + S::NK), smem + S::NV,
-            reinterpret_cast<int*>(smem + S::NC), tid);
-  __syncthreads();
-  if (REVERSE)
-    count_columns(t.nk, t.nv, t.nc, s_cs, s_cr, s_cv, s_ov, s_ovn,
-                  reinterpret_cast<unsigned*>(t.work), tid);
-  if constexpr (FORWARD) {
+    scan_rows(adj_t, reinterpret_cast<Idx*>(smem + S::NK), smem + S::NV,
+              reinterpret_cast<int*>(smem + S::NC), tid);
+    __syncthreads();
     RSeq<MODE, 0> fwd_seq = {w, ro, lo, hi};
 #pragma unroll 1
     for (int l = lo; l < hi; ++l) {
@@ -1058,117 +1058,138 @@ fused_ggnn_bwd_kernel128(const float* __restrict__ hin, const float* __restrict_
       // the previous layer's readers of the biases are past its last barrier
       for (int i = tid; i < NE * H; i += THREADS) t.bmsg[i] = w.msg_b[size_t(l) * NE * H + i];
       messages_looped(t, g, fwd_seq, p, tid);
+      __syncthreads();
+      for (int i = tid; i < TH; i += THREADS) g.act(l - lo, ACT_M)[i] = t.m[i];
 #pragma unroll 1
       for (int hf = 0; hf < 2; ++hf)
-        gru_half_looped(t, l == 0, hf, g.part() + Scratch::PARK, g.part() + Scratch::R,
-                        fwd_seq, p, tid);
+        gru_half_looped(t, l == 0, hf, g.act(l - lo, ACT_R), g.act(l - lo, ACT_Z),
+                        g.act(l - lo, ACT_N), fwd_seq, p, tid);
       __syncthreads();
     }
-  }
-
-  // 2. seed dh: the readout's backward (K2b's first launch, which ends
-  // there) or dh_top (K1b, K3; K2b's second launch finds the seed in dh)
-  if constexpr (MODE == 1) {
-    RSeq<MODE, 1> ro_seq = {w, ro, lo, hi};
-    readout_bwd128(t, g, smem + S::BI, smem + S::BJ, ro_seq, p, tid);
-    return;
-  }
-  if (MODE == 0)
-    for (int i = tid; i < TH; i += THREADS) g.dh()[i] = g.dout()[i];
-
-  // 3. reverse the range's layers
-  RSeq<MODE, 2> rev_seq = {w, ro, lo, hi};
+    // seed dh: the readout's backward (K2b) or dh_top (K1b, K3)
+    if constexpr (MODE == 1) {
+      RSeq<MODE, 1> ro_seq = {w, ro, lo, hi};
+      readout_bwd128(t, g, smem + S::BI, smem + S::BJ, ro_seq, p, tid);
+    } else {
+      for (int i = tid; i < TH; i += THREADS) g.dh()[i] = g.dout()[i];
+    }
+  } else {
+    // R: the row lists, the first reversed layer's h and m on their way
+    // (Reloads), the column lists (from a scan before the range's first
+    // layer: trap (a)), then the range's layers in reverse
+    int* s_cs = reinterpret_cast<int*>(smem + S::CS);
+    Idx* s_cr = reinterpret_cast<Idx*>(smem + S::CR);
+    float* s_cv = smem + S::CV;
+    int* s_ov = reinterpret_cast<int*>(smem + S::OV);
+    int* s_ovn = reinterpret_cast<int*>(smem + S::OVN);
+    const Reloads rl = {reinterpret_cast<unsigned long long*>(smem + S::BAR)};
+    if (tid == 0) {
+      mbar_init(rl.bar, 1);
+      mbar_fence_init();
+    }
+    scan_rows(adj_t, reinterpret_cast<Idx*>(smem + S::NK), smem + S::NV,
+              reinterpret_cast<int*>(smem + S::NC), tid);
+    __syncthreads();  // the mbarrier and the pointers are set before any thread uses them
+    rl.expect(2 * TH, tid);
+    rl.copy(t.h, g.hs(hi - 1 - lo), TH, tid);
+    rl.copy(t.m, g.act(hi - 1 - lo, ACT_M), TH, tid);
+    count_columns(t.nk, t.nv, t.nc, s_cs, s_cr, s_cv, s_ov, s_ovn,
+                  reinterpret_cast<unsigned*>(t.work), tid);
+    RSeq<MODE, 0> rev_seq = {w, ro, lo, hi};
 #pragma unroll 1
-  for (int l = hi - 1; l >= lo; --l) {
-    const bool zero_state = (l == 0);  // trap (b): ds survives at l == lo > 0
-    __syncthreads();  // the last readers of h, m and the message biases are done
-    for (int i = tid; i < TH; i += THREADS) t.h[i] = g.hs(l - lo)[i];
-    for (int i = tid; i < NE * H; i += THREADS) t.bmsg[i] = w.msg_b[size_t(l) * NE * H + i];
-    messages_looped(t, g, rev_seq, p, tid);
-    // the GRU by row halves, each borrowing the other half's rows of h
-    // (reloaded from hs after) and of m (parked in global memory meanwhile:
-    // m's, then the first half's dm)
+    for (int l = hi - 1; l >= lo; --l) {
+      const int j = hi - 1 - l;
+      const bool zero_state = (l == 0);  // trap (b): ds survives at l == lo > 0
+      rl.wait(3 * j);  // the layer's h and m
+      // the GRU by row halves, each borrowing the other half's rows of h
+      // and m: the second half's reloaded from hs and acts before it runs,
+      // the first half's after (m's from its dm, parked in global memory)
 #pragma unroll 1
-    for (int hf = 0; hf < 2; ++hf) {
-      __syncthreads();
-      for (int i = tid; i < HALF * H; i += THREADS) {
-        float* park = g.part() + Scratch::PARK;
+      for (int hf = 0; hf < 2; ++hf) {
+        __syncthreads();  // the last readers of what the half overwrites are done
         if (hf == 1) {
-          t.m[HALF * H + i] = park[i];
-          t.h[HALF * H + i] = g.hs(l - lo)[HALF * H + i];
+          rl.expect(2 * HALF * H, tid);
+          rl.copy(t.m + HALF * H, g.act(l - lo, ACT_M) + HALF * H, HALF * H, tid);
+          rl.copy(t.h + HALF * H, g.hs(l - lo) + HALF * H, HALF * H, tid);
+          rl.wait(3 * j + 1);
         }
-        park[i] = t.m[hf == 0 ? HALF * H + i : i];
+        gru_reverse128(t, g, g.act(l - lo, ACT_R) + hf * HALF * H, zero_state,
+                       l != hi - 1 || hf != 0, hf, rev_seq, p, tid);
       }
-      gru_reverse128(t, g, zero_state, l != hi - 1 || hf != 0, hf, rev_seq, p, tid);
-    }
-    __syncthreads();
-    for (int i = tid; i < HALF * H; i += THREADS) {
-      t.m[i] = g.part()[Scratch::PARK + i];
-      t.h[i] = g.hs(l - lo)[i];
-    }
-    if (MODE == 2 && l == 0) {  // dh0's direct term, once layer 0's GRU has consumed dh
-      for (int i = tid; i < TH; i += THREADS) g.dh()[i] += g.part()[Scratch::DIRECT + i];
-    }
-    // message backward, by edge types and column halves: dhw_e[:, c] =
-    // A_e^T dm[:, c] into the work buffer, then layer l's message
-    // gradients of those columns (two blocks, one on each half of the
-    // CTA) and dh += dhw_e[:, c] W_e[:, c]^T.  The scratch above is dead
-    // before layer lo's gradients overwrite it (the first block's barrier).
-#pragma unroll 1
-    for (int ec = 0; ec < 2 * NE; ++ec) {
-      const int e = ec >> 1, c = ec & 1;
-      const float* w0 = rev_seq.take(p, tid);
-      h64::column_gather_edge<Tc, Wide>(g.adj(), e, t.m + c * HB, s_cs, s_cr, s_cv, s_ov,
-                                        *s_ovn, t.work, tid);
       __syncthreads();
-      const size_t le = size_t(l - lo) * NE + e;
-      const int ia = tid >> 8;
-      grad_block<H, HB>(t.h + ia * HB, t.work, g.part() + le * H * H + ia * HB * H + c * HB,
-                        nullptr, TILE, false, false);
-      col_sums<1, HB, HB>({t.work}, {g.msg_b() + le * H + c * HB}, TILE, false, tid);
+      rl.expect(HALF * H, tid);
+      rl.copy(t.h, g.hs(l - lo), HALF * H, tid);
+      for (int i = tid; i < HALF * H; i += THREADS) t.m[i] = g.part()[Scratch::PARK + i];
+      if (ro.mask != nullptr && l == 0) {  // K2b: dh0's direct term, once layer 0's GRU has consumed dh
+        for (int i = tid; i < TH; i += THREADS) g.dh()[i] += g.part()[Scratch::DIRECT + i];
+      }
+      rl.wait(3 * j + 2);
+      // message backward, by edge types and column halves: dhw_e[:, c] =
+      // A_e^T dm[:, c] into the work buffer, then layer l's message
+      // gradients of those columns (two blocks, one on each half of the
+      // CTA) and dh += dhw_e[:, c] W_e[:, c]^T.  The scratch above is dead
+      // before layer lo's gradients overwrite it (the first block's barrier).
+      // The next layer's m is brought in once the last gather is done, its h
+      // once the last gradient block is.
 #pragma unroll 1
-      for (int kb = 0; kb < 2; ++kb)
-        xwt_tile_global(t.work, kb == 0 ? w0 : rev_seq.take(p, tid), g.dh() + kb * HB, true);
+      for (int ec = 0; ec < 2 * NE; ++ec) {
+        const int e = ec >> 1, c = ec & 1;
+        const bool last = ec == 2 * NE - 1 && l > lo;
+        const float* w0 = rev_seq.take(p, tid);
+        h64::column_gather_edge<Tc, Wide>(g.adj(), e, t.m + c * HB, s_cs, s_cr, s_cv, s_ov,
+                                          *s_ovn, t.work, tid);
+        __syncthreads();
+        if (last) {
+          rl.expect(2 * TH, tid);
+          rl.copy(t.m, g.act(l - 1 - lo, ACT_M), TH, tid);
+        }
+        const size_t le = size_t(l - lo) * NE + e;
+        const int ia = tid >> 8;
+        grad_block<H, HB>(t.h + ia * HB, t.work, g.part() + le * H * H + ia * HB * H + c * HB,
+                          nullptr, TILE, false, false);
+        col_sums<1, HB, HB>({t.work}, {g.msg_b() + le * H + c * HB}, TILE, false, tid);
+#pragma unroll 1
+        for (int kb = 0; kb < 2; ++kb) {
+          const float* wb = kb == 0 ? w0 : rev_seq.take(p, tid);
+          if (kb == 1 && last) rl.copy(t.h, g.hs(l - 1 - lo), TH, tid);
+          xwt_tile_global(t.work, wb, g.dh() + kb * HB, true);
+        }
+      }
     }
+    // dh_bot holds dh at the bottom of the range: dh0 (with the readout's
+    // direct term), or dh_mid for the top half
   }
-  // 4. dh_bot holds dh at the bottom of the range: dh0 (with the readout's
-  // direct term), or dh_mid for the top half
 }
 
 template <int MODE>
 cudaError_t launch_body128(const float* hin, const float* adj, const Weights& w,
                            const Readout& ro, const float* dout, float* dh_bot,
-                           float* partial, float* hs, int n_tiles, int lo, int hi,
-                           int n_grad, cudaStream_t stream) {
+                           float* partial, float* hs, float* acts, int n_tiles, int lo,
+                           int hi, int n_grad, cudaStream_t stream) {
   constexpr size_t bytes = h128::RPlan::BYTES;
   static bool opted_in[MAX_DEVICES] = {};
   cudaError_t err = opt_in_smem(fused_ggnn_bwd_kernel128<MODE>, bytes, opted_in);
   if (err != cudaSuccess) return err;
   fused_ggnn_bwd_kernel128<MODE><<<n_tiles, THREADS, bytes, stream>>>(
-      hin, adj, w, ro, dout, dh_bot, partial, hs, lo, hi, n_grad);
+      hin, adj, w, ro, dout, dh_bot, partial, hs, acts, lo, hi, n_grad);
   return cudaGetLastError();
 }
 
-// K1b and K3's halves in one launch of the body, K2b in two (rev_block),
-// then the in-order sum of the tiles' gradient rows
+// Every form in two launches of the body (rev_block): F, then R; then the
+// in-order sum of the tiles' gradient rows
 template <bool READOUT>
 cudaError_t launch_bwd128(const float* hin, const float* adj, const Weights& w,
                           const Readout& ro, const float* dout, float* dh_bot,
-                          float* partial, float* grads, float* hs, int n_tiles,
+                          float* partial, float* grads, float* hs, float* acts, int n_tiles,
                           int lo, int hi, cudaStream_t stream) {
-  if (!h64::panels_aligned(w, READOUT ? &ro : nullptr)) return cudaErrorInvalidValue;
+  if (!h64::panels_aligned(w, READOUT ? &ro : nullptr) || acts == nullptr)
+    return cudaErrorInvalidValue;
   const int n_grad = int(GradLayout<128>::words(hi - lo, READOUT));
-  cudaError_t err;
-  if constexpr (READOUT) {
-    err = launch_body128<1>(hin, adj, w, ro, dout, dh_bot, partial, hs, n_tiles, lo, hi,
-                            n_grad, stream);
-    if (err != cudaSuccess) return err;
-    err = launch_body128<2>(hin, adj, w, ro, dout, dh_bot, partial, hs, n_tiles, lo, hi,
-                            n_grad, stream);
-  } else {
-    err = launch_body128<0>(hin, adj, w, ro, dout, dh_bot, partial, hs, n_tiles, lo, hi,
-                            n_grad, stream);
-  }
+  cudaError_t err = launch_body128<READOUT ? 1 : 0>(hin, adj, w, ro, dout, dh_bot, partial, hs,
+                                                    acts, n_tiles, lo, hi, n_grad, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_body128<2>(hin, adj, w, ro, dout, dh_bot, partial, hs, acts, n_tiles, lo, hi,
+                          n_grad, stream);
   if (err != cudaSuccess) return err;
   constexpr int SUM_THREADS = 256;
   sum_tiles_kernel<<<(n_grad + SUM_THREADS - 1) / SUM_THREADS, SUM_THREADS, 0,
@@ -1183,15 +1204,16 @@ cudaError_t launch_bwd128(const float* hin, const float* adj, const Weights& w,
 // lo == 0, else the input of layer lo) and dh_top (the gradient of layer
 // hi-1's output), dh_bot (the gradient of layer lo's input) and the
 // summed gradients of the range's message weights (hi - lo layers) and of
-// the shared GRU, in the GradLayout order.  partial (P, n_grad) and hs
-// (P, hi - lo, T, H) are scratch.  Returns a cudaError_t.
+// the shared GRU, in the GradLayout order.  partial (P, n_grad), hs (P, hi
+// - lo, T, H) and, at H = 128 only (else unused), acts (P, hi - lo, 4, T, H)
+// are scratch.  Returns a cudaError_t.
 extern "C" int fused_ggnn_range_bwd(
     const float* hin, const float* adj, const float* msg_w, const float* msg_b,
     const float* wz, const float* uz, const float* bz,
     const float* wr, const float* ur, const float* br,
     const float* wn, const float* un, const float* bn,
     const float* dh_top, float* dh_bot, float* partial, float* grads, float* hs,
-    int n_tiles, int lo, int hi, int hidden, void* stream) {
+    float* acts, int n_tiles, int lo, int hi, int hidden, void* stream) {
   if (n_tiles <= 0 || lo < 0 || hi <= lo) return int(cudaErrorInvalidValue);
   const Weights w = make_weights(msg_w, msg_b, wz, uz, bz, wr, ur, br, wn, un, bn);
   const Readout ro = {};
@@ -1200,7 +1222,7 @@ extern "C" int fused_ggnn_range_bwd(
     case 16: return int(launch_bwd<16, false>(hin, adj, w, ro, dh_top, dh_bot, partial, grads, hs, n_tiles, lo, hi, st));
     case 32: return int(launch_bwd<32, false>(hin, adj, w, ro, dh_top, dh_bot, partial, grads, hs, n_tiles, lo, hi, st));
     case 64: return int(launch_bwd64<false>(hin, adj, w, ro, dh_top, dh_bot, partial, grads, hs, n_tiles, lo, hi, st));
-    case 128: return int(launch_bwd128<false>(hin, adj, w, ro, dh_top, dh_bot, partial, grads, hs, n_tiles, lo, hi, st));
+    case 128: return int(launch_bwd128<false>(hin, adj, w, ro, dh_top, dh_bot, partial, grads, hs, acts, n_tiles, lo, hi, st));
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -1214,7 +1236,7 @@ extern "C" int fused_ggnn_readout_bwd(
     const float* wn, const float* un, const float* bn,
     const float* mask, const float* wi, const float* bi,
     const float* wj, const float* bj,
-    const float* dg, float* dh0, float* partial, float* grads, float* hs,
+    const float* dg, float* dh0, float* partial, float* grads, float* hs, float* acts,
     int n_tiles, int n_layers, int hidden, int out_dim, void* stream) {
   if (n_tiles <= 0 || n_layers <= 0) return int(cudaErrorInvalidValue);
   if (out_dim != hidden) return int(cudaErrorInvalidValue);
@@ -1225,7 +1247,7 @@ extern "C" int fused_ggnn_readout_bwd(
     case 16: return int(launch_bwd<16, true>(h0, adj, w, ro, dg, dh0, partial, grads, hs, n_tiles, 0, n_layers, st));
     case 32: return int(launch_bwd<32, true>(h0, adj, w, ro, dg, dh0, partial, grads, hs, n_tiles, 0, n_layers, st));
     case 64: return int(launch_bwd64<true>(h0, adj, w, ro, dg, dh0, partial, grads, hs, n_tiles, 0, n_layers, st));
-    case 128: return int(launch_bwd128<true>(h0, adj, w, ro, dg, dh0, partial, grads, hs, n_tiles, 0, n_layers, st));
+    case 128: return int(launch_bwd128<true>(h0, adj, w, ro, dg, dh0, partial, grads, hs, acts, n_tiles, 0, n_layers, st));
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -70,53 +70,6 @@
 
 #include "fused_ggnn_common.cuh"
 
-#ifdef __CUDACC__
-// Hopper's named barriers, mbarriers and bulk copies, in PTX (the CPU
-// stand-in of tests/cuda_emu defines the same functions).
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-// arrive, and expect `bytes` more to land before the phase completes
-__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done)
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-}
-// order this thread's generic-proxy accesses of shared memory before its
-// later bulk copies into it
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-// global -> shared, `bytes` a multiple of 16 at 16-byte-aligned addresses;
-// completes its bytes on `bar`
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          unsigned bytes, unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes),
-      "r"(smem_u32(bar)) : "memory");
-}
-#endif
-
 namespace {
 
 using ggnn::MAX_DEVICES;

@@ -430,6 +430,10 @@ def _grad_shapes(n_layers: int, hidden: int,
 
 
 def _bwd_buffers(p, n_layers, hidden, d, dev):
+    """The backward kernels' output dh and scratch: the tiles' gradient
+    rows, their sum, each layer's input hs and, at H=128, each layer's
+    stored m, r, z and n (``acts``, which the reverse reads in place of
+    rebuilding the forward; None at the narrower widths)."""
     shapes = _grad_shapes(n_layers, hidden, d)
     sizes = [int(torch.Size(s).numel()) for s in shapes]
     n_grad = sum(sizes)
@@ -438,7 +442,14 @@ def _bwd_buffers(p, n_layers, hidden, d, dev):
     partial = torch.empty((p, n_grad), **f32)
     grads = torch.empty((n_grad,), **f32)
     hs = torch.empty((p, n_layers, TILE, hidden), **f32)
-    return dh0, partial, grads, hs, shapes, sizes
+    acts = (torch.empty((p, n_layers, 4, TILE, hidden), **f32)
+            if hidden == 128 else None)
+    return dh0, partial, grads, hs, acts, shapes, sizes
+
+
+def _ptr(x):
+    """A tensor's address for the C entry points, NULL for None."""
+    return None if x is None else x.data_ptr()
 
 
 def _split_grads(grads, shapes, sizes):
@@ -458,13 +469,14 @@ def _range_bwd(lo: int, hi: int, hin, adj, msg_w, msg_b, gru, dh_top):
     dev = hin.device
     _check("dh_top", dh_top, (p, TILE, hidden), dev)
     lib = load_library()
-    dh_bot, partial, grads, hs, shapes, sizes = _bwd_buffers(
+    dh_bot, partial, grads, hs, acts, shapes, sizes = _bwd_buffers(
         p, hi - lo, hidden, None, dev)
     with _on_device(dev):
         err = lib.fused_ggnn_range_bwd(
             hin.data_ptr(), adj.data_ptr(), *_weight_ptrs(msg_w, msg_b, gru),
             dh_top.data_ptr(), dh_bot.data_ptr(), partial.data_ptr(),
-            grads.data_ptr(), hs.data_ptr(), p, lo, hi, hidden, _stream(dev))
+            grads.data_ptr(), hs.data_ptr(), _ptr(acts), p, lo, hi, hidden,
+            _stream(dev))
     _raise_on(err, "fused_ggnn_range_bwd")
     dmsg_w, dmsg_b, dgru, _ = _split_grads(grads, shapes, sizes)
     return dh_bot, dmsg_w, dmsg_b, dgru
@@ -524,7 +536,7 @@ def fused_ggnn_readout_bwd(n_layers: int, h0, adj, msg_w, msg_b, gru,
     d = _check_readout(p, hidden, node_mask, ro_wi, ro_bi, ro_wj, ro_bj, dev)
     _check("dg", dg, (p, TILE, d), dev)
     lib = load_library()
-    dh0, partial, grads, hs, shapes, sizes = _bwd_buffers(
+    dh0, partial, grads, hs, acts, shapes, sizes = _bwd_buffers(
         p, n_layers, hidden, d, dev)
     with _on_device(dev):
         err = lib.fused_ggnn_readout_bwd(
@@ -532,7 +544,7 @@ def fused_ggnn_readout_bwd(n_layers: int, h0, adj, msg_w, msg_b, gru,
             node_mask.data_ptr(), ro_wi.data_ptr(), ro_bi.data_ptr(),
             ro_wj.data_ptr(), ro_bj.data_ptr(),
             dg.data_ptr(), dh0.data_ptr(), partial.data_ptr(),
-            grads.data_ptr(), hs.data_ptr(), p, n_layers, hidden, d,
+            grads.data_ptr(), hs.data_ptr(), _ptr(acts), p, n_layers, hidden, d,
             _stream(dev))
     _raise_on(err, "fused_ggnn_readout_bwd")
     fused_ggnn_readout_bwd.launches += 1

@@ -131,12 +131,12 @@ def range_bwd(lib, lo, hi, hin, adj, msg_w, msg_b, gru, dh_top):
     """fused_ggnn_range_bwd on CPU tensors, buffers and results as the
     wrapper's (``fused_ggnn_half_bwd``: full-size message gradients)."""
     p, _, hidden = hin.shape
-    dh_bot, partial, grads, hs, shapes, sizes = fg._bwd_buffers(
+    dh_bot, partial, grads, hs, acts, shapes, sizes = fg._bwd_buffers(
         p, hi - lo, hidden, None, "cpu")
     err = lib.fused_ggnn_range_bwd(
         hin.data_ptr(), adj.data_ptr(), *fg._weight_ptrs(msg_w, msg_b, gru),
         dh_top.data_ptr(), dh_bot.data_ptr(), partial.data_ptr(),
-        grads.data_ptr(), hs.data_ptr(), p, lo, hi, hidden, None)
+        grads.data_ptr(), hs.data_ptr(), fg._ptr(acts), p, lo, hi, hidden, None)
     assert err == 0
     dmsg_w, dmsg_b, dgru, _ = fg._split_grads(grads, shapes, sizes)
     full_w, full_b = torch.zeros_like(msg_w), torch.zeros_like(msg_b)
@@ -146,13 +146,13 @@ def range_bwd(lib, lo, hi, hin, adj, msg_w, msg_b, gru, dh_top):
 
 def readout_bwd(lib, layers, h0, adj, msg_w, msg_b, gru, readout, dg):
     p, _, hidden = h0.shape
-    dh0, partial, grads, hs, shapes, sizes = fg._bwd_buffers(
+    dh0, partial, grads, hs, acts, shapes, sizes = fg._bwd_buffers(
         p, layers, hidden, hidden, "cpu")
     err = lib.fused_ggnn_readout_bwd(
         h0.data_ptr(), adj.data_ptr(), *fg._weight_ptrs(msg_w, msg_b, gru),
         *(x.data_ptr() for x in readout), dg.data_ptr(), dh0.data_ptr(),
-        partial.data_ptr(), grads.data_ptr(), hs.data_ptr(), p, layers, hidden,
-        hidden, None)
+        partial.data_ptr(), grads.data_ptr(), hs.data_ptr(), fg._ptr(acts), p,
+        layers, hidden, hidden, None)
     assert err == 0
     dmsg_w, dmsg_b, dgru, rest = fg._split_grads(grads, shapes, sizes)
     return (dh0, dmsg_w, dmsg_b, dgru, *rest)
