@@ -320,7 +320,7 @@ def main() -> int:
             args["K2"] = lambda n: (gh0.data_ptr(), adj.data_ptr(),
                                     *fg._weight_ptrs(msg_w, msg_b, ggru),
                                     *(x.data_ptr() for x in readout), k2_out.data_ptr(),
-                                    p, n, 32, 32)
+                                    None, p, n, 32, 32)
             # K4 on the Set2Set table of K5's output, as the MPNN step builds it
             h = fm.fused_mpnn_reference(mpnn_layers, True, h0, adj, mol_id, mask,
                                         wt, m0t, gru)

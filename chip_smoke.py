@@ -31,8 +31,11 @@ Phases, each fatal on failure:
       untied; both bodies, the forward K1, K1m, K2 and the reverse K1b,
       K3, K2b, take every dense product on the tensor cores in 3xTF32) at
       batch 256 and 2048 (P=75 and 387), crowded and L=3, and the same
-      six kernels at H=D=128 (``csrc/fused_ggnn128.cuh``, the forward,
-      and ``csrc/fused_ggnn128_bwd.cuh``, the reverse, with dh in global
+      six kernels at H=D=128 (``csrc/fused_ggnn128_fwd.cuh``, the forward,
+      a cluster of two CTAs per tile whose resident clusters
+      (``cudaOccupancyMaxActiveClusters``) are printed first, each call a
+      launch of the weights' blocked copy and one of the body, and
+      ``csrc/fused_ggnn128_bwd.cuh``, the reverse, with dh in global
       memory, two launches in every form: F stores each layer's input and
       its m, r, z and n, R reads them; the h=128 model of bench.py, L=8
       untied) in the same four cases, with the bytes of that stored
@@ -287,6 +290,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import itertools
 import json
@@ -553,7 +557,13 @@ def time_pair(name, tag, kern, plain, smi, torch, labels=("kernel", "plain"),
 # ``csrc/fused_ggnn128_bwd.cuh``)
 BWD_SUM = {"fused_ggnn_bwd_kernel": 1, "sum_tiles_kernel": 1}
 BWD128 = {"fused_ggnn_bwd_kernel": 2, "sum_tiles_kernel": 1}
+# the H=128 forward (``csrc/fused_ggnn128_fwd.cuh``): the weights' blocked
+# copy, then the body
+FWD128 = {"fused_ggnn_kernel128": 1, "block_weights128": 1}
 WRAPPER_KERNELS = {
+    "fused_ggnn_h128": FWD128,
+    "fused_ggnn_mid_h128": FWD128,
+    "fused_ggnn_readout_h128": FWD128,
     "fused_ggnn_bwd_h128": BWD128,
     "fused_ggnn_half_bwd_h128": BWD128,
     "fused_ggnn_readout_bwd_h128": BWD128,
@@ -676,8 +686,6 @@ def occupancy(label, tag, entry, *args, group_warps=None):
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the CTAs launched and
     their warps (and groups of ``group_warps`` warps), and the waves over
     the card's SMs."""
-    import ctypes
-
     import torch
 
     out = (ctypes.c_int * 3)()
@@ -3604,9 +3612,18 @@ def main() -> int:
                weight_tying=False)
     # H=64: the ref_scale_fused64 model (csrc/fused_ggnn64.cuh's bodies)
     cfg64 = dict(cfg, fp_hidden_dim=64, fp_out_dim=64)
-    # H=128: the bodies of csrc/fused_ggnn128.cuh and fused_ggnn128_bwd.cuh
-    # (bench.py's h=128 model)
+    # H=128: the bodies of csrc/fused_ggnn128_fwd.cuh and fused_ggnn128_bwd.cuh
+    # (bench.py's h=128 model); the forward's clusters of two CTAs that the
+    # card holds at once
     cfg128 = dict(cfg, fp_hidden_dim=128, fp_out_dim=128)
+    clusters = ctypes.c_int(-1)
+    err = lib.fused_ggnn128_clusters(ctypes.byref(clusters))
+    if err != 0 or clusters.value < 1:
+        raise AssertionError(f"the H=128 forward's cluster occupancy query: error "
+                             f"{err}, {clusters.value} clusters")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"H=128 forward: {clusters.value} resident clusters of two CTAs "
+          f"(cudaOccupancyMaxActiveClusters, {sms} SMs; {smi})")
     cases = [(SERVE_BATCH, cfg, False), (N_PAIRS, cfg, False),
              (SERVE_BATCH, dict(cfg, fp_hidden_dim=16, fp_out_dim=16), False),
              (SERVE_BATCH, cfg, True),

@@ -5,7 +5,7 @@ the forward body's phases timed inside the kernel, and the forward's
 variants timed in turns.
 
     python3 chip_tc64.py [--fma-src DIR] [--forward-only] [--sep-only]
-                         [--parent-src DIR] [--bwd128-only]
+                         [--parent-src DIR] [--bwd128-only] [--fwd128-only]
 
 1. mma.sync.m16n8k8 TF32 alone: one CTA of 512 threads per SM (16 warps,
    as the bodies run), each warp issuing 1, 2, 4 or 8 independent
@@ -58,14 +58,13 @@ variants timed in turns.
    but the messages' first put in for it.
 
 7. The forward bodies at H = D = 64 (``fused_ggnn64.cuh``, the
-   ref_scale_fused64 model) and 128 (``fused_ggnn128.cuh``, the h=128
+   ref_scale_fused64 model) and 128 (``fused_ggnn128_fwd.cuh``, the h=128
    model of bench.py), K2 and K1 at L = 8 with seeded weights, on the same
    pairs (P = 75 and 387), in variants timed in turns as in 5: ``sep`` the
    source as it is (every product's two correction terms, lo*hi and
    hi*lo, summed in an accumulator of their own and added at the end,
    ``tc_mma``'s SEP), ``nosep`` all three terms into one accumulator (the
-   reverse body's form), and at 128 ``sep_gru`` SEP in the GRU's products
-   only; each variant's registers and spills, and its K1 on chip_smoke.py
+   reverse body's form); each variant's registers and spills, and its K1 on chip_smoke.py
    phase 3a's crowded batch (P = 75, every other row with ~5% of its
    columns set) against the plain f32 version and a float64 one: the entry
    closest to the bound (atol = rtol = 1e-4) as a fraction of it.
@@ -97,10 +96,31 @@ variants timed in turns.
    products, and the reloads of h and m with the parking.  Each line
    carries the card's name and power limit.
 
+9. The forward body at H = D = 128 (``fused_ggnn128_fwd.cuh``: a cluster
+   of two CTAs per tile, the weight blocks through a three-stage ring on
+   mbarriers, h's TF32 parts kept; bench.py's h=128 model, L = 8 untied,
+   seeded weights) on the same pairs (P = 75 and 387), from the tree's
+   ``fused_ggnn.cu`` and, with ``--parent-src``, from a directory holding
+   an earlier one and its headers (``git archive fcbbe1d
+   gcnbmp_tpu_torch/ops/csrc``: one CTA per tile, two staged panels and a
+   CTA barrier a block, h split at every load): each body's ptxas
+   registers and spills; the tree's body as it is and in variants made by
+   edits of its source (``noring``: two stages and a CTA barrier a block;
+   ``nosplit``: h split where it is loaded), each one's K2, K1 and K1m
+   against the parent's bits and against the plain versions (the entry
+   closest to the bound), all timed in turns (CUDA events, median of 14
+   runs of 5 calls); then K2's phases at P = 387 and 75 of each body by
+   clock64 as in 6 (thread 0 of each CTA, markers after a barrier, the
+   waits for a weight block in the take apart, as thread 0 sees them: in
+   the tree's ring it issues the loads and waits for every warp's release
+   of a stage), per CTA and per tile: set-up, the messages' products, the
+   waits, the aggregation, the cluster barrier before it, the gates'
+   products, h', the readout.
+
 Builds into ``results/tc64/`` with nvcc (all at once).  Fails if an anchor
 of the source is not found (the source changed) or there is no card.
 ``--forward-only`` runs phases 5 to 7 alone, ``--sep-only`` phase 7,
-``--bwd128-only`` phase 8.
+``--bwd128-only`` phase 8, ``--fwd128-only`` phase 9.
 """
 
 from __future__ import annotations
@@ -507,11 +527,8 @@ FWD_VARIANTS = {
 }
 
 # phase 7: the forward bodies' variants by width (file, anchor,
-# replacement, count): the source (SEP in every product), SEP in none, and
-# at H=128 SEP in the GRU's products (over a half of the tile) only
-H128 = "fused_ggnn128.cuh"
-_SEP_TILE = "h64::tc_mma<false, false, 2, 2, HALF, H, true>("
-_SEP_HALF = "h64::tc_mma<false, false, 1, 2, 16, H, true>("
+# replacement, count): the source (SEP in every product) and SEP in none
+H128, FWD128_HEADER = "fused_ggnn128.cuh", "fused_ggnn128_fwd.cuh"
 _SEP_TILE64 = "tc_mma<false, false, 2, 2, HALF, H, true>(x, w, H,"
 _SEP_SPLIT = "        float* e = cor + 4 * (2 * mi + nj);\n"
 SEP_VARIANTS = {
@@ -519,9 +536,10 @@ SEP_VARIANTS = {
          "nosep": [(HEADER, _SEP_TILE64, _SEP_TILE64.replace(", H, true>", ">"), 1),
                    (HEADER, _SEP_SPLIT, "        float* e = d;\n", 1)]},
     128: {"sep": [],
-          "nosep": [(H128, _SEP_TILE, _SEP_TILE.replace(", true>", ">"), 1),
-                    (H128, _SEP_HALF, _SEP_HALF.replace(", true>", ">"), 1)],
-          "sep_gru": [(H128, _SEP_TILE, _SEP_TILE.replace(", true>", ">"), 1)]},
+          "nosep": [(FWD128_HEADER, "      float* e = cor + 4 * nj;\n",
+                     "      float* e = d;\n", 1),
+                    (FWD128_HEADER, "h64::tc_mma<false, false, 1, 2, 16, H, true, HB>(",
+                     "h64::tc_mma<false, false, 1, 2, 16, H, false, HB>(", 1)]},
 }
 # phase 4: tc_mma's SEP on by default, so in every product of the reverse body
 SEP_OFF = "int LDA = H, bool SEP = false,"
@@ -659,8 +677,11 @@ def main() -> int:
     ap.add_argument("--parent-src", help="a directory holding an earlier "
                     "fused_ggnn_bwd.cu and its headers (phase 8)")
     ap.add_argument("--bwd128-only", action="store_true", help="phase 8 alone")
+    ap.add_argument("--fwd128-only", action="store_true", help="phase 9 alone "
+                    "(with --parent-src: a directory holding an earlier "
+                    "fused_ggnn.cu and its headers)")
     args = ap.parse_args()
-    only = args.forward_only or args.sep_only or args.bwd128_only
+    only = args.forward_only or args.sep_only or args.bwd128_only or args.fwd128_only
     import torch
 
     if not torch.cuda.is_available():
@@ -704,24 +725,27 @@ def main() -> int:
                               source="fused_ggnn_bwd.cu")
             sources[f"bwd_{variant}"] = (path, f)
     trees = {}
-    if not (args.sep_only or args.bwd128_only):
+    if not (args.sep_only or args.bwd128_only or args.fwd128_only):
         trees.update({f"fwd_{name}": (build.CSRC, edits, None)
                       for name, edits in FWD_VARIANTS.items()})
         trees["fwdp_tile_hs"] = (build.CSRC, (), "tile")
         if args.fma_src:
             trees["fwd_fma"] = (args.fma_src, (), None)
             trees["fwdp_fma"] = (args.fma_src, (), "fma")
-    if not args.bwd128_only:
+    if not (args.bwd128_only or args.fwd128_only):
         trees.update({f"fwd{width}_{name}": (build.CSRC, edits, None)
                       for width, variants in SEP_VARIANTS.items()
                       for name, edits in variants.items()})
     for name, (src_dir, edits, instrument) in trees.items():
         path = write_tree(os.path.join(OUT, name), src_dir, edits, instrument)
         sources[name] = (path, build.NVCC_FLAGS)
-    rev128 = {}
-    if args.bwd128_only or not (args.forward_only or args.sep_only):
+    rev128, fwd128 = {}, {}
+    if args.bwd128_only or not (args.forward_only or args.sep_only or args.fwd128_only):
         rev128 = reverse128_sources(args.parent_src)
         sources.update({name: spec[:2] for name, spec in rev128.items()})
+    if args.fwd128_only or not (args.forward_only or args.sep_only or args.bwd128_only):
+        fwd128 = forward128_sources(args.parent_src)
+        sources.update({name: spec[:2] for name, spec in fwd128.items()})
     t0 = time.perf_counter()
     procs = {name: subprocess.Popen(
         [build._nvcc(), *f, "-o", os.path.join(OUT, f"lib{name}.so"), path],
@@ -791,6 +815,12 @@ def main() -> int:
                        ro.j.dense.weight.T.contiguous(), ro.j.dense.bias.contiguous())
         return p, h0, adj_from_coo_flat(*edges, num_tiles=p, tile=t), readout
 
+    if args.fwd128_only:
+        enc, weights = model(128)
+        forward128_phase(torch, np, fg, stream, enc.n_layers, *weights,
+                         {bs: batch(enc, bs) for bs in (256, 2048)}, fwd128, logs,
+                         in_turns, smi)
+        return 0
     if args.bwd128_only:
         enc, weights = model(128)
         reverse128_phase(torch, np, fg, stream, enc.n_layers, *weights,
@@ -814,6 +844,9 @@ def main() -> int:
               batches, logs, in_turns, smi)
     if rev128:
         reverse128_phase(torch, np, fg, stream, enc.n_layers, *weights, batches, rev128,
+                         logs, in_turns, smi)
+    if fwd128:
+        forward128_phase(torch, np, fg, stream, enc.n_layers, *weights, batches, fwd128,
                          logs, in_turns, smi)
     return 0
 
@@ -928,7 +961,7 @@ def forward_phases(torch, fg, build, stream, n_layers, msg_w, msg_b, gru, batche
         p, h0, adj, readout = batches[bs]
         err = libs[name].fused_ggnn_readout_fwd(
             h0.data_ptr(), adj.data_ptr(), *fg._weight_ptrs(msg_w, msg_b, gru),
-            *(x.data_ptr() for x in readout), out[bs].data_ptr(), p, n_layers, 64,
+            *(x.data_ptr() for x in readout), out[bs].data_ptr(), None, p, n_layers, 64,
             64, stream)
         if err != 0:
             raise RuntimeError(f"K2 {name} launch failed: {err}")
@@ -937,7 +970,7 @@ def forward_phases(torch, fg, build, stream, n_layers, msg_w, msg_b, gru, batche
         p, h0, adj, _ = batches[bs]
         err = libs[name].fused_ggnn_fwd(
             h0.data_ptr(), adj.data_ptr(), *fg._weight_ptrs(msg_w, msg_b, gru),
-            out[bs].data_ptr(), p, n_layers, 64, stream)
+            out[bs].data_ptr(), None, p, n_layers, 64, stream)
         if err != 0:
             raise RuntimeError(f"K1 {name} launch failed: {err}")
 
@@ -992,20 +1025,23 @@ def sep_phase(torch, np, fg, build, stream, width, n_layers, msg_w, msg_b, gru,
         libs[name] = handle
         print(f"ptxas {name}: " + "; ".join(kernel_registers(logs[name], width)))
     out = {bs: torch.empty_like(b[1]) for bs, b in batches.items()}
+    dev = next(iter(out.values())).device
+    scratch = {ro: fg._blocked128(n_layers, width, ro, dev) for ro in (False, True)}
+    blocked = {ro: fg._ptr(x) for ro, x in scratch.items()}
 
     def k2(name, bs):
         p, h0, adj, readout = batches[bs]
         err = libs[name].fused_ggnn_readout_fwd(
             h0.data_ptr(), adj.data_ptr(), *fg._weight_ptrs(msg_w, msg_b, gru),
-            *(x.data_ptr() for x in readout), out[bs].data_ptr(), p, n_layers, width,
-            width, stream)
+            *(x.data_ptr() for x in readout), out[bs].data_ptr(), blocked[True], p,
+            n_layers, width, width, stream)
         if err != 0:
             raise RuntimeError(f"K2 {name} launch failed: {err}")
 
     def k1(name, p, h0, adj, dst):
         err = libs[name].fused_ggnn_fwd(
             h0.data_ptr(), adj.data_ptr(), *fg._weight_ptrs(msg_w, msg_b, gru),
-            dst.data_ptr(), p, n_layers, width, stream)
+            dst.data_ptr(), blocked[False], p, n_layers, width, stream)
         if err != 0:
             raise RuntimeError(f"K1 {name} launch failed: {err}")
 
@@ -1386,6 +1422,309 @@ def reverse128_phase(torch, np, fg, stream, n_layers, msg_w, msg_b, gru, batches
                 print(f"  {phase:44s} {float(counts[i]) / p:12.0f} cycles per CTA "
                       f"{100 * float(counts[i]) / total:6.1f}%")
             print(f"  {'all phases':44s} {total / p:12.0f} cycles per CTA")
+
+# -- phase 9: the H=128 forward body ------------------------------------------
+
+# thread 0 of each CTA adds the cycles since its last marker, less the
+# cycles it spent waiting for a weight block since then (kept apart, as
+# as the phase "waits for a weight block"), each kept in global memory by block
+PROF_FWD128 = r"""
+__device__ unsigned long long g_phase_cycles[16];
+__device__ long long g_phase_last[4096];
+__device__ long long g_wait_from[4096];
+__device__ long long g_wait_sum[4096];
+__device__ __forceinline__ void phase_end(int i) {
+  if (threadIdx.x == 0) {
+    const long long t = clock64();
+    if (i >= 0) {
+      const long long w = g_wait_sum[blockIdx.x];
+      atomicAdd(&g_phase_cycles[i], (unsigned long long)(t - g_phase_last[blockIdx.x] - w));
+      atomicAdd(&g_phase_cycles[2], (unsigned long long)w);
+    }
+    g_wait_sum[blockIdx.x] = 0;
+    g_phase_last[blockIdx.x] = t;
+  }
+}
+__device__ __forceinline__ void wait_begin() {
+  if (threadIdx.x == 0) g_wait_from[blockIdx.x] = clock64();
+}
+__device__ __forceinline__ void wait_end() {
+  if (threadIdx.x == 0) g_wait_sum[blockIdx.x] += clock64() - g_wait_from[blockIdx.x];
+}
+"""
+FWD128_READ = r"""
+extern "C" int phase_cycles(unsigned long long* out, int reset) {
+  if (reset) {
+    unsigned long long z[16] = {};
+    return int(cudaMemcpyToSymbol(ggnn::NS::g_phase_cycles, z, sizeof(z)));
+  }
+  return int(cudaMemcpyFromSymbol(out, ggnn::NS::g_phase_cycles,
+                                  16 * sizeof(unsigned long long)));
+}
+"""
+FWD128_PHASES = ["set-up: h0, biases, row lists", "messages: h W_e products",
+                 "waits for a weight block", "messages: m += A_e hw_e",
+                 "GRU: the gates' products", "GRU: h' = z n + (1 - z) s",
+                 "readout (K1: the store of h)", "cluster barrier before m += A_e hw_e"]
+assert FWD128_PHASES.index("waits for a weight block") == 2  # PROF_FWD128's
+# the parent's body (65f988f .. fcbbe1d: one CTA per tile, the panels of
+# h64::panels_next): (file, anchor, text put after it), and the take that
+# the waits are timed around (anchor, replacement)
+PARENT_FWD_MARKS128 = [
+    (SOURCE, "  const float* h0_t = h0 + TH * tile;\n", "  phase_end(-1);\n"),
+    (H128, "      __syncthreads();\n      // m[:, c HB..] (+)= A_e hw_e[:, c]\n",
+     "      phase_end(1);\n"),
+    (H128, "      h64::aggregate_edge<Tc, Wide>(t.adj_t, e, t.work, t.m + c * HB, t.nk, t.nv,\n"
+     "                                    t.nc, tid);\n", "      __syncthreads();\n      phase_end(3);\n"),
+    (H128, "  gate_n(t, hf, zero_state, seq, p, o, n1, tid);\n", "  __syncthreads();\n  phase_end(4);\n"),
+    (H128, "    t.h[i1] = zb * tanhf(n1[k]) + (1.0f - zb) * sb;\n  }\n",
+     "  __syncthreads();\n  phase_end(5);\n"),
+    (SOURCE, "    readout(t, s_h0, s_bi, s_bj, ro.mask + tile * TILE, out_t, seq, p, tid);\n  }\n",
+     "  __syncthreads();\n  phase_end(6);\n"),
+]
+PARENT_FWD_BEFORE128 = [
+    (SOURCE, "#pragma unroll 1\n  for (int l = 0; l < n_layers; ++l) {\n"
+     "    if constexpr (MID) {  // K1m: h_mid, the input of layer split\n", "  phase_end(0);\n")]
+PARENT_TAKE128 = [(H128, "    return h64::panels_next<Tc, H>(p, cur, next, tid);\n",
+                   "    wait_begin();\n    const float* b = h64::panels_next<Tc, H>(p, cur, next, tid);\n"
+                   "    wait_end();\n    return b;\n")]
+# the tree's body (a cluster of two CTAs a tile, fused_ggnn128_fwd.cuh):
+# the cluster barrier before each aggregation apart (it waits for the
+# peer's hw_e), and the waits for a block timed over the ring's take
+# (thread 0's: it issues the loads, and waits for every warp's release of
+# a stage before it loads the stage again)
+TREE_FWD_MARKS128 = [
+    (SOURCE, "  const int rank = int(cluster_rank());\n", "  phase_end(-1);\n"),
+    (FWD128_HEADER, "    cluster_arrive();\n    cluster_wait();\n", "    phase_end(7);\n"),
+    (FWD128_HEADER, "    aggregate(t, e, c, c, tid);\n", "    __syncthreads();\n    phase_end(3);\n"),
+    (FWD128_HEADER, "  __syncthreads();  // every product that reads h is done\n", "  phase_end(4);\n"),
+    (FWD128_HEADER, "    for (int i = tid; i < NE * H; i += THREADS) t.bmsg[i] = next_b[i];\n"
+     "  __syncthreads();\n", "  phase_end(5);\n"),
+]
+TREE_FWD_BEFORE128 = [
+    (SOURCE, "#pragma unroll 1\n  for (int l = 0; l < n_layers; ++l) {\n"
+     "    if constexpr (MID) {  // K1m: h_mid, the input of layer split, of the CTA's rows\n",
+     "  phase_end(0);\n"),
+    (FWD128_HEADER, "    cluster_arrive();\n    cluster_wait();\n",
+     "    __syncthreads();\n    phase_end(1);\n"),
+    (SOURCE, "  cluster_arrive();\n  cluster_wait();\n}\n", "  __syncthreads();\n  phase_end(6);\n"),
+]
+TREE_TAKE128 = [
+    (FWD128_HEADER, "    const int k = j + STAGES - 1;\n", "    wait_begin();\n    const int k = j + STAGES - 1;\n"),
+    (FWD128_HEADER, "    float* b = stages + (j % STAGES) * STAGE;\n",
+     "    wait_end();\n    float* b = stages + (j % STAGES) * STAGE;\n"),
+]
+# the tree's variants: name -> [(file, anchor, replacement)].  noring: two
+# stages, and a take waits for the block and then for every thread at a CTA
+# barrier before thread 0 issues the next copy (the one-CTA body's panels);
+# nosplit: h split where it is loaded, its TF32 parts never written
+FWD128_VARIANTS = {
+    "noring": [
+        (FWD128_HEADER, "constexpr int STAGES = 3;", "constexpr int STAGES = 2;"),
+        (FWD128_HEADER,
+         "    if (tid == 0 && k < n) {\n"
+         "      // the stage's last block, k - STAGES, released by every warp\n"
+         "      if (k >= STAGES) mbar_wait(empty + k % STAGES, (k / STAGES - 1) & 1);\n"
+         "      load(k);\n    }\n    mbar_wait(full + j % STAGES, (j / STAGES) & 1);\n",
+         "    mbar_wait(full + j % STAGES, (j / STAGES) & 1);\n"
+         "    __syncthreads();\n    if (tid == 0 && k < n) load(k);\n"),
+        (FWD128_HEADER, "    __syncwarp();\n    if ((tid & 31) == 0) "
+         "mbar_arrive(empty + (j - 1) % STAGES);\n", ""),
+    ],
+    "nosplit": [
+        (FWD128_HEADER, "  product_kept(t.hs, kb, w, o, acc);\n", "  product(t.h, kb, w, o, acc);\n"),
+        (FWD128_HEADER, "    split_store(t.hs, i0, va);\n    split_store(t.hs, i1, vb);\n", ""),
+        (SOURCE, "    split_store(t.hs, at, h0_rows[i]);\n", ""),
+    ],
+}
+
+
+def fwd128_instrumented(texts: dict, marks, before, take, header: str, ns: str) -> None:
+    """texts (file name -> text) with phase 9's markers put in, in place:
+    the counters in ``header``'s namespace ``ns``, the marks after (and
+    ``before``) their anchors, and the waits timed around the take (edits
+    (file, anchor, replacement))."""
+    opening = f"namespace {ns} {{\n"
+    texts[header] = edited(texts[header], [(opening, opening + PROF_FWD128)], header)
+    for name, anchor, mark in marks:
+        texts[name] = edited(texts[name], [(anchor, anchor + mark)], name)
+    for name, anchor, mark in before:
+        texts[name] = edited(texts[name], [(anchor, mark + anchor)], name)
+    for name, anchor, replacement in take:
+        texts[name] = edited(texts[name], [(anchor, replacement)], name)
+    texts[SOURCE] += FWD128_READ.replace("NS", ns)
+
+
+def forward128_sources(parent_dir: str | None):
+    """Phase 9's libraries: name -> (source path, nvcc flags, C entry
+    points, whether they take the blocked weights' scratch).  With
+    ``parent_dir`` the parent's body, plain and marked; the tree's, plain
+    and marked, and its variants (FWD128_VARIANTS)."""
+    from gcnbmp_tpu_torch.ops import build
+
+    def texts_of(directory):
+        out = {}
+        for name in (SOURCE, *build.HEADERS):
+            path = os.path.join(directory, name)
+            if os.path.exists(path):
+                with open(path) as f:
+                    out[name] = f.read()
+        return out
+
+    entries = {k: v for k, v in build.SOURCES[SOURCE].items()
+               if k in ("fused_ggnn_fwd", "fused_ggnn_mid_fwd", "fused_ggnn_readout_fwd")}
+    out = {}
+
+    def add(name, texts, blocked):
+        """blocked: the entries take the blocked weights' scratch (after the
+        outputs); the parent's one-CTA body's take none, one pointer less
+        of the leading run of pointers."""
+        os.makedirs(os.path.join(OUT, name))
+        for fname, text in texts.items():
+            with open(os.path.join(OUT, name, fname), "w") as f:
+                f.write(text)
+        own = entries if blocked else {k: v[1:] for k, v in entries.items()}
+        out[name] = (os.path.join(OUT, name, SOURCE), build.NVCC_FLAGS, own, blocked)
+
+    if parent_dir:
+        parent = texts_of(parent_dir)
+        add("f128_parent", parent, False)
+        marked = dict(parent)
+        fwd128_instrumented(marked, PARENT_FWD_MARKS128, PARENT_FWD_BEFORE128,
+                            PARENT_TAKE128, H128, "h128")
+        add("f128_parent_p", marked, False)
+    tree = texts_of(build.CSRC)
+    add("f128", tree, True)
+    marked = dict(tree)
+    fwd128_instrumented(marked, TREE_FWD_MARKS128, TREE_FWD_BEFORE128,
+                        TREE_TAKE128, FWD128_HEADER, "h128c")
+    add("f128_p", marked, True)
+    for variant, edits in FWD128_VARIANTS.items():
+        texts = dict(tree)
+        for name, anchor, replacement in edits:
+            texts[name] = edited(texts[name], [(anchor, replacement)], name)
+        add(f"f128_{variant}", texts, True)
+    return out
+
+
+def fwd128_registers(log: str) -> list[str]:
+    """ptxas's registers, spills and shared memory of each
+    fused_ggnn_kernel128 instance."""
+    out, body = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"fused_ggnn_kernel128ILb([01])ELb([01])E", m.group(1))
+            body = None if k is None else ("K2" if k[1] == "1" else
+                                           "K1m" if k[2] == "1" else "K1")
+        elif body and ("spill" in line or "registers" in line):
+            out.append(f"{body}: {line.split(':', 1)[-1].strip()}")
+    return out
+
+
+def forward128_phase(torch, np, fg, stream, n_layers, msg_w, msg_b, gru, batches, libs_spec,
+                     logs, in_turns, smi):
+    """Phase 9: the H=128 forward bodies (the parent's, the tree's and its
+    variants): registers, the parent's bits, K2, K1 and K1m in turns at
+    P=75 and 387, and K2's phases by clock64 at both sizes."""
+    hidden, split = 128, n_layers // 2
+    libs, takes_blocked = {}, {}
+    for name, (_, _, entries, blocked) in libs_spec.items():
+        handle = ctypes.CDLL(os.path.join(OUT, f"lib{name}.so"))
+        for entry, argtypes in entries.items():
+            getattr(handle, entry).argtypes = argtypes
+        libs[name], takes_blocked[name] = handle, blocked
+        if not name.endswith("_p"):
+            print(f"ptxas {name}: " + "; ".join(fwd128_registers(logs[name])))
+    plain = [n for n in libs if not n.endswith("_p")]
+    wptrs = fg._weight_ptrs(msg_w, msg_b, gru)
+    outs = {bs: (torch.empty_like(b[1]), torch.empty_like(b[1])) for bs, b in batches.items()}
+    dev = msg_w.device
+    scratch = {ro: fg._blocked128(n_layers, hidden, ro, dev) for ro in (False, True)}
+
+    def blocked(name, readout):
+        return (scratch[readout].data_ptr(),) if takes_blocked[name] else ()
+
+    def k2(name, bs):
+        p, h0, adj, readout = batches[bs]
+        err = libs[name].fused_ggnn_readout_fwd(
+            h0.data_ptr(), adj.data_ptr(), *wptrs, *(x.data_ptr() for x in readout),
+            outs[bs][0].data_ptr(), *blocked(name, True), p, n_layers, hidden, hidden,
+            stream)
+        if err != 0:
+            raise RuntimeError(f"K2 {name} launch failed: {err}")
+
+    def k1(name, bs):
+        p, h0, adj, _ = batches[bs]
+        err = libs[name].fused_ggnn_fwd(h0.data_ptr(), adj.data_ptr(), *wptrs,
+                                        outs[bs][0].data_ptr(), *blocked(name, False), p,
+                                        n_layers, hidden, stream)
+        if err != 0:
+            raise RuntimeError(f"K1 {name} launch failed: {err}")
+
+    def k1m(name, bs):
+        p, h0, adj, _ = batches[bs]
+        err = libs[name].fused_ggnn_mid_fwd(
+            h0.data_ptr(), adj.data_ptr(), *wptrs, outs[bs][0].data_ptr(),
+            outs[bs][1].data_ptr(), *blocked(name, False), p, n_layers, split, hidden,
+            stream)
+        if err != 0:
+            raise RuntimeError(f"K1m {name} launch failed: {err}")
+
+    kernels = {"K2": k2, "K1": k1, "K1m": k1m}
+    for bs, (p, h0, adj, readout) in batches.items():
+        with torch.no_grad():
+            want = {"K2": fg.fused_ggnn_readout_reference(n_layers, h0, adj, msg_w, msg_b,
+                                                          gru, *readout),
+                    "K1": fg.fused_ggnn_reference(n_layers, h0, adj, msg_w, msg_b, gru)}
+        for label, run in kernels.items():
+            got = {}
+            for name in plain:
+                run(name, bs)
+                torch.cuda.synchronize()
+                got[name] = (outs[bs][0].clone(),
+                             outs[bs][1].clone() if label == "K1m" else None)
+            if "f128_parent" in got:
+                ref = got["f128_parent"]
+                same = [n for n in plain if torch.equal(got[n][0], ref[0])
+                        and (label != "K1m" or torch.equal(got[n][1], ref[1]))]
+                print(f"{label} H=128 P={p}: the parent's bits from {', '.join(same)}")
+            plain_ref = want["K2" if label == "K2" else "K1"]
+            for name in plain:
+                err = float((got[name][0] - plain_ref).abs().max())
+                worst = float(((got[name][0] - plain_ref).abs()
+                               / (1e-4 + 1e-4 * plain_ref.abs())).max())
+                print(f"  {label} {name} P={p}: max abs err vs plain {err:.3e}, "
+                      f"closest to the bound {worst:.3f} of it")
+            ms = in_turns({n: (lambda n=n: run(n, bs)) for n in plain})
+            print(f"{label} H=128 P={p} L={n_layers} ({smi}): " + ", ".join(
+                f"{n} {ms[n]:.4f} ms" for n in plain))
+
+    # K2's phases at P=387 and P=75, of each body
+    for bs in sorted(batches, reverse=True):
+        p = batches[bs][0]
+        for name in [n for n in plain if n + "_p" in libs]:
+            marked = name + "_p"
+            ctas = p if "parent" in name else 2 * p
+            phases = libs[marked].phase_cycles
+            phases.argtypes = [ctypes.c_void_p, ctypes.c_int]
+            ms = in_turns({name: lambda: k2(name, bs), marked: lambda: k2(marked, bs)})
+            counts = np.zeros(16, np.uint64)
+            if phases(counts.ctypes.data, 1) != 0:
+                raise RuntimeError("phase counters not reset")
+            k2(marked, bs)
+            torch.cuda.synchronize()
+            if phases(counts.ctypes.data, 0) != 0:
+                raise RuntimeError("phase counters not read")
+            total = float(counts[:len(FWD128_PHASES)].sum())
+            print(f"K2 H=128 P={p} L={n_layers}, {name} ({ctas} CTAs): {ms[name]:.4f} ms "
+                  f"per call, {ms[marked]:.4f} ms with the phase markers ({smi})")
+            for i, phase in enumerate(FWD128_PHASES):
+                print(f"  {phase:36s} {float(counts[i]) / ctas:12.0f} cycles per CTA "
+                      f"{float(counts[i]) / p:12.0f} per tile {100 * float(counts[i]) / total:6.1f}%")
+            print(f"  {'all phases':36s} {total / ctas:12.0f} cycles per CTA "
+                  f"{total / p:12.0f} per tile")
+
 
 if __name__ == "__main__":
     sys.exit(main())

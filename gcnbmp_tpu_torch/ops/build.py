@@ -23,7 +23,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD_DIR = os.path.join(HERE, "build")
 HEADERS = ("fused_ggnn_common.cuh", "fused_ggnn64.cuh", "fused_ggnn128.cuh",
-           "fused_ggnn128_bwd.cuh")
+           "fused_ggnn128_fwd.cuh", "fused_ggnn128_bwd.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -32,9 +32,10 @@ _I = ctypes.c_int
 # source -> {C entry point: argtypes}; every pointer and the stream are c_void_p
 SOURCES = {
     "fused_ggnn.cu": {
-        "fused_ggnn_fwd": [_P] * 14 + [_I] * 3 + [_P],
-        "fused_ggnn_mid_fwd": [_P] * 15 + [_I] * 4 + [_P],
-        "fused_ggnn_readout_fwd": [_P] * 19 + [_I] * 4 + [_P],
+        "fused_ggnn_fwd": [_P] * 15 + [_I] * 3 + [_P],
+        "fused_ggnn_mid_fwd": [_P] * 16 + [_I] * 4 + [_P],
+        "fused_ggnn_readout_fwd": [_P] * 20 + [_I] * 4 + [_P],
+        "fused_ggnn128_clusters": [_P],
     },
     "fused_ggnn_bwd.cu": {
         "fused_ggnn_range_bwd": [_P] * 19 + [_I] * 4 + [_P],

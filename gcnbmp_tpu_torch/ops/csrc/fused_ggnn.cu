@@ -82,11 +82,16 @@
 //
 // At H = 128 (fused_ggnn_kernel128) one T x H buffer is 64 KB, and h, m and
 // one hw_e beside the panels already exceed the CTA's 227 KB, so that width
-// has a body of its own again (fused_ggnn128.cuh): the same panels and
-// 3xTF32 products with SEP, hw_e by column halves, the GRU by row halves of the tile with r*s of a
-// half in the work buffer; 214,016 bytes of shared memory.
+// has a body of its own again (fused_ggnn128_fwd.cuh): a cluster of two
+// CTAs per tile, each owning 64 rows (h, h's TF32 parts, m, r*s) and
+// reading the peer's rows of hw_e through distributed shared memory in the
+// aggregation; the same 3xTF32 products with SEP, hw_e by column halves,
+// the GRU on the CTA's 64 rows at once; the weight blocks through a
+// three-stage ring on mbarriers, each by one bulk copy from a blocked copy
+// of the weights that block_weights128 makes before the body; 224,048
+// bytes of shared memory a CTA.
 
-#include "fused_ggnn128.cuh"
+#include "fused_ggnn128_fwd.cuh"
 
 namespace {
 
@@ -290,84 +295,147 @@ cudaError_t launch64(const float* h0, const float* adj, const Weights& w,
   return cudaGetLastError();
 }
 
-// The forward body at H = 128 (fused_ggnn128.cuh): the weights pass through
-// the two staged panels in one sequence (h128::block), the message step by
-// column halves over the tile, the GRU by row halves.
+// The forward body at H = 128 (fused_ggnn128_fwd.cuh): a cluster of two
+// CTAs per tile, rank r owning rows 64 r .. 64 r + 63, the aggregation
+// reading the peer's rows of hw_e through distributed shared memory, the
+// weight blocks through a three-stage ring on mbarriers.  Ends at a
+// cluster barrier, so that no CTA leaves while its peer may read its
+// shared memory.
 template <bool READOUT, bool MID>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_ggnn_kernel128(const float* __restrict__ h0, const float* __restrict__ adj,
-                     Weights w, Readout ro, float* __restrict__ out,
-                     float* __restrict__ mid, int n_layers, int split) {
-  using namespace h128;
+                     Weights w, Readout ro, const float* __restrict__ blocked,
+                     float* __restrict__ out, float* __restrict__ mid, int n_layers,
+                     int split) {
+  using namespace h128c;
   using S = Plan;
   extern __shared__ float smem[];
-  const Tile t = {adj + size_t(blockIdx.x) * TILE * ROW_LEN,
-                  smem + S::HIN, smem + S::MS, smem + S::WORK, smem + S::B_MSG,
-                  smem + S::BZ, smem + S::BR, smem + S::BN,
+  const int tid = threadIdx.x;
+  const int rank = int(cluster_rank());
+  // the CTA's first row of the batch's (P T) rows
+  const size_t row0 = size_t(blockIdx.x / CLUSTER) * TILE + size_t(rank) * ROWS;
+  const Bufs t = {adj + row0 * ROW_LEN, smem + S::HIN, smem + S::HS, smem + S::MS,
+                  smem + S::WORK, cluster_map(smem + S::WORK, unsigned(rank ^ 1)), rank,
+                  smem + S::B_MSG, smem + S::BZ, smem + S::BR, smem + S::BN,
                   reinterpret_cast<const Idx*>(smem + S::NK), smem + S::NV,
                   reinterpret_cast<const int*>(smem + S::NC)};
-  float* s_bi = smem + S::BI;
-  float* s_bj = smem + S::BJ;
-  const int tid = threadIdx.x;
-  const size_t tile = blockIdx.x;
-  const float* h0_t = h0 + TH * tile;
-
-  Seq seq = {w, ro, n_layers, n_layers * LAYER_BLOCKS + (READOUT ? READOUT_BLOCKS : 0), 0};
-  Panels p;
-  h64::panels_start<Tc, H>(p, smem + S::PANELS, block(w, ro, n_layers, 0), tid);
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem + S::BARS);
+  Ring ring = {smem + S::STAGE0, bars, bars + STAGES, blocked, w, ro, n_layers,
+               n_layers * LAYER_BLOCKS + (READOUT ? READOUT_BLOCKS : 0), 0};
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(ring.full + s, 1);
+      mbar_init(ring.empty + s, WARPS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  ring.start(tid);
+  const float* h0_rows = h0 + row0 * H;
   for (int i = tid; i < H; i += THREADS) {
     smem[S::BZ + i] = w.bz[i]; smem[S::BR + i] = w.br[i]; smem[S::BN + i] = w.bn[i];
-    if (READOUT) { s_bi[i] = ro.bi[i]; s_bj[i] = ro.bj[i]; }
+    if (READOUT) { smem[S::BI + i] = ro.bi[i]; smem[S::BJ + i] = ro.bj[i]; }
   }
-  for (int i = tid; i < TH; i += THREADS) t.h[at(i / H, i % H)] = h0_t[i];
-  scan_rows(t.adj_t, reinterpret_cast<Idx*>(smem + S::NK), smem + S::NV,
-            reinterpret_cast<int*>(smem + S::NC), tid);
+  for (int i = tid; i < NE * H; i += THREADS) t.bmsg[i] = w.msg_b[i];
+  for (int i = tid; i < RH; i += THREADS) {
+    const int at = h128::at(i / H, i % H);
+    t.h[at] = h0_rows[i];
+    split_store(t.hs, at, h0_rows[i]);
+  }
+  scan_rows<Idx, ROWS>(t.adj_t, reinterpret_cast<Idx*>(smem + S::NK), smem + S::NV,
+                       reinterpret_cast<int*>(smem + S::NC), tid);
   __syncthreads();
 
 #pragma unroll 1
   for (int l = 0; l < n_layers; ++l) {
-    if constexpr (MID) {  // K1m: h_mid, the input of layer split
+    if constexpr (MID) {  // K1m: h_mid, the input of layer split, of the CTA's rows
       if (l == split) {
-        float* mid_t = mid + tile * TH;
-        for (int i = tid; i < TH; i += THREADS) mid_t[i] = t.h[at(i / H, i % H)];
+        float* mid_rows = mid + row0 * H;
+        for (int i = tid; i < RH; i += THREADS) mid_rows[i] = t.h[h128::at(i / H, i % H)];
       }
     }
-    layer_forward(t, w, l, seq, p, tid);
+    layer_forward(t, l == 0, l + 1 < n_layers ? w.msg_b + size_t(l + 1) * NE * H : nullptr,
+                  ring, tid);
   }
 
-  float* out_t = out + tile * TH;
+  float* out_rows = out + row0 * H;
   if constexpr (!READOUT) {
-    for (int i = tid; i < TH; i += THREADS) out_t[i] = t.h[at(i / H, i % H)];
-  } else {  // D = H; h0 where m was, read after the first block's barrier
+    for (int i = tid; i < RH; i += THREADS) out_rows[i] = t.h[h128::at(i / H, i % H)];
+  } else {  // D = H; h0 where m was
     float* s_h0 = t.m;
-    for (int i = tid; i < TH; i += THREADS) s_h0[at(i / H, i % H)] = h0_t[i];
-    readout(t, s_h0, s_bi, s_bj, ro.mask + tile * TILE, out_t, seq, p, tid);
+    for (int i = tid; i < RH; i += THREADS) s_h0[h128::at(i / H, i % H)] = h0_rows[i];
+    __syncthreads();
+    readout(t, s_h0, smem + S::BI, smem + S::BJ, ro.mask + row0, out_rows, ring, tid);
   }
+  cluster_arrive();
+  cluster_wait();
 }
 
+// The blocked copy of the H = 128 forward's weights (h128c::distinct_blocks),
+// one CTA a block: block b at blocked + b PANEL in the staged layout.
+__global__ void block_weights128(Weights w, Readout ro, int n_layers, float* blocked) {
+  const float* src = h128c::block(w, ro, n_layers, h128c::first_use(n_layers, blockIdx.x));
+  float* dst = blocked + size_t(blockIdx.x) * h64::PANEL;
+  for (int i = threadIdx.x; i < h64::PANEL; i += blockDim.x)
+    dst[h64::Tc::panel_at(i / h64::H, i % h64::H)] = src[(i / h64::H) * h128::H + i % h64::H];
+}
+
+// A launch of the H = 128 forward: a cluster of two CTAs per tile.
+struct ClusterLaunch {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  ClusterLaunch(int n_tiles, size_t bytes, cudaStream_t stream) : attr{}, cfg{} {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = h128c::CLUSTER;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(unsigned(n_tiles) * h128c::CLUSTER, 1, 1);
+    cfg.blockDim = dim3(THREADS, 1, 1);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// The weights' blocked copy goes to `blocked` (the caller's scratch of
+// h128c::distinct_blocks(n_layers, READOUT) blocks of PANEL words) on the
+// stream before the body reads it.  A cluster launch the card refuses
+// returns its error: nothing takes another body in its place.
 template <bool READOUT, bool MID = false>
 cudaError_t launch128(const float* h0, const float* adj, const Weights& w,
-                      const Readout& ro, float* out, int n_tiles, int n_layers,
-                      cudaStream_t stream, float* mid = nullptr, int split = 0) {
-  if (!h64::panels_aligned(w, READOUT ? &ro : nullptr)) return cudaErrorInvalidValue;
-  constexpr size_t bytes = h128::Plan::BYTES;
+                      const Readout& ro, float* blocked, float* out, int n_tiles,
+                      int n_layers, cudaStream_t stream, float* mid = nullptr,
+                      int split = 0) {
+  if (!h64::panels_aligned(w, READOUT ? &ro : nullptr) || blocked == nullptr)
+    return cudaErrorInvalidValue;
+  constexpr size_t bytes = h128c::Plan::BYTES;
   static bool opted_in[MAX_DEVICES] = {};
   cudaError_t err = opt_in_smem(fused_ggnn_kernel128<READOUT, MID>, bytes, opted_in);
   if (err != cudaSuccess) return err;
-  fused_ggnn_kernel128<READOUT, MID><<<n_tiles, THREADS, bytes, stream>>>(
-      h0, adj, w, ro, out, mid, n_layers, split);
+  block_weights128<<<h128c::distinct_blocks(n_layers, READOUT), 128, 0, stream>>>(
+      w, ro, n_layers, blocked);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const ClusterLaunch launch(n_tiles, bytes, stream);
+  err = cudaLaunchKernelEx(&launch.cfg, fused_ggnn_kernel128<READOUT, MID>, h0, adj, w, ro,
+                           static_cast<const float*>(blocked), out, mid, n_layers, split);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// K1: h (P, T, H) after n_layers GGNN layers.  Returns a cudaError_t.
+// K1: h (P, T, H) after n_layers GGNN layers.  `blocked`: at H = 128 the
+// scratch of the weights' blocked copy (h128c::distinct_blocks(n_layers,
+// false) blocks of 64 x 64 floats), unread at the other widths.  Returns a
+// cudaError_t.
 extern "C" int fused_ggnn_fwd(
     const float* h0, const float* adj, const float* msg_w, const float* msg_b,
     const float* wz, const float* uz, const float* bz,
     const float* wr, const float* ur, const float* br,
     const float* wn, const float* un, const float* bn,
-    float* out, int n_tiles, int n_layers, int hidden, void* stream) {
+    float* out, float* blocked, int n_tiles, int n_layers, int hidden, void* stream) {
   if (n_tiles <= 0 || n_layers <= 0) return int(cudaErrorInvalidValue);
   const Weights w = make_weights(msg_w, msg_b, wz, uz, bz, wr, ur, br, wn, un, bn);
   const Readout ro = {};
@@ -376,20 +444,20 @@ extern "C" int fused_ggnn_fwd(
     case 16: return int(launch<16, false>(h0, adj, w, ro, out, n_tiles, n_layers, st));
     case 32: return int(launch<32, false>(h0, adj, w, ro, out, n_tiles, n_layers, st));
     case 64: return int(launch64<false>(h0, adj, w, ro, out, n_tiles, n_layers, st));
-    case 128: return int(launch128<false>(h0, adj, w, ro, out, n_tiles, n_layers, st));
+    case 128: return int(launch128<false>(h0, adj, w, ro, blocked, out, n_tiles, n_layers, st));
     default: return int(cudaErrorInvalidValue);
   }
 }
 
 // K1m: K1's h (P, T, H) and h_mid (P, T, H), the input of layer split
-// (0 < split < n_layers).  Returns a cudaError_t.
+// (0 < split < n_layers); `blocked` as K1's.  Returns a cudaError_t.
 extern "C" int fused_ggnn_mid_fwd(
     const float* h0, const float* adj, const float* msg_w, const float* msg_b,
     const float* wz, const float* uz, const float* bz,
     const float* wr, const float* ur, const float* br,
     const float* wn, const float* un, const float* bn,
-    float* out, float* mid, int n_tiles, int n_layers, int split, int hidden,
-    void* stream) {
+    float* out, float* mid, float* blocked, int n_tiles, int n_layers, int split,
+    int hidden, void* stream) {
   if (n_tiles <= 0 || split <= 0 || split >= n_layers) return int(cudaErrorInvalidValue);
   const Weights w = make_weights(msg_w, msg_b, wz, uz, bz, wr, ur, br, wn, un, bn);
   const Readout ro = {};
@@ -398,12 +466,13 @@ extern "C" int fused_ggnn_mid_fwd(
     case 16: return int(launch<16, false, true>(h0, adj, w, ro, out, n_tiles, n_layers, st, mid, split));
     case 32: return int(launch<32, false, true>(h0, adj, w, ro, out, n_tiles, n_layers, st, mid, split));
     case 64: return int(launch64<false, true>(h0, adj, w, ro, out, n_tiles, n_layers, st, mid, split));
-    case 128: return int(launch128<false, true>(h0, adj, w, ro, out, n_tiles, n_layers, st, mid, split));
+    case 128: return int(launch128<false, true>(h0, adj, w, ro, blocked, out, n_tiles, n_layers, st, mid, split));
     default: return int(cudaErrorInvalidValue);
   }
 }
 
-// K2: g_nodes (P, T, D) = the gated readout of K1's h.  Returns a cudaError_t.
+// K2: g_nodes (P, T, D) = the gated readout of K1's h; `blocked` as K1's,
+// of h128c::distinct_blocks(n_layers, true) blocks.  Returns a cudaError_t.
 extern "C" int fused_ggnn_readout_fwd(
     const float* h0, const float* adj, const float* msg_w, const float* msg_b,
     const float* wz, const float* uz, const float* bz,
@@ -411,7 +480,7 @@ extern "C" int fused_ggnn_readout_fwd(
     const float* wn, const float* un, const float* bn,
     const float* mask, const float* wi, const float* bi,
     const float* wj, const float* bj,
-    float* out, int n_tiles, int n_layers, int hidden, int out_dim,
+    float* out, float* blocked, int n_tiles, int n_layers, int hidden, int out_dim,
     void* stream) {
   if (n_tiles <= 0 || n_layers <= 0) return int(cudaErrorInvalidValue);
   const Weights w = make_weights(msg_w, msg_b, wz, uz, bz, wr, ur, br, wn, un, bn);
@@ -422,7 +491,21 @@ extern "C" int fused_ggnn_readout_fwd(
     case 16: return int(launch<16, true>(h0, adj, w, ro, out, n_tiles, n_layers, st));
     case 32: return int(launch<32, true>(h0, adj, w, ro, out, n_tiles, n_layers, st));
     case 64: return int(launch64<true>(h0, adj, w, ro, out, n_tiles, n_layers, st));
-    case 128: return int(launch128<true>(h0, adj, w, ro, out, n_tiles, n_layers, st));
+    case 128: return int(launch128<true>(h0, adj, w, ro, blocked, out, n_tiles, n_layers, st));
     default: return int(cudaErrorInvalidValue);
   }
+}
+
+// The clusters of the H = 128 forward (K2's instance: two CTAs of 512
+// threads and h128c::Plan's shared memory each) that the device holds at
+// once (cudaOccupancyMaxActiveClusters) into *clusters.  Returns a
+// cudaError_t.
+extern "C" int fused_ggnn128_clusters(int* clusters) {
+  constexpr size_t bytes = h128c::Plan::BYTES;
+  static bool opted_in[MAX_DEVICES] = {};
+  cudaError_t err = opt_in_smem(fused_ggnn_kernel128<true, false>, bytes, opted_in);
+  if (err != cudaSuccess) return int(err);
+  const ClusterLaunch launch(1, bytes, nullptr);
+  return int(cudaOccupancyMaxActiveClusters(clusters, fused_ggnn_kernel128<true, false>,
+                                            &launch.cfg));
 }

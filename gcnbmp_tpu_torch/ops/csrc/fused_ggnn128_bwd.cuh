@@ -7,8 +7,8 @@
 // Why H = 128 has a reverse plan of its own: the H = 64 reverse
 // (h64::Plan<true>) keeps five T x H buffers (h; m, then dm; dh; two of
 // work).  At H = 128 one T x H buffer is 64 KB, so those five take 320 KB
-// against 227 KB per CTA.  So at this width, one CTA per tile as in the
-// H = 128 forward, on the forward's own plan (h128::Plan: h and m at
+// against 227 KB per CTA.  So at this width, one CTA per tile, on the plan
+// the forward took before its cluster of two CTAs (h128::Plan: h and m at
 // T x H, a T x 64 work buffer, the two staged (64, 64) weight panels, the
 // biases and the row lists) plus the column lists of the transposed
 // aggregation, the tile's global pointers and an mbarrier: 228,992 bytes
@@ -262,9 +262,9 @@ __device__ __forceinline__ void xwt(const float* x, const float* w, const Tc::Ow
                                                                  acc);
 }
 
-// acc += x[rows hf HALF.., kb HB..] w for o's block of half hf: product_half
-// (with its SEP, the same terms in the same order, the same bits), the depth
-// loop unrolled FWD_UNROLL times
+// acc += x[rows hf HALF.., kb HB..] w for o's block of half hf: the
+// forward's product (h128c::product, with its SEP, the same terms in the
+// same order, the same bits), the depth loop unrolled FWD_UNROLL times
 __device__ __forceinline__ void product_half1(const float* x, int hf, int kb, const float* w,
                                               const Tc::Own& o, float (&acc)[RPH]) {
   h64::tc_mma<false, false, 1, 2, 16, H, true, HB, FWD_UNROLL>(x + hf * HALF * H + kb * HB, w,
@@ -364,16 +364,16 @@ __device__ __forceinline__ void col_sums(const float* const (&s)[NS], float* con
 // the readout's backward too, and fits its registers only so), the same
 // terms in the same order as the forward body's
 
-// acc[hf] += x[:, kb HB..] w over the tile by row halves: product_tile's
-// terms in its order (the same bits), with half its accumulators live
+// acc[hf] += x[:, kb HB..] w over the tile by row halves: the forward's
+// terms for each row in its order (the same bits)
 __device__ __forceinline__ void product_halves(const float* x, int kb, const float* w,
                                                const Tc::Own& o, float (&acc)[2][RPH]) {
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) product_half1(x, hf, kb, w, o, acc[hf]);
 }
 
-// m = A_flat [h W_e + b_e]_e of layer l, as h128::messages takes it.  The
-// caller synchronises before m is read.
+// m = A_flat [h W_e + b_e]_e of layer l, as the forward (h128c::messages)
+// takes it for each row.  The caller synchronises before m is read.
 template <class S>
 __device__ __forceinline__ void messages_looped(const Tile& t, const Globals& g, S& seq,
                                                 Panels& p, int tid) {
@@ -400,9 +400,10 @@ __device__ __forceinline__ void messages_looped(const Tile& t, const Globals& g,
 }
 
 // acc += the six blocks of gate g (0: r, 1: z, 2: n) for the rows of half
-// hf, through the sequence's next six blocks, as gate_xs (r, z: h, h, s = h
-// by U, s, m, m) and gate_n (n: h, h, m, m, r*s by U, r*s) take them; the
-// state's blocks are handed out at layer 0 too, and not used
+// hf, through the sequence's next six blocks, as the forward's gate_xs (r,
+// z: h, h, s = h by U, s, m, m) and gate_n (n: h, h, m, m, r*s by U, r*s)
+// take them (h128c); the state's blocks are handed out at layer 0 too, and
+// not used
 template <class S>
 __device__ __forceinline__ void gate_blocks(const Tile& t, int hf, bool zero_state, int g,
                                             S& seq, Panels& p, const Tc::Own& o,
@@ -417,7 +418,7 @@ __device__ __forceinline__ void gate_blocks(const Tile& t, int hf, bool zero_sta
   }
 }
 
-// The GRU on the rows of half hf as gru_half computes it (r by column
+// The GRU on the rows of half hf as the forward computes it (r by column
 // halves into r*s, z and n by column halves, then h' = z n + (1 - z) s in
 // place), the gates' blocks through gate_blocks; r, z and n go to the
 // layer's acts (T x H each, the entries of the thread that owns them), which

@@ -19,8 +19,9 @@
 
 #ifdef __CUDACC__
 // Hopper's named barriers, mbarriers and bulk copies, in PTX, for K4
-// (set2set.cu) and the H = 128 reverse body's reloads (fused_ggnn_bwd.cu);
-// the CPU stand-in of tests/cuda_emu defines the same functions.
+// (set2set.cu), the H = 128 reverse body's reloads (fused_ggnn_bwd.cu) and
+// the H = 128 forward's weight ring (fused_ggnn128_fwd.cuh); the CPU
+// stand-in of tests/cuda_emu defines the same functions.
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
@@ -62,6 +63,33 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes),
       "r"(smem_u32(bar)) : "memory");
+}
+// arrive on the current phase, with no bytes
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+// Thread-block clusters, for the H = 128 forward (fused_ggnn128_fwd.cuh):
+// the CTA's rank in its cluster, the address of an object of this CTA's
+// shared memory in the CTA `rank`'s (a generic address into distributed
+// shared memory), and the cluster barrier, whose arrive releases this
+// thread's memory accesses and whose wait acquires the others'.
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+template <class T>
+__device__ __forceinline__ T* cluster_map(T* p, unsigned rank) {
+  unsigned long long a;
+  asm volatile("mapa.u64 %0, %1, %2;"
+               : "=l"(a) : "l"(reinterpret_cast<unsigned long long>(p)), "r"(rank));
+  return reinterpret_cast<T*>(a);
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
 }
 #endif
 
@@ -128,13 +156,15 @@ __device__ __forceinline__ float sigmoidf(float x) {
 // per 32 columns, each lane writing its own, and keeps the first NBR_CAP
 // (column, value) pairs in ascending column order, with the row's full
 // count in s_nc.  Idx, the type of the lists' columns, is int or a 16-bit
-// type (columns < 512).  The caller synchronises before the lists are read.
-template <typename Idx>
+// type (columns < 512).  ROWS: the rows at adj_t (a CTA of the H = 128
+// forward's cluster scans its half of the tile).  The caller synchronises
+// before the lists are read.
+template <typename Idx, int ROWS = TILE>
 __device__ __forceinline__ void scan_rows(const float* adj_t, Idx* s_nk,
                                           float* s_nv, int* s_nc, int tid) {
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  for (int i = warp; i < TILE; i += WARPS) {
+  for (int i = warp; i < ROWS; i += WARPS) {
     const float* arow = adj_t + size_t(i) * ROW_LEN;
     float av[ROW_LEN / 32];
 #pragma unroll

@@ -47,9 +47,10 @@ tensor on the CPU; for a CUDA tensor it launches the hand-written Hopper
 kernel (``csrc/fused_ggnn.cu``, ``csrc/fused_ggnn_bwd.cu``) or raises.
 The kernels, forward (K1, K1m, K2) and reverse (K1b, K3, K2b), are built
 for H in ``KERNEL_HIDDEN`` (16, 32, 64, 128).  At H=64 and 128 they run
-bodies of their own (``csrc/fused_ggnn64.cuh``, ``csrc/fused_ggnn128.cuh``
-and, reverse, ``csrc/fused_ggnn128_bwd.cuh``), which copy the weights in
-16-byte pieces, so those must start on 16-byte boundaries.
+bodies of their own (``csrc/fused_ggnn64.cuh``; at 128 the forward
+``csrc/fused_ggnn128_fwd.cuh``, a cluster of two CTAs per tile, and the
+reverse ``csrc/fused_ggnn128_bwd.cuh``), which copy the weights in 16-byte
+pieces, so those must start on 16-byte boundaries.
 Each counts its kernel launches in the ``launches`` attribute of
 ``fused_ggnn``, ``fused_ggnn_mid``, ``fused_ggnn_readout``,
 ``fused_ggnn_bwd``, ``fused_ggnn_half_bwd`` and
@@ -79,7 +80,7 @@ NUM_EDGE_TYPE = 4
 # instantiated for; the readout width D equals H
 KERNEL_HIDDEN = (16, 32, 64, 128)
 # widths whose bodies stream the weights through staged panels
-# (csrc/fused_ggnn64.cuh, csrc/fused_ggnn128.cuh) instead of holding them
+# (csrc/fused_ggnn64.cuh, csrc/fused_ggnn128{,_fwd,_bwd}.cuh) instead of holding them
 # in shared memory
 PANEL_HIDDEN = (64, 128)
 GRU_KEYS = ("wz", "uz", "bz", "wr", "ur", "br", "wn", "un", "bn")
@@ -331,6 +332,17 @@ def _weight_ptrs(msg_w, msg_b, gru):
         gru[k].data_ptr() for k in GRU_KEYS]
 
 
+def _blocked128(n_layers: int, hidden: int, readout: bool, dev):
+    """Scratch for the H=128 forward's blocked copy of the weights
+    (``h128c::distinct_blocks`` in csrc/fused_ggnn128_fwd.cuh): each
+    layer's 16 message blocks, the GRU's 36 and, with the readout, its 12,
+    each a (64, 64) block.  None at the other widths."""
+    if hidden != 128:
+        return None
+    n_blocks = n_layers * 16 + 36 + (12 if readout else 0)
+    return torch.empty((n_blocks, 64 * 64), dtype=torch.float32, device=dev)
+
+
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed with cudaError_t {err}")
@@ -360,10 +372,11 @@ def _fused_ggnn_fwd(n_layers, h0, adj, msg_w, msg_b, gru):
     p, hidden = _check_common(n_layers, h0, adj, msg_w, msg_b, gru)
     lib = load_library()
     out = torch.empty_like(h0)
+    blocked = _blocked128(n_layers, hidden, False, h0.device)
     with _on_device(h0.device):
         err = lib.fused_ggnn_fwd(
             h0.data_ptr(), adj.data_ptr(), *_weight_ptrs(msg_w, msg_b, gru),
-            out.data_ptr(), p, n_layers, hidden, _stream(h0.device))
+            out.data_ptr(), _ptr(blocked), p, n_layers, hidden, _stream(h0.device))
     _raise_on(err, "fused_ggnn_fwd")
     fused_ggnn.launches += 1
     return out
@@ -381,11 +394,12 @@ def fused_ggnn_mid(n_layers: int, h0, adj, msg_w, msg_b, gru):
     lib = load_library()
     out = torch.empty_like(h0)
     mid = torch.empty_like(h0)
+    blocked = _blocked128(n_layers, hidden, False, h0.device)
     with _on_device(h0.device):
         err = lib.fused_ggnn_mid_fwd(
             h0.data_ptr(), adj.data_ptr(), *_weight_ptrs(msg_w, msg_b, gru),
-            out.data_ptr(), mid.data_ptr(), p, n_layers, n_layers // 2,
-            hidden, _stream(h0.device))
+            out.data_ptr(), mid.data_ptr(), _ptr(blocked), p, n_layers,
+            n_layers // 2, hidden, _stream(h0.device))
     _raise_on(err, "fused_ggnn_mid_fwd")
     fused_ggnn_mid.launches += 1
     return out, mid
@@ -406,12 +420,13 @@ def _fused_ggnn_readout_fwd(n_layers, h0, adj, msg_w, msg_b, gru, node_mask,
     d = _check_readout(p, hidden, node_mask, ro_wi, ro_bi, ro_wj, ro_bj, dev)
     lib = load_library()
     out = torch.empty((p, TILE, d), dtype=torch.float32, device=dev)
+    blocked = _blocked128(n_layers, hidden, True, dev)
     with _on_device(dev):
         err = lib.fused_ggnn_readout_fwd(
             h0.data_ptr(), adj.data_ptr(), *_weight_ptrs(msg_w, msg_b, gru),
             node_mask.data_ptr(), ro_wi.data_ptr(), ro_bi.data_ptr(),
             ro_wj.data_ptr(), ro_bj.data_ptr(),
-            out.data_ptr(), p, n_layers, hidden, d, _stream(dev))
+            out.data_ptr(), _ptr(blocked), p, n_layers, hidden, d, _stream(dev))
     _raise_on(err, "fused_ggnn_readout_fwd")
     fused_ggnn_readout.launches += 1
     return out

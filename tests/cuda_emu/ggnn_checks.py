@@ -1,16 +1,18 @@
 """The checks of the GGNN kernels' CUDA sources run on the CPU (built by
 ``emulate.build_emulated``), shared by the test files that split their
 cases so that pytest-xdist's ``--dist loadfile`` can spread the slow H=64
-and H=128 ones over workers: ``tests/test_torch_fwd_emulated{,64,128,128_k2}.py``
-(K1, K1m, K2) and
-``tests/test_torch_bwd_emulated{,64,64_k3,64_k2b,128,128_k3,128_k2b}.py``
-(K1b, K3, K2b).
+and H=128 ones over workers:
+``tests/test_torch_fwd_emulated{,64,128,128_l3,128_k2,128_hmid}.py`` (K1,
+K1m, K2) and ``tests/test_torch_bwd_emulated{,64,64_k3,64_k3_l3,64_k2b,
+64_k2b_l3,128,128_k3,128_k2b}.py`` (K1b, K3, K2b).
 
 Forward outputs are held against their plain PyTorch versions at
 chip_smoke.py's bound (atol = rtol = 1e-4: f32 sums in another order);
 K1m's h must equal K1's bit for bit and a second run must give the same
-bits.  Gradients are held at chip_smoke.py's gradient bound, K3's halves
-summed against K1b, and two K2b runs must give the same bits."""
+bits; at H=128 K1m's h_mid must equal the input of the same layer that
+the reverse body's forward (F) keeps.  Gradients are held at
+chip_smoke.py's gradient bound, K3's halves summed against K1b, and two
+K2b runs must give the same bits."""
 
 import numpy as np
 import torch
@@ -59,21 +61,24 @@ def k1(lib, n_layers, h0, adj, msg_w, msg_b, gru, split=None):
     p, _, hidden = h0.shape
     out, mid = torch.empty_like(h0), torch.empty_like(h0)
     head = (h0.data_ptr(), adj.data_ptr(), *fg._weight_ptrs(msg_w, msg_b, gru))
+    blocked = fg._blocked128(n_layers, hidden, False, h0.device)
     if split is None:
-        assert lib.fused_ggnn_fwd(*head, out.data_ptr(), p, n_layers, hidden, None) == 0
+        assert lib.fused_ggnn_fwd(*head, out.data_ptr(), fg._ptr(blocked), p, n_layers,
+                                  hidden, None) == 0
         return out
-    assert lib.fused_ggnn_mid_fwd(*head, out.data_ptr(), mid.data_ptr(), p,
-                                  n_layers, split, hidden, None) == 0
+    assert lib.fused_ggnn_mid_fwd(*head, out.data_ptr(), mid.data_ptr(), fg._ptr(blocked),
+                                  p, n_layers, split, hidden, None) == 0
     return out, mid
 
 
 def k2(lib, n_layers, h0, adj, msg_w, msg_b, gru, readout):
     p, _, hidden = h0.shape
     out = torch.empty_like(h0)
+    blocked = fg._blocked128(n_layers, hidden, True, h0.device)
     assert lib.fused_ggnn_readout_fwd(
         h0.data_ptr(), adj.data_ptr(), *fg._weight_ptrs(msg_w, msg_b, gru),
-        *(x.data_ptr() for x in readout), out.data_ptr(), p, n_layers, hidden,
-        hidden, None) == 0
+        *(x.data_ptr() for x in readout), out.data_ptr(), fg._ptr(blocked), p,
+        n_layers, hidden, hidden, None) == 0
     return out
 
 
@@ -127,9 +132,10 @@ def assert_grads_close(got, want):
         assert float((g - w).abs().max()) <= bound, f"tensor {i}"
 
 
-def range_bwd(lib, lo, hi, hin, adj, msg_w, msg_b, gru, dh_top):
+def range_bwd(lib, lo, hi, hin, adj, msg_w, msg_b, gru, dh_top, keep_hs=False):
     """fused_ggnn_range_bwd on CPU tensors, buffers and results as the
-    wrapper's (``fused_ggnn_half_bwd``: full-size message gradients)."""
+    wrapper's (``fused_ggnn_half_bwd``: full-size message gradients); with
+    ``keep_hs`` the layer inputs that F keeps, hs (P, hi - lo, T, H), too."""
     p, _, hidden = hin.shape
     dh_bot, partial, grads, hs, acts, shapes, sizes = fg._bwd_buffers(
         p, hi - lo, hidden, None, "cpu")
@@ -141,7 +147,7 @@ def range_bwd(lib, lo, hi, hin, adj, msg_w, msg_b, gru, dh_top):
     dmsg_w, dmsg_b, dgru, _ = fg._split_grads(grads, shapes, sizes)
     full_w, full_b = torch.zeros_like(msg_w), torch.zeros_like(msg_b)
     full_w[lo:hi], full_b[lo:hi] = dmsg_w, dmsg_b
-    return dh_bot, full_w, full_b, dgru
+    return (dh_bot, full_w, full_b, dgru) + ((hs,) if keep_hs else ())
 
 
 def readout_bwd(lib, layers, h0, adj, msg_w, msg_b, gru, readout, dg):
@@ -194,3 +200,27 @@ def check_k2b(lib, case):
         layers, h0, adj, msg_w, msg_b, gru, *readout, dg))
     again = readout_bwd(lib, layers, h0, adj, msg_w, msg_b, gru, readout, dg)
     assert all(torch.equal(a, b) for a, b in zip(_flat(got), _flat(again)))
+
+
+def untiled128(x):
+    """A (..., T, 128) tensor in the Tc layout of the H=128 bodies' shared
+    buffers (entry (row, col) at row * 128 + (col ^ swz(row))), row-major."""
+    row = np.arange(T)[:, None]
+    swz = (((row & 3) << 1) | ((row >> 2) & 1)) << 2
+    src = torch.as_tensor(row * 128 + (np.arange(128)[None, :] ^ swz))
+    return x.reshape(*x.shape[:-2], T * 128)[..., src]
+
+
+def check_hmid_is_f_hs(fwd_lib, bwd_lib, case, seed):
+    """K1m's h_mid at H=128 against the reverse body's F on the same
+    inputs: F keeps each layer's input h in hs (a copy of its shared
+    buffer, in the Tc layout), and layer split's must equal h_mid bit for
+    bit, as K1m's h must equal the input F's next layers start from.
+    ``case``: (tiles, hidden, crowded rows, layers)."""
+    args, _ = ggnn_inputs(*case, seed=seed)
+    layers, h0, adj, msg_w, msg_b, gru = args
+    split = layers // 2
+    _, mid = k1(fwd_lib, *args, split=split)
+    hs = range_bwd(bwd_lib, 0, layers, h0, adj, msg_w, msg_b, gru,
+                   torch.zeros_like(h0), keep_hs=True)[-1]
+    assert torch.equal(untiled128(hs.reshape(h0.shape[0], layers, T, -1)[:, split]), mid)

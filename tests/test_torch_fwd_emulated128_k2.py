@@ -1,4 +1,4 @@
-"""K2 of the H=128 forward body (``fused_ggnn128.cuh``) run on the CPU, as
+"""K2 of the H=128 forward body (``fused_ggnn128_fwd.cuh``) run on the CPU, as
 ``test_torch_fwd_emulated128.py`` runs K1 and K1m: built with g++ against
 the CPU stand-in for the CUDA runtime (``tests/cuda_emu``), on one packed
 tile at L=2 and on a tile whose rows exceed the kernels' 16 neighbour

@@ -7,12 +7,12 @@ runtime (``tests/cuda_emu``), which emulates the warp's m16n8k8 TF32
 runs on one packed tile at L=2 and 3 and on a tile whose rows exceed the
 kernels' 16 neighbour slots.  Each output is held against its plain
 PyTorch version at chip_smoke.py's bound (atol = rtol = 1e-4); K1m's h
-must equal K1's bit for bit, and a second run must give the same bits
-(``cuda_emu/ggnn_checks.py``).  The stand-in traps when a staged weight
-panel is handed out under another name than it was loaded with.  These
-cases have a file of their own, apart from ``test_torch_fwd_emulated.py``,
-so that pytest-xdist's ``--dist loadfile`` can run them on another
-worker."""
+must equal K1's bit for bit (``cuda_emu/ggnn_checks.py``).  The stand-in
+traps when a staged weight panel is handed out under another name than it
+was loaded with.  These cases have a file of their own, apart from
+``test_torch_fwd_emulated.py``, and K2's cases another
+(``test_torch_fwd_emulated64_k2.py``), so that pytest-xdist's ``--dist
+loadfile`` can run them on other workers."""
 
 import pytest
 
@@ -32,8 +32,3 @@ def ggnn_lib(tmp_path_factory):
 @pytest.mark.parametrize("case", list(GGNN_CASES))
 def test_emulated_k1_k1m_match_plain_and_k1m_h_is_k1s(ggnn_lib, case):
     gc.check_k1_k1m(ggnn_lib, GGNN_CASES[case], seed=len(case))
-
-
-@pytest.mark.parametrize("case", list(GGNN_CASES))
-def test_emulated_k2_matches_plain_and_repeats_bit_for_bit(ggnn_lib, case):
-    gc.check_k2(ggnn_lib, GGNN_CASES[case], seed=10 + len(case))

@@ -1,4 +1,4 @@
-"""The MPNN family's backward CUDA sources, and K4, run on the CPU.
+"""The MPNN family's backward CUDA sources run on the CPU.
 
 ``gcnbmp_tpu_torch/ops/csrc/fused_mpnn.cu`` (K5b) and ``set2set.cu``
 (K4b, K4) are compiled with g++ against the CPU stand-in for the CUDA
@@ -8,14 +8,11 @@ untied weights, C = 32 and 16, and an asymmetric tile with crowded rows
 and values other than 1), K4b on molecules spread over several CTAs, one
 of them empty.  Every gradient is held against the plain PyTorch version
 at chip_smoke.py's gradient bound, and a second run must give the same
-bits.  K4 runs at C = 32 and 16, tables of 24, 64 and 128 atoms, 1, 3 and
-4 steps, with one empty molecule, on launches where a CTA has groups
-without a molecule and where each group walks several molecules; its
-output is held against the plain version at chip_smoke.py's bound for
-the forward kernels, and a second run must give the same bits.  This
-checks the bodies' indexing, synchronisation and arithmetic here; their
-speed, and what nvcc makes of them, only the card can show
-(chip_smoke.py)."""
+bits.  K4's cases are ``test_torch_mpnn_emulated_k4.py``'s, a file of
+their own so that pytest-xdist's ``--dist loadfile`` runs them on another
+worker.  This checks the bodies' indexing, synchronisation and
+arithmetic here; their speed, and what nvcc makes of them, only the card
+can show (chip_smoke.py)."""
 
 import numpy as np
 import pytest
@@ -37,13 +34,6 @@ MPNN_CASES = {"c32_untied": (2, 3, 32, False, False),
 # give the emulated card's warps (3 SMs of 16) two molecules each
 S2S_CASES = [(13, 24, 32), (60, 24, 16), (9, 64, 32), (9, 64, 16)]
 S2S_STEPS = 3
-# K4: (molecules, n_max, channels, steps); molecule 3 has no atoms.  The
-# emulated card's 3 SMs get min(3, M) CTAs of ceil(M / CTAs) groups (at
-# most 4): 7 and 5 molecules leave groups of a CTA without one, 40, 30
-# and 13 make groups walk several molecules
-K4_CASES = [(7, 24, 32, 3), (5, 64, 16, 1), (40, 24, 32, 3), (30, 128, 16, 4),
-            (13, 128, 32, 1), (9, 64, 32, 4)]
-ATOL = RTOL = 1e-4  # chip_smoke.py's bound for the forward kernels
 
 
 @pytest.fixture(scope="module")
@@ -144,17 +134,6 @@ def _s2s_bwd(lib, atoms, amask, wx, wh, b, dg):
     return (datoms, *sk._split_grads(grads, ch))
 
 
-def _s2s_fwd(lib, steps, atoms, amask, wx, wh, b):
-    """fused_set2set_fwd on CPU tensors."""
-    m, n_max, ch = atoms.shape
-    out = torch.empty((m, 2 * ch))
-    err = lib.fused_set2set_fwd(
-        atoms.data_ptr(), amask.data_ptr(), wx.data_ptr(), wh.data_ptr(),
-        b.data_ptr(), out.data_ptr(), m, n_max, ch, steps, None)
-    assert err == 0
-    return out
-
-
 def _flat(result):
     out = []
     for x in result:
@@ -186,31 +165,3 @@ def test_emulated_k4b_matches_plain_and_repeats_bit_for_bit(s2s_lib, m, n_max, c
     _assert_close_and_repeatable(
         _s2s_bwd(s2s_lib, *inputs), _s2s_bwd(s2s_lib, *inputs),
         sk.fused_set2set_bwd_reference(S2S_STEPS, *inputs))
-
-
-@pytest.mark.parametrize("m,n_max,ch,steps", K4_CASES)
-def test_emulated_k4_matches_plain_and_repeats_bit_for_bit(s2s_lib, m, n_max,
-                                                           ch, steps):
-    inputs = _s2s_inputs(m, n_max, ch, seed=m + n_max + ch)[:5]
-    got = _s2s_fwd(s2s_lib, steps, *inputs)
-    want = sk.fused_set2set_reference(steps, *inputs)
-    assert got.shape == want.shape
-    assert bool(((got - want).abs() <= ATOL + RTOL * want.abs()).all())
-    assert float(got[3, ch:].abs().max()) == 0.0  # the empty molecule's r
-    assert torch.equal(got, _s2s_fwd(s2s_lib, steps, *inputs))
-
-
-@pytest.mark.parametrize("operand", [0, 2, 3])
-def test_emulated_k4_refuses_operands_off_16_byte_boundaries(s2s_lib, operand):
-    """K4 copies atoms, wx and wh to shared memory in bulk: an operand one
-    float off a 16-byte boundary is refused before any launch."""
-    inputs = _s2s_inputs(5, 24, 32, seed=0)[:5]
-    m, n_max, ch = inputs[0].shape
-    shifted = torch.zeros(inputs[operand].numel() + 1)
-    shifted[1:] = inputs[operand].reshape(-1)
-    ptrs = [x.data_ptr() for x in inputs]
-    ptrs[operand] = shifted.data_ptr() + 4
-    out = torch.zeros((m, 2 * ch))
-    assert s2s_lib.fused_set2set_fwd(*ptrs, out.data_ptr(), m, n_max, ch, 3,
-                                     None) != 0
-    assert float(out.abs().max()) == 0.0
