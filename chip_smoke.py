@@ -267,6 +267,28 @@ Phases, each fatal on failure:
    launched, a falling loss, one batch's gradients against the plain
    layer stack, the batch-2048 step timed and profiled, and the K2/K2b
    run's ``final/params.npz`` served through the predict CLI.
+22. the dense packed layout on phase 5's 2048 train pairs (P=356), each
+   check fatal: (a) ``pack_pair_dataset_batch`` and the native dense
+   packer (``pack_pairs_native(..., want_dense=True)``) byte-identical,
+   each one's ms, the adjacency's bytes, the batch's copy to the card
+   from pageable and from pinned memory beside the compact wire's
+   staging; (b) the flagship ``ggnn_hole_binary`` (L=8 untied, H=D=32,
+   HolE), seeded: the dense ``PackedPairPredictor``'s logits (K2 once,
+   nothing else) against ``fused_pair_logits``, the compact predictor on
+   the same pairs and the plain layer stack (1e-4), a bf16 adjacency's K2
+   bits against the f32 one's, then in each form (K2/K2b, K1/K1b, K1m/K3
+   by the flags) the kernels of one forward and backward counted, the
+   gradients against the plain stack (1e-4 max|want| + 1e-6) and two
+   ``train_step``s (finite losses, the form's kernels once per step, K3
+   twice), with every kernel wrapper's plain version made to raise; the
+   batch-2048 step, dense against compact, timed (median, host clock) on
+   staged batches and with each batch's copy from the host, and
+   profiled; (c) MPNN (L=4 tied, H=32) dense at batch 256: K5 and K4 once
+   per forward, K5b and K4b once per step, gradients against the plain
+   stack; (d) GGNN-GWM dense at batch 256: logits against the compact GWM
+   predictor's, one step with a finite loss, no kernel; (e) the dense
+   edgeshard loss on one NCCL rank within 1e-5 of the single-device loss,
+   and its step (K2 and K2b once).
 
 Prints the kernels' JSON line (``launches`` from each kernel's main
 path; the H=64 kernels (``*_h64``) from phase 19's runs, the H=128 ones
@@ -274,7 +296,8 @@ path; the H=64 kernels (``*_h64``) from phase 19's runs, the H=128 ones
 their times and bounds at P=75 (``ms``) and P=387 (``ms_p387``) from phase
 3a; ``launches_packed`` from phase 13's packed runs;
 ``launches_coattention`` from phases 9–10 (GGNN) and 16 (MPNN);
-``launches_multi_device`` from phase 17's NCCL runs; with each
+``launches_multi_device`` from phase 17's NCCL runs; ``launches_dense``
+from phase 22's dense steps; with each
 kernel's bound: the larger of
 its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s, counted
 from this run's inputs, the sparse products by their nonzeros; for the
@@ -1066,6 +1089,19 @@ def time_train_step(tag, train_ds, model_cfg, train_cfg, bs, n_steps, dev,
     return step_ms
 
 
+def host_ms(fn, torch, reps=5):
+    """Median host-clock ms of ``fn()`` between synchronizations, over
+    ``reps`` calls after one warm-up call."""
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[1:])
+
+
 def staging_ms(host, dev, torch) -> dict:
     """``stage_chunk`` on one host batch (``host``: the wire arrays and
     labels, each with a leading axis of 1), and its two parts timed
@@ -1088,16 +1124,7 @@ def staging_ms(host, dev, torch) -> dict:
              "host gather": gather,
              "pageable copy": lambda: flat.to(dev),
              "pinned copy": lambda: pinned.to(dev, non_blocking=True)}
-    out = {}
-    for name, fn in calls.items():
-        times = []
-        for _ in range(6):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        out[name] = statistics.median(times[1:])
+    out = {name: host_ms(fn, torch) for name, fn in calls.items()}
     out["MB"] = flat.numel() * 4 / 1e6
     return out
 
@@ -3457,6 +3484,392 @@ def crowd_rows(adj, torch):
     return adj, crowded
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the dense packed layout (``data.packing.pack_pair_dataset_batch``
+# and its native twin, the dense predictors, ``fused_pair_logits``, the dense
+# edgeshard step) on phase 5's 2048 train pairs
+DENSE_STEPS = 10  # timed steps of each layout
+DENSE_SMALL = 256  # the MPNN and GWM parts' batch
+# (form, FUSED_READOUT, TWOPASS, launches per forward and backward)
+DENSE_FORMS = (
+    ("K2/K2b", True, False,
+     {"fused_ggnn_readout": 1, "fused_ggnn_readout_bwd": 1}),
+    ("K1/K1b", False, False, {"fused_ggnn": 1, "fused_ggnn_bwd": 1}),
+    ("K1m/K3", False, True, {"fused_ggnn_mid": 1, "fused_ggnn_half_bwd": 2}))
+MPNN_DENSE = {"fused_mpnn": 1, "fused_set2set": 1}
+MPNN_DENSE_STEP = {"fused_mpnn": 1, "fused_set2set": 1, "fused_mpnn_bwd": 1,
+                   "fused_set2set_bwd": 1}
+# the plain versions the kernel wrappers take on CPU tensors: none may run
+# on the dense kernel path's calls on the card
+PLAIN_VERSIONS = (
+    ("gcnbmp_tpu_torch.ops.fused_ggnn", (
+        "fused_ggnn_reference", "fused_ggnn_mid_reference",
+        "fused_ggnn_readout_reference", "fused_ggnn_bwd_reference",
+        "fused_ggnn_half_bwd_reference", "fused_ggnn_readout_bwd_reference")),
+    ("gcnbmp_tpu_torch.ops.fused_mpnn", (
+        "fused_mpnn_reference", "fused_mpnn_bwd_reference")),
+    ("gcnbmp_tpu_torch.ops.set2set_kernel", (
+        "fused_set2set_reference", "fused_set2set_bwd_reference")))
+
+
+@contextlib.contextmanager
+def no_plain_versions():
+    """The kernel wrappers' plain versions replaced by functions that
+    raise, for the length of the block."""
+    import importlib
+
+    saved = []
+
+    def refuse(name):
+        def fn(*args, **kwargs):
+            raise AssertionError(f"{name} ran on the dense kernel path")
+        return fn
+
+    for module, names in PLAIN_VERSIONS:
+        mod = importlib.import_module(module)
+        for name in names:
+            saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, refuse(name))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def expect_launches(tag, launches, want):
+    """Each kernel of ``want`` launched exactly that many times, every
+    other kernel never."""
+    bad = {k: v for k, v in launches.items() if v != want.get(k, 0)}
+    if bad:
+        raise AssertionError(f"{tag}: launches {bad}, expected {want}")
+
+
+def dense_plain_logits(model, args):
+    """The dense predictor's logits through its encoder's plain layer
+    stack (``forward`` on the dense adjacency)."""
+    atom_ids, adj, mol_id, node_mask, left, right = args
+    num_mols = 2 * left.shape[0]
+    g, _ = model.encoder(atom_ids, adj, mol_id, node_mask, num_mols)
+    return model.head(g[left.long()], g[right.long()])
+
+
+def loss_and_grads(logits_fn, labels, params):
+    """The sigmoid cross-entropy of ``logits_fn()`` and its gradient in
+    each of ``params`` (zero for one the loss does not reach)."""
+    import torch
+
+    from gcnbmp_tpu_torch.train import loop as train_loop
+
+    loss = train_loop.sigmoid_cross_entropy(logits_fn(), labels)
+    out = torch.autograd.grad(loss, params, allow_unused=True)
+    return loss, [torch.zeros_like(p) if g is None else g
+                  for g, p in zip(out, params)]
+
+
+def dense_slice(ds, cfg, dev, smi, reset_counts, read_counts, set_form):
+    """Phase 22 on ``ds``, phase 5's first 2048 train pairs; returns each
+    kernel's launches on the dense path (the two train steps of each
+    GGNN form, the MPNN step)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from gcnbmp_tpu_torch.convert import from_jax_params, init_params
+    from gcnbmp_tpu_torch.data.native_pack import (
+        PairDatasetCache, pack_pairs_native)
+    from gcnbmp_tpu_torch.data.packing import (
+        attach_supers_coo, max_atoms_lane_rounded, pack_pair_dataset_batch,
+        pack_pair_dataset_coo)
+    from gcnbmp_tpu_torch.models.packed import (
+        dense_batch_args, fused_pair_logits, make_packed_predictor)
+    from gcnbmp_tpu_torch.ops.fused_ggnn import (
+        fused_ggnn_readout, params_to_fused)
+    from gcnbmp_tpu_torch.parallel.edgeshard import (
+        make_edgeshard_loss, make_edgeshard_train_step, shard_packed_batch)
+    from gcnbmp_tpu_torch.parallel.mesh import graph_mesh, init_distributed
+    from gcnbmp_tpu_torch.train import loop as train_loop
+    from gcnbmp_tpu_torch.train.config import PRESETS
+
+    t_start = time.perf_counter()
+    idx = list(range(len(ds)))
+    preset = PRESETS["ggnn_hole_binary"]
+    tree = init_params(cfg, SEED)
+    dense_launches = {}
+
+    # a. packing: the Python and the native dense packers, the bytes, and
+    # the batch's copy to the card from pageable and from pinned memory
+    t0 = time.perf_counter()
+    batch = pack_pair_dataset_batch(ds, idx)
+    py_ms = (time.perf_counter() - t0) * 1e3
+    cache = PairDatasetCache(ds)
+    pack_pairs_native(cache, idx, want_dense=True)  # builds the library
+    t0 = time.perf_counter()
+    native = pack_pairs_native(cache, idx, want_dense=True)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    for name in ("atom_ids", "adj", "mol_id", "node_mask", "left_index",
+                 "right_index", "labels"):
+        a, b = getattr(batch, name), getattr(native, name)
+        if a.dtype != b.dtype or a.shape != b.shape \
+                or a.tobytes() != b.tobytes():
+            raise AssertionError(f"phase 22a: the native dense pack's {name} "
+                                 "differs from the Python packer's")
+    host = [np.ascontiguousarray(a) for a in dense_batch_args(batch)]
+    host.append(np.ascontiguousarray(batch.labels, np.float32))
+    total_mb = sum(a.nbytes for a in host) / 1e6
+    pinned = [torch.from_numpy(a).pin_memory() for a in host]
+    pageable_ms = host_ms(lambda: [torch.from_numpy(a).to(dev) for a in host],
+                          torch)
+    pinned_ms = host_ms(lambda: [t.to(dev, non_blocking=True)
+                                 for t in pinned], torch)
+    coo = pack_pair_dataset_coo(ds, idx)
+    compact = from_jax_params(tree, make_packed_predictor(**cfg)).to(dev)
+    wire = [np.asarray(a) for a in compact.wire_encoder([ds])(coo)]
+    compact_stage = staging_ms(([a[None] for a in wire], coo.labels[None]),
+                               dev, torch)
+    print(f"phase 22a pack: {len(idx)} pairs, P={batch.num_tiles}, "
+          f"{batch.num_edges} edges, occupancy {batch.occupancy:.4f}; "
+          f"pack_pair_dataset_batch {py_ms:.3f} ms, native dense "
+          f"{native_ms:.3f} ms (byte-identical); adjacency "
+          f"{batch.adj.nbytes} bytes, the batch {total_mb:.3f} MB; H2D "
+          f"(median of 5, host clock around synchronized copies) pageable "
+          f"{pageable_ms:.3f} ms ({total_mb / pageable_ms:.3f} GB/s), pinned "
+          f"{pinned_ms:.3f} ms ({total_mb / pinned_ms:.3f} GB/s); the compact "
+          f"wire of the same pairs {compact_stage['MB']:.3f} MB, stage_chunk "
+          f"{compact_stage['stage_chunk']:.3f} ms, pinned copy "
+          f"{compact_stage['pinned copy']:.3f} ms; on {smi}")
+    del pinned
+
+    # b. the flagship ggnn_hole_binary, seeded weights
+    args = tuple(torch.as_tensor(a).to(dev) for a in dense_batch_args(batch))
+    labels = torch.as_tensor(batch.labels).to(dev)
+    wire_dev = [torch.as_tensor(a).to(dev) for a in wire]
+
+    def fresh(**kwargs):
+        return from_jax_params(tree, make_packed_predictor(
+            **cfg, compact=False, **kwargs)).to(dev)
+
+    model = fresh()
+    params = list(model.parameters())
+    set_form(True, False)
+    with torch.no_grad():
+        reset_counts()
+        with no_plain_versions():
+            logits = model(*args)
+        expect_launches("phase 22b dense forward", read_counts(),
+                        {"fused_ggnn_readout": 1})
+        with no_plain_versions():
+            fused = fused_pair_logits(model, *args)
+        compare("phase 22b fused_pair_logits vs PackedPairPredictor", fused,
+                logits, torch)
+        compare("phase 22b PackedPairPredictor vs the compact predictor",
+                logits, compact(*wire_dev), torch)
+        compare("phase 22b PackedPairPredictor vs the plain layer stack",
+                logits, dense_plain_logits(model, args), torch)
+        adj16 = args[1].to(torch.bfloat16)
+        compare("phase 22b bf16 adjacency vs f32", model(args[0], adj16,
+                                                         *args[2:]),
+                logits, torch)
+        enc = model.encoder
+        msg_w, msg_b, gru = params_to_fused(enc)
+        h0 = enc.embed(args[0])
+        ro = enc.readout_0
+        ro_args = (args[3], ro.i.dense.weight.T.contiguous(), ro.i.dense.bias,
+                   ro.j.dense.weight.T.contiguous(), ro.j.dense.bias)
+        k2 = [fused_ggnn_readout(L, h0, a, msg_w, msg_b, gru, *ro_args)
+              for a in (args[1], adj16)]
+        if not torch.equal(*k2):
+            raise AssertionError("phase 22b: K2 on the bf16 adjacency differs "
+                                 "from K2 on the f32 one")
+        print("phase 22b: K2's g_nodes from the bf16 dense adjacency equal "
+              "those from the f32 one bit for bit")
+
+    names = [n for n, _ in model.named_parameters()]
+    loss_p, grads_p = loss_and_grads(
+        lambda: dense_plain_logits(model, args), labels, params)
+    for form, readout, twopass, step_counts in DENSE_FORMS:
+        set_form(readout, twopass)
+        reset_counts()
+        with no_plain_versions():
+            loss_k, grads_k = loss_and_grads(lambda: model(*args), labels,
+                                             params)
+        expect_launches(f"phase 22b {form} forward and backward",
+                        read_counts(), step_counts)
+        lk, lp = float(loss_k.detach()), float(loss_p.detach())
+        if abs(lk - lp) > ATOL:
+            raise AssertionError(f"phase 22b {form}: loss {lk} vs the plain "
+                                 f"stack's {lp}")
+        compare_grads(f"phase 22b {form} gradients (dense kernel path vs plain "
+                      "layer stack)", list(zip(names, grads_k)),
+                      list(zip(names, grads_p)), torch)
+        step_model = fresh()
+        opt, _ = train_loop.build_optimizer(preset, 1000,
+                                            list(step_model.parameters()))
+        reset_counts()
+        with no_plain_versions():
+            losses = [float(train_loop.train_step(step_model, opt, args,
+                                                  labels))
+                      for _ in range(2)]
+        counts = read_counts()
+        expect_launches(f"phase 22b {form} two train steps", counts,
+                        {k: 2 * v for k, v in step_counts.items()})
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"phase 22b {form}: step losses {losses}")
+        for k, v in step_counts.items():
+            dense_launches[k] = counts[k]
+        print(f"phase 22b {form}: two train steps at batch {len(idx)} "
+              f"(P={batch.num_tiles}), losses {losses}, launches "
+              f"{ {k: counts[k] for k in step_counts} }")
+
+    # the batch-2048 step, dense against compact, K2/K2b, on batches staged
+    # on the card beforehand; then the same with each batch's copy from the
+    # host (pageable dense arrays; the compact wire through stage_chunk)
+    set_form(True, False)
+    steps = {"dense": (fresh(), args), "compact": (
+        from_jax_params(tree, make_packed_predictor(**cfg)).to(dev),
+        wire_dev)}
+    step_ms = {}
+    for tag, (m, a) in steps.items():
+        opt, _ = train_loop.build_optimizer(preset, 1000,
+                                            list(m.parameters()))
+        step = lambda i, m=m, a=a, opt=opt: train_loop.train_step(m, opt, a,
+                                                                  labels)
+        step_ms[tag] = host_ms(lambda: step(0), torch, reps=DENSE_STEPS)
+        busy, top = profile_steps(step, 5)
+        print(f"phase 22b {tag} train step: batch={len(idx)} "
+              f"P={batch.num_tiles}: {step_ms[tag]:.3f} ms per step (median "
+              f"of {DENSE_STEPS}, host clock around synchronized steps on "
+              f"staged batches) on {smi}")
+        print(f"  where it goes (torch.profiler over 5 steps): {busy}; top "
+              f"kernels, device ms per step: {top}")
+    opts = {tag: train_loop.build_optimizer(preset, 1000,
+                                            list(m.parameters()))[0]
+            for tag, (m, _) in steps.items()}
+
+    def dense_host():
+        staged = tuple(torch.from_numpy(x).to(dev) for x in host[:-1])
+        train_loop.train_step(steps["dense"][0], opts["dense"], staged,
+                              labels)
+
+    def compact_host():
+        staged, _ = train_loop.stage_chunk([x[None] for x in wire],
+                                           coo.labels[None], dev)
+        train_loop.train_step(steps["compact"][0], opts["compact"],
+                              [s[0] for s in staged], labels)
+
+    with_copy = {"dense": host_ms(dense_host, torch, reps=DENSE_STEPS),
+                 "compact": host_ms(compact_host, torch, reps=DENSE_STEPS)}
+    print(f"phase 22b step with the batch's copy from the host: dense "
+          f"{with_copy['dense']:.3f} ms, compact {with_copy['compact']:.3f} ms "
+          f"(median of {DENSE_STEPS}); staged: dense {step_ms['dense']:.3f} "
+          f"ms, compact {step_ms['compact']:.3f} ms; on {smi}")
+
+    # c. MPNN, the quality row's model, at batch 256 dense: K5 and K4 once
+    # per forward, K5b and K4b once per step
+    small = list(range(DENSE_SMALL))
+    sbatch = pack_pair_dataset_batch(ds, small)
+    sargs = tuple(torch.as_tensor(a).to(dev) for a in dense_batch_args(sbatch))
+    slabels = torch.as_tensor(sbatch.labels).to(dev)
+    mcfg = dict(MPNN_CFG, s2s_n_max=max_atoms_lane_rounded([ds]))
+    mtree = init_params(mcfg, SEED)
+    mpnn = from_jax_params(mtree, make_packed_predictor(
+        **mcfg, compact=False)).to(dev)
+    mparams = list(mpnn.parameters())
+    reset_counts()
+    with no_plain_versions():
+        with torch.no_grad():
+            mpnn(*sargs)
+        expect_launches("phase 22c MPNN forward", read_counts(), MPNN_DENSE)
+        reset_counts()
+        loss_k, grads_k = loss_and_grads(lambda: mpnn(*sargs), slabels,
+                                         mparams)
+    expect_launches("phase 22c MPNN forward and backward", read_counts(),
+                    MPNN_DENSE_STEP)
+    loss_p, grads_p = loss_and_grads(lambda: dense_plain_logits(mpnn, sargs),
+                                     slabels, mparams)
+    mnames = [n for n, _ in mpnn.named_parameters()]
+    lk, lp = float(loss_k.detach()), float(loss_p.detach())
+    if abs(lk - lp) > ATOL:
+        raise AssertionError(f"phase 22c: loss {lk} vs the plain stack's "
+                             f"{lp}")
+    compare_grads("phase 22c MPNN gradients (dense kernel path vs plain "
+                  "stack)", list(zip(mnames, grads_k)),
+                  list(zip(mnames, grads_p)), torch)
+    opt, _ = train_loop.build_optimizer(preset, 1000, mparams)
+    reset_counts()
+    with no_plain_versions():
+        mloss = float(train_loop.train_step(mpnn, opt, sargs, slabels))
+    counts = read_counts()
+    expect_launches("phase 22c MPNN train step", counts, MPNN_DENSE_STEP)
+    if not np.isfinite(mloss):
+        raise AssertionError(f"phase 22c: MPNN step loss {mloss}")
+    dense_launches.update({k: counts[k] for k in MPNN_DENSE_STEP})
+    print(f"phase 22c MPNN (L=4 tied, H=32) dense at batch {DENSE_SMALL} "
+          f"(P={sbatch.num_tiles}): step loss {mloss:.6f}, launches "
+          f"{ {k: counts[k] for k in MPNN_DENSE_STEP} }")
+
+    # d. GGNN-GWM dense at batch 256: one step, and the logits of the
+    # compact GWM predictor on the same pairs; no kernel
+    gcfg = dict(GWM_CFG)
+    gtree = init_params(gcfg, SEED)
+    gdense = from_jax_params(gtree, make_packed_predictor(
+        **gcfg, compact=False)).to(dev)
+    gcompact = from_jax_params(gtree, make_packed_predictor(**gcfg)).to(dev)
+    gbatch = pack_pair_dataset_batch(ds, small,
+                                      supernode_fn=gdense.supernode_fn)
+    gargs = (gbatch.atom_ids, gbatch.adj, gbatch.supers, gbatch.mol_id,
+             gbatch.node_mask, gbatch.left_index, gbatch.right_index)
+    gargs = tuple(torch.as_tensor(a).to(dev) for a in gargs)
+    gcoo = attach_supers_coo(pack_pair_dataset_coo(ds, small), ds, small,
+                             gcompact.supernode_fn)
+    gwire = [torch.as_tensor(np.asarray(a)).to(dev)
+             for a in gcompact.wire_encoder([ds])(gcoo)]
+    reset_counts()
+    with torch.no_grad():
+        compare("phase 22d GWM dense vs compact", gdense(*gargs),
+                gcompact(*gwire), torch)
+    opt, _ = train_loop.build_optimizer(preset, 1000,
+                                        list(gdense.parameters()))
+    gloss = float(train_loop.train_step(gdense, opt, gargs, slabels))
+    expect_launches("phase 22d GWM", read_counts(), {})
+    if not np.isfinite(gloss):
+        raise AssertionError(f"phase 22d: GWM step loss {gloss}")
+    print(f"phase 22d GGNN-GWM dense at batch {DENSE_SMALL}: one step, loss "
+          f"{gloss:.6f}")
+
+    # e. the dense edgeshard step on one NCCL rank: its loss against the
+    # single-device loss, K2/K2b once
+    created = not dist.is_initialized()
+    init_distributed("cuda")
+    try:
+        mesh = graph_mesh("cuda")
+        es_model = fresh()
+        shards = shard_packed_batch(batch, mesh, device=dev)
+        with torch.no_grad():
+            single = float(train_loop.sigmoid_cross_entropy(es_model(*args),
+                                                            labels))
+            sharded = float(make_edgeshard_loss(es_model, mesh)(*shards))
+        step = make_edgeshard_train_step(
+            es_model, train_loop.ChainedAdam(list(es_model.parameters()),
+                                             lambda count: 1e-3), mesh)
+        reset_counts()
+        with no_plain_versions():
+            step_loss = float(step(*shards))
+        expect_launches("phase 22e dense edgeshard step", read_counts(),
+                        {"fused_ggnn_readout": 1, "fused_ggnn_readout_bwd": 1})
+    finally:
+        if created:
+            dist.destroy_process_group()
+    print(f"phase 22e dense edgeshard over one NCCL rank: loss "
+          f"{sharded:.8f}, single device {single:.8f}, |diff| "
+          f"{abs(sharded - single):.3e}; step loss {step_loss:.8f}")
+    if abs(sharded - single) > 1e-5 or abs(step_loss - single) > 1e-5:
+        raise AssertionError("phase 22e: the dense edgeshard loss is not "
+                             "within 1e-5 of the single-device loss")
+    print(f"phase 22: {time.perf_counter() - t_start:.1f} s")
+    return dense_launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "gcnbmp_tpu_torch")):
         print("chip_smoke.py: the gcnbmp_tpu_torch package is not beside "
@@ -3853,7 +4266,7 @@ def main() -> int:
     # 5. GGNN training through the train CLI; phase 11 takes its run
     preset = PRESETS["ggnn_hole_binary"]
     kept = tempfile.TemporaryDirectory(dir=ROOT)
-    train_ggnn, _ = train_slice(
+    train_ggnn, train_pairs = train_slice(
         "ggnn", ["--preset", "ggnn_hole_binary", "--compute-path", "fused"],
         preset.batch_size, preset, cfg, {"fused_ggnn_readout_bwd": 1},
         ["fused_ggnn_readout"], ((preset.batch_size, 50), (N_PAIRS, 10)),
@@ -4065,6 +4478,16 @@ def main() -> int:
         set_form(*saved_form)
     print(f"phase 21 done at {time.perf_counter() - t_start:.1f} s")
 
+    # 22. the dense packed layout on phase 5's pairs: the Python and native
+    # dense packers, the flagship's dense predictor and fused_pair_logits in
+    # the three forms, MPNN and GWM dense, the dense edgeshard step
+    try:
+        dense = dense_slice(train_pairs, cfg, dev, smi, reset_counts,
+                            read_counts, set_form)
+    finally:
+        set_form(*saved_form)
+    print(f"phase 22 done at {time.perf_counter() - t_start:.1f} s")
+
     sources = {"fused_ggnn": "fused_ggnn.cu", "fused_ggnn_mid": "fused_ggnn.cu",
                "fused_ggnn_readout": "fused_ggnn.cu",
                "fused_ggnn_bwd": "fused_ggnn_bwd.cu",
@@ -4131,6 +4554,9 @@ def main() -> int:
                if name in packed_path else {}),
             # phase 17's NCCL runs; K1m and K3 (TWOPASS) are not on them
             "launches_multi_device": multi_device.get(name, 0),
+            # phase 22's dense batches: the two steps of each GGNN form,
+            # the MPNN step
+            "launches_dense": dense[name],
             **{k: results[name][k] for k in
                ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                 "bound_by")},

@@ -1,5 +1,5 @@
 """Host-side data for the port: pair datasets, CSV parsing (and its
-pickle cache), COO packing (Python and native), the wire encoding and the
+pickle cache), packing, COO or dense (Python and native), the wire encoding and the
 batch iterators, all numpy only; and the prefetcher (``prefetch``, the
 one module here that imports torch).  These are the port's own copies of the JAX package's host
 layers, under the same module names (``dataset``, ``parsers``,

@@ -1,8 +1,9 @@
 """ctypes bindings for the native packed-batch builder (native/pack.cpp).
 
-The port's copy of the COO half of gcnbmp_tpu/data/native_pack.py: the
-Python packer in ``data.packing`` is the executable spec, the native
-library gives byte-identical batches about 100x faster.
+The port's copy of gcnbmp_tpu/data/native_pack.py: the Python packers
+in ``data.packing`` are the executable spec, the native library gives
+byte-identical batches, COO or with the dense adjacency
+(``want_dense``), about 100x faster.
 ``gcnbmp_tpu_torch.native_lib`` builds it at first use.
 
 Usage:
@@ -18,7 +19,9 @@ from typing import Optional, Sequence
 import numpy as np
 
 from gcnbmp_tpu_torch import native_lib
-from gcnbmp_tpu_torch.data.packing import TILE, PackedCOOBatch, _pad_coo
+from gcnbmp_tpu_torch.chem.featurize import NUM_EDGE_TYPES
+from gcnbmp_tpu_torch.data.packing import (
+    TILE, PackedCOOBatch, PackedGraphBatch, _pad_coo)
 
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _I64P = ctypes.POINTER(ctypes.c_int64)
@@ -43,8 +46,10 @@ def _configure(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, f"pack_out_{name}")
         fn.restype = _I32P
         fn.argtypes = [ctypes.c_void_p]
-    lib.pack_out_node_mask.restype = _F32P
-    lib.pack_out_node_mask.argtypes = [ctypes.c_void_p]
+    for name in ("node_mask", "adj"):
+        fn = getattr(lib, f"pack_out_{name}")
+        fn.restype = _F32P
+        fn.argtypes = [ctypes.c_void_p]
     lib.pack_free.restype = None
     lib.pack_free.argtypes = [ctypes.c_void_p]
 
@@ -102,9 +107,11 @@ def pack_pairs_native(
     tile: int = TILE,
     num_tiles: Optional[int] = None,
     edge_capacity: Optional[int] = None,
+    want_dense: bool = False,
     n_threads: int = 0,
-) -> PackedCOOBatch:
-    """Native twin of pack_pair_dataset_coo; byte-identical output."""
+):
+    """Native twin of pack_pair_dataset_coo, or with ``want_dense`` of
+    pack_pair_dataset_batch (its arrays byte-identical; :109-170)."""
     lib = load_library()
     if lib is None:
         raise RuntimeError("native pack library unavailable (no C++ "
@@ -117,7 +124,8 @@ def pack_pairs_native(
         p(cache.atom_ids_flat, _I32P), p(cache.edge_offsets, _I64P),
         p(cache.e_type_flat, _I32P), p(cache.e_src_flat, _I32P),
         p(cache.e_dst_flat, _I32P),
-        tile, 0 if num_tiles is None else num_tiles, 0, n_threads,
+        tile, 0 if num_tiles is None else num_tiles, int(want_dense),
+        n_threads,
     )
     try:
         err = lib.pack_out_error(h)
@@ -135,6 +143,20 @@ def pack_pairs_native(
             ctypes.memmove(out.ctypes.data, ptr, out.nbytes)
             return out
 
+        atom_ids = arr("atom_ids", (tiles, tile))
+        mol_id = arr("mol_id", (tiles, tile))
+        node_mask = arr("node_mask", (tiles, tile), np.float32)
+        left = arr("left_index", (n_pairs,))
+        right = arr("right_index", (n_pairs,))
+        labels = cache.batch_labels(indices)
+        if want_dense:
+            return PackedGraphBatch(
+                atom_ids=atom_ids,
+                adj=arr("adj", (tiles, NUM_EDGE_TYPES, tile, tile),
+                        np.float32),
+                mol_id=mol_id, node_mask=node_mask, num_mols=2 * n_pairs,
+                left_index=left, right_index=right, labels=labels,
+                n_edges=n_edges)
         shape_e = (max(n_edges, 1),)
         e_tile, e_type, e_src, e_dst, e_mask = _pad_coo(
             arr("e_tile", shape_e)[:n_edges], arr("e_type", shape_e)[:n_edges],
@@ -142,14 +164,10 @@ def pack_pairs_native(
             edge_capacity,
         )
         return PackedCOOBatch(
-            atom_ids=arr("atom_ids", (tiles, tile)),
-            mol_id=arr("mol_id", (tiles, tile)),
-            node_mask=arr("node_mask", (tiles, tile), np.float32),
+            atom_ids=atom_ids, mol_id=mol_id, node_mask=node_mask,
             e_tile=e_tile, e_type=e_type, e_src=e_src, e_dst=e_dst,
-            e_mask=e_mask, num_mols=2 * n_pairs,
-            left_index=arr("left_index", (n_pairs,)),
-            right_index=arr("right_index", (n_pairs,)),
-            labels=cache.batch_labels(indices),
+            e_mask=e_mask, num_mols=2 * n_pairs, left_index=left,
+            right_index=right, labels=labels,
         )
     finally:
         lib.pack_free(h)

@@ -1,5 +1,5 @@
-"""Packed supergraph batching in COO form (the port's copy of the COO
-parts of gcnbmp_tpu/data/packing.py).
+"""Packed supergraph batching (the port's copy of
+gcnbmp_tpu/data/packing.py).
 
 Many small molecules are bin-packed (first-fit decreasing) into fixed
 tiles of TILE=128 atoms.  A batch is
@@ -7,17 +7,18 @@ tiles of TILE=128 atoms.  A batch is
     atom_ids  (P, 128)  int32   atoms of all packed molecules
     mol_id    (P, 128)  int32   molecule index per slot (pads -> num_mols)
     node_mask (P, 128)  f32
-    e_tile, e_type, e_src, e_dst, e_mask (E_cap,)  the edges, padded
 
-Molecules never split across tiles and mol_id ascends within each tile.
-The dense adjacency is built on the device from the edges
-(``ops.aggregate.adj_from_coo_flat``), also for the ``packed`` compute
-path.  A batch for GWM carries the per-molecule supernode table
-``supers`` (num_mols, F) in packed-mol-id order (``attach_supers_coo``).
+with the adjacency in one of two forms: the dense (P, 4, 128, 128)
+block-diagonal edge-type adjacency built on the host
+(``PackedGraphBatch``, ``pack_pair_dataset_batch``), or the COO edge
+list padded to a capacity (``PackedCOOBatch``: e_tile, e_type, e_src,
+e_dst, e_mask), from which the device builds the adjacency
+(``ops.aggregate.adj_from_coo_flat``).  Molecules never split across
+tiles and mol_id ascends within each tile.  A batch for GWM carries the
+per-molecule supernode table ``supers`` (num_mols, F) in packed-mol-id
+order (``supernode_fn``, ``attach_supers_coo``).
 ``pack_pair_dataset_coo_pairlocal`` packs the multi-device co-attention
-path's batches: each pair's two molecules in one rank's tiles.  The dense
-host-side batches of the JAX module are not ported: every layout builds
-its adjacency on the device.
+path's batches: each pair's two molecules in one rank's tiles.
 """
 
 from __future__ import annotations
@@ -55,6 +56,148 @@ def _first_fit_pack(sizes: Sequence[int], tile: int) -> List[List[int]]:
             bins.append([int(idx)])
             space.append(tile - s)
     return bins
+
+
+@dataclass
+class PackedGraphBatch:
+    """Packed tiles with the dense adjacency (:36-67): all molecules of a
+    pair batch; ``left_index``/``right_index`` map pair i -> molecule
+    ids."""
+
+    atom_ids: np.ndarray   # (P, TILE) int32
+    adj: np.ndarray        # (P, 4, TILE, TILE) float32
+    mol_id: np.ndarray     # (P, TILE) int32; padding slots = num_mols
+    node_mask: np.ndarray  # (P, TILE) float32
+    num_mols: int
+    left_index: np.ndarray   # (B,) int32
+    right_index: np.ndarray  # (B,) int32
+    labels: np.ndarray       # (B,) or (B, C) float32
+    n_edges: Optional[int] = None  # precomputed by pack_graphs
+    # per-molecule feature vectors in packed-mol-id order (num_mols, F);
+    # set when the batch feeds a supernode encoder (PackedGGNN_GWM)
+    supers: Optional[np.ndarray] = None
+
+    @property
+    def num_tiles(self) -> int:
+        return int(self.atom_ids.shape[0])
+
+    @property
+    def num_edges(self) -> int:
+        """The packer's count when it gave one; else the adjacency's sum
+        (tens of ms at 2048 pairs)."""
+        if self.n_edges is not None:
+            return self.n_edges
+        return int(self.adj.sum())
+
+    @property
+    def occupancy(self) -> float:
+        return float(self.node_mask.mean())
+
+
+def _placements(bins, sizes) -> List[Tuple[int, int, int]]:
+    """(molecule, tile, offset) of every molecule, molecules in each tile
+    by input index, sorted by (tile, offset): the order of the packed
+    molecule ids."""
+    placements = []
+    for b, members in enumerate(bins):
+        off = 0
+        for idx in sorted(members):
+            placements.append((idx, b, off))
+            off += sizes[idx]
+    placements.sort(key=lambda t: (t[1], t[2]))
+    return placements
+
+
+def _tile_count(bins, num_tiles: Optional[int]) -> int:
+    if num_tiles is None:
+        return len(bins)
+    if num_tiles < len(bins):
+        raise ValueError(f"num_tiles={num_tiles} < required {len(bins)}")
+    return num_tiles
+
+
+def pack_graphs(graphs: Sequence[MolGraph], labels: np.ndarray,
+                tile: int = TILE, num_tiles: Optional[int] = None,
+                mol_features: Optional[np.ndarray] = None
+                ) -> PackedGraphBatch:
+    """Pack an interleaved list of pair molecules [l0, r0, l1, r1, ...]
+    with the dense adjacency, each edge's entry 1.0 (:95-156).
+
+    ``num_tiles``: pad the tile count to a fixed value (extra tiles are
+    empty).  ``mol_features``: optional (n_mols, F) per-molecule vectors
+    in the interleaved input order, emitted as ``supers`` in packed
+    mol-id order."""
+    assert len(graphs) % 2 == 0
+    n_mols = len(graphs)
+    sizes = [g.num_atoms for g in graphs]
+    bins = _first_fit_pack(sizes, tile)
+    p = _tile_count(bins, num_tiles)
+    atom_ids = np.zeros((p, tile), np.int32)
+    adj = np.zeros((p, NUM_EDGE_TYPES, tile, tile), np.float32)
+    mol_id = np.full((p, tile), n_mols, np.int32)
+    node_mask = np.zeros((p, tile), np.float32)
+    remap = np.empty(n_mols, np.int32)
+    for new_id, (orig_idx, b, off) in enumerate(_placements(bins, sizes)):
+        remap[orig_idx] = new_id
+        g = graphs[orig_idx]
+        k = g.num_atoms
+        atom_ids[b, off : off + k] = g.atom_ids
+        adj[b, g.edge_type, g.edge_src + off, g.edge_dst + off] = 1.0
+        mol_id[b, off : off + k] = new_id
+        node_mask[b, off : off + k] = 1.0
+    supers = None
+    if mol_features is not None:
+        mol_features = np.asarray(mol_features, np.float32)
+        assert mol_features.shape[0] == n_mols, mol_features.shape
+        supers = np.empty_like(mol_features)
+        supers[remap] = mol_features
+    return PackedGraphBatch(
+        atom_ids=atom_ids, adj=adj, mol_id=mol_id, node_mask=node_mask,
+        num_mols=n_mols, left_index=remap[0::2].astype(np.int32),
+        right_index=remap[1::2].astype(np.int32),
+        labels=np.asarray(labels, np.float32),
+        n_edges=int(sum(g.num_edges for g in graphs)), supers=supers)
+
+
+def _pair_graphs(ds, indices: Sequence[int]):
+    """The interleaved molecules [l0, r0, l1, r1, ...] of ``indices`` and
+    their labels, (B,) or multi-hot (B, C)."""
+    graphs: List[MolGraph] = []
+    labels = []
+    for i in indices:
+        graphs.append(ds.graphs1[i])
+        graphs.append(ds.graphs2[i])
+        labels.append(np.atleast_1d(ds.labels[i]).astype(np.float32))
+    labels = np.stack(labels)
+    if labels.shape[-1] == 1:
+        labels = labels[:, 0]
+    return graphs, labels
+
+
+def pack_pair_dataset_batch(ds, indices: Sequence[int], tile: int = TILE,
+                            num_tiles: Optional[int] = None,
+                            supernode_fn=None) -> PackedGraphBatch:
+    """A dense ``PackedGraphBatch`` of PairDataset rows (:159-191).
+
+    ``supernode_fn``: smiles -> per-molecule feature vector; when given,
+    the batch carries ``supers`` (num_mols, F) for supernode encoders,
+    each molecule's vector cached on its graph object."""
+    graphs, labels = _pair_graphs(ds, indices)
+    mol_features = None
+    if supernode_fn is not None:
+        feats = []
+        for g in graphs:
+            f = getattr(g, "_super_cache", None)
+            if f is None:
+                f = np.asarray(supernode_fn(g.smiles), np.float32)
+                try:
+                    g._super_cache = f
+                except Exception:  # frozen dataclass graphs: recompute
+                    pass
+            feats.append(f)
+        mol_features = np.stack(feats)
+    return pack_graphs(graphs, labels, tile=tile, num_tiles=num_tiles,
+                       mol_features=mol_features)
 
 
 def estimate_tiles(sizes: Sequence[int], tile: int = TILE, slack: float = 1.1) -> int:
@@ -220,6 +363,20 @@ class PackedCOOBatch:
             raise ValueError("invalid PackedCOOBatch: " + "; ".join(problems))
         return self
 
+    def to_dense(self, tile: int = TILE) -> PackedGraphBatch:
+        """The dense batch of the same tiles, the adjacency built on the
+        host from the real edges (:359-372; tests, the dense paths)."""
+        adj = np.zeros((self.num_tiles, NUM_EDGE_TYPES, tile, tile),
+                       np.float32)
+        real = self.e_mask > 0
+        adj[self.e_tile[real], self.e_type[real],
+            self.e_src[real], self.e_dst[real]] = 1.0
+        return PackedGraphBatch(
+            atom_ids=self.atom_ids, adj=adj, mol_id=self.mol_id,
+            node_mask=self.node_mask, num_mols=self.num_mols,
+            left_index=self.left_index, right_index=self.right_index,
+            labels=self.labels)
+
 
 def molecule_slot_table(mol_id: np.ndarray, num_mols: int,
                         n_max: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -281,36 +438,17 @@ def pack_pair_dataset_coo(
     edge_capacity: Optional[int] = None,
 ) -> PackedCOOBatch:
     """Python COO packer (spec for native/pack.cpp; identical output)."""
-    graphs: List[MolGraph] = []
-    labels = []
-    for i in indices:
-        graphs.append(ds.graphs1[i])
-        graphs.append(ds.graphs2[i])
-        labels.append(np.atleast_1d(ds.labels[i]).astype(np.float32))
-    labels = np.stack(labels)
-    if labels.shape[-1] == 1:
-        labels = labels[:, 0]
+    graphs, labels = _pair_graphs(ds, indices)
     n_mols = len(graphs)
     sizes = [g.num_atoms for g in graphs]
     bins = _first_fit_pack(sizes, tile)
-    p = len(bins)
-    if num_tiles is not None:
-        if num_tiles < p:
-            raise ValueError(f"num_tiles={num_tiles} < required {p}")
-        p = num_tiles
+    p = _tile_count(bins, num_tiles)
     atom_ids = np.zeros((p, tile), np.int32)
     mol_id = np.full((p, tile), n_mols, np.int32)
     node_mask = np.zeros((p, tile), np.float32)
-    placements: List[Tuple[int, int, int]] = []
-    for b, members in enumerate(bins):
-        off = 0
-        for idx in sorted(members):
-            placements.append((idx, b, off))
-            off += sizes[idx]
-    placements.sort(key=lambda t: (t[1], t[2]))
     remap = np.empty(n_mols, np.int32)
     et_l, es_l, ed_l, tl_l = [], [], [], []
-    for new_id, (orig_idx, b, off) in enumerate(placements):
+    for new_id, (orig_idx, b, off) in enumerate(_placements(bins, sizes)):
         remap[orig_idx] = new_id
         g = graphs[orig_idx]
         k = g.num_atoms

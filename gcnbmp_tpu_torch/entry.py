@@ -14,10 +14,10 @@ deterministic), so the caller can load other weights into it
     entry.dryrun_multichip(4)                 # four cards, NCCL
     entry.dryrun_multichip(4, device="cpu")   # four CPU processes, gloo
 
-is the twin of ``__graft_entry__.dryrun_multichip`` (:58-116): one rank
+is the twin of ``__graft_entry__.dryrun_multichip`` (:58-150): one rank
 per device, one data- plus tensor-parallel step of the padded flagship
-(``parallel.dp``), then one graph-sharded step over every rank
-(``parallel.edgeshard``).
+(``parallel.dp``), then graph-sharded steps over every rank
+(``parallel.edgeshard``): the dense step, then the COO one.
 """
 
 from __future__ import annotations
@@ -69,13 +69,15 @@ def _dryrun_rank(device: str) -> None:
     from gcnbmp_tpu_torch.chem import GGNNFeaturizer, mol_from_smiles
     from gcnbmp_tpu_torch.convert import from_jax_params, init_params
     from gcnbmp_tpu_torch.data.dataset import PairDataset
-    from gcnbmp_tpu_torch.data.packing import pack_pair_dataset_coo
+    from gcnbmp_tpu_torch.data.packing import (
+        pack_pair_dataset_batch, pack_pair_dataset_coo)
     from gcnbmp_tpu_torch.models.packed import make_packed_predictor
     from gcnbmp_tpu_torch.models.predictor import set_up_predictor
     from gcnbmp_tpu_torch.parallel import (
         make_mesh, make_sharded_train_step, shard_params)
     from gcnbmp_tpu_torch.parallel.edgeshard import (
-        make_edgeshard_coo_train_step, shard_packed_coo_batch)
+        make_edgeshard_coo_train_step, make_edgeshard_train_step,
+        shard_packed_batch, shard_packed_coo_batch)
     from gcnbmp_tpu_torch.parallel.mesh import graph_mesh, rank_device
     from gcnbmp_tpu_torch.train.config import TrainConfig
     from gcnbmp_tpu_torch.train.loop import ChainedAdam, build_optimizer
@@ -112,19 +114,24 @@ def _dryrun_rank(device: str) -> None:
         ds.append(feat(mol_from_smiles(smis[int(rng.integers(len(smis)))])),
                   feat(mol_from_smiles(smis[int(rng.integers(len(smis)))])),
                   np.float32(rng.integers(0, 2)))
-    coo = pack_pair_dataset_coo(ds, list(range(n_pairs)), num_tiles=n)
-    packed = from_jax_params(init_params(FLAGSHIP, SEED),
-                             make_packed_predictor(**FLAGSHIP)).to(dev)
     gmesh = graph_mesh(dev.type)
-    step = make_edgeshard_coo_train_step(
-        packed, ChainedAdam(list(packed.parameters()), lambda count: 1e-3),
-        gmesh)
-    loss = float(step(*shard_packed_coo_batch(coo, gmesh, device=dev)))
-    if not np.isfinite(loss):
-        raise FloatingPointError(f"edgeshard loss {loss}")
-    if rank == 0:
-        print(f"dryrun_multichip: edgeshard over {n}-rank graph axis, loss "
-              f"{loss:.4f}", flush=True)
+    idx = list(range(n_pairs))
+    for form, make_step, shard, batch in (
+            ("dense", make_edgeshard_train_step, shard_packed_batch,
+             pack_pair_dataset_batch(ds, idx, num_tiles=n)),
+            ("COO", make_edgeshard_coo_train_step, shard_packed_coo_batch,
+             pack_pair_dataset_coo(ds, idx, num_tiles=n))):
+        packed = from_jax_params(
+            init_params(FLAGSHIP, SEED),
+            make_packed_predictor(**FLAGSHIP, compact=form == "COO")).to(dev)
+        step = make_step(packed, ChainedAdam(list(packed.parameters()),
+                                             lambda count: 1e-3), gmesh)
+        loss = float(step(*shard(batch, gmesh, device=dev)))
+        if not np.isfinite(loss):
+            raise FloatingPointError(f"{form} edgeshard loss {loss}")
+        if rank == 0:
+            print(f"dryrun_multichip: {form} edgeshard over {n}-rank graph "
+                  f"axis, loss {loss:.4f}", flush=True)
 
 
 def dryrun_multichip(n_devices: int, device="cuda",
@@ -132,8 +139,9 @@ def dryrun_multichip(n_devices: int, device="cuda",
     """One rank per device (``n_devices`` cards over NCCL, or CPU
     processes over gloo): a data- plus tensor-parallel step of the padded
     flagship over a (data, model) mesh (model axis 2 when ``n_devices``
-    is even), then a graph-sharded step of the packed flagship over every
-    rank; each loss must be finite.  Raises if a rank fails."""
+    is even), then graph-sharded steps of the packed flagship over every
+    rank, on a dense batch then on a COO one; each loss must be
+    finite.  Raises if a rank fails."""
     from gcnbmp_tpu_torch.parallel.mesh import launch
 
     device = torch.device(device)

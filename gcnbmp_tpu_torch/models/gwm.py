@@ -22,10 +22,13 @@ Ported pieces:
   linear, the warp step and two shared GRUs per layer, then the gated
   readout summed per molecule, concatenated with the supernode state
   through ``linear_for_concat_super``
+- ``PackedGWMPairPredictor`` <- :300-319, the dense layout: (atom_ids,
+  adj (P, 4, T, T), supers, mol_id, node_mask, left_index, right_index)
+  from ``data.packing.pack_pair_dataset_batch(..., supernode_fn=...)``
 - ``PackedGWMPairPredictorCOOCompact`` <- :322-353, the wire-compact COO
-  predictor; the port runs it for ``compute_path`` ``"packed"`` too (the
-  JAX dense ``PackedGWMPairPredictor``, :300-319, computes the same
-  logits from a host-built dense adjacency)
+  predictor; the port's trainer runs it for ``compute_path`` ``"packed"``
+  too (the same logits as the dense predictor, the adjacency built on the
+  device)
 
 Parameter names follow the flax tree (``encoder/embed``,
 ``encoder/embed_super``, ``encoder/update_{i}/message/dense``,
@@ -63,6 +66,7 @@ from gcnbmp_tpu_torch.models.packed import (
     segment_softmax)
 from gcnbmp_tpu_torch.models.readouts import CommonGGNNReadout
 from gcnbmp_tpu_torch.ops.aggregate import adj_from_coo
+from gcnbmp_tpu_torch.ops.fused_ggnn import float_adjacency
 
 DEFAULT_N_SUPER_FEATURE = 2 + 2 * 4 + MAX_ATOMIC_NUM * 2  # 244
 N_HEADS = 8  # the JAX factory's (packed.py:1282-1286)
@@ -367,6 +371,26 @@ class PackedGGNN_GWM(nn.Module):
         p, t = atom_ids.shape
         adj = adj_from_coo(*edges, num_tiles=p, tile=t)
         return self(atom_ids, adj, supers, mol_id, node_mask, num_mols)[0]
+
+
+class PackedGWMPairPredictor(nn.Module):
+    """GWM pair predictor over the dense packed layout: (atom_ids (P, T),
+    adj (P, 4, T, T), supers (M, F), mol_id, node_mask, left_index (B,),
+    right_index (B,)) -> logits (B, C).  Plain PyTorch ops, as the compact
+    predictor's; the parameter tree is the compact and padded GWM
+    predictors'.  ``supernode_fn`` builds its batches' supernode tables."""
+
+    def __init__(self, encoder: PackedGGNN_GWM, head: nn.Module):
+        super().__init__()
+        self.encoder = encoder
+        self.head = head
+        self.supernode_fn = default_supernode_fn()
+
+    def forward(self, atom_ids, adj, supers, mol_id, node_mask, left_index,
+                right_index, return_g: bool = False):
+        g = self.encoder(atom_ids, float_adjacency(adj), supers, mol_id,
+                         node_mask, 2 * left_index.shape[0])[0]
+        return pair_logits(self.head, g, left_index, right_index, return_g)
 
 
 class PackedGWMPairPredictorCOOCompact(nn.Module):

@@ -24,6 +24,12 @@ Ported pieces:
   ``fused_forward`` is the JAX module's fused branch (:717-774): K5 ->
   slot table -> K4 -> linear1, relu, linear2 (or K5 -> the common
   readout -> segment sum), with K5's h for co-attention
+- ``PackedPairPredictor``           <- :856-874, the dense layout: the
+  encoder's ``encode_dense`` on the host-built (P, 4, T, T) adjacency of
+  ``data.packing.pack_pair_dataset_batch`` -> left and right gather ->
+  the head; ``fused_pair_logits`` (:1151-1173) is its GGNN kernel path
+- ``PackedPairPredictorCOO``        <- :877-906, ``coo_batch_args``
+  <- :909-915: the padded COO edge list as arguments
 - ``decode_compact_wire``           <- :918-936
 - ``PackedPairPredictorCOOCompact`` <- :939-971: the encoder's ``encode``
   on the decoded edges -> left and right gather -> the head
@@ -32,16 +38,24 @@ Ported pieces:
 - ``make_packed_predictor``         <- :1235-1347, every packed encoder
   (GGNN with or without a layer aggregator, MPNN, RelGCN, GIN, NFP, and
   GGNN-GWM from ``models.gwm``) with every head, co-attention over every
-  encoder but GWM; ``model_kwargs_from_config`` reads its
-  arguments from a run config.
+  encoder but GWM, on the wire-compact layout (the port's default) or,
+  with ``compact=False``, the dense or COO one;
+  ``model_kwargs_from_config`` reads its arguments from a run config.
 
 Every encoder has ``encode(atom_ids, edges, mol_id, node_mask, num_mols,
-return_atoms=False)``, the one method the predictors call: it builds the
-adjacency layout the encoder needs from the decoded COO edges.  GGNN
-(without an aggregator) and MPNN build the kernels' flat (P, T, 4T)
-layout and run their kernel paths; RelGCN, GIN, NFP and GGNN with a layer
-aggregator build the dense (P, 4, T, T) adjacency and run their plain
-stacks (``DenseAdjacencyEncoder``).  The JAX package has no Pallas kernel for any of those four (its
+return_atoms=False)``, which the COO and compact predictors call: it
+builds the adjacency layout the encoder needs from the decoded COO
+edges; and ``encode_dense`` with the same arguments but the dense
+(P, 4, T, T) adjacency in place of the edges, which the dense predictor
+calls.  GGNN (without an aggregator) and MPNN take the kernels' flat
+(P, T, 4T) layout (built from the edges, or transposed from the dense
+adjacency by ``ops.fused_ggnn.flat_adjacency``) and run their kernel
+paths; RelGCN, GIN, NFP and GGNN with a layer aggregator run their plain
+stacks on the dense adjacency (``DenseAdjacencyEncoder``).  JAX's dense
+``PackedPairPredictor`` runs XLA's plain stack for GGNN, and
+``fused_pair_logits`` its kernels; the port runs the kernel path in both,
+on the card as on the CPU (where the kernels' plain versions run): the
+same function.  The JAX package has no Pallas kernel for any of those four (its
 trainer runs them as XLA ops on ``coo`` and refuses ``fused``), so the
 port runs them as PyTorch ops on the card: the same design, not a
 fallback.  The GGNN kernels keep no per-layer states (K1 has no
@@ -92,7 +106,8 @@ from gcnbmp_tpu_torch.models.nfp import NFPUpdate
 from gcnbmp_tpu_torch.models.relgcn import RelGCNUpdate, rescale_adj
 from gcnbmp_tpu_torch.ops.aggregate import adj_from_coo, adj_from_coo_flat
 from gcnbmp_tpu_torch.ops.fused_ggnn import (
-    fused_ggnn, fused_ggnn_readout, params_to_fused)
+    flat_adjacency, float_adjacency, fused_ggnn, fused_ggnn_readout,
+    params_to_fused)
 from gcnbmp_tpu_torch.ops.fused_mpnn import fused_mpnn, params_to_fused_mpnn
 from gcnbmp_tpu_torch.ops.set2set_kernel import NEG, fused_set2set
 from gcnbmp_tpu_torch.ops.slotgather import (
@@ -233,8 +248,16 @@ class DenseAdjacencyEncoder(nn.Module):
         (e_tile, e_type, e_src, e_dst, e_mask); ``return_atoms``: also
         the last layer's per-atom states."""
         p, t = atom_ids.shape
-        adj = adj_from_coo(*edges, num_tiles=p, tile=t)
-        g, aux = self(atom_ids, adj, mol_id, node_mask, num_mols)
+        return self.encode_dense(
+            atom_ids, adj_from_coo(*edges, num_tiles=p, tile=t), mol_id,
+            node_mask, num_mols, return_atoms)
+
+    def encode_dense(self, atom_ids, adj, mol_id, node_mask, num_mols: int,
+                     return_atoms: bool = False):
+        """``encode`` from the dense (P, 4, T, T) adjacency (dtypes by
+        ``ops.fused_ggnn.float_adjacency``)."""
+        g, aux = self(atom_ids, float_adjacency(adj), mol_id, node_mask,
+                      num_mols)
         return (g, aux["atoms"]) if return_atoms else g
 
 
@@ -307,12 +330,25 @@ class PackedGGNN(DenseAdjacencyEncoder):
         return self.fused_forward(atom_ids, adj_flat, mol_id, node_mask,
                                   num_mols, return_atoms=return_atoms)
 
-    def fused_forward(self, atom_ids, adj_flat, mol_id, node_mask,
+    def encode_dense(self, atom_ids, adj, mol_id, node_mask, num_mols: int,
+                     return_atoms: bool = False):
+        """``encode`` from the dense (P, 4, T, T) adjacency: the kernel
+        path on it (the wrappers transpose it outside the kernel), or with
+        a layer aggregator the plain stack."""
+        if self.layer_aggregator is not None:
+            return super().encode_dense(atom_ids, adj, mol_id, node_mask,
+                                        num_mols, return_atoms)
+        return self.fused_forward(atom_ids, adj, mol_id, node_mask, num_mols,
+                                  return_atoms=return_atoms)
+
+    def fused_forward(self, atom_ids, adj, mol_id, node_mask,
                       num_mols: int, return_atoms: bool = False):
         """Per-molecule embeddings (num_mols, D) from the flat (P, T, 4T)
-        adjacency: through K2 (K2b in the backward), or K1 and the plain
-        readout (K1b, or K3 twice, in the backward), by ``FUSED_READOUT``
-        and the widths (``readout_in_kernel``).  ``return_atoms``: also
+        or the dense (P, 4, T, T) adjacency (the wrappers lay it out,
+        ``ops.fused_ggnn.flat_adjacency``): through K2 (K2b in the
+        backward), or K1 and the plain readout (K1b, or K3 twice, in the
+        backward), by ``FUSED_READOUT`` and the widths
+        (``readout_in_kernel``).  ``return_atoms``: also
         return the last layer's per-atom states h (P, T, H), for which the
         path always takes the K1 form (K2 writes no h); h then feeds the
         readout and the caller, and the backward takes the sum of both
@@ -324,11 +360,11 @@ class PackedGGNN(DenseAdjacencyEncoder):
         if not return_atoms and readout_in_kernel(self.hidden_dim,
                                                   self.out_dim):
             g_nodes = fused_ggnn_readout(
-                self.n_layers, h0, adj_flat, msg_w, msg_b, gru, node_mask,
+                self.n_layers, h0, adj, msg_w, msg_b, gru, node_mask,
                 ro.i.dense.weight.T.contiguous(), ro.i.dense.bias,
                 ro.j.dense.weight.T.contiguous(), ro.j.dense.bias)
         else:
-            h = fused_ggnn(self.n_layers, h0, adj_flat, msg_w, msg_b, gru)
+            h = fused_ggnn(self.n_layers, h0, adj, msg_w, msg_b, gru)
             g_nodes = ro(h, h0, node_mask)
         g = _segment_mol_sum(g_nodes, mol_id, num_mols)
         return (g, h) if return_atoms else g
@@ -652,13 +688,26 @@ class PackedMPNN(nn.Module):
         the JAX readout runs its Pallas kernel after either message."""
         p, t = atom_ids.shape
         if self.message_func == "ggnn":
-            adj = adj_from_coo(*edges, num_tiles=p, tile=t)
-            g, aux = self(atom_ids, adj, mol_id, node_mask, num_mols,
-                          fused_readout=True)
-            return (g, aux["atoms"]) if return_atoms else g
+            return self.encode_dense(
+                atom_ids, adj_from_coo(*edges, num_tiles=p, tile=t), mol_id,
+                node_mask, num_mols, return_atoms)
         adj_flat = adj_from_coo_flat(*edges, num_tiles=p, tile=t)
         return self.fused_forward(atom_ids, adj_flat, mol_id, node_mask,
                                   num_mols, return_atoms=return_atoms)
+
+    def encode_dense(self, atom_ids, adj, mol_id, node_mask, num_mols: int,
+                     return_atoms: bool = False):
+        """``encode`` from the dense (P, 4, T, T) adjacency: K5 on it
+        transposed outside the kernel, as JAX's fused branch transposes
+        it (packed.py:753-755), then K4; the ``ggnn`` message the plain
+        stack, then K4."""
+        if self.message_func == "ggnn":
+            g, aux = self(atom_ids, float_adjacency(adj), mol_id, node_mask,
+                          num_mols, fused_readout=True)
+            return (g, aux["atoms"]) if return_atoms else g
+        return self.fused_forward(atom_ids, flat_adjacency(adj), mol_id,
+                                  node_mask, num_mols,
+                                  return_atoms=return_atoms)
 
 
 def decode_compact_wire(nodes, e_packed, n_edges, num_mols: int):
@@ -687,6 +736,77 @@ def pair_logits(head: nn.Module, g: torch.Tensor, left_index, right_index,
     g2 = g[right_index.long()]
     logits = head(g1, g2)
     return (logits, g1, g2) if return_g else logits
+
+
+class PackedPairPredictor(nn.Module):
+    """Pair predictor over the dense packed layout (JAX :856-874):
+    (atom_ids (P, T), adj (P, 4, T, T), mol_id (P, T), node_mask (P, T),
+    left_index (B,), right_index (B,)) -> logits (B, C), and with
+    ``return_g`` the pair's embeddings.  The parameter tree is the
+    compact and COO predictors' (``encoder``, ``head``)."""
+
+    def __init__(self, encoder: nn.Module, head: nn.Module):
+        super().__init__()
+        self.encoder = encoder  # any packed encoder but GWM
+        self.head = head
+
+    def forward(self, atom_ids, adj, mol_id, node_mask, left_index,
+                right_index, return_g: bool = False):
+        g = self.encoder.encode_dense(atom_ids, adj, mol_id, node_mask,
+                                      2 * left_index.shape[0])
+        return pair_logits(self.head, g, left_index, right_index, return_g)
+
+
+def dense_batch_args(batch):
+    """A ``data.packing.PackedGraphBatch``'s arrays in
+    ``PackedPairPredictor.forward`` order."""
+    return (batch.atom_ids, batch.adj, batch.mol_id, batch.node_mask,
+            batch.left_index, batch.right_index)
+
+
+def fused_pair_logits(predictor: PackedPairPredictor, atom_ids, adj,
+                      mol_id, node_mask, left_index, right_index):
+    """``predictor``'s logits with GGNN's message/GRU stack in the fused
+    kernels (JAX :1151-1173), the dense adjacency f32 or bf16, in the
+    form ``FUSED_READOUT`` picks.  The port's dense predictor over GGNN
+    already runs that kernel path, so this is ``predictor``'s own
+    forward, refused for any other encoder."""
+    enc = predictor.encoder
+    if not isinstance(enc, PackedGGNN) or enc.layer_aggregator is not None:
+        raise ValueError("fused_pair_logits runs the GGNN kernels: the "
+                         "encoder must be a PackedGGNN without a layer "
+                         "aggregator")
+    return predictor(atom_ids, adj, mol_id, node_mask, left_index,
+                     right_index)
+
+
+class PackedPairPredictorCOO(nn.Module):
+    """Pair predictor over the padded COO edge list (JAX :877-906):
+    (atom_ids, e_tile, e_type, e_src, e_dst, e_mask, mol_id, node_mask,
+    left_index, right_index) -> logits (B, C); the encoder builds its
+    adjacency on the device from the edges (``encode``).  The parameter
+    tree is the dense predictor's."""
+
+    def __init__(self, encoder: nn.Module, head: nn.Module):
+        super().__init__()
+        self.encoder = encoder  # any packed encoder but GWM
+        self.head = head
+
+    def forward(self, atom_ids, e_tile, e_type, e_src, e_dst, e_mask,
+                mol_id, node_mask, left_index, right_index,
+                return_g: bool = False):
+        g = self.encoder.encode(atom_ids, (e_tile, e_type, e_src, e_dst,
+                                           e_mask), mol_id, node_mask,
+                                2 * left_index.shape[0])
+        return pair_logits(self.head, g, left_index, right_index, return_g)
+
+
+def coo_batch_args(batch):
+    """A ``PackedCOOBatch``'s fields in ``PackedPairPredictorCOO.forward``
+    order (JAX :909-915)."""
+    return (batch.atom_ids, batch.e_tile, batch.e_type, batch.e_src,
+            batch.e_dst, batch.e_mask, batch.mol_id, batch.node_mask,
+            batch.left_index, batch.right_index)
 
 
 class PackedPairPredictorCOOCompact(nn.Module):
@@ -913,18 +1033,34 @@ def make_packed_predictor(
     layer_aggregator: Optional[str] = None,
     s2s_n_max: int = 64,
     coattn_n_max: Optional[int] = None,
+    coo: bool = False,
+    compact: bool = True,
     device=None,
 ) -> nn.Module:
-    """The wire-compact pair predictor of the JAX package's
-    ``make_packed_predictor(..., compact=True)`` for every packed encoder
-    (``PORTED_METHODS`` and ``'ggnn-gwm'``), and with ``attn`` its
-    co-attention predictor (:1327-1338) over any of them but GWM.
+    """The pair predictor of the JAX package's ``make_packed_predictor``
+    for every packed encoder (``PORTED_METHODS`` and ``'ggnn-gwm'``).
+    The flags mean what they mean there, but the DEFAULT DIFFERS: the
+    JAX factory returns the dense ``PackedPairPredictor`` by default
+    (``compact=False``), this one the wire-compact COO predictor
+    (``compact=True``, the layout the port trains and serves), so a call
+    ported from JAX code that relies on the default must pass
+    ``compact=False``.  ``compact=True`` is the compact predictor whatever
+    ``coo`` says (JAX spells it ``coo=True, compact=True``); with
+    ``compact=False`` it is the dense ``PackedPairPredictor`` (GWM:
+    ``PackedGWMPairPredictor``), or with ``coo=True``
+    ``PackedPairPredictorCOO`` (:1340-1347; GWM refuses it,
+    :1287-1291).  With ``attn`` its co-attention predictor
+    (:1327-1338), wire-compact whatever the layout flags, over any
+    encoder but GWM.
     ``layer_aggregator`` rides GGNN only, as in the JAX factory
     (:1262-1265).  ``s2s_n_max`` is the MPNN
     Set2Set table width: it must bound the largest molecule (the trainer
     fits it to its data); ``coattn_n_max``, the co-attention atom table
     width, sizes ``lt``'s weights."""
     bad = model_problems(method, sim_method, attn, layer_aggregator)
+    if method == "ggnn-gwm" and coo and not compact:
+        bad.append("ggnn-gwm rides the dense packed or wire-compact COO "
+                   "layouts, as in the JAX package")
     if bad:
         raise ValueError("not ported: " + "; ".join(bad))
     encoder = _build_encoder(method, fp_out_dim, fp_hidden_dim, conv_layers,
@@ -935,7 +1071,9 @@ def make_packed_predictor(
 
         head = make_head(sim_method, fp_out_dim, class_num,
                          tuple(net_hidden_dims), device=device)
-        return gwm.PackedGWMPairPredictorCOOCompact(encoder, head)
+        if compact:
+            return gwm.PackedGWMPairPredictorCOOCompact(encoder, head)
+        return gwm.PackedGWMPairPredictor(encoder, head)
     if attn is not None:
         coattention = build_coattention(attn, fp_hidden_dim, fp_out_dim,
                                         coattn_n_max, device=device)
@@ -944,4 +1082,8 @@ def make_packed_predictor(
         return PackedCoattnPairPredictor(encoder, coattention, head)
     head = make_head(sim_method, fp_out_dim, class_num,
                      tuple(net_hidden_dims), device=device)
-    return PackedPairPredictorCOOCompact(encoder, head)
+    if compact:
+        return PackedPairPredictorCOOCompact(encoder, head)
+    if coo:
+        return PackedPairPredictorCOO(encoder, head)
+    return PackedPairPredictor(encoder, head)

@@ -59,8 +59,15 @@ their backward in ``backward_calls``.
 
 The JAX package's other TPU A/B knobs are not ported: AGG_KBATCH,
 MERGE_GATES, MATMUL_BF16 and GCNBMP_FUSED_BWD_K select among equivalent
-forms, precisions or block sizes of the same math on the TPU.  Adjacency
-is taken in f32.
+forms, precisions or block sizes of the same math on the TPU.
+
+``fused_ggnn``, ``fused_ggnn_mid`` and ``fused_ggnn_readout`` take the
+adjacency in the kernels' flat (P, T, 4T) layout or as the dense
+(P, 4, T, T) batch of ``data.packing.pack_pair_dataset_batch``, which
+``flat_adjacency`` transposes outside the kernel, as the JAX
+``_prep_adj`` does outside the Pallas body (fused_ggnn.py:450-462).  A
+bf16 or f16 adjacency of 0/1 values is cast to f32, exactly; the kernels
+read f32.
 """
 
 from __future__ import annotations
@@ -365,6 +372,26 @@ def _on_device(device: torch.device):
     return torch.cuda.device(device)
 
 
+def float_adjacency(adj: torch.Tensor) -> torch.Tensor:
+    """``adj`` with a bf16 or f16 adjacency cast to f32 (exact for 0/1
+    values); any other dtype is kept, for the caller to take or refuse.
+    The one dtype rule of every dense entry, kernel path or plain
+    stack."""
+    if adj.dtype in (torch.bfloat16, torch.float16):
+        return adj.float()
+    return adj
+
+
+def flat_adjacency(adj: torch.Tensor) -> torch.Tensor:
+    """The kernels' flat (P, T, 4T) adjacency, adj_flat[p, i, e*T + j] =
+    adj[p, e, i, j], from the dense (P, 4, T, T) one; a flat input passes
+    through.  Dtypes by ``float_adjacency``."""
+    if adj.dim() == 4:
+        p, e, t, _ = adj.shape
+        adj = adj.transpose(1, 2).reshape(p, t, e * t)
+    return float_adjacency(adj)
+
+
 def _fused_ggnn_fwd(n_layers, h0, adj, msg_w, msg_b, gru):
     """K1 on the tensors' device (plain version on the CPU)."""
     if h0.device.type == "cpu":
@@ -385,7 +412,8 @@ def _fused_ggnn_fwd(n_layers, h0, adj, msg_w, msg_b, gru):
 def fused_ggnn_mid(n_layers: int, h0, adj, msg_w, msg_b, gru):
     """K1m: (h, h_mid) on the tensors' device (plain version on the CPU),
     h_mid the input of layer ``n_layers // 2``; n_layers >= 2.  h is bit
-    for bit K1's."""
+    for bit K1's.  ``adj`` flat or dense (``flat_adjacency``)."""
+    adj = flat_adjacency(adj)
     if h0.device.type == "cpu":
         return fused_ggnn_mid_reference(n_layers, h0, adj, msg_w, msg_b, gru)
     p, hidden = _check_common(n_layers, h0, adj, msg_w, msg_b, gru)
@@ -662,10 +690,12 @@ def fused_ggnn(n_layers: int, h0, adj, msg_w, msg_b, gru):
     """K1: run n_layers GGNN layers over packed tiles; differentiable in
     h0 and the weights (K1b).
 
-    h0 (P, T, H); adj (P, T, 4T) flat layout (``adj_from_coo_flat``);
-    msg_w (L, 4, H, H); msg_b (L, 4, H); gru: wz/wr/wn (2H, H),
-    uz/ur/un (H, H), bz/br/bn (H,).  Returns (P, T, H)."""
-    return FusedGGNNFunction.apply(n_layers, h0, adj, msg_w, msg_b,
+    h0 (P, T, H); adj (P, T, 4T) flat layout (``adj_from_coo_flat``) or
+    the dense (P, 4, T, T) one (``flat_adjacency``); msg_w (L, 4, H, H);
+    msg_b (L, 4, H); gru: wz/wr/wn (2H, H), uz/ur/un (H, H), bz/br/bn
+    (H,).  Returns (P, T, H)."""
+    return FusedGGNNFunction.apply(n_layers, h0, flat_adjacency(adj),
+                                   msg_w, msg_b,
                                    *(gru[k] for k in GRU_KEYS))
 
 
@@ -677,10 +707,10 @@ def fused_ggnn_readout(n_layers: int, h0, adj, msg_w, msg_b, gru,
     """K2: ``fused_ggnn`` with the gated readout in the same kernel;
     returns g_nodes (P, T, D); differentiable in h0 and the weights (K2b).
     node_mask (P, T) f32; ro_wi (2H, D), ro_bi (D,), ro_wj (H, D),
-    ro_bj (D,)."""
+    ro_bj (D,); ``adj`` as ``fused_ggnn`` takes it."""
     return FusedGGNNReadoutFunction.apply(
-        n_layers, h0, adj, msg_w, msg_b, node_mask, ro_wi, ro_bi, ro_wj,
-        ro_bj, *(gru[k] for k in GRU_KEYS))
+        n_layers, h0, flat_adjacency(adj), msg_w, msg_b, node_mask, ro_wi,
+        ro_bi, ro_wj, ro_bj, *(gru[k] for k in GRU_KEYS))
 
 
 fused_ggnn_readout.launches = 0

@@ -1,8 +1,8 @@
 """Multi-device training over ``torch.distributed`` (port of
 gcnbmp_tpu/parallel/, all but ``commbudget``): process groups and device
 meshes (``mesh``), data plus tensor parallelism for the padded predictor
-(``dp``), graph-sharded training over the wire-compact COO layout
-(``edgeshard``), the collectives they differentiate through
+(``dp``), graph-sharded training over the packed layouts, wire-compact
+COO or dense (``edgeshard``), the collectives they differentiate through
 (``collectives``) and multi-host bring-up (``multihost``).  One process
 drives one device: NCCL between cards, gloo between CPU processes.
 """

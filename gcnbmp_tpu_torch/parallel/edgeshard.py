@@ -1,13 +1,14 @@
-"""Graph-sharded multi-device training over the wire-compact COO layout
-(port of gcnbmp_tpu/parallel/edgeshard.py, ``shard_map`` and the XLA
-collectives turned into one process per rank and ``torch.distributed``).
+"""Graph-sharded multi-device training over the packed layouts (port of
+gcnbmp_tpu/parallel/edgeshard.py, ``shard_map`` and the XLA collectives
+turned into one process per rank and ``torch.distributed``).
 
 The packed layout never splits a molecule across tiles, so splitting the
 tile axis over the ranks cuts no edge.  Every array of a batch is padded
-and split contiguously on its leading axis (``pad_partition_*``, numpy,
-the JAX functions' arrays bit for bit); each rank keeps its block
-(``local_wire``) and encodes it in the wire-compact form, with the global
-molecule count.  A rank then
+and split contiguously on its leading axis (``pad_partition_*`` and
+``pad_packed_global``, numpy, the JAX functions' arrays bit for bit);
+each rank keeps its block: of a COO batch encoded in the wire-compact
+form with the global molecule count (``local_wire``), of a dense batch
+as it is (``shard_packed_batch``).  A rank then
 
 1. builds its tiles' adjacency from its edges and runs the encoder on
    them, the same kernels as the single-device step (``models.packed``
@@ -30,10 +31,12 @@ its biases move, and the COO loss sums those rows over the ranks, as the
 JAX loss does (it masks only GWM): the sharded MPNN loss follows the JAX
 package's sharded loss, not its single-device one (ROADMAP queue 3).
 
-Departure: the JAX dense loss (``make_edgeshard_loss``, over host-built
-dense tiles) has no dense host batch here; as on the single-device
-``packed`` path, it rides the compact-COO shards (``make_edgeshard_loss``
-is ``make_edgeshard_coo_loss``).
+The dense loss (``make_edgeshard_loss``, :63-120) runs the dense
+predictor's encoder (``encode_dense``: GGNN and MPNN through their
+kernels) on the rank's tiles of a host-built dense batch
+(``data.packing.pack_pair_dataset_batch``), then the same sum, pairs and
+mean.  The trainer's ``--multi-device`` runs the COO forms, as its
+single-device ``packed`` path does (``train.loop``).
 """
 
 from __future__ import annotations
@@ -50,7 +53,8 @@ from gcnbmp_tpu_torch.data.packing import (
     molecule_slot_table,
 )
 from gcnbmp_tpu_torch.data.wire import compact_coo_arrays
-from gcnbmp_tpu_torch.models.packed import decode_compact_wire, pair_logits
+from gcnbmp_tpu_torch.models.packed import (
+    PackedPairPredictor, decode_compact_wire, pair_logits)
 from gcnbmp_tpu_torch.ops.slotgather import gather_slot_table
 from gcnbmp_tpu_torch.parallel.collectives import (
     all_gather_tensor,
@@ -159,6 +163,22 @@ def _side_rows(index, mask, num_mols: int):
     return rows
 
 
+def _dense_logits(predictor):
+    """This rank's logits over its block of a dense batch (atom_ids, adj,
+    mol_id, node_mask, left, right), the global molecule ids in mol_id:
+    the local rows completed by one sum (``_local_shard_loss``,
+    :63-82)."""
+
+    def logits(args, group, n_dev):
+        atom_ids, adj, mol_id, node_mask, left, right = args
+        num_mols = 2 * left.shape[0] * n_dev
+        g = all_reduce_sum(predictor.encoder.encode_dense(
+            atom_ids, adj, mol_id, node_mask, num_mols), group)
+        return pair_logits(predictor.head, g, left, right)
+
+    return logits
+
+
 def _coattn_logits(predictor, pair_local: bool):
     """This rank's co-attention logits over its wire (nodes, e_packed,
     n_edges, left, right, left_slots, right_slots, left_mask, right_mask)
@@ -217,11 +237,13 @@ def edgeshard_forward(predictor, mesh, axis: str = "graph",
                       pair_local: bool = False) -> Callable:
     """``forward(*wire) -> logits`` of this rank's pairs, for the form of
     ``predictor`` (a predictor of ``models.packed.make_packed_predictor``):
-    co-attention (pair-local or global), GWM (owner-masked) or the COO
-    form.  Its gradient is this rank's part of the global one."""
+    co-attention (pair-local or global), the dense form, GWM
+    (owner-masked) or the COO form.  Its gradient is this rank's part of the global one."""
     group, n_dev, _ = _axis(mesh, axis)
     if hasattr(predictor, "coattention"):
         fn = _coattn_logits(predictor, pair_local)
+    elif isinstance(predictor, PackedPairPredictor):
+        fn = _dense_logits(predictor)
     elif hasattr(predictor, "supernode_fn"):
         fn = _gwm_logits(predictor)
     else:
@@ -248,8 +270,13 @@ def make_edgeshard_coo_loss(predictor, mesh, axis: str = "graph",
     return _loss(_coo_logits(predictor), mesh, axis, elementwise_loss)
 
 
-# the JAX dense loss rides the compact-COO shards here (module docstring)
-make_edgeshard_loss = make_edgeshard_coo_loss
+def make_edgeshard_loss(predictor, mesh, axis: str = "graph",
+                        elementwise_loss=sigmoid_ce_elements) -> Callable:
+    """``loss_fn(atom_ids, adj, mol_id, node_mask, left, right, labels)``
+    over this rank's block of a dense batch (``shard_packed_batch``): the
+    global mean loss of the dense ``predictor``
+    (``models.packed.PackedPairPredictor``; :85-120)."""
+    return _loss(_dense_logits(predictor), mesh, axis, elementwise_loss)
 
 
 def make_edgeshard_coattn_loss(predictor, mesh, axis: str = "graph",
@@ -332,8 +359,12 @@ def make_edgeshard_coo_train_step(predictor, optimizer, mesh,
         make_edgeshard_coo_loss(predictor, mesh, axis), optimizer, mesh, axis)
 
 
-# the JAX dense step (:123-141) rides the compact-COO shards here
-make_edgeshard_train_step = make_edgeshard_coo_train_step
+def make_edgeshard_train_step(predictor, optimizer, mesh,
+                              axis: str = "graph") -> Callable:
+    """The dense loss's train step (:123-141): ``step(atom_ids, adj,
+    mol_id, node_mask, left, right, labels) -> loss``."""
+    return make_edgeshard_train_step_from_loss(
+        make_edgeshard_loss(predictor, mesh, axis), optimizer, mesh, axis)
 
 
 # ---------------------------------------------------------------------------
@@ -501,8 +532,8 @@ def pad_packed_global(packed, n_dev: int):
     ``node_mask``, ``left_index``, ``right_index``, ``labels``,
     ``num_mols``) for an ``n_dev``-way tile and pair split (:713-742):
     tiles and pairs to a multiple of ``n_dev``, pad pairs with label -1.
-    Returns the 7 arrays in the JAX dense step's order.  The port builds
-    no dense batch of its own; this pads one built elsewhere."""
+    Returns the 7 arrays in the JAX dense step's order
+    (``shard_packed_batch`` takes a rank's block of them)."""
     p = packed.num_tiles
     pad_tiles = (-p) % n_dev
     b = len(packed.left_index)
@@ -583,6 +614,21 @@ def shard_packed_coo_batch(coo, mesh, axis: str = "graph",
     group, n_dev, rank = _axis(mesh, axis)
     return _place(*local_wire(pad_partition_coo(
         coo, n_dev, edge_capacity_per_shard), rank, n_dev), device)
+
+
+def shard_packed_batch(packed, mesh, axis: str = "graph", device="cuda"):
+    """``pad_packed_global`` of a dense batch, then this rank's block of
+    tiles and of pairs on ``device`` (:745-750): the dense loss's
+    arguments.  The padding slots of the rank's tiles carry the global
+    molecule count (``2 * pairs * ranks``) as their id, as
+    ``local_wire`` gives them for COO, so that no encoder counts them
+    into a molecule."""
+    group, n_dev, rank = _axis(mesh, axis)
+    arrays = pad_packed_global(packed, n_dev)
+    block = [np.split(np.asarray(a), n_dev)[rank] for a in arrays]
+    num_mols = 2 * len(block[4]) * n_dev
+    block[2] = np.where(block[3] > 0, block[2], num_mols).astype(np.int32)
+    return _place(block[:-1], block[-1], device)
 
 
 def shard_packed_coattn_batch(coo, mesh, axis: str = "graph",

@@ -55,12 +55,12 @@ def host_local_to_global(local_batch: np.ndarray, mesh, axis: str = "data"):
     return DTensor.from_local(local, mesh, batch_sharding(mesh, axis))
 
 
-def shard_packed_batch_multihost(coo, mesh, axis: str = "graph",
+def shard_packed_batch_multihost(packed, mesh, axis: str = "graph",
                                  device="cuda"):
-    """This rank's wire and labels of a COO batch that every process
-    builds alike (``edgeshard.shard_packed_coo_batch``): the rank
-    partitions the global arrays and keeps only its own block.  The JAX
-    function feeds dense batches; the port feeds the COO layout."""
-    from gcnbmp_tpu_torch.parallel.edgeshard import shard_packed_coo_batch
+    """This rank's block of a dense batch that every process builds
+    alike (:66-87; ``edgeshard.shard_packed_batch``): the rank pads and
+    partitions the global arrays and keeps only its own tiles and
+    pairs."""
+    from gcnbmp_tpu_torch.parallel.edgeshard import shard_packed_batch
 
-    return shard_packed_coo_batch(coo, mesh, axis, device=device)
+    return shard_packed_batch(packed, mesh, axis, device=device)

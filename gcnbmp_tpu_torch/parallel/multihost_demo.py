@@ -6,8 +6,8 @@ gcnbmp_tpu/parallel/multihost_demo.py), run as one process per rank:
 
 Each process joins the group (``initialize_multihost``; the coordinator
 is ``host:port`` or a ``file://`` store), builds the same deterministic
-toy COO batch, takes its own rows, runs ONE edgeshard train step of the
-seeded GGNN + HolE predictor with Adam and prints
+toy dense packed batch, takes its own rows, runs ONE dense edgeshard
+train step of the seeded GGNN + HolE predictor with Adam and prints
 
     MULTIHOST loss=<f> checksum=<f>
 
@@ -27,11 +27,11 @@ _MODEL = dict(method="ggnn", fp_hidden_dim=16, fp_out_dim=16, conv_layers=4,
               weight_tying=True, sim_method="hole")
 
 
-def demo_coo_batch(num_tiles: int = 8, n_pairs: int = 16, seed: int = 7):
-    """The toy COO batch, the same in every process."""
+def demo_packed_batch(num_tiles: int = 8, n_pairs: int = 16, seed: int = 7):
+    """The toy dense packed batch, the same in every process."""
     from gcnbmp_tpu_torch.chem import GGNNFeaturizer, mol_from_smiles
     from gcnbmp_tpu_torch.data.dataset import PairDataset
-    from gcnbmp_tpu_torch.data.packing import pack_pair_dataset_coo
+    from gcnbmp_tpu_torch.data.packing import pack_pair_dataset_batch
 
     rng = np.random.default_rng(seed)
     feat = GGNNFeaturizer()
@@ -41,7 +41,8 @@ def demo_coo_batch(num_tiles: int = 8, n_pairs: int = 16, seed: int = 7):
             feat(mol_from_smiles(_SMILES[int(rng.integers(len(_SMILES)))])),
             feat(mol_from_smiles(_SMILES[int(rng.integers(len(_SMILES)))])),
             np.float32(rng.integers(0, 2)))
-    return pack_pair_dataset_coo(ds, list(range(n_pairs)), num_tiles=num_tiles)
+    return pack_pair_dataset_batch(ds, list(range(n_pairs)),
+                                   num_tiles=num_tiles)
 
 
 def run_step(device="cuda") -> tuple:
@@ -51,20 +52,19 @@ def run_step(device="cuda") -> tuple:
 
     from gcnbmp_tpu_torch.convert import from_jax_params, init_params
     from gcnbmp_tpu_torch.models.packed import make_packed_predictor
-    from gcnbmp_tpu_torch.parallel.edgeshard import (
-        make_edgeshard_coo_train_step)
+    from gcnbmp_tpu_torch.parallel.edgeshard import make_edgeshard_train_step
     from gcnbmp_tpu_torch.parallel.mesh import graph_mesh, rank_device
     from gcnbmp_tpu_torch.parallel.multihost import (
         shard_packed_batch_multihost)
     from gcnbmp_tpu_torch.train.loop import ChainedAdam
 
     device = rank_device(device)
-    model = from_jax_params(init_params(_MODEL, 0),
-                            make_packed_predictor(**_MODEL)).to(device)
+    model = from_jax_params(init_params(_MODEL, 0), make_packed_predictor(
+        **_MODEL, compact=False)).to(device)
     opt = ChainedAdam(list(model.parameters()), lambda count: 1e-3)
     mesh = graph_mesh(device.type)
-    step = make_edgeshard_coo_train_step(model, opt, mesh)
-    loss = step(*shard_packed_batch_multihost(demo_coo_batch(), mesh,
+    step = make_edgeshard_train_step(model, opt, mesh)
+    loss = step(*shard_packed_batch_multihost(demo_packed_batch(), mesh,
                                               device=device))
     checksum = sum(float(p.detach().abs().double().sum())
                    for p in model.parameters())

@@ -37,8 +37,12 @@ step and the Trainer (port of gcnbmp_tpu/train/loop.py).
   adjacency built on the card from the edges, where the JAX trainer
   ships each batch's dense (P, 4, T, T) adjacency from the host
   (``make_packed_train_step``, :251-286, :302-331): the same pairs in the
-  same order, the same parameters and the same logits, without ~91 MB of
-  host copy per 2048-pair batch.
+  same order, the same parameters and the same logits, without ~93 MB of
+  host copy per 2048-pair batch.  The dense layout itself is ported
+  (``packed_batch_iterator``, :288-299, over
+  ``data.packing.pack_pair_dataset_batch``, and the dense predictors of
+  ``make_packed_predictor(..., compact=False)``): ``train_step`` takes
+  its batches as it takes any predictor's positional arguments.
 - ``packed_config_problems`` <- :532-575, verbatim: which configurations
   the packed layouts take, and so which runs the evaluators score on them
   (``eval.evaluate._packed_eval_eligible``); ``config_problems`` says what
@@ -248,8 +252,13 @@ def train_step(model, optimizer: ChainedAdam, args, labels,
     """One step over a wire-compact batch: loss, backward (for GGNN K2b,
     K1b or K3 twice, by ``models.packed.FUSED_READOUT`` and
     ``ops.fused_ggnn.TWOPASS``; K4b and K5b for MPNN; on the card),
-    optimizer update; or over a padded batch, ``args`` the predictor's
-    positional arguments and ``model_kwargs`` its supernode rows,
+    optimizer update; or over a dense batch, ``args`` the dense
+    predictor's arguments (``models.packed.dense_batch_args``; GWM's
+    supernode table after ``adj``; the same kernels as the compact
+    batch's; the JAX ``make_packed_train_step`` and
+    ``make_packed_gwm_train_step``); or over a padded batch, ``args``
+    the predictor's positional arguments and ``model_kwargs`` its
+    supernode rows,
     ``deterministic=False`` and the dropout ``generator``.  Under
     multi-device training ``optimizer`` is a ``parallel.edgeshard.
     SummedGradients``, which steps on the gradients summed over the ranks.
@@ -264,6 +273,21 @@ def train_step(model, optimizer: ChainedAdam, args, labels,
     loss.backward()
     optimizer.step()
     return loss.detach()
+
+
+def packed_batch_iterator(ds, batch_size: int, num_tiles: int,
+                          rng: np.random.Generator, supernode_fn=None):
+    """Shuffled dense packed batches (``data.packing.PackedGraphBatch``)
+    with a fixed tile count (:288-299): the pairs of the JAX iterator in
+    its order for the same generator; the tail batch is dropped."""
+    from gcnbmp_tpu_torch.data.packing import pack_pair_dataset_batch
+
+    order = np.arange(len(ds))
+    rng.shuffle(order)
+    for start in range(0, len(ds) - batch_size + 1, batch_size):
+        idx = order[start:start + batch_size].tolist()
+        yield pack_pair_dataset_batch(ds, idx, num_tiles=num_tiles,
+                                      supernode_fn=supernode_fn)
 
 
 # ---------------------------------------------------------------------------

@@ -6,9 +6,11 @@ The body takes every dense product on the tensor cores in 3xTF32; the
 CPU stand-in for the CUDA runtime (``tests/cuda_emu``) emulates the TF32
 rounding, the warp's m16n8k8 ``mma.sync`` and ``ldmatrix``.  K1b's
 gradients are held against the plain PyTorch version at chip_smoke.py's
-gradient bound on one tile at L=2 and 3 and on a tile whose rows exceed
-the kernel's 16 neighbour slots (``cuda_emu/ggnn_checks.py``); K3's and
-K2b's H=64 cases are ``test_torch_bwd_emulated64_k3.py``'s and
+gradient bound on one tile at L=2 (``cuda_emu/ggnn_checks.py``); its
+crowded case (rows over the kernel's 16 neighbour slots) and its L=3
+case are ``test_torch_bwd_emulated64_crowded.py``'s and
+``test_torch_bwd_emulated64_l3.py``'s, K3's and K2b's H=64 cases
+``test_torch_bwd_emulated64_k3.py``'s and
 ``test_torch_bwd_emulated64_k2b.py``'s.  ``tests/cuda_emu/tc_harness.cu``
 holds the three product orientations the bodies use against float64, and
 the forward's product from an operand split once and kept (h and its
@@ -29,8 +31,7 @@ from cuda_emu import ggnn_checks as gc
 from cuda_emu.emulate import build_emulated
 
 # (tiles, layers, hidden, crowded rows)
-CASES = {"h64": (1, 2, 64, False), "h64_crowded": (1, 2, 64, True),
-         "h64_l3": (1, 3, 64, False)}
+CASES = {"h64": (1, 2, 64, False)}
 HERE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_emu")
 
 

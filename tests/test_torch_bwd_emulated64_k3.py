@@ -2,9 +2,10 @@
 ``fused_ggnn64.cuh``), run on the CPU against the CPU stand-in for the
 CUDA runtime (``tests/cuda_emu``): each half's gradients against the
 plain PyTorch version at chip_smoke.py's gradient bound, the halves summed
-against K1b (``cuda_emu/ggnn_checks.py``), on one tile at L=2 and on a
-tile whose rows exceed the kernel's 16 neighbour slots; the L=3 case (the
-odd split, whose top half starts at lo = 1 > 0) is
+against K1b (``cuda_emu/ggnn_checks.py``), on one tile at L=2; the case
+of a tile whose rows exceed the kernel's 16 neighbour slots is
+``test_torch_bwd_emulated64_k3_crowded.py``'s and the L=3 case (the odd
+split, whose top half starts at lo = 1 > 0)
 ``test_torch_bwd_emulated64_k3_l3.py``'s.  A file of its own, so that
 pytest-xdist's ``--dist loadfile`` can run these cases beside the other
 H=64 ones (``test_torch_bwd_emulated64.py``,
@@ -16,7 +17,7 @@ from cuda_emu import ggnn_checks as gc
 from cuda_emu.emulate import build_emulated
 
 # (tiles, layers, hidden, crowded rows)
-CASES = {"h64": (1, 2, 64, False), "h64_crowded": (1, 2, 64, True)}
+CASES = {"h64": (1, 2, 64, False)}
 
 
 @pytest.fixture(scope="module")

@@ -11,8 +11,10 @@ the CPU.
   ``loss_cases``) against the JAX single-device loss and every parameter
   gradient from the same weights (loss 1e-5; gradients 1e-4 max|want| +
   1e-6): COO binary, multi-hot, with pad pairs and pad tiles, RelGCN,
-  focal and hinge, the dense loss (the port's rides the COO shards; the
-  JAX one dense tiles), co-attention global and pair-local (phantom pad
+  focal and hinge, the dense loss (the dense predictor over each rank's
+  block of the dense batch, ``shard_packed_batch``; more of it in
+  tests/test_torch_dense_edgeshard.py), co-attention global and
+  pair-local (phantom pad
   pairs), GWM; GGNN and MPNN also against JAX's own ``shard_map`` over 2
   virtual CPU devices (MPNN's sharded loss differs from its
   single-device one in JAX, and the port follows the sharded one); at 4

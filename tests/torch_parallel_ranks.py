@@ -41,7 +41,8 @@ def loss_cases(case_path, out_dir):
               "gwm": es.make_edgeshard_gwm_loss,
               "coattn": es.make_edgeshard_coattn_loss}
     shards = {"coo": es.shard_packed_coo_batch,
-              "dense": es.shard_packed_coo_batch,
+              "dense": lambda b, m, device: es.shard_packed_batch(
+                  b.to_dense(), m, device=device),
               "gwm": es.shard_packed_gwm_batch,
               "coattn": lambda b, m, device: es.shard_packed_coattn_batch(
                   b, m, n_max=c["n_max"], device=device),
@@ -54,8 +55,8 @@ def loss_cases(case_path, out_dir):
             results[c["name"]] = {"dp": _dp_case, "scan": _scan_case,
                                   "global": _global_case}[c["form"]](c)
             continue
-        model = from_jax_params(c["tree"],
-                                make_packed_predictor(**c["kwargs"]))
+        model = from_jax_params(c["tree"], make_packed_predictor(
+            **c["kwargs"], compact=c["form"] != "dense"))
         elem = es.elementwise_loss_for(c["loss"], **c.get("loss_kwargs", {}))
         form = "coattn" if c["form"] == "pairlocal" else c["form"]
         loss_fn = losses[form](model, mesh, elementwise_loss=elem,
@@ -66,6 +67,48 @@ def loss_cases(case_path, out_dir):
                  for p in model.parameters()]
         grads = all_reduce_sum_list(grads)
         results[c["name"]] = (loss.item(), _named_grads(model, grads))
+    _dump(out_dir, results)
+
+
+def dense_cases(case_path, out_dir):
+    """For each case (a dense batch, weights, a learning rate): this
+    rank's global loss of ``make_edgeshard_loss`` over its block
+    (``shard_packed_batch``) and the parameter gradients summed over the
+    ranks; then two steps of ``make_edgeshard_train_step`` from the same
+    weights on the case's two batches: (loss, gradients, step losses,
+    parameters after the steps)."""
+    from gcnbmp_tpu_torch.convert import from_jax_params
+    from gcnbmp_tpu_torch.models.packed import make_packed_predictor
+    from gcnbmp_tpu_torch.parallel import edgeshard as es
+    from gcnbmp_tpu_torch.parallel.collectives import all_reduce_sum_list
+    from gcnbmp_tpu_torch.parallel.mesh import graph_mesh
+    from gcnbmp_tpu_torch.train.loop import ChainedAdam
+
+    with open(case_path, "rb") as f:
+        cases = pickle.load(f)
+    mesh = graph_mesh("cpu")
+    results = {}
+    for c in cases:
+        def fresh():
+            return from_jax_params(c["tree"], make_packed_predictor(
+                **c["kwargs"], compact=False))
+
+        model = fresh()
+        loss = es.make_edgeshard_loss(model, mesh)(
+            *es.shard_packed_batch(c["batches"][0], mesh, device="cpu"))
+        loss.backward()
+        grads = _named_grads(model, all_reduce_sum_list(
+            [torch.zeros_like(p) if p.grad is None else p.grad
+             for p in model.parameters()]))
+        model = fresh()
+        step = es.make_edgeshard_train_step(
+            model, ChainedAdam(list(model.parameters()),
+                               lambda count: c["lr"]), mesh)
+        losses = [step(*es.shard_packed_batch(b, mesh, device="cpu")).item()
+                  for b in c["batches"]]
+        results[c["name"]] = (loss.item(), grads, losses,
+                              {n: p.detach().numpy().copy()
+                                       for n, p in model.named_parameters()})
     _dump(out_dir, results)
 
 
